@@ -6,13 +6,17 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   the card's name and power limit; TF32 off for the parity phases.
-2. build    both hand-written kernels (csrc/*.cu) with nvcc, in parallel.
+2. build    the three hand-written kernels (csrc/*.cu) with nvcc, in parallel.
 3. parity   each kernel against its plain PyTorch version on the card at the
             main path's shapes: letterbox (720x1280, 1080x810 -> 640, batch 4,
             u8/f32/bf16), conv3x3 (every distinct LPC-YOLO 3x3 s1 conv site at
             batch 2, f32 and bf16, with the input strides the site gets: the
             first bottleneck of each C2f reads the upper channel half of a
-            channels_last map as a strided view).
+            channels_last map as a strided view), repack (bit-exact: the
+            training feed (16|32, 640, 80, 24) u8 8->1, the JAX test's
+            (1, 4, 4, 24) f32 4->2, 4->1, 2->1, an activation-sized
+            (32, 320, 80, 192) 4->2 in f32 and bf16, and [:, :h, :w] slices of
+            larger buffers).
 4. slice    YOLO(LPC-YOLO yaml, seed 0).predict on 9 seeded BGR frames at
             640, batch 4, bf16, with the kernels' launch counters reset just
             before and read just after; then a (B, 300, 6) finite check; the
@@ -26,8 +30,16 @@ Phases, in order; any failure raises and the script exits non-zero:
             torch.profiler breakdown by kernel with the device's idle share),
             and each kernel at its main-path shapes beside its bound, its
             plain version and the library call (CUDA events, medians).
+6. train    YOLO(LPC-YOLO yaml, seed 0).train(batches=...) on seeded uint8
+            batches at 640, batch 16, bf16 autocast, with the launch counters
+            reset just before and read just after: every loss finite, no step
+            skipped, one repack launch per step, parameters, BN statistics and
+            EMA moved; one f32 step on the card against the same step on the
+            CPU (batch 2, loss items rtol 1e-3); the step's time (CUDA
+            events), peak memory and a profiler breakdown; then YOLO.predict
+            on the trained facade through the letterbox and conv3x3 kernels.
 
-The line before last is a JSON object with one entry per kernel; the last
+The line before last is a JSON object with one entry per kernel (three); the last
 line is {"ok": true, "device": {...}}. Every number is also written to
 chiprun_out/chip_smoke.json.
 """
@@ -49,6 +61,7 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM HBM3, bytes per ms
 BF16_FLOPS_PER_MS = 989e12 / 1e3  # dense bf16 tensor-core peak
 F32_FLOPS_PER_MS = 67e12 / 1e3  # f32 outside the tensor cores
 CONV_SITES_PER_FORWARD = 28  # 3x3 s1 g1 convs on the one2one serving path (layer 27 is dead)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_GT = 16, 6, 8  # the JAX trainer's default batch; gts padded to 8 per image
 BF16_MAP_TOL = 0.25  # ||bf16 - f32|| / ||f32 - its spatial mean|| per one2one map
 BF16_SCORE_TOL = 1e-2  # sorted top-300 scores, bf16 serving path vs f32 plain path
 REPORT = {}
@@ -76,7 +89,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, repeats: int = 3) -> float:
 
 
 def profile_step(step, iters: int = 3):
-    """Device time by kernel over `iters` serving steps (torch.profiler), and the device's busy share."""
+    """Device time by kernel over `iters` steps (torch.profiler), and the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -85,15 +98,17 @@ def profile_step(step, iters: int = 3):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    rows = []
+    rows, sync_ms = [], 0.0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
             rows.append({"kernel": e.key[:90], "ms_per_step": us / 1e3 / iters, "calls_per_step": e.count / iters})
+        elif e.key == "aten::_local_scalar_dense":  # the host blocked in .item(): waiting for the device to catch up
+            sync_ms = e.cpu_time_total / 1e3 / iters
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms if rows else None,
-            "top": rows[:15]}
+            "device_launches": sum(r["calls_per_step"] for r in rows), "host_sync_wait_ms": sync_ms, "top": rows[:15]}
 
 
 def bound(nbytes: float, flops: float, flops_per_ms: float):
@@ -159,6 +174,42 @@ def phase_parity_letterbox():
     log("parity", f"letterbox vs plain (u8 LSB / f32 abs / bf16 ulp): {worst}")
     REPORT["letterbox_parity"] = worst
     return worst["float32"]
+
+
+def strided_slice(shape, dtype, g):
+    """A (B, H, Wf, K) input that is a [:, :H, :Wf] slice of a larger buffer: strided in B and H."""
+    B, H, Wf, K = shape
+    big = torch.randint(0, 256, (B, H + 32, Wf + 4, K), device="cuda", generator=g, dtype=torch.uint8) \
+        if dtype == torch.uint8 else torch.randn(B, H + 32, Wf + 4, K, device="cuda", generator=g).to(dtype)
+    return big[:, :H, :Wf]
+
+
+def phase_parity_repack():
+    from lpc_yolo_tpu_torch.ops.repack import repack_width, repack_width_kernel, repack_width_plain
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases = []  # (input, p_from, p_to)
+    for B in (16, 32):  # the training feed: width-packed x8 uint8 frames
+        cases.append((torch.randint(0, 256, (B, 640, 80, 24), device="cuda", generator=g, dtype=torch.uint8), 8, 1))
+    small = torch.rand(1, 4, 4, 24, device="cuda", generator=g)  # the JAX package's own test shape
+    cases += [(small, 4, 2), (small, 4, 1), (repack_width(small, 4, 2), 2, 1)]
+    for dt in (torch.float32, torch.bfloat16):  # an activation-sized map
+        cases.append((torch.randn(32, 320, 80, 4 * 48, device="cuda", generator=g).to(dt), 4, 2))
+    cases += [(strided_slice((16, 640, 80, 24), torch.uint8, g), 8, 1),
+              (strided_slice((32, 320, 80, 192), torch.bfloat16, g), 4, 2),
+              (strided_slice((2, 30, 7, 12), torch.float32, g), 4, 1)]  # rows of 336 bytes
+    n_strided = 0
+    for x, pf, pt in cases:
+        got, ref = repack_width_kernel(x, pf, pt), repack_width_plain(x, pf, pt)
+        torch.cuda.synchronize()
+        what = f"{tuple(x.shape)} {x.dtype} {pf}->{pt} strides {x.stride()}"
+        assert got.shape == ref.shape and got.is_contiguous(), what
+        assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8)), f"repack kernel != plain: {what}"
+        n_strided += not x.is_contiguous()
+        del got, ref
+    log("parity", f"repack vs plain: bit-exact on {len(cases)} cases ({n_strided} strided slices), u8 / f32 / bf16")
+    REPORT["repack_parity"] = {"cases": len(cases), "strided": n_strided, "max_abs_err": 0.0}
+    return 0.0
 
 
 def conv_sites(pred):
@@ -400,6 +451,148 @@ def phase_times(yolo, sites, lb_err, conv_err, launches):
     ]
 
 
+def time_repack(g):
+    """The repack kernel at the training feed's shape beside its bytes bound, its plain version
+    (a view of the contiguous feed) and `.contiguous()` + view; and the same on a strided slice
+    of that shape, where the library call is a real copy too."""
+    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel, repack_width_plain
+
+    out = {}
+    for name, x in (("contiguous", torch.randint(0, 256, (TRAIN_BATCH, 640, 80, 24), device="cuda", generator=g,
+                                                 dtype=torch.uint8)),
+                    ("strided", strided_slice((TRAIN_BATCH, 640, 80, 24), torch.uint8, g)),
+                    ("strided_bf16_act", strided_slice((32, 320, 80, 192), torch.bfloat16, g))):
+        pf, pt = (8, 1) if x.dtype == torch.uint8 else (4, 2)
+        shape = repack_width_plain(x, pf, pt).shape
+        nbytes = 2 * x.numel() * x.element_size()
+        out[name] = {"shape": list(x.shape), "dtype": str(x.dtype), "bytes": nbytes,
+                     "ms": cuda_ms(lambda: repack_width_kernel(x, pf, pt)),
+                     "plain_ms": cuda_ms(lambda: repack_width_plain(x, pf, pt)),
+                     "library_ms": cuda_ms(lambda: x.contiguous().view(shape)),
+                     "bound_ms": nbytes / HBM_BYTES_PER_MS}
+        r = out[name]
+        log("times", f"repack {name} {tuple(x.shape)} {x.dtype} {pf}->{pt}: {r['ms']:.4f} ms "
+                     f"({nbytes / r['ms'] / 1e9:.2f} TB/s), plain {r['plain_ms']:.4f}, .contiguous()+view "
+                     f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms (bytes)")
+    REPORT["repack_times"] = out
+    return out
+
+
+def train_batches(n: int, B: int, seed: int):
+    """Loader-format host batches: uint8 BGR frames and a handful of padded boxes per image."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        n_gt = rng.integers(2, TRAIN_GT - 1, B)
+        mask = np.arange(TRAIN_GT)[None, :] < n_gt[:, None]
+        xy = rng.uniform(0, 400, (B, TRAIN_GT, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(24, 230, (B, TRAIN_GT, 2))], -1).astype(np.float32)
+        out.append({"img": rng.integers(0, 256, (B, 640, 640, 3), dtype=np.uint8),
+                    "cls": rng.integers(0, 80, (B, TRAIN_GT)).astype(np.int32),
+                    "bboxes": boxes * mask[..., None], "mask": mask})
+    return out
+
+
+def phase_train():
+    import copy
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.train_step import OptConfig, init_train_state, make_train_step, to_device
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
+
+    yolo = YOLO(YAML, device="cuda", seed=0)
+    before = {k: v.clone() for k, v in yolo.model.state_dict().items()}
+    batches = train_batches(TRAIN_STEPS, TRAIN_BATCH, seed=21)
+
+    # the main path of this slice: the trainer takes a few steps, counters read around it
+    letterbox.launches = conv3x3.launches = repack_width_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    yolo.train(batches=batches, epochs=1)
+    torch.cuda.synchronize()
+    launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches, "repack": repack_width_kernel.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist, state = yolo.trainer.history, yolo.trainer.state
+    for i, h in enumerate(hist):
+        log("train", f"step {i}: loss {h['loss']:.4f} items {[round(v, 4) for v in h['items']]} lr {h['lr']:.2e} "
+                     f"skipped {h['skipped']} ({h['seconds'] * 1e3:.1f} ms by host clock)")
+        assert np.isfinite(h["loss"]) and np.isfinite(h["items"]).all() and len(h["items"]) == 6, h
+        assert h["skipped"] is False, f"step {i} was skipped"
+    assert len(hist) == TRAIN_STEPS and state.step == state.opt_step == state.ema_updates == TRAIN_STEPS
+    assert launches == {"letterbox": 0, "conv3x3": 0, "repack": TRAIN_STEPS}, launches
+    after = yolo.model.state_dict()
+    moved = {kind: sum(not torch.equal(before[k], after[k]) for k in keys) / len(keys) for kind, keys in (
+        ("params", list(state.params)), ("bn_stats", list(state.batch_stats)))}
+    ema_off = sum(not torch.equal(state.ema_params[k], state.params[k]) for k in state.params) / len(state.params)
+    # lr stays near 1e-4 in so short a run, so an update can round to nothing on a leaf of large values
+    assert moved["params"] > 0.5 and moved["bn_stats"] == 1.0 and ema_off > 0.25, (moved, ema_off)
+    assert all(torch.equal(after[k], v) for k, v in state.ema_params.items()), "the facade does not hold the EMA"
+    assert all(bool(torch.isfinite(v).all()) for v in after.values())
+    log("train", f"YOLO.train: {TRAIN_STEPS} steps, batch {TRAIN_BATCH}, 640, bf16 autocast; launches {launches}; "
+                 f"moved: {moved}, EMA off the live params in {ema_off:.2f} of the leaves; peak memory {peak_gb:.3f} GB")
+
+    # one f32 step on the card against the same step of the port on the CPU (batch 2)
+    small = train_batches(1, 2, seed=22)[0]
+    small["img"] = pack_img(small["img"])
+    cfg = OptConfig(warmup_steps=100, total_steps=TRAIN_STEPS)
+    items = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(yolo.model)
+        st = init_train_state(model, cfg, device=dev)
+        st, met = make_train_step(model, cfg, amp=False)(st, small)
+        assert met["skipped"] is False
+        items[dev] = np.concatenate([met["items"].cpu().numpy(), [float(met["loss"])]])
+    rel = float(np.max(np.abs(items["cuda"] - items["cpu"]) / np.abs(items["cpu"])))
+    assert rel <= 1e-3, f"f32 step on the card vs on the CPU: loss items differ by {rel} (rtol 1e-3): {items}"
+    log("train", f"one f32 step (batch 2) on the card vs on the CPU: loss items within {rel:.2e} (rtol 1e-3)")
+
+    # times: the step alone from a device-resident packed batch (CUDA events), then its profile
+    model = copy.deepcopy(yolo.model)
+    cfg = OptConfig(warmup_steps=100, total_steps=1000)
+    st = init_train_state(model, cfg, device="cuda")
+    step = make_train_step(model, cfg)
+    dev_batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda")) for b in batches[:2]]
+    it = iter(range(10 ** 9))
+
+    def one():
+        step(st, dev_batches[next(it) % 2])
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(one, iters=5, warmup=3)
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    host_ms = float(np.median([h["seconds"] for h in hist[2:]])) * 1e3
+    log("train", f"train step b{TRAIN_BATCH} 640 bf16 from a device-resident packed batch (unpack + forward + loss + "
+                 f"backward + SGD + EMA, one host sync): {step_ms:.3f} ms/step, {TRAIN_BATCH / step_ms * 1e3:.1f} img/s; "
+                 f"peak memory {step_peak_gb:.3f} GB")
+    log("train", f"Trainer loop from host numpy batches (pin + H2D + step + metrics fetch), median of steps 2..: "
+                 f"{host_ms:.3f} ms/step, {TRAIN_BATCH / host_ms * 1e3:.1f} img/s")
+    prof = profile_step(one)
+    if prof["top"]:
+        log("train", f"profile of the step: wall {prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f} ms, "
+                     f"idle share {prof['idle_share']:.3f}; {prof['device_launches']:.0f} device launches a step; the host "
+                     f"waits {prof['host_sync_wait_ms']:.3f} ms a step in the non-finite flag's .item()")
+        for r in prof["top"]:
+            log("train", f"  {r['ms_per_step']:8.4f} ms x{r['calls_per_step']:g}  {r['kernel']}")
+    else:
+        log("train", "profiler recorded no device time: breakdown not measured")
+
+    # the hand-back serves: predict on the trained facade goes through the letterbox and conv3x3 kernels
+    letterbox.launches = conv3x3.launches = 0
+    results = yolo.predict(frames_720p(4, seed=23), imgsz=640, batch=4, conf=0.0)
+    torch.cuda.synchronize()
+    served = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches}
+    assert served == {"letterbox": 1, "conv3x3": CONV_SITES_PER_FORWARD}, served
+    assert len(results) == 4 and all(np.isfinite(r.boxes.data).all() and len(r) > 0 for r in results)
+    log("train", f"YOLO.predict on the trained facade: 4 frames -> {[len(r) for r in results]} boxes, launches {served}")
+    REPORT["train"] = {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "history": hist, "launches": launches,
+                       "moved": moved, "peak_gb_trainer": peak_gb, "f32_card_vs_cpu_rel": rel, "step_ms": step_ms,
+                       "img_s": TRAIN_BATCH / step_ms * 1e3, "peak_gb_step": step_peak_gb, "host_step_ms": host_ms,
+                       "profile": prof, "served_launches": served}
+    return launches["repack"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -415,6 +608,7 @@ def main() -> int:
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
 
     lb_err = phase_parity_letterbox()
+    rp_err = phase_parity_repack()
     yolo = YOLO(YAML, device="cuda", seed=0)
     assert sum(p.numel() for p in yolo.model.parameters()) == 3_968_338
     pred16 = Predictor(yolo.model, imgsz=640, batch=4, device="cuda", dtype=torch.bfloat16)
@@ -422,6 +616,14 @@ def main() -> int:
     conv_err = phase_parity_conv(sites)
     launches = phase_slice(yolo, pred16)
     kernels = phase_times(yolo, sites, lb_err, conv_err, launches)
+    del yolo, pred16
+    torch.cuda.empty_cache()
+    rp = time_repack(torch.Generator(device="cuda").manual_seed(3))["contiguous"]
+    rp_launches = phase_train()
+    kernels.append({"name": "repack", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/repack.cu",
+                    "replaces": "lpc_yolo_tpu/ops/pallas_layout.py:35", "launches": rp_launches,
+                    "max_abs_err": rp_err, "ms": rp["ms"], "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
+                    "bound_by": "bytes", "library_ms": rp["library_ms"]})
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"

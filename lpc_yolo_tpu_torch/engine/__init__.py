@@ -1,7 +1,10 @@
-"""Serving engine of the port: YOLO facade, predictor, results."""
+"""Engine of the port: YOLO facade, predictor, results, train step, trainer."""
 
 from .model import YOLO
 from .predictor import Predictor, load_source
 from .results import Boxes, Results
+from .train_step import OptConfig, TrainState, init_train_state, lr_at, make_train_step, momentum_at
+from .trainer import Trainer
 
-__all__ = ["YOLO", "Predictor", "load_source", "Boxes", "Results"]
+__all__ = ["YOLO", "Predictor", "load_source", "Boxes", "Results",
+           "OptConfig", "TrainState", "init_train_state", "make_train_step", "lr_at", "momentum_at", "Trainer"]

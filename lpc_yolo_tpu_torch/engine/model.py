@@ -2,7 +2,8 @@
 
 `YOLO(cfg, device=...)` builds the model from one of the port's own YAMLs (or
 a path), with weights made from a seed or loaded from JAX variables through
-the weight bridge; `.predict(frames)` serves it. Training, validation, export
+the weight bridge; `.predict(frames)` serves it and `.train(batches=...)`
+trains it on an iterable of host batches. Dataset paths, validation, export
 and the other tasks wait for later slices.
 """
 
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import re
 from pathlib import Path
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Iterable, Mapping, Optional, Union
 
 import torch
 
@@ -71,3 +72,15 @@ class YOLO:
         predictor = Predictor(self.model, imgsz=imgsz, batch=batch, conf=conf, max_det=max_det,
                               names=self.names, device=device or self.device)
         return predictor(source)
+
+    def train(self, batches: Optional[Iterable[Mapping[str, Any]]] = None, data=None,
+              device: Union[str, torch.device, None] = None, **kw) -> Dict[str, float]:
+        """Train on an iterable of host batches (see `engine/trainer.py` for their
+        format and the options); afterwards the facade holds the EMA weights.
+        It runs on the card unless device="cpu". Returns the last epoch's mean loss items."""
+        from .trainer import Trainer
+
+        if batches is None or data is not None:
+            raise NotImplementedError("the torch port trains from `batches=` only; dataset paths come later")
+        self.trainer = Trainer(self, batches, device=device or self.device, **kw)
+        return self.trainer.train()

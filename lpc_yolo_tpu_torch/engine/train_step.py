@@ -1,0 +1,216 @@
+"""The training step: loss, gradients, SGD with Nesterov momentum, EMA, BN statistics.
+
+Counterpart of `lpc_yolo_tpu/engine/train_step.py` (config and schedules
+:43-74, optimizer :86-105, state :108-123, the step :126-311; reference
+engine/trainer.py:362-394, :695-756, torch_utils.py:431-465 ModelEMA).
+
+In PyTorch's idiom the model's parameters and BatchNorm buffers are the live
+state and are updated in place; `TrainState` names them beside the momentum
+trace and the EMA copy. The optimizer is written out over `torch._foreach_*`
+because its order differs from `torch.optim.SGD` + `clip_grad_norm_`: clip by
+the global norm (`g * clip / norm` only when `norm >= clip`), then add
+`weight_decay * p` to conv kernels only, after the clip, then the Nesterov
+trace with the warmed-up momentum, then `-lr`. A parameter without a gradient
+(the layer nothing reads) counts as a zero gradient, so its kernels still
+decay. Both schedules are read at the optimizer's own count, which starts at
+0 (the first update moves no parameter) and does not advance on a skipped step.
+
+A non-finite loss or gradient skips the whole update: parameters, momentum,
+BN statistics and EMA keep their values and `step` still counts. The flag
+costs one host sync per step, as the JAX trainer fetches its metrics every
+step. On the card the forward runs under bf16 autocast with f32 parameters;
+the loss is always f32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..losses import v10_detect_loss
+from ..utils import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    """The reference's train-hyp keys (cfg/default.yaml)."""
+
+    lr0: float = 0.01
+    lrf: float = 0.01
+    momentum: float = 0.937
+    weight_decay: float = 5e-4
+    warmup_steps: int = 1000  # the reference's ~3 warmup epochs, in steps
+    warmup_momentum: float = 0.8
+    total_steps: int = 100_000
+    grad_clip: float = 10.0
+    optimizer: str = "sgd"  # 'adamw' is not ported
+    ema_decay: float = 0.9999
+    ema_tau: float = 2000.0
+
+
+def _clip01(x: float) -> float:
+    return min(max(x, 0.0), 1.0)
+
+
+def linear_lf(step: int, cfg: OptConfig) -> float:
+    """Linear 'one_cycle=False' schedule: lf goes 1 -> lrf over total_steps."""
+    frac = _clip01(step / max(cfg.total_steps, 1))
+    return (1.0 - frac) * (1.0 - cfg.lrf) + cfg.lrf
+
+
+def lr_at(step: int, cfg: OptConfig) -> float:
+    """Warmup (linear from 0) times the linear decay schedule."""
+    return cfg.lr0 * _clip01(step / max(cfg.warmup_steps, 1)) * linear_lf(step, cfg)
+
+
+def momentum_at(step: int, cfg: OptConfig) -> float:
+    warm = _clip01(step / max(cfg.warmup_steps, 1))
+    return cfg.warmup_momentum + (cfg.momentum - cfg.warmup_momentum) * warm
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Names for the training state. `params` and `batch_stats` are the model's
+    own tensors (live, updated in place); `momentum` and `ema_params` are
+    keyed like `params` (state_dict names)."""
+
+    step: int  # every call of the step, skipped ones included
+    opt_step: int  # updates applied: the count both schedules are read at
+    params: Dict[str, torch.Tensor]
+    batch_stats: Dict[str, torch.Tensor]  # BN running_mean / running_var
+    momentum: Dict[str, torch.Tensor]
+    ema_params: Dict[str, torch.Tensor]
+    ema_updates: int
+
+
+def init_train_state(model: torch.nn.Module, cfg: OptConfig,
+                     device: Union[str, torch.device, None] = None) -> TrainState:
+    """Move `model` to the device (CUDA unless device="cpu") in train mode and
+    name its state; momentum starts at zero, the EMA at the parameters."""
+    device = resolve_device(device)
+    model.to(device).train()
+    if device.type == "cuda":
+        model.to(memory_format=torch.channels_last)
+    params = dict(model.named_parameters())
+    stats = {k: b for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var"))}
+    return TrainState(
+        step=0, opt_step=0, params=params, batch_stats=stats,
+        momentum={k: torch.zeros_like(p) for k, p in params.items()},
+        ema_params={k: p.detach().clone() for k, p in params.items()},
+        ema_updates=0,
+    )
+
+
+def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A host batch (numpy arrays or CPU tensors) on `device`; on the card the
+    copies leave from pinned memory and do not block the host."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t.to(device)
+    return out
+
+
+@torch.no_grad()
+def apply_update(state: TrainState, grads: List[torch.Tensor], gnorm: torch.Tensor, cfg: OptConfig) -> None:
+    """One optimizer + EMA update in place, from gradients in `state.params` order
+    (overwritten) and their global norm: the optax chain of the JAX package
+    (`train_step.py:98-105`) and its ModelEMA (:288-293)."""
+    names = list(state.params)
+    params = [state.params[k] for k in names]
+    mu, lr = momentum_at(state.opt_step, cfg), lr_at(state.opt_step, cfg)
+    torch._foreach_mul_(grads, cfg.grad_clip / torch.clamp(gnorm, min=cfg.grad_clip))  # clip by the global norm
+    kernels = [(g, p) for g, p in zip(grads, params) if p.dim() == 4]
+    torch._foreach_add_([g for g, _ in kernels], [p for _, p in kernels], alpha=cfg.weight_decay)
+    trace = [state.momentum[k] for k in names]
+    torch._foreach_mul_(trace, mu)
+    torch._foreach_add_(trace, grads)  # t = g + mu * t
+    torch._foreach_add_(grads, trace, alpha=mu)  # Nesterov: u = g + mu * t
+    torch._foreach_add_(params, grads, alpha=-lr)
+    state.opt_step += 1
+
+    # ModelEMA over the parameters only, with the ramped decay
+    state.ema_updates += 1
+    d = cfg.ema_decay * (1.0 - math.exp(-state.ema_updates / cfg.ema_tau))
+    ema = [state.ema_params[k] for k in names]
+    torch._foreach_mul_(ema, d)
+    torch._foreach_add_(ema, params, alpha=1.0 - d)
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable:
+    """`loss_fn(batch) -> (total, items)` on a device batch: the input handling of
+    the JAX step (`train_step.py:142-176`), the forward, the v10 loss.
+
+    uint8 BGR frames become f32 RGB in [0, 1]; the width-packed x8 feed
+    (last dimension 24) is unpacked by the repack kernel first. On the card
+    the forward runs under bf16 autocast unless amp=False (an f32 forward, for
+    comparisons); the loss casts the maps to f32 either way.
+    """
+
+    def loss_fn(batch: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        img = batch["img"]
+        packed = img.dim() == 4 and img.shape[-1] == 24
+        x = model.to_nchw(img, "WPACK" if packed else "NHWC")
+        if x.dtype == torch.uint8:
+            x = x.flip(1).float().div_(255.0)
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=x.device.type == "cuda" and amp is not False):
+            out = model(x)
+        return v10_detect_loss(out, batch["cls"], batch["bboxes"], batch["mask"], model.strides, model.nc)
+
+    return loss_fn
+
+
+def make_train_step(model: torch.nn.Module, cfg: OptConfig, loss_kind: str = "v10",
+                    amp: Optional[bool] = None) -> Callable:
+    """Build `step(state, batch) -> (state, metrics)` for a v10Detect model.
+
+    batch = {'img': (B, H, W, 3) uint8 BGR or f32 RGB in [0, 1], or the same
+    image width-packed x8 (B, H, W/8, 24); 'cls': (B, M) int; 'bboxes':
+    (B, M, 4) xyxy pixels; 'mask': (B, M) bool}, numpy or tensors.
+    metrics = {'loss', 'items' (6,), 'lr', 'skipped'}; `state` must come from
+    `init_train_state(model, ...)`. amp: see `make_loss_fn`.
+    """
+    if loss_kind != "v10":
+        raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10' is")
+    if cfg.optimizer != "sgd":
+        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not ported; use 'sgd'")
+    loss_fn = make_loss_fn(model, amp)
+    saved_stats: List[torch.Tensor] = []  # where a skipped step finds the BN statistics it must restore
+
+    def step(state: TrainState, batch: Mapping[str, Any]) -> Tuple[TrainState, Dict[str, Any]]:
+        params = list(state.params.values())
+        stats = list(state.batch_stats.values())
+        batch = to_device(batch, params[0].device)
+        if not saved_stats:
+            saved_stats.extend(torch.empty_like(s) for s in stats)
+        with torch.no_grad():
+            torch._foreach_copy_(saved_stats, stats)  # the forward updates them in place
+
+        for p in params:
+            p.grad = None
+        loss, items = loss_fn(batch)
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        gnorm = global_norm(grads)
+        lr = lr_at(state.step, cfg)
+        # one host sync: a non-finite gradient makes the global norm non-finite
+        finite = bool((torch.isfinite(loss) & torch.isfinite(gnorm)).item())
+        state.step += 1
+        if finite:
+            apply_update(state, grads, gnorm, cfg)
+        else:
+            with torch.no_grad():
+                torch._foreach_copy_(stats, saved_stats)
+        return state, {"loss": loss.detach(), "items": items, "lr": lr, "skipped": not finite}
+
+    return step

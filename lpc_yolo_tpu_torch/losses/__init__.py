@@ -1,0 +1,6 @@
+"""Training losses of the port: the v8 branch loss, the v10 dual-assignment loss, the assigner."""
+
+from .detection import LossItems, v8_detection_loss, v10_detect_loss
+from .tal import AssignResult, task_aligned_assigner
+
+__all__ = ["LossItems", "v8_detection_loss", "v10_detect_loss", "AssignResult", "task_aligned_assigner"]

@@ -6,8 +6,10 @@ the modules the LPC-YOLO YAML reaches; any other module raises
 NotImplementedError. The model routes `from` indices and keeps the save list
 like `DetectionModel._run` (:718-1019), without the TPU width-pack, upsample-
 commute, s2d-fold plans or int8. A layer whose output no later layer reads
-(layer 27 of the LPC YAML) keeps its module and weights but is not computed,
-as XLA's dead-code pass drops it in the JAX graph.
+(layer 27 of the LPC YAML) keeps its module and weights. In eval mode it is
+not computed, as XLA's dead-code pass drops it in the JAX graph; in train mode
+it runs, because there its BatchNorm statistics are an output of the JAX
+train step and move with every batch.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 import torch.nn as nn
 import yaml
 
+from ..ops.repack import repack_width_kernel
 from ..utils import resolve_device
 from . import modules as M
 from .heads import V10Detect, decode_feats_topk_split
@@ -160,7 +163,8 @@ class DetectionModel(nn.Module):
 
     `forward(x)` returns the head's raw branch maps (a dict of per-level
     (box, cls) pairs); `predict(x)` runs the one-to-one branch and the
-    NMS-free decode to (B, max_det, 6). x is (B, 3, H, W) RGB in [0, 1].
+    NMS-free decode to (B, max_det, 6). x is (B, 3, H, W) RGB in [0, 1], or
+    another `input_layout` of the same image (see `to_nchw`).
     """
 
     def __init__(self, specs: Tuple[LayerSpec, ...], save: Tuple[int, ...], nc: int,
@@ -171,20 +175,44 @@ class DetectionModel(nn.Module):
         self.model = nn.ModuleList(_build_module(s, self.strides) for s in specs)
         read = {j for s in specs for j in s.f if j != -1}
         read |= {s.i - 1 for s in specs if -1 in s.f}
-        # layers nothing reads (besides the head) are not computed
+        # layers nothing reads (besides the head): not computed in eval mode
         self.dead = frozenset(s.i for s in specs[:-1] if s.i not in read)
 
-    def forward(self, x: torch.Tensor, branches: str = "both"):
+    @staticmethod
+    def to_nchw(x: torch.Tensor, input_layout: str = "NCHW") -> torch.Tensor:
+        """The model's (B, C, H, W) input from one of the JAX package's input layouts
+        (`lpc_yolo_tpu/nn/compiler.py:723-737`), any dtype.
+
+        "NHWC" (B, H, W, C) becomes a permuted view (channels_last memory).
+        "WPACK" is the width-packed x8 feed (B, H, W/8, 8*C): it is unpacked
+        8 -> 1 by the repack kernel, then viewed the same way.
+        """
+        if input_layout == "NCHW":
+            return x
+        if input_layout == "WPACK":
+            x = repack_width_kernel(x, 8, 1)
+        elif input_layout != "NHWC":
+            raise ValueError(f"unknown input_layout {input_layout!r}")
+        return x.permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor, branches: str = "both", input_layout: str = "NCHW"):
+        x = self.to_nchw(x, input_layout)
         y: Dict[int, torch.Tensor] = {}
         for spec, module in zip(self.specs, self.model):
-            if spec.i in self.dead:
+            dead = spec.i in self.dead
+            if dead and not self.training:
                 continue
-            if spec.module == "v10Detect":
-                return module([x if j == -1 else y[j] for j in spec.f], branches=branches)
-            if spec.module == "Concat":
-                x = module([x if j == -1 else y[j] for j in spec.f])
+            if spec.module in ("Concat", "v10Detect"):
+                inp = [x if j == -1 else y[j] for j in spec.f]
             else:
-                x = module(x if spec.f[0] == -1 else y[spec.f[0]])
+                inp = x if spec.f[0] == -1 else y[spec.f[0]]
+            if spec.module == "v10Detect":
+                return module(inp, branches=branches)
+            if dead:  # train mode: only its BatchNorm statistics are wanted
+                with torch.no_grad():
+                    module(inp)
+                continue
+            x = module(inp)
             if spec.i in self.save:
                 y[spec.i] = x
         return x  # headless graph
@@ -197,7 +225,7 @@ class DetectionModel(nn.Module):
 def _infer_strides(specs, save, nc, ch: int = 3, probe: int = 256) -> Tuple[float, ...]:
     """Output strides from a forward on the meta device (shapes only, no FLOPs)."""
     with torch.device("meta"):
-        m = DetectionModel(specs, save, nc)
+        m = DetectionModel(specs, save, nc).eval()
         feats = m(torch.zeros(1, ch, probe, probe), branches="one2many")
     if not isinstance(feats, dict):
         return (8.0, 16.0, 32.0)

@@ -8,13 +8,15 @@ weight bridge (`utils/flax_bridge.py`) is a pure name map.
 
 Activations follow the fork: blocks defined in its block.py (C2f, SPPF, PSA,
 LPC, Bottleneck) use Mish; YAML-level `Conv` and the head towers use SiLU.
-BatchNorm uses eps 1e-3 and momentum 0.03.
+BatchNorm uses eps 1e-3 and momentum 0.03; in train mode its running
+statistics follow the JAX package's (`BatchNorm2d` below).
 
 Every `ConvBN` has two eval paths. Unfolded, it runs conv -> BN -> act in
 plain PyTorch. After `fold()` (see `nn/fuse.py`) it runs on BN-folded
 (W, b): a 3x3 stride-1 groups-1 conv goes through the hand-written kernel
 (`ops/conv3x3.py`) with the activation fused, every other conv through
-F.conv2d, as the JAX package left those to XLA.
+F.conv2d, as the JAX package left those to XLA. Train mode always runs
+unfolded, with autograd through F.conv2d: no TPU kernel had a backward.
 """
 
 from __future__ import annotations
@@ -38,6 +40,27 @@ def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
     return k // 2 if p is None else p
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose train mode keeps the running statistics of the JAX
+    package's BatchNorm (`lpc_yolo_tpu/nn/modules.py:199-206`): the running
+    variance takes the biased batch variance (torch's takes the unbiased one,
+    n/(n-1) larger), with momentum 0.03 on both, in the buffers' f32 whatever
+    the input's dtype. Normalisation and its gradient are torch's own batch-norm op; eval
+    mode and the state_dict are those of nn.BatchNorm2d.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            stat = self.running_var.dtype  # f32, whatever the input's dtype
+            var = (invstd.to(stat) ** -2 - self.eps).clamp_(min=0)  # the biased batch variance
+            self.running_mean.lerp_(mean.to(stat), self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return y
+
+
 class ConvBN(nn.Module):
     """Conv2d(bias=False) + BatchNorm2d + activation (the reference `Conv`)."""
 
@@ -45,18 +68,25 @@ class ConvBN(nn.Module):
                  g: int = 1, d: int = 1, act="silu"):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
-        self.folded = None  # (W, b) after fold(); W is HWIO on the kernel path
+        self.folded = None  # (W, b) after fold(); W is HWIO on the kernel path; eval mode only
 
     @property
     def kernel_path(self) -> bool:
         c = self.conv
         return c.kernel_size == (3, 3) and c.stride == (1, 1) and c.groups == 1 and c.dilation == (1, 1)
 
+    def train(self, mode: bool = True):
+        if mode:
+            self.folded = None  # a folded copy would go stale under training
+        return super().train(mode)
+
     @torch.no_grad()
     def fold(self, dtype: torch.dtype) -> None:
         """Fold BN into the conv (W*f, b - mean*f), computed in f32, stored in `dtype`."""
+        if self.training:
+            raise RuntimeError("ConvBN.fold() is for eval mode: training needs the live BatchNorm")
         f = self.bn.weight.float() * torch.rsqrt(self.bn.running_var.float() + BN_EPS)
         w = self.conv.weight.float() * f[:, None, None, None]
         b = self.bn.bias.float() - self.bn.running_mean.float() * f

@@ -1,4 +1,4 @@
-"""Grid anchors, distance -> box and the DFL expectation (counterpart of
+"""Grid anchors, distance <-> box and the DFL expectation (counterpart of
 `lpc_yolo_tpu/ops/anchors.py`; reference tal.py:294-345, block.py:42-61)."""
 
 from __future__ import annotations
@@ -34,6 +34,12 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
     if xywh:
         return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim)
     return torch.cat([x1y1, x2y2], dim)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -> torch.Tensor:
+    """xyxy boxes -> (l, t, r, b) distances about anchor points, clamped to [0, reg_max - 0.01]."""
+    x1y1, x2y2 = bbox.chunk(2, -1)
+    return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1).clamp(0, reg_max - 0.01)
 
 
 def dfl_expectation(pred_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:

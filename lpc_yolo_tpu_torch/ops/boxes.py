@@ -1,11 +1,15 @@
-"""Box conversions used by serving (counterpart of `lpc_yolo_tpu/ops/boxes.py`
-xywh2xyxy :19, scale_boxes :174, clip_boxes :195; reference ops.py)."""
+"""Box conversions and IoU (counterpart of `lpc_yolo_tpu/ops/boxes.py`
+xywh2xyxy :19, bbox_iou :72, scale_boxes :174, clip_boxes :195; reference
+ops.py, metrics.py)."""
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
+
+EPS = 1e-7
 
 
 def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
@@ -13,6 +17,41 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     cx, cy, w, h = x.unbind(-1)
     hw, hh = w / 2, h / 2
     return torch.stack([cx - hw, cy - hh, cx + hw, cy + hh], -1)
+
+
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, CIoU: bool = False,
+             eps: float = EPS) -> torch.Tensor:
+    """Elementwise IoU (or CIoU) of aligned boxes, broadcasting; last axis = 4.
+
+    Returns the broadcast shape with a trailing singleton axis. In CIoU the
+    trade-off weight `alpha` is a constant of the gradient (detached), and the
+    xyxy heights carry `+ eps` as in the reference (metrics.py:78).
+    """
+    if xywh:
+        x1, y1, w1, h1 = box1.split(1, -1)
+        x2, y2, w2, h2 = box2.split(1, -1)
+        b1_x1, b1_x2, b1_y1, b1_y2 = x1 - w1 / 2, x1 + w1 / 2, y1 - h1 / 2, y1 + h1 / 2
+        b2_x1, b2_x2, b2_y1, b2_y2 = x2 - w2 / 2, x2 + w2 / 2, y2 - h2 / 2, y2 + h2 / 2
+    else:
+        b1_x1, b1_y1, b1_x2, b1_y2 = box1.split(1, -1)
+        b2_x1, b2_y1, b2_x2, b2_y2 = box2.split(1, -1)
+        w1, h1 = b1_x2 - b1_x1, b1_y2 - b1_y1 + eps
+        w2, h2 = b2_x2 - b2_x1, b2_y2 - b2_y1 + eps
+
+    inter = (torch.minimum(b1_x2, b2_x2) - torch.maximum(b1_x1, b2_x1)).clamp(min=0) * (
+        torch.minimum(b1_y2, b2_y2) - torch.maximum(b1_y1, b2_y1)
+    ).clamp(min=0)
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not CIoU:
+        return iou
+    cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)  # convex width
+    ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)  # convex height
+    c2 = cw ** 2 + ch ** 2 + eps  # convex diagonal squared
+    rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2 + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    alpha = (v / (v - iou + (1 + eps))).detach()
+    return iou - (rho2 / c2 + v * alpha)
 
 
 def clip_boxes(boxes: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

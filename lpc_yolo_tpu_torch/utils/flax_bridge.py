@@ -12,6 +12,10 @@ arrays, and nothing here imports jax.
   each BN gets `num_batches_tracked = 0` so `load_state_dict(strict=True)`
   holds.
 
+`train_state_from_flax` carries a JAX `TrainState`'s numpy trees (params,
+batch_stats, the SGD momentum trace, ema_params, the counters) into the
+port's `TrainState`; `train_state_to_flax` is its inverse for the trees.
+
 `random_variables` fills a shape tree from a numpy seed, so the JAX package
 (through `jax.eval_shape`) and the port (through `flax_shapes`) get the same
 numbers without either running the other's init.
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import re
 from collections import OrderedDict
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,25 +86,73 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Ten
     return sd
 
 
+def _flax_slot(name: str, ndim: int) -> Optional[Tuple[str, Tuple[str, ...], bool]]:
+    """A state_dict entry's place in the JAX variables: (collection, path, is a
+    conv kernel); None for the entries JAX does not have (num_batches_tracked)."""
+    mod, leaf = name.rsplit(".", 1)
+    path = torch_name_to_flax(mod)
+    if leaf == "num_batches_tracked":
+        return None
+    if path[-1] == "bn":
+        flax_leaf = _TORCH_BN[leaf]
+        return ("batch_stats" if flax_leaf in ("mean", "var") else "params"), path + (flax_leaf,), False
+    if leaf == "weight" and ndim == 4:
+        return "params", path + ("kernel",), True
+    if leaf == "bias":
+        return "params", path + ("bias",), False
+    raise KeyError(f"no JAX counterpart for {name}")
+
+
 def flax_shapes(model: nn.Module) -> Dict[str, Dict[str, Any]]:
     """The JAX variables' shape tree that corresponds to `model`'s state_dict."""
     tree: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for name, t in model.state_dict().items():
-        mod, leaf = name.rsplit(".", 1)
-        path = torch_name_to_flax(mod)
-        if leaf == "num_batches_tracked":
-            continue
-        if path[-1] == "bn":
-            flax_leaf = _TORCH_BN[leaf]
-            col = "batch_stats" if flax_leaf in ("mean", "var") else "params"
-            _set(tree[col], path + (flax_leaf,), tuple(t.shape))
-        elif leaf == "weight" and t.dim() == 4:
-            _set(tree["params"], path + ("kernel",), tuple(t.permute(2, 3, 1, 0).shape))
-        elif leaf == "bias":
-            _set(tree["params"], path + ("bias",), tuple(t.shape))
-        else:
-            raise KeyError(f"no JAX counterpart for {name}")
+        slot = _flax_slot(name, t.dim())
+        if slot is not None:
+            col, path, kernel = slot
+            _set(tree[col], path, tuple(t.permute(2, 3, 1, 0).shape if kernel else t.shape))
     return tree
+
+
+def state_dict_to_flax(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
+    """State_dict-named tensors -> JAX variables as numpy trees (kernels OIHW -> HWIO)."""
+    tree: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for name, t in named.items():
+        slot = _flax_slot(name, t.dim())
+        if slot is not None:
+            col, path, kernel = slot
+            t = t.detach().float().cpu()
+            _set(tree[col], path, np.ascontiguousarray((t.permute(2, 3, 1, 0) if kernel else t).numpy()))
+    return tree
+
+
+def train_state_from_flax(model: nn.Module, cfg, params, batch_stats, momentum, ema_params, step: int = 0,
+                          ema_updates: int = 0, opt_step: Optional[int] = None, device=None):
+    """A JAX TrainState's numpy trees -> the port's TrainState on `model`.
+
+    `momentum` is the SGD trace inside the optax state (a tree shaped like
+    `params`). `opt_step` is the optimizer's own count, which trails `step` by
+    the skipped steps; it defaults to `step`.
+    """
+    from ..engine.train_step import init_train_state
+
+    load_flax(model, {"params": params, "batch_stats": batch_stats})
+    state = init_train_state(model, cfg, device)
+    with torch.no_grad():
+        for dst, tree in ((state.momentum, momentum), (state.ema_params, ema_params)):
+            for k, v in flax_to_state_dict({"params": tree}).items():
+                dst[k].copy_(v)
+    state.step, state.ema_updates = int(step), int(round(float(ema_updates)))
+    state.opt_step = state.step if opt_step is None else int(opt_step)
+    return state
+
+
+def train_state_to_flax(state) -> Dict[str, Any]:
+    """The port's TrainState -> numpy trees {'params', 'batch_stats', 'momentum', 'ema_params'}."""
+    live = state_dict_to_flax({**state.params, **state.batch_stats})
+    return {"params": live["params"], "batch_stats": live["batch_stats"],
+            "momentum": state_dict_to_flax(state.momentum)["params"],
+            "ema_params": state_dict_to_flax(state.ema_params)["params"]}
 
 
 def random_variables(shapes: Dict[str, Any], seed: int = 0) -> Dict[str, Any]:

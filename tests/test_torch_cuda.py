@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and one training
+step on the card against the same step on the CPU.
 
 Marked `gpu`; every test skips without a CUDA card (the kernels have no CPU
 mode). This file imports torch and the port only, so it runs on a machine
@@ -13,6 +14,7 @@ import torch
 
 from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
 from lpc_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_plain, letterbox_tables
+from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel, repack_width_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -63,3 +65,73 @@ def test_conv3x3_rejects_strided_channels():
     x = torch.randn(1, 8, 8, 32, device="cuda")[..., ::2]
     with pytest.raises(ValueError):
         conv3x3(x, torch.randn(3, 3, 16, 8, device="cuda"))
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pf,pt", [(8, 1), (8, 2), (4, 2), (2, 1)])
+def test_repack_kernel_matches_plain(pf, pt, dtype, strided):
+    """Bit-exact for element sizes 1, 2 and 4 bytes, on a contiguous input and on a
+    [:, :h, :w] slice of a larger buffer (strided in B and H; its rows of 5 * 24
+    elements are no multiple of 16 bytes in uint8, so the narrower access widths run too)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    big = (torch.rand(3, 40, 9, 24, device="cuda", generator=g) * 255).to(dtype)
+    x = big[:, :33, :5] if strided else big[:, :33, :5].contiguous()
+    assert x.is_contiguous() != strided
+    before = repack_width_kernel.launches
+    got = repack_width_kernel(x, pf, pt)
+    torch.cuda.synchronize()
+    assert repack_width_kernel.launches == before + 1
+    assert got.is_contiguous() and got.shape == (3, 33, 5 * pf // pt, 24 // pf * pt)
+    assert torch.equal(got.view(torch.uint8), repack_width_plain(x, pf, pt).view(torch.uint8))
+
+
+def test_repack_kernel_training_feed_and_odd_offset():
+    g = torch.Generator(device="cuda").manual_seed(1)
+    feed = torch.randint(0, 256, (4, 640, 80, 24), device="cuda", generator=g, dtype=torch.uint8)
+    assert torch.equal(repack_width_kernel(feed, 8, 1), feed.view(4, 640, 640, 3))
+    # a view that starts 24 bytes into the buffer: 8-byte accesses
+    assert torch.equal(repack_width_kernel(feed[:, :, 1:], 8, 1), feed[:, :, 1:].contiguous().view(4, 640, 632, 3))
+    with pytest.raises(ValueError):
+        repack_width_kernel(feed[..., ::2], 4, 1)  # the last dimension must be contiguous
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """One f32 step of the full-width LPC-YOLO model (imgsz 64, batch 2, packed uint8 feed):
+    loss items rtol 1e-3 and the updated parameters within 1e-3 of each leaf's largest value;
+    then a bf16-autocast step is finite and goes through the repack kernel once."""
+    import copy
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.train_step import OptConfig, init_train_state, make_train_step
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+
+    rng = np.random.default_rng(3)
+    xy = rng.uniform(0, 30, (2, 4, 2))
+    mask = np.array([[True, True, False, False], [True, False, False, False]])
+    batch = {"img": pack_img(rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)),
+             "cls": rng.integers(0, 80, (2, 4)).astype(np.int32),
+             "bboxes": np.concatenate([xy, xy + rng.uniform(8, 30, (2, 4, 2))], -1).astype(np.float32) * mask[..., None],
+             "mask": mask}
+    yolo = YOLO(device="cpu", seed=0)
+    cfg = OptConfig(warmup_steps=2, total_steps=10)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(yolo.model)
+        state = init_train_state(model, cfg, device=dev)
+        step = make_train_step(model, cfg, amp=False)
+        mets = [step(state, batch)[1] for _ in range(2)]  # lr is 0 on the first step
+        runs[dev] = (state, mets)
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        assert a["skipped"] is False and b["skipped"] is False
+        np.testing.assert_allclose(a["items"].cpu().numpy(), b["items"].numpy(), rtol=1e-3)
+    for k, p in runs["cpu"][0].params.items():
+        q = runs["cuda"][0].params[k].cpu()
+        assert (q - p).abs().max() <= 1e-3 * p.abs().max(), k
+
+    model = copy.deepcopy(yolo.model)
+    state = init_train_state(model, cfg, device="cuda")
+    before = repack_width_kernel.launches
+    state, met = make_train_step(model, cfg)(state, batch)
+    assert repack_width_kernel.launches == before + 1
+    assert met["skipped"] is False and bool(torch.isfinite(met["items"]).all())
