@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`lpc_yolo_tpu_torch`) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --conv3x3    # device, build, then conv3x3 parity and per-shape times only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -29,7 +30,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. times    the serving step at b32 from 720p frames (CUDA events, and a
             torch.profiler breakdown by kernel with the device's idle share),
             and each kernel at its main-path shapes beside its bound, its
-            plain version and the library call (CUDA events, medians).
+            plain version and the library call (CUDA events, medians; conv3x3
+            per shape from CUDA graphs of 20 calls, so without the host's
+            launch cost, and from eager calls beside them).
 6. train    YOLO(LPC-YOLO yaml, seed 0).train(batches=...) on seeded uint8
             batches at 640, batch 16, bf16 autocast, with the launch counters
             reset just before and read just after: every loss finite, no step
@@ -88,6 +91,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, repeats: int = 3) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, iters: int = 20, repeats: int = 5) -> float:
+    """Device time per call: `iters` calls captured in one CUDA graph and replayed, so the host's
+    cost of launching each call (Python, ctypes, PyTorch's dispatch) is left out. Median of
+    `repeats` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = cuda_ms(graph.replay, iters=1, warmup=1, repeats=repeats) / iters
+    del graph
+    return ms
+
+
 def profile_step(step, iters: int = 3):
     """Device time by kernel over `iters` steps (torch.profiler), and the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
@@ -127,17 +148,54 @@ def phase_device():
     return name, smi
 
 
+def ptxas_report(log: str):
+    """Registers, spills and static shared memory of each kernel in nvcc's -Xptxas -v output,
+    with template arguments spelled out (conv3x3_bf16_mma<16,16,64,32,2,64,32>)."""
+    import re
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled, pos, parts = m.group(1), 0, []
+            if mangled.startswith("_Z"):  # <length><identifier> pieces of the nested name
+                pos = 3 if mangled.startswith("_ZN") else 2
+                while pos < len(mangled) and mangled[pos].isdigit():
+                    n = re.match(r"\d+", mangled[pos:]).group(0)
+                    parts.append(mangled[pos + len(n):pos + len(n) + int(n)])
+                    pos += len(n) + int(n)
+            name = next((p for p in reversed(parts) if not p.startswith("_GLOBAL__N")), mangled)
+            if mangled[pos:pos + 1] == "I":
+                name += f"<{','.join(re.findall(r'Li(\d+)E', mangled))}>"
+            cur = {"kernel": name}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return rows
+
+
 def phase_build():
     from lpc_yolo_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     paths = _build.build_all()
     secs = time.perf_counter() - t0
+    REPORT["ptxas"] = {}
     for name in _build.KERNELS:
         _build.load(name)
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{name}: {line.strip()}")
+        REPORT["ptxas"][name] = ptxas_report(_build.build_logs.get(name, ""))
+        for r in REPORT["ptxas"][name]:
+            log("build", f"{name}: {r['kernel']}: {r.get('registers')} registers, static smem {r.get('static_smem')} B, "
+                         f"spill stores {r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B")
     log("build", f"built {[p.name for p in paths]} in {secs:.1f} s")
     REPORT["build_s"] = secs
 
@@ -352,10 +410,7 @@ def phase_slice(yolo, pred16):
 
 
 def phase_times(yolo, sites, lb_err, conv_err, launches):
-    import torch.nn.functional as F
-
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
-    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_plain, tables_on
 
     B, S = 32, 640
@@ -403,41 +458,7 @@ def phase_times(yolo, sites, lb_err, conv_err, launches):
     log("times", f"letterbox b{B} 720p->640 bf16: {lb_ms:.4f} ms, plain {lb_plain:.4f} ms, "
                  f"bound {lb_bound:.4f} ms ({lb_by})")
 
-    # conv3x3 at every main-path shape at b32 bf16, weighted by its count per forward
-    counts = {}
-    for s in sites:
-        counts[s] = counts.get(s, 0) + 1
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-    per_shape = []
-    g = torch.Generator(device="cuda").manual_seed(1)
-    for (C, H, W, Co, act, pix, off), n in sorted(counts.items(), key=lambda kv: -kv[0][1]):
-        xh = site_input((C, H, W, Co, act, pix, off), B, g, torch.bfloat16)
-        xs = xh.permute(0, 3, 1, 2)  # the channels_last NCHW view F.conv2d takes
-        w = (torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5).bfloat16()
-        w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        b = torch.rand(Co, device="cuda", generator=g) - 0.5
-        b16 = b.bfloat16()
-        k_ms = cuda_ms(lambda: conv3x3(xh, w, b, act))
-        p_ms = cuda_ms(lambda: conv3x3_plain(xh, w, b, act))
-        l_ms = cuda_ms(lambda: F.conv2d(xs, w_oihw, b16, padding=1))
-        nbytes = (xh.numel() + w.numel() + B * H * W * Co) * 2 + Co * 4
-        flops = 2 * B * H * W * 9 * C * Co
-        bd, by = bound(nbytes, flops, BF16_FLOPS_PER_MS)
-        per_shape.append({"C": C, "H": H, "W": W, "Co": Co, "act": act, "pix": pix, "per_forward": n, "ms": k_ms,
-                          "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bd, "bound_by": by,
-                          "tflops": flops / k_ms / 1e9})
-        log("times", f"conv3x3 b{B} {C}->{Co} @{H}x{W} {act} pix {pix} x{n}: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TF/s), "
-                     f"plain {p_ms:.4f}, F.conv2d {l_ms:.4f}, bound {bd:.4f} ({by})")
-        tot["ms"] += n * k_ms
-        tot["plain_ms"] += n * p_ms
-        tot["library_ms"] += n * l_ms
-        tot["bound_ms"] += n * bd
-        tot["bytes_ms"] += n * nbytes / HBM_BYTES_PER_MS
-        tot["ops_ms"] += n * flops / BF16_FLOPS_PER_MS
-    conv_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
-    log("times", f"conv3x3, all 28 sites of one b{B} forward: {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, "
-                 f"F.conv2d {tot['library_ms']:.3f}, bound {tot['bound_ms']:.3f} ms")
-    REPORT["conv3x3_shapes"] = per_shape
+    tot = time_conv3x3(sites, B)
 
     return [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
@@ -447,8 +468,81 @@ def phase_times(yolo, sites, lb_err, conv_err, launches):
         {"name": "conv3x3", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/conv3x3.cu",
          "replaces": "lpc_yolo_tpu/ops/pallas_conv.py:44", "launches": launches["conv3x3"],
          "max_abs_err": conv_err, "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-         "bound_by": conv_by, "library_ms": tot["library_ms"]},
+         "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]},
     ]
+
+
+def time_conv3x3(sites, B: int = 32, sweep: bool = False):
+    """conv3x3 at every main-path shape at batch B, bf16, beside its bound, its plain version and
+    F.conv2d + bias (device times from CUDA graphs; eager calls, host launch cost included,
+    beside them), with the bf16 instantiation each shape takes; the sums are weighted by each
+    shape's count per forward. With `sweep`, also every instantiation on every shape (each
+    checked against the plain version at 2e-2 relative first)."""
+    import torch.nn.functional as F
+
+    from lpc_yolo_tpu_torch.ops.conv3x3 import CONFIGS, conv3x3, conv3x3_config, conv3x3_plain
+
+    counts = {}
+    for s in sites:
+        counts[s] = counts.get(s, 0) + 1
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+           "eager_ms": 0.0, "library_eager_ms": 0.0}
+    per_shape = []
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for (C, H, W, Co, act, pix, off), n in sorted(counts.items(), key=lambda kv: -kv[0][1]):
+        xh = site_input((C, H, W, Co, act, pix, off), B, g, torch.bfloat16)
+        xs = xh.permute(0, 3, 1, 2)  # the channels_last NCHW view F.conv2d takes
+        w = (torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5).bfloat16()
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        b = torch.rand(Co, device="cuda", generator=g) - 0.5
+        b16 = b.bfloat16()
+        k_ms = graph_ms(lambda: conv3x3(xh, w, b, act))
+        p_ms = graph_ms(lambda: conv3x3_plain(xh, w, b, act))
+        l_ms = graph_ms(lambda: F.conv2d(xs, w_oihw, b16, padding=1))
+        k_eager = cuda_ms(lambda: conv3x3(xh, w, b, act))
+        l_eager = cuda_ms(lambda: F.conv2d(xs, w_oihw, b16, padding=1))
+        nbytes = (xh.numel() + w.numel() + B * H * W * Co) * 2 + Co * 4
+        flops = 2 * B * H * W * 9 * C * Co
+        bd, by = bound(nbytes, flops, BF16_FLOPS_PER_MS)
+        cfg = conv3x3_config(B, H, W, C, Co)
+        per_shape.append({"C": C, "H": H, "W": W, "Co": Co, "act": act, "pix": pix, "per_forward": n, "ms": k_ms,
+                          "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bd, "bound_by": by,
+                          "eager_ms": k_eager, "library_eager_ms": l_eager,
+                          "bound_share": bd / k_ms, "vs_library": k_ms / l_ms, "tflops": flops / k_ms / 1e9,
+                          "config": cfg.index, "tile": [cfg.tile_h, cfg.tile_w, cfg.bn, cfg.ck, cfg.stages],
+                          "smem": cfg.smem, "blocks": cfg.grid[0] * cfg.grid[1]})
+        log("times", f"conv3x3 b{B} {C}->{Co} @{H}x{W} {act} pix {pix} x{n}: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TF/s, "
+                     f"{bd / k_ms:.3f} of bound, {k_ms / l_ms:.2f}x F.conv2d), plain {p_ms:.4f}, F.conv2d {l_ms:.4f}, "
+                     f"bound {bd:.4f} ({by}); eager calls {k_eager:.4f}, F.conv2d {l_eager:.4f}; "
+                     f"config {cfg.index} {per_shape[-1]['tile']}, {per_shape[-1]['blocks']} blocks")
+        if sweep:
+            ref = conv3x3_plain(xh.float(), w.float(), b, act)
+            per_cfg = {}
+            for i in range(len(CONFIGS)):
+                err = ((conv3x3(xh, w, b, act, config=i).float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+                assert err <= 2e-2, f"conv3x3 config {i} {CONFIGS[i]} on {C}->{Co} @{H}x{W}: relative err {err}"
+                per_cfg[i] = graph_ms(lambda: conv3x3(xh, w, b, act, config=i))
+            del ref
+            per_shape[-1]["sweep_ms"] = per_cfg
+            best = sorted(per_cfg, key=per_cfg.get)[:4]
+            log("sweep", f"{C}->{Co} @{H}x{W}: chosen {cfg.index} {k_ms:.4f} ms; fastest "
+                         + ", ".join(f"{i} {CONFIGS[i]} {per_cfg[i]:.4f}" for i in best))
+        tot["ms"] += n * k_ms
+        tot["eager_ms"] += n * k_eager
+        tot["library_eager_ms"] += n * l_eager
+        tot["plain_ms"] += n * p_ms
+        tot["library_ms"] += n * l_ms
+        tot["bound_ms"] += n * bd
+        tot["bytes_ms"] += n * nbytes / HBM_BYTES_PER_MS
+        tot["ops_ms"] += n * flops / BF16_FLOPS_PER_MS
+    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    log("times", f"conv3x3, all {len(sites)} sites of one b{B} forward: {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, "
+                 f"F.conv2d {tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x), bound {tot['bound_ms']:.3f} ms; "
+                 f"worst shape {max(r['vs_library'] for r in per_shape):.2f}x F.conv2d (device times, CUDA graph); "
+                 f"eager calls {tot['eager_ms']:.3f} ms, F.conv2d {tot['library_eager_ms']:.3f}")
+    REPORT["conv3x3_shapes"] = per_shape
+    REPORT["conv3x3_sum"] = tot
+    return tot
 
 
 def time_repack(g):
@@ -593,7 +687,27 @@ def phase_train():
     return launches["repack"]
 
 
-def main() -> int:
+def conv3x3_only() -> None:
+    """`--conv3x3`: the conv3x3 kernel alone: its sites from one bf16 frame, its parity phase
+    and its per-shape times at b32 with every instantiation swept; no other kernel, no serving
+    profile, no training."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+
+    yolo = YOLO(YAML, device="cuda", seed=0)
+    sites = conv_sites(Predictor(yolo.model, imgsz=640, batch=1, device="cuda", dtype=torch.bfloat16))
+    conv_err = phase_parity_conv(sites)
+    time_conv3x3(sites, 32, sweep=True)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_conv3x3.json").write_text(json.dumps(REPORT, indent=1))
+    log("done", f"conv3x3 alone: parity passed (f32 max abs {conv_err:.3g}), times in chiprun_out/chip_smoke_conv3x3.json")
+
+
+def main(argv) -> int:
+    if argv not in ([], ["--conv3x3"]):
+        print(f"chip_smoke: unknown arguments {argv}; the only option is --conv3x3", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -604,6 +718,9 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
+    if argv == ["--conv3x3"]:
+        conv3x3_only()
+        return 0
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
 
@@ -637,4 +754,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_config, conv3x3_plain
 from lpc_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_plain, letterbox_tables
 from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel, repack_width_plain
 
@@ -40,25 +40,57 @@ def test_letterbox_kernel_matches_plain(mode):
     assert (got - ref).abs().max().item() <= tol
 
 
+# (B, H, W, C, Co, channel offset, bf16 instantiation the shape takes): each of the
+# eight instantiations, ragged maps (19x37, 21x37), the 20x20 and 40x40 maps, batch 3,
+# Co past 128 (two channel tiles), an unaligned channel slice (element-wise staging), Co
+# no multiple of 8 (stores from the registers) and the upper half of a C2f split (offset
+# C of a 2C map, strided rows).
+CONV_CASES = [
+    (2, 19, 37, 16, 16, 0, 0), (3, 128, 128, 16, 32, 0, 1), (3, 128, 128, 32, 32, 32, 1), (2, 19, 37, 32, 20, 0, 1),
+    (2, 19, 37, 24, 40, 6, 2), (3, 128, 128, 64, 64, 0, 2), (3, 128, 128, 48, 128, 0, 3), (32, 40, 40, 64, 64, 64, 4),
+    (32, 40, 40, 192, 64, 0, 4), (2, 19, 37, 32, 64, 32, 5), (2, 20, 20, 384, 64, 0, 5), (3, 128, 128, 64, 128, 0, 6),
+    (16, 40, 40, 128, 256, 0, 6), (1, 24, 40, 16, 130, 0, 7), (2, 21, 37, 128, 256, 0, 7), (3, 20, 20, 128, 128, 128, 7),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", [False, "silu", "mish"])
-@pytest.mark.parametrize("C,Co,offset", [(24, 40, 6), (32, 64, 32), (32, 20, 0), (16, 16, 0), (64, 64, 0)])
-def test_conv3x3_kernel_matches_plain(C, Co, offset, act, dtype):
-    """Ragged tiles (19x37 map), every Co tile width, contiguous inputs and
-    channel-slice inputs: an unaligned slice (scalar staging) and the upper
-    half of a C2f split (vector staging on strided rows)."""
+@pytest.mark.parametrize("B,H,W,C,Co,offset,config", CONV_CASES)
+def test_conv3x3_kernel_matches_plain(B, H, W, C, Co, offset, config, act, dtype):
+    """Kernel vs plain version on the card: f32 atol 1e-4 (summation order only), bf16
+    relative 2e-2 against the f32 conv of the same bf16 inputs (f32 sums, one bf16 rounding)."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    wide = torch.randn(2, 19, 37, C + offset, device="cuda", generator=g)
+    wide = torch.randn(B, H, W, C + offset, device="cuda", generator=g)
     w = torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5
     b = torch.rand(Co, device="cuda", generator=g) - 0.5
     xq, wq = wide.to(dtype)[..., offset:], w.to(dtype)  # slice after the cast: the kernel sees the strides
+    assert conv3x3_config(B, H, W, C, Co).index == config
+    before = conv3x3.launches
     got = conv3x3(xq, wq, b, act).float()
     ref = conv3x3_plain(xq.float(), wq.float(), b, act)
     torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
     if dtype == torch.float32:
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
     else:
         assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
+
+
+def test_conv3x3_configs_match_the_library():
+    """The built library describes each instantiation as CONFIGS and conv3x3_config do."""
+    import ctypes
+
+    from lpc_yolo_tpu_torch.ops import _build
+    from lpc_yolo_tpu_torch.ops.conv3x3 import CONFIGS, _describe
+
+    lib = _build.load("conv3x3")
+    assert lib.conv3x3_num_configs() == len(CONFIGS)
+    out = (ctypes.c_int * 9)()
+    for i, cfg in enumerate(CONFIGS):
+        assert lib.conv3x3_describe(i, out) == 0
+        py = _describe(i, 1, 1, 1, 1)
+        assert list(out) == [*cfg, py.threads, py.smem]
+    assert lib.conv3x3_describe(len(CONFIGS), out) != 0
 
 
 def test_conv3x3_rejects_strided_channels():
