@@ -30,9 +30,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. times    the serving step at b32 from 720p frames (CUDA events, and a
             torch.profiler breakdown by kernel with the device's idle share),
             and each kernel at its main-path shapes beside its bound, its
-            plain version and the library call (CUDA events, medians; conv3x3
-            per shape from CUDA graphs of 20 calls, so without the host's
-            launch cost, and from eager calls beside them).
+            plain version and the library call: device times from CUDA graphs
+            of 20 calls, so without the host's launch cost (conv3x3 per shape;
+            letterbox and repack on a cold L2, their inputs rotating through
+            enough buffers and every output kept, with a real copy of the same
+            bytes as the repack's library call), and eager calls beside them.
 6. train    YOLO(LPC-YOLO yaml, seed 0).train(batches=...) on seeded uint8
             batches at 640, batch 16, bf16 autocast, with the launch counters
             reset just before and read just after: every loss finite, no step
@@ -41,6 +43,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             CPU (batch 2, loss items rtol 1e-3); the step's time (CUDA
             events), peak memory and a profiler breakdown; then YOLO.predict
             on the trained facade through the letterbox and conv3x3 kernels.
+7. val      the letterbox kernel on the validator's scaleup=False tables
+            against its plain version (u8, bit-exact); then YOLO.val(data=...)
+            at 640, batch 32, from 64 frames written to a temp dir (720x1280,
+            1080x810 and 360x480, as PNGs with .npy twins, read through
+            cache_images="disk"; labels from the port's own f32 detections),
+            in f32 and bf16, with the launch counters reset just before and
+            read just after each run (a letterbox per batch and frame shape,
+            28 conv3x3 per batch); f32 on the card against the CPU on 8 frames
+            (every metric within 0.02); bf16 finite, its mAP50 within 0.35 of
+            f32's; img/s from the files on disk, the speed split per image,
+            and one b32 batch's device time.
 
 The line before last is a JSON object with one entry per kernel (three); the last
 line is {"ok": true, "device": {...}}. Every number is also written to
@@ -63,10 +76,15 @@ YAML = "yolov10-SPD-Conv-Tiny-CBAM-LPC.yaml"
 HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM HBM3, bytes per ms
 BF16_FLOPS_PER_MS = 989e12 / 1e3  # dense bf16 tensor-core peak
 F32_FLOPS_PER_MS = 67e12 / 1e3  # f32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20  # H100 L2 cache
 CONV_SITES_PER_FORWARD = 28  # 3x3 s1 g1 convs on the one2one serving path (layer 27 is dead)
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_GT = 16, 6, 8  # the JAX trainer's default batch; gts padded to 8 per image
 BF16_MAP_TOL = 0.25  # ||bf16 - f32|| / ||f32 - its spatial mean|| per one2one map
 BF16_SCORE_TOL = 1e-2  # sorted top-300 scores, bf16 serving path vs f32 plain path
+VAL_SHAPES = ((720, 1280), (1080, 810), (360, 480))  # two downscaled by the letterbox, one only padded (scaleup=False)
+VAL_FRAMES, VAL_BATCH, VAL_SUBSET, VAL_UNLABELLED = 64, 32, 8, 5  # every 5th frame has no label file
+VAL_F32_TOL = 0.02  # every key of the results dict, f32 on the card vs the CPU: near-tied scores may swap places
+VAL_BF16_MAP50_TOL = 0.35  # mAP50, bf16 vs f32: the random weights' scores cluster within ~1e-3, bf16 reorders them
 REPORT = {}
 
 
@@ -107,6 +125,32 @@ def graph_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     ms = cuda_ms(graph.replay, iters=1, warmup=1, repeats=repeats) / iters
     del graph
     return ms
+
+
+def cold_graph_ms(fn, arg_sets, bytes_per_set: int, iters: int = 20, repeats: int = 5) -> float:
+    """Device time per call of `fn(*arg_sets[i % k])`, from a CUDA graph of `iters` calls (as
+    `graph_ms`) whose inputs and outputs are out of the L2 cache at every call: the k = len(arg_sets)
+    input sets rotate, at least 2 L2 sizes of other input apart, and every call's output is kept
+    alive in the graph's pool, so no call writes into a buffer that an earlier call left in L2."""
+    assert (len(arg_sets) - 1) * bytes_per_set >= 2 * L2_BYTES, "too few input sets to leave L2 cold"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*arg_sets[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            outs.append(fn(*arg_sets[i % len(arg_sets)]))
+    ms = cuda_ms(graph.replay, iters=1, warmup=1, repeats=repeats) / iters
+    del graph, outs
+    torch.cuda.empty_cache()
+    return ms
+
+
+def n_cold_sets(bytes_per_set: int) -> int:
+    """Input sets `cold_graph_ms` needs: consecutive uses of one set at least 2 L2 sizes apart."""
+    return max(2, 1 + -(-2 * L2_BYTES // bytes_per_set))
 
 
 def profile_step(step, iters: int = 3):
@@ -409,7 +453,7 @@ def phase_slice(yolo, pred16):
     return launches
 
 
-def phase_times(yolo, sites, lb_err, conv_err, launches):
+def phase_times(yolo, sites):
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_plain, tables_on
 
@@ -449,27 +493,23 @@ def phase_times(yolo, sites, lb_err, conv_err, launches):
         log("times", "profiler recorded no device time: breakdown not measured")
     REPORT["serving"]["profile"] = prof
 
-    # letterbox at the main path's shape: b32 720p -> 640, bf16 output
+    # letterbox at the main path's shape: b32 720p -> 640, bf16 output; device time on a cold L2
+    # (rotating frame/output pairs) beside eager calls (host launch cost included)
     tab = tables_on(720, 1280, S, dev.device)
-    lb_ms = cuda_ms(lambda: letterbox(dev, S, out=x))
-    lb_plain = cuda_ms(lambda: letterbox_plain(dev, tab, S, torch.bfloat16), iters=5)
     lb_bytes = dev.numel() + x.numel() * 2 + tab.numel() * 4
+    sets = [(dev, x)] + [(torch.randint_like(dev, 0, 256), torch.empty_like(x)) for _ in range(n_cold_sets(lb_bytes) - 1)]
+    lb_ms = cold_graph_ms(lambda src, out: letterbox(src, S, out=out), sets, lb_bytes)
+    lb_eager = cuda_ms(lambda: letterbox(dev, S, out=x))
+    lb_plain = cuda_ms(lambda: letterbox_plain(dev, tab, S, torch.bfloat16), iters=5)
+    del sets
     lb_bound, lb_by = bound(lb_bytes, B * S * S * 3 * 9, F32_FLOPS_PER_MS)
-    log("times", f"letterbox b{B} 720p->640 bf16: {lb_ms:.4f} ms, plain {lb_plain:.4f} ms, "
-                 f"bound {lb_bound:.4f} ms ({lb_by})")
+    log("times", f"letterbox b{B} 720p->640 bf16: {lb_ms:.4f} ms device time (CUDA graph, cold L2), "
+                 f"{lb_eager:.4f} ms eager calls, plain {lb_plain:.4f} ms (eager), bound {lb_bound:.4f} ms ({lb_by}), "
+                 f"{lb_bound / lb_ms:.3f} of bound")
+    REPORT["letterbox_times"] = {"ms": lb_ms, "eager_ms": lb_eager, "plain_ms": lb_plain, "bound_ms": lb_bound,
+                                 "bound_by": lb_by, "bytes": lb_bytes, "cold_sets": n_cold_sets(lb_bytes)}
 
-    tot = time_conv3x3(sites, B)
-
-    return [
-        {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
-         "replaces": "lpc_yolo_tpu/ops/pallas_preprocess.py:103", "launches": launches["letterbox"],
-         "max_abs_err": lb_err, "ms": lb_ms, "plain_ms": lb_plain, "bound_ms": lb_bound, "bound_by": lb_by,
-         "library_ms": None},
-        {"name": "conv3x3", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/conv3x3.cu",
-         "replaces": "lpc_yolo_tpu/ops/pallas_conv.py:44", "launches": launches["conv3x3"],
-         "max_abs_err": conv_err, "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-         "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]},
-    ]
+    return REPORT["letterbox_times"], time_conv3x3(sites, B)
 
 
 def time_conv3x3(sites, B: int = 32, sweep: bool = False):
@@ -546,28 +586,46 @@ def time_conv3x3(sites, B: int = 32, sweep: bool = False):
 
 
 def time_repack(g):
-    """The repack kernel at the training feed's shape beside its bytes bound, its plain version
-    (a view of the contiguous feed) and `.contiguous()` + view; and the same on a strided slice
-    of that shape, where the library call is a real copy too."""
+    """The repack kernel beside its bytes bound, its plain version and a real copy of the same
+    bytes (`x.clone()` on the contiguous feed, `.contiguous()` on the strided slices), at the
+    training feed's shape (contiguous and as a strided slice) and on a strided (32, 320, 80, 192)
+    bf16 slice: device times from CUDA graphs on a cold L2 (`cold_graph_ms`), the means of two
+    readings each taken in the order kernel, copy, copy, kernel, eager calls beside;
+    the plain version by eager calls only (on the contiguous feed it is a view: no device work)."""
     from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel, repack_width_plain
 
+    feed = (TRAIN_BATCH, 640, 80, 24)
     out = {}
-    for name, x in (("contiguous", torch.randint(0, 256, (TRAIN_BATCH, 640, 80, 24), device="cuda", generator=g,
-                                                 dtype=torch.uint8)),
-                    ("strided", strided_slice((TRAIN_BATCH, 640, 80, 24), torch.uint8, g)),
-                    ("strided_bf16_act", strided_slice((32, 320, 80, 192), torch.bfloat16, g))):
-        pf, pt = (8, 1) if x.dtype == torch.uint8 else (4, 2)
-        shape = repack_width_plain(x, pf, pt).shape
+    for name, shape, dtype in (("contiguous", feed, torch.uint8), ("strided", feed, torch.uint8),
+                               ("strided_bf16_act", (32, 320, 80, 192), torch.bfloat16)):
+        pf, pt = (8, 1) if dtype == torch.uint8 else (4, 2)
+        x = torch.randint(0, 256, shape, device="cuda", generator=g, dtype=torch.uint8) \
+            if name == "contiguous" else strided_slice(shape, dtype, g)
         nbytes = 2 * x.numel() * x.element_size()
-        out[name] = {"shape": list(x.shape), "dtype": str(x.dtype), "bytes": nbytes,
-                     "ms": cuda_ms(lambda: repack_width_kernel(x, pf, pt)),
-                     "plain_ms": cuda_ms(lambda: repack_width_plain(x, pf, pt)),
-                     "library_ms": cuda_ms(lambda: x.contiguous().view(shape)),
-                     "bound_ms": nbytes / HBM_BYTES_PER_MS}
-        r = out[name]
-        log("times", f"repack {name} {tuple(x.shape)} {x.dtype} {pf}->{pt}: {r['ms']:.4f} ms "
-                     f"({nbytes / r['ms'] / 1e9:.2f} TB/s), plain {r['plain_ms']:.4f}, .contiguous()+view "
-                     f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms (bytes)")
+        xs = [x] + [x.clone() if name == "contiguous" else strided_slice(shape, dtype, g)
+                    for _ in range(n_cold_sets(nbytes // 2) - 1)]
+        sets = [(t,) for t in xs]
+        yshape = repack_width_plain(x, pf, pt).shape
+        copy = (lambda t: t.clone().view(yshape)) if name == "contiguous" else (lambda t: t.contiguous().view(yshape))
+        # kernel, copy, copy, kernel: the two are compared only within these four readings
+        readings = [cold_graph_ms(fn, sets, nbytes // 2) for fn in
+                    (lambda t: repack_width_kernel(t, pf, pt), copy, copy, lambda t: repack_width_kernel(t, pf, pt))]
+        r = out[name] = {
+            "shape": list(shape), "dtype": str(dtype), "bytes": nbytes, "cold_sets": len(sets),
+            "ms": (readings[0] + readings[3]) / 2, "library_ms": (readings[1] + readings[2]) / 2,
+            "readings_kernel_copy_copy_kernel": readings,
+            "plain_ms": cuda_ms(lambda: repack_width_plain(x, pf, pt)),  # eager: a view on the contiguous feed
+            "library_call": "x.clone()" if name == "contiguous" else "x.contiguous()",
+            "eager_ms": cuda_ms(lambda: repack_width_kernel(x, pf, pt)),
+            "library_eager_ms": cuda_ms(lambda: copy(x)),
+            "bound_ms": nbytes / HBM_BYTES_PER_MS}
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        del xs, sets
+        log("times", f"repack {name} {tuple(shape)} {dtype} {pf}->{pt}: {r['ms']:.4f} ms device time (CUDA graph, cold L2, "
+                     f"{nbytes / r['ms'] / 1e9:.2f} TB/s, {r['bound_share']:.3f} of bound), {r['library_call']} "
+                     f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f} (eager), bound {r['bound_ms']:.4f} ms (bytes); "
+                     f"readings kernel/copy/copy/kernel {[round(v, 5) for v in readings]}; "
+                     f"eager calls: kernel {r['eager_ms']:.4f}, {r['library_call']} {r['library_eager_ms']:.4f}")
     REPORT["repack_times"] = out
     return out
 
@@ -687,6 +745,228 @@ def phase_train():
     return launches["repack"]
 
 
+def write_png(path: Path, bgr: np.ndarray) -> None:
+    """An 8-bit RGB PNG of an HWC uint8 BGR frame, written with the standard library (zlib, struct)."""
+    import struct
+    import zlib
+
+    h, w, _ = bgr.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), bgr[..., ::-1].reshape(h, w * 3)], axis=1)  # filter 0
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                           + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_val_dataset(root: Path, n: int, seed: int):
+    """`n` seeded frames cycling through VAL_SHAPES under root/images/val, each as a PNG and its
+    .npy twin (what `cache_images="disk"` reads); returns the image paths and the frames."""
+    img_dir = root / "images" / "val"
+    img_dir.mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    files, frames = [], []
+    for i in range(n):
+        im = rng.integers(0, 256, VAL_SHAPES[i % len(VAL_SHAPES)] + (3,), dtype=np.uint8)
+        f = img_dir / f"{i:03d}.png"
+        write_png(f, im)
+        np.save(f.with_suffix(".npy"), im)
+        files.append(f)
+        frames.append(im)
+    return files, frames
+
+
+def write_val_labels(files, frames, dets, imgsz: int) -> int:
+    """YOLO label files from detections in letterbox pixels (the validator's scaleup=False geometry):
+    per frame the strongest up to 3 mutually non-overlapping boxes, kept as they are (the random
+    weights' boxes may reach past the frame); every VAL_UNLABELLED-th frame gets no label file.
+    Returns the number of boxes written."""
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox_geometry
+    from lpc_yolo_tpu_torch.utils.metrics import box_iou_np
+
+    n_boxes = 0
+    for i, (f, im, det) in enumerate(zip(files, frames, dets)):
+        if i % VAL_UNLABELLED == VAL_UNLABELLED - 1:
+            continue
+        h0, w0 = im.shape[:2]
+        gain, _, (pw, ph) = letterbox_geometry((h0, w0), (imgsz, imgsz), scaleup=False)
+        keep = []
+        for row in det:  # strongest first
+            b = row[:4].astype(np.float64)
+            if min(b[2] - b[0], b[3] - b[1]) < 8:
+                continue
+            if keep and box_iou_np(np.stack([k[0] for k in keep]), b[None]).max() > 0.4:
+                continue
+            keep.append((b, int(row[5])))
+            if len(keep) == 3:
+                break
+        lines = []
+        for b, c in keep:
+            x1, y1, x2, y2 = (b - [pw, ph, pw, ph]) / gain
+            lines.append(f"{c} {(x1 + x2) / 2 / w0:.6f} {(y1 + y2) / 2 / h0:.6f} {(x2 - x1) / w0:.6f} {(y2 - y1) / h0:.6f}")
+        n_boxes += len(lines)
+        (f.parents[2] / "labels" / "val" / f"{f.stem}.txt").write_text("\n".join(lines) + "\n")
+    return n_boxes
+
+
+def val_launches_expected(frames, batch: int):
+    """Launches one val run makes: a letterbox per (batch, frame shape) and 28 conv3x3 per batch."""
+    n_batches = -(-len(frames) // batch)
+    groups = sum(len({im.shape for im in frames[i:i + batch]}) for i in range(0, len(frames), batch))
+    return {"letterbox": groups, "conv3x3": CONV_SITES_PER_FORWARD * n_batches}
+
+
+def phase_parity_letterbox_val():
+    """The letterbox kernel on the validator's scaleup=False tables against its plain version, u8,
+    bit-exact: a frame smaller than 640 (padded only: its content must equal the RGB frame) and
+    the two larger shapes."""
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_plain, tables_on
+
+    rng = np.random.default_rng(4)
+    for h0, w0 in VAL_SHAPES:
+        frames = torch.from_numpy(rng.integers(0, 256, (4, h0, w0, 3), dtype=np.uint8)).cuda()
+        tab = tables_on(h0, w0, 640, frames.device, False)
+        got = letterbox(frames, 640, out_dtype=torch.uint8, scaleup=False)
+        ref = letterbox_plain(frames, tab, 640, torch.uint8)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f"letterbox scaleup=False {h0}x{w0}: kernel != plain (u8)"
+        if h0 <= 640 and w0 <= 640:
+            top, left = (int((tab[k] >= 0).int().argmax()) for k in (0, 4))  # first content row / column
+            assert torch.equal(got[:, top:top + h0, left:left + w0], frames.flip(-1)), "scaleup=False resized a small frame"
+    log("val", f"letterbox kernel vs plain on scaleup=False tables {list(VAL_SHAPES)} -> 640: bit-exact (u8); "
+               f"the {VAL_SHAPES[-1]} frame is copied unscaled")
+
+
+def val_batch_device_ms(validator, model, frames):
+    """One validation batch's device work from device-resident frames (letterbox per shape group,
+    /255, forward, decode): event-timed ms, and the profiler's device busy ms and idle share."""
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+
+    S, B = validator.imgsz, len(frames)
+    groups = {}
+    for j, im in enumerate(frames):
+        groups.setdefault(im.shape, []).append(j)
+    srcs = [(slots, torch.from_numpy(np.stack([frames[j] for j in slots])).cuda()) for slots in groups.values()]
+    x = torch.empty(B, S, S, 3, dtype=torch.uint8, device="cuda")
+
+    def step():
+        for slots, src in srcs:
+            letterbox(src, S, out=x, slots=slots, scaleup=False)
+        return model.predict(x.permute(0, 3, 1, 2).to(validator.dtype).div_(255), validator.max_det)
+
+    with torch.inference_mode():
+        ms = cuda_ms(step, iters=5, warmup=2)
+        prof = profile_step(step)
+    return ms, prof
+
+
+def val_host_parts(yolo, data: Path, batch: int) -> dict:
+    """Host seconds of the parts of a val run that its `speed` dict leaves out: the dataset (YAML,
+    scan, label cache), the BN-folded serving copy, and one pass of the loader (the .npy twins read
+    and transformed by the worker threads), each timed alone."""
+    from lpc_yolo_tpu_torch.data import DataLoader, ValTransforms, YOLODataset, check_det_dataset
+    from lpc_yolo_tpu_torch.engine.predictor import serving_model
+
+    t0 = time.perf_counter()
+    info = check_det_dataset(str(data))
+    ds = YOLODataset(info["val"], cache_images="disk")
+    t1 = time.perf_counter()
+    serving_model(yolo.model, torch.device("cuda"), torch.bfloat16)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n = sum(len(b["img"]) - b["pad_count"] for b in DataLoader(ds, ValTransforms(640), batch_size=batch))
+    t3 = time.perf_counter()
+    assert n == len(ds)
+    return {"dataset_s": t1 - t0, "serving_copy_s": t2 - t1, "loader_s": t3 - t2}
+
+
+def phase_val():
+    """YOLO.val(data=...) on a dataset written to a temp dir (VAL_FRAMES frames of VAL_SHAPES as
+    PNGs with .npy twins; labels from the port's own f32 detections on the card through the same
+    scaleup=False geometry), at 640, batch 32, from the files on disk: f32 and bf16 with the launch
+    counters reset just before and read just after each run; f32 on the card against the CPU on a
+    VAL_SUBSET-frame subset; bf16 finite and its mAP50 near f32's; times."""
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import serving_model
+    from lpc_yolo_tpu_torch.engine.validator import Validator
+    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+
+    phase_parity_letterbox_val()
+    S, B = 640, VAL_BATCH
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        files, frames = write_val_dataset(root, VAL_FRAMES, seed=31)
+        yolo = YOLO(YAML, device="cuda", seed=0)
+        v32 = Validator(yolo, imgsz=S, device="cuda", dtype=torch.float32)
+        m32 = serving_model(yolo.model, v32.device, torch.float32)
+        dets = np.concatenate([v32.predict(m32, v32.preprocess(frames[i:i + B])) for i in range(0, len(frames), B)])
+        n_boxes = write_val_labels(files, frames, dets, S)
+        data = root / "data.yaml"
+        data.write_text(json.dumps({"path": str(root), "val": "images/val", "nc": 80}))  # JSON is YAML
+        subset = [files[i] for i in range(VAL_SUBSET)]
+        (root / "subset.txt").write_text("".join(f"{f}\n" for f in subset))
+        (root / "subset.yaml").write_text(json.dumps({"path": str(root), "val": "subset.txt", "nc": 80}))
+        log("val", f"dataset: {len(files)} frames {dict((str(sh), sum(im.shape[:2] == sh for im in frames)) for sh in VAL_SHAPES)} "
+                   f"as PNG + .npy, {n_boxes} labelled boxes, written in {time.perf_counter() - t0:.1f} s")
+        expect = val_launches_expected(frames, B)
+
+        runs = {}
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16), ("bf16_again", torch.bfloat16)):
+            letterbox.launches = conv3x3.launches = 0
+            t0 = time.perf_counter()
+            res = yolo.val(data=str(data), imgsz=S, batch=B, cache_images="disk", dtype=dt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches}
+            assert launches == expect, f"val {name}: launches {launches}, expected {expect}"
+            speed = dict(yolo.validator.speed)
+            speed["loader_and_rest"] = wall - sum(speed.values())
+            runs[name] = {"results": res, "wall_s": wall, "img_s": len(files) / wall, "launches": launches,
+                          "speed_ms_per_image": {k: v * 1e3 / len(files) for k, v in speed.items()}}
+            log("val", f"YOLO.val {name}: {len(files)} images, batch {B}, {wall:.3f} s = {len(files) / wall:.1f} img/s "
+                       f"from the files on disk; per image (ms) "
+                       f"{ {k: round(v, 3) for k, v in runs[name]['speed_ms_per_image'].items()} }; launches {launches}")
+            log("val", f"  {res}")
+        host = val_host_parts(yolo, data, B)
+        log("val", f"host parts outside `speed`, each alone (s): {host}; per image (ms): "
+                   f"{ {k: round(v * 1e3 / len(files), 3) for k, v in host.items()} }")
+        f32, bf16 = runs["f32"]["results"], runs["bf16"]["results"]
+        assert f32["metrics/mAP50(B)"] > 0.3, f"f32 mAP50 {f32['metrics/mAP50(B)']}: the labels are its own detections"
+        assert all(np.isfinite(v) for v in bf16.values()), f"bf16 results not finite: {bf16}"
+        gap = abs(bf16["metrics/mAP50(B)"] - f32["metrics/mAP50(B)"])
+        assert gap <= VAL_BF16_MAP50_TOL, f"bf16 mAP50 {bf16['metrics/mAP50(B)']} vs f32 {f32['metrics/mAP50(B)']}"
+        log("val", f"bf16 finite; mAP50 bf16 {bf16['metrics/mAP50(B)']:.4f} vs f32 {f32['metrics/mAP50(B)']:.4f} "
+                   f"(gap {gap:.4f}, tol {VAL_BF16_MAP50_TOL})")
+
+        # f32 on the card (kernels) against the CPU (plain versions) on the subset
+        card = yolo.val(data=str(root / "subset.yaml"), imgsz=S, batch=4, cache_images="disk", dtype=torch.float32)
+        cpu_yolo = YOLO(YAML, device="cpu", seed=0)
+        cpu = cpu_yolo.val(data=str(root / "subset.yaml"), imgsz=S, batch=4, cache_images="disk")
+        worst = max(abs(card[k] - cpu[k]) for k in cpu)
+        assert card.keys() == cpu.keys() and worst <= VAL_F32_TOL, f"val f32 card {card} vs CPU {cpu}"
+        log("val", f"f32 on the card vs the CPU, {VAL_SUBSET} frames: every key within {worst:.3g} "
+                   f"(tol {VAL_F32_TOL}); card {card}")
+
+        # one b32 batch's device work, bf16 (the validator's default on the card)
+        v16 = Validator(yolo, imgsz=S, device="cuda")
+        dev_ms, prof = val_batch_device_ms(v16, serving_model(yolo.model, v16.device, v16.dtype), frames[:B])
+        log("val", f"one b{B} val batch on the device (letterbox x{len({im.shape for im in frames[:B]})}, /255, forward, "
+                   f"decode), bf16: {dev_ms:.3f} ms event-timed; profiler busy {prof['device_busy_ms']:.3f} ms, "
+                   f"idle share {prof['idle_share']:.3f}, {prof['device_launches']:.0f} launches")
+        out = {"frames": len(files), "shapes": [list(sh) for sh in VAL_SHAPES], "labelled_boxes": n_boxes,
+               "runs": runs, "host_parts_s": host, "card_vs_cpu": {"card": card, "cpu": cpu, "max_abs_diff": worst},
+               "bf16_map50_gap": gap, "batch_device_ms": dev_ms, "batch_profile": prof}
+    REPORT["val"] = out
+    return runs["bf16"]["launches"]
+
+
 def conv3x3_only() -> None:
     """`--conv3x3`: the conv3x3 kernel alone: its sites from one bf16 frame, its parity phase
     and its per-shape times at b32 with every instantiation swept; no other kernel, no serving
@@ -731,16 +1011,28 @@ def main(argv) -> int:
     pred16 = Predictor(yolo.model, imgsz=640, batch=4, device="cuda", dtype=torch.bfloat16)
     sites = conv_sites(pred16)
     conv_err = phase_parity_conv(sites)
-    launches = phase_slice(yolo, pred16)
-    kernels = phase_times(yolo, sites, lb_err, conv_err, launches)
+    REPORT["predict_launches"] = phase_slice(yolo, pred16)
+    lb, conv = phase_times(yolo, sites)
     del yolo, pred16
     torch.cuda.empty_cache()
     rp = time_repack(torch.Generator(device="cuda").manual_seed(3))["contiguous"]
     rp_launches = phase_train()
-    kernels.append({"name": "repack", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/repack.cu",
-                    "replaces": "lpc_yolo_tpu/ops/pallas_layout.py:35", "launches": rp_launches,
-                    "max_abs_err": rp_err, "ms": rp["ms"], "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
-                    "bound_by": "bytes", "library_ms": rp["library_ms"]})
+    torch.cuda.empty_cache()
+    launches = phase_val()  # this slice's main path: YOLO.val, bf16
+    kernels = [
+        {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
+         "replaces": "lpc_yolo_tpu/ops/pallas_preprocess.py:103", "launches": launches["letterbox"],
+         "max_abs_err": lb_err, "ms": lb["ms"], "plain_ms": lb["plain_ms"], "bound_ms": lb["bound_ms"],
+         "bound_by": lb["bound_by"], "library_ms": None},
+        {"name": "conv3x3", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/conv3x3.cu",
+         "replaces": "lpc_yolo_tpu/ops/pallas_conv.py:44", "launches": launches["conv3x3"],
+         "max_abs_err": conv_err, "ms": conv["ms"], "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
+         "bound_by": conv["bound_by"], "library_ms": conv["library_ms"]},
+        {"name": "repack", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/repack.cu",
+         "replaces": "lpc_yolo_tpu/ops/pallas_layout.py:35", "launches": rp_launches,
+         "max_abs_err": rp_err, "ms": rp["ms"], "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
+         "bound_by": "bytes", "library_ms": rp["library_ms"]},
+    ]
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"

@@ -1,10 +1,12 @@
-"""Engine of the port: YOLO facade, predictor, results, train step, trainer."""
+"""Engine of the port: YOLO facade, predictor, results, train step, trainer, validator."""
 
 from .model import YOLO
 from .predictor import Predictor, load_source
 from .results import Boxes, Results
 from .train_step import OptConfig, TrainState, init_train_state, lr_at, make_train_step, momentum_at
 from .trainer import Trainer
+from .validator import Validator
 
 __all__ = ["YOLO", "Predictor", "load_source", "Boxes", "Results",
-           "OptConfig", "TrainState", "init_train_state", "make_train_step", "lr_at", "momentum_at", "Trainer"]
+           "OptConfig", "TrainState", "init_train_state", "make_train_step", "lr_at", "momentum_at", "Trainer",
+           "Validator"]

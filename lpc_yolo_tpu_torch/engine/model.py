@@ -3,8 +3,9 @@
 `YOLO(cfg, device=...)` builds the model from one of the port's own YAMLs (or
 a path), with weights made from a seed or loaded from JAX variables through
 the weight bridge; `.predict(frames)` serves it and `.train(batches=...)`
-trains it on an iterable of host batches. Dataset paths, validation, export
-and the other tasks wait for later slices.
+trains it on an iterable of host batches, `.val(data=...)` measures it on a
+dataset. Training from dataset paths, export and the other tasks wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -72,6 +73,20 @@ class YOLO:
         predictor = Predictor(self.model, imgsz=imgsz, batch=batch, conf=conf, max_det=max_det,
                               names=self.names, device=device or self.device)
         return predictor(source)
+
+    def val(self, data=None, device: Union[str, torch.device, None] = None, **kw) -> Dict[str, float]:
+        """Validate on the `val` split of a dataset YAML (path or dict) -> the metrics dict.
+
+        Options as `engine/validator.py::Validator` (imgsz, batch, conf, max_det,
+        max_gt, workers, save_json, save_dir, anno_json, cache_images, dtype).
+        It runs on the card unless device="cpu"; the validator stays on `self.validator`.
+        """
+        from .validator import Validator
+
+        if data is None:
+            raise ValueError("val needs data=<dataset yaml or dict>")
+        self.validator = Validator(self, device=device or self.device, **kw)
+        return self.validator(data)
 
     def train(self, batches: Optional[Iterable[Mapping[str, Any]]] = None, data=None,
               device: Union[str, torch.device, None] = None, **kw) -> Dict[str, float]:

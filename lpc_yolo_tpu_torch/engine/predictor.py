@@ -71,6 +71,33 @@ def load_source(source) -> List[Tuple[str, np.ndarray]]:
     return out
 
 
+def serving_model(model, device: torch.device, dtype: torch.dtype):
+    """The serving copy of `model`: BN folded once in f32, then every tensor in `dtype`,
+    so its 3x3 s1 convs take the conv3x3 kernel; the caller's model is left as it was."""
+    serving = copy.deepcopy(model).to(device).eval()
+    fuse_conv_bn(serving, dtype)
+    return serving.to(dtype)
+
+
+def letterbox_batch(frames: List[np.ndarray], size: int, device: torch.device, out_dtype: torch.dtype,
+                    scaleup: bool = True) -> torch.Tensor:
+    """Letterbox HWC uint8 BGR frames into one (n, S, S, 3) RGB batch on `device`.
+
+    Frames of one shape are stacked, copied from pinned memory and letterboxed
+    into their slots by one launch of the letterbox kernel.
+    """
+    x = torch.empty((len(frames), size, size, 3), dtype=out_dtype, device=device)
+    groups: Dict[Tuple[int, ...], List[int]] = {}
+    for j, im in enumerate(frames):
+        groups.setdefault(im.shape, []).append(j)
+    for slots in groups.values():
+        src = torch.from_numpy(np.stack([frames[j] for j in slots]))
+        if device.type == "cuda":
+            src = src.pin_memory().to(device, non_blocking=True)
+        letterbox(src, size, out=x, slots=slots, scaleup=scaleup)
+    return x
+
+
 class Predictor:
     """Batched predictor over a built DetectionModel (weights as loaded)."""
 
@@ -82,24 +109,11 @@ class Predictor:
         self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
         self.imgsz, self.batch, self.conf, self.max_det = imgsz, batch, conf, max_det
         self.names = names or {i: str(i) for i in range(model.nc)}
-        # the serving copy: BN folded once in f32, then every tensor in the serving dtype
-        serving = copy.deepcopy(model).to(self.device).eval()
-        fuse_conv_bn(serving, self.dtype)
-        self.model = serving.to(self.dtype)
+        self.model = serving_model(model, self.device, self.dtype)
 
     def preprocess(self, frames: List[np.ndarray]) -> torch.Tensor:
         """Letterbox frames into a (n, 3, S, S) channels_last batch on the device."""
-        S = self.imgsz
-        x = torch.empty((len(frames), S, S, 3), dtype=self.dtype, device=self.device)
-        groups: Dict[Tuple[int, ...], List[int]] = {}
-        for j, im in enumerate(frames):
-            groups.setdefault(im.shape, []).append(j)
-        for slots in groups.values():
-            src = torch.from_numpy(np.stack([frames[j] for j in slots]))
-            if self.device.type == "cuda":
-                src = src.pin_memory().to(self.device, non_blocking=True)
-            letterbox(src, S, out=x, slots=slots)
-        return x.permute(0, 3, 1, 2)
+        return letterbox_batch(frames, self.imgsz, self.device, self.dtype).permute(0, 3, 1, 2)
 
     @torch.inference_mode()
     def infer(self, frames: List[np.ndarray]) -> torch.Tensor:

@@ -1,0 +1,175 @@
+"""Validator: dataset -> device letterbox -> LPC graph -> NMS-free decode -> TP matching -> mAP.
+
+Counterpart of `lpc_yolo_tpu/engine/validator.py::Validator` for the v10
+detection task (`__init__` :34-71, the v10 predict of `_make_predict`,
+`__call__` :202-362, `_to_coco_json` :364-382); the segment, pose and OBB
+branches wait.
+
+Per batch, on the device: the frames of each shape are copied from pinned
+memory and letterboxed into the batch by one launch of the letterbox kernel
+with the validator's geometry (`scaleup=False`), as uint8, so the model sees
+the rounded 0..255 frame the JAX validator gets from cv2; then /255 in the
+validator's dtype, the BN-folded serving copy of the model (its 3x3 s1 convs
+through the conv3x3 kernel) and the one-to-one top-k decode, `(B, 300, 6)` in
+letterbox pixels, copied to the host once. On the host, as the JAX package
+does: rows above `conf`, matching at 10 IoUs in letterbox space (IoU does not
+change under the letterbox's uniform scale and shift), the confusion matrix
+and the metrics.
+
+`speed` holds the seconds spent in each part, summed over the run as in the
+JAX package: "preprocess" is the host's time to copy and enqueue the
+letterbox, "inference" runs until the detections are on the host (so it holds
+the device's letterbox and forward), "postprocess" is the host's matching.
+Reading and transforming the images (the loader) is in none of them.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..data import DataLoader, ValTransforms, YOLODataset, check_det_dataset
+from ..utils import resolve_device
+from ..utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions
+from .predictor import letterbox_batch, serving_model
+
+
+class Validator:
+    def __init__(
+        self,
+        yolo,
+        imgsz: int = 640,
+        batch: int = 8,
+        conf: float = 0.001,
+        max_det: int = 300,
+        max_gt: int = 128,
+        workers: int = 4,
+        save_json: bool = False,
+        save_dir: Optional[str] = None,
+        anno_json: Optional[str] = None,
+        cache_images: Union[bool, str] = False,
+        device: Union[str, torch.device, None] = None,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        self.yolo = yolo
+        self.imgsz = imgsz
+        self.batch = batch
+        self.conf = conf
+        self.max_det = max_det
+        self.max_gt = max_gt
+        self.workers = workers
+        self.save_json = save_json
+        self.anno_json = anno_json
+        self.save_dir = Path(save_dir) if save_dir else None
+        self.cache_images = cache_images
+        self.device = resolve_device(device)
+        # bf16 on the card, f32 on the CPU unless the caller says otherwise
+        self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
+        self.iouv = np.linspace(0.5, 0.95, 10)
+        self.speed = {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
+
+    def preprocess(self, frames: List[np.ndarray]) -> torch.Tensor:
+        """The frames letterboxed on the device, (n, S, S, 3) uint8 RGB."""
+        return letterbox_batch(frames, self.imgsz, self.device, torch.uint8, scaleup=False)
+
+    @torch.inference_mode()
+    def predict(self, model, x: torch.Tensor) -> np.ndarray:
+        """(n, max_det, 6) detections in letterbox pixels, f32, on the host."""
+        x = x.permute(0, 3, 1, 2).to(self.dtype).div_(255)
+        return model.predict(x, self.max_det).cpu().numpy()
+
+    def __call__(self, data) -> Dict[str, float]:
+        """Validate the facade's model on the `val` split of `data` (a dataset YAML or dict)."""
+        info = check_det_dataset(data)
+        dataset = YOLODataset(info["val"], cache_images=self.cache_images)
+        loader = DataLoader(dataset, ValTransforms(self.imgsz, self.max_gt), batch_size=self.batch,
+                            workers=self.workers)
+        model = serving_model(self.yolo.model, self.device, self.dtype)
+
+        stats: Dict[str, List[np.ndarray]] = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        cm = ConfusionMatrix(nc=info["nc"], conf=self.conf)
+        json_preds: List[Dict] = []
+        for batch in loader:
+            t0 = time.perf_counter()
+            x = self.preprocess(batch["img"])
+            t1 = time.perf_counter()
+            det = self.predict(model, x)  # (B, max_det, 6)
+            t2 = time.perf_counter()
+            n_real = det.shape[0] - batch["pad_count"]
+            for j in range(n_real):
+                rows = det[j]
+                rows = rows[rows[:, 4] > self.conf]
+                gt_boxes = batch["bboxes"][j][batch["mask"][j]]
+                gt_cls = batch["cls"][j][batch["mask"][j]]
+                if len(rows) == 0:
+                    if len(gt_cls):
+                        stats["tp"].append(np.zeros((0, len(self.iouv)), bool))
+                        stats["conf"].append(np.zeros(0))
+                        stats["pred_cls"].append(np.zeros(0))
+                        stats["target_cls"].append(gt_cls)
+                        cm.process_batch(None, gt_boxes, gt_cls)
+                    continue
+                iou = box_iou_np(gt_boxes, rows[:, :4])
+                stats["tp"].append(match_predictions(rows[:, 5], gt_cls, iou, self.iouv))
+                stats["conf"].append(rows[:, 4])
+                stats["pred_cls"].append(rows[:, 5])
+                stats["target_cls"].append(gt_cls)
+                cm.process_batch(rows, gt_boxes, gt_cls)
+                if self.save_json:
+                    json_preds.extend(self._to_coco_json(rows, batch, j))
+            t3 = time.perf_counter()
+            self.speed["preprocess"] += t1 - t0
+            self.speed["inference"] += t2 - t1
+            self.speed["postprocess"] += t3 - t2
+
+        metrics = DetMetrics(names=info["names"])
+        if stats["tp"]:
+            metrics.process(
+                np.concatenate(stats["tp"]),
+                np.concatenate(stats["conf"]),
+                np.concatenate(stats["pred_cls"]),
+                np.concatenate(stats["target_cls"]),
+            )
+        self.metrics = metrics
+        self.confusion_matrix = cm
+        results = metrics.results_dict()
+        if self.save_json and self.save_dir:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+            (self.save_dir / "predictions.json").write_text(json.dumps(json_preds))
+        if self.save_json:
+            # COCO rescoring against an instances_val JSON when the dataset has one, else its own labels
+            from ..utils.cocoeval import eval_json, yolo_dataset_to_coco
+
+            anno = self.anno_json
+            if anno is None:
+                cand = Path(info["path"]) / "annotations" / "instances_val2017.json"
+                anno = str(cand) if cand.is_file() else yolo_dataset_to_coco(dataset)
+            coco = eval_json(json_preds, anno)
+            results["metrics/mAP50-95(COCO)"] = coco["mAP50-95"]
+            results["metrics/mAP50(COCO)"] = coco["mAP50"]
+            self.coco_stats = coco
+        return results
+
+    @staticmethod
+    def _to_coco_json(rows: np.ndarray, batch: Dict, j: int) -> List[Dict]:
+        """COCO-format rows: xywh with top-left origin, boxes unscaled to the original image."""
+        gain, pad = batch["gain"][j], batch["pad"][j]
+        image_id = Path(batch["path"][j]).stem
+        image_id = int(image_id) if image_id.isnumeric() else image_id
+        out = []
+        for r in rows:
+            b = (r[:4] - np.array([pad[0], pad[1], pad[0], pad[1]])) / gain
+            out.append(
+                {
+                    "image_id": image_id,
+                    "category_id": int(r[5]),
+                    "bbox": [round(float(b[0]), 3), round(float(b[1]), 3), round(float(b[2] - b[0]), 3), round(float(b[3] - b[1]), 3)],
+                    "score": round(float(r[4]), 5),
+                }
+            )
+        return out

@@ -33,13 +33,16 @@ MODES = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def letterbox_geometry(
-    shape: Tuple[int, int], new_shape: Tuple[int, int]
+    shape: Tuple[int, int], new_shape: Tuple[int, int], scaleup: bool = True
 ) -> Tuple[float, Tuple[int, int], Tuple[float, float]]:
-    """(gain, (new_w, new_h), (pad_w, pad_h)) of the reference LetterBox with
-    its serving settings: scale up, centre the image, no stride-multiple pad."""
+    """(gain, (new_w, new_h), (pad_w, pad_h)) of the reference LetterBox: centre
+    the image, no stride-multiple pad; `scaleup=False` (validation) never
+    enlarges a frame smaller than the target."""
     h0, w0 = shape
     nh, nw = new_shape
     r = min(nh / h0, nw / w0)
+    if not scaleup:
+        r = min(r, 1.0)
     new_unpad = int(round(w0 * r)), int(round(h0 * r))
     return r, new_unpad, ((nw - new_unpad[0]) / 2, (nh - new_unpad[1]) / 2)
 
@@ -74,13 +77,14 @@ def _axis_taps(n_src: int, n_dst: int, offset: int, out_len: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def letterbox_tables(h0: int, w0: int, size: int) -> np.ndarray:
+def letterbox_tables(h0: int, w0: int, size: int, scaleup: bool = True) -> np.ndarray:
     """(8, size) int32: rows y_i0, y_i1, y_wa, y_wb, x_i0, x_i1, x_wa, x_wb.
 
-    Cached per frame shape (a camera stream reuses one); callers must not
-    write to the returned array.
+    Cached per frame shape and `scaleup` (a camera stream reuses one); callers
+    must not write to the returned array. With r = 1 (`scaleup=False` on a
+    frame that fits) every tap is the identity: i0 = o, wa = 1, wb = 0.
     """
-    _, (new_w, new_h), (dw, dh) = letterbox_geometry((h0, w0), (size, size))
+    _, (new_w, new_h), (dw, dh) = letterbox_geometry((h0, w0), (size, size), scaleup)
     top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
     tab = np.concatenate([_axis_taps(h0, new_h, top, size), _axis_taps(w0, new_w, left, size)])
     tab.setflags(write=False)
@@ -94,10 +98,10 @@ def _on(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def tables_on(h0: int, w0: int, size: int, device: torch.device) -> torch.Tensor:
+def tables_on(h0: int, w0: int, size: int, device: torch.device, scaleup: bool = True) -> torch.Tensor:
     """`letterbox_tables` as an int32 tensor on `device`, copied there once per
     frame shape; callers must not write to it."""
-    return _on(letterbox_tables(h0, w0, size), device)
+    return _on(letterbox_tables(h0, w0, size, scaleup), device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -105,10 +109,10 @@ def _slots_on(slots: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     return _on(np.asarray(slots), device)
 
 
-def build_letterbox_mats(h0: int, w0: int, size: int):
+def build_letterbox_mats(h0: int, w0: int, size: int, scaleup: bool = True):
     """Dense Ry (size, h0), Rx (w0, size) and pad_mask (size, size), scattered
     from the gather tables: the matrices the TPU kernel multiplies by."""
-    tab = letterbox_tables(h0, w0, size)
+    tab = letterbox_tables(h0, w0, size, scaleup)
 
     def dense(rows, n_src):
         i0, i1 = rows[0], rows[1]
@@ -149,6 +153,7 @@ def letterbox(
     out: Optional[torch.Tensor] = None,
     slots: Optional[Sequence[int]] = None,
     out_dtype=torch.float32,
+    scaleup: bool = True,
 ) -> torch.Tensor:
     """Letterbox SAME-SHAPE uint8 BGR frames (n, h0, w0, 3) into RGB (N, S, S, 3).
 
@@ -158,6 +163,8 @@ def letterbox(
     the predictor letterboxes each group of equal-shape frames straight into
     its slots of the model's input batch. CPU tensors take the plain version;
     CUDA tensors launch the kernel (one launch for the whole group).
+    `scaleup=False` is the validator's geometry: frames smaller than `size`
+    keep their size and are only padded.
     """
     if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[-1] != 3:
         raise ValueError(f"expected (n, h0, w0, 3) uint8 frames, got {tuple(frames.shape)} {frames.dtype}")
@@ -171,12 +178,12 @@ def letterbox(
         raise ValueError(f"slots {slot_list} do not fit a batch of {out.shape[0]}")
     dev = frames.device
     if dev.type == "cpu":
-        out[list(slot_list)] = letterbox_plain(frames, tables_on(int(h0), int(w0), size, dev), size, out.dtype)
+        out[list(slot_list)] = letterbox_plain(frames, tables_on(int(h0), int(w0), size, dev, scaleup), size, out.dtype)
         return out
     if dev.type != "cuda" or out.device != dev:
         raise ValueError("frames and out must lie on the same CUDA device")
     frames = frames.contiguous()
-    tab_d = tables_on(int(h0), int(w0), size, dev)
+    tab_d = tables_on(int(h0), int(w0), size, dev, scaleup)
     slots_d = _slots_on(slot_list, dev)
     lib = _build.load("letterbox")
     fn = lib.letterbox_launch

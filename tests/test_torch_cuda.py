@@ -40,6 +40,31 @@ def test_letterbox_kernel_matches_plain(mode):
     assert (got - ref).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("h0,w0", [(360, 480), (1080, 810)])
+def test_letterbox_kernel_scaleup_false_matches_plain(h0, w0):
+    """The validator's scaleup=False tables: a frame smaller than S (padded only, its content the
+    RGB frame itself) and one larger (downscaled); u8 bit-exact, f32 1e-5, bf16 one ulp."""
+    from lpc_yolo_tpu_torch.ops.letterbox import tables_on
+
+    rng = np.random.default_rng(1)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, h0, w0, 3), dtype=np.uint8)).cuda()
+    tab = tables_on(h0, w0, 640, frames.device, False)
+    for mode in (torch.uint8, torch.float32, torch.bfloat16):
+        got = letterbox(frames, 640, out_dtype=mode, scaleup=False)
+        ref = letterbox_plain(frames, tab, 640, mode)
+        torch.cuda.synchronize()
+        if mode == torch.uint8:
+            assert torch.equal(got, ref)
+        elif mode == torch.float32:
+            assert (got - ref).abs().max().item() <= 1e-5
+        else:
+            assert (got.view(torch.int16).int() - ref.view(torch.int16).int()).abs().max().item() <= 1
+    if h0 <= 640 and w0 <= 640:
+        top, left = (int((tab[k] >= 0).int().argmax()) for k in (0, 4))
+        assert torch.equal(letterbox(frames, 640, out_dtype=torch.uint8, scaleup=False)[:, top:top + h0, left:left + w0],
+                           frames.flip(-1))
+
+
 # (B, H, W, C, Co, channel offset, bf16 instantiation the shape takes): each of the
 # eight instantiations, ragged maps (19x37, 21x37), the 20x20 and 40x40 maps, batch 3,
 # Co past 128 (two channel tiles), an unaligned channel slice (element-wise staging), Co
@@ -167,3 +192,44 @@ def test_train_step_on_the_card_matches_the_cpu():
     state, met = make_train_step(model, cfg)(state, batch)
     assert repack_width_kernel.launches == before + 1
     assert met["skipped"] is False and bool(torch.isfinite(met["items"]).all())
+
+
+def test_val_on_the_card_matches_the_cpu(tmp_path):
+    """YOLO(device="cuda").val on a tiny dataset of .npy twins (read through cache_images="disk";
+    the PNGs beside them are never decoded): one letterbox launch per batch and frame shape, 28
+    conv3x3 launches per batch, and in f32 every key of the results dict within 0.02 of the same
+    validation on the CPU (near-tied scores of the random weights may swap places)."""
+    import json
+
+    from chip_smoke import write_png, write_val_labels
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import serving_model
+    from lpc_yolo_tpu_torch.engine.validator import Validator
+    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
+
+    imgsz, shapes = 128, [(96, 160), (100, 80), (200, 150)]
+    img_dir = tmp_path / "images" / "val"
+    img_dir.mkdir(parents=True)
+    (tmp_path / "labels" / "val").mkdir(parents=True)
+    rng = np.random.default_rng(5)
+    files, frames = [], []
+    for i in range(7):
+        im = rng.integers(0, 256, shapes[i % 3] + (3,), dtype=np.uint8)
+        files.append(img_dir / f"{i}.png")
+        frames.append(im)
+        write_png(files[-1], im)
+        np.save(files[-1].with_suffix(".npy"), im)
+    cpu = YOLO(device="cpu", seed=0)
+    v = Validator(cpu, imgsz=imgsz, device="cpu")
+    write_val_labels(files, frames, v.predict(serving_model(cpu.model, v.device, v.dtype), v.preprocess(frames)), imgsz)
+    data = tmp_path / "data.yaml"
+    data.write_text(json.dumps({"path": str(tmp_path), "val": "images/val", "nc": 80}))
+
+    yolo = YOLO(device="cuda", seed=0)
+    letterbox.launches = conv3x3.launches = 0
+    got = yolo.val(data=str(data), imgsz=imgsz, batch=4, cache_images="disk", dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (letterbox.launches, conv3x3.launches) == (3 + 3, 28 * 2)  # batches [0..3], [4..6 + a repeat]
+    ref = cpu.val(data=str(data), imgsz=imgsz, batch=4, cache_images="disk")
+    assert got.keys() == ref.keys() and ref["metrics/mAP50(B)"] > 0.3
+    assert max(abs(got[k] - ref[k]) for k in ref) <= 0.02, (got, ref)

@@ -197,9 +197,12 @@ def test_cuda_default_raises_without_card():
 
 
 def test_import_hygiene():
-    """Importing the port and building the model pulls in no jax, flax or JAX package module."""
+    """Importing the port (the validation modules too) and building the model pulls in no jax,
+    flax or JAX package module."""
     code = (
         "import sys, lpc_yolo_tpu_torch as p\n"
+        "import lpc_yolo_tpu_torch.data, lpc_yolo_tpu_torch.engine.validator\n"
+        "import lpc_yolo_tpu_torch.utils.metrics, lpc_yolo_tpu_torch.utils.cocoeval\n"
         "p.YOLO('yolov10-SPD-Conv-Tiny-CBAM-LPC.yaml', device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'lpc_yolo_tpu')]\n"
         "assert not bad, bad\n"
