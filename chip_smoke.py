@@ -54,10 +54,27 @@ Phases, in order; any failure raises and the script exits non-zero:
             (every metric within 0.02); bf16 finite, its mAP50 within 0.35 of
             f32's; img/s from the files on disk, the speed split per image,
             and one b32 batch's device time.
+8. train_data  YOLO(LPC-YOLO yaml, nc=3, seed 0).train(data=...) on a
+            synthetic dataset written to a temp dir (64 train frames of the
+            three val shapes with 1 to 6 rectangles each, 16 val frames, PNG +
+            .npy twins, cache="disk"): 3 epochs at 640, batch 16, optimizer
+            "auto" (AdamW), the last epoch letterboxed (close_mosaic=1), the
+            batches rendered on the card, with the launch counters reset just
+            before and read just after: every loss finite, no step skipped,
+            one repack launch per step, a letterbox per val batch and frame
+            shape and 28 conv3x3 per val batch for the three validations. Then
+            the trainer's loader with 8 and with 1 worker (same frames and
+            labels), the card's render against the CPU render of the same
+            plans (within 1 LSB), the render's device time and launches, the
+            loader's host ms and the H2D bytes per batch; one f32 AdamW step
+            on the card against the CPU (batch 2, loss items rtol 1e-3) and
+            three AdamW updates on the same seeded gradients (parameters,
+            moments and EMA within 2e-6 of each leaf's largest value); img/s,
+            input_wait_frac and render_frac of the run.
 
-The line before last is a JSON object with one entry per kernel (three); the last
-line is {"ok": true, "device": {...}}. Every number is also written to
-chiprun_out/chip_smoke.json.
+The line before last is a JSON object with one entry per kernel (three; launches
+from phase 8); the last line is {"ok": true, "device": {...}}. Every number is
+also written to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -85,6 +102,7 @@ VAL_SHAPES = ((720, 1280), (1080, 810), (360, 480))  # two downscaled by the let
 VAL_FRAMES, VAL_BATCH, VAL_SUBSET, VAL_UNLABELLED = 64, 32, 8, 5  # every 5th frame has no label file
 VAL_F32_TOL = 0.02  # every key of the results dict, f32 on the card vs the CPU: near-tied scores may swap places
 VAL_BF16_MAP50_TOL = 0.35  # mAP50, bf16 vs f32: the random weights' scores cluster within ~1e-3, bf16 reorders them
+TD_TRAIN, TD_VAL, TD_BATCH, TD_EPOCHS = 64, 16, 16, 3  # train(data=...): 4 steps an epoch, validation at batch 8
 REPORT = {}
 
 
@@ -417,12 +435,12 @@ def phase_slice(yolo, pred16):
     det16 = pred16.infer(chunk)
     assert det16.shape == (4, 300, 6) and bool(torch.isfinite(det16).all()), "bf16 detections not finite"
 
-    # the plain path: plain letterbox in f32, unfolded f32 model, no kernel
+    # the plain path: plain letterbox to u8 (the predictor's feed), /255 in f32, unfolded f32 model, no kernel
     x = torch.empty(4, 640, 640, 3, device="cuda")
     for shape in {im.shape for im in chunk}:
         slots = [j for j, im in enumerate(chunk) if im.shape == shape]
         src = torch.from_numpy(np.stack([chunk[j] for j in slots])).cuda()
-        x[slots] = letterbox_plain(src, tables_on(*shape[:2], 640, src.device), 640)
+        x[slots] = letterbox_plain(src, tables_on(*shape[:2], 640, src.device), 640, torch.uint8).float() / 255
     x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     with torch.inference_mode():
         det_p = yolo.model.predict(x)
@@ -742,27 +760,13 @@ def phase_train():
                        "moved": moved, "peak_gb_trainer": peak_gb, "f32_card_vs_cpu_rel": rel, "step_ms": step_ms,
                        "img_s": TRAIN_BATCH / step_ms * 1e3, "peak_gb_step": step_peak_gb, "host_step_ms": host_ms,
                        "profile": prof, "served_launches": served}
-    return launches["repack"]
-
-
-def write_png(path: Path, bgr: np.ndarray) -> None:
-    """An 8-bit RGB PNG of an HWC uint8 BGR frame, written with the standard library (zlib, struct)."""
-    import struct
-    import zlib
-
-    h, w, _ = bgr.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), bgr[..., ::-1].reshape(h, w * 3)], axis=1)  # filter 0
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
-
-    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                           + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
 
 
 def write_val_dataset(root: Path, n: int, seed: int):
     """`n` seeded frames cycling through VAL_SHAPES under root/images/val, each as a PNG and its
     .npy twin (what `cache_images="disk"` reads); returns the image paths and the frames."""
+    from lpc_yolo_tpu_torch.data.synthetic import write_png
+
     img_dir = root / "images" / "val"
     img_dir.mkdir(parents=True)
     (root / "labels" / "val").mkdir(parents=True)
@@ -841,7 +845,8 @@ def phase_parity_letterbox_val():
 
 def val_batch_device_ms(validator, model, frames):
     """One validation batch's device work from device-resident frames (letterbox per shape group,
-    /255, forward, decode): event-timed ms, and the profiler's device busy ms and idle share."""
+    cast, forward with /255 folded into the stem, decode): event-timed ms, and the profiler's device busy ms
+    and idle share."""
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox
 
     S, B = validator.imgsz, len(frames)
@@ -854,7 +859,7 @@ def val_batch_device_ms(validator, model, frames):
     def step():
         for slots, src in srcs:
             letterbox(src, S, out=x, slots=slots, scaleup=False)
-        return model.predict(x.permute(0, 3, 1, 2).to(validator.dtype).div_(255), validator.max_det)
+        return model.predict(x.permute(0, 3, 1, 2).to(validator.dtype), validator.max_det)
 
     with torch.inference_mode():
         ms = cuda_ms(step, iters=5, warmup=2)
@@ -957,14 +962,160 @@ def phase_val():
         # one b32 batch's device work, bf16 (the validator's default on the card)
         v16 = Validator(yolo, imgsz=S, device="cuda")
         dev_ms, prof = val_batch_device_ms(v16, serving_model(yolo.model, v16.device, v16.dtype), frames[:B])
-        log("val", f"one b{B} val batch on the device (letterbox x{len({im.shape for im in frames[:B]})}, /255, forward, "
+        log("val", f"one b{B} val batch on the device (letterbox x{len({im.shape for im in frames[:B]})}, cast, forward, "
                    f"decode), bf16: {dev_ms:.3f} ms event-timed; profiler busy {prof['device_busy_ms']:.3f} ms, "
                    f"idle share {prof['idle_share']:.3f}, {prof['device_launches']:.0f} launches")
         out = {"frames": len(files), "shapes": [list(sh) for sh in VAL_SHAPES], "labelled_boxes": n_boxes,
                "runs": runs, "host_parts_s": host, "card_vs_cpu": {"card": card, "cpu": cpu, "max_abs_diff": worst},
                "bf16_map50_gap": gap, "batch_device_ms": dev_ms, "batch_profile": prof}
     REPORT["val"] = out
-    return runs["bf16"]["launches"]
+
+
+def loader_batches(loader, n: int):
+    """The first n batches of a loader, and the host ms each took (file reads and plans, worker threads)."""
+    it, out, ms = iter(loader), [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out.append(next(it))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    it.close()
+    return out, ms
+
+
+def phase_train_data():
+    """YOLO(LPC-YOLO yaml, nc=3, seed 0).train(data=...) from a synthetic dataset written to a temp dir
+    (TD_TRAIN frames of VAL_SHAPES, 1 to 6 rectangles each, PNG + .npy twins read through cache="disk";
+    TD_VAL validation frames): TD_EPOCHS epochs at 640, batch 16, optimizer "auto" (AdamW), the last
+    epoch letterboxed (close_mosaic=1), with the launch counters reset just before and read just after.
+    Then the loader and the card's render against the CPU, the render's device time and launches, and
+    AdamW on the card against the CPU."""
+    import copy
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.data import DataLoader, TrainTransforms, YOLODataset, check_det_dataset, render
+    from lpc_yolo_tpu_torch.data.synthetic import make_synthetic_dataset
+    from lpc_yolo_tpu_torch.engine.train_step import (OptConfig, apply_update, global_norm, init_train_state,
+                                                      make_train_step)
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
+
+    S, B, dev = 640, TD_BATCH, torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.perf_counter()
+        data = make_synthetic_dataset(Path(tmp), n_train=TD_TRAIN, n_val=TD_VAL, nc=3, max_boxes=6, seed=41,
+                                      shapes=VAL_SHAPES)
+        info = check_det_dataset(data)
+        log("train_data", f"dataset: {TD_TRAIN} train + {TD_VAL} val frames of {list(VAL_SHAPES)} as PNG + .npy, "
+                          f"written in {time.perf_counter() - t0:.1f} s")
+        steps = -(-TD_TRAIN // B) * TD_EPOCHS
+        val_frames = [np.load(f) for f in sorted(Path(info["val"]).glob("*.npy"))]
+        expect_val = {k: v * TD_EPOCHS for k, v in val_launches_expected(val_frames, min(B, 8)).items()}
+
+        # this slice's main path: the trainer from the dataset, counters read around it
+        yolo = YOLO(YAML, device="cuda", seed=0, nc=3)
+        letterbox.launches = conv3x3.launches = repack_width_kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = yolo.train(data=data, imgsz=S, batch=B, epochs=TD_EPOCHS, close_mosaic=1, optimizer="auto",
+                         workers=8, cache="disk")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches,
+                    "repack": repack_width_kernel.launches}
+        tr = yolo.trainer
+        hist, rows = tr.history, tr.epoch_history
+        for h in hist:
+            assert np.isfinite(h["loss"]) and np.isfinite(h["items"]).all() and h["skipped"] is False, h
+        assert len(hist) == steps and tr.state.opt_step == steps, (len(hist), tr.state.opt_step)
+        assert tr.cfg.optimizer == "adamw" and tr.cfg.lr0 == 0.002 and tr.cfg.momentum == 0.9, tr.cfg
+        assert launches == {**expect_val, "repack": steps}, (launches, expect_val, steps)
+        assert set(res) >= {"metrics/mAP50(B)", "metrics/mAP50-95(B)", "fitness"}
+        assert all(np.isfinite(list(res.values()))), res
+        step_s = sum(h["seconds"] for h in hist)
+        for r in rows:
+            log("train_data", f"epoch {r['epoch']}: {r['seconds']:.3f} s, input_wait_frac {r['input_wait_frac']:.4f}, "
+                              f"render_frac {r['render_frac']:.4f}, "
+                              f"box_om {r['box_om']:.4f} cls_om {r['cls_om']:.4f}, mAP50 {r['metrics/mAP50(B)']:.4f}")
+        log("train_data", f"YOLO(nc=3).train(data=...): {steps} steps of b{B} at {S}, AdamW by the auto rule, "
+                          f"3 validations; {wall:.3f} s = {TD_TRAIN * TD_EPOCHS / wall:.1f} img/s over the call, "
+                          f"{steps * B / step_s:.1f} img/s over the steps (loader wait + render + step); peak "
+                          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches {launches} "
+                          f"(expected {expect_val}, repack {steps})")
+
+        # the loader and the render: the trainer's loader (plans) on the card against the JAX-order CPU path
+        ds = YOLODataset(info["train"], cache_images="disk")
+        tt = TrainTransforms(S)
+        plans_a, loader_ms = loader_batches(DataLoader(ds, tt.plan, B, workers=8, shuffle=True, infinite=True), 3)
+        plans_b, _ = loader_batches(DataLoader(ds, tt.plan, B, workers=1, shuffle=True, infinite=True), 2)
+        worst = 0
+        for a, b in zip(plans_a, plans_b):
+            assert [[t.src for t in p.canvas.tiles if t] for p in a["plan"]] == \
+                [[t.src for t in p.canvas.tiles if t] for p in b["plan"]], "loaders disagree on the source frames"
+            for k in ("cls", "bboxes", "mask"):
+                assert np.array_equal(a[k], b[k]), f"loaders disagree on {k}"
+            card = render(a["plan"], a["sources"], dev).cpu()
+            cpu = render(b["plan"], b["sources"], torch.device("cpu"))
+            worst = max(worst, int((card.int() - cpu.int()).abs().max()))
+        assert worst <= 1, f"card render vs CPU render: {worst} LSB"
+        batch = plans_a[2]
+        src_bytes = sum(v.nbytes for v in batch["sources"].values())
+        out_bytes = B * S * S * 3
+        render_ms = cuda_ms(lambda: render(batch["plan"], batch["sources"], dev), iters=3, warmup=1)
+        prof = profile_step(lambda: render(batch["plan"], batch["sources"], dev))
+        log("train_data", f"loaders (8 and 1 workers, seed 0): first two batches equal in source frames and labels; "
+                          f"card render = CPU render within {worst} LSB (tol 1)")
+        log("train_data", f"render of a b{B} mosaic batch: {render_ms:.3f} ms event-timed from host plans; device busy "
+                          f"{prof['device_busy_ms']:.3f} ms over {prof['device_launches']:.0f} launches "
+                          f"(idle share {prof['idle_share']}); loader host ms per batch "
+                          f"{[round(v, 1) for v in loader_ms]}; "
+                          f"H2D {src_bytes / 1e6:.1f} MB of {len(batch['sources'])} source frames against "
+                          f"{out_bytes / 1e6:.1f} MB rendered")
+        for r in prof["top"][:8]:
+            log("train_data", f"  {r['ms_per_step']:8.4f} ms x{r['calls_per_step']:g}  {r['kernel']}")
+
+        # AdamW on the card against the CPU, f32: one train step on a rendered batch (batch 2; it updates with
+        # lr 0, the warmup's start), its loss items; then three updates from a fresh state on the same seeded
+        # gradients, large (the clip acts) to small: parameters, both moments and the EMA
+        small = {k: v[:2] for k, v in plans_a[0].items() if k in ("cls", "bboxes", "mask")}
+        small["img"] = pack_img(render(plans_a[0]["plan"][:2], plans_a[0]["sources"], torch.device("cpu")).numpy())
+        cfg = OptConfig(lr0=0.002, momentum=0.9, warmup_steps=2, total_steps=steps, optimizer="adamw")
+        items, states = {}, {}
+        for d in ("cuda", "cpu"):
+            model = copy.deepcopy(yolo.model)
+            st = init_train_state(model, cfg, device=d)
+            st, met = make_train_step(model, cfg, amp=False)(st, small)
+            assert met["skipped"] is False
+            items[d] = np.concatenate([met["items"].cpu().numpy(), [float(met["loss"])]])
+            st = init_train_state(copy.deepcopy(yolo.model), cfg, device=d)
+            g = np.random.default_rng(7)
+            for scale in (3.0, 1.0, 1e-3):
+                grads = [torch.from_numpy((scale * g.standard_normal(tuple(p.shape))).astype(np.float32)).to(d)
+                         for p in st.params.values()]
+                apply_update(st, grads, global_norm(grads), cfg)
+            states[d] = st
+        rel = float(np.max(np.abs(items["cuda"] - items["cpu"]) / np.abs(items["cpu"])))
+        assert rel <= 1e-3, f"f32 AdamW step on the card vs on the CPU: loss items differ by {rel}: {items}"
+        upd = 0.0
+        for name in ("params", "momentum", "nu", "ema_params"):
+            card, cpu = getattr(states["cuda"], name), getattr(states["cpu"], name)
+            for k, ref in cpu.items():
+                ref = ref.detach()
+                upd = max(upd, float((card[k].detach().cpu() - ref).abs().max() / ref.abs().max().clamp(min=1e-30)))
+        assert upd <= 2e-6, f"AdamW updates on the card vs the CPU: {upd} of a leaf's largest value"
+        log("train_data", f"one f32 AdamW step (batch 2) on the card vs on the CPU: loss items within {rel:.2e} "
+                          f"(rtol 1e-3); three AdamW updates on the same gradients: parameters, moments and EMA "
+                          f"within {upd:.2e} of each leaf's largest value (tol 2e-6)")
+        REPORT["train_data"] = {
+            "steps": steps, "batch": B, "epochs": TD_EPOCHS, "wall_s": wall, "img_s_call": TD_TRAIN * TD_EPOCHS / wall,
+            "img_s_steps": steps * B / step_s, "epochs_rows": rows, "history": hist, "launches": launches,
+            "results": res, "render_card_vs_cpu_lsb": worst, "render_ms": render_ms, "render_profile": prof,
+            "loader_host_ms": loader_ms, "h2d_source_mb": src_bytes / 1e6, "rendered_mb": out_bytes / 1e6,
+            "adamw_card_vs_cpu_rel": rel, "adamw_update_card_vs_cpu": upd,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return launches
 
 
 def conv3x3_only() -> None:
@@ -1016,9 +1167,11 @@ def main(argv) -> int:
     del yolo, pred16
     torch.cuda.empty_cache()
     rp = time_repack(torch.Generator(device="cuda").manual_seed(3))["contiguous"]
-    rp_launches = phase_train()
+    phase_train()
     torch.cuda.empty_cache()
-    launches = phase_val()  # this slice's main path: YOLO.val, bf16
+    phase_val()
+    torch.cuda.empty_cache()
+    launches = phase_train_data()  # this slice's main path: YOLO(nc=3).train(data=...)
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
          "replaces": "lpc_yolo_tpu/ops/pallas_preprocess.py:103", "launches": launches["letterbox"],
@@ -1029,7 +1182,7 @@ def main(argv) -> int:
          "max_abs_err": conv_err, "ms": conv["ms"], "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
          "bound_by": conv["bound_by"], "library_ms": conv["library_ms"]},
         {"name": "repack", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/repack.cu",
-         "replaces": "lpc_yolo_tpu/ops/pallas_layout.py:35", "launches": rp_launches,
+         "replaces": "lpc_yolo_tpu/ops/pallas_layout.py:35", "launches": launches["repack"],
          "max_abs_err": rp_err, "ms": rp["ms"], "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
          "bound_by": "bytes", "library_ms": rp["library_ms"]},
     ]

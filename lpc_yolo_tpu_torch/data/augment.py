@@ -1,21 +1,64 @@
-"""Validation transforms (counterpart of `lpc_yolo_tpu/data/augment.py`:
-`xywhn_to_xyxy` and `ValTransforms`).
+"""Training and validation transforms (counterpart of `lpc_yolo_tpu/data/augment.py`).
 
-The JAX validator letterboxes each frame on the host with cv2 (`scaleup=False`).
-The port letterboxes on the card (`ops/letterbox.py`, the letterbox kernel), so
-`ValTransforms` hands on the raw BGR frame with the geometry that letterbox
-will apply, `letterbox_geometry(scaleup=False)`, and the ground truth in
-letterbox pixels, padded to `max_gt` rows with a mask, as the JAX package
-computes them.
+Training (`TrainTransforms`, JAX :415): mosaic-4 (:108) with optional mixup
+(:355), the affine `random_perspective` (:180), the HSV jitter (:283) and the
+two flips, or the letterbox alone once `close_mosaic` is called (:442-448).
+Each sample is split in two steps:
+
+- a host **plan** (`TrainTransforms.plan`): every `np.random.RandomState`
+  draw of the JAX transforms, in their order (the mosaic9 and mixup draws
+  are taken even when their hyp is 0; there is no albumentations draw, since
+  the JAX bridge draws only when that package is installed, :410), the
+  geometry of each tile, the affine matrix, the HSV lookup tables and the
+  flips, and the labels, computed in f64 numpy exactly as the JAX package
+  does (box transform, clip, candidate filter);
+- a **render** (`render`) of the pixels of a whole batch of plans through
+  `cvops`, on any device: the tiles resized with cv2's fixed point straight
+  into their mosaic canvases (one gather for all tiles of the batch), mixup,
+  one warp of every canvas (the flips folded into its output coordinates),
+  then BGR->HSV, the per-sample lookup tables and HSV->BGR.
+
+`TrainTransforms(dataset, idx, rng)` keeps the JAX signature: the plan, then
+the render on the CPU. The trainer renders on the card instead.
+Not ported: mosaic9, copy_paste and `perspective` != 0 raise
+NotImplementedError; the segment, pose and OBB transforms wait for their tasks.
+
+Validation (`ValTransforms`): the JAX validator letterboxes each frame on the
+host with cv2 (`scaleup=False`). The port letterboxes on the card
+(`ops/letterbox.py`, the letterbox kernel), so `ValTransforms` hands on the
+raw BGR frame with the geometry that letterbox will apply, and the ground
+truth in letterbox pixels, padded to `max_gt` rows with a mask.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import functools
+import math
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..ops.letterbox import letterbox_geometry
+from . import cvops
+
+DEFAULT_HYP = {
+    "hsv_h": 0.015,
+    "hsv_s": 0.7,
+    "hsv_v": 0.4,
+    "degrees": 0.0,
+    "translate": 0.1,
+    "scale": 0.5,
+    "shear": 0.0,
+    "perspective": 0.0,
+    "flipud": 0.0,
+    "fliplr": 0.5,
+    "mosaic": 1.0,
+    "mosaic9": 0.0,
+    "mixup": 0.0,
+    "copy_paste": 0.0,
+}
 
 
 def xywhn_to_xyxy(bboxes: np.ndarray, w: float, h: float, padw: float = 0, padh: float = 0) -> np.ndarray:
@@ -27,6 +70,306 @@ def xywhn_to_xyxy(bboxes: np.ndarray, w: float, h: float, padw: float = 0, padh:
     return out
 
 
+def pad_labels(cls: np.ndarray, boxes: np.ndarray, max_gt: int) -> Dict[str, np.ndarray]:
+    """Labels padded (or cut) to `max_gt` rows with a mask."""
+    n = min(len(boxes), max_gt)
+    out = {"cls": np.zeros((max_gt,), np.int32), "bboxes": np.zeros((max_gt, 4), np.float32),
+           "mask": np.zeros((max_gt,), bool)}
+    out["bboxes"][:n] = boxes[:n]
+    out["cls"][:n] = cls[:n]
+    out["mask"][:n] = True
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """One source image resized (cv2 INTER_LINEAR) into a rectangle of a canvas."""
+
+    src: int  # dataset index of the source image
+    src_hw: Tuple[int, int]
+    hw: Tuple[int, int]  # its size after the resize
+    rect: Tuple[int, int, int, int]  # x1, y1, x2, y2 on the canvas
+    off: Tuple[int, int]  # canvas (x, y) - off = the pixel (u, v) of the resized image
+
+
+@dataclasses.dataclass(frozen=True)
+class Canvas:
+    """A canvas filled with 114 and up to four tiles; tile k lies in the quadrant
+    2 * (y >= split[1]) + (x >= split[0])."""
+
+    hw: Tuple[int, int]
+    split: Tuple[int, int]
+    tiles: Tuple[Optional[Tile], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How to render one training sample."""
+
+    canvas: Canvas
+    mix: Optional[Canvas]  # mixup's second mosaic, blended before the warp
+    mix_r: float
+    m: np.ndarray  # (3, 3) forward affine matrix, canvas -> output
+    out_hw: Tuple[int, int]
+    lut: Optional[np.ndarray]  # (3, 256) uint8 H, S, V tables of the HSV jitter
+    flipud: bool
+    fliplr: bool
+
+
+def mosaic4(dataset, idx: int, rng: np.random.RandomState, imgsz: int, sources: Dict[int, np.ndarray]):
+    """The plan of a 4-image mosaic on a 2x2 canvas of side 2 * imgsz (JAX :108-177):
+    (Canvas, cls, xyxy boxes clipped to the canvas). Source images go into `sources`."""
+    s = imgsz
+    yc, xc = (int(rng.uniform(s // 2, 2 * s - s // 2)) for _ in range(2))
+    indices = [idx] + [rng.randint(0, len(dataset)) for _ in range(3)]
+    tiles, all_cls, all_boxes = [], [], []
+    for i, index in enumerate(indices):
+        index = int(index)
+        item = dataset.get_item_raw(index)
+        sources[index] = item["img"]
+        h0, w0 = item["img"].shape[:2]
+        r = s / max(h0, w0)
+        h, w = (int(h0 * r), int(w0 * r)) if r != 1 else (h0, w0)
+        if i == 0:  # top-left
+            x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+            x1b, y1b = w - (x2a - x1a), h - (y2a - y1a)
+        elif i == 1:  # top-right
+            x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+            x1b, y1b = 0, h - (y2a - y1a)
+        elif i == 2:  # bottom-left
+            x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+            x1b, y1b = w - (x2a - x1a), 0
+        else:  # bottom-right
+            x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
+            x1b, y1b = 0, 0
+        padw, padh = x1a - x1b, y1a - y1b
+        tiles.append(Tile(index, (h0, w0), (h, w), (x1a, y1a, x2a, y2a), (padw, padh)))
+        if len(item["bboxes"]):
+            all_boxes.append(xywhn_to_xyxy(item["bboxes"], w, h, padw, padh))
+            all_cls.append(item["cls"])
+    boxes = np.concatenate(all_boxes) if all_boxes else np.zeros((0, 4), np.float32)
+    cls = np.concatenate(all_cls) if all_cls else np.zeros((0,), np.int32)
+    return Canvas((2 * s, 2 * s), (xc, yc), tuple(tiles)), cls, boxes.clip(0, 2 * s)
+
+
+def letterbox_canvas(item: Dict, idx: int, imgsz: int):
+    """The plan of the host letterbox (`ops/letterbox.py::letterbox_image`, scaleup): one tile,
+    resized when its size changes, with the reference's +-0.1 pad split; and the boxes in it."""
+    h0, w0 = item["img"].shape[:2]
+    gain, (nw, nh), (dw, dh) = letterbox_geometry((h0, w0), (imgsz, imgsz))
+    top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
+    left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
+    hw = (top + nh + bottom, left + nw + right)
+    tile = Tile(int(idx), (h0, w0), (nh, nw), (left, top, left + nw, top + nh), (left, top))
+    boxes = xywhn_to_xyxy(item["bboxes"], w0 * gain, h0 * gain, dw, dh)
+    return Canvas(hw, (hw[1], hw[0]), (tile, None, None, None)), boxes
+
+
+def rotation_matrix(angle: float, scale: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D(center=(0, 0), angle, scale), in f64 as cv2 computes it."""
+    a = angle * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx = cy = 0.0
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy], [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def random_affine(canvas_hw: Tuple[int, int], boxes: np.ndarray, cls: np.ndarray, rng: np.random.RandomState,
+                  hyp: Dict, border: Tuple[int, int] = (0, 0)):
+    """The draws, matrix and label transform of `random_perspective` (JAX :180-280) with
+    perspective 0: (M (3, 3), (height, width) of the output, boxes, cls)."""
+    height = canvas_hw[0] + border[0] * 2
+    width = canvas_hw[1] + border[1] * 2
+    C = np.eye(3)
+    C[0, 2] = -canvas_hw[1] / 2
+    C[1, 2] = -canvas_hw[0] / 2
+    P = np.eye(3)
+    P[2, 0] = rng.uniform(-hyp["perspective"], hyp["perspective"])
+    P[2, 1] = rng.uniform(-hyp["perspective"], hyp["perspective"])
+    R = np.eye(3)
+    a = rng.uniform(-hyp["degrees"], hyp["degrees"])
+    scale = rng.uniform(1 - hyp["scale"], 1 + hyp["scale"])
+    R[:2] = rotation_matrix(a, scale)
+    S = np.eye(3)
+    S[0, 1] = math.tan(rng.uniform(-hyp["shear"], hyp["shear"]) * math.pi / 180)
+    S[1, 0] = math.tan(rng.uniform(-hyp["shear"], hyp["shear"]) * math.pi / 180)
+    T = np.eye(3)
+    T[0, 2] = rng.uniform(0.5 - hyp["translate"], 0.5 + hyp["translate"]) * width
+    T[1, 2] = rng.uniform(0.5 - hyp["translate"], 0.5 + hyp["translate"]) * height
+    M = T @ S @ R @ P @ C
+    n = len(boxes)
+    if n:
+        xy = np.ones((n * 4, 3))
+        xy[:, :2] = boxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)
+        xy = (xy @ M.T)[:, :2].reshape(n, 8)
+        x, y = xy[:, [0, 2, 4, 6]], xy[:, [1, 3, 5, 7]]
+        new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
+        new[:, [0, 2]] = new[:, [0, 2]].clip(0, width)
+        new[:, [1, 3]] = new[:, [1, 3]].clip(0, height)
+        # candidate filter (box_candidates): wh > 2 px, aspect < 100, area ratio > 0.1
+        w1, h1 = boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1]
+        w2, h2 = new[:, 2] - new[:, 0], new[:, 3] - new[:, 1]
+        ar = np.maximum(w2 / (h2 + 1e-16), h2 / (w2 + 1e-16))
+        keep = (w2 > 2) & (h2 > 2) & (w2 * h2 / (w1 * h1 * scale**2 + 1e-16) > 0.10) & (ar < 100)
+        boxes, cls = new[keep], cls[keep]
+    return M, (height, width), boxes, cls
+
+
+def hsv_tables(rng: np.random.RandomState, hgain: float, sgain: float, vgain: float) -> Optional[np.ndarray]:
+    """The draw and the (3, 256) lookup tables of `augment_hsv` (JAX :283-296); None without gains."""
+    if not (hgain or sgain or vgain):
+        return None
+    r = rng.uniform(-1, 1, 3) * [hgain, sgain, vgain] + 1
+    x = np.arange(0, 256, dtype=r.dtype)
+    return np.stack([((x * r[0]) % 180).astype(np.uint8), np.clip(x * r[1], 0, 255).astype(np.uint8),
+                     np.clip(x * r[2], 0, 255).astype(np.uint8)])
+
+
+class TrainTransforms:
+    """Mosaic + affine + HSV + flips -> a fixed (imgsz, imgsz) sample (v8_transforms)."""
+
+    def __init__(self, imgsz: int = 640, hyp: Optional[Dict] = None, max_gt: int = 128):
+        self.imgsz = imgsz
+        self.hyp = {**DEFAULT_HYP, **(hyp or {})}
+        self.max_gt = max_gt
+        self.mosaic_enabled = True
+        for key in ("mosaic9", "copy_paste", "perspective"):
+            if self.hyp[key]:
+                raise NotImplementedError(f"hyp {key}={self.hyp[key]} is not ported; the port runs mosaic4, mixup, "
+                                          f"the affine warp, the HSV jitter and the flips")
+
+    def close_mosaic(self):
+        """Disable mosaic for the final epochs."""
+        self.mosaic_enabled = False
+
+    def plan(self, dataset, idx: int, rng: np.random.RandomState) -> Dict:
+        """The sample's plan, its source images {dataset index: BGR frame} and its padded labels."""
+        hyp, s, sources = self.hyp, self.imgsz, {}
+        mix, mix_r = None, 0.0
+        if self.mosaic_enabled and rng.rand() < hyp["mosaic"]:
+            rng.rand()  # the mosaic9 draw; mosaic9 > 0 is refused at construction
+            canvas, cls, boxes = mosaic4(dataset, idx, rng, s, sources)
+            if rng.rand() < hyp["mixup"]:
+                mix, cls2, boxes2 = mosaic4(dataset, rng.randint(0, len(dataset)), rng, s, sources)
+                mix_r = rng.beta(32.0, 32.0)
+                cls, boxes = np.concatenate([cls, cls2]), np.concatenate([boxes, boxes2])
+            border = (-s // 2, -s // 2)
+        else:
+            item = dataset.get_item_raw(idx)
+            sources[int(idx)] = item["img"]
+            canvas, boxes = letterbox_canvas(item, idx, s)
+            cls, border = item["cls"], (0, 0)
+        m, out_hw, boxes, cls = random_affine(canvas.hw, boxes, cls, rng, hyp, border)
+        table = hsv_tables(rng, hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"])
+        flipud = bool(rng.rand() < hyp["flipud"])
+        if flipud:
+            boxes[:, [1, 3]] = out_hw[0] - boxes[:, [3, 1]]
+        fliplr = bool(rng.rand() < hyp["fliplr"])
+        if fliplr:
+            boxes[:, [0, 2]] = out_hw[1] - boxes[:, [2, 0]]
+        plan = Plan(canvas, mix, float(mix_r), m, out_hw, table, flipud, fliplr)
+        return {"plan": plan, "sources": sources, **pad_labels(cls, boxes, self.max_gt)}
+
+    def __call__(self, dataset, idx: int, rng: np.random.RandomState) -> Dict:
+        """The JAX transform's output: the plan rendered on the CPU."""
+        out = self.plan(dataset, idx, rng)
+        img = render([out.pop("plan")], out.pop("sources"), torch.device("cpu"))[0].numpy()
+        return {"img": img, **out}
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_taps(src_hw: Tuple[int, int], hw: Tuple[int, int]):
+    taps = cvops.resize_taps(src_hw, hw)
+    for t in taps:
+        t.flags.writeable = False  # shared by every caller of the cache
+    return taps
+
+
+def source_pool(sources: Dict[int, np.ndarray], device: torch.device) -> Tuple[torch.Tensor, Dict[int, int]]:
+    """All source frames in one flat (P, 3) uint8 tensor on `device` (one copy, from pinned
+    memory on the card) and each frame's first pixel in it."""
+    keys = sorted(sources)
+    sizes = [sources[k].size for k in keys]
+    host = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=device.type == "cuda")
+    view, base, o = host.numpy(), {}, 0
+    for k, n in zip(keys, sizes):
+        view[o:o + n] = np.ascontiguousarray(sources[k]).reshape(-1)
+        base[k] = o // 3
+        o += n
+    return host.to(device, non_blocking=True).view(-1, 3), base
+
+
+def _canvas_tables(canvases: List[Canvas], base: Dict[int, int], hc: int, wc: int):
+    """Per canvas and quadrant, the tile's taps along each canvas column (inside, c0, c1, a0, a1)
+    and row (inside, pool offset of row 0 and row 1, b0, b1): int32 (C * 4 * Wc, 5), (C * 4 * Hc, 5)."""
+    cols = np.zeros((len(canvases), 4, wc, 5), np.int32)
+    rows = np.zeros((len(canvases), 4, hc, 5), np.int32)
+    for ci, cv in enumerate(canvases):
+        for k, t in enumerate(cv.tiles):
+            if t is None:
+                continue
+            x1, y1, x2, y2 = t.rect
+            if x2 <= x1 or y2 <= y1:
+                continue
+            ry, rx = _resize_taps(t.src_hw, t.hw)
+            u = np.arange(x1, x2) - t.off[0]
+            v = np.arange(y1, y2) - t.off[1]
+            cols[ci, k, x1:x2] = np.stack([np.ones_like(u), rx[0][u], rx[1][u], rx[2][u], rx[3][u]], -1)
+            w0, b = t.src_hw[1], base[t.src]
+            rows[ci, k, y1:y2] = np.stack([np.ones_like(v), b + ry[0][v] * w0, b + ry[1][v] * w0, ry[2][v], ry[3][v]],
+                                          -1)
+    return cols.reshape(-1, 5), rows.reshape(-1, 5)
+
+
+def render(plans: List[Plan], sources: Dict[int, np.ndarray], device: torch.device) -> torch.Tensor:
+    """Render a batch of plans on `device`: (B, H, W, 3) uint8 BGR.
+
+    Launches do not grow with the batch: one gather resizes every tile of every
+    canvas, one warp covers the batch, the HSV jitter runs once on it.
+    """
+    B = len(plans)
+    out_hw = plans[0].out_hw
+    if any(p.out_hw != out_hw for p in plans):
+        raise ValueError("the plans of one batch must share their output size")
+    pool3, base = source_pool(sources, device)
+    mix_rows = [i for i, p in enumerate(plans) if p.mix is not None]
+    canvases = [p.canvas for p in plans] + [plans[i].mix for i in mix_rows]
+    C = len(canvases)
+    hc, wc = max(c.hw[0] for c in canvases), max(c.hw[1] for c in canvases)
+    cols, rows = (torch.from_numpy(t).to(device, non_blocking=True) for t in _canvas_tables(canvases, base, hc, wc))
+    split = torch.from_numpy(np.array([c.split for c in canvases], np.int64)).to(device)
+
+    # every canvas pixel: its quadrant's tile, then cv2's fixed-point resize of that tile
+    x = torch.arange(wc, device=device)
+    y = torch.arange(hc, device=device)
+    quad = 2 * (y[None, :, None] >= split[:, 1, None, None]) + (x[None, None, :] >= split[:, 0, None, None])
+    slot = torch.arange(C, device=device)[:, None, None] * 4 + quad
+    cv = cols.index_select(0, (slot * wc + x).reshape(-1)).view(C, hc, wc, 5)
+    rv = rows.index_select(0, (slot * hc + y[:, None]).reshape(-1)).view(C, hc, wc, 5)
+    val = cvops.fixed_bilinear(pool3, rv[..., 1], rv[..., 2], rv[..., 3], rv[..., 4],
+                               cv[..., 1], cv[..., 2], cv[..., 3], cv[..., 4])
+    inside = (cv[..., 0] * rv[..., 0]).bool()[..., None]
+    canvas = torch.where(inside, val, cvops.BORDER).to(torch.uint8)
+    del cv, rv, val, inside
+    if mix_rows:
+        ia = torch.tensor(mix_rows, device=device)
+        canvas[ia] = cvops.blend(canvas[ia], canvas[B:], [plans[i].mix_r for i in mix_rows])
+
+    # one warp of the batch, the flips folded into its output coordinates
+    minv = np.stack([cvops.invert_affine(p.m[:2]) for p in plans]).astype(np.float32)
+    ext = torch.tensor([p.canvas.hw for p in plans], device=device)
+    flips = torch.tensor([[p.flipud, p.fliplr] for p in plans], device=device)
+    img = cvops.warp_core(canvas.view(-1, 3), torch.arange(B, device=device) * (hc * wc),
+                          torch.full((B,), wc, device=device), ext[:, 0], ext[:, 1],
+                          torch.from_numpy(minv).to(device), out_hw, flips[:, 0], flips[:, 1])
+    tables = [p.lut for p in plans]
+    if any(t is not None for t in tables):
+        if any(t is None for t in tables):
+            raise ValueError("the plans of one batch must all or none have HSV tables")
+        luts = torch.from_numpy(np.stack(tables)).to(device, non_blocking=True)
+        img = cvops.hsv2bgr(cvops.lut(cvops.bgr2hsv(img), luts))
+    return img
+
+
 class ValTransforms:
     """The raw frame, the letterbox geometry for unscaling, and the padded ground truth."""
 
@@ -34,25 +377,15 @@ class ValTransforms:
         self.imgsz = imgsz
         self.max_gt = max_gt
 
-    def __call__(self, dataset, idx: int) -> Dict:
+    def __call__(self, dataset, idx: int, rng=None) -> Dict:
         item = dataset.get_item_raw(idx)
         img0 = item["img"]
         h0, w0 = img0.shape[:2]
         gain, _, pad = letterbox_geometry((h0, w0), (self.imgsz, self.imgsz), scaleup=False)
         boxes = xywhn_to_xyxy(item["bboxes"], w0 * gain, h0 * gain, pad[0], pad[1])
-        M = self.max_gt
-        n = min(len(boxes), M)
-        out_boxes = np.zeros((M, 4), np.float32)
-        out_cls = np.zeros((M,), np.int32)
-        mask = np.zeros((M,), bool)
-        out_boxes[:n] = boxes[:n]
-        out_cls[:n] = item["cls"][:n]
-        mask[:n] = True
         return {
             "img": img0,
-            "cls": out_cls,
-            "bboxes": out_boxes,
-            "mask": mask,
+            **pad_labels(item["cls"], boxes, self.max_gt),
             "orig_shape": (h0, w0),
             "gain": gain,
             "pad": pad,

@@ -1,0 +1,236 @@
+"""OpenCV's uint8 image ops of the training pipeline, written on tensors.
+
+The JAX package augments on the host with cv2 (`lpc_yolo_tpu/data/augment.py`:
+`cv2.resize` :134, `warpAffine` :226, `cvtColor` BGR<->HSV and `LUT`
+:289-295; `ops/letterbox.py:65-68`). The machine with the card has no
+OpenCV, and a near miss does not do: the hue conversion turns a 1-LSB
+difference after a resize into up to 18 LSB after the HSV jitter. So each op
+here reproduces the integer and float32 arithmetic of OpenCV 5.0's
+vectorised paths, batched, on whatever device the tensors live on:
+
+- `resize` (INTER_LINEAR): coefficients rint(f * 2048) with f in f32, a
+  horizontal pass into int32 and the vertical pass of the SIMD path,
+  ((((h0 >> 4) * b0) >> 16) + (((h1 >> 4) * b1) >> 16) + 2) >> 2. An exact 2x
+  downscale switches to INTER_AREA, (a + b + c + d + 2) >> 2, which is the
+  same formula with two taps of weight 1024 per axis.
+- `warp_affine` (INTER_LINEAR, BORDER_CONSTANT): the inverse matrix in f64,
+  then f32; source coordinates fma(x, m0, y * m1 + m2) and the three lerps
+  p = fma(a, p01 - p00, p00) as fused multiply-adds in f32, rounded with
+  rint. A fused multiply-add is emulated exactly in f64: the product of two
+  f32 values is exact there.
+- `bgr2hsv`: cv2's integer path (shift 12, `sdiv`/`hdiv` tables).
+- `hsv2bgr`: cv2's f32 path with its fused multiply-adds, truncated to u8.
+- `lut` and `blend` (mixup). The host letterbox's constant border is the
+  render's canvas fill (`BORDER`).
+
+Each is held against cv2 in `tests/test_torch_data.py`. The batched training
+render (`data/augment.py::render`) builds on the same cores.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+RESIZE_BITS = 11  # INTER_RESIZE_COEF_BITS: resize coefficients sum to 2048
+BORDER = 114  # the pipeline's pad and border value
+
+_HSV_SHIFT = 12
+_i = np.arange(1, 256, dtype=np.float64)
+_SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT) / _i)]).astype(np.int32)
+_HDIV = np.concatenate([[0], np.rint((180 << _HSV_SHIFT) / (6.0 * _i))]).astype(np.int32)
+_SECTOR = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]], np.int64)
+del _i
+
+
+def axis_taps(n_src: int, n_dst: int, scale: float, clamp_weights: bool) -> np.ndarray:
+    """cv2's INTER_LINEAR taps along one axis: (4, n_dst) int64 rows (i0, i1, w0, w1).
+
+    `scale` is cv2's `1 / (n_dst / n_src)` in f64; f = f32((d + 0.5) * scale - 0.5).
+    Along x (clamp_weights) a tap left of the image or at its last column
+    takes weights (2048, 0); along y cv2 keeps the weights and clamps the rows.
+    """
+    d = np.arange(n_dst, dtype=np.float64)
+    f = ((d + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if clamp_weights:
+        lo, hi = s < 0, s >= n_src - 1
+        f[lo | hi] = 0
+        s[lo], s[hi] = 0, n_src - 1
+    w1 = np.rint(f * np.float32(1 << RESIZE_BITS)).astype(np.int64)
+    w0 = np.rint((np.float32(1) - f) * np.float32(1 << RESIZE_BITS)).astype(np.int64)
+    return np.stack([np.clip(s, 0, n_src - 1), np.clip(s + 1, 0, n_src - 1), w0, w1])
+
+
+def resize_taps(src_hw: Tuple[int, int], dst_hw: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """(rows (4, H), cols (4, W)) of cv2.resize INTER_LINEAR from src_hw to dst_hw,
+    with cv2's switch to INTER_AREA on an exact 2x downscale."""
+    (h0, w0), (h, w) = src_hw, dst_hw
+    sy, sx = 1.0 / (h / h0), 1.0 / (w / w0)
+    if abs(sx - 2) < np.finfo(np.float64).eps and abs(sy - 2) < np.finfo(np.float64).eps:
+        half = np.full(h, 1 << (RESIZE_BITS - 1)), np.full(w, 1 << (RESIZE_BITS - 1))
+        return (np.stack([2 * np.arange(h), 2 * np.arange(h) + 1, half[0], half[0]]),
+                np.stack([2 * np.arange(w), 2 * np.arange(w) + 1, half[1], half[1]]))
+    return axis_taps(h0, h, sy, False), axis_taps(w0, w, sx, True)
+
+
+def fixed_bilinear(pool3: torch.Tensor, r0, r1, b0, b1, c0, c1, a0, a1) -> torch.Tensor:
+    """cv2.resize's fixed-point bilinear over a flat (P, 3) uint8 pixel pool -> int32 (..., 3).
+
+    r0/r1: pixel offsets of the two source rows (base + row * width), c0/c1
+    the two source columns, a*/b* their weights; all int tensors that
+    broadcast to the output's pixel shape.
+    """
+
+    def px(r, c):
+        idx = (r + c).long()
+        return pool3.index_select(0, idx.reshape(-1)).view(*idx.shape, 3).int()
+
+    a0, a1 = a0.int()[..., None], a1.int()[..., None]
+    h0 = px(r0, c0) * a0 + px(r0, c1) * a1
+    h1 = px(r1, c0) * a0 + px(r1, c1) * a1
+    v = (((h0 >> 4) * b0.int()[..., None]) >> 16) + (((h1 >> 4) * b1.int()[..., None]) >> 16)
+    return ((v + 2) >> 2).clamp_(0, 255)
+
+
+def resize(img: torch.Tensor, dsize: Tuple[int, int]) -> torch.Tensor:
+    """cv2.resize(img, dsize, interpolation=INTER_LINEAR) of (N, h, w, 3) uint8 frames;
+    dsize is (width, height) as cv2 takes it. Returns (N, H, W, 3) uint8."""
+    n, h0, w0, _ = img.shape
+    w, h = dsize
+    rows, cols = (torch.from_numpy(t).to(img.device) for t in resize_taps((h0, w0), (h, w)))
+    base = (torch.arange(n, device=img.device) * (h0 * w0))[:, None, None]
+    r0, r1 = base + rows[0][:, None] * w0, base + rows[1][:, None] * w0
+    out = fixed_bilinear(img.reshape(-1, 3), r0, r1, rows[2][:, None], rows[3][:, None],
+                         cols[0], cols[1], cols[2], cols[3])
+    return out.to(torch.uint8)
+
+
+def invert_affine(m: np.ndarray) -> np.ndarray:
+    """cv2.invertAffineTransform of a (2, 3) matrix, in f64 as cv2 computes it."""
+    m = np.asarray(m, np.float64).reshape(6)
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22, a12, a21 = m[4] * d, m[0] * d, -m[1] * d, -m[3] * d
+    b1 = -a11 * m[2] - a12 * m[5]
+    b2 = -a21 * m[2] - a22 * m[5]
+    return np.array([[a11, a12, b1], [a21, a22, b2]])
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 fused multiply-add: exact product and one rounding, through f64."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def warp_core(pool3: torch.Tensor, base: torch.Tensor, stride: torch.Tensor, ext_h: torch.Tensor,
+              ext_w: torch.Tensor, minv: torch.Tensor, out_hw: Tuple[int, int],
+              flip_y: Optional[torch.Tensor] = None, flip_x: Optional[torch.Tensor] = None,
+              border: int = BORDER) -> torch.Tensor:
+    """cv2.warpAffine INTER_LINEAR / BORDER_CONSTANT of N images in a flat (P, 3) uint8 pool.
+
+    Image n starts at pixel `base[n]`, has rows `stride[n]` pixels apart and
+    extent (ext_h[n], ext_w[n]); `minv` (N, 2, 3) f32 is the inverse matrix.
+    flip_y/flip_x (N,) bool mirror the output (np.flipud/fliplr after the warp).
+    Returns (N, H, W, 3) uint8.
+    """
+    dev, (h, w) = pool3.device, out_hw
+    n = minv.shape[0]
+    xs = torch.arange(w, device=dev).expand(n, w)
+    ys = torch.arange(h, device=dev).expand(n, h)
+    if flip_x is not None:
+        xs = torch.where(flip_x[:, None], w - 1 - xs, xs)
+    if flip_y is not None:
+        ys = torch.where(flip_y[:, None], h - 1 - ys, ys)
+    xs, ys = xs.float()[:, None, :], ys.float()
+    m = [minv[:, i // 3, i % 3] for i in range(6)]
+    sx = _fma(xs, m[0][:, None, None], (ys * m[1][:, None] + m[2][:, None])[:, :, None])  # (N, H, W)
+    sy = _fma(xs, m[3][:, None, None], (ys * m[4][:, None] + m[5][:, None])[:, :, None])
+    fx, fy = sx.floor(), sy.floor()
+    a, b = (sx - fx)[..., None], (sy - fy)[..., None]
+    big = float(2 ** 24)
+    ix, iy = fx.clamp(-2, big).long(), fy.clamp(-2, big).long()
+    eh, ew = ext_h.long()[:, None, None], ext_w.long()[:, None, None]
+    rowstart, step = base.long()[:, None, None], stride.long()[:, None, None]
+
+    def tap(dy: int, dx: int) -> torch.Tensor:
+        yy, xx = iy + dy, ix + dx
+        ok = (yy >= 0) & (yy < eh) & (xx >= 0) & (xx < ew)
+        idx = rowstart + yy.clamp(min=0) * step + xx.clamp(min=0)
+        idx = torch.where(ok, idx, 0)
+        p = pool3.index_select(0, idx.reshape(-1)).view(*idx.shape, 3).float()
+        return torch.where(ok[..., None], p, float(border))
+
+    p00, p01, p10, p11 = tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
+    p = _fma(a, p01 - p00, p00)
+    q = _fma(a, p11 - p10, p10)
+    r = _fma(b, q - p, p)
+    return r.round_().clamp_(0, 255).to(torch.uint8)
+
+
+def warp_affine(img: torch.Tensor, m, dsize: Tuple[int, int], border: int = BORDER) -> torch.Tensor:
+    """cv2.warpAffine(img, m, dsize, borderValue=(border,) * 3) of (N, h, w, 3) uint8 frames;
+    m: one (2, 3) matrix or one per frame (N, 2, 3); dsize is (width, height)."""
+    n, h0, w0, _ = img.shape
+    m = np.broadcast_to(np.asarray(m, np.float64), (n, 2, 3))
+    minv = torch.from_numpy(np.stack([invert_affine(mi) for mi in m]).astype(np.float32)).to(img.device)
+    const = lambda v: torch.full((n,), v, device=img.device)  # noqa: E731
+    base = torch.arange(n, device=img.device) * (h0 * w0)
+    return warp_core(img.reshape(-1, 3), base, const(w0), const(h0), const(w0), minv, (dsize[1], dsize[0]),
+                     border=border)
+
+
+def bgr2hsv(img: torch.Tensor) -> torch.Tensor:
+    """cv2.cvtColor(img, COLOR_BGR2HSV) of uint8 (..., 3): H in [0, 180), S, V in [0, 255]."""
+    x = img.int()
+    b, g, r = x.unbind(-1)
+    v = torch.maximum(torch.maximum(b, g), r)
+    diff = v - torch.minimum(torch.minimum(b, g), r)
+    sdiv, hdiv = (torch.from_numpy(t).to(img.device) for t in (_SDIV, _HDIV))
+    s = (diff * sdiv[v.long()] + (1 << (_HSV_SHIFT - 1))) >> _HSV_SHIFT
+    hn = torch.where(v == r, g - b, torch.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (hn * hdiv[diff.long()] + (1 << (_HSV_SHIFT - 1))) >> _HSV_SHIFT
+    h = torch.where(h < 0, h + 180, h)
+    return torch.stack([h, s, v], -1).to(torch.uint8)
+
+
+def hsv2bgr(img: torch.Tensor) -> torch.Tensor:
+    """cv2.cvtColor(img, COLOR_HSV2BGR) of uint8 (..., 3), H in [0, 180): f32 as cv2's
+    vectorised path computes it (fused multiply-adds in two of the four terms), truncated."""
+    x = img.float()
+    h = x[..., 0] * np.float32(6 / 180)
+    s = x[..., 1] * np.float32(1 / 255)
+    v = x[..., 2] * np.float32(1 / 255)
+    sector = h.floor()
+    hf = h - sector
+    sector = sector.long()
+    bad = (sector < 0) | (sector >= 6)
+    sector, hf = torch.where(bad, 0, sector), torch.where(bad, 0.0, hf)
+    one = torch.ones_like(s)
+    tab = torch.stack([v, v * (1 - s), v * _fma(-s, hf, one), v * _fma(-s, 1 - hf, one)], -1)
+    out = tab.gather(-1, torch.from_numpy(_SECTOR).to(img.device)[sector])
+    return (out * np.float32(255)).floor_().clamp_(0, 255).to(torch.uint8)
+
+
+def lut(img: torch.Tensor, table: Union[torch.Tensor, np.ndarray]) -> torch.Tensor:
+    """cv2.LUT per channel: img (N, ..., 3) uint8; table (256,), (3, 256) or one
+    (3, 256) per image (N, 3, 256), uint8."""
+    t = torch.as_tensor(table, device=img.device).to(torch.uint8)
+    n = img.shape[0]
+    t = t.expand(3, 256) if t.dim() == 1 else t
+    t = t.expand(n, 3, 256) if t.dim() == 2 else t
+    off = (torch.arange(n, device=img.device) * 768).view(n, *([1] * (img.dim() - 1)))
+    idx = img.long() + off + torch.arange(3, device=img.device) * 256
+    return t.reshape(-1)[idx]
+
+
+def blend(a: torch.Tensor, b: torch.Tensor, r: Union[float, Sequence[float], torch.Tensor]) -> torch.Tensor:
+    """Mixup's (a * r + b * (1 - r)).astype(uint8), in f32 as numpy computes it from a
+    Python float; r is one ratio or one per image (N,)."""
+    r64 = torch.as_tensor(r, dtype=torch.float64)
+    shape = (-1,) + (1,) * (a.dim() - 1) if r64.dim() else ()
+    ra = r64.float().to(a.device).view(shape)
+    rb = (1 - r64).float().to(a.device).view(shape)
+    return (a.float() * ra + b.float() * rb).to(torch.uint8)

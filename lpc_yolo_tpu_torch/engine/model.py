@@ -1,11 +1,11 @@
 """The `YOLO` facade of the port (counterpart of `lpc_yolo_tpu/engine/model.py::YOLO`).
 
-`YOLO(cfg, device=...)` builds the model from one of the port's own YAMLs (or
-a path), with weights made from a seed or loaded from JAX variables through
-the weight bridge; `.predict(frames)` serves it and `.train(batches=...)`
-trains it on an iterable of host batches, `.val(data=...)` measures it on a
-dataset. Training from dataset paths, export and the other tasks wait for
-later slices.
+`YOLO(cfg, device=..., nc=...)` builds the model from one of the port's own
+YAMLs (or a path), with weights made from a seed or loaded from JAX variables
+through the weight bridge; `.predict(frames)` serves it, `.train(data=...)`
+trains it on a dataset (or `.train(batches=...)` on an iterable of host
+batches) and `.val(data=...)` measures it on a dataset. Checkpoints, export
+and the other tasks wait for later slices.
 """
 
 from __future__ import annotations
@@ -42,11 +42,12 @@ class YOLO:
 
     seed: fill the weights from this numpy seed through the bridge (the same
     numbers the JAX package gets from `random_variables` of its shape tree);
-    None keeps PyTorch's default init.
+    None keeps PyTorch's default init. nc: the number of classes, when it is
+    not the YAML's (the JAX facade's `nc=`); the names are then "0", "1", ...
     """
 
     def __init__(self, model: Union[str, Path] = "yolov10-SPD-Conv-Tiny-CBAM-LPC.yaml",
-                 device: Union[str, torch.device, None] = None, seed: Optional[int] = 0):
+                 device: Union[str, torch.device, None] = None, seed: Optional[int] = 0, nc: Optional[int] = None):
         if not str(model).endswith((".yaml", ".yml")):
             raise NotImplementedError("the torch port builds from model YAMLs only; checkpoints come later")
         self.device = resolve_device(device)
@@ -57,7 +58,7 @@ class YOLO:
             raise NotImplementedError("the torch port serves v10Detect models only so far")
         self.task = "v10"
         self.model_yaml: Dict[str, Any] = d
-        self.model = build_model(d, device=self.device)
+        self.model = build_model(d, device=self.device, nc=nc)
         if seed is not None:
             self.load_flax(random_variables(flax_shapes(self.model), seed))
         self.names = dict(COCO80) if self.model.nc == len(COCO80) else {i: str(i) for i in range(self.model.nc)}
@@ -90,12 +91,11 @@ class YOLO:
 
     def train(self, batches: Optional[Iterable[Mapping[str, Any]]] = None, data=None,
               device: Union[str, torch.device, None] = None, **kw) -> Dict[str, float]:
-        """Train on an iterable of host batches (see `engine/trainer.py` for their
-        format and the options); afterwards the facade holds the EMA weights.
-        It runs on the card unless device="cpu". Returns the last epoch's mean loss items."""
+        """Train on a dataset YAML (`data=`) or on an iterable of host batches (`batches=`);
+        see `engine/trainer.py` for the options. Afterwards the facade holds the EMA
+        weights. It runs on the card unless device="cpu". Returns the last validation's
+        results dict (data=) or the last epoch's mean loss items (batches=)."""
         from .trainer import Trainer
 
-        if batches is None or data is not None:
-            raise NotImplementedError("the torch port trains from `batches=` only; dataset paths come later")
-        self.trainer = Trainer(self, batches, device=device or self.device, **kw)
+        self.trainer = Trainer(self, batches, data=data, device=device or self.device, **kw)
         return self.trainer.train()

@@ -1,13 +1,17 @@
 """Serving predictor: frames -> device letterbox -> LPC graph -> NMS-free decode -> Results.
 
 Counterpart of `lpc_yolo_tpu/engine/predictor.py::Predictor` (:87-363), v10
-path. The JAX predictor letterboxes on the host with cv2; the card's machine
-has no cv2, so here every frame is letterboxed on the device by the
-letterbox kernel straight into its slot of the model's NHWC input batch
-(same-shape frames in one launch), in the serving dtype. The model is a
-BN-folded serving copy (`nn/fuse.py`), so its 3x3 s1 convs run through the
-conv3x3 kernel. The conf filter and `scale_boxes` back to each frame follow
-the JAX predictor (:322-327).
+path. The JAX predictor letterboxes on the host with cv2 to uint8 (:261) and
+folds /255 into the stem (:148-151); the card's machine has no cv2, so here
+every frame is letterboxed on the device by the letterbox kernel, as uint8,
+straight into its slot of the NHWC input batch (same-shape frames in one
+launch), then cast to the serving dtype. The model is a BN-folded serving
+copy (`nn/fuse.py`) with /255 folded into its stem, so its 3x3 s1 convs run
+through the conv3x3 kernel. The conf filter and `scale_boxes` back to each
+frame follow the JAX predictor (:322-327), and so does `Results.speed`
+(:358-362): "preprocess" is the host's time to pin, copy and enqueue the
+letterbox, "inference" runs until the detections are on the host,
+"postprocess" is the conf filter and unscaling, each per frame.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..nn.fuse import fuse_conv_bn
+from ..nn.fuse import fold_preprocess, fuse_conv_bn
 from ..ops.boxes import scale_boxes
 from ..ops.letterbox import letterbox
 from ..utils import resolve_device
@@ -73,9 +77,12 @@ def load_source(source) -> List[Tuple[str, np.ndarray]]:
 
 def serving_model(model, device: torch.device, dtype: torch.dtype):
     """The serving copy of `model`: BN folded once in f32, then every tensor in `dtype`,
-    so its 3x3 s1 convs take the conv3x3 kernel; the caller's model is left as it was."""
+    so its 3x3 s1 convs take the conv3x3 kernel; it takes the raw 0..255 frame (/255
+    folded into the stem, as the JAX predictor and validator fold it). The caller's
+    model is left as it was."""
     serving = copy.deepcopy(model).to(device).eval()
     fuse_conv_bn(serving, dtype)
+    fold_preprocess(serving, dtype)
     return serving.to(dtype)
 
 
@@ -112,8 +119,9 @@ class Predictor:
         self.model = serving_model(model, self.device, self.dtype)
 
     def preprocess(self, frames: List[np.ndarray]) -> torch.Tensor:
-        """Letterbox frames into a (n, 3, S, S) channels_last batch on the device."""
-        return letterbox_batch(frames, self.imgsz, self.device, self.dtype).permute(0, 3, 1, 2)
+        """Letterbox frames to uint8 (the rounded frame cv2 gives the JAX predictor), as a
+        (n, 3, S, S) channels_last batch on the device in the model's dtype, 0..255."""
+        return letterbox_batch(frames, self.imgsz, self.device, torch.uint8).permute(0, 3, 1, 2).to(self.dtype)
 
     @torch.inference_mode()
     def infer(self, frames: List[np.ndarray]) -> torch.Tensor:
@@ -136,9 +144,13 @@ class Predictor:
             chunk = frames[i: i + self.batch]
             n = len(chunk)
             t0 = time.perf_counter()
-            det = self.infer([im for _, im in chunk]).cpu().numpy()
+            x = self.preprocess([im for _, im in chunk])
             t1 = time.perf_counter()
+            with torch.inference_mode():
+                det = self.model.predict(x, self.max_det).cpu().numpy()
+            t2 = time.perf_counter()
             for j, (path, im0) in enumerate(chunk):
                 boxes = self.postprocess(det[j], im0)
-                speed = {"inference": (t1 - t0) * 1e3 / n, "postprocess": (time.perf_counter() - t1) * 1e3 / n}
+                speed = {"preprocess": (t1 - t0) * 1e3 / n, "inference": (t2 - t1) * 1e3 / n,
+                         "postprocess": (time.perf_counter() - t2) * 1e3 / n}
                 yield Results(im0, path, self.names, boxes=boxes, speed=speed)

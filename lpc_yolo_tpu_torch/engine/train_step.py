@@ -1,4 +1,4 @@
-"""The training step: loss, gradients, SGD with Nesterov momentum, EMA, BN statistics.
+"""The training step: loss, gradients, SGD with Nesterov momentum or AdamW, EMA, BN statistics.
 
 Counterpart of `lpc_yolo_tpu/engine/train_step.py` (config and schedules
 :43-74, optimizer :86-105, state :108-123, the step :126-311; reference
@@ -10,7 +10,11 @@ trace and the EMA copy. The optimizer is written out over `torch._foreach_*`
 because its order differs from `torch.optim.SGD` + `clip_grad_norm_`: clip by
 the global norm (`g * clip / norm` only when `norm >= clip`), then add
 `weight_decay * p` to conv kernels only, after the clip, then the Nesterov
-trace with the warmed-up momentum, then `-lr`. A parameter without a gradient
+trace with the warmed-up momentum, then `-lr`. AdamW follows `optax.adamw`
+in the same chain (:86-92): after the clip, Adam's moments in f32 with b1 =
+momentum, b2 = 0.999, eps = 1e-8 and the bias correction counted from 1,
+then `weight_decay * p` added to the conv kernels' update, then `-lr` (so
+the decay is scaled by the learning rate). A parameter without a gradient
 (the layer nothing reads) counts as a zero gradient, so its kernels still
 decay. Both schedules are read at the optimizer's own count, which starts at
 0 (the first update moves no parameter) and does not advance on a skipped step.
@@ -47,7 +51,7 @@ class OptConfig:
     warmup_momentum: float = 0.8
     total_steps: int = 100_000
     grad_clip: float = 10.0
-    optimizer: str = "sgd"  # 'adamw' is not ported
+    optimizer: str = "sgd"  # 'sgd' | 'adamw'
     ema_decay: float = 0.9999
     ema_tau: float = 2000.0
 
@@ -75,8 +79,9 @@ def momentum_at(step: int, cfg: OptConfig) -> float:
 @dataclasses.dataclass
 class TrainState:
     """Names for the training state. `params` and `batch_stats` are the model's
-    own tensors (live, updated in place); `momentum` and `ema_params` are
-    keyed like `params` (state_dict names)."""
+    own tensors (live, updated in place); `momentum` (the SGD trace, or
+    AdamW's first moment), `nu` (AdamW's second moment; empty for SGD) and
+    `ema_params` are keyed like `params` (state_dict names)."""
 
     step: int  # every call of the step, skipped ones included
     opt_step: int  # updates applied: the count both schedules are read at
@@ -85,12 +90,13 @@ class TrainState:
     momentum: Dict[str, torch.Tensor]
     ema_params: Dict[str, torch.Tensor]
     ema_updates: int
+    nu: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def init_train_state(model: torch.nn.Module, cfg: OptConfig,
                      device: Union[str, torch.device, None] = None) -> TrainState:
     """Move `model` to the device (CUDA unless device="cpu") in train mode and
-    name its state; momentum starts at zero, the EMA at the parameters."""
+    name its state; the moments start at zero, the EMA at the parameters."""
     device = resolve_device(device)
     model.to(device).train()
     if device.type == "cuda":
@@ -102,6 +108,7 @@ def init_train_state(model: torch.nn.Module, cfg: OptConfig,
         momentum={k: torch.zeros_like(p) for k, p in params.items()},
         ema_params={k: p.detach().clone() for k, p in params.items()},
         ema_updates=0,
+        nu={k: torch.zeros_like(p) for k, p in params.items()} if cfg.optimizer == "adamw" else {},
     )
 
 
@@ -121,17 +128,32 @@ def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch
 def apply_update(state: TrainState, grads: List[torch.Tensor], gnorm: torch.Tensor, cfg: OptConfig) -> None:
     """One optimizer + EMA update in place, from gradients in `state.params` order
     (overwritten) and their global norm: the optax chain of the JAX package
-    (`train_step.py:98-105`) and its ModelEMA (:288-293)."""
+    (`train_step.py:86-105`) and its ModelEMA (:288-293)."""
     names = list(state.params)
     params = [state.params[k] for k in names]
-    mu, lr = momentum_at(state.opt_step, cfg), lr_at(state.opt_step, cfg)
+    lr = lr_at(state.opt_step, cfg)
     torch._foreach_mul_(grads, cfg.grad_clip / torch.clamp(gnorm, min=cfg.grad_clip))  # clip by the global norm
-    kernels = [(g, p) for g, p in zip(grads, params) if p.dim() == 4]
-    torch._foreach_add_([g for g, _ in kernels], [p for _, p in kernels], alpha=cfg.weight_decay)
+    kernels = [i for i, p in enumerate(params) if p.dim() == 4]
     trace = [state.momentum[k] for k in names]
-    torch._foreach_mul_(trace, mu)
-    torch._foreach_add_(trace, grads)  # t = g + mu * t
-    torch._foreach_add_(grads, trace, alpha=mu)  # Nesterov: u = g + mu * t
+    if cfg.optimizer == "adamw":
+        b1, b2, n = cfg.momentum, 0.999, state.opt_step + 1
+        nu = [state.nu[k] for k in names]
+        torch._foreach_mul_(trace, b1)
+        torch._foreach_add_(trace, grads, alpha=1 - b1)  # m = b1 m + (1 - b1) g
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)  # v = b2 v + (1 - b2) g^2
+        denom = torch._foreach_div(nu, 1 - b2 ** n)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, 1e-8)
+        grads = torch._foreach_div(trace, 1 - b1 ** n)
+        torch._foreach_div_(grads, denom)  # m_hat / (sqrt(v_hat) + eps)
+        torch._foreach_add_([grads[i] for i in kernels], [params[i] for i in kernels], alpha=cfg.weight_decay)
+    else:
+        mu = momentum_at(state.opt_step, cfg)
+        torch._foreach_add_([grads[i] for i in kernels], [params[i] for i in kernels], alpha=cfg.weight_decay)
+        torch._foreach_mul_(trace, mu)
+        torch._foreach_add_(trace, grads)  # t = g + mu * t
+        torch._foreach_add_(grads, trace, alpha=mu)  # Nesterov: u = g + mu * t
     torch._foreach_add_(params, grads, alpha=-lr)
     state.opt_step += 1
 
@@ -182,8 +204,8 @@ def make_train_step(model: torch.nn.Module, cfg: OptConfig, loss_kind: str = "v1
     """
     if loss_kind != "v10":
         raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10' is")
-    if cfg.optimizer != "sgd":
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not ported; use 'sgd'")
+    if cfg.optimizer not in ("sgd", "adamw"):
+        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not ported; use 'sgd' or 'adamw'")
     loss_fn = make_loss_fn(model, amp)
     saved_stats: List[torch.Tensor] = []  # where a skipped step finds the BN statistics it must restore
 

@@ -8,8 +8,9 @@ branches wait.
 Per batch, on the device: the frames of each shape are copied from pinned
 memory and letterboxed into the batch by one launch of the letterbox kernel
 with the validator's geometry (`scaleup=False`), as uint8, so the model sees
-the rounded 0..255 frame the JAX validator gets from cv2; then /255 in the
-validator's dtype, the BN-folded serving copy of the model (its 3x3 s1 convs
+the rounded 0..255 frame the JAX validator gets from cv2; then a cast to the
+validator's dtype and the BN-folded serving copy of the model, /255 folded
+into its stem as the JAX validator folds it (:93-96; its 3x3 s1 convs
 through the conv3x3 kernel) and the one-to-one top-k decode, `(B, 300, 6)` in
 letterbox pixels, copied to the host once. On the host, as the JAX package
 does: rows above `conf`, matching at 10 IoUs in letterbox space (IoU does not
@@ -80,16 +81,17 @@ class Validator:
     @torch.inference_mode()
     def predict(self, model, x: torch.Tensor) -> np.ndarray:
         """(n, max_det, 6) detections in letterbox pixels, f32, on the host."""
-        x = x.permute(0, 3, 1, 2).to(self.dtype).div_(255)
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
         return model.predict(x, self.max_det).cpu().numpy()
 
-    def __call__(self, data) -> Dict[str, float]:
-        """Validate the facade's model on the `val` split of `data` (a dataset YAML or dict)."""
+    def __call__(self, data, model: Optional[torch.nn.Module] = None) -> Dict[str, float]:
+        """Validate `model` (the facade's model unless given: the trainer passes its EMA copy)
+        on the `val` split of `data` (a dataset YAML or dict)."""
         info = check_det_dataset(data)
         dataset = YOLODataset(info["val"], cache_images=self.cache_images)
         loader = DataLoader(dataset, ValTransforms(self.imgsz, self.max_gt), batch_size=self.batch,
                             workers=self.workers)
-        model = serving_model(self.yolo.model, self.device, self.dtype)
+        model = serving_model(self.yolo.model if model is None else model, self.device, self.dtype)
 
         stats: Dict[str, List[np.ndarray]] = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
         cm = ConfusionMatrix(nc=info["nc"], conf=self.conf)

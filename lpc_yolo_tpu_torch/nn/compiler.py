@@ -232,13 +232,17 @@ def _infer_strides(specs, save, nc, ch: int = 3, probe: int = 256) -> Tuple[floa
     return tuple(float(probe / cm.shape[2]) for _, cm in feats["one2many"])
 
 
-def build_model(cfg: Union[str, Path, Dict], device: Union[str, torch.device, None] = None) -> DetectionModel:
-    """Build a DetectionModel (f32, eval mode) from a YAML path or dict, strides resolved.
+def build_model(cfg: Union[str, Path, Dict], device: Union[str, torch.device, None] = None,
+                nc: Optional[int] = None) -> DetectionModel:
+    """Build a DetectionModel (f32, eval mode) from a YAML path or dict, strides resolved;
+    `nc` overrides the YAML's class count.
 
     It lands on CUDA unless the caller passes device="cpu" (see `resolve_device`).
     """
     device = resolve_device(device)
     d = yaml_model_load(cfg) if not isinstance(cfg, dict) else dict(cfg)
+    if nc is not None:
+        d["nc"] = nc
     specs, save = parse_model(d)
     strides = _infer_strides(specs, save, d["nc"])
     with torch.device(device):

@@ -1,4 +1,5 @@
-"""Conv+BN folding for serving (counterpart of `lpc_yolo_tpu/nn/fuse.py::fuse_conv_bn`).
+"""Conv+BN folding for serving (counterpart of `lpc_yolo_tpu/nn/fuse.py`:
+`fuse_conv_bn` and `fold_preprocess`).
 
 The JAX package folds as a variables transform; here each ConvBN keeps its
 conv/bn parameters untouched (the state_dict does not change) and caches its
@@ -21,4 +22,18 @@ def fuse_conv_bn(model: nn.Module, dtype: torch.dtype = torch.float32) -> nn.Mod
     for m in model.modules():
         if isinstance(m, ConvBN):
             m.fold(dtype)
+    return model
+
+
+def fold_preprocess(model: nn.Module, dtype: torch.dtype = torch.float32, scale: float = 1.0 / 255.0) -> nn.Module:
+    """Fold the input normalisation x * scale into the first conv (JAX :68): conv(x * s, W)
+    == conv(x, W * s), so the model takes the raw 0..255 frame. In place, on a folded model.
+
+    Unlike the JAX package, whose feed is BGR, the channels are not permuted: the
+    letterbox kernel already writes RGB.
+    """
+    stem = model.model[0]
+    if not isinstance(stem, ConvBN):
+        raise ValueError(f"fold_preprocess needs a Conv stem, not {type(stem).__name__}")
+    stem.fold(dtype, in_scale=scale)
     return model

@@ -83,12 +83,15 @@ class ConvBN(nn.Module):
         return super().train(mode)
 
     @torch.no_grad()
-    def fold(self, dtype: torch.dtype) -> None:
-        """Fold BN into the conv (W*f, b - mean*f), computed in f32, stored in `dtype`."""
+    def fold(self, dtype: torch.dtype, in_scale: float = 1.0) -> None:
+        """Fold BN into the conv (W*f, b - mean*f), computed in f32, stored in `dtype`;
+        `in_scale` also folds a scale of the input (x * in_scale) into W."""
         if self.training:
             raise RuntimeError("ConvBN.fold() is for eval mode: training needs the live BatchNorm")
         f = self.bn.weight.float() * torch.rsqrt(self.bn.running_var.float() + BN_EPS)
         w = self.conv.weight.float() * f[:, None, None, None]
+        if in_scale != 1.0:
+            w = w * in_scale
         b = self.bn.bias.float() - self.bn.running_mean.float() * f
         if self.kernel_path:
             self.folded = (w.permute(2, 3, 1, 0).contiguous().to(dtype), b.contiguous())

@@ -13,8 +13,9 @@ arrays, and nothing here imports jax.
   holds.
 
 `train_state_from_flax` carries a JAX `TrainState`'s numpy trees (params,
-batch_stats, the SGD momentum trace, ema_params, the counters) into the
-port's `TrainState`; `train_state_to_flax` is its inverse for the trees.
+batch_stats, the SGD momentum trace or AdamW's two moments, ema_params, the
+counters) into the port's `TrainState`; `train_state_to_flax` is its inverse
+for the trees.
 
 `random_variables` fills a shape tree from a numpy seed, so the JAX package
 (through `jax.eval_shape`) and the port (through `flax_shapes`) get the same
@@ -127,19 +128,25 @@ def state_dict_to_flax(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str,
 
 
 def train_state_from_flax(model: nn.Module, cfg, params, batch_stats, momentum, ema_params, step: int = 0,
-                          ema_updates: int = 0, opt_step: Optional[int] = None, device=None):
+                          ema_updates: int = 0, opt_step: Optional[int] = None, device=None, nu=None):
     """A JAX TrainState's numpy trees -> the port's TrainState on `model`.
 
-    `momentum` is the SGD trace inside the optax state (a tree shaped like
-    `params`). `opt_step` is the optimizer's own count, which trails `step` by
-    the skipped steps; it defaults to `step`.
+    `momentum` is the SGD trace inside the optax state, or for AdamW the
+    first moment `mu` of its ScaleByAdamState; `nu` is AdamW's second moment
+    and is required for an AdamW `cfg` (trees shaped like `params`).
+    `opt_step` is the optimizer's own count, which trails `step` by the
+    skipped steps; it defaults to `step`.
     """
     from ..engine.train_step import init_train_state
 
+    if (cfg.optimizer == "adamw") != (nu is not None):
+        raise ValueError(f"optimizer {cfg.optimizer!r}: pass nu (AdamW's second moment) for AdamW, and only then")
     load_flax(model, {"params": params, "batch_stats": batch_stats})
     state = init_train_state(model, cfg, device)
     with torch.no_grad():
-        for dst, tree in ((state.momentum, momentum), (state.ema_params, ema_params)):
+        for dst, tree in ((state.momentum, momentum), (state.ema_params, ema_params), (state.nu, nu)):
+            if tree is None:
+                continue
             for k, v in flax_to_state_dict({"params": tree}).items():
                 dst[k].copy_(v)
     state.step, state.ema_updates = int(step), int(round(float(ema_updates)))
@@ -148,11 +155,15 @@ def train_state_from_flax(model: nn.Module, cfg, params, batch_stats, momentum, 
 
 
 def train_state_to_flax(state) -> Dict[str, Any]:
-    """The port's TrainState -> numpy trees {'params', 'batch_stats', 'momentum', 'ema_params'}."""
+    """The port's TrainState -> numpy trees {'params', 'batch_stats', 'momentum', 'ema_params'},
+    and 'nu' when the state is AdamW's."""
     live = state_dict_to_flax({**state.params, **state.batch_stats})
-    return {"params": live["params"], "batch_stats": live["batch_stats"],
-            "momentum": state_dict_to_flax(state.momentum)["params"],
-            "ema_params": state_dict_to_flax(state.ema_params)["params"]}
+    out = {"params": live["params"], "batch_stats": live["batch_stats"],
+           "momentum": state_dict_to_flax(state.momentum)["params"],
+           "ema_params": state_dict_to_flax(state.ema_params)["params"]}
+    if state.nu:
+        out["nu"] = state_dict_to_flax(state.nu)["params"]
+    return out
 
 
 def random_variables(shapes: Dict[str, Any], seed: int = 0) -> Dict[str, Any]:

@@ -201,8 +201,9 @@ def test_val_on_the_card_matches_the_cpu(tmp_path):
     validation on the CPU (near-tied scores of the random weights may swap places)."""
     import json
 
-    from chip_smoke import write_png, write_val_labels
+    from chip_smoke import write_val_labels
     from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.data.synthetic import write_png
     from lpc_yolo_tpu_torch.engine.predictor import serving_model
     from lpc_yolo_tpu_torch.engine.validator import Validator
     from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
@@ -233,3 +234,21 @@ def test_val_on_the_card_matches_the_cpu(tmp_path):
     ref = cpu.val(data=str(data), imgsz=imgsz, batch=4, cache_images="disk")
     assert got.keys() == ref.keys() and ref["metrics/mAP50(B)"] > 0.3
     assert max(abs(got[k] - ref[k]) for k in ref) <= 0.02, (got, ref)
+
+
+def test_training_render_on_the_card_matches_the_cpu(tmp_path):
+    """The training render (`data/augment.py::render`: cv2's fixed-point resize, the warp and HSV in f32
+    with fused multiply-adds emulated in f64) on the card against the CPU, on plans of a mosaic batch with
+    mixups and of a letterboxed batch at 640: within 1 LSB (bit-exact expected: integer and IEEE f64/f32
+    operations only)."""
+    from lpc_yolo_tpu_torch.data import (DataLoader, TrainTransforms, YOLODataset, check_det_dataset,
+                                         make_synthetic_dataset, render)
+
+    info = check_det_dataset(make_synthetic_dataset(tmp_path, n_train=8, n_val=1, nc=3, max_boxes=4, seed=5,
+                                                    shapes=((720, 1280), (1080, 810), (360, 480))))
+    ds = YOLODataset(info["train"], cache_images="disk")
+    for tt in (TrainTransforms(640, {"mixup": 0.5}), TrainTransforms(640, {"mosaic": 0.0, "degrees": 5.0})):
+        batch = next(iter(DataLoader(ds, tt.plan, batch_size=4, workers=2, shuffle=True, infinite=True)))
+        card = render(batch["plan"], batch["sources"], torch.device("cuda")).cpu()
+        cpu = render(batch["plan"], batch["sources"], torch.device("cpu"))
+        assert card.shape == (4, 640, 640, 3) and (card.int() - cpu.int()).abs().max().item() <= 1

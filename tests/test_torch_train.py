@@ -38,6 +38,7 @@ from lpc_yolo_tpu.engine import train_step as jts
 from lpc_yolo_tpu.nn import build_model as jax_build
 
 from lpc_yolo_tpu_torch import YOLO
+from lpc_yolo_tpu_torch.data import TrainTransforms, make_synthetic_dataset
 from lpc_yolo_tpu_torch.engine import train_step as tts
 from lpc_yolo_tpu_torch.engine.trainer import Trainer, pack_img
 from lpc_yolo_tpu_torch.nn import build_model
@@ -173,13 +174,11 @@ def test_schedules_match_jax(step):
     np.testing.assert_allclose(tts.linear_lf(step, tcfg), float(jts.linear_lf(jnp.asarray(step), jcfg)), rtol=1e-6)
 
 
-def test_optimizer_and_ema_match_optax(world):
-    """The update alone, on the same seeded gradients (no forward, so none of its noise): three updates of
-    the optax chain + the JAX step's EMA formula against `apply_update`; params, momentum and EMA within 2e-6
-    of each leaf's largest value. The first gradients are large (the clip acts), the last small (it does not)."""
+def optax_update(variables, jcfg):
+    """The JAX package's optax chain for `jcfg` + its EMA formula, compiled as one update on given
+    gradients, and the starting (params, opt_state, ema, count)."""
     import optax
 
-    variables, jcfg, tcfg = world["variables"], jts.OptConfig(**CFG), tts.OptConfig(**CFG)
     tx = jts.make_optimizer(variables["params"], jcfg)
 
     def update(grads, opt_state, params, ema, n):
@@ -191,6 +190,15 @@ def test_optimizer_and_ema_match_optax(world):
     params, opt_state = variables["params"], tx.init(variables["params"])
     ema, n = variables["params"], jnp.zeros((), jnp.float32)
     update = jax.jit(update).lower(params, opt_state, params, ema, n).compile(compiler_options=XLA_OPTS)
+    return update, params, opt_state, ema, n
+
+
+def test_optimizer_and_ema_match_optax(world):
+    """The update alone, on the same seeded gradients (no forward, so none of its noise): three updates of
+    the optax chain + the JAX step's EMA formula against `apply_update`; params, momentum and EMA within 2e-6
+    of each leaf's largest value. The first gradients are large (the clip acts), the last small (it does not)."""
+    variables, jcfg, tcfg = world["variables"], jts.OptConfig(**CFG), tts.OptConfig(**CFG)
+    update, params, opt_state, ema, n = optax_update(variables, jcfg)
     tstate = tts.init_train_state(port_model(world), tcfg, device="cpu")
     rng = np.random.default_rng(5)
     for scale in (3.0, 1.0, 1e-3):
@@ -215,7 +223,7 @@ def test_trainer_hands_back_ema_and_bn_stats(world, tmp_path):
     yolo = YOLO(path, device="cpu", seed=0)
     before = {k: v.clone() for k, v in yolo.model.state_dict().items()}
     batches = [make_batch(10 + i) for i in range(4)]
-    # nc 4 and a short run: the reference's "auto" rule would pick AdamW, which is not ported
+    # SGD as asked: for nc 4 and a short run the "auto" rule would pick AdamW (test_auto_rule_matches_jax)
     out = yolo.train(batches=batches, epochs=1, optimizer="sgd", device="cpu")
     trainer = yolo.trainer
     assert isinstance(trainer, Trainer) and set(out) == set(
@@ -241,12 +249,16 @@ def test_entry_points_refuse_what_is_not_ported(world):
     with pytest.raises(NotImplementedError):
         tts.make_train_step(tm, tts.OptConfig(), loss_kind="v8")
     with pytest.raises(NotImplementedError):
-        tts.make_train_step(tm, tts.OptConfig(optimizer="adamw"))
+        tts.make_train_step(tm, tts.OptConfig(optimizer="lion"))
+    # the transforms the data path does not carry: mosaic9, copy_paste, warpPerspective
+    for hyp in ({"mosaic9": 0.5}, {"copy_paste": 0.3}, {"perspective": 0.001}):
+        with pytest.raises(NotImplementedError):
+            TrainTransforms(S, hyp)
+    # the trainer's options that wait for the checkpoint slice
     yolo = YOLO(device="cpu", seed=None)
-    with pytest.raises(NotImplementedError):
-        yolo.train(data="coco8.yaml")
-    with pytest.raises(NotImplementedError):
-        Trainer(yolo, [make_batch(0)], epochs=1, optimizer="adamw", device="cpu")
+    for kw in ({"resume": True}, {"save": True}, {"save_period": 5}, {"cache_augmented": True}, {"batch": -1}):
+        with pytest.raises(NotImplementedError):
+            Trainer(yolo, data="data.yaml", epochs=1, device="cpu", **kw)
     # a folded serving copy cannot be trained as it is: train mode drops the fold, fold() refuses train mode
     from lpc_yolo_tpu_torch.nn.modules import ConvBN
 
@@ -257,6 +269,170 @@ def test_entry_points_refuse_what_is_not_ported(world):
     assert conv.folded is None
     with pytest.raises(RuntimeError):
         conv.fold(torch.float32)
+
+
+def test_adamw_matches_optax(world):
+    """AdamW alone, on the same seeded gradients: three updates of the JAX package's chain (clip by the
+    global norm, `optax.adamw` with b1 = 0.9, b2 = 0.999, eps = 1e-8 and the kernel-only decay mask) + its
+    EMA against `apply_update`; params, both moments and the EMA within 2e-6 of each leaf's largest value.
+    The first update moves no parameter (lr 0 at count 0); the bias correction counts from 1."""
+    variables = world["variables"]
+    jcfg = jts.OptConfig(**CFG, optimizer="adamw", momentum=0.9)
+    tcfg = tts.OptConfig(**CFG, optimizer="adamw", momentum=0.9)
+    update, params, opt_state, ema, n = optax_update(variables, jcfg)
+    tstate = tts.init_train_state(port_model(world), tcfg, device="cpu")
+    assert tstate.nu.keys() == tstate.params.keys()
+    rng = np.random.default_rng(6)
+    for scale in (3.0, 1.0, 1e-3):
+        grads = jax.tree.map(lambda p: (scale * rng.standard_normal(p.shape)).astype(np.float32), params)
+        opt_state, params, ema, n = update(grads, opt_state, params, ema, n)
+        named = flax_to_state_dict({"params": grads})
+        tgrads = [named[k].clone() for k in tstate.params]
+        tts.apply_update(tstate, tgrads, tts.global_norm(tgrads), tcfg)
+        adam = opt_state[1][0]
+        assert_tree_close(tstate.params, np_tree(params), 2e-6, f"scale {scale} param")
+        assert_tree_close(tstate.momentum, np_tree(adam.mu), 2e-6, f"scale {scale} first moment")
+        assert_tree_close(tstate.nu, np_tree(adam.nu), 2e-6, f"scale {scale} second moment")
+        assert_tree_close(tstate.ema_params, np_tree(ema), 2e-6, f"scale {scale} EMA")
+    assert (tstate.opt_step, tstate.ema_updates, int(opt_state[1][0].count)) == (3, 3, 3)
+    start = flax_to_state_dict({"params": variables["params"]})
+    assert not torch.equal(tstate.params["model.0.conv.weight"], start["model.0.conv.weight"])
+
+
+def test_adamw_state_bridge_round_trips(world):
+    """An optax AdamW state after two updates carried into the port (mu as `momentum`, nu) and back: the
+    trees come back bit for bit; the third update from the bridged state matches optax's within 2e-6 of each
+    leaf's largest value, as `test_adamw_matches_optax` holds it. Without nu an AdamW state is refused."""
+    variables = world["variables"]
+    jcfg = jts.OptConfig(**CFG, optimizer="adamw", momentum=0.9)
+    tcfg = tts.OptConfig(**CFG, optimizer="adamw", momentum=0.9)
+    update, params, opt_state, ema, n = optax_update(variables, jcfg)
+    rng = np.random.default_rng(7)
+    draws = [jax.tree.map(lambda p: (s * rng.standard_normal(p.shape)).astype(np.float32), params)
+             for s in (3.0, 1.0, 0.5)]
+    for grads in draws[:2]:
+        opt_state, params, ema, n = update(grads, opt_state, params, ema, n)
+    adam = opt_state[1][0]
+    trees = {"params": np_tree(params), "batch_stats": np_tree(variables["batch_stats"]),
+             "momentum": np_tree(adam.mu), "ema_params": np_tree(ema), "nu": np_tree(adam.nu)}
+    assert float(np.abs(np.concatenate([v.ravel() for v in jax.tree_util.tree_leaves(trees["nu"])])).max()) > 0
+    tstate = train_state_from_flax(build_model(world["yaml"], device="cpu"), tcfg, trees["params"],
+                                   trees["batch_stats"], trees["momentum"], trees["ema_params"], step=2,
+                                   ema_updates=float(n), device="cpu", nu=trees["nu"])
+    back = train_state_to_flax(tstate)
+    assert back.keys() == trees.keys()
+    for name, tree in trees.items():
+        for (pa, a), (pb, b) in zip(jax.tree_util.tree_leaves_with_path(back[name]),
+                                    jax.tree_util.tree_leaves_with_path(tree)):
+            assert pa == pb
+            np.testing.assert_array_equal(a, b)
+    opt_state, params, ema, n = update(draws[2], opt_state, params, ema, n)
+    named = flax_to_state_dict({"params": draws[2]})
+    tgrads = [named[k].clone() for k in tstate.params]
+    tts.apply_update(tstate, tgrads, tts.global_norm(tgrads), tcfg)
+    adam = opt_state[1][0]
+    assert_tree_close(tstate.params, np_tree(params), 2e-6, "bridged AdamW param")
+    assert_tree_close(tstate.momentum, np_tree(adam.mu), 2e-6, "bridged AdamW first moment")
+    assert_tree_close(tstate.nu, np_tree(adam.nu), 2e-6, "bridged AdamW second moment")
+    assert_tree_close(tstate.ema_params, np_tree(ema), 2e-6, "bridged AdamW EMA")
+    with pytest.raises(ValueError, match="nu"):
+        train_state_from_flax(build_model(world["yaml"], device="cpu"), tcfg, trees["params"], trees["batch_stats"],
+                              trees["momentum"], trees["ema_params"], device="cpu")
+
+
+def narrow_yaml_file(world, tmp_path) -> Path:
+    path = tmp_path / "lpc-narrow.yaml"
+    path.write_text(yaml.safe_dump(world["yaml"]))
+    return path
+
+
+class _Captured(Exception):
+    """Carries the OptConfig a trainer reached, to stop it before it trains."""
+
+
+@pytest.mark.parametrize("n_images, batch, epochs, nc", [(6, 4, 2, 3), (4, 4, 10_001, 3), (6, 4, 2, 25)],
+                         ids=["short-few-classes", "long", "many-classes"])
+def test_auto_rule_matches_jax(world, tmp_path, monkeypatch, n_images, batch, epochs, nc):
+    """optimizer="auto" on a dataset: the JAX trainer and the port's reach the same OptConfig (AdamW with
+    lr0 0.002 and b1 0.9 for <= 10000 steps on <= 20 classes, else SGD), each stopped where it builds its
+    state."""
+    import lpc_yolo_tpu.engine.model as jax_model
+    import lpc_yolo_tpu.engine.trainer as jax_trainer
+
+    import lpc_yolo_tpu_torch.engine.trainer as port_trainer
+
+    def capture(*args):
+        raise _Captured(next(a for a in args if type(a).__name__ == "OptConfig"))
+
+    path = narrow_yaml_file(world, tmp_path)
+    data = make_synthetic_dataset(tmp_path / "ds", n_train=n_images, n_val=1, imgsz=32, nc=nc, max_boxes=2)
+    monkeypatch.setattr(jax_model, "_jit_init", lambda model: None)
+    monkeypatch.setattr(jax_trainer, "init_train_state", capture)
+    monkeypatch.setattr(port_trainer, "init_train_state", capture)
+    jy = jax_model.YOLO(str(path), nc=nc)
+    with pytest.raises(_Captured) as ref:
+        jax_trainer.Trainer(jy, data=data, epochs=epochs, batch=batch, workers=1,
+                            save_dir=str(tmp_path / "run")).train()
+    yolo = YOLO(path, device="cpu", seed=None, nc=nc)
+    with pytest.raises(_Captured) as got:
+        Trainer(yolo, data=data, epochs=epochs, batch=batch, workers=1, device="cpu").train()
+    jcfg, tcfg = ref.value.args[0], got.value.args[0]
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.optimizer == ("adamw" if (n_images, epochs, nc) == (6, 2, 3) else "sgd")
+
+
+def test_seeded_nc3_yolo_equals_jax_facade(world, tmp_path, monkeypatch):
+    """YOLO(cfg, nc=3, seed=0) builds the weights of the JAX facade's YOLO(cfg, nc=3) filled through
+    `random_variables` from seed 0, with the same class names."""
+    import lpc_yolo_tpu.engine.model as jax_model
+
+    def seeded_init(model):
+        shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, S, S, 3)), training=True))
+        return random_variables(shapes, seed=0)
+
+    path = narrow_yaml_file(world, tmp_path)
+    monkeypatch.setattr(jax_model, "_jit_init", seeded_init)
+    jy = jax_model.YOLO(str(path), nc=3)
+    yolo = YOLO(path, device="cpu", seed=0, nc=3)
+    assert yolo.model.nc == jy.model.nc == 3 and yolo.names == jy.names == {0: "0", 1: "1", 2: "2"}
+    ref = load_flax(build_model(world["yaml"], device="cpu", nc=3), jy.variables).state_dict()
+    got = yolo.model.state_dict()
+    assert got.keys() == ref.keys() and all(torch.equal(got[k], ref[k]) for k in got)
+
+
+def test_train_from_dataset_on_cpu(world, tmp_path, monkeypatch):
+    """YOLO(cfg, nc=3).train(data=...) at imgsz 64, batch 4, 2 epochs, close_mosaic=1: AdamW by the "auto"
+    rule, one epoch of mosaics (128x128 canvases) then one letterboxed (64x64), no step skipped, a results
+    dict with the validator's keys that equals validating the handed-back facade (EMA weights, live BN
+    statistics); a class-count mismatch raises."""
+    import lpc_yolo_tpu_torch.engine.trainer as port_trainer
+
+    canvases = []
+    real_render = port_trainer.render
+
+    def recording_render(plans, sources, device):
+        canvases.append([p.canvas.hw for p in plans])
+        return real_render(plans, sources, device)
+
+    monkeypatch.setattr(port_trainer, "render", recording_render)
+    path = narrow_yaml_file(world, tmp_path)
+    data = make_synthetic_dataset(tmp_path / "ds", n_train=6, n_val=3, nc=3, max_boxes=3, seed=1,
+                                  shapes=((80, 120), (64, 64), (48, 40)))
+    yolo = YOLO(path, device="cpu", seed=0, nc=3)
+    res = yolo.train(data=data, imgsz=S, batch=4, epochs=2, close_mosaic=1, workers=2, device="cpu")
+    trainer = yolo.trainer
+    assert (trainer.cfg.optimizer, trainer.cfg.lr0, trainer.cfg.momentum) == ("adamw", 0.002, 0.9)
+    assert canvases == [[(2 * S, 2 * S)] * 4] * 2 + [[(S, S)] * 4] * 2
+    assert len(trainer.history) == 4 and not any(h["skipped"] for h in trainer.history)
+    assert all(np.isfinite(h["loss"]) for h in trainer.history)
+    assert set(res) == {"metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)",
+                        "fitness"}
+    rows = trainer.epoch_history
+    assert len(rows) == 2 and all(0 <= r["input_wait_frac"] + r["render_frac"] <= 1 for r in rows) and rows[-1].items() >= res.items()
+    assert all(torch.equal(yolo.model.state_dict()[k], v) for k, v in trainer.state.ema_params.items())
+    assert yolo.val(data=data, imgsz=S, batch=4, device="cpu") == res
+    with pytest.raises(ValueError, match="nc"):
+        YOLO(path, device="cpu", seed=None, nc=4).train(data=data, imgsz=S, batch=4, epochs=1, device="cpu")
 
 
 def test_training_defaults_to_cuda_and_raises_without_a_card(world):
