@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --conv3x3    # device, build, then conv3x3 parity and per-shape times only
+    python3 chip_smoke.py --converge   # device, build, then the learning proof only (see the end)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -71,10 +72,31 @@ Phases, in order; any failure raises and the script exits non-zero:
             three AdamW updates on the same seeded gradients (parameters,
             moments and EMA within 2e-6 of each leaf's largest value); img/s,
             input_wait_frac and render_frac of the run.
+9. ckpt     YOLO(LPC-YOLO yaml, nc=3, seed 0).train(data=..., save=True) on
+            phase 8's dataset, 3 epochs, with the launch counters reset just
+            before and read just after (a letterbox per val batch and frame
+            shape, 28 conv3x3 per val batch, a repack per step): its
+            weights/last.ckpt and best.ckpt and a results.csv of 3 rows;
+            last.ckpt read back into a card TrainState equal to the trainer's
+            final state bit for bit (parameters, BN statistics, moments, EMA,
+            counters); a run stopped by SIGTERM in the first step of epoch 2
+            and resumed with resume=True runs epochs 2 and 3 once each from
+            the saved counters and ends within 1e-3 of each leaf's largest
+            value of the uninterrupted run's state; YOLO.save -> YOLO(path, device="cuda") ->
+            predict gives the saved model's detections. The seconds of each
+            checkpoint write and read and the file's size.
 
 The line before last is a JSON object with one entry per kernel (three; launches
-from phase 8); the last line is {"ok": true, "device": {...}}. Every number is
+from phase 9); the last line is {"ok": true, "device": {...}}. Every number is
 also written to chiprun_out/chip_smoke.json.
+
+`--converge` runs tools/train_convergence.py's learning proof on the card
+instead of the phases: LPC-YOLO with nc=3 on the synthetic set of 256 + 32
+frames at 160, 120 epochs of b16 (close_mosaic 40, max_gt 8, cache="ram",
+val=False, save=True), then `val` at f32 and at bf16 on the trained weights
+reloaded through YOLO.save -> YOLO(path); it prints mAP50, mAP50-95, the
+bf16 - f32 gap and the seconds, writes chiprun_out/chip_smoke_converge.json
+and exits non-zero when mAP50 <= 0.5 (the JAX slow test's bar).
 """
 
 from __future__ import annotations
@@ -103,6 +125,8 @@ VAL_FRAMES, VAL_BATCH, VAL_SUBSET, VAL_UNLABELLED = 64, 32, 8, 5  # every 5th fr
 VAL_F32_TOL = 0.02  # every key of the results dict, f32 on the card vs the CPU: near-tied scores may swap places
 VAL_BF16_MAP50_TOL = 0.35  # mAP50, bf16 vs f32: the random weights' scores cluster within ~1e-3, bf16 reorders them
 TD_TRAIN, TD_VAL, TD_BATCH, TD_EPOCHS = 64, 16, 16, 3  # train(data=...): 4 steps an epoch, validation at batch 8
+CONV_EPOCHS, CONV_MAP50_BAR = 120, 0.5  # --converge: tools/train_convergence.py's run, the JAX slow test's bar
+RESUME_TOL = 1e-3  # a resumed run's state against the uninterrupted run's, of each leaf's largest value
 REPORT = {}
 
 
@@ -665,6 +689,7 @@ def train_batches(n: int, B: int, seed: int):
 
 def phase_train():
     import copy
+    import tempfile
 
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.train_step import OptConfig, init_train_state, make_train_step, to_device
@@ -680,7 +705,8 @@ def phase_train():
     # the main path of this slice: the trainer takes a few steps, counters read around it
     letterbox.launches = conv3x3.launches = repack_width_kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    yolo.train(batches=batches, epochs=1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        yolo.train(batches=batches, epochs=1, save_dir=tmp)
     torch.cuda.synchronize()
     launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches, "repack": repack_width_kernel.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -982,10 +1008,21 @@ def loader_batches(loader, n: int):
     return out, ms
 
 
-def phase_train_data():
+def write_train_dataset(root: Path) -> str:
+    """The synthetic nc=3 dataset of phases 8 and 9 under root; returns its YAML."""
+    from lpc_yolo_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    data = make_synthetic_dataset(root, n_train=TD_TRAIN, n_val=TD_VAL, nc=3, max_boxes=6, seed=41, shapes=VAL_SHAPES)
+    log("train_data", f"dataset: {TD_TRAIN} train + {TD_VAL} val frames of {list(VAL_SHAPES)} as PNG + .npy, "
+                      f"written in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+def phase_train_data(data: str):
     """YOLO(LPC-YOLO yaml, nc=3, seed 0).train(data=...) from a synthetic dataset written to a temp dir
-    (TD_TRAIN frames of VAL_SHAPES, 1 to 6 rectangles each, PNG + .npy twins read through cache="disk";
-    TD_VAL validation frames): TD_EPOCHS epochs at 640, batch 16, optimizer "auto" (AdamW), the last
+    (`write_train_dataset`: TD_TRAIN frames of VAL_SHAPES, 1 to 6 rectangles each, PNG + .npy twins read
+    through cache="disk"; TD_VAL validation frames): TD_EPOCHS epochs at 640, batch 16, optimizer "auto" (AdamW), the last
     epoch letterboxed (close_mosaic=1), with the launch counters reset just before and read just after.
     Then the loader and the card's render against the CPU, the render's device time and launches, and
     AdamW on the card against the CPU."""
@@ -994,7 +1031,6 @@ def phase_train_data():
 
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.data import DataLoader, TrainTransforms, YOLODataset, check_det_dataset, render
-    from lpc_yolo_tpu_torch.data.synthetic import make_synthetic_dataset
     from lpc_yolo_tpu_torch.engine.train_step import (OptConfig, apply_update, global_norm, init_train_state,
                                                       make_train_step)
     from lpc_yolo_tpu_torch.engine.trainer import pack_img
@@ -1003,13 +1039,8 @@ def phase_train_data():
     from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
 
     S, B, dev = 640, TD_BATCH, torch.device("cuda")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        t0 = time.perf_counter()
-        data = make_synthetic_dataset(Path(tmp), n_train=TD_TRAIN, n_val=TD_VAL, nc=3, max_boxes=6, seed=41,
-                                      shapes=VAL_SHAPES)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_run_") as tmp:
         info = check_det_dataset(data)
-        log("train_data", f"dataset: {TD_TRAIN} train + {TD_VAL} val frames of {list(VAL_SHAPES)} as PNG + .npy, "
-                          f"written in {time.perf_counter() - t0:.1f} s")
         steps = -(-TD_TRAIN // B) * TD_EPOCHS
         val_frames = [np.load(f) for f in sorted(Path(info["val"]).glob("*.npy"))]
         expect_val = {k: v * TD_EPOCHS for k, v in val_launches_expected(val_frames, min(B, 8)).items()}
@@ -1020,7 +1051,7 @@ def phase_train_data():
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = yolo.train(data=data, imgsz=S, batch=B, epochs=TD_EPOCHS, close_mosaic=1, optimizer="auto",
-                         workers=8, cache="disk")
+                         workers=8, cache="disk", save_dir=Path(tmp) / "run")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches,
@@ -1035,13 +1066,15 @@ def phase_train_data():
         assert set(res) >= {"metrics/mAP50(B)", "metrics/mAP50-95(B)", "fitness"}
         assert all(np.isfinite(list(res.values()))), res
         step_s = sum(h["seconds"] for h in hist)
+        ckpt_s = sum(w["encode_s"] + w["write_s"] for w in tr.ckpt_seconds)  # save=True by default: one a epoch
         for r in rows:
             log("train_data", f"epoch {r['epoch']}: {r['seconds']:.3f} s, input_wait_frac {r['input_wait_frac']:.4f}, "
                               f"render_frac {r['render_frac']:.4f}, "
                               f"box_om {r['box_om']:.4f} cls_om {r['cls_om']:.4f}, mAP50 {r['metrics/mAP50(B)']:.4f}")
         log("train_data", f"YOLO(nc=3).train(data=...): {steps} steps of b{B} at {S}, AdamW by the auto rule, "
                           f"3 validations; {wall:.3f} s = {TD_TRAIN * TD_EPOCHS / wall:.1f} img/s over the call, "
-                          f"{steps * B / step_s:.1f} img/s over the steps (loader wait + render + step); peak "
+                          f"{steps * B / step_s:.1f} img/s over the steps (loader wait + render + step), "
+                          f"{ckpt_s:.3f} s of it in {len(tr.ckpt_seconds)} checkpoint saves; peak "
                           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches {launches} "
                           f"(expected {expect_val}, repack {steps})")
 
@@ -1110,12 +1143,209 @@ def phase_train_data():
                           f"within {upd:.2e} of each leaf's largest value (tol 2e-6)")
         REPORT["train_data"] = {
             "steps": steps, "batch": B, "epochs": TD_EPOCHS, "wall_s": wall, "img_s_call": TD_TRAIN * TD_EPOCHS / wall,
-            "img_s_steps": steps * B / step_s, "epochs_rows": rows, "history": hist, "launches": launches,
+            "img_s_steps": steps * B / step_s, "ckpt_s": ckpt_s, "epochs_rows": rows, "history": hist, "launches": launches,
             "results": res, "render_card_vs_cpu_lsb": worst, "render_ms": render_ms, "render_profile": prof,
             "loader_host_ms": loader_ms, "h2d_source_mb": src_bytes / 1e6, "rendered_mb": out_bytes / 1e6,
             "adamw_card_vs_cpu_rel": rel, "adamw_update_card_vs_cpu": upd,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     return launches
+
+
+def state_trees(state):
+    """A TrainState's tensors by tree name, and its counters."""
+    trees = {f: getattr(state, f) for f in ("params", "batch_stats", "momentum", "nu", "ema_params")}
+    return trees, (state.step, state.opt_step, state.ema_updates)
+
+
+def phase_checkpoint(data: str):
+    """This slice's main path: YOLO(LPC-YOLO yaml, nc=3, seed 0).train(data=..., save=True) on phase 8's
+    dataset into a temp dir, with the launch counters reset just before and read just after; its
+    weights/last.ckpt, best.ckpt and a results.csv of TD_EPOCHS rows; last.ckpt read back into a card
+    TrainState equal to the trainer's final state bit for bit; a run stopped by SIGTERM in the first step
+    of epoch 2 and resumed with resume=True runs epochs 2 and 3, once each, from the saved counters;
+    YOLO.save -> YOLO(path, device="cuda") -> predict gives the saved model's detections."""
+    import signal
+    import tempfile
+
+    import lpc_yolo_tpu_torch.engine.trainer as trainer_mod
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.data import check_det_dataset
+    from lpc_yolo_tpu_torch.nn import build_model
+    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
+    from lpc_yolo_tpu_torch.utils.checkpoint import load_checkpoint, read_meta
+    from lpc_yolo_tpu_torch.utils.compare import assert_detections_close
+    from lpc_yolo_tpu_torch.utils.flax_bridge import train_state_from_dict
+
+    S, B = 640, TD_BATCH
+    spe = -(-TD_TRAIN // B)
+    kw = dict(data=data, imgsz=S, batch=B, epochs=TD_EPOCHS, close_mosaic=1, optimizer="auto", workers=8,
+              cache="disk", save=True)
+    val_frames = [np.load(f) for f in sorted(Path(check_det_dataset(data)["val"]).glob("*.npy"))]
+    expect = {k: v * TD_EPOCHS for k, v in val_launches_expected(val_frames, min(B, 8)).items()}
+    expect["repack"] = spe * TD_EPOCHS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        root = Path(tmp)
+        yolo = YOLO(YAML, device="cuda", seed=0, nc=3)
+        letterbox.launches = conv3x3.launches = repack_width_kernel.launches = 0
+        t0 = time.perf_counter()
+        yolo.train(save_dir=root / "full", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches,
+                    "repack": repack_width_kernel.launches}
+        tr = yolo.trainer
+        assert launches == expect, (launches, expect)
+        assert all(np.isfinite(h["loss"]) and h["skipped"] is False for h in tr.history)
+        weights = root / "full" / "weights"
+        assert sorted(p.name for p in weights.iterdir()) == ["best.ckpt", "last.ckpt"], list(weights.iterdir())
+        rows = (root / "full" / "results.csv").read_text().splitlines()
+        assert len(rows) == 1 + TD_EPOCHS and rows[0].startswith("epoch,train/box_om,") \
+            and rows[0].endswith(",lr,time_s,input_wait_frac,render_frac"), rows[0]
+        last = weights / "last.ckpt"
+        assert read_meta(last) == {"epoch": TD_EPOCHS - 1, "fitness": tr.epoch_history[-1]["fitness"]}
+        size = last.stat().st_size
+        writes = tr.ckpt_seconds
+        log("ckpt", f"YOLO(nc=3).train(data=..., save=True): {spe * TD_EPOCHS} steps, {TD_EPOCHS} validations, "
+                    f"{wall:.3f} s; launches {launches}; files {sorted(p.name for p in weights.iterdir())} + "
+                    f"results.csv ({len(rows) - 1} rows)")
+
+        # last.ckpt back into a card TrainState: every tensor and counter equal to the trainer's, bit for bit
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, meta = load_checkpoint(last)
+        t1 = time.perf_counter()
+        model = build_model(yolo.model_yaml, device="cuda", nc=3)
+        st = train_state_from_dict(model, tr.cfg, tree, "cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        (got, got_n), (ref, ref_n) = state_trees(st), state_trees(tr.state)
+        assert got_n == ref_n == (spe * TD_EPOCHS,) * 3, (got_n, ref_n)
+        n_leaves = 0
+        for name in ref:
+            assert got[name].keys() == ref[name].keys(), name
+            for k, v in ref[name].items():
+                assert torch.equal(got[name][k], v.detach()), f"{name} {k} differs after the round trip"
+                n_leaves += 1
+        read = {"file_s": t1 - t0, "to_card_s": t2 - t1}
+        log("ckpt", f"last.ckpt -> card TrainState: {n_leaves} tensors and 3 counters equal bit for bit; "
+                    f"file {size / 1e6:.3f} MB; write per epoch (host copy + encode, then the files) "
+                    f"{[round(w['encode_s'], 4) for w in writes]} s + {[round(w['write_s'], 4) for w in writes]} s; "
+                    f"read {read['file_s']:.4f} s + {read['to_card_s']:.4f} s into the card state")
+
+        # stopped in the first step of epoch 2 (SIGTERM: the step finishes, last.ckpt stays epoch 1's), resumed
+        real_render, calls = trainer_mod.render, []
+
+        def stopping_render(plans, sources, device):
+            calls.append(1)
+            if len(calls) == spe + 1:
+                signal.raise_signal(signal.SIGTERM)
+            return real_render(plans, sources, device)
+
+        trainer_mod.render = stopping_render
+        try:
+            stopped = YOLO(YAML, device="cuda", seed=0, nc=3)
+            stopped.train(save_dir=root / "stopped", **kw)
+        finally:
+            trainer_mod.render = real_render
+        assert stopped.trainer.preempted and len(stopped.trainer.history) == spe + 1
+        assert read_meta(root / "stopped" / "weights" / "last.ckpt")["epoch"] == 0
+        resumed = YOLO(YAML, device="cuda", seed=0, nc=3)
+        resumed.train(save_dir=root / "stopped", resume=True, **kw)
+        rt = resumed.trainer
+        epochs_run = [h["epoch"] for h in rt.history]
+        assert rt.start_epoch == 1 and epochs_run == [1] * spe + [2] * spe, epochs_run
+        assert state_trees(rt.state)[1] == (spe * TD_EPOCHS,) * 3
+        assert len((root / "stopped" / "results.csv").read_text().splitlines()) == 1 + TD_EPOCHS
+        # every tensor of the resumed state against the uninterrupted run's: the card's kernels are not all
+        # bit-reproducible, so held within RESUME_TOL of each leaf's largest value
+        (res_trees, _), (ref_trees, _) = state_trees(rt.state), state_trees(tr.state)
+        drift = {name: max(float((res_trees[name][k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+                           for k, v in tree.items()) for name, tree in ref_trees.items()}
+        assert max(drift.values()) <= RESUME_TOL, f"resumed run vs uninterrupted run: {drift} (tol {RESUME_TOL})"
+        log("ckpt", f"stopped by SIGTERM in epoch 2 step 1 (epoch 1's last.ckpt kept), resumed: epochs "
+                    f"{sorted({e + 1 for e in epochs_run})} ran once each from step {spe}, ending at step "
+                    f"{rt.state.step}; against the uninterrupted run, the largest difference over each leaf's "
+                    f"largest value: {drift} (tol {RESUME_TOL})")
+
+        # YOLO.save -> YOLO(path) on the card -> predict: the saved model's detections
+        path = yolo.save(root / "model.ckpt")
+        back = YOLO(path, device="cuda")
+        assert back.names == yolo.names and back.model.nc == 3
+        a, b = yolo.model.state_dict(), back.model.state_dict()
+        assert all(torch.equal(a[k], b[k].to(a[k].device)) for k in a)
+        frames = frames_720p(4, seed=51)
+        r1 = yolo.predict(frames, imgsz=S, batch=4, conf=0.0)
+        r2 = back.predict(frames, imgsz=S, batch=4, conf=0.0)
+        same = all(np.array_equal(x.boxes.data, y.boxes.data) for x, y in zip(r1, r2))
+        for x, y in zip(r1, r2):
+            assert len(x) > 0
+            assert_detections_close(y.boxes.data, x.boxes.data, atol_box=1e-3, atol_score=1e-4)
+        log("ckpt", f"YOLO.save -> YOLO(path, device='cuda') -> predict: weights equal, detections "
+                    f"{'identical' if same else 'equal within box 1e-3 / score 1e-4'} ({[len(r) for r in r2]} boxes)")
+        REPORT["checkpoint"] = {"launches": launches, "wall_s": wall, "ckpt_bytes": size, "writes": writes,
+                                "read_s": read, "tensors": n_leaves, "resume_epochs": epochs_run,
+                                "resume_drift": drift, "predict_identical": same}
+    return launches
+
+
+def converge_only() -> int:
+    """`--converge`: the learning proof of tools/train_convergence.py on the card: LPC-YOLO (nc=3, seed 0)
+    trained on the synthetic set of 256 + 32 frames at 160 for CONV_EPOCHS epochs of b16 (close_mosaic
+    40, max_gt 8, cache="ram", val=False, patience CONV_EPOCHS, save=True), then validated at f32 and
+    at bf16 on the trained weights reloaded through YOLO.save -> YOLO(path). Fails under mAP50 0.5."""
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.data.synthetic import make_synthetic_dataset
+    from lpc_yolo_tpu_torch.utils.checkpoint import load_checkpoint
+    from lpc_yolo_tpu_torch.utils.flax_bridge import flax_to_state_dict
+
+    S = 160
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_converge_") as tmp:
+        root = Path(tmp)
+        t_start = time.perf_counter()
+        data = make_synthetic_dataset(root / "ds", n_train=256, n_val=32, imgsz=S, nc=3, max_boxes=4, seed=3)
+        yolo = YOLO(YAML, device="cuda", seed=0, nc=3)
+        t0 = time.perf_counter()
+        yolo.train(data=data, epochs=CONV_EPOCHS, batch=16, imgsz=S, workers=8, max_gt=8, cache="ram",
+                   close_mosaic=40, val=False, patience=CONV_EPOCHS, save=True, save_dir=root / "run")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        tr = yolo.trainer
+        n_skipped = sum(h["skipped"] for h in tr.history)
+        for r in tr.epoch_history[::10] + tr.epoch_history[-1:]:
+            log("converge", f"epoch {r['epoch']}: box_om {r['box_om']:.4f} cls_om {r['cls_om']:.4f} "
+                            f"dfl_om {r['dfl_om']:.4f} lr {r['lr']:.3g} {r['seconds']:.2f} s")
+        # the trained weights: last.ckpt's EMA and BN statistics are what the facade holds
+        tree, meta = load_checkpoint(root / "run" / "weights" / "last.ckpt")
+        held = yolo.model.state_dict()
+        for k, v in flax_to_state_dict({"params": tree["ema_params"], "batch_stats": tree["batch_stats"]}).items():
+            assert torch.equal(held[k].cpu(), v), f"last.ckpt {k} != the trained facade"
+        trained = YOLO(yolo.save(root / "trained.ckpt"), device="cuda")
+        res = {}
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            res[name] = trained.val(data=data, imgsz=S, batch=16, dtype=dt, cache_images="ram")
+            log("converge", f"val {name}: {res[name]}")
+        wall = time.perf_counter() - t_start
+    m50, m5095 = res["f32"]["metrics/mAP50(B)"], res["f32"]["metrics/mAP50-95(B)"]
+    gap = {k: res["bf16"][k] - res["f32"][k] for k in ("metrics/mAP50(B)", "metrics/mAP50-95(B)")}
+    out = {"mAP50": m50, "mAP50_95": m5095, "bf16_minus_f32": gap, "epochs": CONV_EPOCHS, "steps": len(tr.history),
+           "skipped": n_skipped, "optimizer": tr.cfg.optimizer, "train_s": train_s, "wall_s": wall,
+           "img_s": 256 * CONV_EPOCHS / train_s, "f32": res["f32"], "bf16": res["bf16"],
+           "ckpt_bytes": tr.ckpt_seconds[-1]["bytes"], "epochs_rows": tr.epoch_history}
+    REPORT["converge"] = out
+    dest = ROOT / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / "chip_smoke_converge.json").write_text(json.dumps(REPORT, indent=1))
+    log("converge", f"mAP50 {m50:.4f}, mAP50-95 {m5095:.4f} (f32); bf16 - f32: mAP50 {gap['metrics/mAP50(B)']:+.4f}, "
+                    f"mAP50-95 {gap['metrics/mAP50-95(B)']:+.4f}; {len(tr.history)} steps ({n_skipped} skipped, "
+                    f"{tr.cfg.optimizer}) in {train_s:.1f} s, {wall:.1f} s in all")
+    if not m50 > CONV_MAP50_BAR:
+        log("converge", f"FAILED: mAP50 {m50:.4f} <= {CONV_MAP50_BAR}")
+        return 1
+    return 0
 
 
 def conv3x3_only() -> None:
@@ -1136,8 +1366,8 @@ def conv3x3_only() -> None:
 
 
 def main(argv) -> int:
-    if argv not in ([], ["--conv3x3"]):
-        print(f"chip_smoke: unknown arguments {argv}; the only option is --conv3x3", file=sys.stderr)
+    if argv not in ([], ["--conv3x3"], ["--converge"]):
+        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3 and --converge", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1152,6 +1382,11 @@ def main(argv) -> int:
     if argv == ["--conv3x3"]:
         conv3x3_only()
         return 0
+    if argv == ["--converge"]:
+        rc = converge_only()
+        print(smi)
+        print(json.dumps({"ok": rc == 0, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return rc
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
 
@@ -1171,7 +1406,13 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_val()
     torch.cuda.empty_cache()
-    launches = phase_train_data()  # this slice's main path: YOLO(nc=3).train(data=...)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_data_") as tmp:
+        data = write_train_dataset(Path(tmp))
+        phase_train_data(data)  # YOLO(nc=3).train(data=...), its counters held in the phase
+        torch.cuda.empty_cache()
+        launches = phase_checkpoint(data)  # the main path: YOLO(nc=3).train(data=..., save=True)
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
          "replaces": "lpc_yolo_tpu/ops/pallas_preprocess.py:103", "launches": launches["letterbox"],

@@ -103,12 +103,13 @@ class YOLODataset:
         self.im_files = self._scan_images()
         self.label_files = [img2label_path(f) for f in self.im_files]
         self.labels = self._load_labels(cache)
-        # 'ram' keeps decoded BGR arrays in memory; 'disk' keeps a decoded .npy twin beside each image
+        # 'ram' keeps decoded BGR arrays in memory (from a .npy twin where there is one); 'disk' keeps a
+        # decoded .npy twin beside each image
         self.cache_images = "ram" if cache_images is True else (cache_images or None)
         if self.cache_images not in (None, "ram", "disk"):
             raise ValueError(f"cache_images must be False, True, 'ram' or 'disk', got {cache_images!r}")
         self._ram: List[Optional[np.ndarray]] = [None] * len(self.im_files)
-        if self.cache_images == "disk":
+        if self.cache_images:
             self._npy_files = [Path(f).with_suffix(".npy") for f in self.im_files]
 
     def _scan_images(self) -> List[str]:
@@ -189,11 +190,15 @@ class YOLODataset:
         return len(self.im_files)
 
     def load_image(self, i: int) -> np.ndarray:
-        """The HWC uint8 BGR image i: from the RAM cache, its .npy twin, or decoded with OpenCV."""
+        """The HWC uint8 BGR image i: from the RAM cache, its .npy twin, or decoded with OpenCV. The
+        RAM cache fills from the twin where there is one (a machine without OpenCV has only twins)."""
         if self.cache_images == "ram" and self._ram[i] is not None:
             return self._ram[i]
-        if self.cache_images == "disk" and self._npy_files[i].exists():
-            return np.load(self._npy_files[i])
+        if self.cache_images and self._npy_files[i].exists():
+            im = np.load(self._npy_files[i])
+            if self.cache_images == "ram":
+                self._ram[i] = im
+            return im
         im = imread(self.im_files[i])
         if self.cache_images == "ram":
             self._ram[i] = im

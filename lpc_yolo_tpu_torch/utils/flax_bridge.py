@@ -15,7 +15,12 @@ arrays, and nothing here imports jax.
 `train_state_from_flax` carries a JAX `TrainState`'s numpy trees (params,
 batch_stats, the SGD momentum trace or AdamW's two moments, ema_params, the
 counters) into the port's `TrainState`; `train_state_to_flax` is its inverse
-for the trees.
+for the trees. `train_state_dict` / `train_state_from_dict` do the same for
+the whole state dict that flax writes for a JAX `TrainState`
+(`lpc_yolo_tpu/engine/train_step.py:31-37`, optimizer chains :84-105), the
+tree of a trainer's `.ckpt`. Every tree built here has its dict keys in
+sorted order at every level, the order of a JAX pytree's dicts, so flax's
+msgpack of a JAX state and of the port's state agree byte for byte.
 
 `random_variables` fills a shape tree from a numpy seed, so the JAX package
 (through `jax.eval_shape`) and the port (through `flax_shapes`) get the same
@@ -115,8 +120,13 @@ def flax_shapes(model: nn.Module) -> Dict[str, Dict[str, Any]]:
     return tree
 
 
+def _sorted_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The tree with every dict's keys in sorted order (a JAX pytree's order)."""
+    return {k: _sorted_tree(tree[k]) if isinstance(tree[k], dict) else tree[k] for k in sorted(tree)}
+
+
 def state_dict_to_flax(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
-    """State_dict-named tensors -> JAX variables as numpy trees (kernels OIHW -> HWIO)."""
+    """State_dict-named tensors -> JAX variables as numpy trees (kernels OIHW -> HWIO), keys sorted."""
     tree: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for name, t in named.items():
         slot = _flax_slot(name, t.dim())
@@ -124,7 +134,7 @@ def state_dict_to_flax(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str,
             col, path, kernel = slot
             t = t.detach().float().cpu()
             _set(tree[col], path, np.ascontiguousarray((t.permute(2, 3, 1, 0) if kernel else t).numpy()))
-    return tree
+    return _sorted_tree(tree)
 
 
 def train_state_from_flax(model: nn.Module, cfg, params, batch_stats, momentum, ema_params, step: int = 0,
@@ -164,6 +174,53 @@ def train_state_to_flax(state) -> Dict[str, Any]:
     if state.nu:
         out["nu"] = state_dict_to_flax(state.nu)["params"]
     return out
+
+
+def injected_momentum(count: int, cfg) -> np.ndarray:
+    """The `decay` that optax's `inject_hyperparams(trace)` holds after `count` updates: the momentum
+    schedule read at the last update's count (count - 1; count 0 before any update), in f32 as JAX
+    computes `momentum_at` (`tests/test_torch_ckpt.py` holds it to optax)."""
+    n = np.float32(max(count - 1, 0))
+    warm = np.clip(n / np.float32(max(cfg.warmup_steps, 1)), np.float32(0.0), np.float32(1.0))
+    return np.asarray(np.float32(cfg.warmup_momentum) + np.float32(cfg.momentum - cfg.warmup_momentum) * warm,
+                      np.float32)
+
+
+def train_state_dict(state, cfg) -> Dict[str, Any]:
+    """The port's TrainState -> the state dict flax writes for the JAX `TrainState` of the same run:
+    `step` (int32), `params`, `batch_stats`, `opt_state` (the optax chain's states for `cfg.optimizer`,
+    each `count` the updates applied, `opt_step`), `ema_params`, `ema_updates` (f32)."""
+    trees = train_state_to_flax(state)
+    count = np.asarray(state.opt_step, np.int32)
+    if cfg.optimizer == "adamw":  # clip, adamw = (scale_by_adam, masked decay, scale_by_learning_rate)
+        opt = {"0": {}, "1": {"0": {"count": count, "mu": trees["momentum"], "nu": trees["nu"]},
+                              "1": {"inner_state": {}}, "2": {"count": count}}}
+    else:  # clip, masked decay, inject_hyperparams(trace), scale_by_learning_rate
+        opt = {"0": {}, "1": {"inner_state": {}},
+               "2": {"count": count, "hyperparams": {"decay": injected_momentum(state.opt_step, cfg)},
+                     "hyperparams_states": {"decay": {"count": count}},
+                     "inner_state": {"trace": trees["momentum"]}},
+               "3": {"count": count}}
+    return {"step": np.asarray(state.step, np.int32), "params": trees["params"], "batch_stats": trees["batch_stats"],
+            "opt_state": opt, "ema_params": trees["ema_params"], "ema_updates": np.asarray(state.ema_updates, np.float32)}
+
+
+def train_state_from_dict(model: nn.Module, cfg, tree: Mapping[str, Any], device=None):
+    """A JAX `TrainState`'s state dict (a trainer `.ckpt`'s tree) -> the port's TrainState on `model`.
+    Raises when the state's optimizer is not `cfg.optimizer`."""
+    opt = tree["opt_state"]
+    adamw = "3" not in opt
+    if adamw != (cfg.optimizer == "adamw"):
+        raise ValueError(f"the checkpoint holds {'AdamW' if adamw else 'SGD'} state, the run uses {cfg.optimizer!r}: "
+                         f"resume with the optimizer settings of the run that wrote it")
+    if adamw:
+        adam = opt["1"]["0"]
+        momentum, nu, count = adam["mu"], adam["nu"], adam["count"]
+    else:
+        momentum, nu, count = opt["2"]["inner_state"]["trace"], None, opt["2"]["count"]
+    return train_state_from_flax(model, cfg, tree["params"], tree["batch_stats"], momentum, tree["ema_params"],
+                                 step=int(tree["step"]), ema_updates=float(tree["ema_updates"]),
+                                 opt_step=int(count), device=device, nu=nu)
 
 
 def random_variables(shapes: Dict[str, Any], seed: int = 0) -> Dict[str, Any]:

@@ -224,7 +224,7 @@ def test_trainer_hands_back_ema_and_bn_stats(world, tmp_path):
     before = {k: v.clone() for k, v in yolo.model.state_dict().items()}
     batches = [make_batch(10 + i) for i in range(4)]
     # SGD as asked: for nc 4 and a short run the "auto" rule would pick AdamW (test_auto_rule_matches_jax)
-    out = yolo.train(batches=batches, epochs=1, optimizer="sgd", device="cpu")
+    out = yolo.train(batches=batches, epochs=1, optimizer="sgd", device="cpu", save_dir=tmp_path / "run")
     trainer = yolo.trainer
     assert isinstance(trainer, Trainer) and set(out) == set(
         ("box_om", "cls_om", "dfl_om", "box_oo", "cls_oo", "dfl_oo"))
@@ -254,9 +254,9 @@ def test_entry_points_refuse_what_is_not_ported(world):
     for hyp in ({"mosaic9": 0.5}, {"copy_paste": 0.3}, {"perspective": 0.001}):
         with pytest.raises(NotImplementedError):
             TrainTransforms(S, hyp)
-    # the trainer's options that wait for the checkpoint slice
+    # the trainer's options not ported yet (save, save_period and resume are: tests/test_torch_ckpt.py)
     yolo = YOLO(device="cpu", seed=None)
-    for kw in ({"resume": True}, {"save": True}, {"save_period": 5}, {"cache_augmented": True}, {"batch": -1}):
+    for kw in ({"cache_augmented": True}, {"batch": -1}):
         with pytest.raises(NotImplementedError):
             Trainer(yolo, data="data.yaml", epochs=1, device="cpu", **kw)
     # a folded serving copy cannot be trained as it is: train mode drops the fold, fold() refuses train mode
@@ -375,7 +375,8 @@ def test_auto_rule_matches_jax(world, tmp_path, monkeypatch, n_images, batch, ep
                             save_dir=str(tmp_path / "run")).train()
     yolo = YOLO(path, device="cpu", seed=None, nc=nc)
     with pytest.raises(_Captured) as got:
-        Trainer(yolo, data=data, epochs=epochs, batch=batch, workers=1, device="cpu").train()
+        Trainer(yolo, data=data, epochs=epochs, batch=batch, workers=1, device="cpu",
+                save_dir=tmp_path / "port_run").train()
     jcfg, tcfg = ref.value.args[0], got.value.args[0]
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert tcfg.optimizer == ("adamw" if (n_images, epochs, nc) == (6, 2, 3) else "sgd")
@@ -419,7 +420,8 @@ def test_train_from_dataset_on_cpu(world, tmp_path, monkeypatch):
     data = make_synthetic_dataset(tmp_path / "ds", n_train=6, n_val=3, nc=3, max_boxes=3, seed=1,
                                   shapes=((80, 120), (64, 64), (48, 40)))
     yolo = YOLO(path, device="cpu", seed=0, nc=3)
-    res = yolo.train(data=data, imgsz=S, batch=4, epochs=2, close_mosaic=1, workers=2, device="cpu")
+    res = yolo.train(data=data, imgsz=S, batch=4, epochs=2, close_mosaic=1, workers=2, device="cpu",
+                     save_dir=tmp_path / "run")
     trainer = yolo.trainer
     assert (trainer.cfg.optimizer, trainer.cfg.lr0, trainer.cfg.momentum) == ("adamw", 0.002, 0.9)
     assert canvases == [[(2 * S, 2 * S)] * 4] * 2 + [[(S, S)] * 4] * 2
@@ -432,7 +434,8 @@ def test_train_from_dataset_on_cpu(world, tmp_path, monkeypatch):
     assert all(torch.equal(yolo.model.state_dict()[k], v) for k, v in trainer.state.ema_params.items())
     assert yolo.val(data=data, imgsz=S, batch=4, device="cpu") == res
     with pytest.raises(ValueError, match="nc"):
-        YOLO(path, device="cpu", seed=None, nc=4).train(data=data, imgsz=S, batch=4, epochs=1, device="cpu")
+        YOLO(path, device="cpu", seed=None, nc=4).train(data=data, imgsz=S, batch=4, epochs=1, device="cpu",
+                                                        save_dir=tmp_path / "run")
 
 
 def test_training_defaults_to_cuda_and_raises_without_a_card(world):
