@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --conv3x3    # device, build, then conv3x3 parity and per-shape times only
-    python3 chip_smoke.py --converge   # device, build, then the learning proof only (see the end)
+    python3 chip_smoke.py --converge [yolov10n.yaml]   # device, build, then the learning proof only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -86,12 +86,32 @@ Phases, in order; any failure raises and the script exits non-zero:
             predict gives the saved model's detections. The seconds of each
             checkpoint write and read and the file's size.
 
+10. v10      the six YOLOv10 scales (n/s/m/b/l/x), each with seed-0 weights:
+            its parameter count against the JAX package's; conv3x3 against
+            its plain version at every distinct site shape (f32 and bf16,
+            the largest C printed beside the tolerances) and at every site
+            of one bf16 forward on its own inputs; YOLO.predict of 32 720p
+            frames at 640, b32, bf16 with the launch counters reset just
+            before and read just after (one letterbox, a conv3x3 per site);
+            the serving step's time, device busy time and launches; the
+            kernel over the scale's sites at b32 bf16 beside F.conv2d + bias
+            and the bound, and the shapes where F.conv2d is faster;
+            YOLO.val(data=...) on phase 7's 64 frames at b32 bf16 with its
+            counters held, img/s; the train step at b16, 640, bf16 autocast
+            (a repack a step): time, busy, launches, peak memory. Then
+            YOLO("yolov10n.yaml", nc=3).train(data=..., save=True) on phase
+            8's dataset, counters held as in phase 9; YOLO.save ->
+            YOLO(path, device="cuda") and last.ckpt's EMA weights predict
+            what the trained facade predicts, bit for bit, and best.ckpt's
+            weights serve.
+
 The line before last is a JSON object with one entry per kernel (three; launches
 from phase 9); the last line is {"ok": true, "device": {...}}. Every number is
-also written to chiprun_out/chip_smoke.json.
+also written to chiprun_out/chip_smoke.json (phase 10's under "v10").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
-instead of the phases: LPC-YOLO with nc=3 on the synthetic set of 256 + 32
+instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
+yolov10n.yaml) with nc=3 on the synthetic set of 256 + 32
 frames at 160, 120 epochs of b16 (close_mosaic 40, max_gt 8, cache="ram",
 val=False, save=True), then `val` at f32 and at bf16 on the trained weights
 reloaded through YOLO.save -> YOLO(path); it prints mAP50, mAP50-95, the
@@ -127,6 +147,9 @@ VAL_BF16_MAP50_TOL = 0.35  # mAP50, bf16 vs f32: the random weights' scores clus
 TD_TRAIN, TD_VAL, TD_BATCH, TD_EPOCHS = 64, 16, 16, 3  # train(data=...): 4 steps an epoch, validation at batch 8
 CONV_EPOCHS, CONV_MAP50_BAR = 120, 0.5  # --converge: tools/train_convergence.py's run, the JAX slow test's bar
 RESUME_TOL = 1e-3  # a resumed run's state against the uninterrupted run's, of each leaf's largest value
+V10_PARAMS = {"n": 2_775_504, "s": 8_128_256, "m": 16_576_752, "b": 20_574_368, "l": 25_888_672,
+              "x": 31_808_944}  # the JAX package's counts (tests/test_models.py)
+V10_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits
 REPORT = {}
 
 
@@ -387,10 +410,12 @@ def site_input(shape, n, g, dtype):
     return torch.randn(n, H, W, pix, device="cuda", generator=g).to(dtype)[..., off:off + C]
 
 
-def phase_parity_conv(sites):
+def phase_parity_conv(sites, phase: str = "parity"):
+    """conv3x3 against its plain version at every distinct site shape, batch 2, f32 (abs 1e-4) and bf16
+    (relative 2e-2 against the f32 conv of the same bf16 inputs); returns the worst errors and the
+    largest C (and so K = 9C) the tolerances covered."""
     from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
 
-    assert len(sites) == CONV_SITES_PER_FORWARD, f"{len(sites)} kernel sites per forward, expected 28"
     worst_f32, worst_bf16 = 0.0, 0.0
     g = torch.Generator(device="cuda").manual_seed(0)
     for shape in sorted(set(sites), key=str):
@@ -408,11 +433,12 @@ def phase_parity_conv(sites):
         assert e16 <= 2e-2, f"conv3x3 bf16 {where}: relative err {e16}"
         worst_f32, worst_bf16 = max(worst_f32, e32), max(worst_bf16, e16)
     n_strided = len({s for s in sites if s[5] != s[0]})
-    log("parity", f"conv3x3 vs plain on {len(set(sites))} site shapes ({n_strided} strided C2f slices): "
-                  f"f32 max abs {worst_f32:.3g} (tol 1e-4), bf16 max rel {worst_bf16:.3g} (tol 2e-2)")
-    REPORT["conv3x3_parity"] = {"f32_max_abs": worst_f32, "bf16_max_rel": worst_bf16, "shapes": len(set(sites)),
-                                "strided_shapes": n_strided}
-    return worst_f32
+    max_c = max(s[0] for s in sites)
+    log(phase, f"conv3x3 vs plain on {len(set(sites))} site shapes ({n_strided} strided C2f slices), C up to "
+               f"{max_c} (K = 9C up to {9 * max_c}), Co {sorted({s[3] for s in sites})}: f32 max abs "
+               f"{worst_f32:.3g} (tol 1e-4), bf16 max rel {worst_bf16:.3g} (tol 2e-2)")
+    return {"f32_max_abs": worst_f32, "bf16_max_rel": worst_bf16, "shapes": len(set(sites)),
+            "strided_shapes": n_strided, "max_C": max_c}
 
 
 def bf16_site_errors(pred, frames):
@@ -551,10 +577,11 @@ def phase_times(yolo, sites):
     REPORT["letterbox_times"] = {"ms": lb_ms, "eager_ms": lb_eager, "plain_ms": lb_plain, "bound_ms": lb_bound,
                                  "bound_by": lb_by, "bytes": lb_bytes, "cold_sets": n_cold_sets(lb_bytes)}
 
-    return REPORT["letterbox_times"], time_conv3x3(sites, B)
+    REPORT["conv3x3_sum"], REPORT["conv3x3_shapes"] = time_conv3x3(sites, B)
+    return REPORT["letterbox_times"], REPORT["conv3x3_sum"]
 
 
-def time_conv3x3(sites, B: int = 32, sweep: bool = False):
+def time_conv3x3(sites, B: int = 32, sweep: bool = False, phase: str = "times"):
     """conv3x3 at every main-path shape at batch B, bf16, beside its bound, its plain version and
     F.conv2d + bias (device times from CUDA graphs; eager calls, host launch cost included,
     beside them), with the bf16 instantiation each shape takes; the sums are weighted by each
@@ -593,7 +620,7 @@ def time_conv3x3(sites, B: int = 32, sweep: bool = False):
                           "bound_share": bd / k_ms, "vs_library": k_ms / l_ms, "tflops": flops / k_ms / 1e9,
                           "config": cfg.index, "tile": [cfg.tile_h, cfg.tile_w, cfg.bn, cfg.ck, cfg.stages],
                           "smem": cfg.smem, "blocks": cfg.grid[0] * cfg.grid[1]})
-        log("times", f"conv3x3 b{B} {C}->{Co} @{H}x{W} {act} pix {pix} x{n}: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TF/s, "
+        log(phase, f"conv3x3 b{B} {C}->{Co} @{H}x{W} {act} pix {pix} x{n}: {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TF/s, "
                      f"{bd / k_ms:.3f} of bound, {k_ms / l_ms:.2f}x F.conv2d), plain {p_ms:.4f}, F.conv2d {l_ms:.4f}, "
                      f"bound {bd:.4f} ({by}); eager calls {k_eager:.4f}, F.conv2d {l_eager:.4f}; "
                      f"config {cfg.index} {per_shape[-1]['tile']}, {per_shape[-1]['blocks']} blocks")
@@ -618,13 +645,11 @@ def time_conv3x3(sites, B: int = 32, sweep: bool = False):
         tot["bytes_ms"] += n * nbytes / HBM_BYTES_PER_MS
         tot["ops_ms"] += n * flops / BF16_FLOPS_PER_MS
     tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
-    log("times", f"conv3x3, all {len(sites)} sites of one b{B} forward: {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, "
+    log(phase, f"conv3x3, all {len(sites)} sites of one b{B} forward: {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}, "
                  f"F.conv2d {tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x), bound {tot['bound_ms']:.3f} ms; "
                  f"worst shape {max(r['vs_library'] for r in per_shape):.2f}x F.conv2d (device times, CUDA graph); "
                  f"eager calls {tot['eager_ms']:.3f} ms, F.conv2d {tot['library_eager_ms']:.3f}")
-    REPORT["conv3x3_shapes"] = per_shape
-    REPORT["conv3x3_sum"] = tot
-    return tot
+    return tot, per_shape
 
 
 def time_repack(g):
@@ -841,11 +866,11 @@ def write_val_labels(files, frames, dets, imgsz: int) -> int:
     return n_boxes
 
 
-def val_launches_expected(frames, batch: int):
-    """Launches one val run makes: a letterbox per (batch, frame shape) and 28 conv3x3 per batch."""
+def val_launches_expected(frames, batch: int, sites: int = CONV_SITES_PER_FORWARD):
+    """Launches one val run makes: a letterbox per (batch, frame shape) and a conv3x3 per site and batch."""
     n_batches = -(-len(frames) // batch)
     groups = sum(len({im.shape for im in frames[i:i + batch]}) for i in range(0, len(frames), batch))
-    return {"letterbox": groups, "conv3x3": CONV_SITES_PER_FORWARD * n_batches}
+    return {"letterbox": groups, "conv3x3": sites * n_batches}
 
 
 def phase_parity_letterbox_val():
@@ -913,14 +938,12 @@ def val_host_parts(yolo, data: Path, batch: int) -> dict:
     return {"dataset_s": t1 - t0, "serving_copy_s": t2 - t1, "loader_s": t3 - t2}
 
 
-def phase_val():
-    """YOLO.val(data=...) on a dataset written to a temp dir (VAL_FRAMES frames of VAL_SHAPES as
+def phase_val(root: Path):
+    """YOLO.val(data=...) on a dataset written under `root` (VAL_FRAMES frames of VAL_SHAPES as
     PNGs with .npy twins; labels from the port's own f32 detections on the card through the same
-    scaleup=False geometry), at 640, batch 32, from the files on disk: f32 and bf16 with the launch
-    counters reset just before and read just after each run; f32 on the card against the CPU on a
-    VAL_SUBSET-frame subset; bf16 finite and its mAP50 near f32's; times."""
-    import tempfile
-
+    scaleup=False geometry; root/data.yaml), at 640, batch 32, from the files on disk: f32 and bf16
+    with the launch counters reset just before and read just after each run; f32 on the card against
+    the CPU on a VAL_SUBSET-frame subset; bf16 finite and its mAP50 near f32's; times."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import serving_model
     from lpc_yolo_tpu_torch.engine.validator import Validator
@@ -929,71 +952,68 @@ def phase_val():
 
     phase_parity_letterbox_val()
     S, B = 640, VAL_BATCH
-    out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as tmp:
-        root = Path(tmp)
+    t0 = time.perf_counter()
+    files, frames = write_val_dataset(root, VAL_FRAMES, seed=31)
+    yolo = YOLO(YAML, device="cuda", seed=0)
+    v32 = Validator(yolo, imgsz=S, device="cuda", dtype=torch.float32)
+    m32 = serving_model(yolo.model, v32.device, torch.float32)
+    dets = np.concatenate([v32.predict(m32, v32.preprocess(frames[i:i + B])) for i in range(0, len(frames), B)])
+    n_boxes = write_val_labels(files, frames, dets, S)
+    data = root / "data.yaml"
+    data.write_text(json.dumps({"path": str(root), "val": "images/val", "nc": 80}))  # JSON is YAML
+    subset = [files[i] for i in range(VAL_SUBSET)]
+    (root / "subset.txt").write_text("".join(f"{f}\n" for f in subset))
+    (root / "subset.yaml").write_text(json.dumps({"path": str(root), "val": "subset.txt", "nc": 80}))
+    log("val", f"dataset: {len(files)} frames {dict((str(sh), sum(im.shape[:2] == sh for im in frames)) for sh in VAL_SHAPES)} "
+               f"as PNG + .npy, {n_boxes} labelled boxes, written in {time.perf_counter() - t0:.1f} s")
+    expect = val_launches_expected(frames, B)
+
+    runs = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16), ("bf16_again", torch.bfloat16)):
+        letterbox.launches = conv3x3.launches = 0
         t0 = time.perf_counter()
-        files, frames = write_val_dataset(root, VAL_FRAMES, seed=31)
-        yolo = YOLO(YAML, device="cuda", seed=0)
-        v32 = Validator(yolo, imgsz=S, device="cuda", dtype=torch.float32)
-        m32 = serving_model(yolo.model, v32.device, torch.float32)
-        dets = np.concatenate([v32.predict(m32, v32.preprocess(frames[i:i + B])) for i in range(0, len(frames), B)])
-        n_boxes = write_val_labels(files, frames, dets, S)
-        data = root / "data.yaml"
-        data.write_text(json.dumps({"path": str(root), "val": "images/val", "nc": 80}))  # JSON is YAML
-        subset = [files[i] for i in range(VAL_SUBSET)]
-        (root / "subset.txt").write_text("".join(f"{f}\n" for f in subset))
-        (root / "subset.yaml").write_text(json.dumps({"path": str(root), "val": "subset.txt", "nc": 80}))
-        log("val", f"dataset: {len(files)} frames {dict((str(sh), sum(im.shape[:2] == sh for im in frames)) for sh in VAL_SHAPES)} "
-                   f"as PNG + .npy, {n_boxes} labelled boxes, written in {time.perf_counter() - t0:.1f} s")
-        expect = val_launches_expected(frames, B)
+        res = yolo.val(data=str(data), imgsz=S, batch=B, cache_images="disk", dtype=dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches}
+        assert launches == expect, f"val {name}: launches {launches}, expected {expect}"
+        speed = dict(yolo.validator.speed)
+        speed["loader_and_rest"] = wall - sum(speed.values())
+        runs[name] = {"results": res, "wall_s": wall, "img_s": len(files) / wall, "launches": launches,
+                      "speed_ms_per_image": {k: v * 1e3 / len(files) for k, v in speed.items()}}
+        log("val", f"YOLO.val {name}: {len(files)} images, batch {B}, {wall:.3f} s = {len(files) / wall:.1f} img/s "
+                   f"from the files on disk; per image (ms) "
+                   f"{ {k: round(v, 3) for k, v in runs[name]['speed_ms_per_image'].items()} }; launches {launches}")
+        log("val", f"  {res}")
+    host = val_host_parts(yolo, data, B)
+    log("val", f"host parts outside `speed`, each alone (s): {host}; per image (ms): "
+               f"{ {k: round(v * 1e3 / len(files), 3) for k, v in host.items()} }")
+    f32, bf16 = runs["f32"]["results"], runs["bf16"]["results"]
+    assert f32["metrics/mAP50(B)"] > 0.3, f"f32 mAP50 {f32['metrics/mAP50(B)']}: the labels are its own detections"
+    assert all(np.isfinite(v) for v in bf16.values()), f"bf16 results not finite: {bf16}"
+    gap = abs(bf16["metrics/mAP50(B)"] - f32["metrics/mAP50(B)"])
+    assert gap <= VAL_BF16_MAP50_TOL, f"bf16 mAP50 {bf16['metrics/mAP50(B)']} vs f32 {f32['metrics/mAP50(B)']}"
+    log("val", f"bf16 finite; mAP50 bf16 {bf16['metrics/mAP50(B)']:.4f} vs f32 {f32['metrics/mAP50(B)']:.4f} "
+               f"(gap {gap:.4f}, tol {VAL_BF16_MAP50_TOL})")
 
-        runs = {}
-        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16), ("bf16_again", torch.bfloat16)):
-            letterbox.launches = conv3x3.launches = 0
-            t0 = time.perf_counter()
-            res = yolo.val(data=str(data), imgsz=S, batch=B, cache_images="disk", dtype=dt)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches}
-            assert launches == expect, f"val {name}: launches {launches}, expected {expect}"
-            speed = dict(yolo.validator.speed)
-            speed["loader_and_rest"] = wall - sum(speed.values())
-            runs[name] = {"results": res, "wall_s": wall, "img_s": len(files) / wall, "launches": launches,
-                          "speed_ms_per_image": {k: v * 1e3 / len(files) for k, v in speed.items()}}
-            log("val", f"YOLO.val {name}: {len(files)} images, batch {B}, {wall:.3f} s = {len(files) / wall:.1f} img/s "
-                       f"from the files on disk; per image (ms) "
-                       f"{ {k: round(v, 3) for k, v in runs[name]['speed_ms_per_image'].items()} }; launches {launches}")
-            log("val", f"  {res}")
-        host = val_host_parts(yolo, data, B)
-        log("val", f"host parts outside `speed`, each alone (s): {host}; per image (ms): "
-                   f"{ {k: round(v * 1e3 / len(files), 3) for k, v in host.items()} }")
-        f32, bf16 = runs["f32"]["results"], runs["bf16"]["results"]
-        assert f32["metrics/mAP50(B)"] > 0.3, f"f32 mAP50 {f32['metrics/mAP50(B)']}: the labels are its own detections"
-        assert all(np.isfinite(v) for v in bf16.values()), f"bf16 results not finite: {bf16}"
-        gap = abs(bf16["metrics/mAP50(B)"] - f32["metrics/mAP50(B)"])
-        assert gap <= VAL_BF16_MAP50_TOL, f"bf16 mAP50 {bf16['metrics/mAP50(B)']} vs f32 {f32['metrics/mAP50(B)']}"
-        log("val", f"bf16 finite; mAP50 bf16 {bf16['metrics/mAP50(B)']:.4f} vs f32 {f32['metrics/mAP50(B)']:.4f} "
-                   f"(gap {gap:.4f}, tol {VAL_BF16_MAP50_TOL})")
+    # f32 on the card (kernels) against the CPU (plain versions) on the subset
+    card = yolo.val(data=str(root / "subset.yaml"), imgsz=S, batch=4, cache_images="disk", dtype=torch.float32)
+    cpu_yolo = YOLO(YAML, device="cpu", seed=0)
+    cpu = cpu_yolo.val(data=str(root / "subset.yaml"), imgsz=S, batch=4, cache_images="disk")
+    worst = max(abs(card[k] - cpu[k]) for k in cpu)
+    assert card.keys() == cpu.keys() and worst <= VAL_F32_TOL, f"val f32 card {card} vs CPU {cpu}"
+    log("val", f"f32 on the card vs the CPU, {VAL_SUBSET} frames: every key within {worst:.3g} "
+               f"(tol {VAL_F32_TOL}); card {card}")
 
-        # f32 on the card (kernels) against the CPU (plain versions) on the subset
-        card = yolo.val(data=str(root / "subset.yaml"), imgsz=S, batch=4, cache_images="disk", dtype=torch.float32)
-        cpu_yolo = YOLO(YAML, device="cpu", seed=0)
-        cpu = cpu_yolo.val(data=str(root / "subset.yaml"), imgsz=S, batch=4, cache_images="disk")
-        worst = max(abs(card[k] - cpu[k]) for k in cpu)
-        assert card.keys() == cpu.keys() and worst <= VAL_F32_TOL, f"val f32 card {card} vs CPU {cpu}"
-        log("val", f"f32 on the card vs the CPU, {VAL_SUBSET} frames: every key within {worst:.3g} "
-                   f"(tol {VAL_F32_TOL}); card {card}")
-
-        # one b32 batch's device work, bf16 (the validator's default on the card)
-        v16 = Validator(yolo, imgsz=S, device="cuda")
-        dev_ms, prof = val_batch_device_ms(v16, serving_model(yolo.model, v16.device, v16.dtype), frames[:B])
-        log("val", f"one b{B} val batch on the device (letterbox x{len({im.shape for im in frames[:B]})}, cast, forward, "
-                   f"decode), bf16: {dev_ms:.3f} ms event-timed; profiler busy {prof['device_busy_ms']:.3f} ms, "
-                   f"idle share {prof['idle_share']:.3f}, {prof['device_launches']:.0f} launches")
-        out = {"frames": len(files), "shapes": [list(sh) for sh in VAL_SHAPES], "labelled_boxes": n_boxes,
-               "runs": runs, "host_parts_s": host, "card_vs_cpu": {"card": card, "cpu": cpu, "max_abs_diff": worst},
-               "bf16_map50_gap": gap, "batch_device_ms": dev_ms, "batch_profile": prof}
+    # one b32 batch's device work, bf16 (the validator's default on the card)
+    v16 = Validator(yolo, imgsz=S, device="cuda")
+    dev_ms, prof = val_batch_device_ms(v16, serving_model(yolo.model, v16.device, v16.dtype), frames[:B])
+    log("val", f"one b{B} val batch on the device (letterbox x{len({im.shape for im in frames[:B]})}, cast, forward, "
+               f"decode), bf16: {dev_ms:.3f} ms event-timed; profiler busy {prof['device_busy_ms']:.3f} ms, "
+               f"idle share {prof['idle_share']:.3f}, {prof['device_launches']:.0f} launches")
+    out = {"frames": len(files), "shapes": [list(sh) for sh in VAL_SHAPES], "labelled_boxes": n_boxes,
+           "runs": runs, "host_parts_s": host, "card_vs_cpu": {"card": card, "cpu": cpu, "max_abs_diff": worst},
+           "bf16_map50_gap": gap, "batch_device_ms": dev_ms, "batch_profile": prof}
     REPORT["val"] = out
 
 
@@ -1290,9 +1310,206 @@ def phase_checkpoint(data: str):
     return launches
 
 
-def converge_only() -> int:
-    """`--converge`: the learning proof of tools/train_convergence.py on the card: LPC-YOLO (nc=3, seed 0)
-    trained on the synthetic set of 256 + 32 frames at 160 for CONV_EPOCHS epochs of b16 (close_mosaic
+def v10_serving(yolo, pred, sites, host, dev):
+    """YOLO.predict of the host frames at b32, 640, bf16, counters reset just before and read just after
+    (a letterbox and a conv3x3 per site for the one batch); then the serving step from the device-resident
+    frames (letterbox to u8, cast, forward, decode) by CUDA events and its profile."""
+    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+
+    B, S = len(host), 640
+    letterbox.launches = conv3x3.launches = 0
+    results = yolo.predict(host, imgsz=S, batch=B, conf=0.25)
+    torch.cuda.synchronize()
+    launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches}
+    assert launches == {"letterbox": 1, "conv3x3": len(sites)}, launches
+    assert len(results) == B and all(np.isfinite(r.boxes.data).all() for r in results)
+    x = torch.empty(B, S, S, 3, dtype=torch.uint8, device="cuda")
+
+    def step():
+        letterbox(dev, S, out=x)
+        return pred.model.predict(x.permute(0, 3, 1, 2).to(torch.bfloat16))
+
+    with torch.inference_mode():
+        step_ms = cuda_ms(step, iters=3, warmup=2)
+        prof = profile_step(step, iters=2)
+    return {"launches": launches, "boxes": sum(len(r) for r in results), "step_ms": step_ms,
+            "img_s": B / step_ms * 1e3, "busy_ms": prof["device_busy_ms"], "idle_share": prof["idle_share"],
+            "device_launches": prof["device_launches"], "profile_top": prof["top"][:8]}
+
+
+def v10_train_step(yolo, batches):
+    """The train step at b16, 640, bf16 autocast from device-resident packed batches (repack at its entry):
+    event-timed ms, one repack launch a step, peak memory, every loss finite and no step skipped; then its
+    profile."""
+    from lpc_yolo_tpu_torch.engine.train_step import OptConfig, init_train_state, make_train_step
+    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
+
+    cfg = OptConfig(warmup_steps=100, total_steps=1000)
+    st = init_train_state(yolo.model, cfg, device="cuda")
+    step = make_train_step(yolo.model, cfg)
+    mets, it = [], iter(range(10 ** 9))
+
+    def one():
+        mets.append(step(st, batches[next(it) % len(batches)])[1])
+
+    repack_width_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(one, iters=2, warmup=2)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert repack_width_kernel.launches == len(mets), (repack_width_kernel.launches, len(mets))
+    assert all(m["skipped"] is False and np.isfinite(float(m["loss"])) for m in mets), mets[-1]
+    prof = profile_step(one, iters=2)
+    return {"batch": len(batches[0]["img"]), "steps": len(mets), "step_ms": step_ms, "peak_gb": peak_gb,
+            "img_s": len(batches[0]["img"]) / step_ms * 1e3, "busy_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"], "device_launches": prof["device_launches"],
+            "loss": float(mets[-1]["loss"]), "profile_top": prof["top"][:8]}
+
+
+def phase_v10(val_data: Path):
+    """The six YOLOv10 scales, each in turn with random weights (seed 0): its parameter count; every distinct
+    conv3x3 site against the plain version (f32, bf16) and every site of one bf16 serving forward on its own
+    inputs; YOLO.predict at b32, 640, bf16 from 720p frames with the launch counters held, and the serving
+    step's time and profile; the kernel over the scale's sites at b32 bf16 beside F.conv2d + bias and the
+    bound; YOLO.val(data=...) on phase 7's set at b32 bf16 with its counters held; the train step at b16."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.engine.train_step import to_device
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+
+    host = frames_720p(V10_SERVE_BATCH, seed=61)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
+    out = {}
+    for scale, n_params in V10_PARAMS.items():
+        t_scale = time.perf_counter()
+        phase = f"v10{scale}"
+        r = out[scale] = {}
+        yolo = YOLO(f"yolov10{scale}.yaml", device="cuda", seed=0)
+        assert sum(p.numel() for p in yolo.model.parameters()) == n_params, scale
+        pred = Predictor(yolo.model, imgsz=640, batch=V10_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+        sites = conv_sites(pred)
+        r["sites"] = len(sites)
+        r["parity"] = phase_parity_conv(sites, phase)
+        site_err = bf16_site_errors(pred, host[:2])
+        assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{phase} bf16 conv3x3 sites: {site_err}"
+        r["parity"]["forward_sites_bf16_max_rel"] = max(site_err)
+
+        r["serving"] = v10_serving(yolo, pred, sites, host, dev)
+        sv = r["serving"]
+        log(phase, f"{n_params} parameters, {len(sites)} conv3x3 sites a forward (every site of a bf16 forward "
+                   f"on its own inputs: max rel {max(site_err):.3g}, tol 2e-2); YOLO.predict b{V10_SERVE_BATCH} "
+                   f"720p->640 bf16: launches {sv['launches']}; serving step {sv['step_ms']:.3f} ms "
+                   f"({sv['img_s']:.1f} img/s), device busy {sv['busy_ms']:.3f} ms, idle share {sv['idle_share']}, "
+                   f"{sv['device_launches']:.0f} launches a step")
+
+        tot, per_shape = time_conv3x3(sites, V10_SERVE_BATCH, phase=phase)
+        r["conv3x3_sum"], r["conv3x3_shapes"] = tot, per_shape
+        r["conv3x3_losers"] = [{"C": p["C"], "Co": p["Co"], "H": p["H"], "per_forward": p["per_forward"],
+                                "vs_library": p["vs_library"]} for p in per_shape if p["vs_library"] > 1]
+        log(phase, f"conv3x3 over {len(sites)} sites at b{V10_SERVE_BATCH} bf16: {tot['ms']:.3f} ms, F.conv2d "
+                   f"{tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x), bound {tot['bound_ms']:.3f} ms "
+                   f"({tot['bound_by']}, {tot['bound_ms'] / tot['ms']:.3f} of it); shapes slower than F.conv2d: "
+                   + (", ".join(f"{p['C']}->{p['Co']} @{p['H']}^2 x{p['per_forward']} {p['vs_library']:.2f}x"
+                                for p in r["conv3x3_losers"]) or "none"))
+
+        expect = val_launches_expected(val_frames, VAL_BATCH, len(sites))
+        letterbox.launches = conv3x3.launches = 0
+        t0 = time.perf_counter()
+        res = yolo.val(data=str(val_data), imgsz=640, batch=VAL_BATCH, cache_images="disk")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches}
+        assert launches == expect, f"{phase} val: launches {launches}, expected {expect}"
+        assert all(np.isfinite(v) for v in res.values()), res
+        r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": launches, "results": res}
+        log(phase, f"YOLO.val b{VAL_BATCH} bf16, {len(val_frames)} frames: {len(val_frames) / wall:.1f} img/s, "
+                   f"launches {launches}")
+        del pred
+        torch.cuda.empty_cache()
+
+        B = TRAIN_BATCH
+        batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda"))
+                   for b in train_batches(2, B, seed=62)]
+        r["train"] = tr = v10_train_step(yolo, batches)
+        log(phase, f"train step b{B} 640 bf16 autocast: {tr['step_ms']:.3f} ms ({tr['img_s']:.1f} img/s), device busy "
+                   f"{tr['busy_ms']:.3f} ms, idle share {tr['idle_share']}, {tr['device_launches']:.0f} launches a step, "
+                   f"peak {tr['peak_gb']:.3f} GB, {tr['steps']} steps with one repack each, loss {tr['loss']:.4f}")
+        r["seconds"] = time.perf_counter() - t_scale
+        del yolo, batches
+        torch.cuda.empty_cache()
+    REPORT["v10"] = out
+    return out
+
+
+def phase_v10_train_data(data: str, sites: int):
+    """YOLO("yolov10n.yaml", nc=3, seed 0).train(data=..., save=True) on phase 8's dataset, TD_EPOCHS epochs
+    of b16 at 640, with the launch counters reset just before and read just after (a letterbox per val batch
+    and frame shape, `sites` conv3x3 per val batch, a repack per step); its weights/last.ckpt and best.ckpt;
+    the trained model through YOLO.save -> YOLO(path, device="cuda") predicts what the facade predicts, bit
+    for bit, and so does a model given last.ckpt's EMA weights; best.ckpt's weights load and serve. (A
+    trainer's .ckpt holds no model config, so YOLO(path) refuses it in both packages.)"""
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.data import check_det_dataset
+    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
+    from lpc_yolo_tpu_torch.utils.checkpoint import load_checkpoint, read_meta
+
+    S, B = 640, TD_BATCH
+    steps = -(-TD_TRAIN // B) * TD_EPOCHS
+    val_frames = [np.load(f) for f in sorted(Path(check_det_dataset(data)["val"]).glob("*.npy"))]
+    expect = {k: v * TD_EPOCHS for k, v in val_launches_expected(val_frames, min(B, 8), sites).items()}
+    expect["repack"] = steps
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_v10_train_") as tmp:
+        root = Path(tmp)
+        yolo = YOLO("yolov10n.yaml", device="cuda", seed=0, nc=3)
+        letterbox.launches = conv3x3.launches = repack_width_kernel.launches = 0
+        t0 = time.perf_counter()
+        res = yolo.train(data=data, imgsz=S, batch=B, epochs=TD_EPOCHS, close_mosaic=1, optimizer="auto", workers=8,
+                         cache="disk", save=True, save_dir=root / "run")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches,
+                    "repack": repack_width_kernel.launches}
+        tr = yolo.trainer
+        assert launches == expect, (launches, expect)
+        assert len(tr.history) == steps and all(np.isfinite(h["loss"]) and h["skipped"] is False for h in tr.history)
+        assert all(np.isfinite(list(res.values()))), res
+        weights = root / "run" / "weights"
+        assert sorted(p.name for p in weights.iterdir()) == ["best.ckpt", "last.ckpt"], list(weights.iterdir())
+        frames = frames_720p(4, seed=63)
+        ref = yolo.predict(frames, imgsz=S, batch=4, conf=0.0)
+        back = YOLO(yolo.save(root / "v10n.ckpt"), device="cuda")
+        from_last, from_best = (YOLO("yolov10n.yaml", device="cuda", seed=None, nc=3) for _ in range(2))
+        for model, path in ((from_last, weights / "last.ckpt"), (from_best, weights / "best.ckpt")):
+            tree, _ = load_checkpoint(path)
+            model.load_flax({"params": tree["ema_params"], "batch_stats": tree["batch_stats"]})
+        same = {}
+        for name, model in (("save", back), ("last_ckpt", from_last)):
+            got = model.predict(frames, imgsz=S, batch=4, conf=0.0)
+            same[name] = all(np.array_equal(a.boxes.data, b.boxes.data) for a, b in zip(got, ref))
+            assert same[name], f"yolov10n reloaded through {name}: detections differ from the trained facade's"
+        best = from_best.predict(frames, imgsz=S, batch=4, conf=0.0)
+        assert all(len(r) > 0 and np.isfinite(r.boxes.data).all() for r in best)
+        best_meta = read_meta(weights / "best.ckpt")
+        assert best_meta["fitness"] == max(e["fitness"] for e in tr.epoch_history), best_meta
+        log("v10n_train_data", f"YOLO('yolov10n.yaml', nc=3).train(data=..., save=True): {steps} steps of b{B}, "
+                               f"{TD_EPOCHS} validations, {wall:.3f} s ({TD_TRAIN * TD_EPOCHS / wall:.1f} img/s over "
+                               f"the call); launches {launches}; last.ckpt + best.ckpt (best: epoch "
+                               f"{best_meta['epoch'] + 1}); YOLO.save -> YOLO(path, device='cuda') and last.ckpt's "
+                               f"EMA weights predict identically ({[len(r) for r in ref]} boxes)")
+        REPORT["v10n_train_data"] = {"launches": launches, "wall_s": wall, "results": res, "best": best_meta,
+                                     "predict_identical": same}
+
+
+def converge_only(model: str = YAML) -> int:
+    """`--converge [model yaml]`: the learning proof of tools/train_convergence.py on the card: the model
+    (LPC-YOLO unless named; nc=3, seed 0) trained on the synthetic set of 256 + 32 frames at 160 for CONV_EPOCHS epochs of b16 (close_mosaic
     40, max_gt 8, cache="ram", val=False, patience CONV_EPOCHS, save=True), then validated at f32 and
     at bf16 on the trained weights reloaded through YOLO.save -> YOLO(path). Fails under mAP50 0.5."""
     import tempfile
@@ -1307,7 +1524,7 @@ def converge_only() -> int:
         root = Path(tmp)
         t_start = time.perf_counter()
         data = make_synthetic_dataset(root / "ds", n_train=256, n_val=32, imgsz=S, nc=3, max_boxes=4, seed=3)
-        yolo = YOLO(YAML, device="cuda", seed=0, nc=3)
+        yolo = YOLO(model, device="cuda", seed=0, nc=3)
         t0 = time.perf_counter()
         yolo.train(data=data, epochs=CONV_EPOCHS, batch=16, imgsz=S, workers=8, max_gt=8, cache="ram",
                    close_mosaic=40, val=False, patience=CONV_EPOCHS, save=True, save_dir=root / "run")
@@ -1331,7 +1548,7 @@ def converge_only() -> int:
         wall = time.perf_counter() - t_start
     m50, m5095 = res["f32"]["metrics/mAP50(B)"], res["f32"]["metrics/mAP50-95(B)"]
     gap = {k: res["bf16"][k] - res["f32"][k] for k in ("metrics/mAP50(B)", "metrics/mAP50-95(B)")}
-    out = {"mAP50": m50, "mAP50_95": m5095, "bf16_minus_f32": gap, "epochs": CONV_EPOCHS, "steps": len(tr.history),
+    out = {"model": model, "mAP50": m50, "mAP50_95": m5095, "bf16_minus_f32": gap, "epochs": CONV_EPOCHS, "steps": len(tr.history),
            "skipped": n_skipped, "optimizer": tr.cfg.optimizer, "train_s": train_s, "wall_s": wall,
            "img_s": 256 * CONV_EPOCHS / train_s, "f32": res["f32"], "bf16": res["bf16"],
            "ckpt_bytes": tr.ckpt_seconds[-1]["bytes"], "epochs_rows": tr.epoch_history}
@@ -1339,7 +1556,7 @@ def converge_only() -> int:
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
     (dest / "chip_smoke_converge.json").write_text(json.dumps(REPORT, indent=1))
-    log("converge", f"mAP50 {m50:.4f}, mAP50-95 {m5095:.4f} (f32); bf16 - f32: mAP50 {gap['metrics/mAP50(B)']:+.4f}, "
+    log("converge", f"{model}: mAP50 {m50:.4f}, mAP50-95 {m5095:.4f} (f32); bf16 - f32: mAP50 {gap['metrics/mAP50(B)']:+.4f}, "
                     f"mAP50-95 {gap['metrics/mAP50-95(B)']:+.4f}; {len(tr.history)} steps ({n_skipped} skipped, "
                     f"{tr.cfg.optimizer}) in {train_s:.1f} s, {wall:.1f} s in all")
     if not m50 > CONV_MAP50_BAR:
@@ -1357,8 +1574,9 @@ def conv3x3_only() -> None:
 
     yolo = YOLO(YAML, device="cuda", seed=0)
     sites = conv_sites(Predictor(yolo.model, imgsz=640, batch=1, device="cuda", dtype=torch.bfloat16))
-    conv_err = phase_parity_conv(sites)
-    time_conv3x3(sites, 32, sweep=True)
+    REPORT["conv3x3_parity"] = phase_parity_conv(sites)
+    conv_err = REPORT["conv3x3_parity"]["f32_max_abs"]
+    REPORT["conv3x3_sum"], REPORT["conv3x3_shapes"] = time_conv3x3(sites, 32, sweep=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_conv3x3.json").write_text(json.dumps(REPORT, indent=1))
@@ -1366,8 +1584,10 @@ def conv3x3_only() -> None:
 
 
 def main(argv) -> int:
-    if argv not in ([], ["--conv3x3"], ["--converge"]):
-        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3 and --converge", file=sys.stderr)
+    converge = argv[:1] == ["--converge"] and len(argv) <= 2
+    if argv not in ([], ["--conv3x3"]) and not converge:
+        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3 and --converge [model yaml]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1382,8 +1602,8 @@ def main(argv) -> int:
     if argv == ["--conv3x3"]:
         conv3x3_only()
         return 0
-    if argv == ["--converge"]:
-        rc = converge_only()
+    if converge:
+        rc = converge_only(*argv[1:])
         print(smi)
         print(json.dumps({"ok": rc == 0, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return rc
@@ -1396,7 +1616,9 @@ def main(argv) -> int:
     assert sum(p.numel() for p in yolo.model.parameters()) == 3_968_338
     pred16 = Predictor(yolo.model, imgsz=640, batch=4, device="cuda", dtype=torch.bfloat16)
     sites = conv_sites(pred16)
-    conv_err = phase_parity_conv(sites)
+    assert len(sites) == CONV_SITES_PER_FORWARD, f"{len(sites)} kernel sites per forward, expected 28"
+    REPORT["conv3x3_parity"] = phase_parity_conv(sites)
+    conv_err = REPORT["conv3x3_parity"]["f32_max_abs"]
     REPORT["predict_launches"] = phase_slice(yolo, pred16)
     lb, conv = phase_times(yolo, sites)
     del yolo, pred16
@@ -1404,15 +1626,18 @@ def main(argv) -> int:
     rp = time_repack(torch.Generator(device="cuda").manual_seed(3))["contiguous"]
     phase_train()
     torch.cuda.empty_cache()
-    phase_val()
-    torch.cuda.empty_cache()
     import tempfile
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_data_") as tmp:
-        data = write_train_dataset(Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        phase_val(Path(tmp) / "val")
+        torch.cuda.empty_cache()
+        data = write_train_dataset(Path(tmp) / "train")
         phase_train_data(data)  # YOLO(nc=3).train(data=...), its counters held in the phase
         torch.cuda.empty_cache()
         launches = phase_checkpoint(data)  # the main path: YOLO(nc=3).train(data=..., save=True)
+        torch.cuda.empty_cache()
+        v10 = phase_v10(Path(tmp) / "val" / "data.yaml")
+        phase_v10_train_data(data, v10["n"]["sites"])
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
          "replaces": "lpc_yolo_tpu/ops/pallas_preprocess.py:103", "launches": launches["letterbox"],

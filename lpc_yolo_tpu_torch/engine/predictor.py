@@ -1,4 +1,4 @@
-"""Serving predictor: frames -> device letterbox -> LPC graph -> NMS-free decode -> Results.
+"""Serving predictor: frames -> device letterbox -> the model graph -> NMS-free decode -> Results.
 
 Counterpart of `lpc_yolo_tpu/engine/predictor.py::Predictor` (:87-363), v10
 path. The JAX predictor letterboxes on the host with cv2 to uint8 (:261) and

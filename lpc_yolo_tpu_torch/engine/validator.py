@@ -1,4 +1,4 @@
-"""Validator: dataset -> device letterbox -> LPC graph -> NMS-free decode -> TP matching -> mAP.
+"""Validator: dataset -> device letterbox -> the model graph -> NMS-free decode -> TP matching -> mAP.
 
 Counterpart of `lpc_yolo_tpu/engine/validator.py::Validator` for the v10
 detection task (`__init__` :34-71, the v10 predict of `_make_predict`,

@@ -2,8 +2,8 @@
 
 Same schema and channel inference as the JAX compiler (make_divisible :87,
 LayerSpec :94, yaml_model_load :110, parse_model :119-284), implemented for
-the modules the LPC-YOLO YAML reaches; any other module raises
-NotImplementedError. The model routes `from` indices and keeps the save list
+the modules that the LPC-YOLO YAML and the six YOLOv10 scales (n/s/m/b/l/x)
+reach; any other module raises NotImplementedError. The model routes `from` indices and keeps the save list
 like `DetectionModel._run` (:718-1019), without the TPU width-pack, upsample-
 commute, s2d-fold plans or int8. A layer whose output no later layer reads
 (layer 27 of the LPC YAML) keeps its module and weights. In eval mode it is
@@ -31,8 +31,8 @@ from .heads import V10Detect, decode_feats_topk_split
 
 # Modules whose YAML arg[0] is the (width-scaled) output-channel count, and the
 # subset that also takes the (depth-scaled) repeat count.
-_BASE = {"Conv", "Bottleneck", "SPPF", "C2f", "PSA", "LPC"}
-_REPEAT = {"C2f"}
+_BASE = {"Conv", "Bottleneck", "SPPF", "C2f", "PSA", "LPC", "SCDown", "C2fCIB"}
+_REPEAT = {"C2f", "C2fCIB"}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -143,6 +143,11 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         return M.C2f(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else False)
     if m == "PSA":
         return M.PSA(a[0], a[1])
+    if m == "SCDown":
+        return M.SCDown(a[0], a[1], a[2], a[3])
+    if m == "C2fCIB":
+        return M.C2fCIB(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else False,
+                        lk=a[4] if len(a) > 4 else False)
     if m == "LPC":
         return M.LPC(a[0], a[1], a[2] if len(a) > 2 else 1, a[3] if len(a) > 3 else 1)
     if m == "CBAM":

@@ -1,4 +1,4 @@
-"""The LPC-YOLO block set as torch nn.Modules (NCHW, channels_last on the card).
+"""The block set of LPC-YOLO and the YOLOv10 scales as torch nn.Modules (NCHW, channels_last on the card).
 
 Counterpart of `lpc_yolo_tpu/nn/modules.py`, plain semantics only: none of
 the TPU layout rewrites (width packing, PackedBN, the C2f deploy algebra,
@@ -7,7 +7,8 @@ with numeric parts split off (`m_0` -> `m.0`, `ffn_1` -> `ffn.1`), so the
 weight bridge (`utils/flax_bridge.py`) is a pure name map.
 
 Activations follow the fork: blocks defined in its block.py (C2f, SPPF, PSA,
-LPC, Bottleneck) use Mish; YAML-level `Conv` and the head towers use SiLU.
+LPC, Bottleneck, SCDown, CIB, C2fCIB) use Mish, but for RepVGGDW's own SiLU;
+YAML-level `Conv` and the head towers use SiLU.
 BatchNorm uses eps 1e-3 and momentum 0.03; in train mode its running
 statistics follow the JAX package's (`BatchNorm2d` below).
 
@@ -163,6 +164,70 @@ class SPPF(nn.Module):
         y1 = pool(x)
         y2 = pool(y1)
         return self.cv2(torch.cat([x, y1, y2, pool(y2)], 1))
+
+
+class SCDown(nn.Module):
+    """Spatial-channel decoupled downsample (reference block.py:818): a 1x1 conv with Mish to c2,
+    then a depthwise k x k stride-s conv with no activation."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 1, 1, act="mish")
+        self.cv2 = ConvBN(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x):
+        return self.cv2(self.cv1(x))
+
+
+class RepVGGDW(nn.Module):
+    """Dual-branch depthwise conv (reference block.py:700): SiLU(dw7x7(x) + dw3x3(x)), both with
+    BN and no activation of their own. The SiLU is the reference's own `nn.SiLU`, the only SiLU
+    inside a block of this fork (every other block conv is the fork's Mish `Conv`).
+
+    Folding keeps the two branches, each a BN-folded depthwise conv through F.conv2d, as the JAX
+    package's `fuse_conv_bn` does; the 3x3 is not padded into the 7x7.
+    """
+
+    def __init__(self, ed: int):
+        super().__init__()
+        self.conv = ConvBN(ed, ed, 7, 1, p=3, g=ed, act=False)
+        self.conv1 = ConvBN(ed, ed, 3, 1, p=1, g=ed, act=False)
+
+    def forward(self, x):
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """Compact inverted block (reference block.py:735): depthwise 3x3, 1x1 to 2c_, a depthwise
+    3x3 (RepVGGDW when `lk`), 1x1 to c2, depthwise 3x3, all with Mish (RepVGGDW: SiLU); the
+    input is added when `shortcut` and c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(
+            ConvBN(c1, c1, 3, g=c1, act="mish"),
+            ConvBN(c1, 2 * c_, 1, act="mish"),
+            RepVGGDW(2 * c_) if lk else ConvBN(2 * c_, 2 * c_, 3, g=2 * c_, act="mish"),
+            ConvBN(2 * c_, c2, 1, act="mish"),
+            ConvBN(c2, c2, 3, g=c2, act="mish"),
+        )
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """C2f with CIB bottlenecks (reference block.py:758): C2f's split and concat, plain path."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False, e: float = 0.5):
+        nn.Module.__init__(self)
+        self.c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * self.c, 1, 1, act="mish")
+        self.cv2 = ConvBN((2 + n) * self.c, c2, 1, act="mish")
+        self.m = nn.ModuleList(CIB(self.c, self.c, shortcut, e=1.0, lk=lk) for _ in range(n))
 
 
 class Attention(nn.Module):

@@ -101,6 +101,36 @@ def test_conv3x3_kernel_matches_plain(B, H, W, C, Co, offset, config, act, dtype
         assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
 
 
+# (B, H, W, C, Co, channel offset) of the YOLOv10 scales' shape classes: Co tiles partly filled
+# (48, 80, 96, 160, 192), C no multiple of 32 (48, 80: 16-channel chunks), C up to 640 (K = 5760), and
+# v10x's first C2f bottleneck whole at its serving batch of 32 (the upper half of a 160-channel split).
+# At these batches the bf16 kernel takes instantiations 2, 6, 6, 7, 6, 6, 7 and 3.
+V10_CONV_CASES = [
+    (2, 160, 160, 48, 48, 48), (32, 80, 80, 96, 96, 0), (32, 40, 40, 192, 192, 0), (2, 80, 80, 160, 160, 0),
+    (32, 80, 80, 320, 80, 0), (32, 40, 40, 640, 80, 0), (2, 20, 20, 640, 80, 0), (32, 160, 160, 80, 80, 80),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [False, "silu", "mish"])
+@pytest.mark.parametrize("B,H,W,C,Co,offset", V10_CONV_CASES)
+def test_conv3x3_v10_shapes_match_plain(B, H, W, C, Co, offset, act, dtype):
+    """The kernel against its plain version at the v10 scales' new shape classes, with the tolerances of
+    `test_conv3x3_kernel_matches_plain`."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    wide = torch.randn(B, H, W, C + offset, device="cuda", generator=g)
+    w = torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5
+    b = torch.rand(Co, device="cuda", generator=g) - 0.5
+    xq, wq = wide.to(dtype)[..., offset:], w.to(dtype)
+    got = conv3x3(xq, wq, b, act).float()
+    ref = conv3x3_plain(xq.float(), wq.float(), b, act)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    else:
+        assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
+
+
 def test_conv3x3_configs_match_the_library():
     """The built library describes each instantiation as CONFIGS and conv3x3_config do."""
     import ctypes
