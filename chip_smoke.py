@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --conv3x3    # device, build, then conv3x3 parity and per-shape times only
-    python3 chip_smoke.py --converge [yolov10n.yaml]   # device, build, then the learning proof only
+    python3 chip_smoke.py --converge [yolov8n.yaml]    # device, build, then the learning proof only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   the card's name and power limit; TF32 off for the parity phases.
-2. build    the three hand-written kernels (csrc/*.cu) with nvcc, in parallel.
+2. build    the four hand-written kernels (csrc/*.cu) with nvcc, in parallel.
 3. parity   each kernel against its plain PyTorch version on the card at the
             main path's shapes: letterbox (720x1280, 1080x810 -> 640, batch 4,
             u8/f32/bf16), conv3x3 (every distinct LPC-YOLO 3x3 s1 conv site at
@@ -103,15 +103,29 @@ Phases, in order; any failure raises and the script exits non-zero:
             8's dataset, counters held as in phase 9; YOLO.save ->
             YOLO(path, device="cuda") and last.ckpt's EMA weights predict
             what the trained facade predicts, bit for bit, and best.ckpt's
-            weights serve.
+            weights serve. Every counter here also holds the NMS at 0.
+11. v8      the five YOLOv8 scales (n/s/m/l/x) as phase 10 does the v10
+            ones, with the v8 head's twelve 3x3 sites a forward beside two
+            per C2f bottleneck, an NMS launch per predict and val batch on
+            the counters, and the v8 loss in the train step; then
+            YOLO("yolov8n.yaml", nc=3).train(data=..., save=True) as in
+            phase 10 (an NMS per val batch). The seed-0 weights' conv biases
+            are U(+-0.5), so many scores pass conf 0.25 and the NMS runs.
+12. nms     the NMS kernel against nms_plain on two b32 pools of 4096
+            candidates an image: the worst case (every score above conf
+            0.25, tied in runs, all 300 steps run) and the val case (the
+            multi_label pool of a seed-0 yolov8n, conf 0.001, iou 0.7): rows bit for bit and anchors equal; device times from
+            CUDA graphs beside the bound and the plain version's launches.
 
-The line before last is a JSON object with one entry per kernel (three; launches
-from phase 9); the last line is {"ok": true, "device": {...}}. Every number is
-also written to chiprun_out/chip_smoke.json (phase 10's under "v10").
+The line before last is a JSON object with one entry per kernel (four; the
+launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
+yolov8n train(data=...); nms's times from phase 12's val pool); the last line
+is {"ok": true, "device": {...}}. Every number is also written to
+chiprun_out/chip_smoke.json (phase 10's under "v10", phase 11's under "v8").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
-yolov10n.yaml) with nc=3 on the synthetic set of 256 + 32
+yolov10n.yaml or yolov8n.yaml) with nc=3 on the synthetic set of 256 + 32
 frames at 160, 120 epochs of b16 (close_mosaic 40, max_gt 8, cache="ram",
 val=False, save=True), then `val` at f32 and at bf16 on the trained weights
 reloaded through YOLO.save -> YOLO(path); it prints mAP50, mAP50-95, the
@@ -147,9 +161,13 @@ VAL_BF16_MAP50_TOL = 0.35  # mAP50, bf16 vs f32: the random weights' scores clus
 TD_TRAIN, TD_VAL, TD_BATCH, TD_EPOCHS = 64, 16, 16, 3  # train(data=...): 4 steps an epoch, validation at batch 8
 CONV_EPOCHS, CONV_MAP50_BAR = 120, 0.5  # --converge: tools/train_convergence.py's run, the JAX slow test's bar
 RESUME_TOL = 1e-3  # a resumed run's state against the uninterrupted run's, of each leaf's largest value
-V10_PARAMS = {"n": 2_775_504, "s": 8_128_256, "m": 16_576_752, "b": 20_574_368, "l": 25_888_672,
-              "x": 31_808_944}  # the JAX package's counts (tests/test_models.py)
-V10_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits
+SCALE_PARAMS = {  # the JAX package's counts (tests/test_models.py, tests/test_torch_v8.py)
+    "v10": {"n": 2_775_504, "s": 8_128_256, "m": 16_576_752, "b": 20_574_368, "l": 25_888_672, "x": 31_808_944},
+    "v8": {"n": 3_157_184, "s": 11_166_544, "m": 25_902_624, "l": 43_691_504, "x": 68_229_632},
+}
+HEAD_SITES = {"v10": 6, "v8": 12}  # 3x3 s1 convs of the head on the serving path: v10's one2one box towers, v8's towers
+SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits
+NMS_OPS = 15  # f32 operations per pool candidate and step: the IoU in the JAX order, the compare, the argmax
 REPORT = {}
 
 
@@ -866,11 +884,33 @@ def write_val_labels(files, frames, dets, imgsz: int) -> int:
     return n_boxes
 
 
-def val_launches_expected(frames, batch: int, sites: int = CONV_SITES_PER_FORWARD):
-    """Launches one val run makes: a letterbox per (batch, frame shape) and a conv3x3 per site and batch."""
+def val_launches_expected(frames, batch: int, sites: int = CONV_SITES_PER_FORWARD, nms: bool = False):
+    """Launches one val run makes: a letterbox per (batch, frame shape), a conv3x3 per site and batch, and
+    for a v8 model (`nms`) an NMS per batch."""
     n_batches = -(-len(frames) // batch)
     groups = sum(len({im.shape for im in frames[i:i + batch]}) for i in range(0, len(frames), batch))
-    return {"letterbox": groups, "conv3x3": sites * n_batches}
+    return {"letterbox": groups, "conv3x3": sites * n_batches, "nms": n_batches if nms else 0}
+
+
+def counted():
+    """The kernels' wrappers, each with its launch counter, by kernel name."""
+    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+    from lpc_yolo_tpu_torch.ops.nms import nms_greedy
+    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
+
+    return {"letterbox": letterbox, "conv3x3": conv3x3, "repack": repack_width_kernel, "nms": nms_greedy}
+
+
+def zero_launches() -> None:
+    for fn in counted().values():
+        fn.launches = 0
+
+
+def launches_now(*names):
+    """The launch counters of the named kernels (all four if none is named)."""
+    fns = counted()
+    return {n: fns[n].launches for n in names or fns}
 
 
 def phase_parity_letterbox_val():
@@ -970,12 +1010,12 @@ def phase_val(root: Path):
 
     runs = {}
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16), ("bf16_again", torch.bfloat16)):
-        letterbox.launches = conv3x3.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         res = yolo.val(data=str(data), imgsz=S, batch=B, cache_images="disk", dtype=dt)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches}
+        launches = launches_now("letterbox", "conv3x3", "nms")
         assert launches == expect, f"val {name}: launches {launches}, expected {expect}"
         speed = dict(yolo.validator.speed)
         speed["loader_and_rest"] = wall - sum(speed.values())
@@ -1056,7 +1096,6 @@ def phase_train_data(data: str):
     from lpc_yolo_tpu_torch.engine.trainer import pack_img
     from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox
-    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
 
     S, B, dev = 640, TD_BATCH, torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_run_") as tmp:
@@ -1067,15 +1106,14 @@ def phase_train_data(data: str):
 
         # this slice's main path: the trainer from the dataset, counters read around it
         yolo = YOLO(YAML, device="cuda", seed=0, nc=3)
-        letterbox.launches = conv3x3.launches = repack_width_kernel.launches = 0
+        zero_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = yolo.train(data=data, imgsz=S, batch=B, epochs=TD_EPOCHS, close_mosaic=1, optimizer="auto",
                          workers=8, cache="disk", save_dir=Path(tmp) / "run")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches,
-                    "repack": repack_width_kernel.launches}
+        launches = launches_now()
         tr = yolo.trainer
         hist, rows = tr.history, tr.epoch_history
         for h in hist:
@@ -1193,7 +1231,6 @@ def phase_checkpoint(data: str):
     from lpc_yolo_tpu_torch.nn import build_model
     from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox
-    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
     from lpc_yolo_tpu_torch.utils.checkpoint import load_checkpoint, read_meta
     from lpc_yolo_tpu_torch.utils.compare import assert_detections_close
     from lpc_yolo_tpu_torch.utils.flax_bridge import train_state_from_dict
@@ -1208,13 +1245,12 @@ def phase_checkpoint(data: str):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         root = Path(tmp)
         yolo = YOLO(YAML, device="cuda", seed=0, nc=3)
-        letterbox.launches = conv3x3.launches = repack_width_kernel.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         yolo.train(save_dir=root / "full", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches,
-                    "repack": repack_width_kernel.launches}
+        launches = launches_now()
         tr = yolo.trainer
         assert launches == expect, (launches, expect)
         assert all(np.isfinite(h["loss"]) and h["skipped"] is False for h in tr.history)
@@ -1310,25 +1346,24 @@ def phase_checkpoint(data: str):
     return launches
 
 
-def v10_serving(yolo, pred, sites, host, dev):
+def scale_serving(yolo, pred, sites, host, dev):
     """YOLO.predict of the host frames at b32, 640, bf16, counters reset just before and read just after
-    (a letterbox and a conv3x3 per site for the one batch); then the serving step from the device-resident
-    frames (letterbox to u8, cast, forward, decode) by CUDA events and its profile."""
-    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
+    (a letterbox, a conv3x3 per site and, for a v8 model, one NMS for the one batch); then the serving step
+    from the device-resident frames (letterbox to u8, cast, forward, decode) by CUDA events and its profile."""
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox
 
     B, S = len(host), 640
-    letterbox.launches = conv3x3.launches = 0
+    zero_launches()
     results = yolo.predict(host, imgsz=S, batch=B, conf=0.25)
     torch.cuda.synchronize()
-    launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches}
-    assert launches == {"letterbox": 1, "conv3x3": len(sites)}, launches
+    launches = launches_now("letterbox", "conv3x3", "nms")
+    assert launches == {"letterbox": 1, "conv3x3": len(sites), "nms": int(yolo.task == "v8")}, launches
     assert len(results) == B and all(np.isfinite(r.boxes.data).all() for r in results)
     x = torch.empty(B, S, S, 3, dtype=torch.uint8, device="cuda")
 
     def step():
         letterbox(dev, S, out=x)
-        return pred.model.predict(x.permute(0, 3, 1, 2).to(torch.bfloat16))
+        return pred.model.predict(x.permute(0, 3, 1, 2).to(torch.bfloat16), pred.max_det, pred.conf, pred.iou)
 
     with torch.inference_mode():
         step_ms = cuda_ms(step, iters=3, warmup=2)
@@ -1338,26 +1373,25 @@ def v10_serving(yolo, pred, sites, host, dev):
             "device_launches": prof["device_launches"], "profile_top": prof["top"][:8]}
 
 
-def v10_train_step(yolo, batches):
-    """The train step at b16, 640, bf16 autocast from device-resident packed batches (repack at its entry):
-    event-timed ms, one repack launch a step, peak memory, every loss finite and no step skipped; then its
-    profile."""
+def scale_train_step(yolo, batches):
+    """The train step (the model's own loss: v10 or v8) at b16, 640, bf16 autocast from device-resident packed
+    batches (repack at its entry): event-timed ms, one repack launch a step, peak memory, every loss finite
+    and no step skipped; then its profile."""
     from lpc_yolo_tpu_torch.engine.train_step import OptConfig, init_train_state, make_train_step
-    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
 
     cfg = OptConfig(warmup_steps=100, total_steps=1000)
     st = init_train_state(yolo.model, cfg, device="cuda")
-    step = make_train_step(yolo.model, cfg)
+    step = make_train_step(yolo.model, cfg, loss_kind=yolo.task)
     mets, it = [], iter(range(10 ** 9))
 
     def one():
         mets.append(step(st, batches[next(it) % len(batches)])[1])
 
-    repack_width_kernel.launches = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(one, iters=2, warmup=2)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    assert repack_width_kernel.launches == len(mets), (repack_width_kernel.launches, len(mets))
+    assert launches_now("repack") == {"repack": len(mets)}, (launches_now(), len(mets))
     assert all(m["skipped"] is False and np.isfinite(float(m["loss"])) for m in mets), mets[-1]
     prof = profile_step(one, iters=2)
     return {"batch": len(batches[0]["img"]), "steps": len(mets), "step_ms": step_ms, "peak_gb": peak_gb,
@@ -1366,62 +1400,64 @@ def v10_train_step(yolo, batches):
             "loss": float(mets[-1]["loss"]), "profile_top": prof["top"][:8]}
 
 
-def phase_v10(val_data: Path):
-    """The six YOLOv10 scales, each in turn with random weights (seed 0): its parameter count; every distinct
-    conv3x3 site against the plain version (f32, bf16) and every site of one bf16 serving forward on its own
-    inputs; YOLO.predict at b32, 640, bf16 from 720p frames with the launch counters held, and the serving
-    step's time and profile; the kernel over the scale's sites at b32 bf16 beside F.conv2d + bias and the
-    bound; YOLO.val(data=...) on phase 7's set at b32 bf16 with its counters held; the train step at b16."""
+def phase_scales(family: str, val_data: Path):
+    """The published scales of one family ("v10": n/s/m/b/l/x, "v8": n/s/m/l/x), each in turn with random
+    weights (seed 0): its parameter count; its conv3x3 sites (two per C2f bottleneck, and the head's 3x3 s1
+    convs: 6 on v10, 12 on v8); every distinct site against the plain version (f32, bf16) and every site of
+    one bf16 serving forward on its own inputs; YOLO.predict at b32, 640, bf16 from 720p frames with the
+    launch counters held, and the serving step's time and profile; the kernel over the scale's sites at b32
+    bf16 beside F.conv2d + bias and the bound; YOLO.val(data=...) on phase 7's set at b32 bf16 with its
+    counters held; the train step at b16."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.engine.train_step import to_device
     from lpc_yolo_tpu_torch.engine.trainer import pack_img
-    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
-    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
 
-    host = frames_720p(V10_SERVE_BATCH, seed=61)
+    host = frames_720p(SCALE_SERVE_BATCH, seed=61)
     dev = torch.from_numpy(np.stack(host)).cuda()
     val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
     out = {}
-    for scale, n_params in V10_PARAMS.items():
+    for scale, n_params in SCALE_PARAMS[family].items():
         t_scale = time.perf_counter()
-        phase = f"v10{scale}"
+        phase = f"{family}{scale}"
         r = out[scale] = {}
-        yolo = YOLO(f"yolov10{scale}.yaml", device="cuda", seed=0)
+        yolo = YOLO(f"yolo{phase}.yaml", device="cuda", seed=0)
         assert sum(p.numel() for p in yolo.model.parameters()) == n_params, scale
-        pred = Predictor(yolo.model, imgsz=640, batch=V10_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+        pred = Predictor(yolo.model, imgsz=640, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
         sites = conv_sites(pred)
+        bottlenecks = sum(sp.args[2] for sp in yolo.model.specs if sp.module == "C2f")
+        assert len(sites) == 2 * bottlenecks + HEAD_SITES[family], (phase, len(sites), bottlenecks)
         r["sites"] = len(sites)
         r["parity"] = phase_parity_conv(sites, phase)
         site_err = bf16_site_errors(pred, host[:2])
         assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{phase} bf16 conv3x3 sites: {site_err}"
         r["parity"]["forward_sites_bf16_max_rel"] = max(site_err)
 
-        r["serving"] = v10_serving(yolo, pred, sites, host, dev)
+        r["serving"] = scale_serving(yolo, pred, sites, host, dev)
         sv = r["serving"]
         log(phase, f"{n_params} parameters, {len(sites)} conv3x3 sites a forward (every site of a bf16 forward "
-                   f"on its own inputs: max rel {max(site_err):.3g}, tol 2e-2); YOLO.predict b{V10_SERVE_BATCH} "
-                   f"720p->640 bf16: launches {sv['launches']}; serving step {sv['step_ms']:.3f} ms "
-                   f"({sv['img_s']:.1f} img/s), device busy {sv['busy_ms']:.3f} ms, idle share {sv['idle_share']}, "
-                   f"{sv['device_launches']:.0f} launches a step")
+                   f"on its own inputs: max rel {max(site_err):.3g}, tol 2e-2); YOLO.predict b{SCALE_SERVE_BATCH} "
+                   f"720p->640 bf16: launches {sv['launches']}, {sv['boxes']} boxes above conf 0.25; serving step "
+                   f"{sv['step_ms']:.3f} ms ({sv['img_s']:.1f} img/s), device busy {sv['busy_ms']:.3f} ms, idle share "
+                   f"{sv['idle_share']}, {sv['device_launches']:.0f} launches a step")
 
-        tot, per_shape = time_conv3x3(sites, V10_SERVE_BATCH, phase=phase)
+        tot, per_shape = time_conv3x3(sites, SCALE_SERVE_BATCH, phase=phase)
         r["conv3x3_sum"], r["conv3x3_shapes"] = tot, per_shape
         r["conv3x3_losers"] = [{"C": p["C"], "Co": p["Co"], "H": p["H"], "per_forward": p["per_forward"],
                                 "vs_library": p["vs_library"]} for p in per_shape if p["vs_library"] > 1]
-        log(phase, f"conv3x3 over {len(sites)} sites at b{V10_SERVE_BATCH} bf16: {tot['ms']:.3f} ms, F.conv2d "
+        log(phase, f"conv3x3 over {len(sites)} sites at b{SCALE_SERVE_BATCH} bf16: {tot['ms']:.3f} ms, F.conv2d "
                    f"{tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x), bound {tot['bound_ms']:.3f} ms "
                    f"({tot['bound_by']}, {tot['bound_ms'] / tot['ms']:.3f} of it); shapes slower than F.conv2d: "
                    + (", ".join(f"{p['C']}->{p['Co']} @{p['H']}^2 x{p['per_forward']} {p['vs_library']:.2f}x"
                                 for p in r["conv3x3_losers"]) or "none"))
 
-        expect = val_launches_expected(val_frames, VAL_BATCH, len(sites))
-        letterbox.launches = conv3x3.launches = 0
+        expect = val_launches_expected(val_frames, VAL_BATCH, len(sites), nms=yolo.task == "v8")
+        zero_launches()
         t0 = time.perf_counter()
         res = yolo.val(data=str(val_data), imgsz=640, batch=VAL_BATCH, cache_images="disk")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches}
+        launches = launches_now("letterbox", "conv3x3", "nms")
         assert launches == expect, f"{phase} val: launches {launches}, expected {expect}"
         assert all(np.isfinite(v) for v in res.values()), res
         r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": launches, "results": res}
@@ -1433,49 +1469,46 @@ def phase_v10(val_data: Path):
         B = TRAIN_BATCH
         batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda"))
                    for b in train_batches(2, B, seed=62)]
-        r["train"] = tr = v10_train_step(yolo, batches)
+        r["train"] = tr = scale_train_step(yolo, batches)
         log(phase, f"train step b{B} 640 bf16 autocast: {tr['step_ms']:.3f} ms ({tr['img_s']:.1f} img/s), device busy "
                    f"{tr['busy_ms']:.3f} ms, idle share {tr['idle_share']}, {tr['device_launches']:.0f} launches a step, "
                    f"peak {tr['peak_gb']:.3f} GB, {tr['steps']} steps with one repack each, loss {tr['loss']:.4f}")
         r["seconds"] = time.perf_counter() - t_scale
         del yolo, batches
         torch.cuda.empty_cache()
-    REPORT["v10"] = out
+    REPORT[family] = out
     return out
 
 
-def phase_v10_train_data(data: str, sites: int):
-    """YOLO("yolov10n.yaml", nc=3, seed 0).train(data=..., save=True) on phase 8's dataset, TD_EPOCHS epochs
-    of b16 at 640, with the launch counters reset just before and read just after (a letterbox per val batch
-    and frame shape, `sites` conv3x3 per val batch, a repack per step); its weights/last.ckpt and best.ckpt;
-    the trained model through YOLO.save -> YOLO(path, device="cuda") predicts what the facade predicts, bit
-    for bit, and so does a model given last.ckpt's EMA weights; best.ckpt's weights load and serve. (A
-    trainer's .ckpt holds no model config, so YOLO(path) refuses it in both packages.)"""
+def phase_scale_train_data(family: str, data: str, sites: int):
+    """YOLO("yolo<family>n.yaml", nc=3, seed 0).train(data=..., save=True) on phase 8's dataset, TD_EPOCHS
+    epochs of b16 at 640, with the launch counters reset just before and read just after (a letterbox per val
+    batch and frame shape, `sites` conv3x3 per val batch, for v8 an NMS per val batch, a repack per step);
+    its weights/last.ckpt and best.ckpt; the trained model through YOLO.save -> YOLO(path, device="cuda")
+    predicts what the facade predicts, bit for bit, and so does a model given last.ckpt's EMA weights;
+    best.ckpt's weights load and serve. (A trainer's .ckpt holds no model config, so YOLO(path) refuses it
+    in both packages.) Returns the launches."""
     import tempfile
 
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.data import check_det_dataset
-    from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
-    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
-    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
     from lpc_yolo_tpu_torch.utils.checkpoint import load_checkpoint, read_meta
 
-    S, B = 640, TD_BATCH
+    S, B, name = 640, TD_BATCH, f"yolo{family}n.yaml"
     steps = -(-TD_TRAIN // B) * TD_EPOCHS
     val_frames = [np.load(f) for f in sorted(Path(check_det_dataset(data)["val"]).glob("*.npy"))]
-    expect = {k: v * TD_EPOCHS for k, v in val_launches_expected(val_frames, min(B, 8), sites).items()}
-    expect["repack"] = steps
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_v10_train_") as tmp:
+    per_val = val_launches_expected(val_frames, min(B, 8), sites, nms=family == "v8")
+    expect = {**{k: v * TD_EPOCHS for k, v in per_val.items()}, "repack": steps}
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{family}_train_") as tmp:
         root = Path(tmp)
-        yolo = YOLO("yolov10n.yaml", device="cuda", seed=0, nc=3)
-        letterbox.launches = conv3x3.launches = repack_width_kernel.launches = 0
+        yolo = YOLO(name, device="cuda", seed=0, nc=3)
+        zero_launches()
         t0 = time.perf_counter()
         res = yolo.train(data=data, imgsz=S, batch=B, epochs=TD_EPOCHS, close_mosaic=1, optimizer="auto", workers=8,
                          cache="disk", save=True, save_dir=root / "run")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"letterbox": letterbox.launches, "conv3x3": conv3x3.launches,
-                    "repack": repack_width_kernel.launches}
+        launches = launches_now()
         tr = yolo.trainer
         assert launches == expect, (launches, expect)
         assert len(tr.history) == steps and all(np.isfinite(h["loss"]) and h["skipped"] is False for h in tr.history)
@@ -1484,27 +1517,100 @@ def phase_v10_train_data(data: str, sites: int):
         assert sorted(p.name for p in weights.iterdir()) == ["best.ckpt", "last.ckpt"], list(weights.iterdir())
         frames = frames_720p(4, seed=63)
         ref = yolo.predict(frames, imgsz=S, batch=4, conf=0.0)
-        back = YOLO(yolo.save(root / "v10n.ckpt"), device="cuda")
-        from_last, from_best = (YOLO("yolov10n.yaml", device="cuda", seed=None, nc=3) for _ in range(2))
+        back = YOLO(yolo.save(root / f"{family}n.ckpt"), device="cuda")
+        assert back.task == yolo.task == family
+        from_last, from_best = (YOLO(name, device="cuda", seed=None, nc=3) for _ in range(2))
         for model, path in ((from_last, weights / "last.ckpt"), (from_best, weights / "best.ckpt")):
             tree, _ = load_checkpoint(path)
             model.load_flax({"params": tree["ema_params"], "batch_stats": tree["batch_stats"]})
         same = {}
-        for name, model in (("save", back), ("last_ckpt", from_last)):
+        for what, model in (("save", back), ("last_ckpt", from_last)):
             got = model.predict(frames, imgsz=S, batch=4, conf=0.0)
-            same[name] = all(np.array_equal(a.boxes.data, b.boxes.data) for a, b in zip(got, ref))
-            assert same[name], f"yolov10n reloaded through {name}: detections differ from the trained facade's"
+            same[what] = all(np.array_equal(a.boxes.data, b.boxes.data) for a, b in zip(got, ref))
+            assert same[what], f"{name} reloaded through {what}: detections differ from the trained facade's"
         best = from_best.predict(frames, imgsz=S, batch=4, conf=0.0)
         assert all(len(r) > 0 and np.isfinite(r.boxes.data).all() for r in best)
         best_meta = read_meta(weights / "best.ckpt")
         assert best_meta["fitness"] == max(e["fitness"] for e in tr.epoch_history), best_meta
-        log("v10n_train_data", f"YOLO('yolov10n.yaml', nc=3).train(data=..., save=True): {steps} steps of b{B}, "
-                               f"{TD_EPOCHS} validations, {wall:.3f} s ({TD_TRAIN * TD_EPOCHS / wall:.1f} img/s over "
-                               f"the call); launches {launches}; last.ckpt + best.ckpt (best: epoch "
-                               f"{best_meta['epoch'] + 1}); YOLO.save -> YOLO(path, device='cuda') and last.ckpt's "
-                               f"EMA weights predict identically ({[len(r) for r in ref]} boxes)")
-        REPORT["v10n_train_data"] = {"launches": launches, "wall_s": wall, "results": res, "best": best_meta,
-                                     "predict_identical": same}
+        log(f"{family}n_train_data", f"YOLO('{name}', nc=3).train(data=..., save=True): {steps} steps of b{B}, "
+                                     f"{TD_EPOCHS} validations, {wall:.3f} s ({TD_TRAIN * TD_EPOCHS / wall:.1f} img/s "
+                                     f"over the call); launches {launches}; last.ckpt + best.ckpt (best: epoch "
+                                     f"{best_meta['epoch'] + 1}); YOLO.save -> YOLO(path, device='cuda') and last.ckpt's "
+                                     f"EMA weights predict identically ({[len(r) for r in ref]} boxes); losses of the "
+                                     f"last epoch {tr.epoch_history[-1]}")
+        REPORT[f"{family}n_train_data"] = {"launches": launches, "wall_s": wall, "results": res, "best": best_meta,
+                                           "predict_identical": same, "epochs": tr.epoch_history}
+    return launches
+
+
+def nms_worst_pool(B: int, seed: int = 0, k: int = 4096):
+    """A pool in which every one of the 300 steps keeps a box: k candidates an image, sorted scores above
+    conf 0.25 on a grid of 1/1024 (so runs of ~6 are tied and the first of each run must win), boxes 4 to 24
+    px a side anywhere in a 640 frame with labels of 3 classes (few suppress each other). (boxes, scores,
+    labels, anchors) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xy = torch.rand(B, k, 2, device="cuda", generator=g) * 640
+    wh = 4 + torch.rand(B, k, 2, device="cuda", generator=g) * 20
+    scores = (0.3 + 0.7 * torch.rand(B, k, device="cuda", generator=g)).mul(1024).floor().div(1024)
+    labels = torch.randint(0, 3, (B, k), device="cuda", generator=g)
+    anchors = torch.randint(0, 8400, (B, k), device="cuda", generator=g)
+    return torch.cat([xy - wh / 2, xy + wh / 2], -1), scores.sort(1, descending=True).values, labels, anchors
+
+
+def nms_val_pool(B: int, imgsz: int = 640, dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+    """The pool YOLO.val hands the NMS (multi_label, pre_topk 4096): a yolov8n of seed-`seed` weights (their
+    conv biases are U(+-0.5), so the scores sit near 0.5 and the pool is full) on B 720p frames
+    letterboxed to imgsz (scaleup=False), decoded from its `dtype` serving maps. (boxes, scores, labels,
+    anchors) on the card."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import letterbox_batch, serving_model
+    from lpc_yolo_tpu_torch.nn.heads import decode_feats
+    from lpc_yolo_tpu_torch.ops.nms import candidate_pool
+
+    yolo = YOLO("yolov8n.yaml", device="cuda", seed=seed)
+    model = serving_model(yolo.model, torch.device("cuda"), dtype)
+    dev = torch.device("cuda")
+    with torch.inference_mode():
+        x = letterbox_batch(frames_720p(B, seed=71), imgsz, dev, torch.uint8, scaleup=False)
+        pred = decode_feats(model(x.permute(0, 3, 1, 2).to(dtype)), model.strides, model.nc, model.reg_max)
+        pool = candidate_pool(pred, 4096, multi_label=True)
+    return tuple(t.clone() for t in pool)
+
+
+def time_nms(B: int = 32, max_det: int = 300):
+    """The NMS kernel against `nms_plain` on the card on two b32 pools, the worst case (`nms_worst_pool`,
+    conf 0.25, iou 0.45: all 300 steps run) and the val case (`nms_val_pool`, conf 0.001, iou 0.7): the same
+    rows bit for bit and the same anchors; device times from CUDA graphs (the kernel in graphs of 20 calls, the
+    plain version's ~25 launches a step in graphs of 2), eager calls beside them, the plain version's launches
+    (profiler) and the bound: the pool read once and the rows written once, or NMS_OPS f32 operations per pool
+    candidate for each step this pool ran, whichever is longer."""
+    from lpc_yolo_tpu_torch.ops.nms import nms_greedy, nms_plain
+
+    out = {}
+    for name, pool, kw in (("worst", nms_worst_pool(B), dict(conf_thres=0.25, iou_thres=0.45)),
+                           ("val", nms_val_pool(B), dict(conf_thres=0.001, iou_thres=0.7))):
+        got, anc = nms_greedy(*pool, max_det=max_det, **kw)
+        ref, ref_anc = nms_plain(*pool, max_det=max_det, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(anc, ref_anc), f"nms {name} pool: kernel != nms_plain"
+        kept = (got[..., 5] >= 0).sum(1)
+        steps = int((kept + (kept < max_det).long()).sum())  # the steps that ran, the one that found nothing included
+        k = pool[1].shape[1]
+        ms = graph_ms(lambda: nms_greedy(*pool, max_det=max_det, **kw))
+        plain_ms = graph_ms(lambda: nms_plain(*pool, max_det=max_det, **kw), iters=2, repeats=3)
+        eager_ms = cuda_ms(lambda: nms_greedy(*pool, max_det=max_det, **kw))
+        plain_launches = profile_step(lambda: nms_plain(*pool, max_det=max_det, **kw), iters=1)["device_launches"]
+        nbytes = B * k * (16 + 4 + 4 + 4) + B * max_det * (6 * 4 + 4)
+        bd, by = bound(nbytes, steps * k * NMS_OPS, F32_FLOPS_PER_MS)
+        out[name] = {"batch": B, "pool": k, "kept_per_image": kept.tolist(), "steps": steps, "ms": ms,
+                     "eager_ms": eager_ms, "plain_ms": plain_ms, "plain_launches": plain_launches, "bound_ms": bd,
+                     "bound_by": by, "bytes": nbytes, "bound_share": bd / ms, "max_abs_err": 0.0, **kw}
+        log("nms", f"{name} pool b{B}, {k} candidates an image: kernel == nms_plain (rows bit for bit, anchors); kept "
+                   f"{int(kept.min())}..{int(kept.max())} an image, {steps} steps in all; kernel {ms:.4f} ms (CUDA graph; "
+                   f"eager {eager_ms:.4f}), nms_plain {plain_ms:.4f} ms over {plain_launches:.0f} launches, bound "
+                   f"{bd:.5f} ms ({by}), {bd / ms:.4f} of it")
+    REPORT["nms_times"] = out
+    return out
 
 
 def converge_only(model: str = YAML) -> int:
@@ -1532,9 +1638,11 @@ def converge_only(model: str = YAML) -> int:
         train_s = time.perf_counter() - t0
         tr = yolo.trainer
         n_skipped = sum(h["skipped"] for h in tr.history)
+        from lpc_yolo_tpu_torch.engine.trainer import LOSS_NAMES
+
         for r in tr.epoch_history[::10] + tr.epoch_history[-1:]:
-            log("converge", f"epoch {r['epoch']}: box_om {r['box_om']:.4f} cls_om {r['cls_om']:.4f} "
-                            f"dfl_om {r['dfl_om']:.4f} lr {r['lr']:.3g} {r['seconds']:.2f} s")
+            log("converge", f"epoch {r['epoch']}: " + " ".join(f"{n} {r[n]:.4f}" for n in LOSS_NAMES[yolo.task][:3])
+                            + f" lr {r['lr']:.3g} {r['seconds']:.2f} s")
         # the trained weights: last.ckpt's EMA and BN statistics are what the facade holds
         tree, meta = load_checkpoint(root / "run" / "weights" / "last.ckpt")
         held = yolo.model.state_dict()
@@ -1636,8 +1744,12 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         launches = phase_checkpoint(data)  # the main path: YOLO(nc=3).train(data=..., save=True)
         torch.cuda.empty_cache()
-        v10 = phase_v10(Path(tmp) / "val" / "data.yaml")
-        phase_v10_train_data(data, v10["n"]["sites"])
+        v10 = phase_scales("v10", Path(tmp) / "val" / "data.yaml")
+        phase_scale_train_data("v10", data, v10["n"]["sites"])
+        torch.cuda.empty_cache()
+        v8 = phase_scales("v8", Path(tmp) / "val" / "data.yaml")
+        v8_launches = phase_scale_train_data("v8", data, v8["n"]["sites"])  # the v8 path: NMS per val batch
+    nms = time_nms()["val"]
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
          "replaces": "lpc_yolo_tpu/ops/pallas_preprocess.py:103", "launches": launches["letterbox"],
@@ -1651,6 +1763,10 @@ def main(argv) -> int:
          "replaces": "lpc_yolo_tpu/ops/pallas_layout.py:35", "launches": launches["repack"],
          "max_abs_err": rp_err, "ms": rp["ms"], "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
          "bound_by": "bytes", "library_ms": rp["library_ms"]},
+        {"name": "nms", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/nms.cu",
+         "replaces": "lpc_yolo_tpu/ops/postprocess.py:89",
+         "launches": v8_launches["nms"], "max_abs_err": nms["max_abs_err"], "ms": nms["ms"],
+         "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"], "bound_by": nms["bound_by"], "library_ms": None},
     ]
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start

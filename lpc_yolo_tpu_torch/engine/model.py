@@ -8,7 +8,9 @@ through the weight bridge; `YOLO("x.ckpt")` rebuilds it from a `.ckpt` that
 `.train(batches=...)` on an iterable of host batches), `.val(data=...)`
 measures it on a dataset, `.save(path)` writes it as a `.ckpt` the JAX
 facade loads and `.load(weights)` takes over every weight whose name and
-shape match. `.pt` files, export and the other tasks wait for later slices.
+shape match. Two tasks are ported, named as the JAX facade names them: "v10"
+for a v10Detect head (NMS-free) and "v8" for a Detect head (NMS). `.pt`
+files, export and the other tasks wait for later slices.
 """
 
 from __future__ import annotations
@@ -30,14 +32,16 @@ _CFG_ROOT = Path(__file__).resolve().parents[1] / "cfg" / "models"
 
 
 def _resolve_yaml(name: Union[str, Path]) -> Path:
-    """A model-config name or path -> the YAML file (scale letter stripped when needed)."""
+    """A model-config name or path -> the YAML file, searched in v10 and then v8 (scale letter
+    stripped when needed: yolov8n.yaml -> v8/yolov8.yaml), as the JAX resolver does (:42-55)."""
     p = Path(name)
     if p.exists():
         return p
     unified = re.sub(r"(\d+)([nsmblx])(.+)?$", r"\1\3", p.stem) + p.suffix
-    for cand in (_CFG_ROOT / "v10" / p.name, _CFG_ROOT / "v10" / unified):
-        if cand.exists():
-            return cand
+    for fam in ("v10", "v8"):
+        for cand in (_CFG_ROOT / fam / p.name, _CFG_ROOT / fam / unified):
+            if cand.exists():
+                return cand
     raise FileNotFoundError(f"model config {name} not found (searched {_CFG_ROOT})")
 
 
@@ -75,11 +79,11 @@ class YOLO:
             variables = None
         else:
             raise NotImplementedError("the torch port builds from model YAMLs and .ckpt files only; .pt comes later")
-        if not any(layer[2] == "v10Detect" for layer in d.get("backbone", []) + d.get("head", [])):
-            raise NotImplementedError("the torch port serves v10Detect models only so far")
-        self.task = "v10"
         self.model_yaml: Dict[str, Any] = d
         self.model = build_model(d, device=self.device, nc=nc or meta.get("nc"))
+        self.task = self.model.task  # from the head, as the JAX `_guess_task` (:123-131)
+        if self.task is None:
+            raise NotImplementedError("the torch port serves v10Detect and Detect models only so far")
         if variables is not None:
             self.load_flax(variables)
         elif seed is not None:
@@ -112,17 +116,18 @@ class YOLO:
                     v.copy_(theirs[k])
         return self
 
-    def predict(self, source, conf: float = 0.25, imgsz: int = 640, batch: int = 1, max_det: int = 300,
-                device: Union[str, torch.device, None] = None):
-        """Detect in frames (HWC uint8 BGR ndarrays, lists of them, or image/video paths) -> [Results]."""
-        predictor = Predictor(self.model, imgsz=imgsz, batch=batch, conf=conf, max_det=max_det,
+    def predict(self, source, conf: float = 0.25, iou: float = 0.45, imgsz: int = 640, batch: int = 1,
+                max_det: int = 300, device: Union[str, torch.device, None] = None):
+        """Detect in frames (HWC uint8 BGR ndarrays, lists of them, or image/video paths) -> [Results];
+        `iou` is the NMS threshold of a v8 model."""
+        predictor = Predictor(self.model, imgsz=imgsz, batch=batch, conf=conf, iou=iou, max_det=max_det,
                               names=self.names, device=device or self.device)
         return predictor(source)
 
     def val(self, data=None, device: Union[str, torch.device, None] = None, **kw) -> Dict[str, float]:
         """Validate on the `val` split of a dataset YAML (path or dict) -> the metrics dict.
 
-        Options as `engine/validator.py::Validator` (imgsz, batch, conf, max_det,
+        Options as `engine/validator.py::Validator` (imgsz, batch, conf, iou, max_det,
         max_gt, workers, save_json, save_dir, anno_json, cache_images, dtype).
         It runs on the card unless device="cpu"; the validator stays on `self.validator`.
         """

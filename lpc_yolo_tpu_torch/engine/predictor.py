@@ -1,11 +1,14 @@
-"""Serving predictor: frames -> device letterbox -> the model graph -> NMS-free decode -> Results.
+"""Serving predictor: frames -> device letterbox -> the model graph -> decode -> Results.
 
 Counterpart of `lpc_yolo_tpu/engine/predictor.py::Predictor` (:87-363), v10
-path. The JAX predictor letterboxes on the host with cv2 to uint8 (:261) and
-folds /255 into the stem (:148-151); the card's machine has no cv2, so here
-every frame is letterboxed on the device by the letterbox kernel, as uint8,
-straight into its slot of the NHWC input batch (same-shape frames in one
-launch), then cast to the serving dtype. The model is a BN-folded serving
+and v8 paths: a v10Detect model decodes its one-to-one branch by the NMS-free
+top-k, a Detect model through `decode_feats` and `non_max_suppression` at
+`conf` and `iou`, one candidate per anchor (:200), its greedy loop one launch
+of the NMS kernel per batch. The JAX predictor letterboxes on the host with
+cv2 to uint8 (:261) and folds /255 into the stem (:148-151); the card's
+machine has no cv2, so here every frame is letterboxed on the device by the
+letterbox kernel, as uint8, straight into its slot of the NHWC input batch
+(same-shape frames in one launch), then cast to the serving dtype. The model is a BN-folded serving
 copy (`nn/fuse.py`) with /255 folded into its stem, so its 3x3 s1 convs run
 through the conv3x3 kernel. The conf filter and `scale_boxes` back to each
 frame follow the JAX predictor (:322-327), and so does `Results.speed`
@@ -108,13 +111,13 @@ def letterbox_batch(frames: List[np.ndarray], size: int, device: torch.device, o
 class Predictor:
     """Batched predictor over a built DetectionModel (weights as loaded)."""
 
-    def __init__(self, model, imgsz: int = 640, batch: int = 1, conf: float = 0.25, max_det: int = 300,
-                 names: Optional[Dict[int, str]] = None, device: Union[str, torch.device, None] = None,
-                 dtype: Optional[torch.dtype] = None):
+    def __init__(self, model, imgsz: int = 640, batch: int = 1, conf: float = 0.25, iou: float = 0.45,
+                 max_det: int = 300, names: Optional[Dict[int, str]] = None,
+                 device: Union[str, torch.device, None] = None, dtype: Optional[torch.dtype] = None):
         self.device = resolve_device(device)
         # bf16 on the card, f32 on the CPU unless the caller says otherwise
         self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
-        self.imgsz, self.batch, self.conf, self.max_det = imgsz, batch, conf, max_det
+        self.imgsz, self.batch, self.conf, self.iou, self.max_det = imgsz, batch, conf, iou, max_det
         self.names = names or {i: str(i) for i in range(model.nc)}
         self.model = serving_model(model, self.device, self.dtype)
 
@@ -126,7 +129,7 @@ class Predictor:
     @torch.inference_mode()
     def infer(self, frames: List[np.ndarray]) -> torch.Tensor:
         """(n, max_det, 6) detections in letterbox pixels, f32, on the device."""
-        return self.model.predict(self.preprocess(frames), self.max_det)
+        return self.model.predict(self.preprocess(frames), self.max_det, self.conf, self.iou)
 
     def postprocess(self, det: np.ndarray, im0: np.ndarray) -> np.ndarray:
         """Rows above conf, boxes scaled back to the frame: (n, 6)."""
@@ -147,7 +150,7 @@ class Predictor:
             x = self.preprocess([im for _, im in chunk])
             t1 = time.perf_counter()
             with torch.inference_mode():
-                det = self.model.predict(x, self.max_det).cpu().numpy()
+                det = self.model.predict(x, self.max_det, self.conf, self.iou).cpu().numpy()
             t2 = time.perf_counter()
             for j, (path, im0) in enumerate(chunk):
                 boxes = self.postprocess(det[j], im0)

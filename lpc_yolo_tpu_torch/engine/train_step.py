@@ -2,7 +2,9 @@
 
 Counterpart of `lpc_yolo_tpu/engine/train_step.py` (config and schedules
 :43-74, optimizer :86-105, state :108-123, the step :126-311; reference
-engine/trainer.py:362-394, :695-756, torch_utils.py:431-465 ModelEMA).
+engine/trainer.py:362-394, :695-756, torch_utils.py:431-465 ModelEMA), for
+the v10 dual-assignment loss of a v10Detect model and the v8 loss of a
+Detect model (`loss_kind`, :253-258).
 
 In PyTorch's idiom the model's parameters and BatchNorm buffers are the live
 state and are updated in place; `TrainState` names them beside the momentum
@@ -35,7 +37,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..losses import v10_detect_loss
+from ..losses import v8_detection_loss, v10_detect_loss
 from ..utils import resolve_device
 
 
@@ -171,7 +173,9 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 
 def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable:
     """`loss_fn(batch) -> (total, items)` on a device batch: the input handling of
-    the JAX step (`train_step.py:142-176`), the forward, the v10 loss.
+    the JAX step (`train_step.py:142-176`), the forward, the loss of the model's
+    head: a v10Detect's dual-assignment loss, 6 items; a Detect's
+    `v8_detection_loss` with the top-10 assigner, 3 items (box, cls, dfl).
 
     uint8 BGR frames become f32 RGB in [0, 1]; the width-packed x8 feed
     (last dimension 24) is unpacked by the repack kernel first. On the card
@@ -187,6 +191,10 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
             x = x.flip(1).float().div_(255.0)
         with torch.autocast("cuda", dtype=torch.bfloat16, enabled=x.device.type == "cuda" and amp is not False):
             out = model(x)
+        if model.task == "v8":
+            total, items = v8_detection_loss(out, batch["cls"], batch["bboxes"], batch["mask"], model.strides,
+                                             model.nc, tal_topk=10)
+            return total, torch.stack(list(items))
         return v10_detect_loss(out, batch["cls"], batch["bboxes"], batch["mask"], model.strides, model.nc)
 
     return loss_fn
@@ -194,16 +202,19 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
 
 def make_train_step(model: torch.nn.Module, cfg: OptConfig, loss_kind: str = "v10",
                     amp: Optional[bool] = None) -> Callable:
-    """Build `step(state, batch) -> (state, metrics)` for a v10Detect model.
+    """Build `step(state, batch) -> (state, metrics)` for a v10Detect model (loss_kind "v10")
+    or a Detect model ("v8").
 
     batch = {'img': (B, H, W, 3) uint8 BGR or f32 RGB in [0, 1], or the same
     image width-packed x8 (B, H, W/8, 24); 'cls': (B, M) int; 'bboxes':
     (B, M, 4) xyxy pixels; 'mask': (B, M) bool}, numpy or tensors.
-    metrics = {'loss', 'items' (6,), 'lr', 'skipped'}; `state` must come from
+    metrics = {'loss', 'items' (6,) for v10, (3,) for v8, 'lr', 'skipped'}; `state` must come from
     `init_train_state(model, ...)`. amp: see `make_loss_fn`.
     """
-    if loss_kind != "v10":
-        raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10' is")
+    if loss_kind not in ("v10", "v8"):
+        raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10' and 'v8' are")
+    if model.task != loss_kind:
+        raise ValueError(f"loss_kind {loss_kind!r} does not train this model's head (task {model.task!r})")
     if cfg.optimizer not in ("sgd", "adamw"):
         raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not ported; use 'sgd' or 'adamw'")
     loss_fn = make_loss_fn(model, amp)

@@ -80,7 +80,8 @@ from ..utils.flax_bridge import train_state_dict, train_state_from_dict
 from ..utils.infra import get_save_dir
 from .train_step import OptConfig, TrainState, init_train_state, make_train_step
 
-LOSS_NAMES = ("box_om", "cls_om", "dfl_om", "box_oo", "cls_oo", "dfl_oo")
+# the loss items' names by task (JAX `engine/trainer.py:33-40`): results.csv's train/ columns
+LOSS_NAMES = {"v10": ("box_om", "cls_om", "dfl_om", "box_oo", "cls_oo", "dfl_oo"), "v8": ("box", "cls", "dfl")}
 
 
 def pack_img(img):
@@ -243,6 +244,7 @@ class Trainer:
         stopper = self.stopper = EarlyStopping(self.patience)
         state, best_fitness = self._start(model, last, best, stopper)
         train_step = make_train_step(model, self.cfg, loss_kind=self.yolo.task)
+        names = LOSS_NAMES[self.yolo.task]
         if transforms is not None:
             loader.epoch = self.start_epoch  # the resumed epoch's shuffle and draws
             data_iter = iter(loader)
@@ -252,7 +254,7 @@ class Trainer:
         handlers = {}
         if threading.current_thread() is threading.main_thread():
             handlers = {sig: signal.signal(sig, self._request_stop) for sig in (signal.SIGTERM, signal.SIGINT)}
-        mean_items, results = np.zeros(6), {}
+        mean_items, results = np.zeros(len(names)), {}
         try:
             for epoch in range(self.start_epoch, self.epochs):
                 if transforms is not None and close_at >= 0 and epoch == max(close_at, self.start_epoch):
@@ -298,17 +300,17 @@ class Trainer:
                     self._save(state, epoch, fitness, is_best, last, best)
                 seconds = time.perf_counter() - t_epoch
                 # the JAX row, its lr the f32 that the JAX step returns
-                csv_row ={"epoch": epoch, **{f"train/{n}": round(float(v), 5) for n, v in zip(LOSS_NAMES, mean_items)},
+                csv_row = {"epoch": epoch, **{f"train/{n}": round(float(v), 5) for n, v in zip(names, mean_items)},
                            **{k: round(float(v), 5) for k, v in results.items()}, "lr": float(np.float32(lr)),
                            "time_s": round(seconds, 1), "input_wait_frac": round(wait_s / max(seconds, 1e-9), 4),
                            "render_frac": round(render_s / max(seconds, 1e-9), 4)}
                 self.save_dir.mkdir(parents=True, exist_ok=True)
                 append_row(csv_path, csv_row)
-                self.epoch_history.append({"epoch": epoch, **dict(zip(LOSS_NAMES, mean_items.tolist())), "lr": lr,
+                self.epoch_history.append({"epoch": epoch, **dict(zip(names, mean_items.tolist())), "lr": lr,
                                            "seconds": seconds, "input_wait_frac": wait_s / max(seconds, 1e-9),
                                            "render_frac": render_s / max(seconds, 1e-9), **results})
                 print(f"epoch {epoch + 1}/{self.epochs} "
-                      + " ".join(f"{n}={v:.3f}" for n, v in zip(LOSS_NAMES, mean_items))
+                      + " ".join(f"{n}={v:.3f}" for n, v in zip(names, mean_items))
                       + (f" mAP50-95={results.get('metrics/mAP50-95(B)', 0):.4f}" if results else ""))
                 if stopper(epoch, fitness):
                     print(f"early stop at epoch {epoch + 1} (best epoch {stopper.best_epoch + 1})")
@@ -325,7 +327,7 @@ class Trainer:
             dev = next(self.yolo.model.parameters()).device
             self.yolo.model.load_state_dict({k: v.to(dev) for k, v in sd.items()}, strict=True)
         self.state = state
-        return results if transforms is not None else dict(zip(LOSS_NAMES, mean_items.tolist()))
+        return results if transforms is not None else dict(zip(names, mean_items.tolist()))
 
     def validate(self, model: torch.nn.Module, state: TrainState) -> Dict[str, float]:
         """The validator on the EMA parameters with the live BN statistics, at batch min(batch, 8);

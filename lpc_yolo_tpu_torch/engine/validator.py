@@ -1,9 +1,12 @@
-"""Validator: dataset -> device letterbox -> the model graph -> NMS-free decode -> TP matching -> mAP.
+"""Validator: dataset -> device letterbox -> the model graph -> decode -> TP matching -> mAP.
 
-Counterpart of `lpc_yolo_tpu/engine/validator.py::Validator` for the v10
-detection task (`__init__` :34-71, the v10 predict of `_make_predict`,
-`__call__` :202-362, `_to_coco_json` :364-382); the segment, pose and OBB
-branches wait.
+Counterpart of `lpc_yolo_tpu/engine/validator.py::Validator` for the v10 and
+v8 detection tasks (`__init__` :34-71, the v10 and v8 predicts of
+`_make_predict`, `__call__` :202-362, `_to_coco_json` :364-382); the
+segment, pose and OBB branches wait. A Detect (v8) model decodes through
+`non_max_suppression` at `conf`, `iou` and one candidate per (anchor, class)
+(`multi_label`, :148-150), its greedy loop one launch of the NMS kernel per
+batch; matching, metrics and COCO rescoring are the same for both.
 
 Per batch, on the device: the frames of each shape are copied from pinned
 memory and letterboxed into the batch by one launch of the letterbox kernel
@@ -11,8 +14,8 @@ with the validator's geometry (`scaleup=False`), as uint8, so the model sees
 the rounded 0..255 frame the JAX validator gets from cv2; then a cast to the
 validator's dtype and the BN-folded serving copy of the model, /255 folded
 into its stem as the JAX validator folds it (:93-96; its 3x3 s1 convs
-through the conv3x3 kernel) and the one-to-one top-k decode, `(B, 300, 6)` in
-letterbox pixels, copied to the host once. On the host, as the JAX package
+through the conv3x3 kernel) and the decode, `(B, 300, 6)` in letterbox
+pixels, copied to the host once. On the host, as the JAX package
 does: rows above `conf`, matching at 10 IoUs in letterbox space (IoU does not
 change under the letterbox's uniform scale and shift), the confusion matrix
 and the metrics.
@@ -47,6 +50,7 @@ class Validator:
         imgsz: int = 640,
         batch: int = 8,
         conf: float = 0.001,
+        iou: float = 0.7,
         max_det: int = 300,
         max_gt: int = 128,
         workers: int = 4,
@@ -61,6 +65,7 @@ class Validator:
         self.imgsz = imgsz
         self.batch = batch
         self.conf = conf
+        self.iou = iou
         self.max_det = max_det
         self.max_gt = max_gt
         self.workers = workers
@@ -82,7 +87,7 @@ class Validator:
     def predict(self, model, x: torch.Tensor) -> np.ndarray:
         """(n, max_det, 6) detections in letterbox pixels, f32, on the host."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
-        return model.predict(x, self.max_det).cpu().numpy()
+        return model.predict(x, self.max_det, self.conf, self.iou, multi_label=True).cpu().numpy()
 
     def __call__(self, data, model: Optional[torch.nn.Module] = None) -> Dict[str, float]:
         """Validate `model` (the facade's model unless given: the trainer passes its EMA copy)

@@ -2,8 +2,9 @@
 
 Same schema and channel inference as the JAX compiler (make_divisible :87,
 LayerSpec :94, yaml_model_load :110, parse_model :119-284), implemented for
-the modules that the LPC-YOLO YAML and the six YOLOv10 scales (n/s/m/b/l/x)
-reach; any other module raises NotImplementedError. The model routes `from` indices and keeps the save list
+the modules that the LPC-YOLO YAML, the six YOLOv10 scales (n/s/m/b/l/x) and
+the five YOLOv8 scales (n/s/m/l/x) reach; any other module raises
+NotImplementedError. The model routes `from` indices and keeps the save list
 like `DetectionModel._run` (:718-1019), without the TPU width-pack, upsample-
 commute, s2d-fold plans or int8. A layer whose output no later layer reads
 (layer 27 of the LPC YAML) keeps its module and weights. In eval mode it is
@@ -24,15 +25,17 @@ import torch
 import torch.nn as nn
 import yaml
 
+from ..ops.nms import non_max_suppression
 from ..ops.repack import repack_width_kernel
 from ..utils import resolve_device
 from . import modules as M
-from .heads import V10Detect, decode_feats_topk_split
+from .heads import Detect, V10Detect, decode_feats, decode_feats_topk_split
 
 # Modules whose YAML arg[0] is the (width-scaled) output-channel count, and the
 # subset that also takes the (depth-scaled) repeat count.
 _BASE = {"Conv", "Bottleneck", "SPPF", "C2f", "PSA", "LPC", "SCDown", "C2fCIB"}
 _REPEAT = {"C2f", "C2fCIB"}
+HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8"}  # the ported heads and the task each serves (the JAX names)
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -98,7 +101,7 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
         elif m == "Concat":
             c2 = sum(chs[x] for x in f_list)
             out_args = list(args)
-        elif m == "v10Detect":
+        elif m in HEAD_TASKS:
             out_args = [*args, tuple(chs[x] for x in f_list)]
             c2 = chs[f_list[-1]]
         elif m == "CBAM":
@@ -160,16 +163,20 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         return M.Concat()
     if m == "v10Detect":
         return V10Detect(nc=a[0], ch=a[-1], strides=strides)
+    if m == "Detect":
+        return Detect(nc=a[0], ch=a[-1], strides=strides)
     raise NotImplementedError(m)
 
 
 class DetectionModel(nn.Module):
     """Compiled YOLO graph with 'from'-index routing.
 
-    `forward(x)` returns the head's raw branch maps (a dict of per-level
-    (box, cls) pairs); `predict(x)` runs the one-to-one branch and the
-    NMS-free decode to (B, max_det, 6). x is (B, 3, H, W) RGB in [0, 1], or
-    another `input_layout` of the same image (see `to_nchw`).
+    `forward(x)` returns the head's raw maps: per-level (box, cls) pairs, in
+    a dict by branch for v10Detect; `predict(x)` decodes them to (B, max_det,
+    6): v10Detect's one-to-one branch through the NMS-free top-k, Detect's
+    maps through `decode_feats` and `non_max_suppression`. x is (B, 3, H, W)
+    RGB in [0, 1], or another `input_layout` of the same image (see
+    `to_nchw`).
     """
 
     def __init__(self, specs: Tuple[LayerSpec, ...], save: Tuple[int, ...], nc: int,
@@ -178,6 +185,7 @@ class DetectionModel(nn.Module):
         self.specs, self.save, self.nc = specs, save, nc
         self.strides, self.reg_max = tuple(strides), reg_max
         self.model = nn.ModuleList(_build_module(s, self.strides) for s in specs)
+        self.task = HEAD_TASKS.get(specs[-1].module) if specs else None  # None: a headless graph
         read = {j for s in specs for j in s.f if j != -1}
         read |= {s.i - 1 for s in specs if -1 in s.f}
         # layers nothing reads (besides the head): not computed in eval mode
@@ -207,12 +215,14 @@ class DetectionModel(nn.Module):
             dead = spec.i in self.dead
             if dead and not self.training:
                 continue
-            if spec.module in ("Concat", "v10Detect"):
+            if spec.module == "Concat" or spec.module in HEAD_TASKS:
                 inp = [x if j == -1 else y[j] for j in spec.f]
             else:
                 inp = x if spec.f[0] == -1 else y[spec.f[0]]
             if spec.module == "v10Detect":
                 return module(inp, branches=branches)
+            if spec.module == "Detect":
+                return module(inp)
             if dead:  # train mode: only its BatchNorm statistics are wanted
                 with torch.no_grad():
                     module(inp)
@@ -222,7 +232,13 @@ class DetectionModel(nn.Module):
                 y[spec.i] = x
         return x  # headless graph
 
-    def predict(self, x: torch.Tensor, max_det: int = 300) -> torch.Tensor:
+    def predict(self, x: torch.Tensor, max_det: int = 300, conf: float = 0.25, iou: float = 0.45,
+                multi_label: bool = False) -> torch.Tensor:
+        """(B, max_det, 6) detections; `conf`, `iou` and `multi_label` are the NMS's and are
+        not read by v10Detect's decode (the caller filters its rows by conf)."""
+        if self.task == "v8":
+            pred = decode_feats(self.forward(x), self.strides, self.nc, self.reg_max)
+            return non_max_suppression(pred, conf, iou, max_det, multi_label=multi_label)
         pairs = self.forward(x, branches="one2one")["one2one"]
         return decode_feats_topk_split(pairs, self.strides, self.nc, self.reg_max, max_det)
 
@@ -232,9 +248,11 @@ def _infer_strides(specs, save, nc, ch: int = 3, probe: int = 256) -> Tuple[floa
     with torch.device("meta"):
         m = DetectionModel(specs, save, nc).eval()
         feats = m(torch.zeros(1, ch, probe, probe), branches="one2many")
-    if not isinstance(feats, dict):
+    if isinstance(feats, dict):
+        feats = feats["one2many"]
+    elif not isinstance(feats, list):  # headless graph
         return (8.0, 16.0, 32.0)
-    return tuple(float(probe / cm.shape[2]) for _, cm in feats["one2many"])
+    return tuple(float(probe / cm.shape[2]) for _, cm in feats)
 
 
 def build_model(cfg: Union[str, Path, Dict], device: Union[str, torch.device, None] = None,

@@ -1,8 +1,11 @@
-"""The v10Detect head and its NMS-free top-k decode (NCHW).
+"""The v8 Detect and v10Detect heads, the NMS-free top-k decode and the v8 decode (NCHW).
 
-Counterpart of `lpc_yolo_tpu/nn/heads.py` (V10Detect :234, plain branch
-:309-335; decode_feats_topk_split :401-496, unpacked case; decode_feats
-:521). The segmented TPU top-k (`heads._topk`) becomes `torch.topk`.
+Counterpart of `lpc_yolo_tpu/nn/heads.py` (`_v8_towers` :52-77, Detect
+:80-92; V10Detect :234, plain branch :309-335; decode_feats_topk_split
+:401-496, unpacked case; decode_feats :521). The segmented TPU top-k
+(`heads._topk`) becomes `torch.topk`. Both heads return per-level
+(box_map, cls_map) pairs where the JAX heads concatenate the two on the
+channel axis; the losses and the decodes take the pairs.
 """
 
 from __future__ import annotations
@@ -20,6 +23,39 @@ from .modules import ConvBN
 
 def _box_tower(ci: int, c2: int, reg_max: int) -> nn.Sequential:
     return nn.Sequential(ConvBN(ci, c2, 3), ConvBN(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1))
+
+
+def _v8_cls_tower(ci: int, c3: int, nc: int) -> nn.Sequential:
+    return nn.Sequential(ConvBN(ci, c3, 3), ConvBN(c3, c3, 3), nn.Conv2d(c3, nc, 1))
+
+
+@torch.no_grad()
+def _init_biases(boxes, clss, strides, nc: int) -> None:
+    """Box bias 1.0, cls bias log(5 / nc / (640 / stride)^2) (head.py:88-95, 527-535)."""
+    for box, cls, s in zip(boxes, clss, strides):
+        box[-1].bias.fill_(1.0)
+        cls[-1].bias.fill_(math.log(5 / nc / (640 / s) ** 2))
+
+
+class Detect(nn.Module):
+    """YOLOv8 anchor-free decoupled head (reference head.py:21-101; JAX `_v8_towers`).
+
+    Per level a box tower (3x3 ConvBN, 3x3 ConvBN, 1x1 conv to 4*reg_max) and a
+    cls tower (3x3 ConvBN, 3x3 ConvBN, 1x1 conv to nc). `forward` returns the
+    per-level (box_map (B, 4*reg_max, H, W), cls_map (B, nc, H, W)) pairs.
+    """
+
+    def __init__(self, nc: int = 80, ch: Sequence[int] = (), strides=(8.0, 16.0, 32.0), reg_max: int = 16):
+        super().__init__()
+        self.nc, self.reg_max, self.strides = nc, reg_max, tuple(strides)
+        c2 = max(16, ch[0] // 4, reg_max * 4)
+        c3 = max(ch[0], min(nc, 100))
+        self.cv2 = nn.ModuleList(_box_tower(c, c2, reg_max) for c in ch)
+        self.cv3 = nn.ModuleList(_v8_cls_tower(c, c3, nc) for c in ch)
+        _init_biases(self.cv2, self.cv3, self.strides, nc)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        return [(self.cv2[i](x), self.cv3[i](x)) for i, x in enumerate(xs)]
 
 
 def _cls_tower(ci: int, c3: int, nc: int) -> nn.Sequential:
@@ -48,15 +84,8 @@ class V10Detect(nn.Module):
         for prefix in ("", "one2one_"):
             setattr(self, f"{prefix}cv2", nn.ModuleList(_box_tower(c, c2, reg_max) for c in ch))
             setattr(self, f"{prefix}cv3", nn.ModuleList(_cls_tower(c, c3, nc) for c in ch))
-        self.bias_init()
-
-    @torch.no_grad()
-    def bias_init(self) -> None:
-        """Box bias 1.0, cls bias log(5 / nc / (640 / stride)^2) (head.py:88-95, 527-535)."""
         for prefix in ("", "one2one_"):
-            for box, cls, s in zip(getattr(self, f"{prefix}cv2"), getattr(self, f"{prefix}cv3"), self.strides):
-                box[-1].bias.fill_(1.0)
-                cls[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+            _init_biases(getattr(self, f"{prefix}cv2"), getattr(self, f"{prefix}cv3"), self.strides, nc)
 
     def branch(self, xs: Sequence[torch.Tensor], name: str) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         prefix = "one2one_" if name == "one2one" else ""
@@ -113,8 +142,10 @@ def decode_feats_topk_split(
     return det
 
 
-def decode_feats(feats: Sequence[torch.Tensor], strides: Sequence[float], nc: int, reg_max: int = 16) -> torch.Tensor:
-    """Raw per-level (B, 4*reg_max + nc, H, W) maps -> (B, A, 4 + nc) = [xywh px, sigmoid cls]."""
+def decode_feats(feats: Sequence, strides: Sequence[float], nc: int, reg_max: int = 16) -> torch.Tensor:
+    """Raw per-level (B, 4*reg_max + nc, H, W) maps, or per-level (box_map, cls_map) pairs,
+    -> (B, A, 4 + nc) = [xywh px, sigmoid cls] in f32."""
+    feats = [torch.cat(f, 1) if isinstance(f, (tuple, list)) else f for f in feats]
     B = feats[0].shape[0]
     feat_shapes = [(f.shape[2], f.shape[3]) for f in feats]
     flat = torch.cat([f.flatten(2) for f in feats], 2).transpose(1, 2).float()  # (B, A, no)

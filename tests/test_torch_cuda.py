@@ -131,6 +131,57 @@ def test_conv3x3_v10_shapes_match_plain(B, H, W, C, Co, offset, act, dtype):
         assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
 
 
+# (B, H, W, C, Co) of the YOLOv8 Detect cls towers at their serving batch: c3 = max(ch0, min(nc, 100)) gives
+# Co 80, 128, 192, 256 and 320 on n, s, m, l and x; the first conv takes the level's channels (up to 640 on
+# x's P5), the second c3; Co 320 is three channel tiles, the last half filled.
+V8_CONV_CASES = [
+    (32, 80, 80, 64, 80), (32, 20, 20, 256, 80), (32, 40, 40, 128, 128), (32, 80, 80, 192, 192),
+    (32, 20, 20, 576, 192), (32, 40, 40, 256, 256), (32, 20, 20, 512, 256), (32, 80, 80, 320, 320),
+    (32, 20, 20, 640, 320), (32, 40, 40, 320, 320),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,Co", V8_CONV_CASES)
+def test_conv3x3_v8_cls_tower_shapes_match_plain(B, H, W, C, Co, dtype):
+    """The kernel against its plain version at the v8 cls towers' shapes (SiLU, as the towers' ConvBNs), with
+    the tolerances of `test_conv3x3_kernel_matches_plain`."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5).to(dtype)
+    b = torch.rand(Co, device="cuda", generator=g) - 0.5
+    got = conv3x3(x, w, b, "silu").float()
+    ref = conv3x3_plain(x.float(), w.float(), b, "silu")
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    else:
+        assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("pool", ["worst", "val"])
+def test_nms_kernel_matches_plain(pool):
+    """The NMS kernel against `nms_plain` on the same pool on the card: the same rows bit for bit and the same
+    anchors. "worst": 4096 candidates an image, every score above conf (tied in runs of ~4), so all 300 steps
+    run; "val": the validator's multi_label pool (conf 0.001, iou 0.7) of a seed-0 yolov8n at 320.
+    One launch a call."""
+    from chip_smoke import nms_val_pool, nms_worst_pool
+    from lpc_yolo_tpu_torch.ops.nms import nms_greedy, nms_plain
+
+    if pool == "worst":
+        args, kw = nms_worst_pool(4, seed=0), dict(conf_thres=0.25, iou_thres=0.45)
+    else:
+        args, kw = nms_val_pool(4, imgsz=320, dtype=torch.float32), dict(conf_thres=0.001, iou_thres=0.7)
+    before = nms_greedy.launches
+    out, anc = nms_greedy(*args, max_det=300, **kw)
+    ref, ref_anc = nms_plain(*args, max_det=300, **kw)
+    torch.cuda.synchronize()
+    assert nms_greedy.launches == before + 1
+    assert torch.equal(out, ref) and torch.equal(anc, ref_anc)
+    kept = (out[..., 5] >= 0).sum(1)
+    assert (kept == 300).all() if pool == "worst" else (kept > 0).all()
+
+
 def test_conv3x3_configs_match_the_library():
     """The built library describes each instantiation as CONFIGS and conv3x3_config do."""
     import ctypes
