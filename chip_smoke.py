@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --conv3x3    # device, build, then conv3x3 parity and per-shape times only
     python3 chip_smoke.py --converge [yolov8n.yaml]    # device, build, then the learning proof only
+    python3 chip_smoke.py --seg        # device, build, then phase 13 (the seg scales) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -116,16 +117,37 @@ Phases, in order; any failure raises and the script exits non-zero:
             0.25, tied in runs, all 300 steps run) and the val case (the
             multi_label pool of a seed-0 yolov8n, conf 0.001, iou 0.7): rows bit for bit and anchors equal; device times from
             CUDA graphs beside the bound and the plain version's launches.
+13. seg     the five YOLOv8 instance-segmentation scales (yolov8{n,s,m,l,x}-seg)
+            as phase 11 does the detect ones, at their published widths and
+            depths: conv3x3 parity at every site (the v8 sites, Proto's two
+            3x3 convs, one at 160x160, and two a level in the mask-
+            coefficient towers); YOLO.predict of 32 720p frames with the
+            counters held (one letterbox, a conv3x3 per site, one NMS) and
+            every kept row's mask (n, 720, 1280) bool; the b32 bf16 serving
+            step (letterbox, forward, NMS, each frame's kept rows' masks at
+            640) event-timed with its busy time, idle share and launches;
+            conv3x3 against F.conv2d per site shape, Proto's 160x160 site
+            called out; the b16 train step (the seg loss) with its peak
+            memory; YOLO.val(data=...) at b32 bf16 on 64 frames with polygon
+            labels that the phase writes (PNG + .npy twins), counters held,
+            img/s and peak memory; on yolov8n-seg a f32 predict on the card
+            against the CPU (matched rows' mask pixels within 1e-3 of the
+            kept rows' pixels); then YOLO("yolov8n-seg.yaml", nc=3).train(
+            data=..., save=True) on a polygon-labelled set, 3 epochs, counters
+            held, and its reload through YOLO.save. Numbers under "seg".
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
-yolov8n train(data=...); nms's times from phase 12's val pool); the last line
-is {"ok": true, "device": {...}}. Every number is also written to
-chiprun_out/chip_smoke.json (phase 10's under "v10", phase 11's under "v8").
+yolov8n train(data=...), and beside them, as "launches_seg", each kernel's
+launches in phase 13's yolov8n-seg train(data=...); nms's times from phase
+12's val pool); the last line is {"ok": true, "device": {...}}. Every number
+is also written to chiprun_out/chip_smoke.json (phase 10's under "v10",
+phase 11's under "v8", phase 13's under "seg").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
-yolov10n.yaml or yolov8n.yaml) with nc=3 on the synthetic set of 256 + 32
+yolov10n.yaml, yolov8n.yaml or yolov8n-seg.yaml, whose set is labelled with
+polygons and whose box and mask mAPs are both reported) with nc=3 on the synthetic set of 256 + 32
 frames at 160, 120 epochs of b16 (close_mosaic 40, max_gt 8, cache="ram",
 val=False, save=True), then `val` at f32 and at bf16 on the trained weights
 reloaded through YOLO.save -> YOLO(path); it prints mAP50, mAP50-95, the
@@ -166,6 +188,10 @@ SCALE_PARAMS = {  # the JAX package's counts (tests/test_models.py, tests/test_t
     "v8": {"n": 3_157_184, "s": 11_166_544, "m": 25_902_624, "l": 43_691_504, "x": 68_229_632},
 }
 HEAD_SITES = {"v10": 6, "v8": 12}  # 3x3 s1 convs of the head on the serving path: v10's one2one box towers, v8's towers
+SEG_PARAMS = {"n": 3_409_952, "s": 11_821_040, "m": 27_285_952, "l": 45_997_712, "x": 71_827_872}  # JAX's (test_torch_seg.py)
+SEG_SITES = 8  # 3x3 s1 convs a Segment head adds: Proto's cv1 and cv2 (at 2x P3's size), two a level in cv4
+SEG_VAL_FRAMES = 64  # the polygon-labelled val set of phase 13 (VAL_SHAPES, 1 to 6 instances a frame)
+MASK_PIX_TOL = 1e-3  # f32 predict, card vs CPU: mask pixels that disagree, of the matched kept rows' pixels
 SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits
 NMS_OPS = 15  # f32 operations per pool candidate and step: the IoU in the JAX order, the compare, the argmax
 REPORT = {}
@@ -715,8 +741,9 @@ def time_repack(g):
     return out
 
 
-def train_batches(n: int, B: int, seed: int):
-    """Loader-format host batches: uint8 BGR frames and a handful of padded boxes per image."""
+def train_batches(n: int, B: int, seed: int, masks: bool = False):
+    """Loader-format host batches: uint8 BGR frames and a handful of padded boxes per image (with `masks`
+    also each box's instance mask at 160x160, the box's rectangle, as a segment batch carries them)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
@@ -727,6 +754,12 @@ def train_batches(n: int, B: int, seed: int):
         out.append({"img": rng.integers(0, 256, (B, 640, 640, 3), dtype=np.uint8),
                     "cls": rng.integers(0, 80, (B, TRAIN_GT)).astype(np.int32),
                     "bboxes": boxes * mask[..., None], "mask": mask})
+        if masks:
+            m = np.zeros((B, TRAIN_GT, 160, 160), np.uint8)
+            for b, g in zip(*np.nonzero(mask)):
+                x1, y1, x2, y2 = (boxes[b, g] / 4).astype(int)
+                m[b, g, y1:y2 + 1, x1:x2 + 1] = 1
+            out[-1]["masks"] = m
     return out
 
 
@@ -1346,35 +1379,54 @@ def phase_checkpoint(data: str):
     return launches
 
 
+def kept_masks(det, mc, proto, conf: float, S: int) -> int:
+    """Decode each frame's masks of its rows above conf at S x S, as the predictor does (the rows read on
+    the host), one frame at a time; returns how many."""
+    from lpc_yolo_tpu_torch.ops.masks import process_kept_rows
+
+    keep = (det[..., 4] > conf).cpu().numpy()
+    for j in range(len(keep)):
+        process_kept_rows(proto[j], mc[j], det[j], keep[j], S)
+    return int(keep.sum())
+
+
 def scale_serving(yolo, pred, sites, host, dev):
     """YOLO.predict of the host frames at b32, 640, bf16, counters reset just before and read just after
-    (a letterbox, a conv3x3 per site and, for a v8 model, one NMS for the one batch); then the serving step
-    from the device-resident frames (letterbox to u8, cast, forward, decode) by CUDA events and its profile."""
+    (a letterbox, a conv3x3 per site and, for a v8 or segment model, one NMS for the one batch), by host
+    clock; a segment model's masks (n, h0, w0) bool. Then the serving step from the device-resident frames
+    (letterbox to u8, cast, forward, decode; for a segment model also each frame's kept rows' masks at
+    640) by CUDA events and its profile."""
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox
 
     B, S = len(host), 640
     zero_launches()
+    t0 = time.perf_counter()
     results = yolo.predict(host, imgsz=S, batch=B, conf=0.25)
     torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
     launches = launches_now("letterbox", "conv3x3", "nms")
-    assert launches == {"letterbox": 1, "conv3x3": len(sites), "nms": int(yolo.task == "v8")}, launches
+    assert launches == {"letterbox": 1, "conv3x3": len(sites), "nms": int(yolo.task in ("v8", "segment"))}, launches
     assert len(results) == B and all(np.isfinite(r.boxes.data).all() for r in results)
+    if yolo.task == "segment":
+        assert all(r.masks is None and len(r) == 0 or r.masks.shape == (len(r), 720, 1280) and r.masks.dtype == bool
+                   for r in results)
     x = torch.empty(B, S, S, 3, dtype=torch.uint8, device="cuda")
 
     def step():
         letterbox(dev, S, out=x)
-        return pred.model.predict(x.permute(0, 3, 1, 2).to(torch.bfloat16), pred.max_det, pred.conf, pred.iou)
+        out = pred.model.predict(x.permute(0, 3, 1, 2).to(torch.bfloat16), pred.max_det, pred.conf, pred.iou)
+        return kept_masks(*out, pred.conf, S) if isinstance(out, tuple) else out
 
     with torch.inference_mode():
         step_ms = cuda_ms(step, iters=3, warmup=2)
         prof = profile_step(step, iters=2)
-    return {"launches": launches, "boxes": sum(len(r) for r in results), "step_ms": step_ms,
+    return {"launches": launches, "boxes": sum(len(r) for r in results), "step_ms": step_ms, "predict_s": predict_s,
             "img_s": B / step_ms * 1e3, "busy_ms": prof["device_busy_ms"], "idle_share": prof["idle_share"],
             "device_launches": prof["device_launches"], "profile_top": prof["top"][:8]}
 
 
 def scale_train_step(yolo, batches):
-    """The train step (the model's own loss: v10 or v8) at b16, 640, bf16 autocast from device-resident packed
+    """The train step (the model's own loss: v10, v8 or segment) at b16, 640, bf16 autocast from device-resident packed
     batches (repack at its entry): event-timed ms, one repack launch a step, peak memory, every loss finite
     and no step skipped; then its profile."""
     from lpc_yolo_tpu_torch.engine.train_step import OptConfig, init_train_state, make_train_step
@@ -1480,7 +1532,7 @@ def phase_scales(family: str, val_data: Path):
     return out
 
 
-def phase_scale_train_data(family: str, data: str, sites: int):
+def phase_scale_train_data(family: str, data: str, sites: int, name: str = None):
     """YOLO("yolo<family>n.yaml", nc=3, seed 0).train(data=..., save=True) on phase 8's dataset, TD_EPOCHS
     epochs of b16 at 640, with the launch counters reset just before and read just after (a letterbox per val
     batch and frame shape, `sites` conv3x3 per val batch, for v8 an NMS per val batch, a repack per step);
@@ -1494,12 +1546,13 @@ def phase_scale_train_data(family: str, data: str, sites: int):
     from lpc_yolo_tpu_torch.data import check_det_dataset
     from lpc_yolo_tpu_torch.utils.checkpoint import load_checkpoint, read_meta
 
-    S, B, name = 640, TD_BATCH, f"yolo{family}n.yaml"
+    S, B, name = 640, TD_BATCH, name or f"yolo{family}n.yaml"
+    tag = Path(name).stem.replace("yolo", "")
     steps = -(-TD_TRAIN // B) * TD_EPOCHS
     val_frames = [np.load(f) for f in sorted(Path(check_det_dataset(data)["val"]).glob("*.npy"))]
     per_val = val_launches_expected(val_frames, min(B, 8), sites, nms=family == "v8")
     expect = {**{k: v * TD_EPOCHS for k, v in per_val.items()}, "repack": steps}
-    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{family}_train_") as tmp:
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_train_") as tmp:
         root = Path(tmp)
         yolo = YOLO(name, device="cuda", seed=0, nc=3)
         zero_launches()
@@ -1517,8 +1570,8 @@ def phase_scale_train_data(family: str, data: str, sites: int):
         assert sorted(p.name for p in weights.iterdir()) == ["best.ckpt", "last.ckpt"], list(weights.iterdir())
         frames = frames_720p(4, seed=63)
         ref = yolo.predict(frames, imgsz=S, batch=4, conf=0.0)
-        back = YOLO(yolo.save(root / f"{family}n.ckpt"), device="cuda")
-        assert back.task == yolo.task == family
+        back = YOLO(yolo.save(root / f"{tag}.ckpt"), device="cuda")
+        assert back.task == yolo.task == ("segment" if "seg" in name else family)
         from_last, from_best = (YOLO(name, device="cuda", seed=None, nc=3) for _ in range(2))
         for model, path in ((from_last, weights / "last.ckpt"), (from_best, weights / "best.ckpt")):
             tree, _ = load_checkpoint(path)
@@ -1526,21 +1579,178 @@ def phase_scale_train_data(family: str, data: str, sites: int):
         same = {}
         for what, model in (("save", back), ("last_ckpt", from_last)):
             got = model.predict(frames, imgsz=S, batch=4, conf=0.0)
-            same[what] = all(np.array_equal(a.boxes.data, b.boxes.data) for a, b in zip(got, ref))
+            same[what] = all(np.array_equal(a.boxes.data, b.boxes.data)
+                             and (a.masks is None) == (b.masks is None)
+                             and (a.masks is None or np.array_equal(a.masks.data, b.masks.data)) for a, b in zip(got, ref))
             assert same[what], f"{name} reloaded through {what}: detections differ from the trained facade's"
         best = from_best.predict(frames, imgsz=S, batch=4, conf=0.0)
         assert all(len(r) > 0 and np.isfinite(r.boxes.data).all() for r in best)
         best_meta = read_meta(weights / "best.ckpt")
         assert best_meta["fitness"] == max(e["fitness"] for e in tr.epoch_history), best_meta
-        log(f"{family}n_train_data", f"YOLO('{name}', nc=3).train(data=..., save=True): {steps} steps of b{B}, "
+        log(f"{tag}_train_data", f"YOLO('{name}', nc=3).train(data=..., save=True): {steps} steps of b{B}, "
                                      f"{TD_EPOCHS} validations, {wall:.3f} s ({TD_TRAIN * TD_EPOCHS / wall:.1f} img/s "
                                      f"over the call); launches {launches}; last.ckpt + best.ckpt (best: epoch "
                                      f"{best_meta['epoch'] + 1}); YOLO.save -> YOLO(path, device='cuda') and last.ckpt's "
                                      f"EMA weights predict identically ({[len(r) for r in ref]} boxes); losses of the "
                                      f"last epoch {tr.epoch_history[-1]}")
-        REPORT[f"{family}n_train_data"] = {"launches": launches, "wall_s": wall, "results": res, "best": best_meta,
+        REPORT[f"{tag}_train_data"] = {"launches": launches, "wall_s": wall, "results": res, "best": best_meta,
                                            "predict_identical": same, "epochs": tr.epoch_history}
     return launches
+
+
+def seg_card_vs_cpu(scale: str, frames):
+    """YOLO("yolov8<scale>-seg.yaml", seed 0).predict in f32 on the card (kernels) and on the CPU (plain
+    versions): as many rows kept, the rows matched tie-tolerantly, and of the matched rows' mask pixels
+    at most MASK_PIX_TOL disagreeing. Returns the counts."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.utils.compare import assert_detections_close
+
+    out = {"rows": 0, "matched": 0, "pixels": 0, "disagree": 0}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        yolo = YOLO(f"yolov8{scale}-seg.yaml", device=dev, seed=0)
+        pred = Predictor(yolo.model, imgsz=640, batch=len(frames), device=dev, dtype=torch.float32, names=yolo.names)
+        runs[dev] = pred(frames)
+    for card, cpu in zip(runs["cuda"], runs["cpu"]):
+        a, b = card.boxes.data.astype(np.float64), cpu.boxes.data.astype(np.float64)
+        assert abs(len(a) - len(b)) <= 2, (len(a), len(b))
+        assert_detections_close(a, b, atol_box=1e-2, atol_score=1e-4)
+        out["rows"] += len(a)
+        for i, row in enumerate(a):  # each card row's CPU twin: same label, nearest box and score
+            cand = np.nonzero((b[:, 5] == row[5]) & (np.abs(b[:, 4] - row[4]) <= 2e-4))[0]
+            if not len(cand):
+                continue
+            j = cand[np.abs(b[cand, :4] - row[:4]).max(1).argmin()]
+            if np.abs(b[j, :4] - row[:4]).max() > 1e-2:
+                continue
+            out["matched"] += 1
+            out["pixels"] += card.masks.data[i].size
+            out["disagree"] += int((card.masks.data[i] != cpu.masks.data[j]).sum())
+    share = out["disagree"] / max(out["pixels"], 1)
+    assert out["matched"] >= 0.9 * out["rows"] and share <= MASK_PIX_TOL, out
+    out["share"] = share
+    return out
+
+
+def phase_seg(val_data: Path):
+    """Phase 13: the five seg scales, each in turn with seed-0 weights: its parameter count; its conv3x3 sites
+    (the v8 sites and SEG_SITES) against the plain version (every distinct shape in f32 and bf16, every site
+    of one bf16 forward on its own inputs); YOLO.predict b32 with the counters held, and the serving step;
+    conv3x3 over the sites beside F.conv2d + bias, Proto's 160x160 site called out; YOLO.val on the
+    polygon-labelled set at b32 bf16 with the counters held and its peak memory; the b16 train step (the seg
+    loss) and its peak memory; on n, the f32 predict on the card against the CPU."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.engine.train_step import to_device
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+
+    host = frames_720p(SCALE_SERVE_BATCH, seed=71)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
+    out = {}
+    for scale, n_params in SEG_PARAMS.items():
+        t_scale = time.perf_counter()
+        phase = f"v8{scale}-seg"
+        r = out[scale] = {}
+        yolo = YOLO(f"yolov8{scale}-seg.yaml", device="cuda", seed=0)
+        assert yolo.task == "segment" and sum(p.numel() for p in yolo.model.parameters()) == n_params, scale
+        pred = Predictor(yolo.model, imgsz=640, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+        sites = conv_sites(pred)
+        bottlenecks = sum(sp.args[2] for sp in yolo.model.specs if sp.module == "C2f")
+        assert len(sites) == 2 * bottlenecks + HEAD_SITES["v8"] + SEG_SITES, (phase, len(sites), bottlenecks)
+        r["sites"] = len(sites)
+        r["parity"] = phase_parity_conv(sites, phase)
+        site_err = bf16_site_errors(pred, host[:2])
+        assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{phase} bf16 conv3x3 sites: {site_err}"
+        r["parity"]["forward_sites_bf16_max_rel"] = max(site_err)
+
+        r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
+        log(phase, f"{n_params} parameters, {len(sites)} conv3x3 sites a forward (every site of a bf16 forward "
+                   f"on its own inputs: max rel {max(site_err):.3g}, tol 2e-2); YOLO.predict b{SCALE_SERVE_BATCH} "
+                   f"720p->640 bf16 with masks: {sv['predict_s']:.3f} s, launches {sv['launches']}, {sv['boxes']} "
+                   f"boxes above conf 0.25; serving step (with the kept rows' masks at 640) {sv['step_ms']:.3f} ms "
+                   f"({sv['img_s']:.1f} img/s), device busy {sv['busy_ms']:.3f} ms, idle share {sv['idle_share']}, "
+                   f"{sv['device_launches']:.0f} launches a step")
+
+        tot, per_shape = time_conv3x3(sites, SCALE_SERVE_BATCH, phase=phase)
+        r["conv3x3_sum"], r["conv3x3_shapes"] = tot, per_shape
+        npr = yolo.model.model[-1].npr  # Proto's cv2: npr -> npr at 160x160
+        r["proto_site"] = [p for p in per_shape if p["H"] == 160 and p["C"] == p["Co"] == npr]
+        r["conv3x3_losers"] = [{"C": p["C"], "Co": p["Co"], "H": p["H"], "per_forward": p["per_forward"],
+                                "vs_library": p["vs_library"]} for p in per_shape if p["vs_library"] > 1]
+        log(phase, f"conv3x3 over {len(sites)} sites at b{SCALE_SERVE_BATCH} bf16: {tot['ms']:.3f} ms, F.conv2d "
+                   f"{tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x), bound {tot['bound_ms']:.3f} ms "
+                   f"({tot['bound_by']}, {tot['bound_ms'] / tot['ms']:.3f} of it); Proto's 160x160 site: "
+                   + ", ".join(f"{p['C']}->{p['Co']} {p['ms']:.4f} ms, F.conv2d {p['library_ms']:.4f} "
+                               f"({p['vs_library']:.2f}x), bound {p['bound_ms']:.4f} ({p['bound_share']:.3f} of it)"
+                               for p in r["proto_site"]))
+
+        expect = val_launches_expected(val_frames, VAL_BATCH, len(sites), nms=True)
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = yolo.val(data=str(val_data), imgsz=640, batch=VAL_BATCH, cache_images="disk")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launches_now("letterbox", "conv3x3", "nms")
+        assert launches == expect, f"{phase} val: launches {launches}, expected {expect}"
+        assert all(np.isfinite(v) for v in res.values()) and "metrics/mAP50-95(M)" in res, res
+        r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": launches, "results": res,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "speed_ms_per_image": {k: v * 1e3 / len(val_frames) for k, v in yolo.validator.speed.items()}}
+        log(phase, f"YOLO.val b{VAL_BATCH} bf16, {len(val_frames)} polygon-labelled frames: {r['val']['img_s']:.1f} "
+                   f"img/s, peak {r['val']['peak_gb']:.3f} GB, launches {launches}, per image (ms) "
+                   f"{ {k: round(v, 3) for k, v in r['val']['speed_ms_per_image'].items()} }; {res}")
+        del pred
+        torch.cuda.empty_cache()
+
+        B = TRAIN_BATCH
+        batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda"))
+                   for b in train_batches(2, B, seed=72, masks=True)]
+        r["train"] = tr = scale_train_step(yolo, batches)
+        log(phase, f"train step b{B} 640 bf16 autocast (seg loss): {tr['step_ms']:.3f} ms ({tr['img_s']:.1f} img/s), "
+                   f"device busy {tr['busy_ms']:.3f} ms, idle share {tr['idle_share']}, {tr['device_launches']:.0f} "
+                   f"launches a step, peak {tr['peak_gb']:.3f} GB, loss {tr['loss']:.4f}")
+        del yolo, batches
+        torch.cuda.empty_cache()
+        if scale == "n":
+            r["card_vs_cpu"] = cc = seg_card_vs_cpu(scale, frames_720p(2, seed=73))
+            log(phase, f"f32 predict, card vs CPU, 2 frames: {cc['rows']} rows, {cc['matched']} matched, mask pixels "
+                       f"disagreeing {cc['disagree']} of {cc['pixels']} ({cc['share']:.3g}, tol {MASK_PIX_TOL})")
+        r["seconds"] = time.perf_counter() - t_scale
+    REPORT["seg"] = out
+    return out
+
+
+def write_seg_datasets(root: Path):
+    """The polygon-labelled sets of phase 13 (PNG + .npy twins, frames of VAL_SHAPES): a val set of
+    SEG_VAL_FRAMES frames labelled over the 80 classes, and a training set of TD_TRAIN + TD_VAL frames at nc=3.
+    Returns (val YAML path, training YAML)."""
+    from lpc_yolo_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    val = make_synthetic_dataset(root / "val", n_train=0, n_val=SEG_VAL_FRAMES, nc=80, max_boxes=6, seed=74,
+                                 shapes=VAL_SHAPES, segments=True)
+    train = make_synthetic_dataset(root / "train", n_train=TD_TRAIN, n_val=TD_VAL, nc=3, max_boxes=6, seed=75,
+                                   shapes=VAL_SHAPES, segments=True)
+    log("seg", f"datasets with polygon labels: {SEG_VAL_FRAMES} val frames (nc 80), {TD_TRAIN} + {TD_VAL} train "
+               f"frames (nc 3), written in {time.perf_counter() - t0:.1f} s")
+    return Path(val), train
+
+
+def seg_only() -> None:
+    """`--seg`: phase 13 alone."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_") as tmp:
+        val, train = write_seg_datasets(Path(tmp))
+        seg = phase_seg(val)
+        phase_scale_train_data("v8", train, seg["n"]["sites"], name="yolov8n-seg.yaml")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_seg.json").write_text(json.dumps(REPORT, indent=1))
+    log("done", "phase 13 passed; numbers in chiprun_out/chip_smoke_seg.json")
 
 
 def nms_worst_pool(B: int, seed: int = 0, k: int = 4096):
@@ -1617,7 +1827,9 @@ def converge_only(model: str = YAML) -> int:
     """`--converge [model yaml]`: the learning proof of tools/train_convergence.py on the card: the model
     (LPC-YOLO unless named; nc=3, seed 0) trained on the synthetic set of 256 + 32 frames at 160 for CONV_EPOCHS epochs of b16 (close_mosaic
     40, max_gt 8, cache="ram", val=False, patience CONV_EPOCHS, save=True), then validated at f32 and
-    at bf16 on the trained weights reloaded through YOLO.save -> YOLO(path). Fails under mAP50 0.5."""
+    at bf16 on the trained weights reloaded through YOLO.save -> YOLO(path). Fails under mAP50 0.5. A
+    segment model's set is labelled with polygons, and its mask mAPs are reported beside the box ones
+    (the gate stays on the box mAP50)."""
     import tempfile
 
     from lpc_yolo_tpu_torch import YOLO
@@ -1629,7 +1841,9 @@ def converge_only(model: str = YAML) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_converge_") as tmp:
         root = Path(tmp)
         t_start = time.perf_counter()
-        data = make_synthetic_dataset(root / "ds", n_train=256, n_val=32, imgsz=S, nc=3, max_boxes=4, seed=3)
+        seg = "-seg" in Path(model).stem
+        data = make_synthetic_dataset(root / "ds", n_train=256, n_val=32, imgsz=S, nc=3, max_boxes=4, seed=3,
+                                      segments=seg)
         yolo = YOLO(model, device="cuda", seed=0, nc=3)
         t0 = time.perf_counter()
         yolo.train(data=data, epochs=CONV_EPOCHS, batch=16, imgsz=S, workers=8, max_gt=8, cache="ram",
@@ -1655,7 +1869,8 @@ def converge_only(model: str = YAML) -> int:
             log("converge", f"val {name}: {res[name]}")
         wall = time.perf_counter() - t_start
     m50, m5095 = res["f32"]["metrics/mAP50(B)"], res["f32"]["metrics/mAP50-95(B)"]
-    gap = {k: res["bf16"][k] - res["f32"][k] for k in ("metrics/mAP50(B)", "metrics/mAP50-95(B)")}
+    keys = [k for k in res["f32"] if k.startswith(("metrics/mAP50(", "metrics/mAP50-95("))]  # (B), and (M) for seg
+    gap = {k: res["bf16"][k] - res["f32"][k] for k in keys}
     out = {"model": model, "mAP50": m50, "mAP50_95": m5095, "bf16_minus_f32": gap, "epochs": CONV_EPOCHS, "steps": len(tr.history),
            "skipped": n_skipped, "optimizer": tr.cfg.optimizer, "train_s": train_s, "wall_s": wall,
            "img_s": 256 * CONV_EPOCHS / train_s, "f32": res["f32"], "bf16": res["bf16"],
@@ -1664,9 +1879,9 @@ def converge_only(model: str = YAML) -> int:
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
     (dest / "chip_smoke_converge.json").write_text(json.dumps(REPORT, indent=1))
-    log("converge", f"{model}: mAP50 {m50:.4f}, mAP50-95 {m5095:.4f} (f32); bf16 - f32: mAP50 {gap['metrics/mAP50(B)']:+.4f}, "
-                    f"mAP50-95 {gap['metrics/mAP50-95(B)']:+.4f}; {len(tr.history)} steps ({n_skipped} skipped, "
-                    f"{tr.cfg.optimizer}) in {train_s:.1f} s, {wall:.1f} s in all")
+    log("converge", f"{model}: " + ", ".join(f"{k[8:]} {res['f32'][k]:.4f}" for k in keys) + " (f32); bf16 - f32: "
+                    + ", ".join(f"{k[8:]} {v:+.4f}" for k, v in gap.items()) + f"; {len(tr.history)} steps "
+                    f"({n_skipped} skipped, {tr.cfg.optimizer}) in {train_s:.1f} s, {wall:.1f} s in all")
     if not m50 > CONV_MAP50_BAR:
         log("converge", f"FAILED: mAP50 {m50:.4f} <= {CONV_MAP50_BAR}")
         return 1
@@ -1693,8 +1908,8 @@ def conv3x3_only() -> None:
 
 def main(argv) -> int:
     converge = argv[:1] == ["--converge"] and len(argv) <= 2
-    if argv not in ([], ["--conv3x3"]) and not converge:
-        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3 and --converge [model yaml]",
+    if argv not in ([], ["--conv3x3"], ["--seg"]) and not converge:
+        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg and --converge [model yaml]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1709,6 +1924,11 @@ def main(argv) -> int:
     phase_build()
     if argv == ["--conv3x3"]:
         conv3x3_only()
+        return 0
+    if argv == ["--seg"]:
+        seg_only()
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
     if converge:
         rc = converge_only(*argv[1:])
@@ -1749,6 +1969,10 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         v8 = phase_scales("v8", Path(tmp) / "val" / "data.yaml")
         v8_launches = phase_scale_train_data("v8", data, v8["n"]["sites"])  # the v8 path: NMS per val batch
+        torch.cuda.empty_cache()
+        seg_val, seg_train = write_seg_datasets(Path(tmp) / "seg")
+        seg = phase_seg(seg_val)
+        seg_launches = phase_scale_train_data("v8", seg_train, seg["n"]["sites"], name="yolov8n-seg.yaml")
     nms = time_nms()["val"]
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
@@ -1768,6 +1992,8 @@ def main(argv) -> int:
          "launches": v8_launches["nms"], "max_abs_err": nms["max_abs_err"], "ms": nms["ms"],
          "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"], "bound_by": nms["bound_by"], "library_ms": None},
     ]
+    for k in kernels:  # the seg path's launches beside the main path's: yolov8n-seg's train(data=...)
+        k["launches_seg"] = seg_launches[k["name"]]
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"

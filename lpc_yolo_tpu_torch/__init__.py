@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of lpc_yolo_tpu: LPC-YOLO serving and training on an NVIDIA H100.
+"""PyTorch/CUDA port of lpc_yolo_tpu: detection and instance segmentation, serving and training, on an NVIDIA H100.
 
 The JAX package `lpc_yolo_tpu` stays the reference; this package imports
 nothing of it (nor of jax/flax). Entry points run on CUDA unless the caller

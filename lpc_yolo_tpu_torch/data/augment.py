@@ -21,7 +21,18 @@ Each sample is split in two steps:
 `TrainTransforms(dataset, idx, rng)` keeps the JAX signature: the plan, then
 the render on the CPU. The trainer renders on the card instead.
 Not ported: mosaic9, copy_paste and `perspective` != 0 raise
-NotImplementedError; the segment, pose and OBB transforms wait for their tasks.
+NotImplementedError; the pose and OBB transforms wait for their tasks.
+
+Segment training (`SegTrainTransforms`, JAX :506-568) plans the same way,
+with the JAX transform's draws (no mosaic9 or mixup draw): polygon labels
+resampled to `seg_points` points (`resample_segments` :51, a box row
+becomes its rectangle, `_segments_px` :82), carried through mosaic4 (:108)
+and the affine warp (:180-277: warped in f64, cast to f32, boxes rebuilt
+from the in-canvas points, the polygons clipped to them, area_thr 0.01)
+and the flips, all on the host in the JAX dtypes; then each instance's
+mask is rasterized at imgsz / mask_ratio by `ops/masks.py::fill_poly`
+(cv2.fillPoly bit for bit) in the loader's threads, shipped as uint8
+(max_gt, imgsz / 4, imgsz / 4). The image is rendered as above.
 
 Validation (`ValTransforms`): the JAX validator letterboxes each frame on the
 host with cv2 (`scaleup=False`). The port letterboxes on the card
@@ -41,6 +52,7 @@ import numpy as np
 import torch
 
 from ..ops.letterbox import letterbox_geometry
+from ..ops.masks import fill_poly
 from . import cvops
 
 DEFAULT_HYP = {
@@ -68,6 +80,49 @@ def xywhn_to_xyxy(bboxes: np.ndarray, w: float, h: float, padw: float = 0, padh:
     out[:, 2] = w * (bboxes[:, 0] + bboxes[:, 2] / 2) + padw
     out[:, 3] = h * (bboxes[:, 1] + bboxes[:, 3] / 2) + padh
     return out
+
+
+def resample_segments(segments, n: int = 200) -> np.ndarray:
+    """(k, 2) polygons -> (N, n, 2) f32, each closed and resampled by linear interpolation along its
+    contour (JAX :51-63); an empty polygon stays zeros."""
+    out = np.zeros((len(segments), n, 2), np.float32)
+    for i, s in enumerate(segments):
+        if len(s) == 0:
+            continue
+        s = np.concatenate([s, s[0:1]], axis=0)
+        x = np.linspace(0, len(s) - 1, n)
+        xp = np.arange(len(s))
+        out[i] = np.stack([np.interp(x, xp, s[:, 0]), np.interp(x, xp, s[:, 1])], axis=-1)
+    return out
+
+
+def segments2boxes_px(segments: np.ndarray, width: float, height: float) -> np.ndarray:
+    """xyxy f32 boxes of the in-canvas points of each (N, P, 2) polygon; zeros where none is (JAX :66-79)."""
+    x, y = segments[..., 0], segments[..., 1]
+    inside = (x >= 0) & (y >= 0) & (x <= width) & (y <= height)
+    big = np.float32(1e12)
+    boxes = np.stack([np.where(inside, x, big).min(axis=1), np.where(inside, y, big).min(axis=1),
+                      np.where(inside, x, -big).max(axis=1), np.where(inside, y, -big).max(axis=1)],
+                     axis=1).astype(np.float32)
+    boxes[~inside.any(axis=1)] = 0.0
+    return boxes
+
+
+def segments_px(item: Dict, boxes_px: np.ndarray, sx: float, sy: float, padx: float, pady: float,
+                seg_points: int) -> np.ndarray:
+    """An item's normalised polygons -> (n, seg_points, 2) f32 pixel polygons aligned with boxes_px; a
+    box row (no polygon) becomes its box's rectangle (JAX `_segments_px` :82-98)."""
+    n = len(boxes_px)
+    segs = resample_segments(item.get("segments", []), seg_points)
+    if len(segs) < n:
+        segs = np.concatenate([segs, np.zeros((n - len(segs), seg_points, 2), np.float32)])
+    empty = ~segs.reshape(len(segs), -1).any(axis=1) if len(segs) else np.zeros(0, bool)
+    segs = segs * np.array([sx, sy], np.float32) + np.array([padx, pady], np.float32)
+    if empty.any():
+        rect = [resample_segments([np.array([[b[0], b[1]], [b[2], b[1]], [b[2], b[3]], [b[0], b[3]]], np.float32)],
+                                  seg_points)[0] for b in boxes_px[empty]]
+        segs[empty] = np.stack(rect)
+    return segs
 
 
 def pad_labels(cls: np.ndarray, boxes: np.ndarray, max_gt: int) -> Dict[str, np.ndarray]:
@@ -116,10 +171,13 @@ class Plan:
     fliplr: bool
 
 
-def mosaic4(dataset, idx: int, rng: np.random.RandomState, imgsz: int, sources: Dict[int, np.ndarray]):
+def mosaic4(dataset, idx: int, rng: np.random.RandomState, imgsz: int, sources: Dict[int, np.ndarray],
+            seg_points: Optional[int] = None):
     """The plan of a 4-image mosaic on a 2x2 canvas of side 2 * imgsz (JAX :108-177):
-    (Canvas, cls, xyxy boxes clipped to the canvas). Source images go into `sources`."""
+    (Canvas, cls, xyxy boxes clipped to the canvas), and with `seg_points` the (n, seg_points, 2)
+    f32 polygons in canvas pixels. Source images go into `sources`."""
     s = imgsz
+    all_segs = []
     yc, xc = (int(rng.uniform(s // 2, 2 * s - s // 2)) for _ in range(2))
     indices = [idx] + [rng.randint(0, len(dataset)) for _ in range(3)]
     tiles, all_cls, all_boxes = [], [], []
@@ -147,14 +205,21 @@ def mosaic4(dataset, idx: int, rng: np.random.RandomState, imgsz: int, sources: 
         if len(item["bboxes"]):
             all_boxes.append(xywhn_to_xyxy(item["bboxes"], w, h, padw, padh))
             all_cls.append(item["cls"])
+            if seg_points is not None:
+                all_segs.append(segments_px(item, all_boxes[-1], w, h, padw, padh, seg_points))
     boxes = np.concatenate(all_boxes) if all_boxes else np.zeros((0, 4), np.float32)
     cls = np.concatenate(all_cls) if all_cls else np.zeros((0,), np.int32)
-    return Canvas((2 * s, 2 * s), (xc, yc), tuple(tiles)), cls, boxes.clip(0, 2 * s)
+    canvas = Canvas((2 * s, 2 * s), (xc, yc), tuple(tiles))
+    if seg_points is None:
+        return canvas, cls, boxes.clip(0, 2 * s)
+    segs = np.concatenate(all_segs) if all_segs else np.zeros((0, seg_points, 2), np.float32)
+    return canvas, cls, boxes.clip(0, 2 * s), segs
 
 
-def letterbox_canvas(item: Dict, idx: int, imgsz: int):
+def letterbox_canvas(item: Dict, idx: int, imgsz: int, seg_points: Optional[int] = None):
     """The plan of the host letterbox (`ops/letterbox.py::letterbox_image`, scaleup): one tile,
-    resized when its size changes, with the reference's +-0.1 pad split; and the boxes in it."""
+    resized when its size changes, with the reference's +-0.1 pad split; and the boxes in it (and
+    with `seg_points` the polygons)."""
     h0, w0 = item["img"].shape[:2]
     gain, (nw, nh), (dw, dh) = letterbox_geometry((h0, w0), (imgsz, imgsz))
     top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
@@ -162,7 +227,10 @@ def letterbox_canvas(item: Dict, idx: int, imgsz: int):
     hw = (top + nh + bottom, left + nw + right)
     tile = Tile(int(idx), (h0, w0), (nh, nw), (left, top, left + nw, top + nh), (left, top))
     boxes = xywhn_to_xyxy(item["bboxes"], w0 * gain, h0 * gain, dw, dh)
-    return Canvas(hw, (hw[1], hw[0]), (tile, None, None, None)), boxes
+    canvas = Canvas(hw, (hw[1], hw[0]), (tile, None, None, None))
+    if seg_points is None:
+        return canvas, boxes
+    return canvas, boxes, segments_px(item, boxes, w0 * gain, h0 * gain, dw, dh, seg_points)
 
 
 def rotation_matrix(angle: float, scale: float) -> np.ndarray:
@@ -174,9 +242,10 @@ def rotation_matrix(angle: float, scale: float) -> np.ndarray:
 
 
 def random_affine(canvas_hw: Tuple[int, int], boxes: np.ndarray, cls: np.ndarray, rng: np.random.RandomState,
-                  hyp: Dict, border: Tuple[int, int] = (0, 0)):
+                  hyp: Dict, border: Tuple[int, int] = (0, 0), segments: Optional[np.ndarray] = None):
     """The draws, matrix and label transform of `random_perspective` (JAX :180-280) with
-    perspective 0: (M (3, 3), (height, width) of the output, boxes, cls)."""
+    perspective 0: (M (3, 3), (height, width) of the output, boxes, cls), and the (n, P, 2) f32
+    polygons when given (then the boxes come from the warped polygons and area_thr is 0.01)."""
     height = canvas_hw[0] + border[0] * 2
     width = canvas_hw[1] + border[1] * 2
     C = np.eye(3)
@@ -197,21 +266,36 @@ def random_affine(canvas_hw: Tuple[int, int], boxes: np.ndarray, cls: np.ndarray
     T[1, 2] = rng.uniform(0.5 - hyp["translate"], 0.5 + hyp["translate"]) * height
     M = T @ S @ R @ P @ C
     n = len(boxes)
+    polys = segments is not None and len(segments)
     if n:
-        xy = np.ones((n * 4, 3))
-        xy[:, :2] = boxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)
-        xy = (xy @ M.T)[:, :2].reshape(n, 8)
-        x, y = xy[:, [0, 2, 4, 6]], xy[:, [1, 3, 5, 7]]
-        new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
-        new[:, [0, 2]] = new[:, [0, 2]].clip(0, width)
-        new[:, [1, 3]] = new[:, [1, 3]].clip(0, height)
-        # candidate filter (box_candidates): wh > 2 px, aspect < 100, area ratio > 0.1
+        if polys:  # warp the polygons, boxes from their in-canvas points, polygons clipped to the boxes
+            N, P, _ = segments.shape
+            xy = np.ones((N * P, 3))
+            xy[:, :2] = segments.reshape(N * P, 2)
+            segments = (xy @ M.T)[:, :2].reshape(N, P, 2).astype(np.float32)
+            new = segments2boxes_px(segments, width, height)
+            segments[..., 0] = segments[..., 0].clip(new[:, 0:1], new[:, 2:3])
+            segments[..., 1] = segments[..., 1].clip(new[:, 1:2], new[:, 3:4])
+        else:
+            xy = np.ones((n * 4, 3))
+            xy[:, :2] = boxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)
+            xy = (xy @ M.T)[:, :2].reshape(n, 8)
+            x, y = xy[:, [0, 2, 4, 6]], xy[:, [1, 3, 5, 7]]
+            new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
+            new[:, [0, 2]] = new[:, [0, 2]].clip(0, width)
+            new[:, [1, 3]] = new[:, [1, 3]].clip(0, height)
+        # candidate filter (box_candidates): wh > 2 px, aspect < 100, area ratio > 0.1 (0.01 from polygons)
         w1, h1 = boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1]
         w2, h2 = new[:, 2] - new[:, 0], new[:, 3] - new[:, 1]
         ar = np.maximum(w2 / (h2 + 1e-16), h2 / (w2 + 1e-16))
-        keep = (w2 > 2) & (h2 > 2) & (w2 * h2 / (w1 * h1 * scale**2 + 1e-16) > 0.10) & (ar < 100)
+        area_thr = 0.01 if polys else 0.10
+        keep = (w2 > 2) & (h2 > 2) & (w2 * h2 / (w1 * h1 * scale**2 + 1e-16) > area_thr) & (ar < 100)
         boxes, cls = new[keep], cls[keep]
-    return M, (height, width), boxes, cls
+        if polys:
+            segments = segments[keep]
+    if segments is None:
+        return M, (height, width), boxes, cls
+    return M, (height, width), boxes, cls, segments
 
 
 def hsv_tables(rng: np.random.RandomState, hgain: float, sgain: float, vgain: float) -> Optional[np.ndarray]:
@@ -274,6 +358,49 @@ class TrainTransforms:
         out = self.plan(dataset, idx, rng)
         img = render([out.pop("plan")], out.pop("sources"), torch.device("cpu"))[0].numpy()
         return {"img": img, **out}
+
+
+class SegTrainTransforms(TrainTransforms):
+    """Mosaic + affine on polygons + HSV + flips -> a fixed (imgsz, imgsz) sample and its instance
+    masks at imgsz / mask_ratio (JAX `SegTrainTransforms` :506-568)."""
+
+    def __init__(self, imgsz: int = 640, hyp: Optional[Dict] = None, max_gt: int = 64, mask_ratio: int = 4,
+                 seg_points: int = 200):
+        self.imgsz, self.max_gt, self.mask_ratio, self.seg_points = imgsz, max_gt, mask_ratio, seg_points
+        self.hyp = {**DEFAULT_HYP, **(hyp or {})}  # mosaic9, mixup and copy_paste are not read, as in JAX
+        self.mosaic_enabled = True
+        if self.hyp["perspective"]:
+            raise NotImplementedError(f"hyp perspective={self.hyp['perspective']} is not ported")
+
+    def plan(self, dataset, idx: int, rng: np.random.RandomState) -> Dict:
+        """The sample's plan, source images, padded labels and (max_gt, mh, mw) uint8 masks."""
+        hyp, s, sources = self.hyp, self.imgsz, {}
+        if self.mosaic_enabled and rng.rand() < hyp["mosaic"]:
+            canvas, cls, boxes, segs = mosaic4(dataset, idx, rng, s, sources, self.seg_points)
+            border = (-s // 2, -s // 2)
+        else:
+            item = dataset.get_item_raw(idx)
+            sources[int(idx)] = item["img"]
+            canvas, boxes, segs = letterbox_canvas(item, idx, s, self.seg_points)
+            cls, border = item["cls"], (0, 0)
+        m, out_hw, boxes, cls, segs = random_affine(canvas.hw, boxes, cls, rng, hyp, border, segments=segs)
+        table = hsv_tables(rng, hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"])
+        flipud = bool(rng.rand() < hyp["flipud"])
+        if flipud:
+            boxes[:, [1, 3]] = out_hw[0] - boxes[:, [3, 1]]
+            segs[..., 1] = out_hw[0] - segs[..., 1]
+        fliplr = bool(rng.rand() < hyp["fliplr"])
+        if fliplr:
+            boxes[:, [0, 2]] = out_hw[1] - boxes[:, [2, 0]]
+            segs[..., 0] = out_hw[1] - segs[..., 0]
+        mh = mw = s // self.mask_ratio
+        n = min(len(boxes), self.max_gt)
+        masks = np.zeros((self.max_gt, mh, mw), np.uint8)
+        r = 1.0 / self.mask_ratio
+        for j in range(n):
+            fill_poly(masks[j], (segs[j] * r).astype(np.int32))
+        plan = Plan(canvas, None, 0.0, m, out_hw, table, flipud, fliplr)
+        return {"plan": plan, "sources": sources, **pad_labels(cls, boxes, self.max_gt), "masks": masks}
 
 
 @functools.lru_cache(maxsize=256)

@@ -212,10 +212,12 @@ class YOLODataset:
         return im
 
     def get_item_raw(self, i: int) -> Dict:
-        """One un-augmented sample: BGR image + normalized xywh labels."""
+        """One un-augmented sample: BGR image + normalized xywh labels and polygons ((k, 2) each; (0, 2)
+        for a box row)."""
         return {
             "img": self.load_image(i),
             "cls": self.labels[i]["cls"].copy(),
             "bboxes": self.labels[i]["bboxes"].copy(),
+            "segments": [s.copy() for s in self.labels[i].get("segments", [])],
             "path": self.im_files[i],
         }

@@ -36,11 +36,13 @@ def write_png(path, bgr: np.ndarray) -> None:
 
 def make_synthetic_dataset(root, n_train: int = 8, n_val: int = 4, imgsz: int = 160, nc: int = 3,
                            max_boxes: int = 4, seed: int = 0,
-                           shapes: Optional[Sequence[Tuple[int, int]]] = None) -> str:
+                           shapes: Optional[Sequence[Tuple[int, int]]] = None, segments: bool = False) -> str:
     """Create images/{train,val} (PNG + .npy) + labels/{train,val} + data.yaml; returns the yaml path.
 
     shapes: (h, w) of the frames, cycled over each split; None gives the JAX
     package's square imgsz frames. Each frame holds 1 to max_boxes rectangles.
+    segments: label each rectangle by its four corners as a YOLO-seg polygon
+    row instead of a box row (JAX :44-50).
     """
     rng = np.random.RandomState(seed)
     root = Path(root)
@@ -60,7 +62,12 @@ def make_synthetic_dataset(root, n_train: int = 8, n_val: int = 4, imgsz: int = 
                 x1 = rng.randint(0, w - bw)
                 y1 = rng.randint(0, h - bh)
                 img[y1:y1 + bh + 1, x1:x1 + bw + 1] = COLORS[c % len(COLORS)]  # cv2.rectangle, filled
-                rows.append(f"{c} {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} {bw / w:.6f} {bh / h:.6f}")
+                if segments:
+                    pts = ((x1 / w, y1 / h), ((x1 + bw) / w, y1 / h), ((x1 + bw) / w, (y1 + bh) / h),
+                           (x1 / w, (y1 + bh) / h))
+                    rows.append(f"{c} " + " ".join(f"{a:.6f} {b:.6f}" for a, b in pts))
+                else:
+                    rows.append(f"{c} {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} {bw / w:.6f} {bh / h:.6f}")
             f = root / "images" / split / f"im{i:03d}.png"
             write_png(f, img)
             np.save(f.with_suffix(".npy"), img)

@@ -1,10 +1,17 @@
 """Serving predictor: frames -> device letterbox -> the model graph -> decode -> Results.
 
-Counterpart of `lpc_yolo_tpu/engine/predictor.py::Predictor` (:87-363), v10
-and v8 paths: a v10Detect model decodes its one-to-one branch by the NMS-free
-top-k, a Detect model through `decode_feats` and `non_max_suppression` at
-`conf` and `iou`, one candidate per anchor (:200), its greedy loop one launch
-of the NMS kernel per batch. The JAX predictor letterboxes on the host with
+Counterpart of `lpc_yolo_tpu/engine/predictor.py::Predictor` (:87-363), v10,
+v8 and segment paths: a v10Detect model decodes its one-to-one branch by the
+NMS-free top-k, a Detect or Segment model through `decode_feats` and
+`non_max_suppression` at `conf` and `iou`, one candidate per anchor (:200),
+its greedy loop one launch of the NMS kernel per batch. A Segment model's
+masks follow the JAX predictor (:190-199, :328-340): each row's mask
+coefficients gathered by its anchor, `process_mask(..., upsample=True)`, the
+letterbox pad cropped, cv2's f32 linear resize to the frame and `> 0.5`,
+into `Results.masks` (n, h0, w0) bool. The JAX predictor decodes all
+`max_det` rows of a batch; here only the rows above `conf` that `Results`
+keeps are decoded, on the device, one frame at a time (identical values:
+the others are never read). The JAX predictor letterboxes on the host with
 cv2 to uint8 (:261) and folds /255 into the stem (:148-151); the card's
 machine has no cv2, so here every frame is letterboxed on the device by the
 letterbox kernel, as uint8, straight into its slot of the NHWC input batch
@@ -31,6 +38,7 @@ import torch
 from ..nn.fuse import fold_preprocess, fuse_conv_bn
 from ..ops.boxes import scale_boxes
 from ..ops.letterbox import letterbox
+from ..ops.masks import process_kept_rows, unletterbox_masks
 from ..utils import resolve_device
 from .results import Results
 
@@ -127,9 +135,19 @@ class Predictor:
         return letterbox_batch(frames, self.imgsz, self.device, torch.uint8).permute(0, 3, 1, 2).to(self.dtype)
 
     @torch.inference_mode()
-    def infer(self, frames: List[np.ndarray]) -> torch.Tensor:
-        """(n, max_det, 6) detections in letterbox pixels, f32, on the device."""
+    def infer(self, frames: List[np.ndarray]):
+        """(n, max_det, 6) detections in letterbox pixels, f32, on the device; for a segment model
+        with the rows' mask coefficients and the prototypes (`DetectionModel.predict`)."""
         return self.model.predict(self.preprocess(frames), self.max_det, self.conf, self.iou)
+
+    @torch.inference_mode()
+    def frame_masks(self, det: torch.Tensor, mc: torch.Tensor, proto: torch.Tensor, keep: np.ndarray,
+                    orig_shape) -> Optional[np.ndarray]:
+        """One frame's masks for its kept rows: (n, h0, w0) bool on the host, None when none is kept."""
+        if not keep.any():
+            return None
+        m = process_kept_rows(proto, mc, det, keep, self.imgsz)
+        return unletterbox_masks(m, self.imgsz, orig_shape).cpu().numpy()
 
     def postprocess(self, det: np.ndarray, im0: np.ndarray) -> np.ndarray:
         """Rows above conf, boxes scaled back to the frame: (n, 6)."""
@@ -150,10 +168,15 @@ class Predictor:
             x = self.preprocess([im for _, im in chunk])
             t1 = time.perf_counter()
             with torch.inference_mode():
-                det = self.model.predict(x, self.max_det, self.conf, self.iou).cpu().numpy()
+                out = self.model.predict(x, self.max_det, self.conf, self.iou)
+                det_dev, mc, proto = out if isinstance(out, tuple) else (out, None, None)
+                det = det_dev.cpu().numpy()
             t2 = time.perf_counter()
             for j, (path, im0) in enumerate(chunk):
                 boxes = self.postprocess(det[j], im0)
+                masks = None
+                if proto is not None:
+                    masks = self.frame_masks(det_dev[j], mc[j], proto[j], det[j][:, 4] > self.conf, im0.shape[:2])
                 speed = {"preprocess": (t1 - t0) * 1e3 / n, "inference": (t2 - t1) * 1e3 / n,
                          "postprocess": (time.perf_counter() - t2) * 1e3 / n}
-                yield Results(im0, path, self.names, boxes=boxes, speed=speed)
+                yield Results(im0, path, self.names, boxes=boxes, masks=masks, speed=speed)

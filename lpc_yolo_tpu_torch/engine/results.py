@@ -1,6 +1,8 @@
-"""Detection result containers (counterpart of `lpc_yolo_tpu/engine/results.py`
-Boxes :18 and the detection subset of Results :249). Plain numpy on the host;
-plotting and saving wait for a later slice (they need cv2)."""
+"""Detection and segmentation result containers (counterpart of
+`lpc_yolo_tpu/engine/results.py` Boxes :18, Masks :138-168 and the detect and
+segment subset of Results :249). Plain numpy on the host; plotting, saving
+and the masks' polygons (`Masks.xy`, `.xyn`, which need cv2.findContours)
+wait for a later slice."""
 
 from __future__ import annotations
 
@@ -55,16 +57,46 @@ class Boxes:
         return self.xywh / np.array([w, h, w, h], dtype=np.float32)
 
 
+class Masks:
+    """Instance masks (N, H, W), bool, at the frame's size."""
+
+    def __init__(self, data: np.ndarray, orig_shape: Tuple[int, int]):
+        self.data = np.asarray(data)
+        self.orig_shape = orig_shape
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __getitem__(self, idx):
+        """An int gives the (H, W) mask array; anything else a Masks of the rows."""
+        if isinstance(idx, (int, np.integer)):
+            return self.data[idx]
+        return Masks(self.data[idx], self.orig_shape)
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.data, dtype=dtype)
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+
 class Results:
-    """One image's detections."""
+    """One image's detections, and its instance masks for a segment model (None when no row was kept)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str],
-                 boxes: Optional[np.ndarray] = None, speed: Optional[Dict[str, float]] = None):
+                 boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None,
+                 speed: Optional[Dict[str, float]] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
+        self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.speed = speed or {}
 
     def __len__(self) -> int:

@@ -1,9 +1,9 @@
 """Validator: dataset -> device letterbox -> the model graph -> decode -> TP matching -> mAP.
 
-Counterpart of `lpc_yolo_tpu/engine/validator.py::Validator` for the v10 and
-v8 detection tasks (`__init__` :34-71, the v10 and v8 predicts of
-`_make_predict`, `__call__` :202-362, `_to_coco_json` :364-382); the
-segment, pose and OBB branches wait. A Detect (v8) model decodes through
+Counterpart of `lpc_yolo_tpu/engine/validator.py::Validator` for the v10,
+v8 and segment tasks (`__init__` :34-71, the v10, v8 and segment predicts of
+`_make_predict`, `_gt_masks` :155-172, `__call__` :202-362, `_to_coco_json`
+:364-382); the pose and OBB branches wait. A Detect (v8) model decodes through
 `non_max_suppression` at `conf`, `iou` and one candidate per (anchor, class)
 (`multi_label`, :148-150), its greedy loop one launch of the NMS kernel per
 batch; matching, metrics and COCO rescoring are the same for both.
@@ -19,6 +19,16 @@ pixels, copied to the host once. On the host, as the JAX package
 does: rows above `conf`, matching at 10 IoUs in letterbox space (IoU does not
 change under the letterbox's uniform scale and shift), the confusion matrix
 and the metrics.
+
+A Segment model is matched twice (:287-294, :330-339): by box IoU, and by
+mask IoU for the `(M)` metrics. Each kept row's mask is `process_mask(...,
+upsample=True) > 0.5` at imgsz, decoded on the device for the rows above
+`conf` only (the JAX validator decodes all `max_det` rows; the others are
+never read, so the values agree); the ground truth's polygons are filled at
+letterbox resolution by `ops/masks.py::fill_poly` (cv2.fillPoly bit for
+bit) on the host, and the mask IoU is one matmul on the device
+(`utils/metrics.py::mask_iou`, exact). `fitness` stays the box fitness, as the
+JAX validator leaves out the mask one.
 
 `speed` holds the seconds spent in each part, summed over the run as in the
 JAX package: "preprocess" is the host's time to copy and enqueue the
@@ -38,8 +48,9 @@ import numpy as np
 import torch
 
 from ..data import DataLoader, ValTransforms, YOLODataset, check_det_dataset
+from ..ops.masks import fill_poly, process_kept_rows
 from ..utils import resolve_device
-from ..utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions
+from ..utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, mask_iou, match_predictions
 from .predictor import letterbox_batch, serving_model
 
 
@@ -84,10 +95,37 @@ class Validator:
         return letterbox_batch(frames, self.imgsz, self.device, torch.uint8, scaleup=False)
 
     @torch.inference_mode()
-    def predict(self, model, x: torch.Tensor) -> np.ndarray:
-        """(n, max_det, 6) detections in letterbox pixels, f32, on the host."""
+    def predict(self, model, x: torch.Tensor):
+        """(n, max_det, 6) detections in letterbox pixels, f32, on the host; for a segment model with
+        the detections on the device, the rows' mask coefficients and the prototypes."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
-        return model.predict(x, self.max_det, self.conf, self.iou, multi_label=True).cpu().numpy()
+        out = model.predict(x, self.max_det, self.conf, self.iou, multi_label=True)
+        if isinstance(out, tuple):
+            return (out[0].cpu().numpy(), *out)
+        return out.cpu().numpy()
+
+    def gt_masks(self, dataset, ds_idx: int, batch: Dict, j: int) -> np.ndarray:
+        """The ground truth's polygons filled at letterbox resolution, (n, imgsz, imgsz) uint8, in the JAX
+        validator's f32 arithmetic (:155-172). Unlike the JAX validator, only the rows the box labels keep
+        (the first max_gt), and a box row's empty polygon gives an empty mask (cv2.fillPoly raises on it)."""
+        segs = dataset.labels[ds_idx].get("segments", [])[: int(batch["mask"][j].sum())]
+        h0, w0 = batch["orig_shape"][j]
+        gain = float(batch["gain"][j])
+        out = np.zeros((len(segs), self.imgsz, self.imgsz), np.uint8)
+        for i, poly in enumerate(segs):
+            p = np.asarray(poly, np.float32) * np.array([w0 * gain, h0 * gain], np.float32)
+            p += np.asarray(batch["pad"][j], np.float32)
+            fill_poly(out[i], p.astype(np.int32))
+        return out
+
+    @torch.inference_mode()
+    def mask_ious(self, gt: np.ndarray, det: torch.Tensor, mc: torch.Tensor, proto: torch.Tensor,
+                  keep: np.ndarray) -> np.ndarray:
+        """(n_gt, n_kept) mask IoU of one image: its kept rows' masks decoded on the device at imgsz."""
+        if len(gt) == 0 or not keep.any():
+            return np.zeros((len(gt), int(keep.sum())), np.float32)
+        pred = process_kept_rows(proto, mc, det, keep, self.imgsz) > 0.5
+        return mask_iou(torch.from_numpy(gt).to(det.device), pred).cpu().numpy()
 
     def __call__(self, data, model: Optional[torch.nn.Module] = None) -> Dict[str, float]:
         """Validate `model` (the facade's model unless given: the trainer passes its EMA copy)
@@ -99,26 +137,31 @@ class Validator:
         model = serving_model(self.yolo.model if model is None else model, self.device, self.dtype)
 
         stats: Dict[str, List[np.ndarray]] = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        stats_m: Dict[str, List[np.ndarray]] = {k: [] for k in stats}  # the segment task's mask matching
+        seg = model.task == "segment"
         cm = ConfusionMatrix(nc=info["nc"], conf=self.conf)
         json_preds: List[Dict] = []
+        seen = 0
         for batch in loader:
             t0 = time.perf_counter()
             x = self.preprocess(batch["img"])
             t1 = time.perf_counter()
-            det = self.predict(model, x)  # (B, max_det, 6)
+            out = self.predict(model, x)  # (B, max_det, 6), and the seg decode's inputs
+            det, (det_dev, mc, proto) = (out[0], out[1:]) if seg else (out, (None, None, None))
             t2 = time.perf_counter()
             n_real = det.shape[0] - batch["pad_count"]
             for j in range(n_real):
-                rows = det[j]
-                rows = rows[rows[:, 4] > self.conf]
+                keep = det[j][:, 4] > self.conf
+                rows = det[j][keep]
                 gt_boxes = batch["bboxes"][j][batch["mask"][j]]
                 gt_cls = batch["cls"][j][batch["mask"][j]]
                 if len(rows) == 0:
                     if len(gt_cls):
-                        stats["tp"].append(np.zeros((0, len(self.iouv)), bool))
-                        stats["conf"].append(np.zeros(0))
-                        stats["pred_cls"].append(np.zeros(0))
-                        stats["target_cls"].append(gt_cls)
+                        for st in (stats, stats_m) if seg else (stats,):
+                            st["tp"].append(np.zeros((0, len(self.iouv)), bool))
+                            st["conf"].append(np.zeros(0))
+                            st["pred_cls"].append(np.zeros(0))
+                            st["target_cls"].append(gt_cls)
                         cm.process_batch(None, gt_boxes, gt_cls)
                     continue
                 iou = box_iou_np(gt_boxes, rows[:, :4])
@@ -127,8 +170,16 @@ class Validator:
                 stats["pred_cls"].append(rows[:, 5])
                 stats["target_cls"].append(gt_cls)
                 cm.process_batch(rows, gt_boxes, gt_cls)
+                if seg:
+                    iou_m = self.mask_ious(self.gt_masks(dataset, seen + j, batch, j), det_dev[j], mc[j], proto[j],
+                                           keep)
+                    stats_m["tp"].append(match_predictions(rows[:, 5], gt_cls, iou_m, self.iouv))
+                    stats_m["conf"].append(rows[:, 4])
+                    stats_m["pred_cls"].append(rows[:, 5])
+                    stats_m["target_cls"].append(gt_cls)
                 if self.save_json:
                     json_preds.extend(self._to_coco_json(rows, batch, j))
+            seen += n_real
             t3 = time.perf_counter()
             self.speed["preprocess"] += t1 - t0
             self.speed["inference"] += t2 - t1
@@ -145,6 +196,10 @@ class Validator:
         self.metrics = metrics
         self.confusion_matrix = cm
         results = metrics.results_dict()
+        if stats_m["tp"]:  # the (M) keys (JAX :330-339): the mask matches, without a fitness of their own
+            mm = self.metrics_masks = DetMetrics(names=info["names"])
+            mm.process(*(np.concatenate(stats_m[k]) for k in ("tp", "conf", "pred_cls", "target_cls")))
+            results.update({k.replace("(B)", "(M)"): v for k, v in mm.results_dict().items() if k != "fitness"})
         if self.save_json and self.save_dir:
             self.save_dir.mkdir(parents=True, exist_ok=True)
             (self.save_dir / "predictions.json").write_text(json.dumps(json_preds))

@@ -73,8 +73,10 @@ def v8_detection_loss(
     box_gain: float = 7.5,
     cls_gain: float = 0.5,
     dfl_gain: float = 1.5,
-) -> Tuple[torch.Tensor, LossItems]:
-    """One head-branch detection loss (loss.py:186-249): (total * batch_size, detached LossItems)."""
+    return_assign: bool = False,
+):
+    """One head-branch detection loss (loss.py:186-249): (total * batch_size, detached LossItems), and
+    the assigner's result after them with `return_assign` (the seg loss reads it)."""
     pred_distri, pred_scores, feat_shapes = flatten_maps(feats)
     B, A = pred_scores.shape[:2]
     anchor_points, stride_tensor = make_anchors(feat_shapes, strides, 0.5, device=pred_scores.device)
@@ -113,7 +115,10 @@ def v8_detection_loss(
     loss_dfl = (dfl * weight).sum() / target_scores_sum
 
     box, cls, dfl = loss_box * box_gain, loss_cls * cls_gain, loss_dfl * dfl_gain
-    return (box + cls + dfl) * B, LossItems(box.detach(), cls.detach(), dfl.detach())
+    items = LossItems(box.detach(), cls.detach(), dfl.detach())
+    if return_assign:
+        return (box + cls + dfl) * B, items, assign
+    return (box + cls + dfl) * B, items
 
 
 def v10_detect_loss(

@@ -3,7 +3,7 @@
 Same schema and channel inference as the JAX compiler (make_divisible :87,
 LayerSpec :94, yaml_model_load :110, parse_model :119-284), implemented for
 the modules that the LPC-YOLO YAML, the six YOLOv10 scales (n/s/m/b/l/x) and
-the five YOLOv8 scales (n/s/m/l/x) reach; any other module raises
+the five YOLOv8 scales (n/s/m/l/x), detect and segment, reach; any other module raises
 NotImplementedError. The model routes `from` indices and keeps the save list
 like `DetectionModel._run` (:718-1019), without the TPU width-pack, upsample-
 commute, s2d-fold plans or int8. A layer whose output no later layer reads
@@ -29,13 +29,13 @@ from ..ops.nms import non_max_suppression
 from ..ops.repack import repack_width_kernel
 from ..utils import resolve_device
 from . import modules as M
-from .heads import Detect, V10Detect, decode_feats, decode_feats_topk_split
+from .heads import Detect, Segment, V10Detect, decode_feats, decode_feats_topk_split
 
 # Modules whose YAML arg[0] is the (width-scaled) output-channel count, and the
 # subset that also takes the (depth-scaled) repeat count.
 _BASE = {"Conv", "Bottleneck", "SPPF", "C2f", "PSA", "LPC", "SCDown", "C2fCIB"}
 _REPEAT = {"C2f", "C2fCIB"}
-HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8"}  # the ported heads and the task each serves (the JAX names)
+HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8", "Segment": "segment"}  # the ported heads, each one's task (JAX names)
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -102,6 +102,8 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
             c2 = sum(chs[x] for x in f_list)
             out_args = list(args)
         elif m in HEAD_TASKS:
+            if m == "Segment":  # npr scales with the width (JAX compiler.py:187-188)
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             out_args = [*args, tuple(chs[x] for x in f_list)]
             c2 = chs[f_list[-1]]
         elif m == "CBAM":
@@ -165,6 +167,8 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         return V10Detect(nc=a[0], ch=a[-1], strides=strides)
     if m == "Detect":
         return Detect(nc=a[0], ch=a[-1], strides=strides)
+    if m == "Segment":
+        return Segment(nc=a[0], nm=a[1], npr=a[2], ch=a[-1], strides=strides)
     raise NotImplementedError(m)
 
 
@@ -172,9 +176,13 @@ class DetectionModel(nn.Module):
     """Compiled YOLO graph with 'from'-index routing.
 
     `forward(x)` returns the head's raw maps: per-level (box, cls) pairs, in
-    a dict by branch for v10Detect; `predict(x)` decodes them to (B, max_det,
-    6): v10Detect's one-to-one branch through the NMS-free top-k, Detect's
-    maps through `decode_feats` and `non_max_suppression`. x is (B, 3, H, W)
+    a dict by branch for v10Detect; a Segment head returns what the JAX graph
+    returns (:931-947): {"feats", "mc", "proto"} in train mode, and in eval
+    mode also "pred" (the v8 decode). `predict(x)` decodes them to (B,
+    max_det, 6): v10Detect's one-to-one branch through the NMS-free top-k,
+    Detect's and Segment's maps through `decode_feats` and
+    `non_max_suppression`; for Segment with each row's mask coefficients and
+    the prototypes (see `predict`). x is (B, 3, H, W)
     RGB in [0, 1], or another `input_layout` of the same image (see
     `to_nchw`).
     """
@@ -223,6 +231,12 @@ class DetectionModel(nn.Module):
                 return module(inp, branches=branches)
             if spec.module == "Detect":
                 return module(inp)
+            if spec.module == "Segment":
+                feats, mc, proto = module(inp)
+                out = {"feats": feats, "mc": mc, "proto": proto}
+                if not self.training:
+                    out["pred"] = decode_feats(feats, self.strides, self.nc, self.reg_max)
+                return out
             if dead:  # train mode: only its BatchNorm statistics are wanted
                 with torch.no_grad():
                     module(inp)
@@ -233,9 +247,18 @@ class DetectionModel(nn.Module):
         return x  # headless graph
 
     def predict(self, x: torch.Tensor, max_det: int = 300, conf: float = 0.25, iou: float = 0.45,
-                multi_label: bool = False) -> torch.Tensor:
+                multi_label: bool = False):
         """(B, max_det, 6) detections; `conf`, `iou` and `multi_label` are the NMS's and are
-        not read by v10Detect's decode (the caller filters its rows by conf)."""
+        not read by v10Detect's decode (the caller filters its rows by conf). A Segment model
+        returns (detections, each row's mask coefficients (B, max_det, nm) gathered by its
+        anchor as the JAX predictor does (:328-331), the prototypes (B, nm, H/4, W/4)); the masks
+        are decoded by the caller for the rows it keeps (`ops/masks.py::process_mask`)."""
+        if self.task == "segment":
+            out = self.forward(x)
+            det, anchor = non_max_suppression(out["pred"], conf, iou, max_det, multi_label=multi_label,
+                                              return_anchor_idx=True)
+            mc = out["mc"]
+            return det, mc.gather(1, anchor.long()[..., None].expand(-1, -1, mc.shape[-1])), out["proto"]
         if self.task == "v8":
             pred = decode_feats(self.forward(x), self.strides, self.nc, self.reg_max)
             return non_max_suppression(pred, conf, iou, max_det, multi_label=multi_label)
@@ -249,7 +272,7 @@ def _infer_strides(specs, save, nc, ch: int = 3, probe: int = 256) -> Tuple[floa
         m = DetectionModel(specs, save, nc).eval()
         feats = m(torch.zeros(1, ch, probe, probe), branches="one2many")
     if isinstance(feats, dict):
-        feats = feats["one2many"]
+        feats = feats["feats"] if "feats" in feats else feats["one2many"]
     elif not isinstance(feats, list):  # headless graph
         return (8.0, 16.0, 32.0)
     return tuple(float(probe / cm.shape[2]) for _, cm in feats)

@@ -1,7 +1,7 @@
-"""The v8 Detect and v10Detect heads, the NMS-free top-k decode and the v8 decode (NCHW).
+"""The v8 Detect, Segment and v10Detect heads, the NMS-free top-k decode and the v8 decode (NCHW).
 
 Counterpart of `lpc_yolo_tpu/nn/heads.py` (`_v8_towers` :52-77, Detect
-:80-92; V10Detect :234, plain branch :309-335; decode_feats_topk_split
+:80-92, Segment :95-119; V10Detect :234, plain branch :309-335; decode_feats_topk_split
 :401-496, unpacked case; decode_feats :521). The segmented TPU top-k
 (`heads._topk`) becomes `torch.topk`. Both heads return per-level
 (box_map, cls_map) pairs where the JAX heads concatenate the two on the
@@ -18,7 +18,7 @@ import torch.nn as nn
 
 from ..ops.anchors import dfl_expectation, dist2bbox, make_anchors
 from ..ops.boxes import xywh2xyxy
-from .modules import ConvBN
+from .modules import ConvBN, Proto
 
 
 def _box_tower(ci: int, c2: int, reg_max: int) -> nn.Sequential:
@@ -56,6 +56,26 @@ class Detect(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         return [(self.cv2[i](x), self.cv3[i](x)) for i, x in enumerate(xs)]
+
+
+class Segment(Detect):
+    """YOLOv8 Segment head (reference head.py:104-128): the Detect towers, a mask-coefficient tower
+    per level (cv4: 3x3 ConvBN, 3x3 ConvBN, 1x1 conv to nm, c4 = max(ch[0] // 4, nm)) and `Proto`
+    on P3. `forward` returns (the Detect pairs, mc (B, A, nm) over the levels in the anchor order,
+    proto (B, nm, 2 H3, 2 W3)); the JAX head gives proto NHWC."""
+
+    def __init__(self, nc: int = 80, nm: int = 32, npr: int = 256, ch: Sequence[int] = (),
+                 strides=(8.0, 16.0, 32.0), reg_max: int = 16):
+        super().__init__(nc, ch, strides, reg_max)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        c4 = max(ch[0] // 4, nm)
+        self.cv4 = nn.ModuleList(nn.Sequential(ConvBN(c, c4, 3), ConvBN(c4, c4, 3), nn.Conv2d(c4, nm, 1)) for c in ch)
+
+    def forward(self, xs: Sequence[torch.Tensor]):
+        proto = self.proto(xs[0])
+        mc = torch.cat([self.cv4[i](x).flatten(2) for i, x in enumerate(xs)], 2).transpose(1, 2)
+        return super().forward(xs), mc, proto
 
 
 def _cls_tower(ci: int, c3: int, nc: int) -> nn.Sequential:

@@ -7,7 +7,7 @@ with numeric parts split off (`m_0` -> `m.0`, `ffn_1` -> `ffn.1`), so the
 weight bridge (`utils/flax_bridge.py`) is a pure name map.
 
 Activations follow the fork: blocks defined in its block.py (C2f, SPPF, PSA,
-LPC, Bottleneck, SCDown, CIB, C2fCIB) use Mish, but for RepVGGDW's own SiLU;
+LPC, Bottleneck, SCDown, CIB, C2fCIB, Proto) use Mish, but for RepVGGDW's own SiLU;
 YAML-level `Conv` and the head towers use SiLU.
 BatchNorm uses eps 1e-3 and momentum 0.03; in train mode its running
 statistics follow the JAX package's (`BatchNorm2d` below).
@@ -274,6 +274,23 @@ class PSA(nn.Module):
         b = b + self.attn(b)
         b = b + self.ffn(b)
         return self.cv2(torch.cat([a, b], 1))
+
+
+class Proto(nn.Module):
+    """YOLOv8 mask prototypes (reference block.py:64; JAX `nn/modules.py:1041-1056`): cv1 3x3 ConvBN,
+    a 2x2 stride-2 transposed conv with bias (x2 the resolution), cv2 3x3 ConvBN, cv3 1x1 ConvBN to
+    the c2 prototypes, Mish throughout. flax's ConvTranspose(transpose_kernel=True) kernel
+    (kh, kw, out, in) is the torch weight (in, out, kh, kw) transposed, with no spatial flip."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c_, 3, act="mish")
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, bias=True)
+        self.cv2 = ConvBN(c_, c_, 3, act="mish")
+        self.cv3 = ConvBN(c_, c2, 1, act="mish")
+
+    def forward(self, x):
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
 
 
 class Upsample(nn.Module):

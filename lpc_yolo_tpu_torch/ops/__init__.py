@@ -1,5 +1,6 @@
-"""Tensor ops of the port: anchors, boxes and the four hand-written kernels'
-wrappers (letterbox, conv3x3, repack, nms), each beside its plain PyTorch version."""
+"""Tensor ops of the port: anchors, boxes, instance masks (`masks.py`) and the four
+hand-written kernels' wrappers (letterbox, conv3x3, repack, nms), each beside its plain
+PyTorch version."""
 
 from .conv3x3 import conv3x3, conv3x3_plain
 from .letterbox import build_letterbox_mats, letterbox, letterbox_geometry, letterbox_plain, letterbox_tables

@@ -2,8 +2,9 @@
 
 Counterpart of `lpc_yolo_tpu/utils/metrics.py` (`box_iou_np`, `match_predictions`,
 `compute_ap`, `ap_per_class`, `smooth`, `DetMetrics`, `ConfusionMatrix`), kept
-as its own copy so the port imports nothing of the JAX package. The mask,
-keypoint and rotated-box IoUs wait for the segment, pose and OBB validators.
+as its own copy so the port imports nothing of the JAX package; `mask_iou`
+is `mask_iou_np` (:281-292) in torch, on the masks' device. The keypoint and
+rotated-box IoUs wait for the pose and OBB validators.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def box_iou_np(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
@@ -21,6 +23,18 @@ def box_iou_np(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndar
     area1 = (box1[:, 2] - box1[:, 0]) * (box1[:, 3] - box1[:, 1])
     area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
     return inter / (area1[:, None] + area2[None, :] - inter + eps)
+
+
+def mask_iou(gt: torch.Tensor, pred: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """(M, N) IoU of (M, H, W) and (N, H, W) 0/1 masks (JAX `utils/metrics.py::mask_iou_np`), f32.
+
+    One matmul of 0/1 f32 masks: every partial sum is an integer below 2**24, so each is
+    exact and the result equals numpy's bit for bit, whatever order the product sums in."""
+    g = gt.reshape(len(gt), -1).float()
+    p = pred.reshape(len(pred), -1).float()
+    inter = g @ p.T
+    union = g.sum(1)[:, None] + p.sum(1)[None] - inter
+    return inter / (union + eps)
 
 
 def match_predictions(

@@ -159,6 +159,57 @@ def test_conv3x3_v8_cls_tower_shapes_match_plain(B, H, W, C, Co, dtype):
         assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
 
 
+# (B, H, W, C, Co, act) of the YOLOv8-seg heads at their serving batch: Proto's cv2 at 160x160 (npr -> npr: 64 on
+# n, 192 on m, 320 on x; the largest map conv3x3 runs), Proto's cv1 (P3 -> npr at 80x80), and the mask-coefficient
+# towers (each level's channels -> c4 = max(ch0 // 4, 32), then c4 -> c4).
+SEG_CONV_CASES = [
+    (32, 160, 160, 64, 64, "mish"), (32, 160, 160, 192, 192, "mish"), (32, 160, 160, 320, 320, "mish"),
+    (32, 80, 80, 320, 320, "mish"), (32, 80, 80, 64, 32, "silu"), (32, 40, 40, 128, 32, "silu"),
+    (32, 20, 20, 640, 80, "silu"), (32, 80, 80, 48, 48, "silu"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,Co,act", SEG_CONV_CASES)
+def test_conv3x3_seg_shapes_match_plain(B, H, W, C, Co, act, dtype):
+    """The kernel against its plain version at the seg heads' sites, Proto's 160x160 ones among them, with the
+    tolerances of `test_conv3x3_kernel_matches_plain` (f32 abs 1e-4, bf16 2e-2 relative)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5).to(dtype)
+    b = torch.rand(Co, device="cuda", generator=g) - 0.5
+    got = conv3x3(x, w, b, act).float()
+    ref = conv3x3_plain(x.float(), w.float(), b, act)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    else:
+        assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
+
+
+def test_kept_rows_masks_on_the_card_match_the_cpu():
+    """`process_mask(..., upsample=True)` of 200 kept rows at 640 on the card against the CPU on the same inputs
+    (f32 sigmoid masks within 1e-5), and `unletterbox_masks` to a 720x1280 frame: on the same masks bit for bit
+    (cv2's weights and fused lerp, in f64, give the same bools on both), through the whole chain at most 1e-4 of
+    the pixels differ."""
+    from lpc_yolo_tpu_torch.ops.masks import process_mask, unletterbox_masks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    protos = torch.from_numpy(rng.standard_normal((32, 160, 160)).astype(np.float32))
+    coeffs = torch.from_numpy(rng.standard_normal((200, 32)).astype(np.float32))
+    xy = rng.uniform(0, 560, (200, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(8, 300, (200, 2))], 1).astype(np.float32))
+    cpu = process_mask(protos, coeffs, boxes, (640, 640), upsample=True)
+    card = process_mask(protos.cuda(), coeffs.cuda(), boxes.cuda(), (640, 640), upsample=True)
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-5)
+    same = unletterbox_masks(cpu.cuda(), 640, (720, 1280)).cpu()
+    ref = unletterbox_masks(cpu, 640, (720, 1280))
+    assert torch.equal(same, ref) and ref.shape == (200, 720, 1280) and ref.any()
+    chain = unletterbox_masks(card, 640, (720, 1280)).cpu()
+    assert (chain != ref).float().mean().item() <= 1e-4
+
+
 @pytest.mark.parametrize("pool", ["worst", "val"])
 def test_nms_kernel_matches_plain(pool):
     """The NMS kernel against `nms_plain` on the same pool on the card: the same rows bit for bit and the same
