@@ -5,6 +5,7 @@
     python3 chip_smoke.py --conv3x3    # device, build, then conv3x3 parity and per-shape times only
     python3 chip_smoke.py --converge [yolov8n.yaml]    # device, build, then the learning proof only
     python3 chip_smoke.py --seg        # device, build, then phase 13 (the seg scales) only
+    python3 chip_smoke.py --pose       # device, build, then phase 14 (the pose scales) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -135,19 +136,41 @@ Phases, in order; any failure raises and the script exits non-zero:
             kept rows' pixels); then YOLO("yolov8n-seg.yaml", nc=3).train(
             data=..., save=True) on a polygon-labelled set, 3 epochs, counters
             held, and its reload through YOLO.save. Numbers under "seg".
+14. pose    the five YOLOv8 pose scales (yolov8{n,s,m,l,x}-pose) as phase 13
+            does the seg ones, at their published widths and depths:
+            conv3x3 parity at every site (the v8 sites and two a level in the
+            keypoint towers, whose 51-channel sites on n, s and m are named
+            in the log); YOLO.predict of 32 720p frames with the counters
+            held (one letterbox, a conv3x3 per site, one NMS) and every kept
+            row's keypoints (n, 17, 3); the b32 bf16 serving step (letterbox,
+            forward, NMS, the keypoints gathered by anchor) event-timed with
+            its busy time, idle share and launches; conv3x3 against F.conv2d
+            per site shape, the 51-channel sites called out; the b16 train
+            step (the pose loss) with its peak memory; YOLO.val(data=...) at
+            b32 bf16 on 64 frames with keypoint labels that the phase writes
+            (17 points a box, mirrored by COCO's flip_idx, visibility 0/1/2),
+            counters held, img/s and peak memory; on yolov8n-pose a f32
+            predict on the card against the CPU (matched rows' keypoints
+            within 1e-2 px); then YOLO("yolov8n-pose.yaml", nc=3).train(
+            data=..., save=True) on a keypoint-labelled set, 3 epochs,
+            counters held, and its reload through YOLO.save. Numbers under
+            "pose".
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
-yolov8n train(data=...), and beside them, as "launches_seg", each kernel's
-launches in phase 13's yolov8n-seg train(data=...); nms's times from phase
-12's val pool); the last line is {"ok": true, "device": {...}}. Every number
-is also written to chiprun_out/chip_smoke.json (phase 10's under "v10",
-phase 11's under "v8", phase 13's under "seg").
+yolov8n train(data=...), and beside them, as "launches_seg" and
+"launches_pose", each kernel's launches in phase 13's yolov8n-seg and phase
+14's yolov8n-pose train(data=...); nms's times from phase 12's val pool); the
+last line is {"ok": true, "device": {...}}. Every number is also written to
+chiprun_out/chip_smoke.json (phase 10's under "v10", phase 11's under "v8",
+phase 13's under "seg", phase 14's under "pose").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
-yolov10n.yaml, yolov8n.yaml or yolov8n-seg.yaml, whose set is labelled with
-polygons and whose box and mask mAPs are both reported) with nc=3 on the synthetic set of 256 + 32
+yolov10n.yaml, yolov8n.yaml, yolov8n-seg.yaml, whose set is labelled with
+polygons and whose box and mask mAPs are both reported, or yolov8n-pose.yaml,
+whose set carries 17 keypoints a box and whose box and OKS mAPs are both
+reported) with nc=3 on the synthetic set of 256 + 32
 frames at 160, 120 epochs of b16 (close_mosaic 40, max_gt 8, cache="ram",
 val=False, save=True), then `val` at f32 and at bf16 on the trained weights
 reloaded through YOLO.save -> YOLO(path); it prints mAP50, mAP50-95, the
@@ -192,6 +215,11 @@ SEG_PARAMS = {"n": 3_409_952, "s": 11_821_040, "m": 27_285_952, "l": 45_997_712,
 SEG_SITES = 8  # 3x3 s1 convs a Segment head adds: Proto's cv1 and cv2 (at 2x P3's size), two a level in cv4
 SEG_VAL_FRAMES = 64  # the polygon-labelled val set of phase 13 (VAL_SHAPES, 1 to 6 instances a frame)
 MASK_PIX_TOL = 1e-3  # f32 predict, card vs CPU: mask pixels that disagree, of the matched kept rows' pixels
+POSE_PARAMS = {"n": 3_295_454, "s": 11_626_030, "m": 26_464_446, "l": 44_489_180, "x": 69_491_708}  # JAX's (test_torch_pose.py)
+POSE_SITES = 6  # 3x3 s1 convs a Pose head adds: two a level in the keypoint towers (cv4)
+KPT_SHAPE = (17, 3)  # COCO's keypoints, mirrored by COCO_FLIP_IDX
+COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+KPT_PX_TOL = 1e-2  # f32 predict, card vs CPU: keypoints of the matched rows, in frame pixels
 SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits
 NMS_OPS = 15  # f32 operations per pool candidate and step: the IoU in the JAX order, the compare, the argmax
 REPORT = {}
@@ -741,9 +769,10 @@ def time_repack(g):
     return out
 
 
-def train_batches(n: int, B: int, seed: int, masks: bool = False):
+def train_batches(n: int, B: int, seed: int, masks: bool = False, keypoints: bool = False):
     """Loader-format host batches: uint8 BGR frames and a handful of padded boxes per image (with `masks`
-    also each box's instance mask at 160x160, the box's rectangle, as a segment batch carries them)."""
+    also each box's instance mask at 160x160, the box's rectangle, as a segment batch carries them; with
+    `keypoints` 17 keypoints a box, inside it, visibility 0/1/2, as a pose batch carries them)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
@@ -760,6 +789,11 @@ def train_batches(n: int, B: int, seed: int, masks: bool = False):
                 x1, y1, x2, y2 = (boxes[b, g] / 4).astype(int)
                 m[b, g, y1:y2 + 1, x1:x2 + 1] = 1
             out[-1]["masks"] = m
+        if keypoints:
+            u = rng.uniform(0, 1, (B, TRAIN_GT) + KPT_SHAPE[:1] + (2,))
+            xy = boxes[..., None, :2] + u * (boxes[..., None, 2:] - boxes[..., None, :2])
+            v = rng.integers(0, 3, (B, TRAIN_GT) + KPT_SHAPE[:1] + (1,))
+            out[-1]["keypoints"] = (np.concatenate([xy, v], -1) * mask[..., None, None]).astype(np.float32)
     return out
 
 
@@ -1393,9 +1427,10 @@ def kept_masks(det, mc, proto, conf: float, S: int) -> int:
 def scale_serving(yolo, pred, sites, host, dev):
     """YOLO.predict of the host frames at b32, 640, bf16, counters reset just before and read just after
     (a letterbox, a conv3x3 per site and, for a v8 or segment model, one NMS for the one batch), by host
-    clock; a segment model's masks (n, h0, w0) bool. Then the serving step from the device-resident frames
-    (letterbox to u8, cast, forward, decode; for a segment model also each frame's kept rows' masks at
-    640) by CUDA events and its profile."""
+    clock; a segment model's masks (n, h0, w0) bool, a pose model's keypoints (n, 17, 3). Then the serving
+    step from the device-resident frames (letterbox to u8, cast, forward, decode; for a segment model also
+    each frame's kept rows' masks at 640, for a pose model the keypoints gathered by anchor) by CUDA events
+    and its profile."""
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox
 
     B, S = len(host), 640
@@ -1405,17 +1440,20 @@ def scale_serving(yolo, pred, sites, host, dev):
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
     launches = launches_now("letterbox", "conv3x3", "nms")
-    assert launches == {"letterbox": 1, "conv3x3": len(sites), "nms": int(yolo.task in ("v8", "segment"))}, launches
+    assert launches == {"letterbox": 1, "conv3x3": len(sites), "nms": int(yolo.task != "v10")}, launches
     assert len(results) == B and all(np.isfinite(r.boxes.data).all() for r in results)
     if yolo.task == "segment":
         assert all(r.masks is None and len(r) == 0 or r.masks.shape == (len(r), 720, 1280) and r.masks.dtype == bool
                    for r in results)
+    if yolo.task == "pose":
+        assert all(r.keypoints is None and len(r) == 0 or r.keypoints.shape == (len(r),) + KPT_SHAPE
+                   and np.isfinite(r.keypoints).all() for r in results)
     x = torch.empty(B, S, S, 3, dtype=torch.uint8, device="cuda")
 
     def step():
         letterbox(dev, S, out=x)
         out = pred.model.predict(x.permute(0, 3, 1, 2).to(torch.bfloat16), pred.max_det, pred.conf, pred.iou)
-        return kept_masks(*out, pred.conf, S) if isinstance(out, tuple) else out
+        return kept_masks(*out, pred.conf, S) if yolo.task == "segment" else out
 
     with torch.inference_mode():
         step_ms = cuda_ms(step, iters=3, warmup=2)
@@ -1571,7 +1609,7 @@ def phase_scale_train_data(family: str, data: str, sites: int, name: str = None)
         frames = frames_720p(4, seed=63)
         ref = yolo.predict(frames, imgsz=S, batch=4, conf=0.0)
         back = YOLO(yolo.save(root / f"{tag}.ckpt"), device="cuda")
-        assert back.task == yolo.task == ("segment" if "seg" in name else family)
+        assert back.task == yolo.task == ("segment" if "seg" in name else "pose" if "pose" in name else family)
         from_last, from_best = (YOLO(name, device="cuda", seed=None, nc=3) for _ in range(2))
         for model, path in ((from_last, weights / "last.ckpt"), (from_best, weights / "best.ckpt")):
             tree, _ = load_checkpoint(path)
@@ -1581,7 +1619,10 @@ def phase_scale_train_data(family: str, data: str, sites: int, name: str = None)
             got = model.predict(frames, imgsz=S, batch=4, conf=0.0)
             same[what] = all(np.array_equal(a.boxes.data, b.boxes.data)
                              and (a.masks is None) == (b.masks is None)
-                             and (a.masks is None or np.array_equal(a.masks.data, b.masks.data)) for a, b in zip(got, ref))
+                             and (a.masks is None or np.array_equal(a.masks.data, b.masks.data))
+                             and (a.keypoints is None) == (b.keypoints is None)
+                             and (a.keypoints is None or np.array_equal(a.keypoints, b.keypoints))
+                             for a, b in zip(got, ref))
             assert same[what], f"{name} reloaded through {what}: detections differ from the trained facade's"
         best = from_best.predict(frames, imgsz=S, batch=4, conf=0.0)
         assert all(len(r) > 0 and np.isfinite(r.boxes.data).all() for r in best)
@@ -1753,6 +1794,195 @@ def seg_only() -> None:
     log("done", "phase 13 passed; numbers in chiprun_out/chip_smoke_seg.json")
 
 
+def pose_card_vs_cpu(scale: str, frames):
+    """YOLO("yolov8<scale>-pose.yaml", seed 0).predict in f32 on the card (kernels) and on the CPU (plain
+    versions): the top 20 rows' scores within 1e-4, each card row matched to a CPU row of the same label with
+    its score within 2e-4 and its box within 1e-2 px, at least 80% of the rows matched, and the matched
+    rows' keypoints (x, y in frame pixels) within KPT_PX_TOL, their visibility within 1e-4. The letterbox
+    pad is constant, so the anchors over it score alike to ~1e-7 with boxes a stride apart, and f32 rounding
+    decides which of them the NMS keeps (with one class each such pick also changes what it suppresses);
+    the unmatched rows' nearest CPU rows (their box gaps a multiple of 16 px, one stride-8 anchor at the
+    720p frames' gain) are recorded. Returns the counts."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+
+    out = {"rows": 0, "cpu_rows": 0, "matched": 0, "max_px": 0.0, "max_vis": 0.0, "top20_score_gap": 0.0,
+           "unmatched_nearest": []}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        yolo = YOLO(f"yolov8{scale}-pose.yaml", device=dev, seed=0)
+        pred = Predictor(yolo.model, imgsz=640, batch=len(frames), device=dev, dtype=torch.float32, names=yolo.names)
+        runs[dev] = pred(frames)
+    for card, cpu in zip(runs["cuda"], runs["cpu"]):
+        a, b = card.boxes.data.astype(np.float64), cpu.boxes.data.astype(np.float64)
+        out["rows"], out["cpu_rows"] = out["rows"] + len(a), out["cpu_rows"] + len(b)
+        n = min(len(a), len(b), 20)
+        out["top20_score_gap"] = max(out["top20_score_gap"], float(np.abs(a[:n, 4] - b[:n, 4]).max(initial=0)))
+        for i, row in enumerate(a):  # each card row's CPU twin: same label, nearest box and score
+            cand = np.nonzero((b[:, 5] == row[5]) & (np.abs(b[:, 4] - row[4]) <= 2e-4))[0]
+            gap = np.abs(b[cand, :4] - row[:4]).max(1) if len(cand) else np.array([np.inf])
+            if gap.min() > 1e-2:
+                out["unmatched_nearest"].append({"score": float(row[4]), "box_gap_px": float(gap.min())})
+                continue
+            j = cand[gap.argmin()]
+            out["matched"] += 1
+            d = np.abs(card.keypoints[i] - cpu.keypoints[j])
+            out["max_px"] = max(out["max_px"], float(d[:, :2].max()))
+            out["max_vis"] = max(out["max_vis"], float(d[:, 2].max()))
+    assert out["top20_score_gap"] <= 1e-4 and out["matched"] >= 0.8 * max(out["rows"], out["cpu_rows"]) > 0, out
+    assert out["max_px"] <= KPT_PX_TOL and out["max_vis"] <= 1e-4, out
+    return out
+
+
+def phase_pose(val_data: Path):
+    """Phase 14: the five pose scales, each in turn with seed-0 weights: its parameter count; its conv3x3 sites
+    (the v8 sites and POSE_SITES, the 51-channel ones named) against the plain version (every distinct shape in
+    f32 and bf16, every site of one bf16 forward on its own inputs); YOLO.predict b32 with the counters held,
+    and the serving step; conv3x3 over the sites beside F.conv2d + bias, the 51-channel sites called out;
+    YOLO.val on the keypoint-labelled set at b32 bf16 with the counters held and its peak memory; the b16
+    train step (the pose loss) and its peak memory; on n, the f32 predict on the card against the CPU."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.engine.train_step import to_device
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+
+    host = frames_720p(SCALE_SERVE_BATCH, seed=81)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
+    out = {}
+    for scale, n_params in POSE_PARAMS.items():
+        t_scale = time.perf_counter()
+        phase = f"v8{scale}-pose"
+        r = out[scale] = {}
+        yolo = YOLO(f"yolov8{scale}-pose.yaml", device="cuda", seed=0)
+        assert yolo.task == "pose" and sum(p.numel() for p in yolo.model.parameters()) == n_params, scale
+        pred = Predictor(yolo.model, imgsz=640, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+        sites = conv_sites(pred)
+        bottlenecks = sum(sp.args[2] for sp in yolo.model.specs if sp.module == "C2f")
+        assert len(sites) == 2 * bottlenecks + HEAD_SITES["v8"] + POSE_SITES, (phase, len(sites), bottlenecks)
+        odd = sorted({(C, Co, H) for C, H, W, Co, *_ in sites if 51 in (C, Co)}, key=lambda t: (-t[2], t[0]))
+        r["sites"], r["sites_51"] = len(sites), [{"C": C, "Co": Co, "H": H} for C, Co, H in odd]
+        r["parity"] = phase_parity_conv(sites, phase)
+        site_err = bf16_site_errors(pred, host[:2])
+        assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{phase} bf16 conv3x3 sites: {site_err}"
+        r["parity"]["forward_sites_bf16_max_rel"] = max(site_err)
+        log(phase, f"conv3x3 parity passed at the {sum(51 in (s[0], s[3]) for s in sites)} sites with 51 channels: "
+                   + (", ".join(f"{C}->{Co} @{H}x{H}" for C, Co, H in odd) or "none (c4 > 51 on this scale)"))
+
+        r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
+        log(phase, f"{n_params} parameters, {len(sites)} conv3x3 sites a forward (every site of a bf16 forward "
+                   f"on its own inputs: max rel {max(site_err):.3g}, tol 2e-2); YOLO.predict b{SCALE_SERVE_BATCH} "
+                   f"720p->640 bf16 with keypoints: {sv['predict_s']:.3f} s, launches {sv['launches']}, {sv['boxes']} "
+                   f"boxes above conf 0.25; serving step {sv['step_ms']:.3f} ms ({sv['img_s']:.1f} img/s), device busy "
+                   f"{sv['busy_ms']:.3f} ms, idle share {sv['idle_share']}, {sv['device_launches']:.0f} launches a step")
+
+        tot, per_shape = time_conv3x3(sites, SCALE_SERVE_BATCH, phase=phase)
+        r["conv3x3_sum"], r["conv3x3_shapes"] = tot, per_shape
+        r["shapes_51"] = [p for p in per_shape if 51 in (p["C"], p["Co"])]
+        r["conv3x3_losers"] = [{"C": p["C"], "Co": p["Co"], "H": p["H"], "per_forward": p["per_forward"],
+                                "vs_library": p["vs_library"]} for p in per_shape if p["vs_library"] > 1]
+        log(phase, f"conv3x3 over {len(sites)} sites at b{SCALE_SERVE_BATCH} bf16: {tot['ms']:.3f} ms, F.conv2d "
+                   f"{tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x), bound {tot['bound_ms']:.3f} ms "
+                   f"({tot['bound_by']}, {tot['bound_ms'] / tot['ms']:.3f} of it); the 51-channel sites: "
+                   + (", ".join(f"{p['C']}->{p['Co']} @{p['H']}^2 x{p['per_forward']} {p['ms']:.4f} ms, F.conv2d "
+                                f"{p['library_ms']:.4f} ({p['vs_library']:.2f}x), bound {p['bound_ms']:.4f} "
+                                f"({p['bound_share']:.3f} of it)" for p in r["shapes_51"]) or "none"))
+
+        expect = val_launches_expected(val_frames, VAL_BATCH, len(sites), nms=True)
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = yolo.val(data=str(val_data), imgsz=640, batch=VAL_BATCH, cache_images="disk")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launches_now("letterbox", "conv3x3", "nms")
+        assert launches == expect, f"{phase} val: launches {launches}, expected {expect}"
+        assert all(np.isfinite(v) for v in res.values()) and "metrics/mAP50-95(P)" in res, res
+        r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": launches, "results": res,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "speed_ms_per_image": {k: v * 1e3 / len(val_frames) for k, v in yolo.validator.speed.items()}}
+        log(phase, f"YOLO.val b{VAL_BATCH} bf16, {len(val_frames)} keypoint-labelled frames: {r['val']['img_s']:.1f} "
+                   f"img/s, peak {r['val']['peak_gb']:.3f} GB, launches {launches}, per image (ms) "
+                   f"{ {k: round(v, 3) for k, v in r['val']['speed_ms_per_image'].items()} }; {res}")
+        del pred
+        torch.cuda.empty_cache()
+
+        B = TRAIN_BATCH
+        batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda"))
+                   for b in train_batches(2, B, seed=82, keypoints=True)]
+        r["train"] = tr = scale_train_step(yolo, batches)
+        log(phase, f"train step b{B} 640 bf16 autocast (pose loss): {tr['step_ms']:.3f} ms ({tr['img_s']:.1f} img/s), "
+                   f"device busy {tr['busy_ms']:.3f} ms, idle share {tr['idle_share']}, {tr['device_launches']:.0f} "
+                   f"launches a step, peak {tr['peak_gb']:.3f} GB, loss {tr['loss']:.4f}")
+        del yolo, batches
+        torch.cuda.empty_cache()
+        if scale == "n":
+            r["card_vs_cpu"] = cc = pose_card_vs_cpu(scale, frames_720p(2, seed=83))
+            log(phase, f"f32 predict, card vs CPU, 2 frames: {cc['rows']} rows on the card, {cc['cpu_rows']} on the "
+                       f"CPU, {cc['matched']} matched (top 20 scores within {cc['top20_score_gap']:.3g}), keypoints "
+                       f"within {cc['max_px']:.3g} px (tol {KPT_PX_TOL}), visibility within {cc['max_vis']:.3g}; "
+                       f"unmatched rows' nearest CPU rows: {cc['unmatched_nearest'][:8]}")
+        r["seconds"] = time.perf_counter() - t_scale
+    REPORT["pose"] = out
+    return out
+
+
+def add_keypoint_labels(data: str) -> str:
+    """Extend every box row of a synthetic dataset's label files by 17 keypoints at fixed places inside the box,
+    mirror images about its vertical axis as COCO_FLIP_IDX pairs them (point 0 on the axis), visibility
+    (row + pair) % 3; write kpt_shape and flip_idx into its YAML, which it returns."""
+    import yaml
+
+    root = Path(data).parent
+    for lf in sorted((root / "labels").rglob("*.txt")):
+        rows = []
+        for r, line in enumerate(lf.read_text().splitlines()):
+            c, cx, cy, w, h = line.split()
+            cx, cy, w, h = map(float, (cx, cy, w, h))
+            pts = []
+            for k, mate in enumerate(COCO_FLIP_IDX):
+                pair = min(k, mate)
+                side = 0 if mate == k else (-1 if k < mate else 1)
+                x, y = cx + side * w * (0.1 + 0.1 * (pair % 4)), cy - 0.4 * h + 0.05 * h * pair
+                pts.append(f"{x:.6f} {y:.6f} {(r + pair) % 3}")
+            rows.append(f"{c} {cx:.6f} {cy:.6f} {w:.6f} {h:.6f} " + " ".join(pts))
+        lf.write_text("\n".join(rows) + "\n")
+    d = yaml.safe_load(Path(data).read_text())
+    d.update(kpt_shape=list(KPT_SHAPE), flip_idx=COCO_FLIP_IDX)
+    Path(data).write_text(yaml.safe_dump(d))
+    return data
+
+
+def write_pose_datasets(root: Path):
+    """The keypoint-labelled sets of phase 14 (PNG + .npy twins, frames of VAL_SHAPES): a val set of
+    SEG_VAL_FRAMES frames at nc=1 (the pose YAML's), and a training set of TD_TRAIN + TD_VAL frames at nc=3.
+    Returns (val YAML path, training YAML)."""
+    from lpc_yolo_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    val = add_keypoint_labels(make_synthetic_dataset(root / "val", n_train=0, n_val=SEG_VAL_FRAMES, nc=1, max_boxes=6,
+                                                     seed=84, shapes=VAL_SHAPES))
+    train = add_keypoint_labels(make_synthetic_dataset(root / "train", n_train=TD_TRAIN, n_val=TD_VAL, nc=3,
+                                                       max_boxes=6, seed=85, shapes=VAL_SHAPES))
+    log("pose", f"datasets with keypoint labels: {SEG_VAL_FRAMES} val frames (nc 1), {TD_TRAIN} + {TD_VAL} train "
+                f"frames (nc 3), written in {time.perf_counter() - t0:.1f} s")
+    return Path(val), train
+
+
+def pose_only() -> None:
+    """`--pose`: phase 14 alone."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pose_") as tmp:
+        val, train = write_pose_datasets(Path(tmp))
+        pose = phase_pose(val)
+        phase_scale_train_data("v8", train, pose["n"]["sites"], name="yolov8n-pose.yaml")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_pose.json").write_text(json.dumps(REPORT, indent=1))
+    log("done", "phase 14 passed; numbers in chiprun_out/chip_smoke_pose.json")
+
+
 def nms_worst_pool(B: int, seed: int = 0, k: int = 4096):
     """A pool in which every one of the 300 steps keeps a box: k candidates an image, sorted scores above
     conf 0.25 on a grid of 1/1024 (so runs of ~6 are tied and the first of each run must win), boxes 4 to 24
@@ -1767,22 +1997,24 @@ def nms_worst_pool(B: int, seed: int = 0, k: int = 4096):
     return torch.cat([xy - wh / 2, xy + wh / 2], -1), scores.sort(1, descending=True).values, labels, anchors
 
 
-def nms_val_pool(B: int, imgsz: int = 640, dtype: torch.dtype = torch.bfloat16, seed: int = 0):
-    """The pool YOLO.val hands the NMS (multi_label, pre_topk 4096): a yolov8n of seed-`seed` weights (their
-    conv biases are U(+-0.5), so the scores sit near 0.5 and the pool is full) on B 720p frames
-    letterboxed to imgsz (scaleup=False), decoded from its `dtype` serving maps. (boxes, scores, labels,
-    anchors) on the card."""
+def nms_val_pool(B: int, imgsz: int = 640, dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 model: str = "yolov8n.yaml"):
+    """The pool YOLO.val hands the NMS (multi_label, pre_topk 4096): a v8 model (yolov8n unless named) of
+    seed-`seed` weights (their conv biases are U(+-0.5), so the scores sit near 0.5 and the pool is full) on B
+    720p frames letterboxed to imgsz (scaleup=False), decoded from its `dtype` serving maps. (boxes, scores,
+    labels, anchors) on the card."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import letterbox_batch, serving_model
     from lpc_yolo_tpu_torch.nn.heads import decode_feats
     from lpc_yolo_tpu_torch.ops.nms import candidate_pool
 
-    yolo = YOLO("yolov8n.yaml", device="cuda", seed=seed)
+    yolo = YOLO(model, device="cuda", seed=seed)
     model = serving_model(yolo.model, torch.device("cuda"), dtype)
     dev = torch.device("cuda")
     with torch.inference_mode():
         x = letterbox_batch(frames_720p(B, seed=71), imgsz, dev, torch.uint8, scaleup=False)
-        pred = decode_feats(model(x.permute(0, 3, 1, 2).to(dtype)), model.strides, model.nc, model.reg_max)
+        out = model(x.permute(0, 3, 1, 2).to(dtype))
+        pred = out["pred"] if isinstance(out, dict) else decode_feats(out, model.strides, model.nc, model.reg_max)
         pool = candidate_pool(pred, 4096, multi_label=True)
     return tuple(t.clone() for t in pool)
 
@@ -1828,8 +2060,9 @@ def converge_only(model: str = YAML) -> int:
     (LPC-YOLO unless named; nc=3, seed 0) trained on the synthetic set of 256 + 32 frames at 160 for CONV_EPOCHS epochs of b16 (close_mosaic
     40, max_gt 8, cache="ram", val=False, patience CONV_EPOCHS, save=True), then validated at f32 and
     at bf16 on the trained weights reloaded through YOLO.save -> YOLO(path). Fails under mAP50 0.5. A
-    segment model's set is labelled with polygons, and its mask mAPs are reported beside the box ones
-    (the gate stays on the box mAP50)."""
+    segment model's set is labelled with polygons, and its mask mAPs are reported beside the box ones; a
+    pose model's carries 17 keypoints a box, and its OKS mAPs are reported (the gate stays on the box
+    mAP50)."""
     import tempfile
 
     from lpc_yolo_tpu_torch import YOLO
@@ -1844,6 +2077,8 @@ def converge_only(model: str = YAML) -> int:
         seg = "-seg" in Path(model).stem
         data = make_synthetic_dataset(root / "ds", n_train=256, n_val=32, imgsz=S, nc=3, max_boxes=4, seed=3,
                                       segments=seg)
+        if "-pose" in Path(model).stem:
+            add_keypoint_labels(data)
         yolo = YOLO(model, device="cuda", seed=0, nc=3)
         t0 = time.perf_counter()
         yolo.train(data=data, epochs=CONV_EPOCHS, batch=16, imgsz=S, workers=8, max_gt=8, cache="ram",
@@ -1869,7 +2104,7 @@ def converge_only(model: str = YAML) -> int:
             log("converge", f"val {name}: {res[name]}")
         wall = time.perf_counter() - t_start
     m50, m5095 = res["f32"]["metrics/mAP50(B)"], res["f32"]["metrics/mAP50-95(B)"]
-    keys = [k for k in res["f32"] if k.startswith(("metrics/mAP50(", "metrics/mAP50-95("))]  # (B), and (M) for seg
+    keys = [k for k in res["f32"] if k.startswith(("metrics/mAP50(", "metrics/mAP50-95("))]  # (B); (M) or (P)
     gap = {k: res["bf16"][k] - res["f32"][k] for k in keys}
     out = {"model": model, "mAP50": m50, "mAP50_95": m5095, "bf16_minus_f32": gap, "epochs": CONV_EPOCHS, "steps": len(tr.history),
            "skipped": n_skipped, "optimizer": tr.cfg.optimizer, "train_s": train_s, "wall_s": wall,
@@ -1908,9 +2143,9 @@ def conv3x3_only() -> None:
 
 def main(argv) -> int:
     converge = argv[:1] == ["--converge"] and len(argv) <= 2
-    if argv not in ([], ["--conv3x3"], ["--seg"]) and not converge:
-        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg and --converge [model yaml]",
-              file=sys.stderr)
+    if argv not in ([], ["--conv3x3"], ["--seg"], ["--pose"]) and not converge:
+        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg, --pose and --converge "
+              f"[model yaml]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1925,8 +2160,8 @@ def main(argv) -> int:
     if argv == ["--conv3x3"]:
         conv3x3_only()
         return 0
-    if argv == ["--seg"]:
-        seg_only()
+    if argv in (["--seg"], ["--pose"]):
+        seg_only() if argv == ["--seg"] else pose_only()
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
@@ -1973,6 +2208,10 @@ def main(argv) -> int:
         seg_val, seg_train = write_seg_datasets(Path(tmp) / "seg")
         seg = phase_seg(seg_val)
         seg_launches = phase_scale_train_data("v8", seg_train, seg["n"]["sites"], name="yolov8n-seg.yaml")
+        torch.cuda.empty_cache()
+        pose_val, pose_train = write_pose_datasets(Path(tmp) / "pose")
+        pose = phase_pose(pose_val)
+        pose_launches = phase_scale_train_data("v8", pose_train, pose["n"]["sites"], name="yolov8n-pose.yaml")
     nms = time_nms()["val"]
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
@@ -1992,8 +2231,9 @@ def main(argv) -> int:
          "launches": v8_launches["nms"], "max_abs_err": nms["max_abs_err"], "ms": nms["ms"],
          "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"], "bound_by": nms["bound_by"], "library_ms": None},
     ]
-    for k in kernels:  # the seg path's launches beside the main path's: yolov8n-seg's train(data=...)
+    for k in kernels:  # the seg and pose paths' launches beside the main path's: yolov8n-seg's and -pose's train(data=...)
         k["launches_seg"] = seg_launches[k["name"]]
+        k["launches_pose"] = pose_launches[k["name"]]
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"

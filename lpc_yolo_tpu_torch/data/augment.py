@@ -21,7 +21,7 @@ Each sample is split in two steps:
 `TrainTransforms(dataset, idx, rng)` keeps the JAX signature: the plan, then
 the render on the CPU. The trainer renders on the card instead.
 Not ported: mosaic9, copy_paste and `perspective` != 0 raise
-NotImplementedError; the pose and OBB transforms wait for their tasks.
+NotImplementedError; the OBB transforms wait for their task.
 
 Segment training (`SegTrainTransforms`, JAX :506-568) plans the same way,
 with the JAX transform's draws (no mosaic9 or mixup draw): polygon labels
@@ -33,6 +33,14 @@ and the flips, all on the host in the JAX dtypes; then each instance's
 mask is rasterized at imgsz / mask_ratio by `ops/masks.py::fill_poly`
 (cv2.fillPoly bit for bit) in the loader's threads, shipped as uint8
 (max_gt, imgsz / 4, imgsz / 4). The image is rendered as above.
+
+Pose training (`PoseTrainTransforms`, JAX :571-637) plans the same way,
+with the same draws: keypoints (n, K, ndim) f32 in pixels through mosaic4
+(:156-164) or the letterbox (:602-608), the affine warp (:250-261: warped in
+f64, the points off the canvas marked invisible from the f64 values, cast
+back to f32; the boxes from their corners, area_thr 0.1), then the flips in
+f32, fliplr also swapping left and right points by `flip_idx`, and padded
+to max_gt. The image is rendered as above.
 
 Validation (`ValTransforms`): the JAX validator letterboxes each frame on the
 host with cv2 (`scaleup=False`). The port letterboxes on the card
@@ -125,6 +133,27 @@ def segments_px(item: Dict, boxes_px: np.ndarray, sx: float, sy: float, padx: fl
     return segs
 
 
+# COCO-17's left/right keypoint swap for the horizontal flip (JAX :105; coco8-pose.yaml's flip_idx)
+COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+
+
+def keypoints_px(item: Dict, n: int, kpt_shape: Tuple[int, int], sx: Tuple[float, ...], sy: Tuple[float, ...],
+                 padx: float, pady: float) -> np.ndarray:
+    """An item's normalised keypoints -> (n, K, ndim) f32 in pixels: x times each factor of `sx` in turn,
+    plus padx, in f32 as the JAX expressions compute it (mosaic4 :162 `x * w + padw`, the letterbox :607
+    `x * w0 * gain + pad`), the same for y; zeros when the item has none."""
+    kpts = item.get("keypoints")
+    if kpts is None or kpts.size == 0:
+        return np.zeros((n,) + tuple(kpt_shape), np.float32)
+    kpts = kpts.copy()
+    for axis, factors, pad in ((0, sx, padx), (1, sy, pady)):
+        v = kpts[..., axis]
+        for f in factors:
+            v = v * f
+        kpts[..., axis] = v + pad
+    return kpts
+
+
 def pad_labels(cls: np.ndarray, boxes: np.ndarray, max_gt: int) -> Dict[str, np.ndarray]:
     """Labels padded (or cut) to `max_gt` rows with a mask."""
     n = min(len(boxes), max_gt)
@@ -172,12 +201,13 @@ class Plan:
 
 
 def mosaic4(dataset, idx: int, rng: np.random.RandomState, imgsz: int, sources: Dict[int, np.ndarray],
-            seg_points: Optional[int] = None):
+            seg_points: Optional[int] = None, kpt_shape: Optional[Tuple[int, int]] = None):
     """The plan of a 4-image mosaic on a 2x2 canvas of side 2 * imgsz (JAX :108-177):
-    (Canvas, cls, xyxy boxes clipped to the canvas), and with `seg_points` the (n, seg_points, 2)
-    f32 polygons in canvas pixels. Source images go into `sources`."""
+    (Canvas, cls, xyxy boxes clipped to the canvas), and after them with `seg_points` the (n, seg_points, 2)
+    f32 polygons, with `kpt_shape` the (n, K, ndim) f32 keypoints, in canvas pixels. Source images go
+    into `sources`."""
     s = imgsz
-    all_segs = []
+    all_segs, all_kpts = [], []
     yc, xc = (int(rng.uniform(s // 2, 2 * s - s // 2)) for _ in range(2))
     indices = [idx] + [rng.randint(0, len(dataset)) for _ in range(3)]
     tiles, all_cls, all_boxes = [], [], []
@@ -207,19 +237,23 @@ def mosaic4(dataset, idx: int, rng: np.random.RandomState, imgsz: int, sources: 
             all_cls.append(item["cls"])
             if seg_points is not None:
                 all_segs.append(segments_px(item, all_boxes[-1], w, h, padw, padh, seg_points))
+            if kpt_shape is not None:
+                all_kpts.append(keypoints_px(item, len(item["bboxes"]), kpt_shape, (w,), (h,), padw, padh))
     boxes = np.concatenate(all_boxes) if all_boxes else np.zeros((0, 4), np.float32)
     cls = np.concatenate(all_cls) if all_cls else np.zeros((0,), np.int32)
-    canvas = Canvas((2 * s, 2 * s), (xc, yc), tuple(tiles))
-    if seg_points is None:
-        return canvas, cls, boxes.clip(0, 2 * s)
-    segs = np.concatenate(all_segs) if all_segs else np.zeros((0, seg_points, 2), np.float32)
-    return canvas, cls, boxes.clip(0, 2 * s), segs
+    out = (Canvas((2 * s, 2 * s), (xc, yc), tuple(tiles)), cls, boxes.clip(0, 2 * s))
+    if seg_points is not None:
+        out += (np.concatenate(all_segs) if all_segs else np.zeros((0, seg_points, 2), np.float32),)
+    if kpt_shape is not None:
+        out += (np.concatenate(all_kpts) if all_kpts else np.zeros((0,) + tuple(kpt_shape), np.float32),)
+    return out
 
 
-def letterbox_canvas(item: Dict, idx: int, imgsz: int, seg_points: Optional[int] = None):
+def letterbox_canvas(item: Dict, idx: int, imgsz: int, seg_points: Optional[int] = None,
+                     kpt_shape: Optional[Tuple[int, int]] = None):
     """The plan of the host letterbox (`ops/letterbox.py::letterbox_image`, scaleup): one tile,
     resized when its size changes, with the reference's +-0.1 pad split; and the boxes in it (and
-    with `seg_points` the polygons)."""
+    with `seg_points` the polygons, with `kpt_shape` the keypoints)."""
     h0, w0 = item["img"].shape[:2]
     gain, (nw, nh), (dw, dh) = letterbox_geometry((h0, w0), (imgsz, imgsz))
     top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
@@ -227,10 +261,12 @@ def letterbox_canvas(item: Dict, idx: int, imgsz: int, seg_points: Optional[int]
     hw = (top + nh + bottom, left + nw + right)
     tile = Tile(int(idx), (h0, w0), (nh, nw), (left, top, left + nw, top + nh), (left, top))
     boxes = xywhn_to_xyxy(item["bboxes"], w0 * gain, h0 * gain, dw, dh)
-    canvas = Canvas(hw, (hw[1], hw[0]), (tile, None, None, None))
-    if seg_points is None:
-        return canvas, boxes
-    return canvas, boxes, segments_px(item, boxes, w0 * gain, h0 * gain, dw, dh, seg_points)
+    out = (Canvas(hw, (hw[1], hw[0]), (tile, None, None, None)), boxes)
+    if seg_points is not None:
+        out += (segments_px(item, boxes, w0 * gain, h0 * gain, dw, dh, seg_points),)
+    if kpt_shape is not None:
+        out += (keypoints_px(item, len(boxes), kpt_shape, (w0, gain), (h0, gain), dw, dh),)
+    return out
 
 
 def rotation_matrix(angle: float, scale: float) -> np.ndarray:
@@ -242,10 +278,12 @@ def rotation_matrix(angle: float, scale: float) -> np.ndarray:
 
 
 def random_affine(canvas_hw: Tuple[int, int], boxes: np.ndarray, cls: np.ndarray, rng: np.random.RandomState,
-                  hyp: Dict, border: Tuple[int, int] = (0, 0), segments: Optional[np.ndarray] = None):
+                  hyp: Dict, border: Tuple[int, int] = (0, 0), segments: Optional[np.ndarray] = None,
+                  keypoints: Optional[np.ndarray] = None):
     """The draws, matrix and label transform of `random_perspective` (JAX :180-280) with
-    perspective 0: (M (3, 3), (height, width) of the output, boxes, cls), and the (n, P, 2) f32
-    polygons when given (then the boxes come from the warped polygons and area_thr is 0.01)."""
+    perspective 0: (M (3, 3), (height, width) of the output, boxes, cls), and after them the (n, P, 2)
+    f32 polygons when given (then the boxes come from the warped polygons and area_thr is 0.01), and
+    the (n, K, ndim) f32 keypoints when given (warped in f64, those off the canvas made invisible)."""
     height = canvas_hw[0] + border[0] * 2
     width = canvas_hw[1] + border[1] * 2
     C = np.eye(3)
@@ -284,6 +322,16 @@ def random_affine(canvas_hw: Tuple[int, int], boxes: np.ndarray, cls: np.ndarray
             new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
             new[:, [0, 2]] = new[:, [0, 2]].clip(0, width)
             new[:, [1, 3]] = new[:, [1, 3]].clip(0, height)
+        if keypoints is not None and len(keypoints):  # the visibility from the f64 points (JAX :250-261)
+            N, K, ndim = keypoints.shape
+            xy = np.ones((N * K, 3))
+            xy[:, :2] = keypoints[..., :2].reshape(N * K, 2)
+            xy = (xy @ M.T)[:, :2]
+            out_of = (xy[:, 0] < 0) | (xy[:, 1] < 0) | (xy[:, 0] > width) | (xy[:, 1] > height)
+            keypoints = keypoints.copy()
+            keypoints[..., :2] = xy.reshape(N, K, 2)
+            if ndim == 3:
+                keypoints[..., 2] = np.where(out_of.reshape(N, K), 0.0, keypoints[..., 2])
         # candidate filter (box_candidates): wh > 2 px, aspect < 100, area ratio > 0.1 (0.01 from polygons)
         w1, h1 = boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1]
         w2, h2 = new[:, 2] - new[:, 0], new[:, 3] - new[:, 1]
@@ -293,9 +341,14 @@ def random_affine(canvas_hw: Tuple[int, int], boxes: np.ndarray, cls: np.ndarray
         boxes, cls = new[keep], cls[keep]
         if polys:
             segments = segments[keep]
-    if segments is None:
-        return M, (height, width), boxes, cls
-    return M, (height, width), boxes, cls, segments
+        if keypoints is not None and len(keypoints):
+            keypoints = keypoints[keep]
+    out = (M, (height, width), boxes, cls)
+    if segments is not None:
+        out += (segments,)
+    if keypoints is not None:
+        out += (keypoints,)
+    return out
 
 
 def hsv_tables(rng: np.random.RandomState, hgain: float, sgain: float, vgain: float) -> Optional[np.ndarray]:
@@ -401,6 +454,52 @@ class SegTrainTransforms(TrainTransforms):
             fill_poly(masks[j], (segs[j] * r).astype(np.int32))
         plan = Plan(canvas, None, 0.0, m, out_hw, table, flipud, fliplr)
         return {"plan": plan, "sources": sources, **pad_labels(cls, boxes, self.max_gt), "masks": masks}
+
+
+class PoseTrainTransforms(TrainTransforms):
+    """Mosaic + affine on keypoints + HSV + flips (fliplr with the left/right `flip_idx` swap) -> a fixed
+    (imgsz, imgsz) sample and its keypoints (max_gt, K, ndim) f32 in pixels (JAX `PoseTrainTransforms`
+    :571-637). `flip_idx` defaults to COCO's for K == 17 and to the identity otherwise."""
+
+    def __init__(self, imgsz: int = 640, hyp: Optional[Dict] = None, max_gt: int = 32,
+                 kpt_shape: Tuple[int, int] = (17, 3), flip_idx: Optional[List[int]] = None):
+        self.imgsz, self.max_gt, self.kpt_shape = imgsz, max_gt, tuple(kpt_shape)
+        self.hyp = {**DEFAULT_HYP, **(hyp or {})}  # mosaic9, mixup and copy_paste are not read, as in JAX
+        if flip_idx is None:
+            flip_idx = COCO_FLIP_IDX if self.kpt_shape[0] == 17 else list(range(self.kpt_shape[0]))
+        self.flip_idx = list(flip_idx)
+        self.mosaic_enabled = True
+        if self.hyp["perspective"]:
+            raise NotImplementedError(f"hyp perspective={self.hyp['perspective']} is not ported")
+
+    def plan(self, dataset, idx: int, rng: np.random.RandomState) -> Dict:
+        """The sample's plan, source images, padded labels and (max_gt, K, ndim) f32 keypoints."""
+        hyp, s, sources = self.hyp, self.imgsz, {}
+        if self.mosaic_enabled and rng.rand() < hyp["mosaic"]:
+            canvas, cls, boxes, kpts = mosaic4(dataset, idx, rng, s, sources, kpt_shape=self.kpt_shape)
+            border = (-s // 2, -s // 2)
+        else:
+            item = dataset.get_item_raw(idx)
+            sources[int(idx)] = item["img"]
+            canvas, boxes, kpts = letterbox_canvas(item, idx, s, kpt_shape=self.kpt_shape)
+            cls, border = item["cls"], (0, 0)
+        m, out_hw, boxes, cls, kpts = random_affine(canvas.hw, boxes, cls, rng, hyp, border, keypoints=kpts)
+        table = hsv_tables(rng, hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"])
+        flipud = bool(rng.rand() < hyp["flipud"])
+        if flipud:
+            boxes[:, [1, 3]] = out_hw[0] - boxes[:, [3, 1]]
+            kpts[..., 1] = out_hw[0] - kpts[..., 1]
+        fliplr = bool(rng.rand() < hyp["fliplr"])
+        if fliplr:
+            boxes[:, [0, 2]] = out_hw[1] - boxes[:, [2, 0]]
+            kpts[..., 0] = out_hw[1] - kpts[..., 0]
+            kpts = kpts[:, self.flip_idx]
+        out_kpts = np.zeros((self.max_gt,) + self.kpt_shape, np.float32)
+        n = min(len(boxes), self.max_gt)
+        if len(kpts):
+            out_kpts[:n] = kpts[:n]
+        plan = Plan(canvas, None, 0.0, m, out_hw, table, flipud, fliplr)
+        return {"plan": plan, "sources": sources, **pad_labels(cls, boxes, self.max_gt), "keypoints": out_kpts}
 
 
 @functools.lru_cache(maxsize=256)

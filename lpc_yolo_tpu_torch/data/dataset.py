@@ -1,15 +1,18 @@
 """YOLO-format detection dataset: dataset YAML, image scan, labels, npz label cache.
 
 Counterpart of `lpc_yolo_tpu/data/dataset.py` (`check_det_dataset`,
-`img2label_path`, `YOLODataset`) for box and polygon label rows. The label
-cache has the JAX package's format and name (`<images dir>.labels.npz`, a
+`img2label_path`, `YOLODataset`) for box, polygon and keypoint label rows.
+The label cache has the JAX package's format and name (`<images dir>.labels.npz`, a
 hash of the file names and modification times, the labels as an object
-array), so a cache written by either package serves both.
+array), so a cache written by either package serves both. As in the JAX
+package the hash does not cover `kpt_shape`: a cache written without it
+holds no keypoints.
 
 Layout:
     <root>/images/<split>/*.jpg
-    <root>/labels/<split>/*.txt   # rows: cls cx cy w h (normalized xywh), or cls x1 y1 x2 y2 ... (polygon)
-    data.yaml: {path, train, val, names, nc}
+    <root>/labels/<split>/*.txt   # rows: cls cx cy w h (normalized xywh), or cls x1 y1 x2 y2 ... (polygon),
+                                  # or with kpt_shape (K, ndim) cls cx cy w h (x y [v]) * K (pose)
+    data.yaml: {path, train, val, names, nc[, kpt_shape, flip_idx]}
 
 Images are read with OpenCV, imported only when a file has to be decoded.
 With `cache_images="disk"` each image's decoded BGR array is kept in a `.npy`
@@ -23,7 +26,7 @@ import os
 import pickle
 import tempfile
 from pathlib import Path
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import yaml
@@ -94,12 +97,16 @@ def imread(path: str) -> np.ndarray:
 
 
 class YOLODataset:
-    """Detection dataset over YOLO-format image/label folders (box and polygon rows)."""
+    """Detection dataset over YOLO-format image/label folders (box, polygon and, with `kpt_shape`, keypoint
+    rows; JAX :85-216). With `kpt_shape` (K, ndim) a row of 4 + K * ndim values is a pose row and every
+    image's labels hold `keypoints` (n, K, ndim) f32, zeros for its box and polygon rows."""
 
-    def __init__(self, img_path: Union[str, Path, List], cache: bool = True, cache_images: Union[bool, str] = False):
+    def __init__(self, img_path: Union[str, Path, List], cache: bool = True, cache_images: Union[bool, str] = False,
+                 kpt_shape: Optional[Tuple[int, int]] = None):
         self.img_path = (
             [str(p) for p in img_path] if isinstance(img_path, (list, tuple)) else str(img_path)
         )
+        self.kpt_shape = tuple(kpt_shape) if kpt_shape else None
         self.im_files = self._scan_images()
         self.label_files = [img2label_path(f) for f in self.im_files]
         self.labels = self._load_labels(cache)
@@ -153,8 +160,10 @@ class YOLODataset:
             except (OSError, ValueError, KeyError, EOFError, pickle.UnpicklingError):
                 pass  # unreadable or foreign: parse the label files again
         labels = []
+        nkd = self.kpt_shape[0] * self.kpt_shape[1] if self.kpt_shape else -1
+        no_kpts = np.zeros(self.kpt_shape or (0, 0), np.float32)
         for lf in self.label_files:
-            cls_list, box_list, seg_list = [], [], []
+            cls_list, box_list, seg_list, kpt_list = [], [], [], []
             if os.path.exists(lf):
                 for line in Path(lf).read_text().splitlines():
                     vals = line.split()
@@ -162,10 +171,16 @@ class YOLODataset:
                         continue
                     c = int(float(vals[0]))
                     coords = np.array(vals[1:], np.float32)
-                    if len(coords) == 4:  # box row: cls cx cy w h
+                    if self.kpt_shape and len(coords) == 4 + nkd:  # pose row: cls cx cy w h (x y [v]) * K
+                        cls_list.append(c)
+                        box_list.append(coords[:4])
+                        seg_list.append(np.zeros((0, 2), np.float32))
+                        kpt_list.append(coords[4:].reshape(self.kpt_shape))
+                    elif len(coords) == 4:  # box row: cls cx cy w h
                         cls_list.append(c)
                         box_list.append(coords)
                         seg_list.append(np.zeros((0, 2), np.float32))
+                        kpt_list.append(no_kpts)
                     elif len(coords) >= 6 and len(coords) % 2 == 0:  # polygon row
                         pts = coords.reshape(-1, 2)
                         lo, hi = pts.min(0), pts.max(0)
@@ -174,11 +189,15 @@ class YOLODataset:
                             np.array([(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2, hi[0] - lo[0], hi[1] - lo[1]], np.float32)
                         )
                         seg_list.append(pts)
-            labels.append({
+                        kpt_list.append(no_kpts)
+            entry = {
                 "cls": np.array(cls_list, np.int32),
                 "bboxes": np.array(box_list, np.float32).reshape(-1, 4),
                 "segments": seg_list,
-            })
+            }
+            if self.kpt_shape:
+                entry["keypoints"] = np.stack(kpt_list) if kpt_list else np.zeros((0,) + self.kpt_shape, np.float32)
+            labels.append(entry)
         if cache:
             try:
                 np.savez_compressed(cpath, hash=key, labels=np.array(labels, dtype=object))
@@ -213,11 +232,14 @@ class YOLODataset:
 
     def get_item_raw(self, i: int) -> Dict:
         """One un-augmented sample: BGR image + normalized xywh labels and polygons ((k, 2) each; (0, 2)
-        for a box row)."""
-        return {
+        for a box row), and the normalized keypoints (n, K, ndim) where the labels hold them."""
+        out = {
             "img": self.load_image(i),
             "cls": self.labels[i]["cls"].copy(),
             "bboxes": self.labels[i]["bboxes"].copy(),
             "segments": [s.copy() for s in self.labels[i].get("segments", [])],
             "path": self.im_files[i],
         }
+        if "keypoints" in self.labels[i]:
+            out["keypoints"] = self.labels[i]["keypoints"].copy()
+        return out

@@ -11,7 +11,12 @@ letterbox pad cropped, cv2's f32 linear resize to the frame and `> 0.5`,
 into `Results.masks` (n, h0, w0) bool. The JAX predictor decodes all
 `max_det` rows of a batch; here only the rows above `conf` that `Results`
 keeps are decoded, on the device, one frame at a time (identical values:
-the others are never read). The JAX predictor letterboxes on the host with
+the others are never read). A Pose model's keypoints follow the JAX
+predictor (:175-180, :341-349): each row's decoded keypoints gathered by its
+anchor, the kept rows' un-letterboxed with the predictor's own gain and pad
+((k - pad) / gain in f32, no clip), into `Results.keypoints` (n, K, 3) f32.
+A keypoint set of ndim 2 raises NotImplementedError: the JAX predictor
+reshapes its rows by nk // 3 (:344). The JAX predictor letterboxes on the host with
 cv2 to uint8 (:261) and folds /255 into the stem (:148-151); the card's
 machine has no cv2, so here every frame is letterboxed on the device by the
 letterbox kernel, as uint8, straight into its slot of the NHWC input batch
@@ -128,6 +133,10 @@ class Predictor:
         self.imgsz, self.batch, self.conf, self.iou, self.max_det = imgsz, batch, conf, iou, max_det
         self.names = names or {i: str(i) for i in range(model.nc)}
         self.model = serving_model(model, self.device, self.dtype)
+        self.kpt_shape = self.model.model[-1].kpt_shape if self.model.task == "pose" else None
+        if self.kpt_shape is not None and self.kpt_shape[1] != 3:
+            raise NotImplementedError(f"predict of a kpt_shape {self.kpt_shape} model is not ported: the JAX predictor "
+                                      f"reshapes keypoint rows by nk // 3 (lpc_yolo_tpu/engine/predictor.py:344)")
 
     def preprocess(self, frames: List[np.ndarray]) -> torch.Tensor:
         """Letterbox frames to uint8 (the rounded frame cv2 gives the JAX predictor), as a
@@ -137,7 +146,8 @@ class Predictor:
     @torch.inference_mode()
     def infer(self, frames: List[np.ndarray]):
         """(n, max_det, 6) detections in letterbox pixels, f32, on the device; for a segment model
-        with the rows' mask coefficients and the prototypes (`DetectionModel.predict`)."""
+        with the rows' mask coefficients and the prototypes, for a pose model with the rows' keypoints
+        (`DetectionModel.predict`)."""
         return self.model.predict(self.preprocess(frames), self.max_det, self.conf, self.iou)
 
     @torch.inference_mode()
@@ -148,6 +158,18 @@ class Predictor:
             return None
         m = process_kept_rows(proto, mc, det, keep, self.imgsz)
         return unletterbox_masks(m, self.imgsz, orig_shape).cpu().numpy()
+
+    def frame_keypoints(self, kpt: np.ndarray, keep: np.ndarray, orig_shape) -> Optional[np.ndarray]:
+        """One frame's kept rows' keypoints (n, K, 3) f32 in frame pixels, as the JAX predictor unscales them
+        (:341-349): its own gain and (pw, ph), no clip; None when no row is kept."""
+        if not keep.any():
+            return None
+        kp = kpt[keep].reshape(int(keep.sum()), *self.kpt_shape).copy()
+        gain = min(self.imgsz / orig_shape[0], self.imgsz / orig_shape[1])
+        pw, ph = (self.imgsz - orig_shape[1] * gain) / 2, (self.imgsz - orig_shape[0] * gain) / 2
+        kp[..., 0] = (kp[..., 0] - pw) / gain
+        kp[..., 1] = (kp[..., 1] - ph) / gain
+        return kp
 
     def postprocess(self, det: np.ndarray, im0: np.ndarray) -> np.ndarray:
         """Rows above conf, boxes scaled back to the frame: (n, 6)."""
@@ -169,14 +191,18 @@ class Predictor:
             t1 = time.perf_counter()
             with torch.inference_mode():
                 out = self.model.predict(x, self.max_det, self.conf, self.iou)
-                det_dev, mc, proto = out if isinstance(out, tuple) else (out, None, None)
+                det_dev, extra = (out[0], out[1:]) if isinstance(out, tuple) else (out, ())
                 det = det_dev.cpu().numpy()
+                kpts = extra[0].cpu().numpy() if self.kpt_shape is not None else None
             t2 = time.perf_counter()
             for j, (path, im0) in enumerate(chunk):
                 boxes = self.postprocess(det[j], im0)
-                masks = None
-                if proto is not None:
-                    masks = self.frame_masks(det_dev[j], mc[j], proto[j], det[j][:, 4] > self.conf, im0.shape[:2])
+                keep = det[j][:, 4] > self.conf
+                masks = keypoints = None
+                if self.model.task == "segment":
+                    masks = self.frame_masks(det_dev[j], extra[0][j], extra[1][j], keep, im0.shape[:2])
+                elif kpts is not None:
+                    keypoints = self.frame_keypoints(kpts[j], keep, im0.shape[:2])
                 speed = {"preprocess": (t1 - t0) * 1e3 / n, "inference": (t2 - t1) * 1e3 / n,
                          "postprocess": (time.perf_counter() - t2) * 1e3 / n}
-                yield Results(im0, path, self.names, boxes=boxes, masks=masks, speed=speed)
+                yield Results(im0, path, self.names, boxes=boxes, masks=masks, keypoints=keypoints, speed=speed)

@@ -1,8 +1,9 @@
-"""Detection and segmentation result containers (counterpart of
-`lpc_yolo_tpu/engine/results.py` Boxes :18, Masks :138-168 and the detect and
-segment subset of Results :249). Plain numpy on the host; plotting, saving
-and the masks' polygons (`Masks.xy`, `.xyn`, which need cv2.findContours)
-wait for a later slice."""
+"""Detection, segmentation and pose result containers (counterpart of
+`lpc_yolo_tpu/engine/results.py` Boxes :18, Masks :138-168 and the detect,
+segment and pose subset of Results :249; `keypoints` is a plain (n, K, 3)
+f32 array, as in the JAX Results :260, :271). Plain numpy on the host;
+plotting, saving and the masks' polygons (`Masks.xy`, `.xyn`, which need
+cv2.findContours) wait for a later slice."""
 
 from __future__ import annotations
 
@@ -86,17 +87,20 @@ class Masks:
 
 
 class Results:
-    """One image's detections, and its instance masks for a segment model (None when no row was kept)."""
+    """One image's detections, its instance masks for a segment model and its keypoints (n, K, 3) in frame
+    pixels for a pose model (each None when no row was kept). Indexing takes the boxes' rows only, as in
+    the JAX Results (:281-285)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str],
                  boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None,
-                 speed: Optional[Dict[str, float]] = None):
+                 keypoints: Optional[np.ndarray] = None, speed: Optional[Dict[str, float]] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
+        self.keypoints = keypoints
         self.speed = speed or {}
 
     def __len__(self) -> int:

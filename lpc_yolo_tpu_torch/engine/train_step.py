@@ -4,8 +4,9 @@ Counterpart of `lpc_yolo_tpu/engine/train_step.py` (config and schedules
 :43-74, optimizer :86-105, state :108-123, the step :126-311; reference
 engine/trainer.py:362-394, :695-756, torch_utils.py:431-465 ModelEMA), for
 the v10 dual-assignment loss of a v10Detect model, the v8 loss of a Detect
-model and the v8 segmentation loss of a Segment model (`loss_kind`,
-:246-258; a segment batch carries its instance masks under "masks").
+model, the v8 segmentation loss of a Segment model and the v8 pose loss of
+a Pose model (`loss_kind`, :238-258; a segment batch carries its instance
+masks under "masks", a pose batch its keypoints under "keypoints").
 
 In PyTorch's idiom the model's parameters and BatchNorm buffers are the live
 state and are updated in place; `TrainState` names them beside the momentum
@@ -38,7 +39,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..losses import v8_detection_loss, v8_segmentation_loss, v10_detect_loss
+from ..losses import v8_detection_loss, v8_pose_loss, v8_segmentation_loss, v10_detect_loss
 from ..utils import resolve_device
 
 
@@ -177,7 +178,9 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
     the JAX step (`train_step.py:142-176`), the forward, the loss of the model's
     head: a v10Detect's dual-assignment loss, 6 items; a Detect's
     `v8_detection_loss` with the top-10 assigner, 3 items (box, cls, dfl); a
-    Segment's `v8_segmentation_loss`, 4 items (box, seg, cls, dfl).
+    Segment's `v8_segmentation_loss`, 4 items (box, seg, cls, dfl); a Pose's
+    `v8_pose_loss` with the keypoint shape of the batch's keypoints, 5 items
+    (box, pose, kobj, cls, dfl).
 
     uint8 BGR frames become f32 RGB in [0, 1]; the width-packed x8 feed
     (last dimension 24) is unpacked by the repack kernel first. On the card
@@ -196,6 +199,10 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
         if model.task == "segment":
             return v8_segmentation_loss(out, batch["cls"], batch["bboxes"], batch["mask"], batch["masks"],
                                         model.strides, model.nc)
+        if model.task == "pose":
+            kpts = batch["keypoints"]
+            return v8_pose_loss(out, batch["cls"], batch["bboxes"], batch["mask"], kpts, model.strides, model.nc,
+                                kpt_shape=tuple(kpts.shape[-2:]))
         if model.task == "v8":
             total, items = v8_detection_loss(out, batch["cls"], batch["bboxes"], batch["mask"], model.strides,
                                              model.nc, tal_topk=10)
@@ -208,17 +215,17 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
 def make_train_step(model: torch.nn.Module, cfg: OptConfig, loss_kind: str = "v10",
                     amp: Optional[bool] = None) -> Callable:
     """Build `step(state, batch) -> (state, metrics)` for a v10Detect model (loss_kind "v10"),
-    a Detect model ("v8") or a Segment model ("segment").
+    a Detect model ("v8"), a Segment model ("segment") or a Pose model ("pose").
 
     batch = {'img': (B, H, W, 3) uint8 BGR or f32 RGB in [0, 1], or the same
     image width-packed x8 (B, H, W/8, 24); 'cls': (B, M) int; 'bboxes':
-    (B, M, 4) xyxy pixels; 'mask': (B, M) bool; for "segment" also 'masks': (B, M, H/4, W/4) uint8},
-    numpy or tensors.
-    metrics = {'loss', 'items' (6,) for v10, (3,) for v8, (4,) for segment, 'lr', 'skipped'}; `state` must come from
-    `init_train_state(model, ...)`. amp: see `make_loss_fn`.
+    (B, M, 4) xyxy pixels; 'mask': (B, M) bool; for "segment" also 'masks': (B, M, H/4, W/4) uint8,
+    for "pose" also 'keypoints': (B, M, K, ndim) f32 pixels}, numpy or tensors.
+    metrics = {'loss', 'items' (6,) for v10, (3,) for v8, (4,) for segment, (5,) for pose, 'lr', 'skipped'};
+    `state` must come from `init_train_state(model, ...)`. amp: see `make_loss_fn`.
     """
-    if loss_kind not in ("v10", "v8", "segment"):
-        raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10', 'v8' and 'segment' are")
+    if loss_kind not in ("v10", "v8", "segment", "pose"):
+        raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10', 'v8', 'segment' and 'pose' are")
     if model.task != loss_kind:
         raise ValueError(f"loss_kind {loss_kind!r} does not train this model's head (task {model.task!r})")
     if cfg.optimizer not in ("sgd", "adamw"):

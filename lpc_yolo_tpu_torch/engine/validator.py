@@ -1,9 +1,10 @@
 """Validator: dataset -> device letterbox -> the model graph -> decode -> TP matching -> mAP.
 
 Counterpart of `lpc_yolo_tpu/engine/validator.py::Validator` for the v10,
-v8 and segment tasks (`__init__` :34-71, the v10, v8 and segment predicts of
-`_make_predict`, `_gt_masks` :155-172, `__call__` :202-362, `_to_coco_json`
-:364-382); the pose and OBB branches wait. A Detect (v8) model decodes through
+v8, segment and pose tasks (`__init__` :34-71, the v10, v8, segment and
+pose predicts of `_make_predict`, `_gt_masks` :155-172, `_gt_kpts`
+:175-186, `__call__` :202-362, `_to_coco_json` :364-382); the OBB branch
+waits. A Detect (v8) model decodes through
 `non_max_suppression` at `conf`, `iou` and one candidate per (anchor, class)
 (`multi_label`, :148-150), its greedy loop one launch of the NMS kernel per
 batch; matching, metrics and COCO rescoring are the same for both.
@@ -30,6 +31,17 @@ bit) on the host, and the mask IoU is one matmul on the device
 (`utils/metrics.py::mask_iou`, exact). `fitness` stays the box fitness, as the
 JAX validator leaves out the mask one.
 
+A Pose model is matched twice as well (:296-309, :329-341): by box IoU, and
+by OKS (`utils/metrics.py::kpt_iou_np`, the JAX numpy) for the `(P)` keys:
+each kept row's keypoints, gathered by its anchor, against the ground
+truth's in letterbox pixels, the area the GT box's times 0.53, the sigmas
+`OKS_SIGMA[:K]`. Like the masks, only the GT rows the box labels keep (the
+first max_gt) are read: the JAX `_gt_kpts` reads every row, so past max_gt
+its OKS matrix no longer matches the box rows and `kpt_iou_np` raises. A
+keypoint set of ndim 2 raises NotImplementedError: the JAX `kpt_iou_np`
+reads the visibility column (`utils/metrics.py:306`), which such a set
+lacks. `fitness` stays the box fitness.
+
 `speed` holds the seconds spent in each part, summed over the run as in the
 JAX package: "preprocess" is the host's time to copy and enqueue the
 letterbox, "inference" runs until the detections are on the host (so it holds
@@ -48,9 +60,10 @@ import numpy as np
 import torch
 
 from ..data import DataLoader, ValTransforms, YOLODataset, check_det_dataset
+from ..losses.pose import OKS_SIGMA
 from ..ops.masks import fill_poly, process_kept_rows
 from ..utils import resolve_device
-from ..utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, mask_iou, match_predictions
+from ..utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, kpt_iou_np, mask_iou, match_predictions
 from .predictor import letterbox_batch, serving_model
 
 
@@ -97,9 +110,12 @@ class Validator:
     @torch.inference_mode()
     def predict(self, model, x: torch.Tensor):
         """(n, max_det, 6) detections in letterbox pixels, f32, on the host; for a segment model with
-        the detections on the device, the rows' mask coefficients and the prototypes."""
+        the detections on the device, the rows' mask coefficients and the prototypes; for a pose model
+        with the rows' keypoints (n, max_det, nk) on the host."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         out = model.predict(x, self.max_det, self.conf, self.iou, multi_label=True)
+        if model.task == "pose":
+            return out[0].cpu().numpy(), out[1].cpu().numpy()
         if isinstance(out, tuple):
             return (out[0].cpu().numpy(), *out)
         return out.cpu().numpy()
@@ -118,6 +134,20 @@ class Validator:
             fill_poly(out[i], p.astype(np.int32))
         return out
 
+    def gt_kpts(self, dataset, ds_idx: int, batch: Dict, j: int) -> np.ndarray:
+        """The ground truth's keypoints in letterbox pixels, (n, K, 3) f32, in the JAX validator's f32
+        arithmetic (:175-186), of the rows the box labels keep (the first max_gt) only."""
+        k = np.asarray(dataset.labels[ds_idx].get("keypoints", np.zeros((0, 17, 3))), np.float32)
+        k = k[: int(batch["mask"][j].sum())].copy()
+        if len(k) == 0:
+            return k
+        h0, w0 = batch["orig_shape"][j]
+        gain = float(batch["gain"][j])
+        pad = batch["pad"][j]
+        k[..., 0] = k[..., 0] * (w0 * gain) + float(pad[0])
+        k[..., 1] = k[..., 1] * (h0 * gain) + float(pad[1])
+        return k
+
     @torch.inference_mode()
     def mask_ious(self, gt: np.ndarray, det: torch.Tensor, mc: torch.Tensor, proto: torch.Tensor,
                   keep: np.ndarray) -> np.ndarray:
@@ -131,14 +161,18 @@ class Validator:
         """Validate `model` (the facade's model unless given: the trainer passes its EMA copy)
         on the `val` split of `data` (a dataset YAML or dict)."""
         info = check_det_dataset(data)
-        dataset = YOLODataset(info["val"], cache_images=self.cache_images)
+        model = self.yolo.model if model is None else model
+        seg, pose = model.task == "segment", model.task == "pose"
+        if pose and model.model[-1].kpt_shape[1] != 3:
+            raise NotImplementedError(f"val of a kpt_shape {model.model[-1].kpt_shape} model is not ported: the JAX "
+                                      f"kpt_iou_np reads a visibility column (lpc_yolo_tpu/utils/metrics.py:306)")
+        dataset = YOLODataset(info["val"], cache_images=self.cache_images, kpt_shape=info.get("kpt_shape"))
         loader = DataLoader(dataset, ValTransforms(self.imgsz, self.max_gt), batch_size=self.batch,
                             workers=self.workers)
-        model = serving_model(self.yolo.model if model is None else model, self.device, self.dtype)
+        model = serving_model(model, self.device, self.dtype)
 
         stats: Dict[str, List[np.ndarray]] = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
-        stats_m: Dict[str, List[np.ndarray]] = {k: [] for k in stats}  # the segment task's mask matching
-        seg = model.task == "segment"
+        stats_x: Dict[str, List[np.ndarray]] = {k: [] for k in stats}  # the mask (segment) or OKS (pose) matching
         cm = ConfusionMatrix(nc=info["nc"], conf=self.conf)
         json_preds: List[Dict] = []
         seen = 0
@@ -146,8 +180,8 @@ class Validator:
             t0 = time.perf_counter()
             x = self.preprocess(batch["img"])
             t1 = time.perf_counter()
-            out = self.predict(model, x)  # (B, max_det, 6), and the seg decode's inputs
-            det, (det_dev, mc, proto) = (out[0], out[1:]) if seg else (out, (None, None, None))
+            out = self.predict(model, x)  # (B, max_det, 6), and the seg decode's inputs or the keypoints
+            det, extra = (out[0], out[1:]) if isinstance(out, tuple) else (out, ())
             t2 = time.perf_counter()
             n_real = det.shape[0] - batch["pad_count"]
             for j in range(n_real):
@@ -157,7 +191,7 @@ class Validator:
                 gt_cls = batch["cls"][j][batch["mask"][j]]
                 if len(rows) == 0:
                     if len(gt_cls):
-                        for st in (stats, stats_m) if seg else (stats,):
+                        for st in (stats, stats_x) if seg or pose else (stats,):
                             st["tp"].append(np.zeros((0, len(self.iouv)), bool))
                             st["conf"].append(np.zeros(0))
                             st["pred_cls"].append(np.zeros(0))
@@ -171,12 +205,21 @@ class Validator:
                 stats["target_cls"].append(gt_cls)
                 cm.process_batch(rows, gt_boxes, gt_cls)
                 if seg:
-                    iou_m = self.mask_ious(self.gt_masks(dataset, seen + j, batch, j), det_dev[j], mc[j], proto[j],
+                    det_dev, mc, proto = extra
+                    iou_x = self.mask_ious(self.gt_masks(dataset, seen + j, batch, j), det_dev[j], mc[j], proto[j],
                                            keep)
-                    stats_m["tp"].append(match_predictions(rows[:, 5], gt_cls, iou_m, self.iouv))
-                    stats_m["conf"].append(rows[:, 4])
-                    stats_m["pred_cls"].append(rows[:, 5])
-                    stats_m["target_cls"].append(gt_cls)
+                elif pose:
+                    gt_k = self.gt_kpts(dataset, seen + j, batch, j)
+                    nk = gt_k.shape[1] if len(gt_k) else 17
+                    kd = (info.get("kpt_shape") or [17, 3])[1]
+                    pk = extra[0][j][keep].reshape(len(rows), -1, kd)[:, :nk]
+                    area = (gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1]) * 0.53
+                    iou_x = kpt_iou_np(gt_k, pk, area, np.asarray(OKS_SIGMA[:nk]))
+                if seg or pose:
+                    stats_x["tp"].append(match_predictions(rows[:, 5], gt_cls, iou_x, self.iouv))
+                    stats_x["conf"].append(rows[:, 4])
+                    stats_x["pred_cls"].append(rows[:, 5])
+                    stats_x["target_cls"].append(gt_cls)
                 if self.save_json:
                     json_preds.extend(self._to_coco_json(rows, batch, j))
             seen += n_real
@@ -196,10 +239,11 @@ class Validator:
         self.metrics = metrics
         self.confusion_matrix = cm
         results = metrics.results_dict()
-        if stats_m["tp"]:  # the (M) keys (JAX :330-339): the mask matches, without a fitness of their own
-            mm = self.metrics_masks = DetMetrics(names=info["names"])
-            mm.process(*(np.concatenate(stats_m[k]) for k in ("tp", "conf", "pred_cls", "target_cls")))
-            results.update({k.replace("(B)", "(M)"): v for k, v in mm.results_dict().items() if k != "fitness"})
+        if stats_x["tp"]:  # the (M) or (P) keys (JAX :329-341): the second matches, without a fitness of their own
+            mx = self.metrics_extra = DetMetrics(names=info["names"])
+            mx.process(*(np.concatenate(stats_x[k]) for k in ("tp", "conf", "pred_cls", "target_cls")))
+            sfx = "(M)" if seg else "(P)"
+            results.update({k.replace("(B)", sfx): v for k, v in mx.results_dict().items() if k != "fitness"})
         if self.save_json and self.save_dir:
             self.save_dir.mkdir(parents=True, exist_ok=True)
             (self.save_dir / "predictions.json").write_text(json.dumps(json_preds))

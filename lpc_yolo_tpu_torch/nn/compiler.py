@@ -3,7 +3,7 @@
 Same schema and channel inference as the JAX compiler (make_divisible :87,
 LayerSpec :94, yaml_model_load :110, parse_model :119-284), implemented for
 the modules that the LPC-YOLO YAML, the six YOLOv10 scales (n/s/m/b/l/x) and
-the five YOLOv8 scales (n/s/m/l/x), detect and segment, reach; any other module raises
+the five YOLOv8 scales (n/s/m/l/x), detect, segment and pose, reach; any other module raises
 NotImplementedError. The model routes `from` indices and keeps the save list
 like `DetectionModel._run` (:718-1019), without the TPU width-pack, upsample-
 commute, s2d-fold plans or int8. A layer whose output no later layer reads
@@ -29,13 +29,14 @@ from ..ops.nms import non_max_suppression
 from ..ops.repack import repack_width_kernel
 from ..utils import resolve_device
 from . import modules as M
-from .heads import Detect, Segment, V10Detect, decode_feats, decode_feats_topk_split
+from .heads import Detect, Pose, Segment, V10Detect, decode_feats, decode_feats_topk_split, decode_kpts
 
 # Modules whose YAML arg[0] is the (width-scaled) output-channel count, and the
 # subset that also takes the (depth-scaled) repeat count.
 _BASE = {"Conv", "Bottleneck", "SPPF", "C2f", "PSA", "LPC", "SCDown", "C2fCIB"}
 _REPEAT = {"C2f", "C2fCIB"}
-HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8", "Segment": "segment"}  # the ported heads, each one's task (JAX names)
+# the ported heads, each one's task (JAX names)
+HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8", "Segment": "segment", "Pose": "pose"}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -85,7 +86,7 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
     specs: List[LayerSpec] = []
     save: List[int] = []
     for i, (f, n, m, args) in enumerate(d["backbone"] + d["head"]):
-        args = [nc if a == "nc" else a for a in list(args)]
+        args = [nc if a == "nc" else (tuple(d["kpt_shape"]) if a == "kpt_shape" else a) for a in list(args)]
         n_res = max(round(n * depth), 1) if n > 1 else n
         f_list = [f] if isinstance(f, int) else list(f)
         f_list = [x if x == -1 or x >= 0 else x + i for x in f_list]
@@ -169,6 +170,8 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         return Detect(nc=a[0], ch=a[-1], strides=strides)
     if m == "Segment":
         return Segment(nc=a[0], nm=a[1], npr=a[2], ch=a[-1], strides=strides)
+    if m == "Pose":  # kpt_shape defaults to COCO's (17, 3), as in the JAX graph (:901)
+        return Pose(nc=a[0], kpt_shape=a[1] if len(a) > 2 else (17, 3), ch=a[-1], strides=strides)
     raise NotImplementedError(m)
 
 
@@ -178,11 +181,13 @@ class DetectionModel(nn.Module):
     `forward(x)` returns the head's raw maps: per-level (box, cls) pairs, in
     a dict by branch for v10Detect; a Segment head returns what the JAX graph
     returns (:931-947): {"feats", "mc", "proto"} in train mode, and in eval
-    mode also "pred" (the v8 decode). `predict(x)` decodes them to (B,
-    max_det, 6): v10Detect's one-to-one branch through the NMS-free top-k,
-    Detect's and Segment's maps through `decode_feats` and
+    mode also "pred" (the v8 decode); a Pose head (:900-915) {"feats",
+    "kpt_raw"} in train mode and {"feats", "pred", "kpt"} (the keypoints
+    decoded) in eval mode. `predict(x)` decodes them to (B, max_det, 6):
+    v10Detect's one-to-one branch through the NMS-free top-k, Detect's,
+    Segment's and Pose's maps through `decode_feats` and
     `non_max_suppression`; for Segment with each row's mask coefficients and
-    the prototypes (see `predict`). x is (B, 3, H, W)
+    the prototypes, for Pose with each row's keypoints (see `predict`). x is (B, 3, H, W)
     RGB in [0, 1], or another `input_layout` of the same image (see
     `to_nchw`).
     """
@@ -237,6 +242,13 @@ class DetectionModel(nn.Module):
                 if not self.training:
                     out["pred"] = decode_feats(feats, self.strides, self.nc, self.reg_max)
                 return out
+            if spec.module == "Pose":
+                feats, kpt = module(inp)
+                if self.training:
+                    return {"feats": feats, "kpt_raw": kpt}
+                shapes = [(cm.shape[2], cm.shape[3]) for _, cm in feats]
+                return {"feats": feats, "pred": decode_feats(feats, self.strides, self.nc, self.reg_max),
+                        "kpt": decode_kpts(kpt, shapes, self.strides, module.kpt_shape)}
             if dead:  # train mode: only its BatchNorm statistics are wanted
                 with torch.no_grad():
                     module(inp)
@@ -252,13 +264,16 @@ class DetectionModel(nn.Module):
         not read by v10Detect's decode (the caller filters its rows by conf). A Segment model
         returns (detections, each row's mask coefficients (B, max_det, nm) gathered by its
         anchor as the JAX predictor does (:328-331), the prototypes (B, nm, H/4, W/4)); the masks
-        are decoded by the caller for the rows it keeps (`ops/masks.py::process_mask`)."""
-        if self.task == "segment":
+        are decoded by the caller for the rows it keeps (`ops/masks.py::process_mask`). A Pose model
+        returns (detections, each row's decoded keypoints (B, max_det, nk) f32 in letterbox pixels,
+        gathered by its anchor as the JAX predictor does, :175-180)."""
+        if self.task in ("segment", "pose"):
             out = self.forward(x)
             det, anchor = non_max_suppression(out["pred"], conf, iou, max_det, multi_label=multi_label,
                                               return_anchor_idx=True)
-            mc = out["mc"]
-            return det, mc.gather(1, anchor.long()[..., None].expand(-1, -1, mc.shape[-1])), out["proto"]
+            extra = out["mc"] if self.task == "segment" else out["kpt"]
+            rows = extra.gather(1, anchor.long()[..., None].expand(-1, -1, extra.shape[-1]))
+            return (det, rows, out["proto"]) if self.task == "segment" else (det, rows)
         if self.task == "v8":
             pred = decode_feats(self.forward(x), self.strides, self.nc, self.reg_max)
             return non_max_suppression(pred, conf, iou, max_det, multi_label=multi_label)

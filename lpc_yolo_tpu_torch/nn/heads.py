@@ -1,8 +1,9 @@
-"""The v8 Detect, Segment and v10Detect heads, the NMS-free top-k decode and the v8 decode (NCHW).
+"""The v8 Detect, Segment, Pose and v10Detect heads, the NMS-free top-k decode, the v8 decode and the
+keypoint decode (NCHW).
 
 Counterpart of `lpc_yolo_tpu/nn/heads.py` (`_v8_towers` :52-77, Detect
-:80-92, Segment :95-119; V10Detect :234, plain branch :309-335; decode_feats_topk_split
-:401-496, unpacked case; decode_feats :521). The segmented TPU top-k
+:80-92, Segment :95-119, Pose :122-154, decode_kpts :157-176; V10Detect :234, plain branch :309-335;
+decode_feats_topk_split :401-496, unpacked case; decode_feats :521). The segmented TPU top-k
 (`heads._topk`) becomes `torch.topk`. Both heads return per-level
 (box_map, cls_map) pairs where the JAX heads concatenate the two on the
 channel axis; the losses and the decodes take the pairs.
@@ -76,6 +77,38 @@ class Segment(Detect):
         proto = self.proto(xs[0])
         mc = torch.cat([self.cv4[i](x).flatten(2) for i, x in enumerate(xs)], 2).transpose(1, 2)
         return super().forward(xs), mc, proto
+
+
+class Pose(Detect):
+    """YOLOv8 Pose head (reference head.py:161-200): the Detect towers and a keypoint tower per level
+    (cv4: 3x3 ConvBN, 3x3 ConvBN, 1x1 conv to nk = K * ndim, c4 = max(ch[0] // 4, nk)). `forward`
+    returns (the Detect pairs, the raw keypoints (B, A, nk) over the levels in the anchor order);
+    `decode_kpts` decodes them."""
+
+    def __init__(self, nc: int = 1, kpt_shape: Tuple[int, int] = (17, 3), ch: Sequence[int] = (),
+                 strides=(8.0, 16.0, 32.0), reg_max: int = 16):
+        super().__init__(nc, ch, strides, reg_max)
+        self.kpt_shape = tuple(kpt_shape)
+        nk = self.kpt_shape[0] * self.kpt_shape[1]
+        c4 = max(ch[0] // 4, nk)
+        self.cv4 = nn.ModuleList(nn.Sequential(ConvBN(c, c4, 3), ConvBN(c4, c4, 3), nn.Conv2d(c4, nk, 1)) for c in ch)
+
+    def forward(self, xs: Sequence[torch.Tensor]):
+        kpt = torch.cat([self.cv4[i](x).flatten(2) for i, x in enumerate(xs)], 2).transpose(1, 2)
+        return super().forward(xs), kpt
+
+
+def decode_kpts(kpt: torch.Tensor, feat_shapes, strides: Sequence[float],
+                kpt_shape: Tuple[int, int] = (17, 3)) -> torch.Tensor:
+    """Raw keypoints (B, A, nk) -> (B, A, nk) f32 (head.py:185-200): xy = (raw * 2 + anchor - 0.5) * stride
+    in input pixels, and with ndim 3 the visibility through a sigmoid."""
+    anchor_points, stride_tensor = make_anchors(feat_shapes, strides, 0.5, device=kpt.device)
+    B, A, nk = kpt.shape
+    y = kpt.reshape(B, A, *kpt_shape).float()
+    xy = (y[..., :2] * 2.0 + (anchor_points[None, :, None] - 0.5)) * stride_tensor[None, :, None]
+    if kpt_shape[1] == 3:
+        xy = torch.cat([xy, y[..., 2:3].sigmoid()], -1)
+    return xy.reshape(B, A, nk)
 
 
 def _cls_tower(ci: int, c3: int, nc: int) -> nn.Sequential:

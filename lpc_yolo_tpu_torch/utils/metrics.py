@@ -3,8 +3,8 @@
 Counterpart of `lpc_yolo_tpu/utils/metrics.py` (`box_iou_np`, `match_predictions`,
 `compute_ap`, `ap_per_class`, `smooth`, `DetMetrics`, `ConfusionMatrix`), kept
 as its own copy so the port imports nothing of the JAX package; `mask_iou`
-is `mask_iou_np` (:281-292) in torch, on the masks' device. The keypoint and
-rotated-box IoUs wait for the pose and OBB validators.
+is `mask_iou_np` (:281-292) in torch, on the masks' device; `kpt_iou_np`
+(:295-308) is the same numpy. The rotated-box IoU waits for the OBB validator.
 """
 
 from __future__ import annotations
@@ -35,6 +35,20 @@ def mask_iou(gt: torch.Tensor, pred: torch.Tensor, eps: float = 1e-7) -> torch.T
     inter = g @ p.T
     union = g.sum(1)[:, None] + p.sum(1)[None] - inter
     return inter / (union + eps)
+
+
+def kpt_iou_np(gt_kpts: np.ndarray, pred_kpts: np.ndarray, area: np.ndarray, sigmas: np.ndarray,
+               eps: float = 1e-7) -> np.ndarray:
+    """Object Keypoint Similarity (reference metrics.py:156 kpt_iou): gt (M, K, 3) with visibility, pred
+    (N, K, 2+), area (M,) -> (M, N), over the visible ground-truth points."""
+    if len(gt_kpts) == 0 or len(pred_kpts) == 0:
+        return np.zeros((len(gt_kpts), len(pred_kpts)), np.float32)
+    d = (gt_kpts[:, None, :, 0] - pred_kpts[None, :, :, 0]) ** 2 + (
+        gt_kpts[:, None, :, 1] - pred_kpts[None, :, :, 1]
+    ) ** 2  # (M, N, K)
+    vis = gt_kpts[..., 2] != 0  # (M, K)
+    e = d / (2 * np.asarray(sigmas)) ** 2 / (area[:, None, None] + eps) / 2
+    return (np.exp(-e) * vis[:, None]).sum(-1) / (vis.sum(-1)[:, None] + eps)
 
 
 def match_predictions(

@@ -187,6 +187,35 @@ def test_conv3x3_seg_shapes_match_plain(B, H, W, C, Co, act, dtype):
         assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
 
 
+# (B, H, W, C, Co) of the YOLOv8-pose keypoint towers at their serving batch: c4 = max(ch0 // 4, 51), so on n, s
+# and m both convs of a tower are odd-sized (51 -> 51 at every level, the element-wise staging path), on n the
+# first takes 64, 128 and 256 channels to 51; on x each level's channels go to 80 (320 -> 80 at 80x80).
+POSE_CONV_CASES = [
+    (32, 80, 80, 51, 51), (32, 40, 40, 51, 51), (32, 20, 20, 51, 51), (32, 80, 80, 64, 51), (32, 40, 40, 128, 51),
+    (32, 20, 20, 256, 51), (32, 80, 80, 320, 80),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,Co", POSE_CONV_CASES)
+def test_conv3x3_pose_shapes_match_plain(B, H, W, C, Co, dtype):
+    """The kernel against its plain version at the pose heads' keypoint-tower sites (SiLU), the 51-channel ones
+    among them, with the tolerances of `test_conv3x3_kernel_matches_plain` (f32 abs 1e-4, bf16 2e-2 relative)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5).to(dtype)
+    b = torch.rand(Co, device="cuda", generator=g) - 0.5
+    before = conv3x3.launches
+    got = conv3x3(x, w, b, "silu").float()
+    ref = conv3x3_plain(x.float(), w.float(), b, "silu")
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    else:
+        assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
+
+
 def test_kept_rows_masks_on_the_card_match_the_cpu():
     """`process_mask(..., upsample=True)` of 200 kept rows at 640 on the card against the CPU on the same inputs
     (f32 sigmoid masks within 1e-5), and `unletterbox_masks` to a 720x1280 frame: on the same masks bit for bit
@@ -210,19 +239,21 @@ def test_kept_rows_masks_on_the_card_match_the_cpu():
     assert (chain != ref).float().mean().item() <= 1e-4
 
 
-@pytest.mark.parametrize("pool", ["worst", "val"])
+@pytest.mark.parametrize("pool", ["worst", "val", "pose"])
 def test_nms_kernel_matches_plain(pool):
     """The NMS kernel against `nms_plain` on the same pool on the card: the same rows bit for bit and the same
     anchors. "worst": 4096 candidates an image, every score above conf (tied in runs of ~4), so all 300 steps
-    run; "val": the validator's multi_label pool (conf 0.001, iou 0.7) of a seed-0 yolov8n at 320.
-    One launch a call."""
+    run; "val": the validator's multi_label pool (conf 0.001, iou 0.7) of a seed-0 yolov8n at 320; "pose": the
+    same of a seed-0 yolov8n-pose (nc 1, one candidate an anchor). One launch a call."""
     from chip_smoke import nms_val_pool, nms_worst_pool
     from lpc_yolo_tpu_torch.ops.nms import nms_greedy, nms_plain
 
     if pool == "worst":
         args, kw = nms_worst_pool(4, seed=0), dict(conf_thres=0.25, iou_thres=0.45)
     else:
-        args, kw = nms_val_pool(4, imgsz=320, dtype=torch.float32), dict(conf_thres=0.001, iou_thres=0.7)
+        model = "yolov8n-pose.yaml" if pool == "pose" else "yolov8n.yaml"
+        args, kw = nms_val_pool(4, imgsz=320, dtype=torch.float32, model=model), dict(conf_thres=0.001, iou_thres=0.7)
+        assert pool != "pose" or not args[2].any()  # one class
     before = nms_greedy.launches
     out, anc = nms_greedy(*args, max_det=300, **kw)
     ref, ref_anc = nms_plain(*args, max_det=300, **kw)
