@@ -6,6 +6,7 @@
     python3 chip_smoke.py --converge [yolov8n.yaml]    # device, build, then the learning proof only
     python3 chip_smoke.py --seg        # device, build, then phase 13 (the seg scales) only
     python3 chip_smoke.py --pose       # device, build, then phase 14 (the pose scales) only
+    python3 chip_smoke.py --obb        # device, build, then phase 15 (the OBB scales at 1024) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -155,22 +156,47 @@ Phases, in order; any failure raises and the script exits non-zero:
             data=..., save=True) on a keypoint-labelled set, 3 epochs,
             counters held, and its reload through YOLO.save. Numbers under
             "pose".
+15. obb     the five YOLOv8 oriented-box scales (yolov8{n,s,m,l,x}-obb) at
+            nc 15 (DOTAv1) and imgsz 1024, at their published widths and
+            depths: the letterbox kernel at 1024 (from 720p and from
+            1024x1024 frames, bit-exact, timed beside its bound); conv3x3
+            parity at every site (the v8 sites and two a level in the angle
+            towers, 16 to 80 channels, named in the log); YOLO.predict of 32
+            1024x1024 frames with the counters held (one letterbox, a conv3x3
+            per site, no NMS kernel: the rotated fast-NMS is plain PyTorch)
+            and every kept row's rotated box; the b32 bf16 serving step
+            event-timed with its busy time, idle share and launches;
+            `nms_rotated` on the serving step's pool and on the validator's
+            (multi_label, conf 0.001); conv3x3 against F.conv2d per site
+            shape, the angle towers' called out; YOLO.val(data=...) at b32
+            bf16 on 64 DOTA-labelled frames that the phase writes (mostly
+            1024x1024, some non-square; rows of yolov8n-obb's own
+            detections), counters held, img/s and peak memory; the b16 train
+            step (the OBB loss; b8 where b16 does not fit, said in the log);
+            on yolov8n-obb a f32 predict on the card against the CPU
+            (matched rows within 1e-2 px and 1e-3 rad) and a f32 val on 8
+            of the frames (every key within VAL_F32_TOL); then
+            YOLO("yolov8n-obb.yaml", nc=3).train(data=..., save=True) at
+            1024 on a set of drawn rotated rectangles, 3 epochs, counters
+            held, and its reload through YOLO.save. Numbers under "obb".
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
-yolov8n train(data=...), and beside them, as "launches_seg" and
-"launches_pose", each kernel's launches in phase 13's yolov8n-seg and phase
-14's yolov8n-pose train(data=...); nms's times from phase 12's val pool); the
-last line is {"ok": true, "device": {...}}. Every number is also written to
-chiprun_out/chip_smoke.json (phase 10's under "v10", phase 11's under "v8",
-phase 13's under "seg", phase 14's under "pose").
+yolov8n train(data=...), and beside them, as "launches_seg", "launches_pose"
+and "launches_obb", each kernel's launches in phase 13's yolov8n-seg, phase
+14's yolov8n-pose and phase 15's yolov8n-obb train(data=...); nms's times from
+phase 12's val pool); the last line is {"ok": true, "device": {...}}. Every
+number is also written to chiprun_out/chip_smoke.json (phase 10's under
+"v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
+"pose", phase 15's under "obb").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
 yolov10n.yaml, yolov8n.yaml, yolov8n-seg.yaml, whose set is labelled with
 polygons and whose box and mask mAPs are both reported, or yolov8n-pose.yaml,
 whose set carries 17 keypoints a box and whose box and OKS mAPs are both
-reported) with nc=3 on the synthetic set of 256 + 32
+reported, or yolov8n-obb.yaml, whose set is of drawn rotated rectangles with
+DOTA quad labels and whose mAPs match by rotated probIoU) with nc=3 on the synthetic set of 256 + 32
 frames at 160, 120 epochs of b16 (close_mosaic 40, max_gt 8, cache="ram",
 val=False, save=True), then `val` at f32 and at bf16 on the trained weights
 reloaded through YOLO.save -> YOLO(path); it prints mAP50, mAP50-95, the
@@ -220,7 +246,16 @@ POSE_SITES = 6  # 3x3 s1 convs a Pose head adds: two a level in the keypoint tow
 KPT_SHAPE = (17, 3)  # COCO's keypoints, mirrored by COCO_FLIP_IDX
 COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
 KPT_PX_TOL = 1e-2  # f32 predict, card vs CPU: keypoints of the matched rows, in frame pixels
-SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits
+OBB_PARAMS = {"n": 3_085_424, "s": 11_427_568, "m": 26_425_584, "l": 44_490_224, "x": 69_493_040}  # JAX's at nc 15
+OBB_SITES = 6  # 3x3 s1 convs an OBB head adds: two a level in the angle towers (cv4)
+OBB_IMGSZ = 1024  # the published YOLOv8-OBB models' size (DOTAv1 split crops)
+OBB_VAL_FRAMES = 64  # the DOTA-labelled val set of phase 15: mostly 1024 x 1024, some of OBB_ODD_SHAPES
+OBB_ODD_SHAPES = ((768, 1024), (1024, 600))  # non-square frames among them (padded by the letterbox)
+OBB_TRAIN_ROWS = (20, 200)  # label rows a frame of phase 15's training set: DOTA's dozens to hundreds a crop
+OBB_TRAIN_SIDES = (0.01, 0.08)  # their sides, a share of 1024: DOTA's small vehicles to planes (10 to 80 px)
+OBB_LOGIT_SCALE = 4.0  # spread_obb_model: the class towers' last conv scaled, so the labelling rows stand out
+OBB_PX_TOL, OBB_RAD_TOL = 1e-2, 1e-3  # f32 predict, card vs CPU: matched rows' centre and sides, and angles
+SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits at 640
 NMS_OPS = 15  # f32 operations per pool candidate and step: the IoU in the JAX order, the compare, the argmax
 REPORT = {}
 
@@ -1425,22 +1460,23 @@ def kept_masks(det, mc, proto, conf: float, S: int) -> int:
 
 
 def scale_serving(yolo, pred, sites, host, dev):
-    """YOLO.predict of the host frames at b32, 640, bf16, counters reset just before and read just after
-    (a letterbox, a conv3x3 per site and, for a v8 or segment model, one NMS for the one batch), by host
-    clock; a segment model's masks (n, h0, w0) bool, a pose model's keypoints (n, 17, 3). Then the serving
-    step from the device-resident frames (letterbox to u8, cast, forward, decode; for a segment model also
-    each frame's kept rows' masks at 640, for a pose model the keypoints gathered by anchor) by CUDA events
-    and its profile."""
+    """YOLO.predict of the host frames at b32, the predictor's imgsz, bf16, counters reset just before and read
+    just after (a letterbox, a conv3x3 per site and, for a v8, segment or pose model, one NMS for the one
+    batch; an OBB model's rotated NMS is plain PyTorch), by host clock; a segment model's masks (n, h0, w0)
+    bool, a pose model's keypoints (n, 17, 3), an OBB model's rotated rows (n, 7). Then the serving step from
+    the device-resident frames (letterbox to u8, cast, forward, decode; for a segment model also each frame's
+    kept rows' masks, for a pose model the keypoints gathered by anchor) by CUDA events and its profile."""
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox
 
-    B, S = len(host), 640
+    B, S = len(host), pred.imgsz
     zero_launches()
     t0 = time.perf_counter()
     results = yolo.predict(host, imgsz=S, batch=B, conf=0.25)
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
     launches = launches_now("letterbox", "conv3x3", "nms")
-    assert launches == {"letterbox": 1, "conv3x3": len(sites), "nms": int(yolo.task != "v10")}, launches
+    nms = int(yolo.task in ("v8", "segment", "pose"))
+    assert launches == {"letterbox": 1, "conv3x3": len(sites), "nms": nms}, launches
     assert len(results) == B and all(np.isfinite(r.boxes.data).all() for r in results)
     if yolo.task == "segment":
         assert all(r.masks is None and len(r) == 0 or r.masks.shape == (len(r), 720, 1280) and r.masks.dtype == bool
@@ -1448,6 +1484,8 @@ def scale_serving(yolo, pred, sites, host, dev):
     if yolo.task == "pose":
         assert all(r.keypoints is None and len(r) == 0 or r.keypoints.shape == (len(r),) + KPT_SHAPE
                    and np.isfinite(r.keypoints).all() for r in results)
+    if yolo.task == "obb":
+        assert all(r.obb.data.shape == (len(r), 7) and np.isfinite(r.obb.data).all() for r in results)
     x = torch.empty(B, S, S, 3, dtype=torch.uint8, device="cuda")
 
     def step():
@@ -1570,10 +1608,10 @@ def phase_scales(family: str, val_data: Path):
     return out
 
 
-def phase_scale_train_data(family: str, data: str, sites: int, name: str = None):
+def phase_scale_train_data(family: str, data: str, sites: int, name: str = None, S: int = 640):
     """YOLO("yolo<family>n.yaml", nc=3, seed 0).train(data=..., save=True) on phase 8's dataset, TD_EPOCHS
-    epochs of b16 at 640, with the launch counters reset just before and read just after (a letterbox per val
-    batch and frame shape, `sites` conv3x3 per val batch, for v8 an NMS per val batch, a repack per step);
+    epochs of b16 at S (640), with the launch counters reset just before and read just after (a letterbox per
+    val batch and frame shape, `sites` conv3x3 per val batch, for v8 an NMS per val batch, a repack per step);
     its weights/last.ckpt and best.ckpt; the trained model through YOLO.save -> YOLO(path, device="cuda")
     predicts what the facade predicts, bit for bit, and so does a model given last.ckpt's EMA weights;
     best.ckpt's weights load and serve. (A trainer's .ckpt holds no model config, so YOLO(path) refuses it
@@ -1584,7 +1622,7 @@ def phase_scale_train_data(family: str, data: str, sites: int, name: str = None)
     from lpc_yolo_tpu_torch.data import check_det_dataset
     from lpc_yolo_tpu_torch.utils.checkpoint import load_checkpoint, read_meta
 
-    S, B, name = 640, TD_BATCH, name or f"yolo{family}n.yaml"
+    B, name = TD_BATCH, name or f"yolo{family}n.yaml"
     tag = Path(name).stem.replace("yolo", "")
     steps = -(-TD_TRAIN // B) * TD_EPOCHS
     val_frames = [np.load(f) for f in sorted(Path(check_det_dataset(data)["val"]).glob("*.npy"))]
@@ -1610,6 +1648,7 @@ def phase_scale_train_data(family: str, data: str, sites: int, name: str = None)
         ref = yolo.predict(frames, imgsz=S, batch=4, conf=0.0)
         back = YOLO(yolo.save(root / f"{tag}.ckpt"), device="cuda")
         assert back.task == yolo.task == ("segment" if "seg" in name else "pose" if "pose" in name else family)
+        assert yolo.task != "obb" or all(r.obb is not None for r in ref)
         from_last, from_best = (YOLO(name, device="cuda", seed=None, nc=3) for _ in range(2))
         for model, path in ((from_last, weights / "last.ckpt"), (from_best, weights / "best.ckpt")):
             tree, _ = load_checkpoint(path)
@@ -1622,6 +1661,7 @@ def phase_scale_train_data(family: str, data: str, sites: int, name: str = None)
                              and (a.masks is None or np.array_equal(a.masks.data, b.masks.data))
                              and (a.keypoints is None) == (b.keypoints is None)
                              and (a.keypoints is None or np.array_equal(a.keypoints, b.keypoints))
+                             and (a.obb is None or np.array_equal(a.obb.data, b.obb.data))
                              for a, b in zip(got, ref))
             assert same[what], f"{name} reloaded through {what}: detections differ from the trained facade's"
         best = from_best.predict(frames, imgsz=S, batch=4, conf=0.0)
@@ -1632,8 +1672,9 @@ def phase_scale_train_data(family: str, data: str, sites: int, name: str = None)
                                      f"{TD_EPOCHS} validations, {wall:.3f} s ({TD_TRAIN * TD_EPOCHS / wall:.1f} img/s "
                                      f"over the call); launches {launches}; last.ckpt + best.ckpt (best: epoch "
                                      f"{best_meta['epoch'] + 1}); YOLO.save -> YOLO(path, device='cuda') and last.ckpt's "
-                                     f"EMA weights predict identically ({[len(r) for r in ref]} boxes); losses of the "
-                                     f"last epoch {tr.epoch_history[-1]}")
+                                     f"EMA weights predict identically ({[len(r) for r in ref]} boxes); input_wait_frac "
+                                     f"by epoch {[round(e['input_wait_frac'], 4) for e in tr.epoch_history]}; losses "
+                                     f"of the last epoch {tr.epoch_history[-1]}")
         REPORT[f"{tag}_train_data"] = {"launches": launches, "wall_s": wall, "results": res, "best": best_meta,
                                            "predict_identical": same, "epochs": tr.epoch_history}
     return launches
@@ -1983,6 +2024,417 @@ def pose_only() -> None:
     log("done", "phase 14 passed; numbers in chiprun_out/chip_smoke_pose.json")
 
 
+def fill_rotated(img: np.ndarray, quad: np.ndarray, color) -> None:
+    """Fill a rotated rectangle's quad (4, 2) pixels, inside the frame, into an HWC uint8 frame, in place
+    (cv2.fillPoly's rasterization, `ops/masks.py::fill_poly`, on the quad's window; the card's machine has no
+    OpenCV)."""
+    from lpc_yolo_tpu_torch.ops.masks import fill_poly
+
+    pts = np.round(quad).astype(np.int32)
+    (x0, y0), (x1, y1) = np.maximum(pts.min(0), 0), pts.max(0) + 1
+    win = img[y0:y1, x0:x1]
+    win[fill_poly(np.zeros(win.shape[:2], np.uint8), pts - [x0, y0]).astype(bool)] = color
+
+
+def make_obb_dataset(root: Path, n_train: int, n_val: int, nc: int, seed: int, shapes, rows=(1, 6),
+                     sides=(0.04, 0.3)) -> str:
+    """A DOTA-style oriented set (the port's synthetic generator has no rotated option, as the JAX one has none):
+    noise frames cycling through `shapes`, each with `rows` (least, most) filled rotated rectangles (sides a
+    `sides` share of the frame's shorter side, any angle, inside the frame) of class colours, written as PNGs with
+    .npy twins; each label row `cls x1 y1 x2 y2 x3 y3 x4 y4`, the quad normalized by the frame's size. Returns the
+    YAML."""
+    import yaml
+
+    from lpc_yolo_tpu_torch.data.synthetic import COLORS, write_png
+    from lpc_yolo_tpu_torch.ops.boxes import xywhr2xyxyxyxy
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            h0, w0 = shapes[i % len(shapes)]
+            img = rng.integers(90, 160, (h0, w0, 3), dtype=np.uint8)
+            lines = []
+            for _ in range(int(rng.integers(rows[0], rows[1] + 1))):
+                side = min(h0, w0)
+                wh = rng.uniform(*sides, 2) * side
+                r = np.hypot(*wh) / 2
+                c = rng.uniform([r, r], [w0 - r, h0 - r])
+                rb = torch.tensor([*c, *wh, rng.uniform(-np.pi / 2, np.pi / 2)], dtype=torch.float64)
+                q = xywhr2xyxyxyxy(rb).numpy()
+                k = int(rng.integers(0, nc))
+                fill_rotated(img, q, COLORS[k % len(COLORS)])
+                lines.append(f"{k} " + " ".join(f"{x / w0:.6f} {y / h0:.6f}" for x, y in q))
+            f = root / "images" / split / f"im{i:03d}.png"
+            write_png(f, img)
+            np.save(f.with_suffix(".npy"), img)
+            (root / "labels" / split / f"im{i:03d}.txt").write_text("\n".join(lines) + "\n")
+    data = root / "data.yaml"
+    data.write_text(yaml.safe_dump({"path": str(root), "train": "images/train", "val": "images/val", "nc": nc,
+                                    "names": {i: str(i) for i in range(nc)}}))
+    return str(data)
+
+
+def spread_obb_model(device: str):
+    """yolov8n-obb (nc 15) with seed-0 weights whose class towers' last 1x1 conv has its weights scaled by
+    OBB_LOGIT_SCALE and its biases zeroed: the seed-0 logits are bias-dominated and sit so close together (the top
+    scores of every frame ~0.6410, 1e-6 apart) that f32 rounding reorders them between the card and the CPU, and the
+    fast-NMS then keeps other rows; spread apart by the frame's content (top-20 gaps ~2e-3), the rows a frame's labels
+    come from stand out, and a card-vs-CPU comparison of `val` reads arithmetic, not near-ties."""
+    from lpc_yolo_tpu_torch import YOLO
+
+    yolo = YOLO("yolov8n-obb.yaml", device=device, seed=0, nc=15)
+    with torch.no_grad():
+        for tower in yolo.model.model[-1].cv3:
+            tower[-1].weight.mul_(OBB_LOGIT_SCALE)
+            tower[-1].bias.zero_()
+    return yolo
+
+
+def write_obb_val_labels(root: Path, frames, S: int) -> int:
+    """Label phase 15's val frames with the rotated detections of `spread_obb_model` (f32, on the card, in the
+    validator's batches) at the validator's geometry (imgsz S, scaleup=False): per frame the strongest up to 4 rows whose corners lie in the
+    frame, as DOTA quads normalized by the frame's size; every VAL_UNLABELLED-th frame gets no label file. Returns
+    the rows."""
+    from lpc_yolo_tpu_torch.engine.predictor import letterbox_batch, serving_model
+    from lpc_yolo_tpu_torch.ops.boxes import xywhr2xyxyxyxy
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox_geometry
+
+    yolo = spread_obb_model("cuda")
+    model = serving_model(yolo.model, torch.device("cuda"), torch.float32)
+    n_rows = 0
+    for i0 in range(0, len(frames), VAL_BATCH):  # the validator's batches: other batch sizes take other cuDNN
+        chunk = frames[i0:i0 + VAL_BATCH]  # algorithms for the 1x1 convs, whose rounding reorders near-tied rows
+        with torch.inference_mode():
+            x = letterbox_batch(chunk, S, torch.device("cuda"), torch.uint8, scaleup=False)
+            det = model.predict(x.permute(0, 3, 1, 2).float(), 300, 0.001, 0.7, multi_label=True).cpu().numpy()
+        for j, (im, rows) in enumerate(zip(chunk, det)):
+            i = i0 + j
+            label = root / "labels" / "val" / f"im{i:03d}.txt"
+            if i % VAL_UNLABELLED == VAL_UNLABELLED - 1:  # no label file: the drawn rectangles' rows go too
+                label.unlink()
+                continue
+            h0, w0 = im.shape[:2]
+            gain, _, (pw, ph) = letterbox_geometry((h0, w0), (S, S), scaleup=False)
+            lines = []
+            for row in rows[rows[:, 5] > 0]:
+                q = (xywhr2xyxyxyxy(torch.from_numpy(row[:5]).double()).numpy() - [pw, ph]) / gain
+                if q.min() < 0 or (q[:, 0] > w0).any() or (q[:, 1] > h0).any() or min(row[2], row[3]) < 8:
+                    continue
+                lines.append(f"{int(row[6])} " + " ".join(f"{x / w0:.6f} {y / h0:.6f}" for x, y in q))
+                if len(lines) == 4:
+                    break
+            n_rows += len(lines)
+            label.write_text("\n".join(lines) + "\n")
+    del yolo, model
+    torch.cuda.empty_cache()
+    return n_rows
+
+
+def obb_train_batches(n: int, B: int, seed: int, S: int = OBB_IMGSZ):
+    """Loader-format host OBB batches at S: uint8 BGR frames, and per image a handful of padded rotated boxes
+    [cx, cy, w, h, angle] in pixels (bboxes zero, as an OBB batch carries them)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        n_gt = rng.integers(2, TRAIN_GT - 1, B)
+        mask = np.arange(TRAIN_GT)[None, :] < n_gt[:, None]
+        rb = np.concatenate([rng.uniform(0.2 * S, 0.8 * S, (B, TRAIN_GT, 2)), rng.uniform(24, 0.3 * S, (B, TRAIN_GT, 2)),
+                             rng.uniform(-np.pi / 2, np.pi / 2, (B, TRAIN_GT, 1))], -1).astype(np.float32)
+        out.append({"img": rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8),
+                    "cls": rng.integers(0, 15, (B, TRAIN_GT)).astype(np.int32),
+                    "bboxes": np.zeros((B, TRAIN_GT, 4), np.float32), "mask": mask,
+                    "rboxes": rb * mask[..., None]})
+    return out
+
+
+def obb_card_vs_cpu(scale: str, frames):
+    """YOLO("yolov8<scale>-obb.yaml", nc=15, seed 0).predict in f32 on the card (kernels) and on the CPU (plain
+    versions) at OBB_IMGSZ: the top 20 rows' scores within 1e-4; each card row matched to a CPU row of the same
+    class with its score within 2e-4 and its centre, w and h within OBB_PX_TOL, at least 80% of the rows matched;
+    the matched rows' angles within OBB_RAD_TOL. Returns the counts."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+
+    out = {"rows": 0, "cpu_rows": 0, "matched": 0, "max_px": 0.0, "max_rad": 0.0, "top20_score_gap": 0.0}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        yolo = YOLO(f"yolov8{scale}-obb.yaml", device=dev, seed=0, nc=15)
+        pred = Predictor(yolo.model, imgsz=OBB_IMGSZ, batch=len(frames), device=dev, dtype=torch.float32,
+                         names=yolo.names)
+        runs[dev] = pred(frames)
+    for card, cpu in zip(runs["cuda"], runs["cpu"]):
+        a, b = card.obb.data.astype(np.float64), cpu.obb.data.astype(np.float64)
+        out["rows"], out["cpu_rows"] = out["rows"] + len(a), out["cpu_rows"] + len(b)
+        n = min(len(a), len(b), 20)
+        out["top20_score_gap"] = max(out["top20_score_gap"], float(np.abs(a[:n, 5] - b[:n, 5]).max(initial=0)))
+        for row in a:
+            cand = np.nonzero((b[:, 6] == row[6]) & (np.abs(b[:, 5] - row[5]) <= 2e-4))[0]
+            gap = np.abs(b[cand, :4] - row[:4]).max(1) if len(cand) else np.array([np.inf])
+            if gap.min() > OBB_PX_TOL:
+                continue
+            j = cand[gap.argmin()]
+            out["matched"] += 1
+            out["max_px"] = max(out["max_px"], float(gap.min()))
+            out["max_rad"] = max(out["max_rad"], float(abs(b[j, 4] - row[4])))
+    assert out["top20_score_gap"] <= 1e-4 and out["matched"] >= 0.8 * max(out["rows"], out["cpu_rows"]) > 0, out
+    assert out["max_rad"] <= OBB_RAD_TOL, out
+    return out
+
+
+def nms_rotated_times(pred, frames, multi_label: bool, conf: float, iou: float):
+    """`nms_rotated` on the pool one serving forward of `frames` gives (the predictor's at conf 0.25, or the
+    validator's multi_label at conf 0.001, iou 0.7): CUDA-event ms of the call, the profiler's device busy ms, its
+    launches, and the kept rows."""
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+    from lpc_yolo_tpu_torch.ops.nms import nms_rotated
+
+    S = pred.imgsz
+    x = torch.empty(len(frames), S, S, 3, dtype=torch.uint8, device="cuda")
+    with torch.inference_mode():
+        letterbox(frames, S, out=x)
+        p = pred.model(x.permute(0, 3, 1, 2).to(torch.bfloat16))["pred"]
+        rb, sc = torch.cat([p[..., :4], p[..., -1:]], -1), p[..., 4:-1]
+
+        def call():
+            return nms_rotated(rb, sc, conf, iou, 300, multi_label=multi_label)
+
+        ms = cuda_ms(call, iters=5, warmup=2)
+        prof = profile_step(call, iters=3)
+        kept = int((call()[..., 5] > 0).sum())
+    return {"ms": ms, "busy_ms": prof["device_busy_ms"], "device_launches": prof["device_launches"], "kept": kept,
+            "candidates": int(sc.shape[1] * (sc.shape[2] if multi_label else 1))}
+
+
+def obb_parity_1024():
+    """Phase 15's feeds against the plain versions, bit for bit: the repack kernel on the OBB train step's width-packed
+    u8 frames at OBB_IMGSZ, (B, 1024, 128, 24) 8 -> 1 at b16 and b8 (`obb_train_step`); the letterbox kernel on the
+    validator's scaleup=False tables for OBB_ODD_SHAPES and 1024 x 1024 frames into OBB_IMGSZ (padded, not scaled),
+    u8. Returns the cases checked."""
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_plain, tables_on
+    from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel, repack_width_plain
+
+    S, g, cases = OBB_IMGSZ, torch.Generator(device="cuda").manual_seed(96), []
+    for B in (TRAIN_BATCH, TRAIN_BATCH // 2):
+        x = torch.randint(0, 256, (B, S, S // 8, 24), device="cuda", generator=g, dtype=torch.uint8)
+        got, ref = repack_width_kernel(x, 8, 1), repack_width_plain(x, 8, 1)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (B, S, S, 3) and torch.equal(got, ref), f"repack {tuple(x.shape)} u8 8->1"
+        cases.append(f"repack {tuple(x.shape)} u8 8->1")
+        del x, got, ref
+    rng = np.random.default_rng(97)
+    for h0, w0 in OBB_ODD_SHAPES + ((S, S),):
+        frames = torch.from_numpy(rng.integers(0, 256, (4, h0, w0, 3), dtype=np.uint8)).cuda()
+        got = letterbox(frames, S, out_dtype=torch.uint8, scaleup=False)
+        ref = letterbox_plain(frames, tables_on(h0, w0, S, frames.device, False), S, torch.uint8)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f"letterbox scaleup=False {h0}x{w0}->{S}: kernel != plain (u8)"
+        cases.append(f"letterbox scaleup=False {h0}x{w0}->{S} u8")
+    log("obb", "kernels vs plain at the OBB feeds, bit-exact: " + "; ".join(cases))
+    REPORT["obb_parity"] = {"cases": cases, "max_abs_err": 0.0}
+    return cases
+
+
+def letterbox_1024_times(dev720, dev_sq):
+    """The letterbox kernel at OBB_IMGSZ, b32, u8 output (what predict and val feed the OBB graph): from 720p
+    frames (upscaled) and from 1024x1024 frames (kept), device time on a cold L2 beside its plain version and
+    bound, and its parity with the plain version (bit-exact u8)."""
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_plain, tables_on
+
+    S, out = OBB_IMGSZ, {}
+    for name, dev in (("720p", dev720), ("1024", dev_sq)):
+        B, h0, w0 = dev.shape[:3]
+        x = torch.empty(B, S, S, 3, dtype=torch.uint8, device="cuda")
+        tab = tables_on(h0, w0, S, dev.device)
+        letterbox(dev, S, out=x)
+        ref = letterbox_plain(dev, tab, S, torch.uint8)
+        torch.cuda.synchronize()
+        err = (x.int() - ref.int()).abs().max().item()
+        assert err == 0, f"letterbox {name}->{S} u8: max abs err {err}"
+        nbytes = dev.numel() + x.numel() + tab.numel() * 4
+        sets = [(dev, x)] + [(torch.randint_like(dev, 0, 256), torch.empty_like(x))
+                             for _ in range(n_cold_sets(nbytes) - 1)]
+        ms = cold_graph_ms(lambda src, o: letterbox(src, S, out=o), sets, nbytes)
+        del sets
+        plain = cuda_ms(lambda: letterbox_plain(dev, tab, S, torch.uint8), iters=3)
+        b_ms, b_by = bound(nbytes, B * S * S * 3 * 9, F32_FLOPS_PER_MS)
+        out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+                     "max_abs_err": err}
+        log("obb", f"letterbox b{B} {h0}x{w0}->{S} u8: {ms:.4f} ms (CUDA graph, cold L2), plain {plain:.4f} ms, "
+                   f"bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.3f} of it), bit-exact to the plain version")
+    return out
+
+
+def obb_train_step(yolo):
+    """The OBB train step at b16 and OBB_IMGSZ (`scale_train_step`); where b16 does not fit the card's memory, b8,
+    said in the result."""
+    from lpc_yolo_tpu_torch.engine.train_step import to_device
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+
+    for B in (TRAIN_BATCH, TRAIN_BATCH // 2):
+        try:
+            batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda"))
+                       for b in obb_train_batches(2, B, seed=92)]
+            tr = scale_train_step(yolo, batches)
+            tr["fell_back_from"] = None if B == TRAIN_BATCH else TRAIN_BATCH
+            return tr
+        except torch.cuda.OutOfMemoryError:
+            batches = None
+            torch.cuda.empty_cache()
+            log("obb", f"train step b{B} at {OBB_IMGSZ} does not fit the card's memory; trying b{B // 2}")
+    raise RuntimeError("the OBB train step fits neither b16 nor b8")
+
+
+def phase_obb(val_data: Path):
+    """Phase 15: the five OBB scales at nc 15 (DOTAv1), each in turn with seed-0 weights, at OBB_IMGSZ: its parameter
+    count; its conv3x3 sites (the v8 sites and OBB_SITES, the angle towers') against the plain version (every
+    distinct shape in f32 and bf16, every site of one bf16 forward on its own inputs); YOLO.predict b32 of 1024x1024
+    frames with the counters held, and the serving step; `nms_rotated`'s time on the serving step's pool and on the
+    validator's; conv3x3 over the sites beside F.conv2d + bias, the angle towers' sites called out; YOLO.val on the
+    DOTA-labelled set at b32 bf16 with the counters held and its peak memory; the b16 (or b8) train step and its
+    peak memory; on n, the f32 predict and val on the card against the CPU (`spread_obb_model`'s val)."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+
+    S = OBB_IMGSZ
+    rng = np.random.default_rng(91)
+    host = [rng.integers(0, 256, (S, S, 3), dtype=np.uint8) for _ in range(SCALE_SERVE_BATCH)]
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    obb_parity_1024()
+    REPORT["obb_letterbox"] = letterbox_1024_times(torch.from_numpy(np.stack(frames_720p(32, seed=93))).cuda(), dev)
+    val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
+    out = {}
+    for scale, n_params in OBB_PARAMS.items():
+        t_scale = time.perf_counter()
+        phase = f"v8{scale}-obb"
+        r = out[scale] = {}
+        yolo = YOLO(f"yolov8{scale}-obb.yaml", device="cuda", seed=0, nc=15)
+        assert yolo.task == "obb" and sum(p.numel() for p in yolo.model.parameters()) == n_params, scale
+        pred = Predictor(yolo.model, imgsz=S, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+        sites = conv_sites(pred)
+        bottlenecks = sum(sp.args[2] for sp in yolo.model.specs if sp.module == "C2f")
+        assert len(sites) == 2 * bottlenecks + HEAD_SITES["v8"] + OBB_SITES, (phase, len(sites), bottlenecks)
+        head = yolo.model.model[-1]
+        c4 = head.cv4[0][0].conv.out_channels
+        tower = sorted({t for seq, st in zip(head.cv4, head.strides) for t in
+                        ((seq[0].conv.in_channels, c4, int(S // st)), (c4, c4, int(S // st)))}, key=lambda t: (-t[2], t[0]))
+        assert all(any((C, Co, H) == t for C, H, W, Co, *_ in sites) for t in tower), (tower, sites)
+        r["sites"], r["c4"] = len(sites), c4
+        r["parity"] = phase_parity_conv(sites, phase)
+        site_err = bf16_site_errors(pred, host[:2])
+        assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{phase} bf16 conv3x3 sites: {site_err}"
+        r["parity"]["forward_sites_bf16_max_rel"] = max(site_err)
+        log(phase, f"conv3x3 parity passed at the angle towers' sites (c4 {c4}): "
+                   + ", ".join(f"{C}->{Co} @{H}x{H}" for C, Co, H in tower))
+
+        r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
+        log(phase, f"{n_params} parameters, {len(sites)} conv3x3 sites a forward (every site of a bf16 forward "
+                   f"on its own inputs: max rel {max(site_err):.3g}, tol 2e-2); YOLO.predict b{SCALE_SERVE_BATCH} "
+                   f"1024x1024->{S} bf16: {sv['predict_s']:.3f} s, launches {sv['launches']}, {sv['boxes']} rotated "
+                   f"rows above conf 0.25; serving step {sv['step_ms']:.3f} ms ({sv['img_s']:.1f} img/s), device busy "
+                   f"{sv['busy_ms']:.3f} ms, idle share {sv['idle_share']}, {sv['device_launches']:.0f} launches a step")
+        r["nms_rotated"] = {"serving": nms_rotated_times(pred, dev, False, 0.25, 0.45),
+                            "val": nms_rotated_times(pred, dev, True, 0.001, 0.7)}
+        log(phase, "nms_rotated on the b32 pools: " + "; ".join(
+            f"{k} ({v['candidates']} candidates an image, top 1024) {v['ms']:.3f} ms, device busy {v['busy_ms']:.3f} ms "
+            f"in {v['device_launches']:.0f} launches, {v['kept']} rows kept" for k, v in r["nms_rotated"].items()))
+
+        tot, per_shape = time_conv3x3(sites, SCALE_SERVE_BATCH, phase=phase)
+        r["conv3x3_sum"], r["conv3x3_shapes"] = tot, per_shape
+        r["shapes_tower"] = [p for p in per_shape if (p["C"], p["Co"], p["H"]) in tower and p["act"] == "silu"]
+        r["conv3x3_losers"] = [{"C": p["C"], "Co": p["Co"], "H": p["H"], "per_forward": p["per_forward"],
+                                "vs_library": p["vs_library"]} for p in per_shape if p["vs_library"] > 1]
+        log(phase, f"conv3x3 over {len(sites)} sites at b{SCALE_SERVE_BATCH} bf16 {S}: {tot['ms']:.3f} ms, F.conv2d "
+                   f"{tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x), bound {tot['bound_ms']:.3f} ms "
+                   f"({tot['bound_by']}, {tot['bound_ms'] / tot['ms']:.3f} of it); the angle towers' sites: "
+                   + ", ".join(f"{p['C']}->{p['Co']} @{p['H']}^2 x{p['per_forward']} {p['ms']:.4f} ms, F.conv2d "
+                               f"{p['library_ms']:.4f} ({p['vs_library']:.2f}x), bound {p['bound_ms']:.4f} "
+                               f"({p['bound_share']:.3f} of it)" for p in r["shapes_tower"]))
+
+        expect = val_launches_expected(val_frames, VAL_BATCH, len(sites), nms=False)
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = yolo.val(data=str(val_data), imgsz=S, batch=VAL_BATCH, cache_images="disk")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launches_now("letterbox", "conv3x3", "nms")
+        assert launches == expect, f"{phase} val: launches {launches}, expected {expect}"
+        assert all(np.isfinite(v) for v in res.values()) and "metrics/mAP50-95(B)" in res, res
+        r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": launches, "results": res,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "speed_ms_per_image": {k: v * 1e3 / len(val_frames) for k, v in yolo.validator.speed.items()}}
+        log(phase, f"YOLO.val b{VAL_BATCH} bf16 {S}, {len(val_frames)} DOTA-labelled frames: {r['val']['img_s']:.1f} "
+                   f"img/s, peak {r['val']['peak_gb']:.3f} GB, launches {launches}, per image (ms) "
+                   f"{ {k: round(v, 3) for k, v in r['val']['speed_ms_per_image'].items()} }; {res}")
+        del pred
+        torch.cuda.empty_cache()
+
+        r["train"] = tr = obb_train_step(yolo)
+        log(phase, f"train step b{tr['batch']} {S} bf16 autocast (OBB loss)"
+                   + (f", b{tr['fell_back_from']} did not fit" if tr["fell_back_from"] else "")
+                   + f": {tr['step_ms']:.3f} ms ({tr['img_s']:.1f} img/s), device busy {tr['busy_ms']:.3f} ms, idle "
+                     f"share {tr['idle_share']}, {tr['device_launches']:.0f} launches a step, peak {tr['peak_gb']:.3f} "
+                     f"GB, loss {tr['loss']:.4f}")
+        if scale == "n":
+            r["card_vs_cpu"] = cc = obb_card_vs_cpu(scale, host[:2])
+            log(phase, f"f32 predict at {S}, card vs CPU, 2 frames: {cc['rows']} rows on the card, {cc['cpu_rows']} on "
+                       f"the CPU, {cc['matched']} matched (top 20 scores within {cc['top20_score_gap']:.3g}), centres "
+                       f"and sides within {cc['max_px']:.3g} px (tol {OBB_PX_TOL}), angles within {cc['max_rad']:.3g} "
+                       f"rad (tol {OBB_RAD_TOL})")
+            kw = dict(data=str(val_data), imgsz=S, batch=VAL_BATCH, dtype=torch.float32, cache_images="disk")
+            card = spread_obb_model("cuda").val(**kw)
+            t0 = time.perf_counter()
+            cpu = spread_obb_model("cpu").val(**kw, device="cpu", workers=8)
+            cpu_s = time.perf_counter() - t0
+            gap = max(abs(card[k] - cpu[k]) for k in card)
+            assert card.keys() == cpu.keys() and gap <= VAL_F32_TOL and card["metrics/recall(B)"] > 0.5, (card, cpu)
+            r["val_card_vs_cpu"] = {"card": card, "cpu": cpu, "max_gap": gap, "cpu_s": cpu_s}
+            log(phase, f"YOLO.val f32 at {S} on the {len(val_frames)} frames with the model their labels come from "
+                       f"(spread_obb_model), card vs CPU: every key within {gap:.3g} (tol {VAL_F32_TOL}; the CPU "
+                       f"took {cpu_s:.1f} s); card {card}")
+        del yolo
+        torch.cuda.empty_cache()
+        r["seconds"] = time.perf_counter() - t_scale
+    REPORT["obb"] = out
+    return out
+
+
+def write_obb_datasets(root: Path):
+    """The DOTA-labelled sets of phase 15 (PNG + .npy twins): a val set of OBB_VAL_FRAMES frames, mostly 1024 x 1024
+    and some of OBB_ODD_SHAPES, labelled with `spread_obb_model`'s detections (nc 15); and a training set of
+    TD_TRAIN + TD_VAL frames at nc 3 with OBB_TRAIN_ROWS drawn rotated rectangles a frame, as many as a DOTA crop
+    holds (the loader makes each frame's rotated boxes from its quads). Returns (val YAML path, training YAML)."""
+    t0 = time.perf_counter()
+    shapes = [(OBB_IMGSZ, OBB_IMGSZ)] * 6 + list(OBB_ODD_SHAPES)
+    make_obb_dataset(root / "val", 0, OBB_VAL_FRAMES, 15, seed=94, shapes=shapes)
+    files = sorted((root / "val" / "images" / "val").glob("*.npy"))
+    n_rows = write_obb_val_labels(root / "val", [np.load(f) for f in files], OBB_IMGSZ)
+    train = make_obb_dataset(root / "train", TD_TRAIN, TD_VAL, 3, seed=95, shapes=shapes, rows=OBB_TRAIN_ROWS,
+                             sides=OBB_TRAIN_SIDES)
+    train_rows = sum(len(f.read_text().splitlines()) for f in (root / "train" / "labels").rglob("*.txt"))
+    log("obb", f"DOTA-labelled sets: {OBB_VAL_FRAMES} val frames ({n_rows} rows of spread_obb_model's detections, nc "
+               f"15; shapes {sorted(set(shapes))}), {TD_TRAIN} + {TD_VAL} train frames (nc 3, {train_rows} rows), "
+               f"written in "
+               f"{time.perf_counter() - t0:.1f} s")
+    return root / "val" / "data.yaml", train
+
+
+def obb_only() -> None:
+    """`--obb`: phase 15 alone."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obb_") as tmp:
+        val, train = write_obb_datasets(Path(tmp))
+        obb = phase_obb(val)
+        phase_scale_train_data("obb", train, obb["n"]["sites"], name="yolov8n-obb.yaml", S=OBB_IMGSZ)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_obb.json").write_text(json.dumps(REPORT, indent=1))
+    log("done", "phase 15 passed; numbers in chiprun_out/chip_smoke_obb.json")
+
+
 def nms_worst_pool(B: int, seed: int = 0, k: int = 4096):
     """A pool in which every one of the 300 steps keeps a box: k candidates an image, sorted scores above
     conf 0.25 on a grid of 1/1024 (so runs of ~6 are tied and the first of each run must win), boxes 4 to 24
@@ -2062,7 +2514,7 @@ def converge_only(model: str = YAML) -> int:
     at bf16 on the trained weights reloaded through YOLO.save -> YOLO(path). Fails under mAP50 0.5. A
     segment model's set is labelled with polygons, and its mask mAPs are reported beside the box ones; a
     pose model's carries 17 keypoints a box, and its OKS mAPs are reported (the gate stays on the box
-    mAP50)."""
+    mAP50); an OBB model's is of drawn rotated rectangles (`make_obb_dataset`), matched by rotated probIoU."""
     import tempfile
 
     from lpc_yolo_tpu_torch import YOLO
@@ -2075,8 +2527,11 @@ def converge_only(model: str = YAML) -> int:
         root = Path(tmp)
         t_start = time.perf_counter()
         seg = "-seg" in Path(model).stem
-        data = make_synthetic_dataset(root / "ds", n_train=256, n_val=32, imgsz=S, nc=3, max_boxes=4, seed=3,
-                                      segments=seg)
+        if "-obb" in Path(model).stem:
+            data = make_obb_dataset(root / "ds", 256, 32, 3, seed=3, shapes=[(S, S)], rows=(1, 4))
+        else:
+            data = make_synthetic_dataset(root / "ds", n_train=256, n_val=32, imgsz=S, nc=3, max_boxes=4, seed=3,
+                                          segments=seg)
         if "-pose" in Path(model).stem:
             add_keypoint_labels(data)
         yolo = YOLO(model, device="cuda", seed=0, nc=3)
@@ -2143,9 +2598,9 @@ def conv3x3_only() -> None:
 
 def main(argv) -> int:
     converge = argv[:1] == ["--converge"] and len(argv) <= 2
-    if argv not in ([], ["--conv3x3"], ["--seg"], ["--pose"]) and not converge:
-        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg, --pose and --converge "
-              f"[model yaml]", file=sys.stderr)
+    if argv not in ([], ["--conv3x3"], ["--seg"], ["--pose"], ["--obb"]) and not converge:
+        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg, --pose, --obb and "
+              f"--converge [model yaml]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2160,8 +2615,8 @@ def main(argv) -> int:
     if argv == ["--conv3x3"]:
         conv3x3_only()
         return 0
-    if argv in (["--seg"], ["--pose"]):
-        seg_only() if argv == ["--seg"] else pose_only()
+    if argv in (["--seg"], ["--pose"], ["--obb"]):
+        {"--seg": seg_only, "--pose": pose_only, "--obb": obb_only}[argv[0]]()
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
@@ -2212,6 +2667,11 @@ def main(argv) -> int:
         pose_val, pose_train = write_pose_datasets(Path(tmp) / "pose")
         pose = phase_pose(pose_val)
         pose_launches = phase_scale_train_data("v8", pose_train, pose["n"]["sites"], name="yolov8n-pose.yaml")
+        torch.cuda.empty_cache()
+        obb_val, obb_train = write_obb_datasets(Path(tmp) / "obb")
+        obb = phase_obb(obb_val)
+        obb_launches = phase_scale_train_data("obb", obb_train, obb["n"]["sites"], name="yolov8n-obb.yaml",
+                                              S=OBB_IMGSZ)
     nms = time_nms()["val"]
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
@@ -2231,9 +2691,10 @@ def main(argv) -> int:
          "launches": v8_launches["nms"], "max_abs_err": nms["max_abs_err"], "ms": nms["ms"],
          "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"], "bound_by": nms["bound_by"], "library_ms": None},
     ]
-    for k in kernels:  # the seg and pose paths' launches beside the main path's: yolov8n-seg's and -pose's train(data=...)
-        k["launches_seg"] = seg_launches[k["name"]]
+    for k in kernels:  # the seg, pose and OBB paths' launches beside the main path's: yolov8n-seg's, -pose's and
+        k["launches_seg"] = seg_launches[k["name"]]  # -obb's train(data=...)
         k["launches_pose"] = pose_launches[k["name"]]
+        k["launches_obb"] = obb_launches[k["name"]]
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"

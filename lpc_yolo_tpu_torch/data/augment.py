@@ -21,7 +21,7 @@ Each sample is split in two steps:
 `TrainTransforms(dataset, idx, rng)` keeps the JAX signature: the plan, then
 the render on the CPU. The trainer renders on the card instead.
 Not ported: mosaic9, copy_paste and `perspective` != 0 raise
-NotImplementedError; the OBB transforms wait for their task.
+NotImplementedError.
 
 Segment training (`SegTrainTransforms`, JAX :506-568) plans the same way,
 with the JAX transform's draws (no mosaic9 or mixup draw): polygon labels
@@ -41,6 +41,15 @@ f64, the points off the canvas marked invisible from the f64 values, cast
 back to f32; the boxes from their corners, area_thr 0.1), then the flips in
 f32, fliplr also swapping left and right points by `flip_idx`, and padded
 to max_gt. The image is rendered as above.
+
+OBB training (`OBBTrainTransforms`, JAX :640-675) plans the letterbox
+(scaleup) and the HSV draw, the JAX transform's only draw: no mosaic, warp
+or flip. The rotated boxes (`YOLODataset.get_item_raw`, in units of the
+frame's longer side s) go through the letterbox in f32 as the JAX
+expressions compute them (`x * s * gain + pad`, w and h times s and gain),
+padded to max_gt. The plan's warp is the identity on a canvas of the output's
+size, which the render's warp passes through unchanged (its images equal
+the JAX transform's bit for bit, `tests/test_torch_obb_data.py`).
 
 Validation (`ValTransforms`): the JAX validator letterboxes each frame on the
 host with cv2 (`scaleup=False`). The port letterboxes on the card
@@ -413,6 +422,37 @@ class TrainTransforms:
         return {"img": img, **out}
 
 
+class OBBTrainTransforms(TrainTransforms):
+    """Letterbox + HSV -> a fixed (imgsz, imgsz) sample and its rotated boxes (max_gt, 5) [cx, cy, w, h,
+    angle] f32 in pixels (JAX `OBBTrainTransforms` :640-675); `bboxes` are zeros, as in the JAX sample."""
+
+    def __init__(self, imgsz: int = 640, hyp: Optional[Dict] = None, max_gt: int = 32):
+        self.imgsz, self.max_gt = imgsz, max_gt
+        self.hyp = {**DEFAULT_HYP, **(hyp or {})}  # only the HSV gains are read, as in JAX
+        self.mosaic_enabled = False
+
+    def plan(self, dataset, idx: int, rng: np.random.RandomState) -> Dict:
+        """The sample's plan, source image, padded labels and (max_gt, 5) f32 rotated boxes."""
+        item = dataset.get_item_raw(idx)
+        sources = {int(idx): item["img"]}
+        canvas, _ = letterbox_canvas(item, idx, self.imgsz)
+        h0, w0 = item["img"].shape[:2]
+        gain, _, (dw, dh) = letterbox_geometry((h0, w0), (self.imgsz, self.imgsz))
+        side = max(h0, w0)
+        rb = item.get("rboxes", np.zeros((0, 5), np.float32)).copy()
+        rb[:, 0] = rb[:, 0] * side * gain + dw
+        rb[:, 1] = rb[:, 1] * side * gain + dh
+        rb[:, 2] = rb[:, 2] * side * gain
+        rb[:, 3] = rb[:, 3] * side * gain
+        table = hsv_tables(rng, self.hyp["hsv_h"], self.hyp["hsv_s"], self.hyp["hsv_v"])
+        n = min(len(rb), self.max_gt)
+        out_rb = np.zeros((self.max_gt, 5), np.float32)
+        out_rb[:n] = rb[:n]
+        plan = Plan(canvas, None, 0.0, np.eye(3), canvas.hw, table, False, False)
+        labels = pad_labels(item["cls"], np.zeros((len(rb), 4), np.float32), self.max_gt)
+        return {"plan": plan, "sources": sources, **labels, "rboxes": out_rb}
+
+
 class SegTrainTransforms(TrainTransforms):
     """Mosaic + affine on polygons + HSV + flips -> a fixed (imgsz, imgsz) sample and its instance
     masks at imgsz / mask_ratio (JAX `SegTrainTransforms` :506-568)."""
@@ -597,7 +637,10 @@ def render(plans: List[Plan], sources: Dict[int, np.ndarray], device: torch.devi
 
 
 class ValTransforms:
-    """The raw frame, the letterbox geometry for unscaling, and the padded ground truth."""
+    """The raw frame, the letterbox geometry for unscaling, and the padded ground truth; for an oriented set
+    also its rotated boxes (max_gt, 5) in letterbox pixels, in the JAX validator's f32 arithmetic (`x * (s
+    * gain) + pad`, :188-200, with s the frame's longer side where the JAX package takes w0 for x and w, h0
+    for y and h)."""
 
     def __init__(self, imgsz: int = 640, max_gt: int = 128):
         self.imgsz = imgsz
@@ -609,7 +652,7 @@ class ValTransforms:
         h0, w0 = img0.shape[:2]
         gain, _, pad = letterbox_geometry((h0, w0), (self.imgsz, self.imgsz), scaleup=False)
         boxes = xywhn_to_xyxy(item["bboxes"], w0 * gain, h0 * gain, pad[0], pad[1])
-        return {
+        out = {
             "img": img0,
             **pad_labels(item["cls"], boxes, self.max_gt),
             "orig_shape": (h0, w0),
@@ -617,3 +660,12 @@ class ValTransforms:
             "pad": pad,
             "path": item["path"],
         }
+        if "rboxes" in item:
+            rb, f = item["rboxes"].copy(), max(h0, w0) * gain
+            rb[:, 0] = rb[:, 0] * f + float(pad[0])
+            rb[:, 1] = rb[:, 1] * f + float(pad[1])
+            rb[:, 2:4] *= f
+            n = min(len(rb), self.max_gt)
+            out["rboxes"] = np.zeros((self.max_gt, 5), np.float32)
+            out["rboxes"][:n] = rb[:n]
+        return out

@@ -22,6 +22,11 @@ vectorised paths, batched, on whatever device the tensors live on:
 - `hsv2bgr`: cv2's f32 path with its fused multiply-adds, truncated to u8.
 - `lut` and `blend` (mixup). The host letterbox's constant border is the
   render's canvas fill (`BORDER`).
+- `min_area_rect`: cv2.minAreaRect of small point sets (a DOTA row's quad),
+  in numpy: cv2's convex hull order (Sklansky from the rightmost point, then
+  its cyclic shift of the indices), the rotating calipers in f32 with the
+  cosines in f64, as cv2 takes them, and OpenCV 5.0's angle in
+  [-90, 0): an axis-aligned rectangle is -90 with its vertical side as w.
 
 Each is held against cv2 in `tests/test_torch_data.py`. The batched training
 render (`data/augment.py::render`) builds on the same cores.
@@ -29,7 +34,8 @@ render (`data/augment.py::render`) builds on the same cores.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import math
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -234,3 +240,131 @@ def blend(a: torch.Tensor, b: torch.Tensor, r: Union[float, Sequence[float], tor
     ra = r64.float().to(a.device).view(shape)
     rb = (1 - r64).float().to(a.device).view(shape)
     return (a.float() * ra + b.float() * rb).to(torch.uint8)
+
+
+def _hull(pts: np.ndarray) -> List[int]:
+    """cv2.convexHull(pts, clockwise=False, returnPoints=False) of a few (k, 2) f32 points: the hull's
+    vertices (no collinear ones) in cv2's turning direction, from the last point in (x, y) order, then
+    shifted to start at the least index when the indices run up cyclically (at the largest when they run
+    down), as cv2 shifts them."""
+    order = sorted(range(len(pts)), key=lambda i: (pts[i, 0], pts[i, 1]))
+    p = pts.astype(np.float64)
+
+    def turn(o, a, b):
+        return (p[a, 0] - p[o, 0]) * (p[b, 1] - p[o, 1]) - (p[a, 1] - p[o, 1]) * (p[b, 0] - p[o, 0])
+
+    lower: List[int] = []
+    upper: List[int] = []
+    for chain, seq in ((lower, order), (upper, order[::-1])):
+        for i in seq:
+            while len(chain) >= 2 and turn(chain[-2], chain[-1], i) <= 0:
+                chain.pop()
+            chain.append(i)
+    hull = lower[:-1] + upper[:-1] or lower[:1]
+    k = hull.index(max(hull, key=lambda i: (pts[i, 0], pts[i, 1])))
+    hull = hull[k:] + hull[:k]
+    n = len(hull)
+    if n < 3:
+        return hull
+    lo = hi = rises = 0
+    for i in range(1, n):
+        rises += hull[i - 1] < hull[i]
+        if 1 < rises <= i - 2:
+            break
+        lo = i if hull[i] < hull[lo] else lo
+        hi = i if hull[i] > hull[hi] else hi
+    if abs(hi - lo) in (1, n - 1) and (rises <= 1 or rises >= n - 2):
+        up = (hi + 1) % n == lo
+        i0 = lo if up else hi
+        shifted = hull[i0:] + hull[:i0]
+        if all((a < b) == up for a, b in zip(shifted, shifted[1:])):
+            hull = shifted
+    return hull
+
+
+def _calipers(P: np.ndarray):
+    """cv2's rotating calipers (CALIPERS_MINAREARECT) over N hulls of n points each, (N, n, 2) f32 in cv2's
+    order: the rectangle's corner and its two edge vectors, each (N, 2) f32. The edges' cosines with the
+    calipers are compared in f64 (as OpenCV 5.0 does: in f32 two parallel sides of a near-rectangle tie the
+    other way), the rest is f32."""
+    f32, f64 = np.float32, np.float64
+    N, n = P.shape[:2]
+    rows = np.arange(N)
+    x, y = P[..., 0], P[..., 1]
+    vx, vy = np.roll(x, -1, 1) - x, np.roll(y, -1, 1) - y  # f32 differences
+    inv64 = 1.0 / np.sqrt(vx.astype(f64) ** 2 + vy.astype(f64) ** 2)
+    inv = inv64.astype(f32)
+    ax, ay = np.roll(vx, 1, 1).astype(f64), np.roll(vy, 1, 1).astype(f64)
+    convexity = ax * vy - ay * vx
+    first = np.argmax(convexity != 0, axis=1)
+    base_a = np.where(convexity[rows, first] > 0, f32(1), f32(-1)).astype(f32)
+    base_b = np.zeros(N, f32)
+    seq = np.stack([y.argmin(1), x.argmax(1), y.argmax(1), x.argmin(1)], 1)  # bottom, right, top, left
+    minarea = np.full(N, np.finfo(f32).max, f32)
+    best = [np.zeros(N, np.int64), np.zeros(N, f32), np.zeros(N, f32), np.zeros(N, f32), np.zeros(N, f32),
+            np.zeros(N, np.int64)]
+
+    def at(a, j):
+        return a[rows, seq[:, j]]
+
+    for _ in range(n):
+        a, b = base_a.astype(f64), base_b.astype(f64)
+        v = [(at(vx, j).astype(f64), at(vy, j).astype(f64)) for j in range(4)]
+        cos = np.stack([(a * v[0][0] + b * v[0][1]) * at(inv64, 0), (-b * v[1][0] + a * v[1][1]) * at(inv64, 1),
+                        (-a * v[2][0] - b * v[2][1]) * at(inv64, 2), (b * v[3][0] - a * v[3][1]) * at(inv64, 3)], 1)
+        main = cos.argmax(1)  # the first of equal cosines, as cv2's strict comparison
+        lead = seq[rows, main]
+        lx, ly = vx[rows, lead] * inv[rows, lead], vy[rows, lead] * inv[rows, lead]
+        base_a = np.choose(main, [lx, ly, -lx, -ly]).astype(f32)
+        base_b = np.choose(main, [ly, -lx, -ly, lx]).astype(f32)
+        seq[rows, main] = (seq[rows, main] + 1) % n
+        width = (at(x, 1) - at(x, 3)) * base_a + (at(y, 1) - at(y, 3)) * base_b
+        height = -(at(x, 2) - at(x, 0)) * base_b + (at(y, 2) - at(y, 0)) * base_a
+        area = width * height
+        take = area <= minarea  # the last of equal areas
+        minarea = np.where(take, area, minarea)
+        for slot, val in enumerate((seq[:, 3], base_a, width, base_b, height, seq[:, 0])):
+            best[slot] = np.where(take, val, best[slot])
+    left, a1, width, b1, height, bottom = best
+    a2, b2 = -b1, a1
+    c1 = a1 * x[rows, left] + y[rows, left] * b1
+    c2 = a2 * x[rows, bottom] + y[rows, bottom] * b2
+    idet = f32(1) / (a1 * b2 - a2 * b1)
+    corner = np.stack([(c1 * b2 - c2 * b1) * idet, (a1 * c2 - a2 * c1) * idet], -1)
+    return corner, np.stack([a1 * width, b1 * width], -1), np.stack([a2 * height, b2 * height], -1)
+
+
+def min_area_rect(points: np.ndarray) -> np.ndarray:
+    """cv2.minAreaRect (OpenCV 5.0) of each point set: points (..., k, 2) -> (..., 5) f32 rows
+    [cx, cy, w, h, angle in degrees], the angle in [-90, 0) and w the side along it. Held to cv2 in
+    tests/test_torch_obb_data.py: seeded quads bit for bit; of rectangles rounded to whole pixels 99.5% bit for
+    bit, the rest within f32 units but about 1 in 5000, which keeps the other of two rectangles whose areas
+    agree to f32 rounding (up to 0.4 degrees apart). A set on one line is a zero-height rectangle along it, one
+    point a zero rectangle at -90."""
+    pts = np.asarray(points, np.float32)
+    flat = pts.reshape(-1, *pts.shape[-2:])
+    out = np.zeros((len(flat), 5), np.float32)
+    hulls = [_hull(p) for p in flat]
+    for n in sorted({len(h) for h in hulls}):
+        idx = np.array([i for i, h in enumerate(hulls) if len(h) == n])
+        P = np.stack([flat[i][hulls[i]] for i in idx])
+        if n >= 3:
+            corner, e1, e2 = _calipers(P)
+            centre = corner + (e1 + e2) * np.float32(0.5)
+            s1 = np.sqrt((e1.astype(np.float64) ** 2).sum(-1)).astype(np.float32)
+            s2 = np.sqrt((e2.astype(np.float64) ** 2).sum(-1)).astype(np.float32)
+            ang = ((np.arctan2(e1[:, 1].astype(np.float64), e1[:, 0].astype(np.float64)) - math.pi / 2)
+                   * 180 / math.pi).astype(np.float32)
+            up = ang >= 0  # e1 straight up: -90 with w along e1; otherwise w along e2
+            out[idx] = np.stack([centre[:, 0], centre[:, 1], np.where(up, s1, s2), np.where(up, s2, s1),
+                                 np.where(up, ang - 90, ang)], -1)
+        else:  # a segment (or one point): its direction folded into [-90, 0)
+            d = (P[:, -1] - P[:, 0]).astype(np.float64)
+            length = np.sqrt((d ** 2).sum(-1)).astype(np.float32)
+            deg = np.degrees(np.arctan2(d[:, 1], d[:, 0]))
+            deg = np.where(deg >= 90, deg - 180, np.where(deg < -90, deg + 180, deg))
+            along = (deg < 0) | (length == 0)
+            centre = (P[:, 0] + P[:, -1]) * np.float32(0.5)
+            out[idx] = np.stack([centre[:, 0], centre[:, 1], np.where(along, length, 0), np.where(along, 0, length),
+                                 np.where(length == 0, -90.0, np.where(along, deg, deg - 90))], -1)
+    return out.reshape(pts.shape[:-2] + (5,))

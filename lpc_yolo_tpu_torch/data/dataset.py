@@ -1,17 +1,21 @@
 """YOLO-format detection dataset: dataset YAML, image scan, labels, npz label cache.
 
 Counterpart of `lpc_yolo_tpu/data/dataset.py` (`check_det_dataset`,
-`img2label_path`, `YOLODataset`) for box, polygon and keypoint label rows.
-The label cache has the JAX package's format and name (`<images dir>.labels.npz`, a
-hash of the file names and modification times, the labels as an object
-array), so a cache written by either package serves both. As in the JAX
-package the hash does not cover `kpt_shape`: a cache written without it
-holds no keypoints.
+`img2label_path`, `YOLODataset`) for box, polygon, keypoint and DOTA quad
+label rows. The label cache has the JAX package's format and name
+(`<images dir>.labels.npz`, a hash of the file names and modification times,
+the labels as an object array), so a cache written by either package serves
+both. As in the JAX package the hash does not cover `kpt_shape`: a cache
+written without it holds no keypoints. With `obb` the hash also covers the
+word "obb": the JAX package writes an oriented set's cache under the plain
+hash, with the rectangles of its normalized quads in `bboxes` and `rboxes`,
+and the port reads neither (see `YOLODataset`).
 
 Layout:
     <root>/images/<split>/*.jpg
     <root>/labels/<split>/*.txt   # rows: cls cx cy w h (normalized xywh), or cls x1 y1 x2 y2 ... (polygon),
-                                  # or with kpt_shape (K, ndim) cls cx cy w h (x y [v]) * K (pose)
+                                  # or with kpt_shape (K, ndim) cls cx cy w h (x y [v]) * K (pose),
+                                  # or with obb cls x1 y1 x2 y2 x3 y3 x4 y4 (a DOTA quad, normalized)
     data.yaml: {path, train, val, names, nc[, kpt_shape, flip_idx]}
 
 Images are read with OpenCV, imported only when a file has to be decoded.
@@ -30,6 +34,8 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import yaml
+
+from .cvops import min_area_rect
 
 IMG_SUFFIXES = {".bmp", ".dng", ".jpeg", ".jpg", ".mpo", ".png", ".tif", ".tiff", ".webp"}
 
@@ -96,17 +102,48 @@ def imread(path: str) -> np.ndarray:
     return im
 
 
+def rotated_boxes(segments: List[np.ndarray], bboxes: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """Each label row's rotated box (n, 5) f32 [cx, cy, w, h, angle in radians], the first four in units of
+    the frame's longer side s: `min_area_rect` (cv2.minAreaRect) of the row's normalized points scaled by
+    (w0 / s, h0 / s), i.e. of its quad in pixels up to the isotropic 1 / s, which changes no angle. A box
+    row's points are its rectangle's corners.
+
+    The JAX parse (`data/dataset.py:183-190`) takes minAreaRect of the normalized quad itself and the
+    validator and the OBB transform scale its w by w0 and h by h0 (`engine/validator.py:195-198`,
+    `data/augment.py:656-660`): exact on a square frame only. On a square frame these are the JAX rows
+    (scale 1), and `x * s * gain` is the JAX `x * w0 * gain`."""
+    h0, w0 = hw
+    s = max(h0, w0)
+    out = np.zeros((len(bboxes), 5), np.float32)
+    pts = [seg if len(seg) else np.array([[b[0] - b[2] / 2, b[1] - b[3] / 2], [b[0] + b[2] / 2, b[1] - b[3] / 2],
+                                          [b[0] + b[2] / 2, b[1] + b[3] / 2], [b[0] - b[2] / 2, b[1] + b[3] / 2]],
+                                         np.float32) for seg, b in zip(segments, bboxes)]
+    scale = np.array([w0 / s, h0 / s], np.float32)
+    for k in sorted({len(p) for p in pts}):
+        rows = [i for i, p in enumerate(pts) if len(p) == k]
+        r = min_area_rect(np.stack([np.asarray(pts[i], np.float32) * scale for i in rows]))
+        out[rows, :4] = r[:, :4]
+        out[rows, 4] = np.deg2rad(r[:, 4].astype(np.float64)).astype(np.float32)
+    return out
+
+
 class YOLODataset:
     """Detection dataset over YOLO-format image/label folders (box, polygon and, with `kpt_shape`, keypoint
     rows; JAX :85-216). With `kpt_shape` (K, ndim) a row of 4 + K * ndim values is a pose row and every
-    image's labels hold `keypoints` (n, K, ndim) f32, zeros for its box and polygon rows."""
+    image's labels hold `keypoints` (n, K, ndim) f32, zeros for its box and polygon rows.
+
+    With `obb` (an oriented set, DOTA's rows `cls x1 y1 x2 y2 x3 y3 x4 y4`) the labels are parsed as for any
+    polygon row (the quad in `segments`, its axis-aligned hull in `bboxes`), and `get_item_raw` adds each
+    row's rotated box from the frame's size (`rotated_boxes`): the JAX parse makes it from the normalized
+    quad, which is right on a square frame only (ROADMAP Queue 3)."""
 
     def __init__(self, img_path: Union[str, Path, List], cache: bool = True, cache_images: Union[bool, str] = False,
-                 kpt_shape: Optional[Tuple[int, int]] = None):
+                 kpt_shape: Optional[Tuple[int, int]] = None, obb: bool = False):
         self.img_path = (
             [str(p) for p in img_path] if isinstance(img_path, (list, tuple)) else str(img_path)
         )
         self.kpt_shape = tuple(kpt_shape) if kpt_shape else None
+        self.obb = obb
         self.im_files = self._scan_images()
         self.label_files = [img2label_path(f) for f in self.im_files]
         self.labels = self._load_labels(cache)
@@ -116,6 +153,7 @@ class YOLODataset:
         if self.cache_images not in (None, "ram", "disk"):
             raise ValueError(f"cache_images must be False, True, 'ram' or 'disk', got {cache_images!r}")
         self._ram: List[Optional[np.ndarray]] = [None] * len(self.im_files)
+        self._rboxes: List[Optional[np.ndarray]] = [None] * len(self.im_files)  # `rotated_boxes`, on first use
         if self.cache_images:
             self._npy_files = [Path(f).with_suffix(".npy") for f in self.im_files]
 
@@ -147,6 +185,8 @@ class YOLODataset:
                 h.update(str(os.path.getmtime(f)).encode())
             except OSError:
                 pass
+        if self.obb:
+            h.update(b"obb")
         return h.hexdigest()
 
     def _load_labels(self, cache: bool) -> List[Dict]:
@@ -232,7 +272,9 @@ class YOLODataset:
 
     def get_item_raw(self, i: int) -> Dict:
         """One un-augmented sample: BGR image + normalized xywh labels and polygons ((k, 2) each; (0, 2)
-        for a box row), and the normalized keypoints (n, K, ndim) where the labels hold them."""
+        for a box row), the normalized keypoints (n, K, ndim) where the labels hold them, and for an
+        oriented set the rotated boxes (n, 5) in units of the frame's longer side (`rotated_boxes`, computed
+        on the image's first load and kept)."""
         out = {
             "img": self.load_image(i),
             "cls": self.labels[i]["cls"].copy(),
@@ -242,4 +284,8 @@ class YOLODataset:
         }
         if "keypoints" in self.labels[i]:
             out["keypoints"] = self.labels[i]["keypoints"].copy()
+        if self.obb:
+            if self._rboxes[i] is None:  # once an image: its labels and frame size do not change
+                self._rboxes[i] = rotated_boxes(out["segments"], out["bboxes"], out["img"].shape[:2])
+            out["rboxes"] = self._rboxes[i].copy()
         return out

@@ -8,11 +8,13 @@ through the weight bridge; `YOLO("x.ckpt")` rebuilds it from a `.ckpt` that
 `.train(batches=...)` on an iterable of host batches), `.val(data=...)`
 measures it on a dataset, `.save(path)` writes it as a `.ckpt` the JAX
 facade loads and `.load(weights)` takes over every weight whose name and
-shape match. Four tasks are ported, named as the JAX facade names them:
+shape match. Five tasks are ported, named as the JAX facade names them:
 "v10" for a v10Detect head (NMS-free), "v8" for a Detect head (NMS),
 "segment" for a Segment head (NMS and instance masks; `yolov8n-seg.yaml`
-resolves to `v8/yolov8-seg.yaml`) and "pose" for a Pose head (NMS and
-keypoints; `yolov8n-pose.yaml` resolves to `v8/yolov8-pose.yaml`). `.pt`
+resolves to `v8/yolov8-seg.yaml`), "pose" for a Pose head (NMS and
+keypoints; `yolov8n-pose.yaml` resolves to `v8/yolov8-pose.yaml`) and "obb"
+for an OBB head (rotated boxes, rotated fast-NMS; `yolov8n-obb.yaml`
+resolves to `v8/yolov8-obb.yaml`). `.pt`
 files, export and the other tasks wait for later slices.
 """
 
@@ -37,7 +39,8 @@ _CFG_ROOT = Path(__file__).resolve().parents[1] / "cfg" / "models"
 def _resolve_yaml(name: Union[str, Path]) -> Path:
     """A model-config name or path -> the YAML file, searched in v10 and then v8 (scale letter
     stripped when needed: yolov8n.yaml -> v8/yolov8.yaml, yolov8n-seg.yaml -> v8/yolov8-seg.yaml,
-    yolov8n-pose.yaml -> v8/yolov8-pose.yaml), as the JAX resolver does (:42-55)."""
+    yolov8n-pose.yaml -> v8/yolov8-pose.yaml, yolov8n-obb.yaml -> v8/yolov8-obb.yaml), as the JAX resolver
+    does (:42-55)."""
     p = Path(name)
     if p.exists():
         return p
@@ -87,7 +90,8 @@ class YOLO:
         self.model = build_model(d, device=self.device, nc=nc or meta.get("nc"))
         self.task = self.model.task  # from the head, as the JAX `_guess_task` (:123-131)
         if self.task is None:
-            raise NotImplementedError("the torch port serves v10Detect, Detect, Segment and Pose models only so far")
+            raise NotImplementedError("the torch port serves v10Detect, Detect, Segment, Pose and OBB models only so "
+                                      "far")
         if variables is not None:
             self.load_flax(variables)
         elif seed is not None:

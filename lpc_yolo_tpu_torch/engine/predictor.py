@@ -16,7 +16,11 @@ predictor (:175-180, :341-349): each row's decoded keypoints gathered by its
 anchor, the kept rows' un-letterboxed with the predictor's own gain and pad
 ((k - pad) / gain in f32, no clip), into `Results.keypoints` (n, K, 3) f32.
 A keypoint set of ndim 2 raises NotImplementedError: the JAX predictor
-reshapes its rows by nk // 3 (:344). The JAX predictor letterboxes on the host with
+reshapes its rows by nk // 3 (:344). An OBB model's rows come from `nms_rotated`
+(best class per anchor, :181-190) and follow the JAX predictor (:293-320):
+the rows above conf, the letterbox undone on the rotated parameters (the
+angle is scale-invariant) into `Results.obb` (n, 7) f32, and their
+axis-aligned hulls as `Results.boxes`. The JAX predictor letterboxes on the host with
 cv2 to uint8 (:261) and folds /255 into the stem (:148-151); the card's
 machine has no cv2, so here every frame is letterboxed on the device by the
 letterbox kernel, as uint8, straight into its slot of the NHWC input batch
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 
 from ..nn.fuse import fold_preprocess, fuse_conv_bn
-from ..ops.boxes import scale_boxes
+from ..ops.boxes import rbox_hull, scale_boxes
 from ..ops.letterbox import letterbox
 from ..ops.masks import process_kept_rows, unletterbox_masks
 from ..utils import resolve_device
@@ -146,8 +150,8 @@ class Predictor:
     @torch.inference_mode()
     def infer(self, frames: List[np.ndarray]):
         """(n, max_det, 6) detections in letterbox pixels, f32, on the device; for a segment model
-        with the rows' mask coefficients and the prototypes, for a pose model with the rows' keypoints
-        (`DetectionModel.predict`)."""
+        with the rows' mask coefficients and the prototypes, for a pose model with the rows' keypoints;
+        for an OBB model (n, max_det, 7) rotated rows (`DetectionModel.predict`)."""
         return self.model.predict(self.preprocess(frames), self.max_det, self.conf, self.iou)
 
     @torch.inference_mode()
@@ -170,6 +174,20 @@ class Predictor:
         kp[..., 0] = (kp[..., 0] - pw) / gain
         kp[..., 1] = (kp[..., 1] - ph) / gain
         return kp
+
+    def frame_obb(self, det: np.ndarray, orig_shape) -> Tuple[np.ndarray, np.ndarray]:
+        """One frame's rotated rows above conf in frame pixels, as the JAX predictor unscales them
+        (:293-320): (hull boxes (n, 6), rotated rows (n, 7)), f32. The hull is `rbox_hull`'s, as the JAX validator
+        takes it; the JAX predictor's closed form |w/2 cos| + |h/2 sin| differs from it by rounding."""
+        rows = det[det[:, 5] > self.conf]
+        gain = min(self.imgsz / orig_shape[0], self.imgsz / orig_shape[1])
+        pw, ph = (self.imgsz - orig_shape[1] * gain) / 2, (self.imgsz - orig_shape[0] * gain) / 2
+        rb = rows[:, :5].copy()
+        rb[:, 0] = (rb[:, 0] - pw) / gain
+        rb[:, 1] = (rb[:, 1] - ph) / gain
+        rb[:, 2:4] /= gain
+        hull = rbox_hull(torch.from_numpy(rb)).numpy()
+        return np.concatenate([hull, rows[:, 5:7]], -1), np.concatenate([rb, rows[:, 5:7]], -1)
 
     def postprocess(self, det: np.ndarray, im0: np.ndarray) -> np.ndarray:
         """Rows above conf, boxes scaled back to the frame: (n, 6)."""
@@ -196,13 +214,17 @@ class Predictor:
                 kpts = extra[0].cpu().numpy() if self.kpt_shape is not None else None
             t2 = time.perf_counter()
             for j, (path, im0) in enumerate(chunk):
-                boxes = self.postprocess(det[j], im0)
+                masks = keypoints = obb = None
+                if self.model.task == "obb":
+                    boxes, obb = self.frame_obb(det[j], im0.shape[:2])
+                else:
+                    boxes = self.postprocess(det[j], im0)
                 keep = det[j][:, 4] > self.conf
-                masks = keypoints = None
                 if self.model.task == "segment":
                     masks = self.frame_masks(det_dev[j], extra[0][j], extra[1][j], keep, im0.shape[:2])
                 elif kpts is not None:
                     keypoints = self.frame_keypoints(kpts[j], keep, im0.shape[:2])
                 speed = {"preprocess": (t1 - t0) * 1e3 / n, "inference": (t2 - t1) * 1e3 / n,
                          "postprocess": (time.perf_counter() - t2) * 1e3 / n}
-                yield Results(im0, path, self.names, boxes=boxes, masks=masks, keypoints=keypoints, speed=speed)
+                yield Results(im0, path, self.names, boxes=boxes, masks=masks, keypoints=keypoints, obb=obb,
+                              speed=speed)

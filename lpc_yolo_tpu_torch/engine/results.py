@@ -1,7 +1,7 @@
-"""Detection, segmentation and pose result containers (counterpart of
-`lpc_yolo_tpu/engine/results.py` Boxes :18, Masks :138-168 and the detect,
-segment and pose subset of Results :249; `keypoints` is a plain (n, K, 3)
-f32 array, as in the JAX Results :260, :271). Plain numpy on the host;
+"""Detection, segmentation, pose and oriented-box result containers
+(counterpart of `lpc_yolo_tpu/engine/results.py` Boxes :18, OBBoxes :85-136,
+Masks :138-168 and the detect, segment, pose and OBB subset of Results :249;
+`keypoints` is a plain (n, K, 3) f32 array, as in the JAX Results :260, :271). Numpy arrays on the host;
 plotting, saving and the masks' polygons (`Masks.xy`, `.xyn`, which need
 cv2.findContours) wait for a later slice."""
 
@@ -10,6 +10,9 @@ from __future__ import annotations
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..ops.boxes import rbox_hull, xywhr2xyxyxyxy
 
 
 class Boxes:
@@ -58,6 +61,53 @@ class Boxes:
         return self.xywh / np.array([w, h, w, h], dtype=np.float32)
 
 
+class OBBoxes:
+    """Oriented boxes (N, 7) = [cx, cy, w, h, angle (radians), conf, cls] in frame pixels."""
+
+    def __init__(self, data: np.ndarray, orig_shape: Tuple[int, int]):
+        data = np.asarray(data, dtype=np.float32)
+        if data.ndim == 1:
+            data = data.reshape(-1, 7)
+        if data.shape[-1] != 7:
+            raise ValueError(f"expected 7 obb columns, got {data.shape}")
+        self.data = data
+        self.orig_shape = orig_shape
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __getitem__(self, idx) -> "OBBoxes":
+        return OBBoxes(self.data[idx], self.orig_shape)
+
+    @property
+    def xywhr(self) -> np.ndarray:
+        return self.data[:, :5]
+
+    @property
+    def conf(self) -> np.ndarray:
+        return self.data[:, 5]
+
+    @property
+    def cls(self) -> np.ndarray:
+        return self.data[:, 6]
+
+    @property
+    def xyxyxyxy(self) -> np.ndarray:
+        """(N, 4, 2) corners (`ops/boxes.py::xywhr2xyxyxyxy`)."""
+        return xywhr2xyxyxyxy(torch.from_numpy(self.xywhr)).numpy()
+
+    @property
+    def xyxyxyxyn(self) -> np.ndarray:
+        """(N, 4, 2) corners normalized by the frame's size."""
+        h, w = self.orig_shape
+        return self.xyxyxyxy / np.array([w, h], self.data.dtype)
+
+    @property
+    def xyxy(self) -> np.ndarray:
+        """(N, 4) axis-aligned hulls (`ops/boxes.py::rbox_hull`)."""
+        return rbox_hull(torch.from_numpy(self.xywhr)).numpy()
+
+
 class Masks:
     """Instance masks (N, H, W), bool, at the frame's size."""
 
@@ -87,13 +137,14 @@ class Masks:
 
 
 class Results:
-    """One image's detections, its instance masks for a segment model and its keypoints (n, K, 3) in frame
-    pixels for a pose model (each None when no row was kept). Indexing takes the boxes' rows only, as in
-    the JAX Results (:281-285)."""
+    """One image's detections, its instance masks for a segment model, its keypoints (n, K, 3) in frame
+    pixels for a pose model (each None when no row was kept) and its oriented boxes for an OBB model (the
+    boxes are then their hulls). Indexing takes the boxes' rows only, as in the JAX Results (:281-285)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str],
                  boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None,
-                 keypoints: Optional[np.ndarray] = None, speed: Optional[Dict[str, float]] = None):
+                 keypoints: Optional[np.ndarray] = None, obb: Optional[np.ndarray] = None,
+                 speed: Optional[Dict[str, float]] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -101,6 +152,7 @@ class Results:
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = keypoints
+        self.obb = OBBoxes(obb, self.orig_shape) if obb is not None else None
         self.speed = speed or {}
 
     def __len__(self) -> int:

@@ -4,9 +4,11 @@ Counterpart of `lpc_yolo_tpu/engine/train_step.py` (config and schedules
 :43-74, optimizer :86-105, state :108-123, the step :126-311; reference
 engine/trainer.py:362-394, :695-756, torch_utils.py:431-465 ModelEMA), for
 the v10 dual-assignment loss of a v10Detect model, the v8 loss of a Detect
-model, the v8 segmentation loss of a Segment model and the v8 pose loss of
-a Pose model (`loss_kind`, :238-258; a segment batch carries its instance
-masks under "masks", a pose batch its keypoints under "keypoints").
+model, the v8 segmentation loss of a Segment model, the v8 pose loss of
+a Pose model and the v8 oriented-box loss of an OBB model (`loss_kind`,
+:238-258; a segment batch carries its instance masks under "masks", a pose
+batch its keypoints under "keypoints", an OBB batch its rotated boxes under
+"rboxes").
 
 In PyTorch's idiom the model's parameters and BatchNorm buffers are the live
 state and are updated in place; `TrainState` names them beside the momentum
@@ -39,7 +41,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..losses import v8_detection_loss, v8_pose_loss, v8_segmentation_loss, v10_detect_loss
+from ..losses import v8_detection_loss, v8_obb_loss, v8_pose_loss, v8_segmentation_loss, v10_detect_loss
 from ..utils import resolve_device
 
 
@@ -180,7 +182,8 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
     `v8_detection_loss` with the top-10 assigner, 3 items (box, cls, dfl); a
     Segment's `v8_segmentation_loss`, 4 items (box, seg, cls, dfl); a Pose's
     `v8_pose_loss` with the keypoint shape of the batch's keypoints, 5 items
-    (box, pose, kobj, cls, dfl).
+    (box, pose, kobj, cls, dfl); an OBB's `v8_obb_loss` on the batch's rotated
+    boxes, 3 items (box, cls, dfl).
 
     uint8 BGR frames become f32 RGB in [0, 1]; the width-packed x8 feed
     (last dimension 24) is unpacked by the repack kernel first. On the card
@@ -203,6 +206,8 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
             kpts = batch["keypoints"]
             return v8_pose_loss(out, batch["cls"], batch["bboxes"], batch["mask"], kpts, model.strides, model.nc,
                                 kpt_shape=tuple(kpts.shape[-2:]))
+        if model.task == "obb":
+            return v8_obb_loss(out, batch["cls"], batch["rboxes"], batch["mask"], model.strides, model.nc)
         if model.task == "v8":
             total, items = v8_detection_loss(out, batch["cls"], batch["bboxes"], batch["mask"], model.strides,
                                              model.nc, tal_topk=10)
@@ -215,17 +220,20 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
 def make_train_step(model: torch.nn.Module, cfg: OptConfig, loss_kind: str = "v10",
                     amp: Optional[bool] = None) -> Callable:
     """Build `step(state, batch) -> (state, metrics)` for a v10Detect model (loss_kind "v10"),
-    a Detect model ("v8"), a Segment model ("segment") or a Pose model ("pose").
+    a Detect model ("v8"), a Segment model ("segment"), a Pose model ("pose") or an OBB model ("obb").
 
     batch = {'img': (B, H, W, 3) uint8 BGR or f32 RGB in [0, 1], or the same
     image width-packed x8 (B, H, W/8, 24); 'cls': (B, M) int; 'bboxes':
     (B, M, 4) xyxy pixels; 'mask': (B, M) bool; for "segment" also 'masks': (B, M, H/4, W/4) uint8,
-    for "pose" also 'keypoints': (B, M, K, ndim) f32 pixels}, numpy or tensors.
-    metrics = {'loss', 'items' (6,) for v10, (3,) for v8, (4,) for segment, (5,) for pose, 'lr', 'skipped'};
+    for "pose" also 'keypoints': (B, M, K, ndim) f32 pixels, for "obb" also 'rboxes': (B, M, 5) [cx, cy, w,
+    h, angle] f32 pixels}, numpy or tensors.
+    metrics = {'loss', 'items' (6,) for v10, (3,) for v8 and obb, (4,) for segment, (5,) for pose, 'lr',
+    'skipped'};
     `state` must come from `init_train_state(model, ...)`. amp: see `make_loss_fn`.
     """
-    if loss_kind not in ("v10", "v8", "segment", "pose"):
-        raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10', 'v8', 'segment' and 'pose' are")
+    if loss_kind not in ("v10", "v8", "segment", "pose", "obb"):
+        raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10', 'v8', 'segment', 'pose' and "
+                                  f"'obb' are")
     if model.task != loss_kind:
         raise ValueError(f"loss_kind {loss_kind!r} does not train this model's head (task {model.task!r})")
     if cfg.optimizer not in ("sgd", "adamw"):

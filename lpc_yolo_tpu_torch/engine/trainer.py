@@ -16,7 +16,11 @@ its results.csv the `train/seg` column and the validator's `(M)` keys. A
 Pose model trains through `PoseTrainTransforms` (:217-219) with the data
 YAML's `kpt_shape` (COCO's (17, 3) when it gives none) and `flip_idx`: its
 batches carry the keypoints, its results.csv the `train/pose` and
-`train/kobj` columns and the validator's `(P)` keys.
+`train/kobj` columns and the validator's `(P)` keys. An OBB model trains on
+the set's rotated boxes (`YOLODataset(obb=True)`) through
+`OBBTrainTransforms` (:220-222: letterbox and HSV, no mosaic): its batches
+carry `rboxes`, its results.csv the `train/box`, `train/cls` and
+`train/dfl` columns.
 
 The loader's threads read the frames and make each sample's plan (its
 random draws, geometry and labels). The trainer renders each batch on the
@@ -29,7 +33,7 @@ From host batches (`batches=`): the same step loop over an iterable of
 loader-format batches: `img` uint8 BGR (B, H, W, 3), `cls` (B, M) int32,
 `bboxes` (B, M, 4) xyxy pixels, `mask` (B, M) bool (a segment model's also
 `masks` (B, M, H/4, W/4) uint8, a pose model's `keypoints` (B, M, K, ndim)
-f32 pixels); the trainer packs `img`
+f32 pixels, an OBB model's `rboxes` (B, M, 5) f32 pixels); the trainer packs `img`
 x8 on the host when W % 8 == 0. Returns the last epoch's mean loss items.
 
 After the last step the facade holds the EMA parameters with the live
@@ -82,8 +86,8 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..data import (DataLoader, PoseTrainTransforms, SegTrainTransforms, TrainTransforms, YOLODataset,
-                    check_det_dataset, render)
+from ..data import (DataLoader, OBBTrainTransforms, PoseTrainTransforms, SegTrainTransforms, TrainTransforms,
+                    YOLODataset, check_det_dataset, render)
 from ..utils import msgpack, resolve_device
 from ..utils.checkpoint import load_checkpoint, read_meta, write_checkpoint
 from ..utils.flax_bridge import train_state_dict, train_state_from_dict
@@ -92,7 +96,8 @@ from .train_step import OptConfig, TrainState, init_train_state, make_train_step
 
 # the loss items' names by task (JAX `engine/trainer.py:33-40`): results.csv's train/ columns
 LOSS_NAMES = {"v10": ("box_om", "cls_om", "dfl_om", "box_oo", "cls_oo", "dfl_oo"), "v8": ("box", "cls", "dfl"),
-              "segment": ("box", "seg", "cls", "dfl"), "pose": ("box", "pose", "kobj", "cls", "dfl")}
+              "segment": ("box", "seg", "cls", "dfl"), "pose": ("box", "pose", "kobj", "cls", "dfl"),
+              "obb": ("box", "cls", "dfl")}
 
 
 def pack_img(img):
@@ -244,8 +249,11 @@ class Trainer:
                 raise ValueError(f"model nc={model.nc} != dataset nc={info['nc']}; "
                                  f"build the model with YOLO(cfg, nc={info['nc']})")
             kpt_shape = info.get("kpt_shape")
-            dataset = YOLODataset(info["train"], cache_images=self.cache, kpt_shape=kpt_shape)
-            if self.yolo.task == "pose":
+            dataset = YOLODataset(info["train"], cache_images=self.cache, kpt_shape=kpt_shape,
+                                  obb=self.yolo.task == "obb")
+            if self.yolo.task == "obb":
+                transforms = OBBTrainTransforms(self.imgsz, self.hyp, self.max_gt)
+            elif self.yolo.task == "pose":
                 transforms = PoseTrainTransforms(self.imgsz, self.hyp, self.max_gt, kpt_shape or (17, 3),
                                                  flip_idx=info.get("flip_idx"))
             else:
@@ -284,7 +292,8 @@ class Trainer:
                     batch = next(source)
                     wait = time.perf_counter() - t0
                     wait_s += wait
-                    host_batch = {k: batch[k] for k in ("cls", "bboxes", "mask", "masks", "keypoints") if k in batch}
+                    host_batch = {k: batch[k] for k in ("cls", "bboxes", "mask", "masks", "keypoints", "rboxes")
+                                  if k in batch}
                     t1 = time.perf_counter()
                     img = batch["img"] if transforms is None else render(batch["plan"], batch["sources"], self.device)
                     rendering = time.perf_counter() - t1

@@ -1,10 +1,10 @@
 """Validator: dataset -> device letterbox -> the model graph -> decode -> TP matching -> mAP.
 
 Counterpart of `lpc_yolo_tpu/engine/validator.py::Validator` for the v10,
-v8, segment and pose tasks (`__init__` :34-71, the v10, v8, segment and
-pose predicts of `_make_predict`, `_gt_masks` :155-172, `_gt_kpts`
-:175-186, `__call__` :202-362, `_to_coco_json` :364-382); the OBB branch
-waits. A Detect (v8) model decodes through
+v8, segment, pose and OBB tasks (`__init__` :34-71, the v10, v8, segment,
+pose and OBB predicts of `_make_predict`, `_gt_masks` :155-172, `_gt_kpts`
+:175-186, `_gt_rboxes` :188-200, `__call__` :202-362, `_to_coco_json`
+:364-382). A Detect (v8) model decodes through
 `non_max_suppression` at `conf`, `iou` and one candidate per (anchor, class)
 (`multi_label`, :148-150), its greedy loop one launch of the NMS kernel per
 batch; matching, metrics and COCO rescoring are the same for both.
@@ -42,6 +42,16 @@ keypoint set of ndim 2 raises NotImplementedError: the JAX `kpt_iou_np`
 reads the visibility column (`utils/metrics.py:306`), which such a set
 lacks. `fitness` stays the box fitness.
 
+An OBB model (:110-127, :273-279) decodes through `nms_rotated` with one
+candidate per (anchor, class); each kept row is [its rotated box's hull,
+conf, cls] for the confusion matrix, and rows are matched to the ground
+truth by probIoU (`utils/metrics.py::probiou_matrix_np`, the JAX numpy) of
+the rotated boxes in letterbox pixels (`ValTransforms`). The results carry
+the box keys only, as in the JAX package. The JAX `_gt_rboxes` reads every
+label row while the labels keep the first max_gt; here only the kept rows
+are read, and the rotated boxes come from the quads in pixels
+(`data/dataset.py::rotated_boxes`).
+
 `speed` holds the seconds spent in each part, summed over the run as in the
 JAX package: "preprocess" is the host's time to copy and enqueue the
 letterbox, "inference" runs until the detections are on the host (so it holds
@@ -61,9 +71,11 @@ import torch
 
 from ..data import DataLoader, ValTransforms, YOLODataset, check_det_dataset
 from ..losses.pose import OKS_SIGMA
+from ..ops.boxes import rbox_hull
 from ..ops.masks import fill_poly, process_kept_rows
 from ..utils import resolve_device
-from ..utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, kpt_iou_np, mask_iou, match_predictions
+from ..utils.metrics import (ConfusionMatrix, DetMetrics, box_iou_np, kpt_iou_np, mask_iou, match_predictions,
+                             probiou_matrix_np)
 from .predictor import letterbox_batch, serving_model
 
 
@@ -111,9 +123,13 @@ class Validator:
     def predict(self, model, x: torch.Tensor):
         """(n, max_det, 6) detections in letterbox pixels, f32, on the host; for a segment model with
         the detections on the device, the rows' mask coefficients and the prototypes; for a pose model
-        with the rows' keypoints (n, max_det, nk) on the host."""
+        with the rows' keypoints (n, max_det, nk) on the host; for an OBB model [hull, conf, cls] rows and
+        the rotated boxes (n, max_det, 5) on the host."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         out = model.predict(x, self.max_det, self.conf, self.iou, multi_label=True)
+        if model.task == "obb":
+            det = torch.cat([rbox_hull(out[..., :5]), out[..., 5:7]], -1)
+            return det.cpu().numpy(), out[..., :5].cpu().numpy()
         if model.task == "pose":
             return out[0].cpu().numpy(), out[1].cpu().numpy()
         if isinstance(out, tuple):
@@ -166,7 +182,8 @@ class Validator:
         if pose and model.model[-1].kpt_shape[1] != 3:
             raise NotImplementedError(f"val of a kpt_shape {model.model[-1].kpt_shape} model is not ported: the JAX "
                                       f"kpt_iou_np reads a visibility column (lpc_yolo_tpu/utils/metrics.py:306)")
-        dataset = YOLODataset(info["val"], cache_images=self.cache_images, kpt_shape=info.get("kpt_shape"))
+        dataset = YOLODataset(info["val"], cache_images=self.cache_images, kpt_shape=info.get("kpt_shape"),
+                              obb=model.task == "obb")
         loader = DataLoader(dataset, ValTransforms(self.imgsz, self.max_gt), batch_size=self.batch,
                             workers=self.workers)
         model = serving_model(model, self.device, self.dtype)
@@ -198,7 +215,10 @@ class Validator:
                             st["target_cls"].append(gt_cls)
                         cm.process_batch(None, gt_boxes, gt_cls)
                     continue
-                iou = box_iou_np(gt_boxes, rows[:, :4])
+                if model.task == "obb":  # rotated probIoU matching (reference obb/val.py _process_batch)
+                    iou = probiou_matrix_np(batch["rboxes"][j][batch["mask"][j]], extra[0][j][keep])
+                else:
+                    iou = box_iou_np(gt_boxes, rows[:, :4])
                 stats["tp"].append(match_predictions(rows[:, 5], gt_cls, iou, self.iouv))
                 stats["conf"].append(rows[:, 4])
                 stats["pred_cls"].append(rows[:, 5])

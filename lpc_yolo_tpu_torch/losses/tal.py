@@ -1,7 +1,10 @@
 """Task-aligned assignment at padded static shapes (B, M, A).
 
-Counterpart of `lpc_yolo_tpu/losses/tal.py::task_aligned_assigner` (:32-148,
-unrotated branch; reference tal.py:13-290). Ground truths arrive padded to a
+Counterpart of `lpc_yolo_tpu/losses/tal.py::task_aligned_assigner` (:32-148;
+reference tal.py:13-290), both branches: with `rotated` the boxes are (..., 5)
+[cx, cy, w, h, angle], an anchor is a candidate when it lies in the rotated
+rectangle (its projections on the corner edges ab and ad, `>=` 0 and `<=`
+the squared edge lengths, JAX :53-67) and the overlap is probIoU (:81-82). Ground truths arrive padded to a
 fixed M with `mask_gt` marking the real rows, and every branch of the
 reference is an always-applied select, as in the JAX package.
 
@@ -19,12 +22,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.boxes import bbox_iou
+from ..ops.boxes import bbox_iou, probiou, xywhr2xyxyxyxy
 
 
 class AssignResult(NamedTuple):
     target_labels: torch.Tensor  # (B, A) int64
-    target_bboxes: torch.Tensor  # (B, A, 4) xyxy
+    target_bboxes: torch.Tensor  # (B, A, 4) xyxy, or (B, A, 5) rotated
     target_scores: torch.Tensor  # (B, A, nc) soft targets
     fg_mask: torch.Tensor  # (B, A) bool
     target_gt_idx: torch.Tensor  # (B, A) int64
@@ -33,32 +36,46 @@ class AssignResult(NamedTuple):
 @torch.no_grad()
 def task_aligned_assigner(
     pd_scores: torch.Tensor,  # (B, A, nc) post-sigmoid
-    pd_bboxes: torch.Tensor,  # (B, A, 4) xyxy, image units
+    pd_bboxes: torch.Tensor,  # (B, A, 4) xyxy (or (B, A, 5) rotated), image units
     anc_points: torch.Tensor,  # (A, 2) image units
     gt_labels: torch.Tensor,  # (B, M) integer
-    gt_bboxes: torch.Tensor,  # (B, M, 4) xyxy, image units
+    gt_bboxes: torch.Tensor,  # (B, M, 4) xyxy (or (B, M, 5) rotated), image units
     mask_gt: torch.Tensor,  # (B, M) bool: valid (non-pad) gt rows
     topk: int = 10,
     num_classes: int = 80,
     alpha: float = 0.5,
     beta: float = 6.0,
     eps: float = 1e-9,
+    rotated: bool = False,
 ) -> AssignResult:
     B, A, nc = pd_scores.shape
     M = gt_bboxes.shape[1]
     mask_gt_f = mask_gt.to(pd_scores.dtype)
 
-    # candidates whose centre lies inside each gt
-    lt = gt_bboxes[..., None, :2]  # (B, M, 1, 2)
-    rb = gt_bboxes[..., None, 2:]
-    deltas = torch.cat([anc_points[None, None] - lt, rb - anc_points[None, None]], -1)
-    mask_in_gts = (deltas.amin(-1) > eps).to(pd_scores.dtype)  # (B, M, A)
+    if rotated:  # anchors inside each rotated gt: projections onto its corner edges ab and ad
+        corners = xywhr2xyxyxyxy(gt_bboxes)  # (B, M, 4, 2)
+        a_pt, b_pt, d_pt = corners[..., 0, :], corners[..., 1, :], corners[..., 3, :]
+        ab, ad = b_pt - a_pt, d_pt - a_pt  # (B, M, 2)
+        ap = anc_points[None, None] - a_pt[..., None, :]  # (B, M, A, 2)
+        dot_ab = (ap * ab[..., None, :]).sum(-1)
+        dot_ad = (ap * ad[..., None, :]).sum(-1)
+        norm_ab = (ab * ab).sum(-1, keepdim=True)
+        norm_ad = (ad * ad).sum(-1, keepdim=True)
+        mask_in_gts = ((dot_ab >= 0) & (dot_ab <= norm_ab) & (dot_ad >= 0) & (dot_ad <= norm_ad)).to(pd_scores.dtype)
+    else:  # candidates whose centre lies inside each gt
+        lt = gt_bboxes[..., None, :2]  # (B, M, 1, 2)
+        rb = gt_bboxes[..., None, 2:]
+        deltas = torch.cat([anc_points[None, None] - lt, rb - anc_points[None, None]], -1)
+        mask_in_gts = (deltas.amin(-1) > eps).to(pd_scores.dtype)  # (B, M, A)
 
-    # align metric = score^alpha * CIoU^beta on the valid candidates
+    # align metric = score^alpha * IoU^beta on the valid candidates (CIoU, or probIoU when rotated)
     valid = mask_in_gts * mask_gt_f[..., None]
     labels = gt_labels.long().clamp(0, nc - 1)
     bbox_scores = pd_scores.transpose(1, 2).gather(1, labels[:, :, None].expand(B, M, A)) * valid
-    overlaps = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :], xywh=False, CIoU=True).squeeze(-1)
+    if rotated:
+        overlaps = probiou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :])
+    else:
+        overlaps = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :], xywh=False, CIoU=True).squeeze(-1)
     overlaps = overlaps.clamp(min=0) * valid
     align_metric = bbox_scores ** alpha * overlaps ** beta
 

@@ -3,7 +3,7 @@
 Same schema and channel inference as the JAX compiler (make_divisible :87,
 LayerSpec :94, yaml_model_load :110, parse_model :119-284), implemented for
 the modules that the LPC-YOLO YAML, the six YOLOv10 scales (n/s/m/b/l/x) and
-the five YOLOv8 scales (n/s/m/l/x), detect, segment and pose, reach; any other module raises
+the five YOLOv8 scales (n/s/m/l/x), detect, segment, pose and OBB, reach; any other module raises
 NotImplementedError. The model routes `from` indices and keeps the save list
 like `DetectionModel._run` (:718-1019), without the TPU width-pack, upsample-
 commute, s2d-fold plans or int8. A layer whose output no later layer reads
@@ -25,18 +25,19 @@ import torch
 import torch.nn as nn
 import yaml
 
-from ..ops.nms import non_max_suppression
+from ..ops.nms import nms_rotated, non_max_suppression
 from ..ops.repack import repack_width_kernel
 from ..utils import resolve_device
 from . import modules as M
-from .heads import Detect, Pose, Segment, V10Detect, decode_feats, decode_feats_topk_split, decode_kpts
+from .heads import (OBB, Detect, Pose, Segment, V10Detect, decode_feats, decode_feats_obb, decode_feats_topk_split,
+                    decode_kpts)
 
 # Modules whose YAML arg[0] is the (width-scaled) output-channel count, and the
 # subset that also takes the (depth-scaled) repeat count.
 _BASE = {"Conv", "Bottleneck", "SPPF", "C2f", "PSA", "LPC", "SCDown", "C2fCIB"}
 _REPEAT = {"C2f", "C2fCIB"}
 # the ported heads, each one's task (JAX names)
-HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8", "Segment": "segment", "Pose": "pose"}
+HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8", "Segment": "segment", "Pose": "pose", "OBB": "obb"}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -172,6 +173,8 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         return Segment(nc=a[0], nm=a[1], npr=a[2], ch=a[-1], strides=strides)
     if m == "Pose":  # kpt_shape defaults to COCO's (17, 3), as in the JAX graph (:901)
         return Pose(nc=a[0], kpt_shape=a[1] if len(a) > 2 else (17, 3), ch=a[-1], strides=strides)
+    if m == "OBB":  # ne defaults to 1, as in the JAX graph (:918)
+        return OBB(nc=a[0], ne=a[1] if len(a) > 2 else 1, ch=a[-1], strides=strides)
     raise NotImplementedError(m)
 
 
@@ -183,11 +186,13 @@ class DetectionModel(nn.Module):
     returns (:931-947): {"feats", "mc", "proto"} in train mode, and in eval
     mode also "pred" (the v8 decode); a Pose head (:900-915) {"feats",
     "kpt_raw"} in train mode and {"feats", "pred", "kpt"} (the keypoints
-    decoded) in eval mode. `predict(x)` decodes them to (B, max_det, 6):
-    v10Detect's one-to-one branch through the NMS-free top-k, Detect's,
-    Segment's and Pose's maps through `decode_feats` and
-    `non_max_suppression`; for Segment with each row's mask coefficients and
-    the prototypes, for Pose with each row's keypoints (see `predict`). x is (B, 3, H, W)
+    decoded) in eval mode; an OBB head (:917-930) {"feats", "angle"} in train
+    mode and also "pred" (`decode_feats_obb`) in eval mode. `predict(x)`
+    decodes them to (B, max_det, 6): v10Detect's one-to-one branch through the
+    NMS-free top-k, Detect's, Segment's and Pose's maps through `decode_feats`
+    and `non_max_suppression`; for Segment with each row's mask coefficients
+    and the prototypes, for Pose with each row's keypoints; an OBB model's to
+    (B, max_det, 7) rotated rows by `nms_rotated` (see `predict`). x is (B, 3, H, W)
     RGB in [0, 1], or another `input_layout` of the same image (see
     `to_nchw`).
     """
@@ -249,6 +254,12 @@ class DetectionModel(nn.Module):
                 shapes = [(cm.shape[2], cm.shape[3]) for _, cm in feats]
                 return {"feats": feats, "pred": decode_feats(feats, self.strides, self.nc, self.reg_max),
                         "kpt": decode_kpts(kpt, shapes, self.strides, module.kpt_shape)}
+            if spec.module == "OBB":
+                feats, angle = module(inp)
+                out = {"feats": feats, "angle": angle}
+                if not self.training:
+                    out["pred"] = decode_feats_obb(feats, angle, self.strides, self.nc, self.reg_max)
+                return out
             if dead:  # train mode: only its BatchNorm statistics are wanted
                 with torch.no_grad():
                     module(inp)
@@ -266,7 +277,13 @@ class DetectionModel(nn.Module):
         anchor as the JAX predictor does (:328-331), the prototypes (B, nm, H/4, W/4)); the masks
         are decoded by the caller for the rows it keeps (`ops/masks.py::process_mask`). A Pose model
         returns (detections, each row's decoded keypoints (B, max_det, nk) f32 in letterbox pixels,
-        gathered by its anchor as the JAX predictor does, :175-180)."""
+        gathered by its anchor as the JAX predictor does, :175-180). An OBB model returns (B, max_det, 7)
+        [cx, cy, w, h, angle, score, label] rows from `nms_rotated` (the JAX predictor :181-190 and validator
+        :110-127; invalid rows 0 with label -1)."""
+        if self.task == "obb":
+            pred = self.forward(x)["pred"]
+            rb = torch.cat([pred[..., :4], pred[..., -1:]], -1)
+            return nms_rotated(rb, pred[..., 4:4 + self.nc], conf, iou, max_det, multi_label=multi_label)
         if self.task in ("segment", "pose"):
             out = self.forward(x)
             det, anchor = non_max_suppression(out["pred"], conf, iou, max_det, multi_label=multi_label,

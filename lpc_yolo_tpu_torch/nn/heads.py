@@ -1,9 +1,10 @@
-"""The v8 Detect, Segment, Pose and v10Detect heads, the NMS-free top-k decode, the v8 decode and the
-keypoint decode (NCHW).
+"""The v8 Detect, Segment, Pose, OBB and v10Detect heads, the NMS-free top-k decode, the v8 decode, the
+keypoint decode and the rotated decode (NCHW).
 
 Counterpart of `lpc_yolo_tpu/nn/heads.py` (`_v8_towers` :52-77, Detect
-:80-92, Segment :95-119, Pose :122-154, decode_kpts :157-176; V10Detect :234, plain branch :309-335;
-decode_feats_topk_split :401-496, unpacked case; decode_feats :521). The segmented TPU top-k
+:80-92, Segment :95-119, Pose :122-154, decode_kpts :157-176, OBB :178-204, dist2rbox :207-216;
+V10Detect :234, plain branch :309-335; decode_feats_topk_split :401-496, unpacked case;
+decode_feats_obb :499-518; decode_feats :521). The segmented TPU top-k
 (`heads._topk`) becomes `torch.topk`. Both heads return per-level
 (box_map, cls_map) pairs where the JAX heads concatenate the two on the
 channel axis; the losses and the decodes take the pairs.
@@ -109,6 +110,47 @@ def decode_kpts(kpt: torch.Tensor, feat_shapes, strides: Sequence[float],
     if kpt_shape[1] == 3:
         xy = torch.cat([xy, y[..., 2:3].sigmoid()], -1)
     return xy.reshape(B, A, nk)
+
+
+class OBB(Detect):
+    """YOLOv8 oriented-box head (reference head.py:130-159): the Detect towers and an angle tower per level
+    (cv4: 3x3 ConvBN, 3x3 ConvBN, 1x1 conv to ne, c4 = max(ch[0] // 4, ne)). `forward` returns (the Detect
+    pairs, the angle (B, A, ne) f32 over the levels in the anchor order, mapped to [-pi/4, 3 pi/4] by
+    (sigmoid - 0.25) * pi in f32)."""
+
+    def __init__(self, nc: int = 15, ne: int = 1, ch: Sequence[int] = (), strides=(8.0, 16.0, 32.0),
+                 reg_max: int = 16):
+        super().__init__(nc, ch, strides, reg_max)
+        self.ne = ne
+        c4 = max(ch[0] // 4, ne)
+        self.cv4 = nn.ModuleList(nn.Sequential(ConvBN(c, c4, 3), ConvBN(c4, c4, 3), nn.Conv2d(c4, ne, 1)) for c in ch)
+
+    def forward(self, xs: Sequence[torch.Tensor]):
+        angle = torch.cat([self.cv4[i](x).flatten(2) for i, x in enumerate(xs)], 2).transpose(1, 2).float()
+        return super().forward(xs), (angle.sigmoid() - 0.25) * math.pi
+
+
+def dist2rbox(pred_dist: torch.Tensor, angle: torch.Tensor, anchor_points: torch.Tensor) -> torch.Tensor:
+    """Rotated decode (reference tal.py:329-345): the (l, t, r, b) midpoint offset rotated by the angle about
+    the anchor -> (..., 4) [cx, cy, w, h]."""
+    lt, rb = pred_dist.chunk(2, -1)
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    xf, yf = ((rb - lt) / 2).chunk(2, -1)
+    x = xf * cos - yf * sin
+    y = xf * sin + yf * cos
+    return torch.cat([torch.cat([x, y], -1) + anchor_points, lt + rb], -1)
+
+
+def decode_feats_obb(feats: Sequence[Tuple[torch.Tensor, torch.Tensor]], angle: torch.Tensor,
+                     strides: Sequence[float], nc: int, reg_max: int = 16) -> torch.Tensor:
+    """Per-level (box, cls) maps and the angle (B, A, 1) in radians -> (B, A, 4 + nc + 1) f32 = [cx, cy, w, h
+    (the rotated box in input pixels), sigmoid class scores, angle] (`OBB.decode_bboxes`)."""
+    box = torch.cat([bm.flatten(2) for bm, _ in feats], 2).transpose(1, 2).float()
+    cls = torch.cat([cm.flatten(2) for _, cm in feats], 2).transpose(1, 2).float()
+    shapes = [(cm.shape[2], cm.shape[3]) for _, cm in feats]
+    anchor_points, stride_tensor = make_anchors(shapes, strides, 0.5, device=box.device)
+    rbox = dist2rbox(dfl_expectation(box, reg_max), angle, anchor_points) * stride_tensor
+    return torch.cat([rbox, cls.sigmoid(), angle], -1)
 
 
 def _cls_tower(ci: int, c3: int, nc: int) -> nn.Sequential:

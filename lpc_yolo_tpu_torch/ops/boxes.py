@@ -1,6 +1,6 @@
 """Box conversions and IoU (counterpart of `lpc_yolo_tpu/ops/boxes.py`
-xywh2xyxy :19, bbox_iou :72, scale_boxes :174, clip_boxes :195; reference
-ops.py, metrics.py)."""
+xywh2xyxy :19, bbox_iou :72, probiou :145, xywhr2xyxyxyxy :164, scale_boxes
+:174, clip_boxes :195, rbox_hull :203; reference ops.py, metrics.py)."""
 
 from __future__ import annotations
 
@@ -74,3 +74,46 @@ def scale_boxes(img1_shape, boxes: torch.Tensor, img0_shape, ratio_pad=None, pad
     if padding:
         boxes = boxes - torch.tensor([pad[0], pad[1], pad[0], pad[1]], dtype=boxes.dtype, device=boxes.device)
     return clip_boxes(boxes / gain, img0_shape)
+
+
+def _rbox_covariance(obb: torch.Tensor):
+    """The Gaussian covariance terms (a, b, c) of rotated boxes [cx, cy, w, h, angle] (JAX :134-140)."""
+    w, h, r = obb[..., 2], obb[..., 3], obb[..., 4]
+    a, b = w ** 2 / 12.0, h ** 2 / 12.0
+    cos, sin = torch.cos(r), torch.sin(r)
+    return a * cos ** 2 + b * sin ** 2, a * sin ** 2 + b * cos ** 2, (a - b) * cos * sin
+
+
+def probiou(obb1: torch.Tensor, obb2: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Probabilistic IoU of rotated boxes (..., 5) [cx, cy, w, h, angle], elementwise with broadcasting ->
+    (...,) in [0, 1], in the JAX order of operations (:145-161): the Bhattacharyya distance clipped to
+    [eps, 100], then 1 - sqrt(1 - exp(-bd) + eps)."""
+    x1, y1 = obb1[..., 0], obb1[..., 1]
+    x2, y2 = obb2[..., 0], obb2[..., 1]
+    a1, b1, c1 = _rbox_covariance(obb1)
+    a2, b2, c2 = _rbox_covariance(obb2)
+    denom = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / denom * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / denom * 0.5
+    det1 = (a1 * b1 - c1 ** 2).clamp(min=0)
+    det2 = (a2 * b2 - c2 ** 2).clamp(min=0)
+    t3 = torch.log(denom / (4 * torch.sqrt(det1 * det2) + eps) + eps) * 0.5
+    bd = (t1 + t2 + t3).clamp(eps, 100.0)
+    return 1.0 - torch.sqrt(1.0 - torch.exp(-bd) + eps)
+
+
+def xywhr2xyxyxyxy(rbox: torch.Tensor) -> torch.Tensor:
+    """Rotated boxes (..., 5) -> their corners (..., 4, 2): ctr + v1 + v2, ctr + v1 - v2, ctr - v1 - v2,
+    ctr - v1 + v2 with v1 = w/2 (cos, sin), v2 = h/2 (-sin, cos) (JAX :164-171)."""
+    c, s = torch.cos(rbox[..., 4]), torch.sin(rbox[..., 4])
+    w2, h2 = rbox[..., 2] / 2, rbox[..., 3] / 2
+    v1 = torch.stack([w2 * c, w2 * s], -1)
+    v2 = torch.stack([-h2 * s, h2 * c], -1)
+    ctr = rbox[..., :2]
+    return torch.stack([ctr + v1 + v2, ctr + v1 - v2, ctr - v1 - v2, ctr - v1 + v2], -2)
+
+
+def rbox_hull(rbox: torch.Tensor) -> torch.Tensor:
+    """The axis-aligned hull (..., 4) xyxy of rotated boxes (..., 5) (JAX :203-208)."""
+    pts = xywhr2xyxyxyxy(rbox)
+    return torch.cat([pts.amin(-2), pts.amax(-2)], -1)

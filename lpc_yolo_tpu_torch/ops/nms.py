@@ -17,6 +17,11 @@ plain loop would cost ~25 launches a step, 300 steps a batch.
 The IoU is computed in the JAX order, `inter / (area1 + area2 - inter +
 1e-7)` on the offset boxes, each operation rounded on its own, so the kernel
 and `nms_plain` keep the same indices bit for bit on the same pool.
+
+`nms_rotated` is the JAX rotated fast-NMS (:187-280) for oriented boxes:
+one pass over the (k, k) probIoU of the score-sorted pool, in plain batched
+PyTorch as the JAX package writes it in XLA ops (it is no Pallas kernel there
+and no hand-written kernel here).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .boxes import xywh2xyxy
+from .boxes import probiou, xywh2xyxy
 
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on an H100
 POOL_BYTES = 24  # shared memory per pool entry in csrc/nms.cu: offset box, area, live score
@@ -121,24 +126,28 @@ def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor, 
 nms_greedy.launches = 0
 
 
-def candidate_pool(preds: torch.Tensor, pre_topk: int = 4096, multi_label: bool = False):
-    """(B, A, 4 + nc) xywh + scores -> the pool: (B, k, 4) xyxy boxes, (B, k) scores, labels, anchors.
+def top_candidates(scores_all: torch.Tensor, pre_topk: int, multi_label: bool):
+    """(B, A, nc) post-sigmoid scores -> the (B, k) scores, labels and anchors of the candidates: with
+    `multi_label` the top `pre_topk` of the anchor-major (B, A * nc) scores, one per (anchor, class);
+    otherwise each anchor's best class, then the top `pre_topk` anchors (JAX :123-136, :224-237).
 
-    The JAX pre-pool (:138-153): `torch.topk` for `lax.top_k` (ties may come out in another order),
-    gathers for `take_along_axis`."""
-    boxes_xyxy = xywh2xyxy(preds[..., :4])
-    scores_all = preds[..., 4:]
+    `torch.topk` stands for `lax.top_k`, which puts the lower index first among equal scores; `torch.topk`
+    promises no order among them, so candidates of equal score may swap places, and at the cut-off either
+    may enter."""
     B, A, nc = scores_all.shape
     if multi_label:
-        k = min(pre_topk, A * nc)
-        scores, flat_idx = scores_all.reshape(B, A * nc).topk(k, 1)
-        labels, anchor = flat_idx % nc, flat_idx // nc
-    else:
-        scores_best, labels_best = scores_all.max(-1)
-        k = min(pre_topk, A)
-        scores, anchor = scores_best.topk(k, 1)
-        labels = labels_best.gather(1, anchor)
-    boxes = boxes_xyxy.gather(1, anchor[..., None].expand(B, k, 4))
+        scores, flat_idx = scores_all.reshape(B, A * nc).topk(min(pre_topk, A * nc), 1)
+        return scores, flat_idx % nc, flat_idx // nc
+    scores_best, labels_best = scores_all.max(-1)
+    scores, anchor = scores_best.topk(min(pre_topk, A), 1)
+    return scores, labels_best.gather(1, anchor), anchor
+
+
+def candidate_pool(preds: torch.Tensor, pre_topk: int = 4096, multi_label: bool = False):
+    """(B, A, 4 + nc) xywh + scores -> the pool: (B, k, 4) xyxy boxes, (B, k) scores, labels, anchors
+    (`top_candidates`; gathers for `take_along_axis`)."""
+    scores, labels, anchor = top_candidates(preds[..., 4:], pre_topk, multi_label)
+    boxes = xywh2xyxy(preds[..., :4]).gather(1, anchor[..., None].expand(*anchor.shape, 4))
     return boxes, scores, labels, anchor
 
 
@@ -151,3 +160,52 @@ def non_max_suppression(preds: torch.Tensor, conf_thres: float = 0.25, iou_thres
     pool = candidate_pool(preds.float(), pre_topk, multi_label)
     out, out_anchor = nms_greedy(*pool, conf_thres, iou_thres, max_det, agnostic, max_wh)
     return (out, out_anchor) if return_anchor_idx else out
+
+
+PROBIOU_CHUNK = 1 << 23  # pairwise probIoU elements computed at once (images of one batch at a time)
+
+
+def nms_rotated(rboxes: torch.Tensor, scores_all: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
+                max_det: int = 300, pre_topk: int = 1024, agnostic: bool = False, multi_label: bool = False,
+                max_wh: float = 7680.0) -> torch.Tensor:
+    """Static-shape rotated fast-NMS by pairwise probIoU (JAX `ops/postprocess.py::nms_rotated`, :187-280;
+    reference ops.py:143-161 and the rotated branch of non_max_suppression).
+
+    rboxes (B, A, 5) [cx, cy, w, h, angle], scores_all (B, A, nc) post-sigmoid; the candidates are
+    `top_candidates`'. Unless `agnostic`, label * max_wh is added to both centre coordinates. A candidate
+    above `conf_thres` survives when no higher-ranked valid candidate overlaps it by probIoU >= `iou_thres`
+    (the column max of the upper triangle; one pass, no suppression chain). Returns (B, max_det, 7)
+    [cx, cy, w, h, angle, score, label], rows ranked by score, invalid rows 0 with label -1.
+
+    Both rankings are `torch.topk`, so besides the pool's cut-off (`top_candidates`) candidates of equal
+    score may swap places in the triangle (which of two equal-scored overlapping boxes suppresses the
+    other) and in the output's order. Other inputs give the JAX rows. The (k, k) probIoU is computed
+    `PROBIOU_CHUNK` elements at a time over the images, which changes no value.
+    """
+    rboxes, scores_all = rboxes.float(), scores_all.float()
+    scores, labels, anchor = top_candidates(scores_all, pre_topk, multi_label)
+    B, k = scores.shape
+    cand = rboxes.gather(1, anchor[..., None].expand(B, k, 5))
+    valid = scores > conf_thres
+    offset = labels.float()[..., None] * (0.0 if agnostic else max_wh)
+    off = torch.cat([cand[..., :2] + offset, cand[..., 2:]], -1)
+    upper = torch.ones(k, k, dtype=torch.bool, device=rboxes.device).triu(1)
+    keep = torch.empty_like(valid)
+    step = max(1, PROBIOU_CHUNK // (k * k))
+    for b0 in range(0, B, step):
+        rb, vl = off[b0:b0 + step], valid[b0:b0 + step]
+        iou = probiou(rb[:, :, None], rb[:, None])  # (b, k, k)
+        tri = torch.where(upper & vl[:, :, None] & vl[:, None], iou, 0.0)
+        keep[b0:b0 + step] = (tri.amax(1) < iou_thres) & vl
+    sel = torch.where(keep, scores, -1.0)
+    kd = min(max_det, k)
+    out_scores, kidx = sel.topk(kd, 1)
+    ok = out_scores > 0
+    rows = cand.gather(1, kidx[..., None].expand(B, kd, 5))
+    det = torch.cat([torch.where(ok[..., None], rows, 0.0), torch.where(ok, out_scores, 0.0)[..., None],
+                     torch.where(ok, labels.gather(1, kidx).float(), -1.0)[..., None]], -1)
+    if kd < max_det:  # fewer candidates than max_det (small inputs): pad the fixed-shape output
+        pad = torch.zeros(B, max_det - kd, 7, device=det.device)
+        pad[..., -1] = -1.0
+        det = torch.cat([det, pad], 1)
+    return det

@@ -4,7 +4,8 @@ Counterpart of `lpc_yolo_tpu/utils/metrics.py` (`box_iou_np`, `match_predictions
 `compute_ap`, `ap_per_class`, `smooth`, `DetMetrics`, `ConfusionMatrix`), kept
 as its own copy so the port imports nothing of the JAX package; `mask_iou`
 is `mask_iou_np` (:281-292) in torch, on the masks' device; `kpt_iou_np`
-(:295-308) is the same numpy. The rotated-box IoU waits for the OBB validator.
+(:295-308), `probiou_np` (:30-55) and `probiou_matrix_np` (:311-320) are the
+same numpy.
 """
 
 from __future__ import annotations
@@ -35,6 +36,39 @@ def mask_iou(gt: torch.Tensor, pred: torch.Tensor, eps: float = 1e-7) -> torch.T
     inter = g @ p.T
     union = g.sum(1)[:, None] + p.sum(1)[None] - inter
     return inter / (union + eps)
+
+
+def probiou_np(obb1: np.ndarray, obb2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Probabilistic IoU of rotated boxes (reference metrics.py:198-260), elementwise: obb1, obb2 (N, 5)
+    [cx, cy, w, h, angle] -> (N,)."""
+
+    def covariance(obb):
+        w, h, r = obb[:, 2], obb[:, 3], obb[:, 4]
+        a, b = (w ** 2) / 12.0, (h ** 2) / 12.0
+        cos, sin = np.cos(r), np.sin(r)
+        return a * cos ** 2 + b * sin ** 2, a * sin ** 2 + b * cos ** 2, (a - b) * cos * sin
+
+    x1, y1 = obb1[:, 0], obb1[:, 1]
+    x2, y2 = obb2[:, 0], obb2[:, 1]
+    a1, b1, c1 = covariance(obb1)
+    a2, b2, c2 = covariance(obb2)
+    det = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2  # eps is added where the JAX numpy adds it, not in t3
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / (det + eps) * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / (det + eps) * 0.5
+    t3 = np.log(det / (4 * np.sqrt(np.clip(a1 * b1 - c1 ** 2, 0, None) * np.clip(a2 * b2 - c2 ** 2, 0, None)) + eps)
+                + eps) * 0.5
+    bd = np.clip(t1 + t2 + t3, eps, 100.0)
+    hd = np.sqrt(1.0 - np.exp(-bd) + eps)
+    return 1 - hd
+
+
+def probiou_matrix_np(obb1: np.ndarray, obb2: np.ndarray) -> np.ndarray:
+    """Pairwise probIoU (M, 5) x (N, 5) -> (M, N), the OBB validator's match criterion (reference
+    batch_probiou)."""
+    m, n = len(obb1), len(obb2)
+    if m == 0 or n == 0:
+        return np.zeros((m, n), np.float32)
+    return probiou_np(np.repeat(obb1, n, axis=0), np.tile(obb2, (m, 1))).reshape(m, n)
 
 
 def kpt_iou_np(gt_kpts: np.ndarray, pred_kpts: np.ndarray, area: np.ndarray, sigmas: np.ndarray,

@@ -216,6 +216,65 @@ def test_conv3x3_pose_shapes_match_plain(B, H, W, C, Co, dtype):
         assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
 
 
+# (B, H, W, C, Co) of the YOLOv8-obb angle towers at their serving batch and imgsz 1024: c4 = max(ch0 // 4, 1), so on n
+# each level's channels (64, 128, 256) go to 16 and 16 -> 16 runs at 128x128, 64x64 and 32x32 (small K, many blocks);
+# on x 320 -> 80 and 80 -> 80 at 128x128.
+OBB_CONV_CASES = [
+    (32, 128, 128, 64, 16), (32, 128, 128, 16, 16), (32, 64, 64, 128, 16), (32, 64, 64, 16, 16), (32, 32, 32, 256, 16),
+    (32, 32, 32, 16, 16), (32, 128, 128, 320, 80), (32, 128, 128, 80, 80),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,Co", OBB_CONV_CASES)
+def test_conv3x3_obb_shapes_match_plain(B, H, W, C, Co, dtype):
+    """The kernel against its plain version at the OBB heads' angle-tower sites at 1024 (SiLU), with the tolerances of
+    `test_conv3x3_kernel_matches_plain` (f32 abs 1e-4, bf16 2e-2 relative); one launch a call."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5).to(dtype)
+    b = torch.rand(Co, device="cuda", generator=g) - 0.5
+    before = conv3x3.launches
+    got = conv3x3(x, w, b, "silu").float()
+    ref = conv3x3_plain(x.float(), w.float(), b, "silu")
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    else:
+        assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("multi_label", [False, True], ids=["best", "multi_label"])
+def test_nms_rotated_on_the_card_matches_the_cpu(multi_label):
+    """`nms_rotated` on a b4 pool of 21,504 anchors and 15 classes (imgsz 1024, DOTAv1) on the card against the CPU on
+    the same inputs: per image the kept rows' counts within 2 of each other (a pair whose probIoU lies within f32
+    rounding of iou_thres may be cut on one side only), and 99% of the card's rows have a CPU twin of the same class,
+    score and rotated box within 1e-3 px."""
+    from lpc_yolo_tpu_torch.ops.nms import nms_rotated
+
+    rng = np.random.default_rng(9)
+    B, A, nc = 4, 21504, 15
+    rb = np.zeros((B, A, 5), np.float32)
+    rb[..., :2] = rng.uniform(0, 1024, (B, A, 2))
+    rb[..., 2:4] = rng.uniform(8, 120, (B, A, 2))
+    rb[..., 4] = (rng.random((B, A)) - 0.25) * np.pi
+    scores = (rng.random((B, A, nc)) ** 4).astype(np.float32)
+    args = (0.25, 0.45, 300)
+    cpu = nms_rotated(torch.from_numpy(rb), torch.from_numpy(scores), *args, multi_label=multi_label).numpy()
+    card = nms_rotated(torch.from_numpy(rb).cuda(), torch.from_numpy(scores).cuda(), *args,
+                       multi_label=multi_label).cpu().numpy()
+    rows = twins = 0
+    for a, b in zip(card, cpu):
+        a, b = a[a[:, 5] > 0], b[b[:, 5] > 0]
+        assert abs(len(a) - len(b)) <= 2 and len(a) > 50
+        for row in a:
+            same = (b[:, 6] == row[6]) & (b[:, 5] == row[5])
+            twins += bool(same.any() and np.abs(b[same, :5] - row[:5]).max(1).min() <= 1e-3)
+        rows += len(a)
+    assert twins >= 0.99 * rows
+
+
 def test_kept_rows_masks_on_the_card_match_the_cpu():
     """`process_mask(..., upsample=True)` of 200 kept rows at 640 on the card against the CPU on the same inputs
     (f32 sigmoid masks within 1e-5), and `unletterbox_masks` to a 720x1280 frame: on the same masks bit for bit

@@ -247,7 +247,7 @@ def test_trainer_hands_back_ema_and_bn_stats(world, tmp_path):
 def test_entry_points_refuse_what_is_not_ported(world):
     tm = port_model(world)
     with pytest.raises(NotImplementedError):
-        tts.make_train_step(tm, tts.OptConfig(), loss_kind="obb")
+        tts.make_train_step(tm, tts.OptConfig(), loss_kind="classify")
     with pytest.raises(NotImplementedError):
         tts.make_train_step(tm, tts.OptConfig(optimizer="lion"))
     # the transforms the data path does not carry: mosaic9, copy_paste, warpPerspective
