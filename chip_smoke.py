@@ -7,6 +7,7 @@
     python3 chip_smoke.py --seg        # device, build, then phase 13 (the seg scales) only
     python3 chip_smoke.py --pose       # device, build, then phase 14 (the pose scales) only
     python3 chip_smoke.py --obb        # device, build, then phase 15 (the OBB scales at 1024) only
+    python3 chip_smoke.py --cls        # device, build, then phase 16 (the classifiers at 224) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -179,16 +180,34 @@ Phases, in order; any failure raises and the script exits non-zero:
             YOLO("yolov8n-obb.yaml", nc=3).train(data=..., save=True) at
             1024 on a set of drawn rotated rectangles, 3 epochs, counters
             held, and its reload through YOLO.save. Numbers under "obb".
+16. cls     the seven classifiers (yolov8{n,s,m,l,x}-cls, yolov8-cls-
+            resnet50/101) at nc 1000 and imgsz 224, at their published
+            widths and depths: the letterbox kernel into 224 from the three
+            val shapes (u8 bit-exact, bf16 within 1 ulp) and timed from b32
+            720p frames beside its bound; each model's parameter count,
+            conv3x3 parity at every site (2 per C2f bottleneck; the stride-1
+            3x3 of every ResNet block; maps 56^2 to 7^2); YOLO.predict of 32
+            720p frames with the counters held (one letterbox, a conv3x3 per
+            site, no NMS) and every frame's probs; the b32 bf16 serving step
+            event-timed with its busy time, idle share and launches; conv3x3
+            against F.conv2d per site shape; the b32 train step (CE, AdamW)
+            with its peak memory; on yolov8n-cls and resnet50 the f32 probs
+            on the card against the CPU and bf16 against f32. Then the
+            classify main path: yolov8n-cls (nc 4) predict and train(data=...)
+            on a colour-folder set, 3 epochs, counters held, top-1 / top-5 by
+            epoch, last.ckpt's weights and the YOLO.save reload serving what
+            the facade serves. Numbers under "cls" and "cls_train_data".
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
 yolov8n train(data=...), and beside them, as "launches_seg", "launches_pose"
 and "launches_obb", each kernel's launches in phase 13's yolov8n-seg, phase
 14's yolov8n-pose and phase 15's yolov8n-obb train(data=...); nms's times from
-phase 12's val pool); the last line is {"ok": true, "device": {...}}. Every
+phase 12's val pool; "launches_cls" beside them from phase 16's yolov8n-cls
+predict and train(data=...)); the last line is {"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
-"pose", phase 15's under "obb").
+"pose", phase 15's under "obb", phase 16's under "cls").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -202,6 +221,10 @@ val=False, save=True), then `val` at f32 and at bf16 on the trained weights
 reloaded through YOLO.save -> YOLO(path); it prints mAP50, mAP50-95, the
 bf16 - f32 gap and the seconds, writes chiprun_out/chip_smoke_converge.json
 and exits non-zero when mAP50 <= 0.5 (the JAX slow test's bar).
+`--converge yolov8n-cls.yaml` is the classify learning proof instead: nc=4
+on a colour-folder set of 64 train and 16 val frames a class (375x500,
+256x256, 500x375), 10 epochs of b16 at 224; it exits non-zero unless the
+last epoch's top-1 exceeds 0.9 (`cls_converge`).
 """
 
 from __future__ import annotations
@@ -255,6 +278,16 @@ OBB_TRAIN_ROWS = (20, 200)  # label rows a frame of phase 15's training set: DOT
 OBB_TRAIN_SIDES = (0.01, 0.08)  # their sides, a share of 1024: DOTA's small vehicles to planes (10 to 80 px)
 OBB_LOGIT_SCALE = 4.0  # spread_obb_model: the class towers' last conv scaled, so the labelling rows stand out
 OBB_PX_TOL, OBB_RAD_TOL = 1e-2, 1e-3  # f32 predict, card vs CPU: matched rows' centre and sides, and angles
+CLS_PARAMS = {"n": 2_719_288, "s": 6_361_736, "m": 17_053_336, "l": 37_480_744, "x": 57_422_840,  # JAX's, nc 1000
+              "resnet50": 27_413_032, "resnet101": 46_405_160}  # (tests/test_torch_cls.py)
+CLS_SITES = {"n": 12, "s": 12, "m": 24, "l": 36, "x": 36, "resnet50": 13, "resnet101": 30}  # 3x3 s1 convs a forward
+CLS_IMGSZ = 224  # the published classifiers' size (ImageNet)
+CLS_PROB_TOL = 1e-4  # f32 probs, card vs CPU, absolute
+CLS_BF16_REL_TOL = 0.25  # bf16 probs vs the card's f32, of each frame's largest f32 probability
+CLS_TRAIN_BATCH = 32  # the classify train step's batch (the JAX train_classifier's default)
+CLS_NC, CLS_TRAIN_PER_CLASS, CLS_VAL_PER_CLASS = 4, 16, 4  # phase 16's colour-folder set
+CLS_FRAME_SHAPES = ((375, 500), (256, 256), (500, 375))  # ImageNet-like frames, resized to CLS_IMGSZ by the loader
+CLS_CONV_EPOCHS, CLS_CONV_PER_CLASS, CLS_TOP1_BAR = 10, 64, 0.9  # --converge yolov8n-cls.yaml
 SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits at 640
 NMS_OPS = 15  # f32 operations per pool candidate and step: the IoU in the JAX order, the compare, the argmax
 REPORT = {}
@@ -1463,9 +1496,10 @@ def scale_serving(yolo, pred, sites, host, dev):
     """YOLO.predict of the host frames at b32, the predictor's imgsz, bf16, counters reset just before and read
     just after (a letterbox, a conv3x3 per site and, for a v8, segment or pose model, one NMS for the one
     batch; an OBB model's rotated NMS is plain PyTorch), by host clock; a segment model's masks (n, h0, w0)
-    bool, a pose model's keypoints (n, 17, 3), an OBB model's rotated rows (n, 7). Then the serving step from
-    the device-resident frames (letterbox to u8, cast, forward, decode; for a segment model also each frame's
-    kept rows' masks, for a pose model the keypoints gathered by anchor) by CUDA events and its profile."""
+    bool, a pose model's keypoints (n, 17, 3), an OBB model's rotated rows (n, 7), a classify model's probs
+    (nc,) summing to 1. Then the serving step from the device-resident frames (letterbox to u8, cast, forward,
+    decode; for a segment model also each frame's kept rows' masks, for a pose model the keypoints gathered
+    by anchor, for a classify model the softmax) by CUDA events and its profile."""
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox
 
     B, S = len(host), pred.imgsz
@@ -1477,7 +1511,12 @@ def scale_serving(yolo, pred, sites, host, dev):
     launches = launches_now("letterbox", "conv3x3", "nms")
     nms = int(yolo.task in ("v8", "segment", "pose"))
     assert launches == {"letterbox": 1, "conv3x3": len(sites), "nms": nms}, launches
-    assert len(results) == B and all(np.isfinite(r.boxes.data).all() for r in results)
+    assert len(results) == B
+    if yolo.task == "classify":
+        assert all(r.boxes is None and r.probs.shape == (yolo.model.nc,) and np.isfinite(r.probs).all()
+                   and abs(float(r.probs.sum()) - 1) < 1e-3 for r in results)
+    else:
+        assert all(np.isfinite(r.boxes.data).all() for r in results)
     if yolo.task == "segment":
         assert all(r.masks is None and len(r) == 0 or r.masks.shape == (len(r), 720, 1280) and r.masks.dtype == bool
                    for r in results)
@@ -2435,6 +2474,299 @@ def obb_only() -> None:
     log("done", "phase 15 passed; numbers in chiprun_out/chip_smoke_obb.json")
 
 
+def cls_yaml(key: str) -> str:
+    """The model name of a CLS_PARAMS key: yolov8<scale>-cls.yaml or yolov8-cls-<resnet>.yaml."""
+    return f"yolov8{key}-cls.yaml" if len(key) == 1 else f"yolov8-cls-{key}.yaml"
+
+
+def cls_parity_letterbox():
+    """The letterbox kernel into CLS_IMGSZ from VAL_SHAPES frames (the classify predictor's feed: scaleup=True, a
+    0.175 to 0.467 downscale) against its plain version, as phase 3 holds it at 640: u8 within 1 LSB with the pad
+    exact (the share of the u8 values that differ recorded), bf16 within 1 ulp. Returns the worst errors."""
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_plain, tables_on
+
+    rng, worst = np.random.default_rng(101), {"uint8": 0, "bfloat16": 0, "uint8_share_off": 0.0}
+    for h0, w0 in VAL_SHAPES:
+        frames = torch.from_numpy(rng.integers(0, 256, (4, h0, w0, 3), dtype=np.uint8)).cuda()
+        tab = tables_on(h0, w0, CLS_IMGSZ, frames.device)
+        content = ((tab[0] >= 0)[:, None] & (tab[4] >= 0)[None, :]).cpu()
+        for dt in (torch.uint8, torch.bfloat16):
+            got, ref = letterbox(frames, CLS_IMGSZ, out_dtype=dt), letterbox_plain(frames, tab, CLS_IMGSZ, dt)
+            torch.cuda.synchronize()
+            bits = (lambda t: t.int()) if dt == torch.uint8 else (lambda t: t.view(torch.int16).int())
+            diff = (bits(got) - bits(ref)).abs()
+            err = diff.max().item()
+            assert err <= 1, f"letterbox {h0}x{w0}->{CLS_IMGSZ} {dt}: {err}"
+            key = str(dt).split(".")[-1]
+            worst[key] = max(worst[key], err)
+            if dt == torch.uint8:
+                assert bool((got.cpu()[:, ~content] == 114).all()), f"letterbox {h0}x{w0}->{CLS_IMGSZ}: pad not 114"
+                worst["uint8_share_off"] = max(worst["uint8_share_off"], (diff > 0).float().mean().item())
+    log("cls", f"letterbox {VAL_SHAPES} -> {CLS_IMGSZ} vs plain: u8 max {worst['uint8']} LSB (tol 1, pad exact; "
+               f"{worst['uint8_share_off']:.3g} of the values off), bf16 max {worst['bfloat16']} ulp (tol 1)")
+    return worst
+
+
+def letterbox_cls_times(dev):
+    """The letterbox kernel from b32 720p frames into CLS_IMGSZ, u8 out (what the classify predictor feeds): device
+    time on a cold L2 beside its plain version and its bytes bound. At this 0.175 downscale the two taps of the
+    output rows read about a third of each frame's rows, so the bound counts the rows they read (every column of
+    them: a 32-byte sector holds two taps' pixels); the bound over whole frames, as the other letterbox rows count
+    it, is beside it."""
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_plain, tables_on
+
+    B, h0, w0 = dev.shape[:3]
+    S = CLS_IMGSZ
+    x = torch.empty(B, S, S, 3, dtype=torch.uint8, device="cuda")
+    tab = tables_on(h0, w0, S, dev.device)
+    rows = torch.unique(tab[:2][:, tab[0] >= 0]).numel()  # the source rows the taps read
+    nbytes = B * rows * w0 * 3 + x.numel() + tab.numel() * 4
+    full = dev.numel() + x.numel() + tab.numel() * 4
+    sets = [(dev, x)] + [(torch.randint_like(dev, 0, 256), torch.empty_like(x)) for _ in range(n_cold_sets(full) - 1)]
+    ms = cold_graph_ms(lambda src, o: letterbox(src, S, out=o), sets, full)
+    del sets
+    plain = cuda_ms(lambda: letterbox_plain(dev, tab, S, torch.uint8), iters=3)
+    b_ms, b_by = bound(nbytes, B * S * S * 3 * 9, F32_FLOPS_PER_MS)
+    out = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+           "rows_read": rows, "bound_full_frames_ms": full / HBM_BYTES_PER_MS,
+           "eager_ms": cuda_ms(lambda: letterbox(dev, S, out=x))}
+    log("cls", f"letterbox b{B} {h0}x{w0}->{S} u8: {ms:.4f} ms (CUDA graph, cold L2), eager {out['eager_ms']:.4f}, "
+               f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {rows} of {h0} rows read; {b_ms / ms:.3f} of it), "
+               f"over whole frames {out['bound_full_frames_ms']:.4f} ms")
+    return out
+
+
+def cls_train_step(yolo):
+    """The classification step (`make_cls_train_step`: CE, AdamW, EMA) at CLS_TRAIN_BATCH, CLS_IMGSZ, bf16 autocast,
+    from device-resident uint8 BGR batches (NHWC, no repack): event-timed ms, peak memory, every loss finite, the
+    repack never launched; then its profile."""
+    from lpc_yolo_tpu_torch.engine.classify import make_cls_train_step
+    from lpc_yolo_tpu_torch.engine.train_step import OptConfig, init_train_state
+
+    g = torch.Generator(device="cuda").manual_seed(102)
+    B, S = CLS_TRAIN_BATCH, CLS_IMGSZ
+    batches = [{"img": torch.randint(0, 256, (B, S, S, 3), device="cuda", generator=g, dtype=torch.uint8),
+                "label": torch.randint(0, yolo.model.nc, (B,), device="cuda", generator=g)} for _ in range(2)]
+    cfg = OptConfig(lr0=0.002, optimizer="adamw", warmup_steps=20, total_steps=1000)
+    st = init_train_state(yolo.model, cfg, device="cuda")
+    step = make_cls_train_step(yolo.model, cfg)
+    mets, it = [], iter(range(10 ** 9))
+
+    def one():
+        mets.append(step(st, batches[next(it) % 2])[1])
+
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(one, iters=2, warmup=2)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert launches_now("repack") == {"repack": 0}
+    assert all(np.isfinite(float(m["loss"])) for m in mets), mets[-1]
+    prof = profile_step(one, iters=2)
+    return {"batch": B, "steps": len(mets), "step_ms": step_ms, "peak_gb": peak_gb, "img_s": B / step_ms * 1e3,
+            "busy_ms": prof["device_busy_ms"], "idle_share": prof["idle_share"],
+            "device_launches": prof["device_launches"], "loss": float(mets[-1]["loss"]),
+            "profile_top": prof["top"][:8]}
+
+
+def cls_card_vs_cpu(key: str, frames):
+    """YOLO(<key>, seed 0).predict in f32 on the card (kernels) and on the CPU (plain versions), and in bf16 on the
+    card, at CLS_IMGSZ: the card's f32 probs within CLS_PROB_TOL of the CPU's; bf16 within CLS_BF16_REL_TOL of each
+    frame's largest f32 probability, with the same top-1 wherever f32's top-1 leads its runner-up by more than
+    twice that."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+
+    probs = {}
+    for dev, dt in (("cuda", torch.float32), ("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        yolo = YOLO(cls_yaml(key), device=dev, seed=0)
+        pred = Predictor(yolo.model, imgsz=CLS_IMGSZ, batch=len(frames), device=dev, dtype=dt, names=yolo.names)
+        probs[(dev, str(dt))] = np.stack([np.asarray(r.probs) for r in pred(frames)])
+    card, cpu, b16 = probs[("cuda", "torch.float32")], probs[("cpu", "torch.float32")], probs[("cuda", "torch.bfloat16")]
+    f32_gap = float(np.abs(card - cpu).max())
+    b16_gap = float((np.abs(b16 - card).max(1) / card.max(1)).max())
+    top2 = np.sort(card, 1)[:, ::-1][:, :2]
+    clear = top2[:, 0] - top2[:, 1] > 2 * CLS_BF16_REL_TOL * top2[:, 0]
+    out = {"f32_max_abs": f32_gap, "bf16_max_rel": b16_gap, "top1_f32": card.argmax(1).tolist(),
+           "top1_cpu": cpu.argmax(1).tolist(), "top1_bf16": b16.argmax(1).tolist(), "clear_margin": clear.tolist(),
+           "max_prob": float(card.max())}
+    assert f32_gap <= CLS_PROB_TOL and b16_gap <= CLS_BF16_REL_TOL, out
+    assert (card.argmax(1) == b16.argmax(1))[clear].all(), out
+    return out
+
+
+def phase_cls():
+    """Phase 16: the seven classifiers (yolov8n/s/m/l/x-cls, yolov8-cls-resnet50/101) at nc 1000 and CLS_IMGSZ, each
+    in turn with seed-0 weights: its parameter count; its conv3x3 sites against the plain version (every distinct
+    shape in f32 and bf16, every site of one bf16 forward on its own inputs); YOLO.predict b32 of 720p frames with
+    the counters held (one letterbox, a conv3x3 per site); the serving step; conv3x3 over the sites beside F.conv2d
+    + bias and the bound; the b32 train step with its peak memory; on n and resnet50 the f32 probs on the card
+    against the CPU and bf16 against f32. Before them the letterbox into 224, bit for bit and timed."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+
+    t_phase = time.perf_counter()
+    host = frames_720p(SCALE_SERVE_BATCH, seed=103)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    out = {"letterbox_parity": cls_parity_letterbox(), "letterbox": letterbox_cls_times(dev)}
+    for key, n_params in CLS_PARAMS.items():
+        t_model = time.perf_counter()
+        phase = cls_yaml(key)[:-5]
+        r = out[key] = {}
+        yolo = YOLO(cls_yaml(key), device="cuda", seed=0)
+        assert yolo.task == "classify" and sum(p.numel() for p in yolo.model.parameters()) == n_params, key
+        pred = Predictor(yolo.model, imgsz=CLS_IMGSZ, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+        sites = conv_sites(pred)
+        assert len(sites) == CLS_SITES[key], (phase, len(sites))
+        r["sites"] = len(sites)
+        r["parity"] = phase_parity_conv(sites, phase)
+        site_err = bf16_site_errors(pred, host[:2])
+        assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{phase} bf16 conv3x3 sites: {site_err}"
+        r["parity"]["forward_sites_bf16_max_rel"] = max(site_err)
+        r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
+        log(phase, f"{n_params} parameters, {len(sites)} conv3x3 sites a forward at maps "
+                   f"{sorted({s[1] for s in sites}, reverse=True)} (every site of a bf16 forward on its own inputs: max "
+                   f"rel {max(site_err):.3g}, tol 2e-2); YOLO.predict b{SCALE_SERVE_BATCH} 720p->{CLS_IMGSZ} bf16: "
+                   f"{sv['predict_s']:.3f} s, launches {sv['launches']}; serving step {sv['step_ms']:.3f} ms "
+                   f"({sv['img_s']:.1f} img/s), device busy {sv['busy_ms']:.3f} ms, idle share {sv['idle_share']}, "
+                   f"{sv['device_launches']:.0f} launches a step")
+        tot, per_shape = time_conv3x3(sites, SCALE_SERVE_BATCH, phase=phase)
+        r["conv3x3_sum"], r["conv3x3_shapes"] = tot, per_shape
+        r["conv3x3_losers"] = [{"C": p["C"], "Co": p["Co"], "H": p["H"], "per_forward": p["per_forward"],
+                                "vs_library": p["vs_library"]} for p in per_shape if p["vs_library"] > 1]
+        del pred
+        torch.cuda.empty_cache()
+        r["train"] = tr = cls_train_step(yolo)
+        log(phase, f"train step b{tr['batch']} {CLS_IMGSZ} bf16 autocast (CE, AdamW): {tr['step_ms']:.3f} ms "
+                   f"({tr['img_s']:.1f} img/s), device busy {tr['busy_ms']:.3f} ms, idle share {tr['idle_share']}, "
+                   f"{tr['device_launches']:.0f} launches a step, peak {tr['peak_gb']:.3f} GB, loss {tr['loss']:.4f}")
+        if key in ("n", "resnet50"):
+            r["card_vs_cpu"] = cc = cls_card_vs_cpu(key, host[:2])
+            log(phase, f"probs at {CLS_IMGSZ}, 2 frames: f32 card vs CPU within {cc['f32_max_abs']:.3g} (tol "
+                       f"{CLS_PROB_TOL}), bf16 vs f32 within {cc['bf16_max_rel']:.3g} of the top probability (tol "
+                       f"{CLS_BF16_REL_TOL}); top-1 "
+                       f"f32 {cc['top1_f32']}, CPU {cc['top1_cpu']}, bf16 {cc['top1_bf16']} (margin clear: "
+                       f"{cc['clear_margin']})")
+        del yolo
+        torch.cuda.empty_cache()
+        r["seconds"] = time.perf_counter() - t_model
+    out["seconds"] = time.perf_counter() - t_phase
+    REPORT["cls"] = out
+    return out
+
+
+def phase_cls_train_data(root: Path):
+    """The classify main path: YOLO("yolov8n-cls.yaml", nc=CLS_NC, seed 0) with the launch counters reset just
+    before its `predict` of 32 720p frames at CLS_IMGSZ (one letterbox, 12 conv3x3) and read just after its
+    `train(data=...)` on a CLS_NC-class colour-folder set (`make_cls_dataset`, PNG + .npy twins, read with
+    cache_images="disk"), TD_EPOCHS epochs of b16 (`evaluate_classifier` after each: 12 conv3x3 per val batch, on
+    the BN-folded EMA copy; no repack, no NMS). Its results.csv (top-1 and top-5 by epoch) and weights/last.ckpt:
+    the facade holds last.ckpt's EMA parameters and BN statistics, a model given them predicts what the facade
+    predicts, and so does YOLO.save -> YOLO(path). Returns the launches."""
+    import csv
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.data import make_cls_dataset
+    from lpc_yolo_tpu_torch.utils.checkpoint import load_checkpoint
+    from lpc_yolo_tpu_torch.utils.flax_bridge import flax_to_state_dict
+
+    data = make_cls_dataset(root / "set", n_train=CLS_TRAIN_PER_CLASS, n_val=CLS_VAL_PER_CLASS, nc=CLS_NC,
+                            shapes=CLS_FRAME_SHAPES, seed=104)
+    B, sites = TD_BATCH, CLS_SITES["n"]
+    n_val = CLS_NC * CLS_VAL_PER_CLASS
+    expect = {"letterbox": 1, "conv3x3": sites * (1 + TD_EPOCHS * -(-n_val // B)), "repack": 0, "nms": 0}
+    yolo = YOLO("yolov8n-cls.yaml", device="cuda", seed=0, nc=CLS_NC)
+    frames = frames_720p(32, seed=105)
+    zero_launches()
+    t0 = time.perf_counter()
+    yolo.predict(frames, imgsz=CLS_IMGSZ, batch=32)
+    res = yolo.train(data=data, epochs=TD_EPOCHS, batch=B, imgsz=CLS_IMGSZ, workers=8, save_dir=root / "run",
+                     cache_images="disk")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_now()
+    assert launches == expect, (launches, expect)
+    with open(root / "run" / "results.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert [int(r["epoch"]) for r in rows] == list(range(TD_EPOCHS)) and list(rows[0]) == [
+        "epoch", "train/loss", "metrics/accuracy_top1", "metrics/accuracy_top5", "fitness", "time_s"], rows
+    assert all(np.isfinite(float(r["train/loss"])) for r in rows) and np.isfinite(list(res.values())).all(), rows
+    tree, meta = load_checkpoint(root / "run" / "weights" / "last.ckpt")
+    assert meta == {"epoch": TD_EPOCHS - 1}, meta
+    held = yolo.model.state_dict()
+    for k, v in flax_to_state_dict({"params": tree["ema_params"], "batch_stats": tree["batch_stats"]}).items():
+        assert torch.equal(held[k].cpu(), v), f"last.ckpt {k} != the trained facade"
+    ref = yolo.predict(frames[:4], imgsz=CLS_IMGSZ, batch=4)
+    from_last = YOLO("yolov8n-cls.yaml", device="cuda", seed=None, nc=CLS_NC)
+    from_last.load_flax({"params": tree["ema_params"], "batch_stats": tree["batch_stats"]})
+    back = YOLO(yolo.save(root / "cls.ckpt"), device="cuda")
+    assert back.task == "classify" and back.model.nc == CLS_NC
+    for what, model in (("last_ckpt", from_last), ("save", back)):
+        got = model.predict(frames[:4], imgsz=CLS_IMGSZ, batch=4)
+        assert all(np.array_equal(a.probs, b.probs) for a, b in zip(got, ref)), f"yolov8n-cls through {what}"
+    by_epoch = [{k: float(v) for k, v in r.items()} for r in rows]
+    log("cls_train_data", f"YOLO('yolov8n-cls.yaml', nc={CLS_NC}).predict (32 720p frames) + train(data=...): "
+                          f"{TD_EPOCHS} epochs of b{B} at {CLS_IMGSZ} on {CLS_NC * CLS_TRAIN_PER_CLASS} + {n_val} "
+                          f"frames, {wall:.3f} s; launches {launches}; top-1 / top-5 by epoch "
+                          f"{[(r['metrics/accuracy_top1'], r['metrics/accuracy_top5']) for r in by_epoch]}, loss "
+                          f"{[r['train/loss'] for r in by_epoch]}; last.ckpt's EMA weights and YOLO.save -> "
+                          f"YOLO(path) predict what the facade predicts")
+    REPORT["cls_train_data"] = {"launches": launches, "wall_s": wall, "results": res, "epochs": by_epoch}
+    return launches
+
+
+def cls_only() -> None:
+    """`--cls`: phase 16 alone."""
+    import tempfile
+
+    phase_cls()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as tmp:
+        phase_cls_train_data(Path(tmp))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_cls.json").write_text(json.dumps(REPORT, indent=1))
+    log("done", "phase 16 passed; numbers in chiprun_out/chip_smoke_cls.json")
+
+
+def cls_converge(model: str) -> int:
+    """`--converge yolov8n-cls.yaml`: the classify learning proof: YOLO(model, nc=CLS_NC, seed 0) trained on a
+    colour-folder set (`make_cls_dataset`, CLS_CONV_PER_CLASS train and a quarter as many val frames a class, at
+    CLS_FRAME_SHAPES) for CLS_CONV_EPOCHS epochs of b16 at CLS_IMGSZ; fails unless the last epoch's top-1 exceeds
+    CLS_TOP1_BAR."""
+    import csv
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.data import make_cls_dataset
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_converge_") as tmp:
+        root = Path(tmp)
+        data = make_cls_dataset(root / "set", n_train=CLS_CONV_PER_CLASS, n_val=CLS_CONV_PER_CLASS // 4, nc=CLS_NC,
+                                shapes=CLS_FRAME_SHAPES, seed=106)
+        yolo = YOLO(model, device="cuda", seed=0, nc=CLS_NC)
+        t0 = time.perf_counter()
+        res = yolo.train(data=data, epochs=CLS_CONV_EPOCHS, batch=16, imgsz=CLS_IMGSZ, workers=8,
+                         save_dir=root / "run", cache_images="disk")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        with open(root / "run" / "results.csv") as f:
+            rows = [{k: float(v) for k, v in r.items()} for r in csv.DictReader(f)]
+    for r in rows:
+        log("converge", f"epoch {int(r['epoch'])}: loss {r['train/loss']:.4f} top-1 {r['metrics/accuracy_top1']:.4f} "
+                        f"top-5 {r['metrics/accuracy_top5']:.4f} {r['time_s']} s")
+    top1 = res["metrics/accuracy_top1"]
+    REPORT["converge"] = {"model": model, "nc": CLS_NC, "epochs": CLS_CONV_EPOCHS, "train_s": train_s,
+                          "results": res, "rows": rows, "top1_bar": CLS_TOP1_BAR}
+    dest = ROOT / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / "chip_smoke_converge.json").write_text(json.dumps(REPORT, indent=1))
+    log("converge", f"{model}: top-1 {top1:.4f}, top-5 {res['metrics/accuracy_top5']:.4f} after {CLS_CONV_EPOCHS} "
+                    f"epochs ({train_s:.1f} s of training)")
+    if not top1 > CLS_TOP1_BAR:
+        log("converge", f"FAILED: top-1 {top1:.4f} <= {CLS_TOP1_BAR}")
+        return 1
+    return 0
+
+
 def nms_worst_pool(B: int, seed: int = 0, k: int = 4096):
     """A pool in which every one of the 300 steps keeps a box: k candidates an image, sorted scores above
     conf 0.25 on a grid of 1/1024 (so runs of ~6 are tied and the first of each run must win), boxes 4 to 24
@@ -2598,8 +2930,8 @@ def conv3x3_only() -> None:
 
 def main(argv) -> int:
     converge = argv[:1] == ["--converge"] and len(argv) <= 2
-    if argv not in ([], ["--conv3x3"], ["--seg"], ["--pose"], ["--obb"]) and not converge:
-        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg, --pose, --obb and "
+    if argv not in ([], ["--conv3x3"], ["--seg"], ["--pose"], ["--obb"], ["--cls"]) and not converge:
+        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg, --pose, --obb, --cls and "
               f"--converge [model yaml]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2615,13 +2947,13 @@ def main(argv) -> int:
     if argv == ["--conv3x3"]:
         conv3x3_only()
         return 0
-    if argv in (["--seg"], ["--pose"], ["--obb"]):
-        {"--seg": seg_only, "--pose": pose_only, "--obb": obb_only}[argv[0]]()
+    if argv in (["--seg"], ["--pose"], ["--obb"], ["--cls"]):
+        {"--seg": seg_only, "--pose": pose_only, "--obb": obb_only, "--cls": cls_only}[argv[0]]()
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
     if converge:
-        rc = converge_only(*argv[1:])
+        rc = cls_converge(argv[1]) if argv[1:] and "-cls" in argv[1] else converge_only(*argv[1:])
         print(smi)
         print(json.dumps({"ok": rc == 0, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return rc
@@ -2672,6 +3004,9 @@ def main(argv) -> int:
         obb = phase_obb(obb_val)
         obb_launches = phase_scale_train_data("obb", obb_train, obb["n"]["sites"], name="yolov8n-obb.yaml",
                                               S=OBB_IMGSZ)
+        torch.cuda.empty_cache()
+        phase_cls()
+        cls_launches = phase_cls_train_data(Path(tmp) / "cls")
     nms = time_nms()["val"]
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
@@ -2692,9 +3027,10 @@ def main(argv) -> int:
          "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"], "bound_by": nms["bound_by"], "library_ms": None},
     ]
     for k in kernels:  # the seg, pose and OBB paths' launches beside the main path's: yolov8n-seg's, -pose's and
-        k["launches_seg"] = seg_launches[k["name"]]  # -obb's train(data=...)
-        k["launches_pose"] = pose_launches[k["name"]]
+        k["launches_seg"] = seg_launches[k["name"]]  # -obb's train(data=...); the classify path's: yolov8n-cls's
+        k["launches_pose"] = pose_launches[k["name"]]  # predict and train(data=...)
         k["launches_obb"] = obb_launches[k["name"]]
+        k["launches_cls"] = cls_launches[k["name"]]
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"

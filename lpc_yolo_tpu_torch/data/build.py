@@ -32,7 +32,7 @@ def collate(samples) -> Dict:
     if "plan" in samples[0]:
         out["plan"] = [s["plan"] for s in samples]
         out["sources"] = {k: v for s in samples for k, v in s["sources"].items()}
-    for k in ("cls", "bboxes", "mask", "masks", "keypoints", "rboxes"):
+    for k in ("cls", "bboxes", "mask", "masks", "keypoints", "rboxes", "label"):
         if k in samples[0]:
             out[k] = np.stack([s[k] for s in samples])
     for k in ("orig_shape", "gain", "pad", "path"):

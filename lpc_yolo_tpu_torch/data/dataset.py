@@ -102,6 +102,23 @@ def imread(path: str) -> np.ndarray:
     return im
 
 
+def read_image(path: str, cache_images: Optional[str] = None) -> np.ndarray:
+    """An image file's HWC uint8 BGR array: with `cache_images` ("ram" or "disk") from its `.npy` twin where
+    there is one, else decoded by `imread`; with "disk" the decoded array is then kept as the twin."""
+    twin = Path(path).with_suffix(".npy")
+    if cache_images and twin.exists():
+        return np.load(twin)
+    im = imread(path)
+    if cache_images == "disk":
+        # written under a temporary name and renamed, so that a worker thread reading the same
+        # image (the loader repeats the last sample of a padded batch) never sees half a file
+        fd, tmp = tempfile.mkstemp(dir=twin.parent, suffix=".npy.tmp")
+        with os.fdopen(fd, "wb") as f:
+            np.save(f, im)
+        os.replace(tmp, twin)
+    return im
+
+
 def rotated_boxes(segments: List[np.ndarray], bboxes: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     """Each label row's rotated box (n, 5) f32 [cx, cy, w, h, angle in radians], the first four in units of
     the frame's longer side s: `min_area_rect` (cv2.minAreaRect) of the row's normalized points scaled by
@@ -154,8 +171,6 @@ class YOLODataset:
             raise ValueError(f"cache_images must be False, True, 'ram' or 'disk', got {cache_images!r}")
         self._ram: List[Optional[np.ndarray]] = [None] * len(self.im_files)
         self._rboxes: List[Optional[np.ndarray]] = [None] * len(self.im_files)  # `rotated_boxes`, on first use
-        if self.cache_images:
-            self._npy_files = [Path(f).with_suffix(".npy") for f in self.im_files]
 
     def _scan_images(self) -> List[str]:
         # a directory, a .txt listing, or a list of those
@@ -253,21 +268,9 @@ class YOLODataset:
         RAM cache fills from the twin where there is one (a machine without OpenCV has only twins)."""
         if self.cache_images == "ram" and self._ram[i] is not None:
             return self._ram[i]
-        if self.cache_images and self._npy_files[i].exists():
-            im = np.load(self._npy_files[i])
-            if self.cache_images == "ram":
-                self._ram[i] = im
-            return im
-        im = imread(self.im_files[i])
+        im = read_image(self.im_files[i], self.cache_images)
         if self.cache_images == "ram":
             self._ram[i] = im
-        elif self.cache_images == "disk":
-            # written under a temporary name and renamed, so that a worker thread reading the same
-            # image (the loader repeats the last sample of a padded batch) never sees half a file
-            fd, tmp = tempfile.mkstemp(dir=self._npy_files[i].parent, suffix=".npy.tmp")
-            with os.fdopen(fd, "wb") as f:
-                np.save(f, im)
-            os.replace(tmp, self._npy_files[i])
         return im
 
     def get_item_raw(self, i: int) -> Dict:

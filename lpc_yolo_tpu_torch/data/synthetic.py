@@ -1,4 +1,4 @@
-"""Synthetic YOLO-format dataset: coloured rectangles on noise, boxes exactly known
+"""Synthetic YOLO-format dataset: coloured rectangles on noise, boxes exactly known, and a class-folder set
 (counterpart of `lpc_yolo_tpu/data/synthetic.py::make_synthetic_dataset`).
 
 Written without OpenCV: each frame is a PNG (zlib, standard library) with its
@@ -82,3 +82,26 @@ def make_synthetic_dataset(root, n_train: int = 8, n_val: int = 4, imgsz: int = 
     yaml_path = root / "data.yaml"
     yaml_path.write_text(yaml.safe_dump(data))
     return str(yaml_path)
+
+
+def make_cls_dataset(root, n_train: int = 6, n_val: int = 4, nc: int = 2,
+                     shapes: Sequence[Tuple[int, int]] = ((64, 64),), seed: int = 0,
+                     skip_val: Sequence[int] = ()) -> str:
+    """A class-folder set, `{train,val}/class<k>/<i>.png` (+ `.npy` twins): each frame class k's colour
+    plus uniform noise in [-20, 20), as the JAX package's class-folder test set (`tests/test_tasks.py:129-143`);
+    `shapes` (h, w) cycle over each split's frames. `skip_val`: classes the val split lacks. Returns the root."""
+    rng = np.random.RandomState(seed)
+    root = Path(root)
+    for split, n in (("train", n_train), ("val", n_val)):
+        for k in range(nc):
+            if split == "val" and k in skip_val:
+                continue
+            d = root / split / f"class{k}"
+            d.mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                h, w = shapes[i % len(shapes)]
+                img = np.clip(np.full((h, w, 3), COLORS[k % len(COLORS)], np.int16)
+                              + rng.randint(-20, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+                write_png(d / f"{i}.png", img)
+                np.save(d / f"{i}.npy", img)
+    return str(root)

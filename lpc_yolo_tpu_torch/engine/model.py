@@ -8,14 +8,18 @@ through the weight bridge; `YOLO("x.ckpt")` rebuilds it from a `.ckpt` that
 `.train(batches=...)` on an iterable of host batches), `.val(data=...)`
 measures it on a dataset, `.save(path)` writes it as a `.ckpt` the JAX
 facade loads and `.load(weights)` takes over every weight whose name and
-shape match. Five tasks are ported, named as the JAX facade names them:
+shape match. Six tasks are ported, named as the JAX facade names them:
 "v10" for a v10Detect head (NMS-free), "v8" for a Detect head (NMS),
 "segment" for a Segment head (NMS and instance masks; `yolov8n-seg.yaml`
 resolves to `v8/yolov8-seg.yaml`), "pose" for a Pose head (NMS and
 keypoints; `yolov8n-pose.yaml` resolves to `v8/yolov8-pose.yaml`) and "obb"
 for an OBB head (rotated boxes, rotated fast-NMS; `yolov8n-obb.yaml`
-resolves to `v8/yolov8-obb.yaml`). `.pt`
-files, export and the other tasks wait for later slices.
+resolves to `v8/yolov8-obb.yaml`) and "classify" for a Classify head
+(`Results.probs`; `yolov8n-cls.yaml` resolves to `v8/yolov8-cls.yaml`, and
+`yolov8-cls-resnet50.yaml` / `-resnet101.yaml` are the ResNet classifiers),
+whose `train(data=<class-folder root>)` runs `engine/classify.py::
+train_classifier` as the JAX facade routes it (:238-242). `.pt` files,
+export and the other tasks wait for later slices.
 """
 
 from __future__ import annotations
@@ -90,8 +94,8 @@ class YOLO:
         self.model = build_model(d, device=self.device, nc=nc or meta.get("nc"))
         self.task = self.model.task  # from the head, as the JAX `_guess_task` (:123-131)
         if self.task is None:
-            raise NotImplementedError("the torch port serves v10Detect, Detect, Segment, Pose and OBB models only so "
-                                      "far")
+            raise NotImplementedError("the torch port serves v10Detect, Detect, Segment, Pose, OBB and Classify "
+                                      "models only so far")
         if variables is not None:
             self.load_flax(variables)
         elif seed is not None:
@@ -141,6 +145,11 @@ class YOLO:
         """
         from .validator import Validator
 
+        if self.task == "classify":
+            raise NotImplementedError("val of a classify model is not ported: the JAX Validator reads out['pred'], "
+                                      "which a classify graph does not return "
+                                      "(lpc_yolo_tpu/engine/validator.py:148-150); train(data=...) evaluates "
+                                      "top-1 and top-5 through engine/classify.py::evaluate_classifier")
         if data is None:
             raise ValueError("val needs data=<dataset yaml or dict>")
         self.validator = Validator(self, device=device or self.device, **kw)
@@ -151,8 +160,17 @@ class YOLO:
         """Train on a dataset YAML (`data=`) or on an iterable of host batches (`batches=`);
         see `engine/trainer.py` for the options. Afterwards the facade holds the EMA
         weights. It runs on the card unless device="cpu". Returns the last validation's
-        results dict (data=) or the last epoch's mean loss items (batches=)."""
+        results dict (data=) or the last epoch's mean loss items (batches=). A classify
+        model trains on a class-folder root (`data=`) through `engine/classify.py::
+        train_classifier`, which takes its own options."""
         from .trainer import Trainer
 
+        if self.task == "classify":
+            from .classify import train_classifier
+
+            if batches is not None:
+                raise NotImplementedError("a classify model trains from data=<class-folder root> only, as in the "
+                                          "JAX package")
+            return train_classifier(self, data=data, device=device or self.device, **kw)
         self.trainer = Trainer(self, batches, data=data, device=device or self.device, **kw)
         return self.trainer.train()

@@ -20,7 +20,9 @@ reshapes its rows by nk // 3 (:344). An OBB model's rows come from `nms_rotated`
 (best class per anchor, :181-190) and follow the JAX predictor (:293-320):
 the rows above conf, the letterbox undone on the rotated parameters (the
 angle is scale-invariant) into `Results.obb` (n, 7) f32, and their
-axis-aligned hulls as `Results.boxes`. The JAX predictor letterboxes on the host with
+axis-aligned hulls as `Results.boxes`. A Classify model's softmax (B, nc) f32 goes to each
+frame's `Results.probs` (`Probs`), with the JAX predictor's `speed` split (:283-290: its
+"postprocess" is 0). The JAX predictor letterboxes on the host with
 cv2 to uint8 (:261) and folds /255 into the stem (:148-151); the card's
 machine has no cv2, so here every frame is letterboxed on the device by the
 letterbox kernel, as uint8, straight into its slot of the NHWC input batch
@@ -151,7 +153,8 @@ class Predictor:
     def infer(self, frames: List[np.ndarray]):
         """(n, max_det, 6) detections in letterbox pixels, f32, on the device; for a segment model
         with the rows' mask coefficients and the prototypes, for a pose model with the rows' keypoints;
-        for an OBB model (n, max_det, 7) rotated rows (`DetectionModel.predict`)."""
+        for an OBB model (n, max_det, 7) rotated rows; for a classify model (n, nc) probabilities
+        (`DetectionModel.predict`)."""
         return self.model.predict(self.preprocess(frames), self.max_det, self.conf, self.iou)
 
     @torch.inference_mode()
@@ -213,6 +216,11 @@ class Predictor:
                 det = det_dev.cpu().numpy()
                 kpts = extra[0].cpu().numpy() if self.kpt_shape is not None else None
             t2 = time.perf_counter()
+            if self.model.task == "classify":
+                speed = {"preprocess": (t1 - t0) * 1e3 / n, "inference": (t2 - t1) * 1e3 / n, "postprocess": 0.0}
+                for j, (path, im0) in enumerate(chunk):
+                    yield Results(im0, path, self.names, probs=det[j], speed=speed)
+                continue
             for j, (path, im0) in enumerate(chunk):
                 masks = keypoints = obb = None
                 if self.model.task == "obb":

@@ -1,6 +1,6 @@
-"""Detection, segmentation, pose and oriented-box result containers
+"""Detection, segmentation, pose, oriented-box and classification result containers
 (counterpart of `lpc_yolo_tpu/engine/results.py` Boxes :18, OBBoxes :85-136,
-Masks :138-168 and the detect, segment, pose and OBB subset of Results :249;
+Masks :138-168, Probs :206-247 and the detect, segment, pose, OBB and classify subset of Results :249;
 `keypoints` is a plain (n, K, 3) f32 array, as in the JAX Results :260, :271). Numpy arrays on the host;
 plotting, saving and the masks' polygons (`Masks.xy`, `.xyn`, which need
 cv2.findContours) wait for a later slice."""
@@ -136,15 +136,57 @@ class Masks:
         return self.data.dtype
 
 
+class Probs(np.ndarray):
+    """One image's class probabilities (nc,) f32 with the top-1 / top-5 accessors (JAX
+    `engine/results.py:206-247`): an ndarray subclass, so array uses keep working."""
+
+    def __new__(cls, data):
+        return np.asarray(data, np.float32).view(cls)
+
+    @property
+    def data(self) -> np.ndarray:
+        return np.asarray(self)
+
+    @property
+    def top1(self) -> int:
+        return int(np.argmax(np.asarray(self)))
+
+    @property
+    def top5(self):
+        return np.argsort(-np.asarray(self))[:5].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(np.asarray(self)[self.top1])
+
+    @property
+    def top5conf(self) -> np.ndarray:
+        return np.asarray(self)[self.top5]
+
+    # host numpy, as in the JAX Probs: the device moves are the identity
+    def cpu(self):
+        return self
+
+    def numpy(self):
+        return self
+
+    def cuda(self):
+        return self
+
+    def to(self, *args, **kwargs):
+        return self
+
+
 class Results:
     """One image's detections, its instance masks for a segment model, its keypoints (n, K, 3) in frame
-    pixels for a pose model (each None when no row was kept) and its oriented boxes for an OBB model (the
-    boxes are then their hulls). Indexing takes the boxes' rows only, as in the JAX Results (:281-285)."""
+    pixels for a pose model (each None when no row was kept), its oriented boxes for an OBB model (the
+    boxes are then their hulls) and its class probabilities (`Probs`) for a classify model, which has no
+    boxes. Indexing takes the boxes' rows only, as in the JAX Results (:281-285)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str],
                  boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None,
                  keypoints: Optional[np.ndarray] = None, obb: Optional[np.ndarray] = None,
-                 speed: Optional[Dict[str, float]] = None):
+                 probs: Optional[np.ndarray] = None, speed: Optional[Dict[str, float]] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -153,6 +195,7 @@ class Results:
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = keypoints
         self.obb = OBBoxes(obb, self.orig_shape) if obb is not None else None
+        self.probs = Probs(probs) if probs is not None else None
         self.speed = speed or {}
 
     def __len__(self) -> int:

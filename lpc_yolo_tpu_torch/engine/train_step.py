@@ -15,11 +15,11 @@ state and are updated in place; `TrainState` names them beside the momentum
 trace and the EMA copy. The optimizer is written out over `torch._foreach_*`
 because its order differs from `torch.optim.SGD` + `clip_grad_norm_`: clip by
 the global norm (`g * clip / norm` only when `norm >= clip`), then add
-`weight_decay * p` to conv kernels only, after the clip, then the Nesterov
+`weight_decay * p` to the kernels only (conv and Linear weights), after the clip, then the Nesterov
 trace with the warmed-up momentum, then `-lr`. AdamW follows `optax.adamw`
 in the same chain (:86-92): after the clip, Adam's moments in f32 with b1 =
 momentum, b2 = 0.999, eps = 1e-8 and the bias correction counted from 1,
-then `weight_decay * p` added to the conv kernels' update, then `-lr` (so
+then `weight_decay * p` added to the kernels' update, then `-lr` (so
 the decay is scaled by the learning rate). A parameter without a gradient
 (the layer nothing reads) counts as a zero gradient, so its kernels still
 decay. Both schedules are read at the optimizer's own count, which starts at
@@ -139,7 +139,7 @@ def apply_update(state: TrainState, grads: List[torch.Tensor], gnorm: torch.Tens
     params = [state.params[k] for k in names]
     lr = lr_at(state.opt_step, cfg)
     torch._foreach_mul_(grads, cfg.grad_clip / torch.clamp(gnorm, min=cfg.grad_clip))  # clip by the global norm
-    kernels = [i for i, p in enumerate(params) if p.dim() == 4]
+    kernels = [i for i, p in enumerate(params) if p.dim() > 1]  # the JAX mask's "kernel" leaves: conv and Linear
     trace = [state.momentum[k] for k in names]
     if cfg.optimizer == "adamw":
         b1, b2, n = cfg.momentum, 0.999, state.opt_step + 1

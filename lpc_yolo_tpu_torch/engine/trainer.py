@@ -135,6 +135,26 @@ def host_state(state: TrainState) -> TrainState:
                                          for f, tree in trees.items()})
 
 
+def ema_model(model: torch.nn.Module, state: TrainState) -> torch.nn.Module:
+    """A copy of `model` in eval mode with the EMA parameters and the live BatchNorm statistics."""
+    ema = copy.deepcopy(model)
+    for p in ema.parameters():
+        p.grad = None
+    with torch.no_grad():
+        ema.load_state_dict(state.ema_params, strict=False)
+    return ema.eval()
+
+
+def hand_back(yolo, model: torch.nn.Module, state: TrainState) -> None:
+    """Load the EMA parameters with `model`'s live BatchNorm statistics into the facade's model (JAX
+    `engine/trainer.py:412-418`)."""
+    with torch.no_grad():
+        sd = {k: v.detach() for k, v in model.state_dict().items()}
+        sd.update(state.ema_params)
+        dev = next(yolo.model.parameters()).device
+        yolo.model.load_state_dict({k: v.to(dev) for k, v in sd.items()}, strict=True)
+
+
 def append_row(path: Path, row: Dict[str, Any]) -> None:
     """One row of results.csv, with the header when the file is new (JAX `engine/trainer.py:386-388`)."""
     write_header = not path.exists()
@@ -346,12 +366,7 @@ class Trainer:
                 signal.signal(sig, h)
             if transforms is not None:
                 data_iter.close()  # stops the loader's threads
-        # hand back: EMA parameters + live BN statistics into the facade
-        with torch.no_grad():
-            sd = {k: v.detach() for k, v in model.state_dict().items()}
-            sd.update(state.ema_params)
-            dev = next(self.yolo.model.parameters()).device
-            self.yolo.model.load_state_dict({k: v.to(dev) for k, v in sd.items()}, strict=True)
+        hand_back(self.yolo, model, state)
         self.state = state
         return results if transforms is not None else dict(zip(names, mean_items.tolist()))
 
@@ -360,12 +375,7 @@ class Trainer:
         the dataset's images read as in training (`cache`)."""
         from .validator import Validator
 
-        ema = copy.deepcopy(model)
-        for p in ema.parameters():
-            p.grad = None
-        with torch.no_grad():
-            ema.load_state_dict(state.ema_params, strict=False)
         validator = Validator(self.yolo, imgsz=self.imgsz, batch=min(self.batch, 8), max_gt=self.max_gt,
                               workers=self.workers, cache_images=self.cache, device=self.device)
         self.validator = validator
-        return validator(self.data, model=ema.eval())
+        return validator(self.data, model=ema_model(model, state))

@@ -3,8 +3,8 @@
 Same schema and channel inference as the JAX compiler (make_divisible :87,
 LayerSpec :94, yaml_model_load :110, parse_model :119-284), implemented for
 the modules that the LPC-YOLO YAML, the six YOLOv10 scales (n/s/m/b/l/x) and
-the five YOLOv8 scales (n/s/m/l/x), detect, segment, pose and OBB, reach; any other module raises
-NotImplementedError. The model routes `from` indices and keeps the save list
+the five YOLOv8 scales (n/s/m/l/x), detect, segment, pose, OBB and classify, and the ResNet
+classifiers reach; any other module raises NotImplementedError. The model routes `from` indices and keeps the save list
 like `DetectionModel._run` (:718-1019), without the TPU width-pack, upsample-
 commute, s2d-fold plans or int8. A layer whose output no later layer reads
 (layer 27 of the LPC YAML) keeps its module and weights. In eval mode it is
@@ -29,15 +29,16 @@ from ..ops.nms import nms_rotated, non_max_suppression
 from ..ops.repack import repack_width_kernel
 from ..utils import resolve_device
 from . import modules as M
-from .heads import (OBB, Detect, Pose, Segment, V10Detect, decode_feats, decode_feats_obb, decode_feats_topk_split,
-                    decode_kpts)
+from .heads import (OBB, Classify, Detect, Pose, Segment, V10Detect, decode_feats, decode_feats_obb,
+                    decode_feats_topk_split, decode_kpts)
 
 # Modules whose YAML arg[0] is the (width-scaled) output-channel count, and the
 # subset that also takes the (depth-scaled) repeat count.
 _BASE = {"Conv", "Bottleneck", "SPPF", "C2f", "PSA", "LPC", "SCDown", "C2fCIB"}
 _REPEAT = {"C2f", "C2fCIB"}
 # the ported heads, each one's task (JAX names)
-HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8", "Segment": "segment", "Pose": "pose", "OBB": "obb"}
+HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8", "Segment": "segment", "Pose": "pose", "OBB": "obb",
+              "Classify": "classify"}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -103,6 +104,12 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
         elif m == "Concat":
             c2 = sum(chs[x] for x in f_list)
             out_args = list(args)
+        elif m == "Classify":  # c2 = nc, unscaled (JAX compiler.py:212-214)
+            c1, c2 = chs[f_list[0]], args[0]
+            out_args = [c1, c2, *args[1:]]
+        elif m == "ResNetLayer":  # args unscaled; c2 the planes, x4 past the stem (JAX compiler.py:180-184)
+            c2 = args[1] if args[3] else args[1] * 4
+            out_args = list(args)
         elif m in HEAD_TASKS:
             if m == "Segment":  # npr scales with the width (JAX compiler.py:187-188)
                 args[2] = make_divisible(min(args[2], max_channels) * width, 8)
@@ -163,6 +170,11 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         return M.SpaceToDepth()
     if m == "nn.Upsample":
         return M.Upsample(int(a[1]))
+    if m == "ResNetLayer":  # the YAML's c1 (args[0]) is the input's width in every ResNet YAML (JAX :662-666)
+        return M.ResNetLayer(a[0], a[1], s=a[2] if len(a) > 2 else 1, is_first=bool(a[3]) if len(a) > 3 else False,
+                             n=a[4] if len(a) > 4 else 1)
+    if m == "Classify":
+        return Classify(a[0], nc=a[1])
     if m == "Concat":
         return M.Concat()
     if m == "v10Detect":
@@ -192,7 +204,9 @@ class DetectionModel(nn.Module):
     NMS-free top-k, Detect's, Segment's and Pose's maps through `decode_feats`
     and `non_max_suppression`; for Segment with each row's mask coefficients
     and the prototypes, for Pose with each row's keypoints; an OBB model's to
-    (B, max_det, 7) rotated rows by `nms_rotated` (see `predict`). x is (B, 3, H, W)
+    (B, max_det, 7) rotated rows by `nms_rotated` (see `predict`). A Classify head (:967-973) returns
+    its logits (B, nc) in train mode and {"probs" (softmax in f32), "logits"} in eval mode; a classify
+    graph has no strides. x is (B, 3, H, W)
     RGB in [0, 1], or another `input_layout` of the same image (see
     `to_nchw`).
     """
@@ -233,6 +247,9 @@ class DetectionModel(nn.Module):
             dead = spec.i in self.dead
             if dead and not self.training:
                 continue
+            if spec.module == "Classify":
+                logits = module(x if spec.f[0] == -1 else y[spec.f[0]])
+                return logits if self.training else {"probs": torch.softmax(logits.float(), -1), "logits": logits}
             if spec.module == "Concat" or spec.module in HEAD_TASKS:
                 inp = [x if j == -1 else y[j] for j in spec.f]
             else:
@@ -279,7 +296,9 @@ class DetectionModel(nn.Module):
         returns (detections, each row's decoded keypoints (B, max_det, nk) f32 in letterbox pixels,
         gathered by its anchor as the JAX predictor does, :175-180). An OBB model returns (B, max_det, 7)
         [cx, cy, w, h, angle, score, label] rows from `nms_rotated` (the JAX predictor :181-190 and validator
-        :110-127; invalid rows 0 with label -1)."""
+        :110-127; invalid rows 0 with label -1). A Classify model returns its probabilities (B, nc) f32."""
+        if self.task == "classify":
+            return self.forward(x)["probs"]
         if self.task == "obb":
             pred = self.forward(x)["pred"]
             rb = torch.cat([pred[..., :4], pred[..., -1:]], -1)
@@ -303,9 +322,9 @@ def _infer_strides(specs, save, nc, ch: int = 3, probe: int = 256) -> Tuple[floa
     with torch.device("meta"):
         m = DetectionModel(specs, save, nc).eval()
         feats = m(torch.zeros(1, ch, probe, probe), branches="one2many")
-    if isinstance(feats, dict):
+    if isinstance(feats, dict) and "probs" not in feats:
         feats = feats["feats"] if "feats" in feats else feats["one2many"]
-    elif not isinstance(feats, list):  # headless graph
+    elif not isinstance(feats, list):  # a headless or classify graph (JAX :1044)
         return (8.0, 16.0, 32.0)
     return tuple(float(probe / cm.shape[2]) for _, cm in feats)
 

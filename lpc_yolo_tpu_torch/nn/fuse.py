@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .modules import ConvBN
+from .modules import ConvBN, ResNetLayer
 
 
 def fuse_conv_bn(model: nn.Module, dtype: torch.dtype = torch.float32) -> nn.Module:
@@ -30,9 +30,13 @@ def fold_preprocess(model: nn.Module, dtype: torch.dtype = torch.float32, scale:
     == conv(x, W * s), so the model takes the raw 0..255 frame. In place, on a folded model.
 
     Unlike the JAX package, whose feed is BGR, the channels are not permuted: the
-    letterbox kernel already writes RGB.
+    letterbox kernel already writes RGB. A ResNet stem (`ResNetLayer` with is_first) takes the
+    scale in its 7x7 ConvBN, the first op it runs; the JAX predictor normalises the frame
+    explicitly there (`engine/predictor.py:150-159`), which is the same function.
     """
     stem = model.model[0]
+    if isinstance(stem, ResNetLayer) and stem.is_first:
+        stem = stem.layer[0]
     if not isinstance(stem, ConvBN):
         raise ValueError(f"fold_preprocess needs a Conv stem, not {type(stem).__name__}")
     stem.fold(dtype, in_scale=scale)

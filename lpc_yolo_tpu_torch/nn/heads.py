@@ -1,8 +1,8 @@
-"""The v8 Detect, Segment, Pose, OBB and v10Detect heads, the NMS-free top-k decode, the v8 decode, the
-keypoint decode and the rotated decode (NCHW).
+"""The v8 Detect, Segment, Pose, OBB, Classify and v10Detect heads, the NMS-free top-k decode, the v8 decode,
+the keypoint decode and the rotated decode (NCHW).
 
 Counterpart of `lpc_yolo_tpu/nn/heads.py` (`_v8_towers` :52-77, Detect
-:80-92, Segment :95-119, Pose :122-154, decode_kpts :157-176, OBB :178-204, dist2rbox :207-216;
+:80-92, Segment :95-119, Pose :122-154, decode_kpts :157-176, OBB :178-204, dist2rbox :207-216, Classify :219-233;
 V10Detect :234, plain branch :309-335; decode_feats_topk_split :401-496, unpacked case;
 decode_feats_obb :499-518; decode_feats :521). The segmented TPU top-k
 (`heads._topk`) becomes `torch.topk`. Both heads return per-level
@@ -161,6 +161,22 @@ def _cls_tower(ci: int, c3: int, nc: int) -> nn.Sequential:
         nn.Conv2d(c3, nc, 1),
     )
 
+
+
+class Classify(nn.Module):
+    """The YOLOv8 classification head (JAX `nn/heads.py:219-233`; reference head.py:202-222): a 1x1
+    ConvBN (SiLU) to c_ channels, the mean over H and W, a Linear to nc. Returns the logits (B, nc). The
+    mean is taken in f32 whatever the map's dtype (a 1280-channel 7x7 map in bf16 on the card), and the
+    logits come back in the map's dtype."""
+
+    def __init__(self, c1: int, nc: int = 1000, c_: int = 1280):
+        super().__init__()
+        self.conv = ConvBN(c1, c_, 1, 1)
+        self.linear = nn.Linear(c_, nc)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        return self.linear(x.mean((2, 3), dtype=torch.float32).to(x.dtype))
 
 class V10Detect(nn.Module):
     """YOLOv10 dual-assignment head (reference head.py:497-535).

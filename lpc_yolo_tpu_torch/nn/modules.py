@@ -1,4 +1,5 @@
-"""The block set of LPC-YOLO and the YOLOv10 scales as torch nn.Modules (NCHW, channels_last on the card).
+"""The block set of LPC-YOLO, the YOLOv10 and YOLOv8 scales and the ResNet classifiers as torch nn.Modules
+(NCHW, channels_last on the card).
 
 Counterpart of `lpc_yolo_tpu/nn/modules.py`, plain semantics only: none of
 the TPU layout rewrites (width packing, PackedBN, the C2f deploy algebra,
@@ -7,8 +8,8 @@ with numeric parts split off (`m_0` -> `m.0`, `ffn_1` -> `ffn.1`), so the
 weight bridge (`utils/flax_bridge.py`) is a pure name map.
 
 Activations follow the fork: blocks defined in its block.py (C2f, SPPF, PSA,
-LPC, Bottleneck, SCDown, CIB, C2fCIB, Proto) use Mish, but for RepVGGDW's own SiLU;
-YAML-level `Conv` and the head towers use SiLU.
+LPC, Bottleneck, SCDown, CIB, C2fCIB, Proto, ResNetBlock) use Mish, but for RepVGGDW's
+own SiLU; YAML-level `Conv` and the head towers use SiLU.
 BatchNorm uses eps 1e-3 and momentum 0.03; in train mode its running
 statistics follow the JAX package's (`BatchNorm2d` below).
 
@@ -292,6 +293,44 @@ class Proto(nn.Module):
     def forward(self, x):
         return self.cv3(self.cv2(self.upsample(self.cv1(x))))
 
+
+
+class ResNetBlock(nn.Module):
+    """The bottleneck ResNet block of the JAX package (`nn/modules.py:1810-1826`; reference block.py:367):
+    cv1 1x1 Mish, cv2 3x3 stride s Mish, cv3 1x1 to e*c2 with no act, plus the input (through a 1x1
+    stride-s ConvBN, `shortcut.0`, when s != 1 or the channels differ), then ReLU of the sum. The
+    stride-1 cv2 is a conv3x3 site once folded."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, e: int = 4):
+        super().__init__()
+        c3 = e * c2
+        self.cv1 = ConvBN(c1, c2, 1, 1, act="mish")
+        self.cv2 = ConvBN(c2, c2, 3, s, p=1, act="mish")
+        self.cv3 = ConvBN(c2, c3, 1, act=False)
+        self.shortcut = nn.Sequential(ConvBN(c1, c3, 1, s, act=False)) if s != 1 or c1 != c3 else nn.Identity()
+
+    def forward(self, x):
+        return F.relu(self.cv3(self.cv2(self.cv1(x))) + self.shortcut(x))
+
+
+class ResNetLayer(nn.Module):
+    """A ResNet stage (JAX `nn/modules.py:1829-1854`; reference block.py:382): with `is_first` a 7x7 stride-2
+    ConvBN (Mish) and a 3x3 stride-2 max-pool with padding 1, else n `ResNetBlock`s, the first of stride s.
+    The JAX pool pads with the dtype's finfo.min and F.max_pool2d with -inf: every 3x3 window holds a real
+    pixel, so the two agree."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, is_first: bool = False, n: int = 1, e: int = 4):
+        super().__init__()
+        self.is_first = is_first
+        if is_first:
+            self.layer = nn.Sequential(ConvBN(c1, c2, 7, 2, p=3, act="mish"))
+        else:
+            self.layer = nn.Sequential(*(ResNetBlock(c1 if i == 0 else e * c2, c2, s if i == 0 else 1, e)
+                                         for i in range(n)))
+
+    def forward(self, x):
+        x = self.layer(x)
+        return F.max_pool2d(x, 3, 2, 1) if self.is_first else x
 
 class Upsample(nn.Module):
     """Nearest upsample by an integer factor (torch nn.Upsample(None, s, 'nearest'))."""

@@ -31,3 +31,21 @@ def assert_detections_close(a: np.ndarray, b: np.ndarray, atol_box: float, atol_
             if not len(cand) or np.abs(cand[:, :4] - row[:4]).max(axis=1).min() > atol_box:
                 raise AssertionError(f"row {row.tolist()} of the {which} set has no match within "
                                      f"box {atol_box} / score {atol_score}")
+
+
+def assert_val_results_agree(got: dict, ref: dict, rtol: float = 1e-9) -> None:
+    """Two validators' results dicts (the port's and the JAX package's on the same weights and data): the same
+    keys in the same order; every key that only the ranks of the kept rows decide (each mAP key and fitness)
+    equal to the last digit; the precision and recall keys within `rtol` of each other.
+
+    Precision and recall are read off `np.interp` at the best-F1 point over the kept rows' confidences
+    (`utils/metrics.py::ap_per_class`). XLA's CPU convolutions and torch's sum in another order, so a few of
+    those confidences differ by one f32 unit in the last place, which moves the interpolated value by ~1e-10
+    relative; the order of the rows, and with it every mAP, stays the same. Raises AssertionError."""
+    if list(got) != list(ref):
+        raise AssertionError(f"keys differ: {list(got)} != {list(ref)}")
+    for k, a in got.items():
+        b = ref[k]
+        interpolated = k.startswith(("metrics/precision", "metrics/recall"))
+        if (abs(a - b) > rtol * max(abs(a), abs(b))) if interpolated else (a != b):
+            raise AssertionError(f"{k}: {a!r} != {b!r}" + (f" (rtol {rtol})" if interpolated else ""))

@@ -7,7 +7,8 @@ arrays, and nothing here imports jax.
 * Each `_<digits>` name component becomes `.<digits>`:
   `model_28/one2one_cv2_0_0/conv/kernel` -> `model.28.one2one_cv2.0.0.conv.weight`.
 * Conv kernels go HWIO -> OIHW (`transpose(3, 2, 0, 1)`); a depthwise
-  (kh, kw, 1, C) kernel becomes (C, 1, kh, kw).
+  (kh, kw, 1, C) kernel becomes (C, 1, kh, kw). A Dense kernel (in, out)
+  becomes a Linear weight (out, in).
 * BN scale/bias/mean/var become weight/bias/running_mean/running_var, and
   each BN gets `num_batches_tracked = 0` so `load_state_dict(strict=True)`
   holds.
@@ -39,6 +40,10 @@ import torch.nn as nn
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _TORCH_BN = {v: k for k, v in _BN_LEAVES.items()}
+# a kernel's axes by rank, JAX layout -> torch layout (conv HWIO -> OIHW, Dense (in, out) -> Linear (out, in))
+# and back
+_TO_TORCH = {4: (3, 2, 0, 1), 2: (1, 0)}
+_TO_FLAX = {4: (2, 3, 1, 0), 2: (1, 0)}
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -83,8 +88,8 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Ten
                 sd[f"{mod}.{_BN_LEAVES[leaf]}"] = torch.from_numpy(arr.copy())
                 if leaf == "mean":
                     sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
-            elif leaf == "kernel" and arr.ndim == 4:
-                sd[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
+            elif leaf == "kernel" and arr.ndim in _TO_TORCH:
+                sd[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(arr.transpose(_TO_TORCH[arr.ndim])))
             elif leaf == "bias":
                 sd[f"{mod}.bias"] = torch.from_numpy(arr.copy())
             else:
@@ -92,20 +97,21 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Ten
     return sd
 
 
-def _flax_slot(name: str, ndim: int) -> Optional[Tuple[str, Tuple[str, ...], bool]]:
-    """A state_dict entry's place in the JAX variables: (collection, path, is a
-    conv kernel); None for the entries JAX does not have (num_batches_tracked)."""
+def _flax_slot(name: str, ndim: int) -> Optional[Tuple[str, Tuple[str, ...], Optional[Tuple[int, ...]]]]:
+    """A state_dict entry's place in the JAX variables: (collection, path, the permutation that
+    takes the tensor to the JAX layout, None when it has none); None for the entries JAX does not
+    have (num_batches_tracked)."""
     mod, leaf = name.rsplit(".", 1)
     path = torch_name_to_flax(mod)
     if leaf == "num_batches_tracked":
         return None
     if path[-1] == "bn":
         flax_leaf = _TORCH_BN[leaf]
-        return ("batch_stats" if flax_leaf in ("mean", "var") else "params"), path + (flax_leaf,), False
-    if leaf == "weight" and ndim == 4:
-        return "params", path + ("kernel",), True
+        return ("batch_stats" if flax_leaf in ("mean", "var") else "params"), path + (flax_leaf,), None
+    if leaf == "weight" and ndim in _TO_FLAX:
+        return "params", path + ("kernel",), _TO_FLAX[ndim]
     if leaf == "bias":
-        return "params", path + ("bias",), False
+        return "params", path + ("bias",), None
     raise KeyError(f"no JAX counterpart for {name}")
 
 
@@ -115,8 +121,8 @@ def flax_shapes(model: nn.Module) -> Dict[str, Dict[str, Any]]:
     for name, t in model.state_dict().items():
         slot = _flax_slot(name, t.dim())
         if slot is not None:
-            col, path, kernel = slot
-            _set(tree[col], path, tuple(t.permute(2, 3, 1, 0).shape if kernel else t.shape))
+            col, path, perm = slot
+            _set(tree[col], path, tuple(t.permute(perm).shape if perm else t.shape))
     return tree
 
 
@@ -131,9 +137,9 @@ def state_dict_to_flax(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str,
     for name, t in named.items():
         slot = _flax_slot(name, t.dim())
         if slot is not None:
-            col, path, kernel = slot
+            col, path, perm = slot
             t = t.detach().float().cpu()
-            _set(tree[col], path, np.ascontiguousarray((t.permute(2, 3, 1, 0) if kernel else t).numpy()))
+            _set(tree[col], path, np.ascontiguousarray((t.permute(perm) if perm else t).numpy()))
     return _sorted_tree(tree)
 
 

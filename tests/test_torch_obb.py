@@ -20,8 +20,8 @@ the entry points at imgsz 64).
 * The rotated assigner (exact on untied metrics) and `v8_obb_loss` (JAX f32
   for the loss, the port's f64 run for the gradients).
 * yolov8n-obb at full width, imgsz 64: `predict` on square frames, `.ckpt`
-  files both ways, `val(data=...)` on a square DOTA-quad set (equal to the
-  last digit), the `max_gt` fault of the JAX validator, and
+  files both ways, `val(data=...)` on a square DOTA-quad set (mAP keys equal to
+  the last digit), the `max_gt` fault of the JAX validator, and
   `train(data=...)` on the JAX test's rotated set (`tests/test_tasks.py:251-275`)
   with the first step's loss items held to the JAX trainer's.
 """
@@ -59,7 +59,7 @@ from lpc_yolo_tpu_torch.nn.fuse import fuse_conv_bn
 from lpc_yolo_tpu_torch.nn.heads import OBB, decode_feats_obb
 from lpc_yolo_tpu_torch.ops.boxes import probiou, rbox_hull, xywhr2xyxyxyxy
 from lpc_yolo_tpu_torch.ops.nms import nms_rotated
-from lpc_yolo_tpu_torch.utils.compare import assert_detections_close
+from lpc_yolo_tpu_torch.utils.compare import assert_detections_close, assert_val_results_agree
 from lpc_yolo_tpu_torch.utils.flax_bridge import flax_shapes, flax_to_state_dict, load_flax, random_variables
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -524,14 +524,14 @@ def write_obb_dataset(root: Path, jm, variables, per_frame: int = 3) -> Path:
 
 def test_val_matches_jax(v8n_obb, jax_facade, tmp_path):
     """YOLO("yolov8n-obb.yaml", nc=15).val(data=...) on square frames with DOTA quad labels equals the JAX
-    YOLO.val's results dict to the last digit: the box keys and fitness, matched by rotated probIoU."""
+    YOLO.val's results dict (`assert_val_results_agree`): the box keys and fitness, matched by rotated probIoU."""
     data = write_obb_dataset(tmp_path, *v8n_obb)
     ref = jax_facade("yolov8n-obb.yaml", nc=15).val(data=str(data), imgsz=S, batch=4, workers=2)
     yolo = YOLO("yolov8n-obb.yaml", device="cpu", seed=None, nc=15).load_flax(v8n_obb[1])
     got = yolo.val(data=str(data), imgsz=S, batch=4, workers=2)
     assert list(got) == list(ref) and "metrics/mAP50-95(B)" in got
     assert ref["metrics/recall(B)"] > 0.5 and ref["metrics/mAP50-95(B)"] > 0.05
-    assert got == ref
+    assert_val_results_agree(got, ref)
 
 
 def test_val_reads_the_kept_rows_past_max_gt(v8n_obb, jax_facade, tmp_path):
@@ -548,7 +548,8 @@ def test_val_reads_the_kept_rows_past_max_gt(v8n_obb, jax_facade, tmp_path):
     got = yolo.val(data=str(data), imgsz=S, batch=4, workers=2, max_gt=2)
     cut = write_obb_dataset(tmp_path / "cut", *v8n_obb, per_frame=2)
     ref = jax_facade("yolov8n-obb.yaml", nc=15).val(data=str(cut), imgsz=S, batch=4, workers=2, max_gt=2)
-    assert got == ref and "metrics/mAP50-95(B)" in got
+    assert_val_results_agree(got, ref)
+    assert "metrics/mAP50-95(B)" in got
 
 
 def write_rotated_set(root: Path) -> str:

@@ -16,7 +16,7 @@ the entry points at imgsz 64).
   for ndim 3 and 2 within 1e-5 of the largest value.
 * yolov8n-pose at full width, imgsz 64: `predict` (boxes tie-tolerant,
   keypoints of matched rows within 1e-4 px), `.ckpt` files of task "pose"
-  both ways, `val(data=...)` (box and (P) keys equal to the last digit), and
+  both ways, `val(data=...)` (box and (P) keys as `assert_val_results_agree` holds them), and
   the pose `max_gt` fault of the JAX validator (its OKS matrix takes every GT
   row; the port's the kept ones).
 * A kpt_shape of ndim 2: the head and decode run in both packages; the JAX
@@ -48,7 +48,7 @@ from lpc_yolo_tpu_torch.nn import compiler as TC
 from lpc_yolo_tpu_torch.nn import modules as TM
 from lpc_yolo_tpu_torch.nn.fuse import fuse_conv_bn
 from lpc_yolo_tpu_torch.nn.heads import Pose, decode_kpts
-from lpc_yolo_tpu_torch.utils.compare import assert_detections_close
+from lpc_yolo_tpu_torch.utils.compare import assert_detections_close, assert_val_results_agree
 from lpc_yolo_tpu_torch.utils.flax_bridge import flax_shapes, flax_to_state_dict, random_variables
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -316,9 +316,9 @@ def write_pose_dataset(root: Path, jm, variables, per_frame: int = 3) -> Path:
 
 
 def test_val_matches_jax(v8n_pose, jax_facade, tmp_path):
-    """YOLO("yolov8n-pose.yaml").val(data=...) on keypoint labels equals the JAX YOLO.val's results dict to the
-    last digit: the box keys, fitness (the box fitness) and the four (P) keys (OKS of each kept row's keypoints
-    against the labels', area the GT box's times 0.53)."""
+    """YOLO("yolov8n-pose.yaml").val(data=...) on keypoint labels agrees with the JAX YOLO.val's results dict as
+    `assert_val_results_agree` holds it: the box keys, fitness (the box fitness) and the four (P) keys (OKS of each
+    kept row's keypoints against the labels', area the GT box's times 0.53)."""
     data = write_pose_dataset(tmp_path, *v8n_pose)
     ref = jax_facade("yolov8n-pose.yaml").val(data=str(data), imgsz=S, batch=4, workers=2)
     yolo = YOLO("yolov8n-pose.yaml", device="cpu", seed=None).load_flax(v8n_pose[1])
@@ -329,7 +329,7 @@ def test_val_matches_jax(v8n_pose, jax_facade, tmp_path):
     # the labels are the JAX model's own keypoints: every one is found; higher-scoring rows off the labels keep
     # the precision of the random weights low
     assert ref["metrics/recall(P)"] == 1.0 and ref["metrics/mAP50-95(P)"] > 0.05
-    assert got == ref
+    assert_val_results_agree(got, ref)
 
 
 def test_val_reads_the_kept_rows_past_max_gt(v8n_pose, jax_facade, tmp_path):
@@ -345,7 +345,8 @@ def test_val_reads_the_kept_rows_past_max_gt(v8n_pose, jax_facade, tmp_path):
         data=str(data), imgsz=S, batch=4, workers=2, max_gt=2)
     cut = write_pose_dataset(tmp_path / "cut", *v8n_pose, per_frame=2)
     ref = jax_facade("yolov8n-pose.yaml").val(data=str(cut), imgsz=S, batch=4, workers=2, max_gt=2)
-    assert got == ref and "metrics/mAP50-95(P)" in got
+    assert_val_results_agree(got, ref)
+    assert "metrics/mAP50-95(P)" in got
 
 
 
