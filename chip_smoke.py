@@ -8,6 +8,7 @@
     python3 chip_smoke.py --pose       # device, build, then phase 14 (the pose scales) only
     python3 chip_smoke.py --obb        # device, build, then phase 15 (the OBB scales at 1024) only
     python3 chip_smoke.py --cls        # device, build, then phase 16 (the classifiers at 224) only
+    python3 chip_smoke.py --zoo        # device, build, then phase 17 (the other CNN detection YAMLs) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -197,6 +198,26 @@ Phases, in order; any failure raises and the script exits non-zero:
             on a colour-folder set, 3 epochs, counters held, top-1 / top-5 by
             epoch, last.ckpt's weights and the YOLO.save reload serving what
             the facade serves. Numbers under "cls" and "cls_train_data".
+17. zoo     the other CNN detection YAMLs (ZOO_MODELS): yolov8n-p2, -p6,
+            -ghost, -ghost-p2, -ghost-p6, -seg-p6, -pose-p6, yolov5n, yolov5n-p6,
+            yolov3, yolov3-spp, yolov3-tiny (their own widths: the full
+            models), yolov6n (ReLU everywhere the conv.py family runs), and
+            yolov8x-p2 and yolov8x-p6 at full width; the P6 models at 1280,
+            the rest at 640. The letterbox into 1280 from b32 720p frames
+            beside its bound; each model's parameter count and strides (2 to
+            4 levels); conv3x3 parity at every distinct site shape (the ReLU
+            sites' own line), every site of a bf16 forward on its own inputs;
+            the folded bf16 b32 forward against the f32 plain path (head
+            maps within 0.25 centred relative error, the top 300 anchor
+            scores within 1e-2) and the f32 kernel path's predict against
+            it (top 20 scores within 1e-4, 80% of the rows matched); YOLO.predict b32 with the counters held and the
+            serving step's busy time, idle share and launches; conv3x3
+            against F.conv2d + bias over the sites of yolov8x-p2, yolov8x-p6,
+            yolov3 and yolov6n; YOLO.val(data=...) at b32 on phase 7's 64
+            frames for yolov8n-p2, yolov8n-p6 (at 1280), yolov3-tiny and
+            yolov6n, counters held; then YOLO("yolov8n-p2.yaml" and
+            "yolov6n.yaml", nc=3).train(data=..., save=True), 2 epochs on
+            phase 8's dataset, counters held. Numbers under "zoo".
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
@@ -204,10 +225,12 @@ yolov8n train(data=...), and beside them, as "launches_seg", "launches_pose"
 and "launches_obb", each kernel's launches in phase 13's yolov8n-seg, phase
 14's yolov8n-pose and phase 15's yolov8n-obb train(data=...); nms's times from
 phase 12's val pool; "launches_cls" beside them from phase 16's yolov8n-cls
-predict and train(data=...)); the last line is {"ok": true, "device": {...}}. Every
+predict and train(data=...); "launches_zoo" from phase 17's yolov6n train(data=...), and conv3x3's
+"max_abs_err_relu", the f32 parity of its ReLU epilogue at yolov6n's sites); the last line is
+{"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
-"pose", phase 15's under "obb", phase 16's under "cls").
+"pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -288,6 +311,18 @@ CLS_TRAIN_BATCH = 32  # the classify train step's batch (the JAX train_classifie
 CLS_NC, CLS_TRAIN_PER_CLASS, CLS_VAL_PER_CLASS = 4, 16, 4  # phase 16's colour-folder set
 CLS_FRAME_SHAPES = ((375, 500), (256, 256), (500, 375))  # ImageNet-like frames, resized to CLS_IMGSZ by the loader
 CLS_CONV_EPOCHS, CLS_CONV_PER_CLASS, CLS_TOP1_BAR = 10, 64, 0.9  # --converge yolov8n-cls.yaml
+ZOO_MODELS = {  # phase 17: name -> (parameters, the JAX graph's: tests/test_torch_zoo.py; serving size)
+    "yolov8n-p2.yaml": (3_354_128, 640), "yolov8n-p6.yaml": (4_984_336, 1280), "yolov8n-ghost.yaml": (1_865_300, 640),
+    "yolov8n-ghost-p2.yaml": (2_033_928, 640), "yolov8n-ghost-p6.yaml": (2_901_084, 1280),
+    "yolov8n-seg-p6.yaml": (5_302_800, 1280), "yolov8n-pose-p6.yaml": (5_182_136, 1280), "yolov5n.yaml": (2_654_800, 640),
+    "yolov5n-p6.yaml": (4_334_880, 1280), "yolov3.yaml": (103_754_128, 640), "yolov3-spp.yaml": (104_803_728, 640),
+    "yolov3-tiny.yaml": (12_173_232, 640), "yolov6n.yaml": (4_500_064, 640),
+    "yolov8x-p2.yaml": (66_637_520, 640), "yolov8x-p6.yaml": (97_423_056, 1280),  # the full-width heavy models
+}
+ZOO_LIBRARY = ("yolov8x-p2.yaml", "yolov8x-p6.yaml", "yolov3.yaml", "yolov6n.yaml")  # conv3x3 vs F.conv2d per site
+ZOO_VAL = ("yolov8n-p2.yaml", "yolov8n-p6.yaml", "yolov3-tiny.yaml", "yolov6n.yaml")  # 4, 4 (at 1280), 2, 3 levels
+ZOO_TRAIN, ZOO_EPOCHS = ("yolov8n-p2.yaml", "yolov6n.yaml"), 2  # the four-level loss; ReLU's backward, ConvTranspose2d
+P6_IMGSZ = 1280  # the P6 models' published size
 SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits at 640
 NMS_OPS = 15  # f32 operations per pool candidate and step: the IoU in the JAX order, the compare, the argmax
 REPORT = {}
@@ -1019,6 +1054,23 @@ def write_val_labels(files, frames, dets, imgsz: int) -> int:
     return n_boxes
 
 
+def labelled_val_set(root: Path, yolo, S: int = 640, B: int = VAL_BATCH):
+    """Phase 7's val set under root: VAL_FRAMES frames (`write_val_dataset`), labelled with `yolo`'s own f32
+    detections through the validator's scaleup=False geometry at S; root/data.yaml. Returns (data, the image
+    paths, the frames, the labelled boxes)."""
+    from lpc_yolo_tpu_torch.engine.predictor import serving_model
+    from lpc_yolo_tpu_torch.engine.validator import Validator
+
+    files, frames = write_val_dataset(root, VAL_FRAMES, seed=31)
+    v32 = Validator(yolo, imgsz=S, device="cuda", dtype=torch.float32)
+    m32 = serving_model(yolo.model, v32.device, torch.float32)
+    dets = np.concatenate([v32.predict(m32, v32.preprocess(frames[i:i + B])) for i in range(0, len(frames), B)])
+    n_boxes = write_val_labels(files, frames, dets, S)
+    data = root / "data.yaml"
+    data.write_text(json.dumps({"path": str(root), "val": "images/val", "nc": 80}))  # JSON is YAML
+    return data, files, frames, n_boxes
+
+
 def val_launches_expected(frames, batch: int, sites: int = CONV_SITES_PER_FORWARD, nms: bool = False):
     """Launches one val run makes: a letterbox per (batch, frame shape), a conv3x3 per site and batch, and
     for a v8 model (`nms`) an NMS per batch."""
@@ -1128,14 +1180,8 @@ def phase_val(root: Path):
     phase_parity_letterbox_val()
     S, B = 640, VAL_BATCH
     t0 = time.perf_counter()
-    files, frames = write_val_dataset(root, VAL_FRAMES, seed=31)
     yolo = YOLO(YAML, device="cuda", seed=0)
-    v32 = Validator(yolo, imgsz=S, device="cuda", dtype=torch.float32)
-    m32 = serving_model(yolo.model, v32.device, torch.float32)
-    dets = np.concatenate([v32.predict(m32, v32.preprocess(frames[i:i + B])) for i in range(0, len(frames), B)])
-    n_boxes = write_val_labels(files, frames, dets, S)
-    data = root / "data.yaml"
-    data.write_text(json.dumps({"path": str(root), "val": "images/val", "nc": 80}))  # JSON is YAML
+    data, files, frames, n_boxes = labelled_val_set(root, yolo)
     subset = [files[i] for i in range(VAL_SUBSET)]
     (root / "subset.txt").write_text("".join(f"{f}\n" for f in subset))
     (root / "subset.yaml").write_text(json.dumps({"path": str(root), "val": "subset.txt", "nc": 80}))
@@ -1647,9 +1693,10 @@ def phase_scales(family: str, val_data: Path):
     return out
 
 
-def phase_scale_train_data(family: str, data: str, sites: int, name: str = None, S: int = 640):
-    """YOLO("yolo<family>n.yaml", nc=3, seed 0).train(data=..., save=True) on phase 8's dataset, TD_EPOCHS
-    epochs of b16 at S (640), with the launch counters reset just before and read just after (a letterbox per
+def phase_scale_train_data(family: str, data: str, sites: int, name: str = None, S: int = 640,
+                           epochs: int = TD_EPOCHS):
+    """YOLO("yolo<family>n.yaml", nc=3, seed 0).train(data=..., save=True) on phase 8's dataset, `epochs`
+    (TD_EPOCHS) epochs of b16 at S (640), with the launch counters reset just before and read just after (a letterbox per
     val batch and frame shape, `sites` conv3x3 per val batch, for v8 an NMS per val batch, a repack per step);
     its weights/last.ckpt and best.ckpt; the trained model through YOLO.save -> YOLO(path, device="cuda")
     predicts what the facade predicts, bit for bit, and so does a model given last.ckpt's EMA weights;
@@ -1663,16 +1710,16 @@ def phase_scale_train_data(family: str, data: str, sites: int, name: str = None,
 
     B, name = TD_BATCH, name or f"yolo{family}n.yaml"
     tag = Path(name).stem.replace("yolo", "")
-    steps = -(-TD_TRAIN // B) * TD_EPOCHS
+    steps = -(-TD_TRAIN // B) * epochs
     val_frames = [np.load(f) for f in sorted(Path(check_det_dataset(data)["val"]).glob("*.npy"))]
     per_val = val_launches_expected(val_frames, min(B, 8), sites, nms=family == "v8")
-    expect = {**{k: v * TD_EPOCHS for k, v in per_val.items()}, "repack": steps}
+    expect = {**{k: v * epochs for k, v in per_val.items()}, "repack": steps}
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_train_") as tmp:
         root = Path(tmp)
         yolo = YOLO(name, device="cuda", seed=0, nc=3)
         zero_launches()
         t0 = time.perf_counter()
-        res = yolo.train(data=data, imgsz=S, batch=B, epochs=TD_EPOCHS, close_mosaic=1, optimizer="auto", workers=8,
+        res = yolo.train(data=data, imgsz=S, batch=B, epochs=epochs, close_mosaic=1, optimizer="auto", workers=8,
                          cache="disk", save=True, save_dir=root / "run")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1708,7 +1755,7 @@ def phase_scale_train_data(family: str, data: str, sites: int, name: str = None,
         best_meta = read_meta(weights / "best.ckpt")
         assert best_meta["fitness"] == max(e["fitness"] for e in tr.epoch_history), best_meta
         log(f"{tag}_train_data", f"YOLO('{name}', nc=3).train(data=..., save=True): {steps} steps of b{B}, "
-                                     f"{TD_EPOCHS} validations, {wall:.3f} s ({TD_TRAIN * TD_EPOCHS / wall:.1f} img/s "
+                                     f"{epochs} validations, {wall:.3f} s ({TD_TRAIN * epochs / wall:.1f} img/s "
                                      f"over the call); launches {launches}; last.ckpt + best.ckpt (best: epoch "
                                      f"{best_meta['epoch'] + 1}); YOLO.save -> YOLO(path, device='cuda') and last.ckpt's "
                                      f"EMA weights predict identically ({[len(r) for r in ref]} boxes); input_wait_frac "
@@ -2275,14 +2322,15 @@ def obb_parity_1024():
     return cases
 
 
-def letterbox_1024_times(dev720, dev_sq):
-    """The letterbox kernel at OBB_IMGSZ, b32, u8 output (what predict and val feed the OBB graph): from 720p
-    frames (upscaled) and from 1024x1024 frames (kept), device time on a cold L2 beside its plain version and
-    bound, and its parity with the plain version (bit-exact u8)."""
+def letterbox_times(feeds, S: int, phase: str):
+    """The letterbox kernel into S, b32, u8 output (what predict and val feed the graph), from each feed's frames
+    (name -> a device batch): device time on a cold L2 beside its plain version and bound, and its parity with
+    the plain version (bit-exact u8). Phase 15 feeds 720p frames (upscaled) and 1024x1024 frames (kept) into
+    OBB_IMGSZ, phase 17 720p frames into P6_IMGSZ (padded only)."""
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_plain, tables_on
 
-    S, out = OBB_IMGSZ, {}
-    for name, dev in (("720p", dev720), ("1024", dev_sq)):
+    out = {}
+    for name, dev in feeds.items():
         B, h0, w0 = dev.shape[:3]
         x = torch.empty(B, S, S, 3, dtype=torch.uint8, device="cuda")
         tab = tables_on(h0, w0, S, dev.device)
@@ -2300,7 +2348,7 @@ def letterbox_1024_times(dev720, dev_sq):
         b_ms, b_by = bound(nbytes, B * S * S * 3 * 9, F32_FLOPS_PER_MS)
         out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
                      "max_abs_err": err}
-        log("obb", f"letterbox b{B} {h0}x{w0}->{S} u8: {ms:.4f} ms (CUDA graph, cold L2), plain {plain:.4f} ms, "
+        log(phase, f"letterbox b{B} {h0}x{w0}->{S} u8: {ms:.4f} ms (CUDA graph, cold L2), plain {plain:.4f} ms, "
                    f"bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.3f} of it), bit-exact to the plain version")
     return out
 
@@ -2341,7 +2389,8 @@ def phase_obb(val_data: Path):
     host = [rng.integers(0, 256, (S, S, 3), dtype=np.uint8) for _ in range(SCALE_SERVE_BATCH)]
     dev = torch.from_numpy(np.stack(host)).cuda()
     obb_parity_1024()
-    REPORT["obb_letterbox"] = letterbox_1024_times(torch.from_numpy(np.stack(frames_720p(32, seed=93))).cuda(), dev)
+    REPORT["obb_letterbox"] = letterbox_times({"720p": torch.from_numpy(np.stack(frames_720p(32, seed=93))).cuda(),
+                                               "1024": dev}, S, "obb")
     val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
     out = {}
     for scale, n_params in OBB_PARAMS.items():
@@ -2767,6 +2816,161 @@ def cls_converge(model: str) -> int:
     return 0
 
 
+def zoo_vs_plain(yolo, pred, frames):
+    """The folded bf16 serving forward of `frames` (the kernels) against the plain path (plain letterbox to u8, /255
+    in f32, the unfolded f32 model, whose convs run through F.conv2d), as phase 4 holds LPC-YOLO: each head map
+    (box and class, every level) within BF16_MAP_TOL of the plain map by its error against its spread over the
+    map, and the top 300 of the anchors' best class scores, sorted, within BF16_SCORE_TOL (pre-NMS: which rows
+    the NMS keeps turns on scores tied to bf16's rounding). Then on 4 of the frames the folded f32 kernel path's
+    predict against the plain path's: the top 20 sorted scores of each frame within 1e-4, and at least 80% of
+    the rows matched to a row of the same label with its score within 2e-4 and its box within 0.05 px, as
+    phases 13 and 14 hold the card to the CPU: over the letterbox pad the anchors score alike to ~1e-7 a stride
+    apart, and f32 rounding decides which of them the NMS keeps and, with it, what each suppresses. Returns the
+    errors and counts."""
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.nn.heads import decode_feats
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox_plain, tables_on
+
+    S, m = pred.imgsz, yolo.model
+    feats = lambda out: out["feats"] if isinstance(out, dict) else out  # noqa: E731
+    best = lambda fs: decode_feats(fs, m.strides, m.nc, m.reg_max)[..., 4:].amax(-1)  # noqa: E731
+    x = torch.empty(len(frames), S, S, 3, device="cuda")
+    for shape in {im.shape for im in frames}:
+        slots = [j for j, im in enumerate(frames) if im.shape == shape]
+        src = torch.from_numpy(np.stack([frames[j] for j in slots])).cuda()
+        x[slots] = letterbox_plain(src, tables_on(*shape[:2], S, src.device), S, torch.uint8).float() / 255
+    x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        maps_p = feats(m(x))
+        maps16 = feats(pred.model(pred.preprocess(frames)))
+        map_err = max(((a.float() - b).norm() / (b - b.mean((2, 3), keepdim=True)).norm()).item()
+                      for pa, pb in zip(maps16, maps_p) for a, b in zip(pa, pb))
+        k = min(300, sum(cm.shape[2] * cm.shape[3] for _, cm in maps_p))
+        gap = (best(maps16).topk(k).values - best(maps_p).topk(k).values).abs().max().item()
+        del maps_p, maps16
+        det_p = m.predict(x[:4])
+    del x
+    assert map_err <= BF16_MAP_TOL, f"bf16 head maps off the f32 plain path: centred relative error {map_err}"
+    assert gap <= BF16_SCORE_TOL, f"bf16 top-{k} scores off the f32 plain path by {gap}"
+    first = lambda out: (out[0] if isinstance(out, tuple) else out).float().cpu().numpy()  # noqa: E731
+    det_k = first(Predictor(m, imgsz=S, batch=4, device="cuda", dtype=torch.float32).infer(frames[:4]))
+    top, matched, rows = 0.0, 0, 0
+    for a, b in zip(det_k, first(det_p)):
+        a, b = a[a[:, 5] >= 0], b[b[:, 5] >= 0]
+        n = min(len(a), len(b), 20)
+        top = max(top, float(np.abs(np.sort(a[:, 4])[::-1][:n] - np.sort(b[:, 4])[::-1][:n]).max(initial=0)))
+        for row in a:  # its plain twin: the same label, the score within 2e-4, the box within 0.05 px
+            cand = b[(b[:, 5] == row[5]) & (np.abs(b[:, 4] - row[4]) <= 2e-4)]
+            matched += bool(len(cand)) and float(np.abs(cand[:, :4] - row[:4]).max(1).min()) <= 0.05
+        rows += max(len(a), len(b))
+    assert top <= 1e-4 and matched >= 0.8 * rows > 0, f"f32 kernel path vs plain: top-20 gap {top}, {matched}/{rows}"
+    return {"bf16_map_err": map_err, "bf16_score_gap": gap, "f32_top20_score_gap": top, "f32_matched": matched,
+            "f32_rows": rows}
+
+
+def phase_zoo(val_data: Path, train_data: str):
+    """Phase 17: the other CNN detection YAMLs (ZOO_MODELS: v8 P2 / P6 / ghost / seg-P6 / pose-P6, v5 and v5-P6 at
+    their n scale, v3, v3-SPP and v3-tiny at their own widths, yolov6n, and yolov8x-p2 and yolov8x-p6 at full
+    width), each in turn with seed-0 weights, the P6 ones at P6_IMGSZ: its parameter count; its conv3x3 sites
+    (every kernel-path ConvBN, yolov6n's with ReLU) against the plain version (every distinct shape in f32 and
+    bf16, every site of one bf16 forward on its own inputs); the folded bf16 predict and f32 kernel path against
+    the plain path (`zoo_vs_plain`); YOLO.predict b32 with the counters held and the serving step's time, busy,
+    idle share and launches (`scale_serving`); for ZOO_LIBRARY conv3x3 against F.conv2d + bias over the sites;
+    for ZOO_VAL YOLO.val(data=...) on phase 7's 64 frames at b32 bf16 with the counters held; the letterbox into
+    P6_IMGSZ beside its bound; then YOLO(<ZOO_TRAIN>, nc=3).train(data=..., save=True) on phase 8's dataset for
+    ZOO_EPOCHS epochs, counters held. Returns the launches of yolov6n's train(data=...) and the f32 parity of
+    the ReLU epilogue at yolov6n's sites (max abs error)."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.nn.modules import ConvBN
+
+    t_phase = time.perf_counter()
+    host = frames_720p(SCALE_SERVE_BATCH, seed=171)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
+    out = {"letterbox_p6": letterbox_times({"720p": dev}, P6_IMGSZ, "zoo")["720p"]}
+    relu = None
+    for name, (n_params, S) in ZOO_MODELS.items():
+        t0 = time.perf_counter()
+        tag = Path(name).stem
+        r = out[tag] = {"imgsz": S}
+        yolo = YOLO(name, device="cuda", seed=0)
+        assert sum(p.numel() for p in yolo.model.parameters()) == n_params, name
+        pred = Predictor(yolo.model, imgsz=S, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+        sites = conv_sites(pred)
+        assert len(sites) == sum(isinstance(m, ConvBN) and m.kernel_path for m in pred.model.modules()), tag
+        assert ("relu" in {s[4] for s in sites}) == (yolo.model.default_act == "relu"), (tag, {s[4] for s in sites})
+        r["sites"], r["strides"] = len(sites), list(yolo.model.strides)
+        r["parity"] = phase_parity_conv(sites, tag)
+        if yolo.model.default_act == "relu":
+            relu = r["parity_relu"] = phase_parity_conv([s for s in sites if s[4] == "relu"], f"{tag} relu")
+        site_err = bf16_site_errors(pred, host[:2])
+        assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{tag} bf16 conv3x3 sites: {site_err}"
+        r["parity"]["forward_sites_bf16_max_rel"] = max(site_err)
+        r["vs_plain"] = zoo_vs_plain(yolo, pred, host)
+        r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
+        log(tag, f"{n_params} parameters, strides {r['strides']}, {len(sites)} conv3x3 sites a forward at {S} (every "
+                 f"site of a bf16 forward on its own inputs: max rel {max(site_err):.3g}); bf16 predict vs the f32 "
+                 f"plain path: head maps {r['vs_plain']['bf16_map_err']:.3g} (tol {BF16_MAP_TOL}), top-300 score gap "
+                 f"{r['vs_plain']['bf16_score_gap']:.3g} (tol {BF16_SCORE_TOL}), f32 "
+                 f"kernel path vs plain path: top-20 gap {r['vs_plain']['f32_top20_score_gap']:.3g} (tol 1e-4), "
+                 f"{r['vs_plain']['f32_matched']}/{r['vs_plain']['f32_rows']} rows matched; YOLO.predict "
+                 f"b{SCALE_SERVE_BATCH} 720p->{S} "
+                 f"bf16: launches {sv['launches']}, {sv['boxes']} boxes; serving step {sv['step_ms']:.3f} ms "
+                 f"({sv['img_s']:.1f} img/s), busy {sv['busy_ms']:.3f} ms, idle share {sv['idle_share']}, "
+                 f"{sv['device_launches']:.0f} launches a step")
+        if name in ZOO_LIBRARY:
+            tot, per_shape = time_conv3x3(sites, SCALE_SERVE_BATCH, phase=tag)
+            r["conv3x3_sum"], r["conv3x3_shapes"] = tot, per_shape
+            r["conv3x3_losers"] = [{"C": p["C"], "Co": p["Co"], "H": p["H"], "per_forward": p["per_forward"],
+                                    "vs_library": p["vs_library"]} for p in per_shape if p["vs_library"] > 1]
+        if name in ZOO_VAL:
+            expect = val_launches_expected(val_frames, VAL_BATCH, len(sites), nms=True)
+            zero_launches()
+            t1 = time.perf_counter()
+            res = yolo.val(data=str(val_data), imgsz=S, batch=VAL_BATCH, cache_images="disk")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = launches_now("letterbox", "conv3x3", "nms")
+            assert launches == expect, f"{tag} val: launches {launches}, expected {expect}"
+            assert all(np.isfinite(v) for v in res.values()), res
+            r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": launches, "results": res}
+            log(tag, f"YOLO.val b{VAL_BATCH} bf16 at {S}, {len(val_frames)} frames: {len(val_frames) / wall:.1f} img/s, "
+                     f"launches {launches}, mAP50 {res['metrics/mAP50(B)']:.4f}")
+        r["seconds"] = time.perf_counter() - t0
+        del pred, yolo
+        torch.cuda.empty_cache()
+    assert relu is not None, "no ReLU site ran"
+    for name in ZOO_TRAIN:
+        launches = phase_scale_train_data("v8", train_data, out[Path(name).stem]["sites"], name=name,
+                                          epochs=ZOO_EPOCHS)
+    out["seconds"] = time.perf_counter() - t_phase
+    REPORT["zoo"] = out
+    log("zoo", f"phase 17: {len(ZOO_MODELS)} models in {out['seconds']:.1f} s")
+    return launches, relu["f32_max_abs"]
+
+
+def write_zoo_datasets(root: Path):
+    """Phase 7's labelled val set (LPC-YOLO's own f32 detections) and phase 8's training set, for `--zoo` alone.
+    Returns (val YAML path, training YAML)."""
+    from lpc_yolo_tpu_torch import YOLO
+
+    data = labelled_val_set(root / "val", YOLO(YAML, device="cuda", seed=0))[0]
+    return data, write_train_dataset(root / "train")
+
+
+def zoo_only() -> None:
+    """`--zoo`: phase 17 alone."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+        phase_zoo(*write_zoo_datasets(Path(tmp)))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_zoo.json").write_text(json.dumps(REPORT, indent=1))
+    log("done", "phase 17 passed; numbers in chiprun_out/chip_smoke_zoo.json")
+
+
 def nms_worst_pool(B: int, seed: int = 0, k: int = 4096):
     """A pool in which every one of the 300 steps keeps a box: k candidates an image, sorted scores above
     conf 0.25 on a grid of 1/1024 (so runs of ~6 are tied and the first of each run must win), boxes 4 to 24
@@ -2930,9 +3134,9 @@ def conv3x3_only() -> None:
 
 def main(argv) -> int:
     converge = argv[:1] == ["--converge"] and len(argv) <= 2
-    if argv not in ([], ["--conv3x3"], ["--seg"], ["--pose"], ["--obb"], ["--cls"]) and not converge:
-        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg, --pose, --obb, --cls and "
-              f"--converge [model yaml]", file=sys.stderr)
+    if argv not in ([], ["--conv3x3"], ["--seg"], ["--pose"], ["--obb"], ["--cls"], ["--zoo"]) and not converge:
+        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg, --pose, --obb, --cls, --zoo "
+              f"and --converge [model yaml]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2947,8 +3151,8 @@ def main(argv) -> int:
     if argv == ["--conv3x3"]:
         conv3x3_only()
         return 0
-    if argv in (["--seg"], ["--pose"], ["--obb"], ["--cls"]):
-        {"--seg": seg_only, "--pose": pose_only, "--obb": obb_only, "--cls": cls_only}[argv[0]]()
+    if argv in (["--seg"], ["--pose"], ["--obb"], ["--cls"], ["--zoo"]):
+        {"--seg": seg_only, "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only}[argv[0]]()
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
@@ -3007,6 +3211,8 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         phase_cls()
         cls_launches = phase_cls_train_data(Path(tmp) / "cls")
+        torch.cuda.empty_cache()
+        zoo_launches, relu_err = phase_zoo(Path(tmp) / "val" / "data.yaml", data)
     nms = time_nms()["val"]
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
@@ -3031,6 +3237,8 @@ def main(argv) -> int:
         k["launches_pose"] = pose_launches[k["name"]]  # predict and train(data=...)
         k["launches_obb"] = obb_launches[k["name"]]
         k["launches_cls"] = cls_launches[k["name"]]
+        k["launches_zoo"] = zoo_launches[k["name"]]  # yolov6n's train(data=...), phase 17
+    kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"

@@ -2,8 +2,8 @@
 //
 // Replaces lpc_yolo_tpu/ops/pallas_conv.py::conv3x3_pallas (_conv3_kernel:
 // nine per-tap MXU dots into an f32 accumulator, then + b and apply_act).
-// The epilogue adds the bias and applies none / SiLU / Mish (softplus in its
-// stable form, as jax.nn.softplus, on the f32 path).
+// The epilogue adds the bias and applies none / SiLU / Mish / ReLU (softplus
+// in its stable form, as jax.nn.softplus, on the f32 path), in f32.
 //
 // Bound: on LPC-YOLO's serving shapes (C, Co in 16..384, maps 20^2..320^2)
 // the work is 2*9*C*Co flops per pixel against (C + Co) elements moved, so
@@ -34,6 +34,7 @@ __device__ __forceinline__ float activate(float v, int act) {
     const float sp = fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v)));
     return v * tanhf(sp);
   }
+  if (act == 3) return fmaxf(v, 0.0f);
   return v;
 }
 
@@ -195,7 +196,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// none / SiLU / Mish with the fast intrinsics. Mish as v * tanh(softplus(v)) =
+// none / SiLU / Mish / ReLU with the fast intrinsics. Mish as v * tanh(softplus(v)) =
 // v * n(n+2) / (n(n+2) + 2) with n = e^v, which is v itself to f32 above 20.
 __device__ __forceinline__ float activate_fast(float v, int act) {
   if (act == 1) return __fdividef(v, 1.0f + __expf(-v));
@@ -204,6 +205,7 @@ __device__ __forceinline__ float activate_fast(float v, int act) {
     const float n = __expf(v), q = n * (n + 2.0f);
     return v * __fdividef(q, q + 2.0f);
   }
+  if (act == 3) return fmaxf(v, 0.0f);
   return v;
 }
 
@@ -439,12 +441,12 @@ extern "C" int conv3x3_describe(int config, int* out) {
   return 0;
 }
 
-// dtype: 0 = f32, 1 = bf16. act: 0 = none, 1 = SiLU, 2 = Mish. config: the bf16
+// dtype: 0 = f32, 1 = bf16. act: 0 = none, 1 = SiLU, 2 = Mish, 3 = ReLU. config: the bf16
 // instantiation (an index into kConfigs); the f32 path has one tiling and ignores it.
 extern "C" int conv3x3_launch(const void* x, const void* w, const void* bias, void* y, int B, int H,
                               int W, int C, int Co, long long sxb, long long sxh, long long sxw, int act,
                               int dtype, int config, void* stream) {
-  if (act < 0 || act > 2) return (int)cudaErrorInvalidValue;
+  if (act < 0 || act > 3) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {

@@ -24,8 +24,8 @@ vectorised paths, batched, on whatever device the tensors live on:
   render's canvas fill (`BORDER`).
 - `min_area_rect`: cv2.minAreaRect of small point sets (a DOTA row's quad),
   in numpy: cv2's convex hull order (Sklansky from the rightmost point, then
-  its cyclic shift of the indices), the rotating calipers in f32 with the
-  cosines in f64, as cv2 takes them, and OpenCV 5.0's angle in
+  its cyclic shift of the indices), the rotating calipers in f32 with
+  cv2's cross-product test for the leading edge, and OpenCV 5.0's angle in
   [-90, 0): an axis-aligned rectangle is -90 with its vertical side as w.
 
 Each is held against cv2 in `tests/test_torch_data.py`. The batched training
@@ -284,16 +284,17 @@ def _hull(pts: np.ndarray) -> List[int]:
 
 def _calipers(P: np.ndarray):
     """cv2's rotating calipers (CALIPERS_MINAREARECT) over N hulls of n points each, (N, n, 2) f32 in cv2's
-    order: the rectangle's corner and its two edge vectors, each (N, 2) f32. The edges' cosines with the
-    calipers are compared in f64 (as OpenCV 5.0 does: in f32 two parallel sides of a near-rectangle tie the
-    other way), the rest is f32."""
+    order: the rectangle's corner and its two edge vectors, each (N, 2) f32. The leading edge is chosen as
+    OpenCV 5.0 chooses it (rotcalipers.cpp): the four calipers' edge vectors, un-normalised, are turned into
+    the first caliper's frame (v0, rot90CW(v1), rot180(v2), rot90CCW(v3)), which is exact, and edge i takes
+    over from the one held so far when `firstVecIsRight`: rot90CW(v_i) . v_main < 0, each product rounded to
+    f32 before the sum. The strict test keeps the first of parallel edges. The rest is f32."""
     f32, f64 = np.float32, np.float64
     N, n = P.shape[:2]
     rows = np.arange(N)
     x, y = P[..., 0], P[..., 1]
     vx, vy = np.roll(x, -1, 1) - x, np.roll(y, -1, 1) - y  # f32 differences
-    inv64 = 1.0 / np.sqrt(vx.astype(f64) ** 2 + vy.astype(f64) ** 2)
-    inv = inv64.astype(f32)
+    inv = (1.0 / np.sqrt(vx.astype(f64) ** 2 + vy.astype(f64) ** 2)).astype(f32)
     ax, ay = np.roll(vx, 1, 1).astype(f64), np.roll(vy, 1, 1).astype(f64)
     convexity = ax * vy - ay * vx
     first = np.argmax(convexity != 0, axis=1)
@@ -308,11 +309,15 @@ def _calipers(P: np.ndarray):
         return a[rows, seq[:, j]]
 
     for _ in range(n):
-        a, b = base_a.astype(f64), base_b.astype(f64)
-        v = [(at(vx, j).astype(f64), at(vy, j).astype(f64)) for j in range(4)]
-        cos = np.stack([(a * v[0][0] + b * v[0][1]) * at(inv64, 0), (-b * v[1][0] + a * v[1][1]) * at(inv64, 1),
-                        (-a * v[2][0] - b * v[2][1]) * at(inv64, 2), (b * v[3][0] - a * v[3][1]) * at(inv64, 3)], 1)
-        main = cos.argmax(1)  # the first of equal cosines, as cv2's strict comparison
+        # the calipers' edges turned into the first caliper's frame: v0, rot90CW(v1), rot180(v2), rot90CCW(v3)
+        rot = [(at(vx, 0), at(vy, 0)), (at(vy, 1), -at(vx, 1)), (-at(vx, 2), -at(vy, 2)), (-at(vy, 3), at(vx, 3))]
+        main = np.zeros(N, np.int64)
+        mx, my = rot[0]
+        for i in (1, 2, 3):
+            rx, ry = rot[i]
+            right = ry * mx - rx * my < 0  # firstVecIsRight(rot[i], rot[main]) in f32
+            main = np.where(right, i, main)
+            mx, my = np.where(right, rx, mx), np.where(right, ry, my)
         lead = seq[rows, main]
         lx, ly = vx[rows, lead] * inv[rows, lead], vy[rows, lead] * inv[rows, lead]
         base_a = np.choose(main, [lx, ly, -lx, -ly]).astype(f32)
@@ -337,10 +342,9 @@ def _calipers(P: np.ndarray):
 def min_area_rect(points: np.ndarray) -> np.ndarray:
     """cv2.minAreaRect (OpenCV 5.0) of each point set: points (..., k, 2) -> (..., 5) f32 rows
     [cx, cy, w, h, angle in degrees], the angle in [-90, 0) and w the side along it. Held to cv2 in
-    tests/test_torch_obb_data.py: seeded quads bit for bit; of rectangles rounded to whole pixels 99.5% bit for
-    bit, the rest within f32 units but about 1 in 5000, which keeps the other of two rectangles whose areas
-    agree to f32 rounding (up to 0.4 degrees apart). A set on one line is a zero-height rectangle along it, one
-    point a zero rectangle at -90."""
+    tests/test_torch_obb_data.py: seeded quads, and rectangles rounded to whole pixels, bit for bit (where two
+    near-parallel sides give areas equal to f32 rounding, cv2's caliper test decides, as `_calipers` reproduces
+    it). A set on one line is a zero-height rectangle along it, one point a zero rectangle at -90."""
     pts = np.asarray(points, np.float32)
     flat = pts.reshape(-1, *pts.shape[-2:])
     out = np.zeros((len(flat), 5), np.float32)

@@ -3,10 +3,15 @@
 Same schema and channel inference as the JAX compiler (make_divisible :87,
 LayerSpec :94, yaml_model_load :110, parse_model :119-284), implemented for
 the modules that the LPC-YOLO YAML, the six YOLOv10 scales (n/s/m/b/l/x) and
-the five YOLOv8 scales (n/s/m/l/x), detect, segment, pose, OBB and classify, and the ResNet
-classifiers reach; any other module raises NotImplementedError. The model routes `from` indices and keeps the save list
-like `DetectionModel._run` (:718-1019), without the TPU width-pack, upsample-
-commute, s2d-fold plans or int8. A layer whose output no later layer reads
+the five YOLOv8 scales (n/s/m/l/x), detect, segment, pose, OBB and classify, the ResNet
+classifiers and the other CNN detection YAMLs (v8 P2 / P6 / ghost / seg-P6 / pose-P6,
+v5 and v5-P6, v3, v3-SPP, v3-tiny, v6) reach; any other module raises NotImplementedError.
+A layer repeated n > 1 times that takes no repeat count of its own (v3's Bottlenecks, v6's
+Convs) is an nn.Sequential of n copies, `model.<i>.<rep>`, the JAX graph's `model_<i>_<rep>`
+(:988-995). The YAML's `activation:` key sets the conv.py family's default activation
+(:1081-1084), which each ConvBN resolves when it is built (`modules.DEFAULT_ACT`). The
+model routes `from` indices and keeps the save list like `DetectionModel._run` (:718-1019),
+without the TPU width-pack, upsample-commute, s2d-fold plans or int8. A layer whose output no later layer reads
 (layer 27 of the LPC YAML) keeps its module and weights. In eval mode it is
 not computed, as XLA's dead-code pass drops it in the JAX graph; in train mode
 it runs, because there its BatchNorm statistics are an output of the JAX
@@ -34,8 +39,12 @@ from .heads import (OBB, Classify, Detect, Pose, Segment, V10Detect, decode_feat
 
 # Modules whose YAML arg[0] is the (width-scaled) output-channel count, and the
 # subset that also takes the (depth-scaled) repeat count.
-_BASE = {"Conv", "Bottleneck", "SPPF", "C2f", "PSA", "LPC", "SCDown", "C2fCIB"}
-_REPEAT = {"C2f", "C2fCIB"}
+_BASE = {"Conv", "DWConv", "GhostConv", "Bottleneck", "SPPF", "SPP", "C2f", "C2", "C3", "C3Ghost", "PSA", "LPC",
+         "SCDown", "C2fCIB"}
+_REPEAT = {"C2f", "C2", "C3", "C3Ghost", "C2fCIB"}
+# the YAML `activation:` values the port takes (the JAX package's act_map, :1083, less GELU, which no conv3x3
+# epilogue has); the JAX `apply_act` applies SiLU for Mish (ROADMAP Queue 3), the port Mish as the reference does
+_ACTIVATIONS = {"nn.ReLU()": "relu", "nn.SiLU()": "silu", "nn.Mish()": "mish"}
 # the ported heads, each one's task (JAX names)
 HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8", "Segment": "segment", "Pose": "pose", "OBB": "obb",
               "Classify": "classify"}
@@ -122,9 +131,14 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
         elif m == "space_to_depth":
             c2 = 4 * chs[f_list[0]]
             out_args = list(args)
-        elif m == "nn.Upsample":
+        elif m in ("nn.Upsample", "nn.MaxPool2d", "nn.ZeroPad2d"):
             c2 = chs[f_list[0]]
             out_args = list(args)
+        elif m == "nn.ConvTranspose2d":  # width-scaled as a base module (JAX :221-226)
+            c1, c2 = chs[f_list[0]], args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            out_args = [c1, c2, *args[1:]]
         else:
             raise NotImplementedError(f"module '{m}' is not ported to torch yet (layer {i})")
 
@@ -139,8 +153,10 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
 
 def _build_module(spec: LayerSpec, strides) -> nn.Module:
     m, a = spec.module, spec.args
-    if spec.n != 1:
-        raise NotImplementedError(f"repeated '{m}' layers are not ported to torch yet (layer {spec.i})")
+    if spec.n > 1:  # n copies in sequence, each after the first taking the c2 channels (JAX :988-995)
+        one = dataclasses.replace(spec, n=1)
+        return nn.Sequential(*(_build_module(one if r == 0 else dataclasses.replace(one, args=(spec.c2, *a[1:])),
+                                             strides) for r in range(spec.n)))
     if m == "Conv":
         k = a[2] if len(a) > 2 else 1
         s = a[3] if len(a) > 3 else 1
@@ -149,8 +165,25 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         d = a[6] if len(a) > 6 else 1
         act = "silu" if (len(a) <= 7 or a[7] is True) else (a[7] or False)
         return M.ConvBN(a[0], a[1], k, s, p=p, g=g, d=d, act=act)
+    if m == "DWConv":
+        act = "silu" if (len(a) <= 5 or a[5] is True) else (a[5] or False)
+        return M.DWConv(a[0], a[1], a[2] if len(a) > 2 else 1, a[3] if len(a) > 3 else 1,
+                        a[4] if len(a) > 4 else 1, act=act)
+    if m == "GhostConv":
+        return M.GhostConv(a[0], a[1], a[2] if len(a) > 2 else 1, a[3] if len(a) > 3 else 1)
     if m == "Bottleneck":
         return M.Bottleneck(*a)
+    if m in ("C2", "C3", "C3Ghost"):
+        return getattr(M, m)(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else True)
+    if m == "SPP":
+        return M.SPP(a[0], a[1], a[2] if len(a) > 2 else (5, 9, 13))
+    if m == "nn.MaxPool2d":
+        return M.MaxPool2d(a[0], a[1] if len(a) > 1 else a[0], a[2] if len(a) > 2 else 0)
+    if m == "nn.ZeroPad2d":
+        return M.ZeroPad2d(a[0])
+    if m == "nn.ConvTranspose2d":
+        return M.ConvTranspose(a[0], a[1], a[2] if len(a) > 2 else 2, a[3] if len(a) > 3 else 2,
+                               a[4] if len(a) > 4 else 0)
     if m == "SPPF":
         return M.SPPF(a[0], a[1], a[2] if len(a) > 2 else 5)
     if m == "C2f":
@@ -212,11 +245,15 @@ class DetectionModel(nn.Module):
     """
 
     def __init__(self, specs: Tuple[LayerSpec, ...], save: Tuple[int, ...], nc: int,
-                 strides: Tuple[float, ...] = (8.0, 16.0, 32.0), reg_max: int = 16):
+                 strides: Tuple[float, ...] = (8.0, 16.0, 32.0), reg_max: int = 16, default_act: str = "silu"):
         super().__init__()
         self.specs, self.save, self.nc = specs, save, nc
-        self.strides, self.reg_max = tuple(strides), reg_max
-        self.model = nn.ModuleList(_build_module(s, self.strides) for s in specs)
+        self.strides, self.reg_max, self.default_act = tuple(strides), reg_max, default_act
+        token = M.DEFAULT_ACT.set(default_act)
+        try:
+            self.model = nn.ModuleList(_build_module(s, self.strides) for s in specs)
+        finally:
+            M.DEFAULT_ACT.reset(token)
         self.task = HEAD_TASKS.get(specs[-1].module) if specs else None  # None: a headless graph
         read = {j for s in specs for j in s.f if j != -1}
         read |= {s.i - 1 for s in specs if -1 in s.f}
@@ -318,11 +355,13 @@ class DetectionModel(nn.Module):
 
 
 def _infer_strides(specs, save, nc, ch: int = 3, probe: int = 256) -> Tuple[float, ...]:
-    """Output strides from a forward on the meta device (shapes only, no FLOPs)."""
+    """Output strides from a forward on the meta device (shapes only, no FLOPs), one per head level
+    (2 for v3-tiny, 4 for the P2 and P6 graphs). The graph runs in train mode, as the JAX probe does
+    (:1031-1042): in eval mode a head would decode its levels with the default strides."""
     with torch.device("meta"):
-        m = DetectionModel(specs, save, nc).eval()
+        m = DetectionModel(specs, save, nc).train()
         feats = m(torch.zeros(1, ch, probe, probe), branches="one2many")
-    if isinstance(feats, dict) and "probs" not in feats:
+    if isinstance(feats, dict):
         feats = feats["feats"] if "feats" in feats else feats["one2many"]
     elif not isinstance(feats, list):  # a headless or classify graph (JAX :1044)
         return (8.0, 16.0, 32.0)
@@ -332,7 +371,8 @@ def _infer_strides(specs, save, nc, ch: int = 3, probe: int = 256) -> Tuple[floa
 def build_model(cfg: Union[str, Path, Dict], device: Union[str, torch.device, None] = None,
                 nc: Optional[int] = None) -> DetectionModel:
     """Build a DetectionModel (f32, eval mode) from a YAML path or dict, strides resolved;
-    `nc` overrides the YAML's class count.
+    `nc` overrides the YAML's class count; the YAML's `activation:` key (nn.ReLU(), nn.SiLU() or
+    nn.Mish()) sets the conv.py family's default activation, as the JAX `build_model` reads it.
 
     It lands on CUDA unless the caller passes device="cpu" (see `resolve_device`).
     """
@@ -340,8 +380,12 @@ def build_model(cfg: Union[str, Path, Dict], device: Union[str, torch.device, No
     d = yaml_model_load(cfg) if not isinstance(cfg, dict) else dict(cfg)
     if nc is not None:
         d["nc"] = nc
+    act = str(d.get("activation", "nn.SiLU()")).strip()
+    if act not in _ACTIVATIONS:
+        raise NotImplementedError(f"activation {act!r} is not ported (the port takes {sorted(_ACTIVATIONS)})")
+    act = _ACTIVATIONS[act]
     specs, save = parse_model(d)
     strides = _infer_strides(specs, save, d["nc"])
     with torch.device(device):
-        model = DetectionModel(specs, save, d["nc"], strides)
+        model = DetectionModel(specs, save, d["nc"], strides, default_act=act)
     return model.eval()

@@ -1,5 +1,5 @@
-"""The block set of LPC-YOLO, the YOLOv10 and YOLOv8 scales and the ResNet classifiers as torch nn.Modules
-(NCHW, channels_last on the card).
+"""The block set of LPC-YOLO, the YOLOv10 and YOLOv8 scales, the ResNet classifiers and the other CNN
+detection YAMLs (v8 P2/P6 and ghost, v5, v3, v6) as torch nn.Modules (NCHW, channels_last on the card).
 
 Counterpart of `lpc_yolo_tpu/nn/modules.py`, plain semantics only: none of
 the TPU layout rewrites (width packing, PackedBN, the C2f deploy algebra,
@@ -7,9 +7,15 @@ the s2d fold, int8) are ported. Attribute names mirror the JAX module names
 with numeric parts split off (`m_0` -> `m.0`, `ffn_1` -> `ffn.1`), so the
 weight bridge (`utils/flax_bridge.py`) is a pure name map.
 
-Activations follow the fork: blocks defined in its block.py (C2f, SPPF, PSA,
-LPC, Bottleneck, SCDown, CIB, C2fCIB, Proto, ResNetBlock) use Mish, but for RepVGGDW's
-own SiLU; YAML-level `Conv` and the head towers use SiLU.
+Activations follow the fork: blocks defined in its block.py (C2f, C2, C3,
+C3Ghost, SPP, SPPF, PSA, LPC, Bottleneck, SCDown, CIB, C2fCIB, Proto,
+ResNetBlock) use Mish, but for RepVGGDW's own SiLU; the conv.py family
+(YAML-level `Conv`, `DWConv`, `GhostConv` and the head towers) uses the
+model's default activation, SiLU unless the YAML's `activation:` key says
+`nn.ReLU()` (yolov6) or `nn.Mish()`. A ConvBN built with act "silu" (or
+True) takes that default when it is built, from `DEFAULT_ACT`, as the JAX
+`apply_act` resolves it (`lpc_yolo_tpu/nn/modules.py:214-222`), which
+applies SiLU for `nn.Mish()` (ROADMAP Queue 3).
 BatchNorm uses eps 1e-3 and momentum 0.03; in train mode its running
 statistics follow the JAX package's (`BatchNorm2d` below).
 
@@ -23,6 +29,8 @@ unfolded, with autograd through F.conv2d: no TPU kernel had a backward.
 
 from __future__ import annotations
 
+import contextvars
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -33,6 +41,9 @@ from ..ops.conv3x3 import apply_act, conv3x3
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
+# the conv.py family's activation while a model is built: "silu", or the YAML's `activation:`
+# ("relu" for nn.ReLU(), "mish" for nn.Mish())
+DEFAULT_ACT = contextvars.ContextVar("lpc_torch_default_act", default="silu")
 
 
 def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
@@ -71,7 +82,7 @@ class ConvBN(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
-        self.act = act
+        self.act = DEFAULT_ACT.get() if act in (True, "silu") else act
         self.folded = None  # (W, b) after fold(); W is HWIO on the kernel path; eval mode only
 
     @property
@@ -147,6 +158,142 @@ class C2f(nn.Module):
         for m in self.m:
             ys.append(m(ys[-1]))
         return self.cv2(torch.cat(ys, 1))
+
+
+class C3(nn.Module):
+    """CSP bottleneck with three convs (JAX `nn/modules.py:987`; reference block.py:240): cv1 1x1 into n
+    Bottlenecks with k=(1, 3), beside cv2 1x1, concatenated into cv3 1x1, Mish throughout."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1, 1, act="mish")
+        self.cv2 = ConvBN(c1, c_, 1, 1, act="mish")
+        self.cv3 = ConvBN(2 * c_, c2, 1, act="mish")
+        self.m = nn.Sequential(*(self.block(c_, shortcut, g) for _ in range(n)))
+
+    @staticmethod
+    def block(c: int, shortcut: bool, g: int) -> nn.Module:
+        return Bottleneck(c, c, shortcut, g, k=(1, 3), e=1.0)
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class C2(nn.Module):
+    """CSP bottleneck with two convs (JAX `nn/modules.py:1589`; reference block.py:194): cv1 1x1 to 2c, its first
+    half through n 3x3 Bottlenecks, concatenated with the second half into cv2 1x1, Mish throughout."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * self.c, 1, 1, act="mish")
+        self.cv2 = ConvBN(2 * self.c, c2, 1, act="mish")
+        self.m = nn.Sequential(*(Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n)))
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return self.cv2(torch.cat([self.m(y[:, : self.c]), y[:, self.c:]], 1))
+
+
+def DWConv(c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1, act="silu") -> ConvBN:
+    """Depthwise conv (JAX `nn/modules.py:233`, built at `compiler.py:533-540`): a ConvBN with gcd(c1, c2)
+    groups."""
+    return ConvBN(c1, c2, k, s, g=math.gcd(c1, c2), d=d, act=act)
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution (JAX `nn/modules.py:1024`; reference conv.py GhostConv): cv1 k x k stride s to c2 / 2,
+    then a depthwise 5x5 cv2 of it, concatenated; conv.py's default activation unless `act` says otherwise."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, act="silu"):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = ConvBN(c1, c_, k, s, act=act)
+        self.cv2 = ConvBN(c_, c_, 5, 1, g=c_, act=act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck (JAX `nn/modules.py:1636`; reference block.py:304): a GhostConv to c2 / 2, a depthwise
+    k x k stride-2 conv when s = 2, a GhostConv to c2 with no activation, plus the input (at stride 2 through a
+    depthwise and a 1x1 conv, both with no activation). The reference's nn.Sequential holds an Identity in the
+    stride-1 slot, so the names are `conv.0`, `conv.2`, `shortcut.0`, `shortcut.1`, as in the JAX graph."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(GhostConv(c1, c_, 1, 1),
+                                  DWConv(c_, c_, k, 2, act=False) if s == 2 else nn.Identity(),
+                                  GhostConv(c_, c2, 1, 1, act=False))
+        self.shortcut = (nn.Sequential(DWConv(c1, c1, k, 2, act=False), ConvBN(c1, c2, 1, 1, act=False))
+                         if s == 2 else nn.Identity())
+
+    def forward(self, x):
+        return self.conv(x) + self.shortcut(x)
+
+
+class C3Ghost(C3):
+    """C3 with GhostBottlenecks (JAX `nn/modules.py:1665`; reference block.py:294)."""
+
+    @staticmethod
+    def block(c: int, shortcut: bool, g: int) -> nn.Module:
+        return GhostBottleneck(c, c)
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling with parallel stride-1 max-pools (JAX `nn/modules.py:1549`; reference block.py:139):
+    cv1 1x1 to c1 / 2, its max-pools of each size in `k` concatenated after it, cv2 1x1, Mish."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = ConvBN(c1, c_, 1, 1, act="mish")
+        self.cv2 = ConvBN(c_ * (len(self.k) + 1), c2, 1, 1, act="mish")
+
+    def forward(self, x):
+        x = self.cv1(x)
+        return self.cv2(torch.cat([x] + [F.max_pool2d(x, k, 1, k // 2) for k in self.k], 1))
+
+
+class MaxPool2d(nn.Module):
+    """nn.MaxPool2d(k, s, p) of a YAML (JAX `nn/modules.py:1910`): padding with -inf, as flax's max_pool pads."""
+
+    def __init__(self, k: int, s: Optional[int] = None, p: int = 0):
+        super().__init__()
+        self.k, self.s, self.p = k, k if s is None else s, p
+
+    def forward(self, x):
+        return F.max_pool2d(x, self.k, self.s, self.p)
+
+
+class ZeroPad2d(nn.Module):
+    """nn.ZeroPad2d([left, right, top, bottom]) of a YAML (JAX `nn/modules.py:1926`)."""
+
+    def __init__(self, pads: Sequence[int]):
+        super().__init__()
+        self.pads = tuple(pads)
+
+    def forward(self, x):
+        return F.pad(x, self.pads)
+
+
+class ConvTranspose(nn.Module):
+    """A YAML's raw nn.ConvTranspose2d (JAX `ConvTransposeBN(use_bn=False, act=False)`, `nn/modules.py:1857`,
+    built at `compiler.py:597-601`): a k x k stride-s transposed conv with a bias, no BN and no activation,
+    under the JAX name `conv_transpose`. Its flax kernel (kh, kw, out, in) is the torch weight transposed, with
+    no spatial flip, as Proto's."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__()
+        self.conv_transpose = nn.ConvTranspose2d(c1, c2, k, s, p, bias=True)
+
+    def forward(self, x):
+        return self.conv_transpose(x)
 
 
 class SPPF(nn.Module):

@@ -2,8 +2,12 @@
 
 Replaces the TPU kernel `lpc_yolo_tpu/ops/pallas_conv.py::conv3x3_pallas`
 (`_conv3_kernel`). On the serving path every BN-folded 3x3 s1 g1 conv of
-LPC-YOLO runs through it: the stride-1 stage convs, every C2f bottleneck and
-the v10Detect box towers. The CUDA source (`csrc/conv3x3.cu`) says what bounds
+every ported graph runs through it: for LPC-YOLO the stride-1 stage convs,
+every C2f bottleneck and the v10Detect box towers; for the other YAMLs also
+the C2 / C3 bottlenecks, the plain 3x3 s1 `Conv` layers (v3, v6) and the
+head towers. The epilogue applies the activation the model resolved, ReLU
+included (yolov6's `activation: nn.ReLU()`), as the TPU kernel's
+`apply_act(acc, act)` does. The CUDA source (`csrc/conv3x3.cu`) says what bounds
 it on the H100 and how its tiling answers that.
 
 The public layout is the JAX package's: x (B, H, W, C) NHWC, w (3, 3, C, Co)
@@ -27,7 +31,7 @@ import torch.nn.functional as F
 
 from . import _build
 
-ACTS = {False: 0, "silu": 1, "mish": 2}
+ACTS = {False: 0, "silu": 1, "mish": 2, "relu": 3}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on an H100
 MIN_BLOCKS = 132  # one block per SM: a tiling that gives fewer gives way to a smaller tile
@@ -97,13 +101,15 @@ def conv3x3_config(B: int, H: int, W: int, C: int, Co: int) -> Conv3x3Config:
 
 
 def apply_act(x: torch.Tensor, act) -> torch.Tensor:
-    """none / SiLU / Mish, with softplus as jax.nn.softplus computes it."""
+    """none / SiLU / Mish / ReLU, with softplus as jax.nn.softplus computes it."""
     code = ACTS[act]
     if code == 1:
         return F.silu(x)
     if code == 2:
         sp = torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
         return x * torch.tanh(sp)
+    if code == 3:
+        return F.relu(x)
     return x
 
 

@@ -43,7 +43,7 @@ def _inputs(C, Co, seed=0, H=8, W=8):
     return x, w, b
 
 
-@pytest.mark.parametrize("act", [False, "silu", "mish"])
+@pytest.mark.parametrize("act", [False, "silu", "mish", "relu"])
 @pytest.mark.parametrize("C,Co", [(16, 8), (16, 32), (24, 8), (24, 32)])
 def test_plain_matches_pallas(C, Co, act):
     x, w, b = _inputs(C, Co, seed=C + Co)

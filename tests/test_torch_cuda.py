@@ -79,7 +79,7 @@ CONV_CASES = [
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("act", [False, "silu", "mish"])
+@pytest.mark.parametrize("act", [False, "silu", "mish", "relu"])
 @pytest.mark.parametrize("B,H,W,C,Co,offset,config", CONV_CASES)
 def test_conv3x3_kernel_matches_plain(B, H, W, C, Co, offset, config, act, dtype):
     """Kernel vs plain version on the card: f32 atol 1e-4 (summation order only), bf16
@@ -112,7 +112,7 @@ V10_CONV_CASES = [
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("act", [False, "silu", "mish"])
+@pytest.mark.parametrize("act", [False, "silu", "mish", "relu"])
 @pytest.mark.parametrize("B,H,W,C,Co,offset", V10_CONV_CASES)
 def test_conv3x3_v10_shapes_match_plain(B, H, W, C, Co, offset, act, dtype):
     """The kernel against its plain version at the v10 scales' new shape classes, with the tolerances of
@@ -175,6 +175,35 @@ def test_conv3x3_seg_shapes_match_plain(B, H, W, C, Co, act, dtype):
     """The kernel against its plain version at the seg heads' sites, Proto's 160x160 ones among them, with the
     tolerances of `test_conv3x3_kernel_matches_plain` (f32 abs 1e-4, bf16 2e-2 relative)."""
     g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5).to(dtype)
+    b = torch.rand(Co, device="cuda", generator=g) - 0.5
+    got = conv3x3(x, w, b, act).float()
+    ref = conv3x3_plain(x.float(), w.float(), b, act)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    else:
+        assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
+
+
+# (B, H, W, C, Co, act) of the other CNN detection YAMLs at their serving batch: yolov6n's plain 3x3 convs with
+# ReLU at each level (32 to 256 channels), yolov8x-p2's P2 head towers on the 160x160 maps (160 -> 64 and
+# 160 -> 160), yolov8x-p6's first C2f bottleneck on the 320x320 map at 1280 (80 -> 80, Mish; batch 8),
+# yolov3's P5 bottleneck (512 -> 1024, Mish) and its 3x3 head conv (512 -> 1024, SiLU).
+ZOO_CONV_CASES = [
+    (32, 160, 160, 32, 32, "relu"), (32, 80, 80, 64, 64, "relu"), (32, 40, 40, 128, 128, "relu"),
+    (32, 20, 20, 256, 256, "relu"), (32, 160, 160, 160, 64, "silu"), (32, 160, 160, 160, 160, "silu"),
+    (8, 320, 320, 80, 80, "mish"), (32, 20, 20, 512, 1024, "mish"), (32, 20, 20, 512, 1024, "silu"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,Co,act", ZOO_CONV_CASES)
+def test_conv3x3_zoo_shapes_match_plain(B, H, W, C, Co, act, dtype):
+    """The kernel against its plain version at the sites of the v3, v5, v6 and v8 P2 / P6 graphs, ReLU among
+    them, with the tolerances of `test_conv3x3_kernel_matches_plain` (f32 abs 1e-4, bf16 2e-2 relative)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
     w = (torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5).to(dtype)
     b = torch.rand(Co, device="cuda", generator=g) - 0.5

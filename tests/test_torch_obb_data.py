@@ -116,24 +116,17 @@ def test_min_area_rect_on_seeded_quads():
     assert one.shape == (5,) and np.array_equal(one, got[5])
 
 
-def test_min_area_rect_on_near_rectangles():
+@pytest.mark.parametrize("seed", [0, 1])
+def test_min_area_rect_on_near_rectangles(seed):
     """DOTA-style quads, 5000 rotated rectangles' corners rounded to whole pixels of a 1024 frame and normalized: two
-    caliper positions (the two near-parallel sides) give areas and cosines equal to f32 rounding, so which rectangle
-    cv2 keeps turns on its rounding. With the cosines compared in f64 and the rest in f32, as cv2 computes them,
-    99.5% of the rows are cv2's bit for bit (in f32 throughout, 1% took the other side); but about 1 in 5000 still
-    keeps the other of the two (ROADMAP Queue 3), here 0.022 degrees from cv2's. Every row's area is cv2's within
-    1e-6 (both are the minimum to f32 rounding), on cv2's side of the -90 branch, and at most 0.1% of the rows lie
-    further than 1e-4 of the frame's side or 1e-4 degrees from cv2's, none further than 1e-3 and 0.5 degrees."""
-    rng = np.random.default_rng(0)
+    caliper positions (the two near-parallel sides) give areas equal to f32 rounding, so which rectangle cv2 keeps
+    turns on its caliper test (`firstVecIsRight` in f32 on the edge vectors turned into one frame), which
+    `_calipers` reproduces. Every row is cv2's bit for bit."""
+    rng = np.random.default_rng(seed)
     quads = np.stack([np.round(cv2.boxPoints((tuple(rng.uniform(300, 700, 2)), tuple(rng.uniform(20, 300, 2)),
                                               rng.uniform(-90, 90)))) / 1024 for _ in range(5000)]).astype(np.float32)
     got, ref = min_area_rect(quads), np.stack([cv2_rect(p) for p in quads])
-    np.testing.assert_allclose(got[:, 2] * got[:, 3], ref[:, 2] * ref[:, 3], rtol=1e-6)
-    assert np.array_equal(got[:, 4] == -90, ref[:, 4] == -90)
-    d = np.abs(got - ref)
-    far = (d[:, :4].max(1) > 1e-4) | (d[:, 4] > 1e-4)
-    assert (got == ref).all(1).mean() > 0.995 and far.sum() <= 5
-    assert d[:, :4].max() <= 1e-3 and d[:, 4].max() <= 0.5
+    assert (got == ref).all(), np.flatnonzero(~(got == ref).all(1))
 
 
 def test_min_area_rect_of_degenerate_sets():
