@@ -9,6 +9,7 @@
     python3 chip_smoke.py --obb        # device, build, then phase 15 (the OBB scales at 1024) only
     python3 chip_smoke.py --cls        # device, build, then phase 16 (the classifiers at 224) only
     python3 chip_smoke.py --zoo        # device, build, then phase 17 (the other CNN detection YAMLs) only
+    python3 chip_smoke.py --v9         # device, build, then phase 18 (yolov9c, yolov9e) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -218,6 +219,18 @@ Phases, in order; any failure raises and the script exits non-zero:
             yolov6n, counters held; then YOLO("yolov8n-p2.yaml" and
             "yolov6n.yaml", nc=3).train(data=..., save=True), 2 epochs on
             phase 8's dataset, counters held. Numbers under "zoo".
+18. v9      YOLOv9 (V9_MODELS: yolov9c, yolov9e) at 640, as phase 17 does
+            each model: parameters and strides; conv3x3 parity at every
+            distinct site shape and every site of a bf16 forward (60 and 132
+            sites: every RepConv folded into one site with the SiLU epilogue;
+            no folded 3x3 s1 conv through F.conv2d; /255 folded into both
+            convs that read the frame through yolov9e's Silence); the folded
+            bf16 forward against the f32 plain path; YOLO.predict b32 with
+            the counters held; conv3x3 against F.conv2d + bias over the
+            sites; YOLO.val(data=...) of yolov9c at b32 on phase 7's 64
+            frames, counters held; the b16 train step of each; then
+            YOLO("yolov9c.yaml", nc=3).train(data=..., save=True), 2 epochs
+            on phase 8's dataset, counters held. Numbers under "v9".
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
@@ -225,12 +238,14 @@ yolov8n train(data=...), and beside them, as "launches_seg", "launches_pose"
 and "launches_obb", each kernel's launches in phase 13's yolov8n-seg, phase
 14's yolov8n-pose and phase 15's yolov8n-obb train(data=...); nms's times from
 phase 12's val pool; "launches_cls" beside them from phase 16's yolov8n-cls
-predict and train(data=...); "launches_zoo" from phase 17's yolov6n train(data=...), and conv3x3's
+predict and train(data=...); "launches_zoo" from phase 17's yolov6n train(data=...), "launches_v9" from
+phase 18's yolov9c train(data=...), and conv3x3's
 "max_abs_err_relu", the f32 parity of its ReLU epilogue at yolov6n's sites); the last line is
 {"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
-"pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo").
+"pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo",
+phase 18's under "v9").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -322,6 +337,10 @@ ZOO_MODELS = {  # phase 17: name -> (parameters, the JAX graph's: tests/test_tor
 ZOO_LIBRARY = ("yolov8x-p2.yaml", "yolov8x-p6.yaml", "yolov3.yaml", "yolov6n.yaml")  # conv3x3 vs F.conv2d per site
 ZOO_VAL = ("yolov8n-p2.yaml", "yolov8n-p6.yaml", "yolov3-tiny.yaml", "yolov6n.yaml")  # 4, 4 (at 1280), 2, 3 levels
 ZOO_TRAIN, ZOO_EPOCHS = ("yolov8n-p2.yaml", "yolov6n.yaml"), 2  # the four-level loss; ReLU's backward, ConvTranspose2d
+V9_MODELS = {  # phase 18: name -> (parameters, the JAX graph's: tests/test_torch_v9.py; conv3x3 sites a forward)
+    "yolov9c.yaml": (25_590_896, 60), "yolov9e.yaml": (58_206_576, 132),
+}
+V9_VAL, V9_TRAIN, V9_EPOCHS = ("yolov9c.yaml",), "yolov9c.yaml", 2
 P6_IMGSZ = 1280  # the P6 models' published size
 SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits at 640
 NMS_OPS = 15  # f32 operations per pool candidate and step: the IoU in the JAX order, the compare, the argmax
@@ -555,23 +574,23 @@ def phase_parity_repack():
 
 
 def conv_sites(pred):
-    """(C, H, W, Co, act, pix, off) of each 3x3 s1 g1 conv the serving path runs at 640, in order.
+    """(C, H, W, Co, act, pix, off) of each 3x3 s1 g1 conv the serving path runs at 640, in order: each folded
+    ConvBN and RepConv on the kernel path.
 
     pix is the input's stride between pixels in elements and off its channel
     offset in that pixel: (C, 0) for a channels_last map, (2C, C) for the upper
     half of a C2f split, which reaches the kernel as a strided view.
     """
-    from lpc_yolo_tpu_torch.nn.modules import ConvBN
+    from lpc_yolo_tpu_torch.nn.fuse import conv3x3_sites
 
     def record(mod, inp):
         x = inp[0]
         C, H, W = x.shape[1:]
         pix, off = (x.stride(3), x.storage_offset() % x.stride(3)) if x.stride(1) == 1 else (C, 0)
-        sites.append((C, H, W, mod.conv.out_channels, mod.act, pix, off))
+        sites.append((C, H, W, mod.folded[0].shape[3], mod.act, pix, off))
 
     sites = []
-    hooks = [m.register_forward_pre_hook(record) for m in pred.model.modules()
-             if isinstance(m, ConvBN) and m.kernel_path]
+    hooks = [m.register_forward_pre_hook(record) for m in conv3x3_sites(pred.model)]
     with torch.inference_mode():
         pred.infer(frames_720p(1, seed=9))
     for h in hooks:
@@ -619,7 +638,7 @@ def phase_parity_conv(sites, phase: str = "parity"):
 def bf16_site_errors(pred, frames):
     """Each conv3x3 site of one bf16 serving forward against the plain version
     (f32 on the site's own bf16 inputs and weights): max relative error per site."""
-    from lpc_yolo_tpu_torch.nn.modules import ConvBN
+    from lpc_yolo_tpu_torch.nn.fuse import conv3x3_sites
     from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3_plain
 
     def check(mod, inp, out):
@@ -628,7 +647,7 @@ def bf16_site_errors(pred, frames):
         errs.append(((out.permute(0, 2, 3, 1).float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item())
 
     errs = []
-    hooks = [m.register_forward_hook(check) for m in pred.model.modules() if isinstance(m, ConvBN) and m.kernel_path]
+    hooks = [m.register_forward_hook(check) for m in conv3x3_sites(pred.model)]
     with torch.inference_mode():
         pred.infer(frames)
     for h in hooks:
@@ -2882,7 +2901,7 @@ def phase_zoo(val_data: Path, train_data: str):
     the ReLU epilogue at yolov6n's sites (max abs error)."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
-    from lpc_yolo_tpu_torch.nn.modules import ConvBN
+    from lpc_yolo_tpu_torch.nn.fuse import conv3x3_sites
 
     t_phase = time.perf_counter()
     host = frames_720p(SCALE_SERVE_BATCH, seed=171)
@@ -2898,7 +2917,7 @@ def phase_zoo(val_data: Path, train_data: str):
         assert sum(p.numel() for p in yolo.model.parameters()) == n_params, name
         pred = Predictor(yolo.model, imgsz=S, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
         sites = conv_sites(pred)
-        assert len(sites) == sum(isinstance(m, ConvBN) and m.kernel_path for m in pred.model.modules()), tag
+        assert len(sites) == len(conv3x3_sites(pred.model)), tag
         assert ("relu" in {s[4] for s in sites}) == (yolo.model.default_act == "relu"), (tag, {s[4] for s in sites})
         r["sites"], r["strides"] = len(sites), list(yolo.model.strides)
         r["parity"] = phase_parity_conv(sites, tag)
@@ -2969,6 +2988,133 @@ def zoo_only() -> None:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_zoo.json").write_text(json.dumps(REPORT, indent=1))
     log("done", "phase 17 passed; numbers in chiprun_out/chip_smoke_zoo.json")
+
+
+def conv2d_3x3_s1_calls(pred, frames) -> int:
+    """F.conv2d calls of one serving forward of `frames` whose conv is 3x3, stride 1, groups 1, dilation 1:
+    every such conv of a folded graph belongs to the conv3x3 kernel, so this is 0."""
+    from torch.overrides import TorchFunctionMode
+
+    names = ("input", "weight", "bias", "stride", "padding", "dilation", "groups")
+    hits = []
+
+    class Spy(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is torch.nn.functional.conv2d or func is torch.conv2d:
+                a = {**dict(zip(names, args)), **kwargs}
+                one = lambda v: v in (1, (1, 1), [1, 1])  # noqa: E731
+                if (tuple(a["weight"].shape[2:]) == (3, 3) and one(a.get("stride", 1)) and one(a.get("groups", 1))
+                        and one(a.get("dilation", 1))):
+                    hits.append(tuple(a["weight"].shape))
+            return func(*args, **kwargs)
+
+    with torch.inference_mode(), Spy():
+        pred.infer(frames)
+    return len(hits)
+
+
+def phase_v9(val_data: Path, train_data: str):
+    """Phase 18: YOLOv9 (V9_MODELS: yolov9c, yolov9e) at 640 with seed-0 weights, nc 80, each in turn: its
+    parameter count and strides; its conv3x3 sites (60 and 132: every RepConv folded into one site with the
+    SiLU epilogue, RepNCSPELAN4's Mish 3x3s, the Detect towers) against the plain version (every distinct shape in
+    f32 and bf16, every site of one bf16 forward on its own inputs), and no 3x3 s1 g1 conv of the folded graph
+    through F.conv2d; the folded bf16 predict and f32 kernel path against the plain path (`zoo_vs_plain`);
+    YOLO.predict b32 from 720p frames with the counters held, and the serving step's time, busy, idle share and
+    launches (`scale_serving`); conv3x3 against F.conv2d + bias over the sites; for V9_VAL YOLO.val(data=...)
+    on phase 7's 64 frames at b32 bf16 with the counters held; the b16 train step (`scale_train_step`). Then
+    YOLO(V9_TRAIN, nc=3).train(data=..., save=True) on phase 8's dataset for V9_EPOCHS epochs, counters held.
+    Returns the launches of that training run."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.engine.train_step import to_device
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+    from lpc_yolo_tpu_torch.nn.fuse import conv3x3_sites, frame_readers
+    from lpc_yolo_tpu_torch.nn.modules import RepConv
+
+    t_phase = time.perf_counter()
+    host = frames_720p(SCALE_SERVE_BATCH, seed=181)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
+    out = {}
+    for name, (n_params, n_sites) in V9_MODELS.items():
+        t0 = time.perf_counter()
+        tag = Path(name).stem
+        r = out[tag] = {}
+        yolo = YOLO(name, device="cuda", seed=0)
+        assert sum(p.numel() for p in yolo.model.parameters()) == n_params, name
+        assert yolo.model.strides == (8.0, 16.0, 32.0), yolo.model.strides
+        pred = Predictor(yolo.model, imgsz=640, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+        sites = conv_sites(pred)
+        reps = [m for m in conv3x3_sites(pred.model) if isinstance(m, RepConv)]
+        assert len(sites) == len(conv3x3_sites(pred.model)) == n_sites, (tag, len(sites))
+        assert all(m.folded is not None and m.act == "silu" for m in reps), tag
+        assert len(frame_readers(pred.model)) == (2 if tag == "yolov9e" else 1), tag  # /255 folded into each
+        n_conv2d = conv2d_3x3_s1_calls(pred, host[:2])
+        assert n_conv2d == 0, f"{tag}: {n_conv2d} folded 3x3 s1 g1 convs through F.conv2d"
+        r.update(sites=len(sites), repconv_sites=len(reps), strides=list(yolo.model.strides))
+        r["parity"] = phase_parity_conv(sites, tag)
+        site_err = bf16_site_errors(pred, host[:2])
+        assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{tag} bf16 conv3x3 sites: {site_err}"
+        r["parity"]["forward_sites_bf16_max_rel"] = max(site_err)
+        r["vs_plain"] = zoo_vs_plain(yolo, pred, host)
+        r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
+        log(tag, f"{n_params} parameters, strides {r['strides']}, {len(sites)} conv3x3 sites a forward ({len(reps)} "
+                 f"folded RepConvs; no 3x3 s1 conv through F.conv2d; every site of a bf16 forward on its own inputs: "
+                 f"max rel {max(site_err):.3g}); bf16 predict vs the f32 plain path: head maps "
+                 f"{r['vs_plain']['bf16_map_err']:.3g} (tol {BF16_MAP_TOL}), top-300 score gap "
+                 f"{r['vs_plain']['bf16_score_gap']:.3g} (tol {BF16_SCORE_TOL}), f32 kernel path vs plain path: top-20 "
+                 f"gap {r['vs_plain']['f32_top20_score_gap']:.3g} (tol 1e-4), {r['vs_plain']['f32_matched']}/"
+                 f"{r['vs_plain']['f32_rows']} rows matched; YOLO.predict b{SCALE_SERVE_BATCH} 720p->640 bf16: "
+                 f"launches {sv['launches']}, {sv['boxes']} boxes; serving step {sv['step_ms']:.3f} ms "
+                 f"({sv['img_s']:.1f} img/s), busy {sv['busy_ms']:.3f} ms, idle share {sv['idle_share']}, "
+                 f"{sv['device_launches']:.0f} launches a step")
+        tot, per_shape = time_conv3x3(sites, SCALE_SERVE_BATCH, phase=tag)
+        r["conv3x3_sum"], r["conv3x3_shapes"] = tot, per_shape
+        r["conv3x3_losers"] = [{"C": p["C"], "Co": p["Co"], "H": p["H"], "per_forward": p["per_forward"],
+                                "vs_library": p["vs_library"]} for p in per_shape if p["vs_library"] > 1]
+        if name in V9_VAL:
+            expect = val_launches_expected(val_frames, VAL_BATCH, len(sites), nms=True)
+            zero_launches()
+            t1 = time.perf_counter()
+            res = yolo.val(data=str(val_data), imgsz=640, batch=VAL_BATCH, cache_images="disk")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = launches_now("letterbox", "conv3x3", "nms")
+            assert launches == expect, f"{tag} val: launches {launches}, expected {expect}"
+            assert all(np.isfinite(v) for v in res.values()), res
+            r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": launches, "results": res}
+            log(tag, f"YOLO.val b{VAL_BATCH} bf16, {len(val_frames)} frames: {len(val_frames) / wall:.1f} img/s, "
+                     f"launches {launches}, mAP50 {res['metrics/mAP50(B)']:.4f}")
+        del pred
+        torch.cuda.empty_cache()
+        batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda"))
+                   for b in train_batches(2, TRAIN_BATCH, seed=182)]
+        r["train"] = tr = scale_train_step(yolo, batches)
+        log(tag, f"train step b{TRAIN_BATCH} 640 bf16 autocast: {tr['step_ms']:.3f} ms ({tr['img_s']:.1f} img/s), "
+                 f"device busy {tr['busy_ms']:.3f} ms, idle share {tr['idle_share']}, {tr['device_launches']:.0f} "
+                 f"launches a step, peak {tr['peak_gb']:.3f} GB, loss {tr['loss']:.4f}")
+        r["seconds"] = time.perf_counter() - t0
+        del yolo, batches
+        torch.cuda.empty_cache()
+    launches = phase_scale_train_data("v8", train_data, out[Path(V9_TRAIN).stem]["sites"], name=V9_TRAIN,
+                                      epochs=V9_EPOCHS)
+    out["seconds"] = time.perf_counter() - t_phase
+    REPORT["v9"] = out
+    log("v9", f"phase 18: {len(V9_MODELS)} models in {out['seconds']:.1f} s")
+    return launches
+
+
+def v9_only() -> None:
+    """`--v9`: phase 18 alone."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_v9_") as tmp:
+        phase_v9(*write_zoo_datasets(Path(tmp)))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_v9.json").write_text(json.dumps(REPORT, indent=1))
+    log("done", "phase 18 passed; numbers in chiprun_out/chip_smoke_v9.json")
 
 
 def nms_worst_pool(B: int, seed: int = 0, k: int = 4096):
@@ -3134,9 +3280,9 @@ def conv3x3_only() -> None:
 
 def main(argv) -> int:
     converge = argv[:1] == ["--converge"] and len(argv) <= 2
-    if argv not in ([], ["--conv3x3"], ["--seg"], ["--pose"], ["--obb"], ["--cls"], ["--zoo"]) and not converge:
-        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg, --pose, --obb, --cls, --zoo "
-              f"and --converge [model yaml]", file=sys.stderr)
+    if argv not in ([], ["--conv3x3"], ["--seg"], ["--pose"], ["--obb"], ["--cls"], ["--zoo"], ["--v9"]) and not converge:
+        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg, --pose, --obb, --cls, --zoo, "
+              f"--v9 and --converge [model yaml]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3151,8 +3297,9 @@ def main(argv) -> int:
     if argv == ["--conv3x3"]:
         conv3x3_only()
         return 0
-    if argv in (["--seg"], ["--pose"], ["--obb"], ["--cls"], ["--zoo"]):
-        {"--seg": seg_only, "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only}[argv[0]]()
+    if argv in (["--seg"], ["--pose"], ["--obb"], ["--cls"], ["--zoo"], ["--v9"]):
+        {"--seg": seg_only, "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only,
+         "--v9": v9_only}[argv[0]]()
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
@@ -3213,6 +3360,8 @@ def main(argv) -> int:
         cls_launches = phase_cls_train_data(Path(tmp) / "cls")
         torch.cuda.empty_cache()
         zoo_launches, relu_err = phase_zoo(Path(tmp) / "val" / "data.yaml", data)
+        torch.cuda.empty_cache()
+        v9_launches = phase_v9(Path(tmp) / "val" / "data.yaml", data)
     nms = time_nms()["val"]
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
@@ -3238,6 +3387,7 @@ def main(argv) -> int:
         k["launches_obb"] = obb_launches[k["name"]]
         k["launches_cls"] = cls_launches[k["name"]]
         k["launches_zoo"] = zoo_launches[k["name"]]  # yolov6n's train(data=...), phase 17
+        k["launches_v9"] = v9_launches[k["name"]]  # yolov9c's train(data=...), phase 18
     kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start

@@ -41,16 +41,17 @@ _CFG_ROOT = Path(__file__).resolve().parents[1] / "cfg" / "models"
 
 
 def _resolve_yaml(name: Union[str, Path]) -> Path:
-    """A model-config name or path -> the YAML file, searched in v10, v8, v5, v3 and v6 (scale letter
+    """A model-config name or path -> the YAML file, searched in v10, v8, v9, v5, v3 and v6 (scale letter
     stripped when needed: yolov8n.yaml -> v8/yolov8.yaml, yolov8n-seg.yaml -> v8/yolov8-seg.yaml,
     yolov8x-p6.yaml -> v8/yolov8-p6.yaml, yolov5n.yaml -> v5/yolov5.yaml, yolov6n.yaml -> v6/yolov6.yaml;
-    yolov3-tiny.yaml has no scale), as the JAX resolver does (:42-55). The JAX one searches v10, v8 and v9
-    only, so it finds a v3, v5 or v6 YAML by its path alone (ROADMAP Queue 3)."""
+    yolov3-tiny.yaml has no scale, and neither have yolov9c.yaml and yolov9e.yaml, whose c and e are not
+    scale letters), as the JAX resolver does (:42-55). The JAX one searches v10, v8 and v9 only, so it
+    finds a v3, v5 or v6 YAML by its path alone (ROADMAP Queue 3)."""
     p = Path(name)
     if p.exists():
         return p
     unified = re.sub(r"(\d+)([nsmblx])(.+)?$", r"\1\3", p.stem) + p.suffix
-    for fam in ("v10", "v8", "v5", "v3", "v6"):
+    for fam in ("v10", "v8", "v9", "v5", "v3", "v6"):
         for cand in (_CFG_ROOT / fam / p.name, _CFG_ROOT / fam / unified):
             if cand.exists():
                 return cand

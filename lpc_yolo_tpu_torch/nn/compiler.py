@@ -4,8 +4,10 @@ Same schema and channel inference as the JAX compiler (make_divisible :87,
 LayerSpec :94, yaml_model_load :110, parse_model :119-284), implemented for
 the modules that the LPC-YOLO YAML, the six YOLOv10 scales (n/s/m/b/l/x) and
 the five YOLOv8 scales (n/s/m/l/x), detect, segment, pose, OBB and classify, the ResNet
-classifiers and the other CNN detection YAMLs (v8 P2 / P6 / ghost / seg-P6 / pose-P6,
-v5 and v5-P6, v3, v3-SPP, v3-tiny, v6) reach; any other module raises NotImplementedError.
+classifiers, the other CNN detection YAMLs (v8 P2 / P6 / ghost / seg-P6 / pose-P6,
+v5 and v5-P6, v3, v3-SPP, v3-tiny, v6) and YOLOv9 (v9c, v9e) reach; any other module raises
+NotImplementedError. A CBLinear layer's output is a tuple of maps, which the CBFuse layers
+that list it read by index (:230-238).
 A layer repeated n > 1 times that takes no repeat count of its own (v3's Bottlenecks, v6's
 Convs) is an nn.Sequential of n copies, `model.<i>.<rep>`, the JAX graph's `model_<i>_<rep>`
 (:988-995). The YAML's `activation:` key sets the conv.py family's default activation
@@ -40,7 +42,7 @@ from .heads import (OBB, Classify, Detect, Pose, Segment, V10Detect, decode_feat
 # Modules whose YAML arg[0] is the (width-scaled) output-channel count, and the
 # subset that also takes the (depth-scaled) repeat count.
 _BASE = {"Conv", "DWConv", "GhostConv", "Bottleneck", "SPPF", "SPP", "C2f", "C2", "C3", "C3Ghost", "PSA", "LPC",
-         "SCDown", "C2fCIB"}
+         "SCDown", "C2fCIB", "RepNCSPELAN4", "ADown", "SPPELAN", "RepConv"}
 _REPEAT = {"C2f", "C2", "C3", "C3Ghost", "C2fCIB"}
 # the YAML `activation:` values the port takes (the JAX package's act_map, :1083, less GELU, which no conv3x3
 # epilogue has); the JAX `apply_act` applies SiLU for Mish (ROADMAP Queue 3), the port Mish as the reference does
@@ -131,9 +133,15 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
         elif m == "space_to_depth":
             c2 = 4 * chs[f_list[0]]
             out_args = list(args)
-        elif m in ("nn.Upsample", "nn.MaxPool2d", "nn.ZeroPad2d"):
+        elif m in ("nn.Upsample", "nn.MaxPool2d", "nn.ZeroPad2d", "Silence"):
             c2 = chs[f_list[0]]
             out_args = list(args)
+        elif m == "CBLinear":  # c2 the tuple of widths, unscaled; only CBFuse reads it (JAX :230-235)
+            c1, c2 = chs[f_list[0]], tuple(args[0])
+            out_args = [c1, c2, *args[1:]]
+        elif m == "CBFuse":  # (JAX :236-238)
+            c2 = chs[f_list[-1]]
+            out_args = [tuple(args[0])]
         elif m == "nn.ConvTranspose2d":  # width-scaled as a base module (JAX :221-226)
             c1, c2 = chs[f_list[0]], args[0]
             if c2 != nc:
@@ -203,6 +211,20 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         return M.SpaceToDepth()
     if m == "nn.Upsample":
         return M.Upsample(int(a[1]))
+    if m == "RepNCSPELAN4":
+        return M.RepNCSPELAN4(a[0], a[1], a[2], a[3], a[4] if len(a) > 4 else 1)
+    if m == "ADown":
+        return M.ADown(a[0], a[1])
+    if m == "SPPELAN":
+        return M.SPPELAN(a[0], a[1], a[2], a[3] if len(a) > 3 else 5)
+    if m == "RepConv":  # the YAML-level RepConv keeps its identity branch (JAX :647-648)
+        return M.RepConv(a[0], a[1], a[2] if len(a) > 2 else 3, a[3] if len(a) > 3 else 1)
+    if m == "Silence":
+        return M.Silence()
+    if m == "CBLinear":
+        return M.CBLinear(a[0], a[1], a[2] if len(a) > 2 else 1, a[3] if len(a) > 3 else 1)
+    if m == "CBFuse":
+        return M.CBFuse(a[0])
     if m == "ResNetLayer":  # the YAML's c1 (args[0]) is the input's width in every ResNet YAML (JAX :662-666)
         return M.ResNetLayer(a[0], a[1], s=a[2] if len(a) > 2 else 1, is_first=bool(a[3]) if len(a) > 3 else False,
                              n=a[4] if len(a) > 4 else 1)
@@ -287,7 +309,7 @@ class DetectionModel(nn.Module):
             if spec.module == "Classify":
                 logits = module(x if spec.f[0] == -1 else y[spec.f[0]])
                 return logits if self.training else {"probs": torch.softmax(logits.float(), -1), "logits": logits}
-            if spec.module == "Concat" or spec.module in HEAD_TASKS:
+            if spec.module in ("Concat", "CBFuse") or spec.module in HEAD_TASKS:
                 inp = [x if j == -1 else y[j] for j in spec.f]
             else:
                 inp = x if spec.f[0] == -1 else y[spec.f[0]]

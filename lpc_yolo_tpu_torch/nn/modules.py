@@ -1,5 +1,6 @@
-"""The block set of LPC-YOLO, the YOLOv10 and YOLOv8 scales, the ResNet classifiers and the other CNN
-detection YAMLs (v8 P2/P6 and ghost, v5, v3, v6) as torch nn.Modules (NCHW, channels_last on the card).
+"""The block set of LPC-YOLO, the YOLOv10 and YOLOv8 scales, the ResNet classifiers, the other CNN
+detection YAMLs (v8 P2/P6 and ghost, v5, v3, v6) and YOLOv9 (v9c, v9e) as torch nn.Modules (NCHW,
+channels_last on the card).
 
 Counterpart of `lpc_yolo_tpu/nn/modules.py`, plain semantics only: none of
 the TPU layout rewrites (width packing, PackedBN, the C2f deploy algebra,
@@ -9,8 +10,8 @@ weight bridge (`utils/flax_bridge.py`) is a pure name map.
 
 Activations follow the fork: blocks defined in its block.py (C2f, C2, C3,
 C3Ghost, SPP, SPPF, PSA, LPC, Bottleneck, SCDown, CIB, C2fCIB, Proto,
-ResNetBlock) use Mish, but for RepVGGDW's own SiLU; the conv.py family
-(YAML-level `Conv`, `DWConv`, `GhostConv` and the head towers) uses the
+ResNetBlock, the v9 blocks) use Mish, but for RepVGGDW's own SiLU; the conv.py family
+(YAML-level `Conv`, `DWConv`, `GhostConv`, `RepConv` and the head towers) uses the
 model's default activation, SiLU unless the YAML's `activation:` key says
 `nn.ReLU()` (yolov6) or `nn.Mish()`. A ConvBN built with act "silu" (or
 True) takes that default when it is built, from `DEFAULT_ACT`, as the JAX
@@ -23,8 +24,9 @@ Every `ConvBN` has two eval paths. Unfolded, it runs conv -> BN -> act in
 plain PyTorch. After `fold()` (see `nn/fuse.py`) it runs on BN-folded
 (W, b): a 3x3 stride-1 groups-1 conv goes through the hand-written kernel
 (`ops/conv3x3.py`) with the activation fused, every other conv through
-F.conv2d, as the JAX package left those to XLA. Train mode always runs
-unfolded, with autograd through F.conv2d: no TPU kernel had a backward.
+F.conv2d, as the JAX package left those to XLA. A `RepConv` folds its three
+branches into one such conv. Train mode always runs unfolded, with autograd
+through F.conv2d: no TPU kernel had a backward.
 """
 
 from __future__ import annotations
@@ -101,29 +103,41 @@ class ConvBN(nn.Module):
         `in_scale` also folds a scale of the input (x * in_scale) into W."""
         if self.training:
             raise RuntimeError("ConvBN.fold() is for eval mode: training needs the live BatchNorm")
-        f = self.bn.weight.float() * torch.rsqrt(self.bn.running_var.float() + BN_EPS)
-        w = self.conv.weight.float() * f[:, None, None, None]
-        if in_scale != 1.0:
-            w = w * in_scale
-        b = self.bn.bias.float() - self.bn.running_mean.float() * f
-        if self.kernel_path:
-            self.folded = (w.permute(2, 3, 1, 0).contiguous().to(dtype), b.contiguous())
-        else:
-            self.folded = (w.to(dtype), b.to(dtype))
+        w, b = bn_folded(self.conv.weight, self.bn)
+        self.folded = store_folded(w * in_scale if in_scale != 1.0 else w, b, dtype, self.kernel_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.folded is None:
             return apply_act(self.bn(self.conv(x)), self.act)
-        w, b = self.folded
-        if self.kernel_path:
-            xh = x.permute(0, 2, 3, 1)
-            if xh.stride(3) != 1:  # not channel-contiguous: copy to channels_last (a C2f channel
-                # slice of a channels_last map is channel-contiguous and passes as a strided view)
-                xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-            return conv3x3(xh, w, b, self.act).permute(0, 3, 1, 2)
-        c = self.conv
-        y = F.conv2d(x, w, b, c.stride, c.padding, c.dilation, c.groups)
-        return apply_act(y, self.act)
+        return run_folded(x, self.folded, self.act, self.conv, self.kernel_path)
+
+
+def bn_folded(weight: torch.Tensor, bn: nn.BatchNorm2d):
+    """A bias-free conv's weight with the eval-mode BN after it folded in, in f32: (W*f, beta - mean*f)."""
+    f = bn.weight.float() * torch.rsqrt(bn.running_var.float() + BN_EPS)
+    return weight.float() * f[:, None, None, None], bn.bias.float() - bn.running_mean.float() * f
+
+
+def store_folded(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype, kernel_path: bool):
+    """The folded (W, b) as `run_folded` takes them: on the kernel path W HWIO in `dtype` and b f32, as the
+    conv3x3 kernel reads them; else both OIHW / (Co,) in `dtype` for F.conv2d."""
+    if kernel_path:
+        return w.permute(2, 3, 1, 0).contiguous().to(dtype), b.contiguous()
+    return w.to(dtype), b.to(dtype)
+
+
+def run_folded(x: torch.Tensor, folded, act, conv: nn.Conv2d, kernel_path: bool) -> torch.Tensor:
+    """A folded conv + bias + act: through the conv3x3 kernel on the kernel path, else F.conv2d with `conv`'s
+    geometry."""
+    w, b = folded
+    if kernel_path:
+        xh = x.permute(0, 2, 3, 1)
+        if xh.stride(3) != 1:  # not channel-contiguous: copy to channels_last (a C2f channel
+            # slice of a channels_last map is channel-contiguous and passes as a strided view)
+            xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        return conv3x3(xh, w, b, act).permute(0, 3, 1, 2)
+    y = F.conv2d(x, w, b, conv.stride, conv.padding, conv.dilation, conv.groups)
+    return apply_act(y, act)
 
 
 class Bottleneck(nn.Module):
@@ -582,3 +596,183 @@ class CBAM(nn.Module):
 
     def forward(self, x):
         return self.spatial_attention(self.channel_attention(x))
+
+
+# -- the YOLOv9 set (JAX `nn/modules.py:946-971`, `:1060-1215`) --------------------------------------------------------
+
+
+class RepConv(nn.Module):
+    """Train-time multi-branch 3x3 conv (JAX `nn/modules.py:946-971`; reference conv.py RepConv): conv1 (3x3
+    ConvBN) + conv2 (1x1 ConvBN), both with no activation, + an identity BatchNorm of the input (`bn`) when
+    `use_identity` and c1 == c2 and s == 1, then conv.py's default activation.
+
+    `fold()` merges the branches as the reference's `fuse_convs` does: each branch BN-folded, the 1x1 padded into
+    the 3x3's centre tap, the identity BN added as a diagonal centre tap. At stride 1, groups 1 the result is one
+    conv3x3 site with the activation as its epilogue (`kernel_path`), where the branches would be a 3x3 conv, a
+    1x1 conv, an add and the activation. The JAX package serves the branches unfolded: the same function within
+    f32 rounding. Train mode runs the branches, with autograd through F.conv2d.
+    """
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1, act="silu", use_identity: bool = True):
+        super().__init__()
+        if k != 3:
+            raise ValueError(f"RepConv is a 3x3 conv, not {k}x{k}")
+        self.conv1 = ConvBN(c1, c2, 3, s, p=1, g=g, act=False)
+        self.conv2 = ConvBN(c1, c2, 1, s, p=0, g=g, act=False)
+        self.bn = BatchNorm2d(c1, eps=BN_EPS, momentum=BN_MOMENTUM) if use_identity and c1 == c2 and s == 1 else None
+        self.act = DEFAULT_ACT.get() if act in (True, "silu") else act
+        self.folded = None  # (W, b) after fold(), as ConvBN keeps them; eval mode only
+
+    @property
+    def kernel_path(self) -> bool:
+        return self.conv1.kernel_path
+
+    def train(self, mode: bool = True):
+        if mode:
+            self.folded = None
+        return super().train(mode)
+
+    @torch.no_grad()
+    def fold(self, dtype: torch.dtype) -> None:
+        """The three branches as one BN-folded 3x3 conv (computed in f32, stored in `dtype`)."""
+        if self.training:
+            raise RuntimeError("RepConv.fold() is for eval mode: training needs the live BatchNorms")
+        w, b = bn_folded(self.conv1.conv.weight, self.conv1.bn)
+        w1, b1 = bn_folded(self.conv2.conv.weight, self.conv2.bn)
+        w[:, :, 1:2, 1:2] += w1
+        b = b + b1
+        if self.bn is not None:
+            cin = w.shape[1]  # input channels a group
+            ident = torch.zeros_like(w)
+            ident[torch.arange(w.shape[0]), torch.arange(w.shape[0]) % cin, 1, 1] = 1.0
+            wi, bi = bn_folded(ident, self.bn)
+            w, b = w + wi, b + bi
+        self.folded = store_folded(w, b, dtype, self.kernel_path)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.folded is not None:
+            return run_folded(x, self.folded, self.act, self.conv1.conv, self.kernel_path)
+        y = self.conv1(x) + self.conv2(x)
+        if self.bn is not None:
+            y = y + self.bn(x)
+        return apply_act(y, self.act)
+
+
+class RepBottleneck(nn.Module):
+    """RepConv 3x3 (no identity branch, SiLU) -> 3x3 ConvBN (block.py's Mish), + the input when `shortcut` and
+    c1 == c2 (JAX `nn/modules.py:1060-1079`; reference block.py RepBottleneck)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k=(3, 3), e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = RepConv(c1, c_, k[0], 1, use_identity=False)
+        self.cv2 = ConvBN(c_, c2, k[1], 1, g=g, act="mish")
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class RepCSP(C3):
+    """C3 with RepBottlenecks (JAX `nn/modules.py:1082-1101`; reference block.py RepCSP): cv1, cv2, cv3 1x1 with
+    Mish, `m.<i>`."""
+
+    @staticmethod
+    def block(c: int, shortcut: bool, g: int) -> nn.Module:
+        return RepBottleneck(c, c, shortcut, g, e=1.0)
+
+
+class RepNCSPELAN4(nn.Module):
+    """CSP-ELAN (JAX `nn/modules.py:1104-1126`; reference block.py RepNCSPELAN4): cv1 1x1 to c3, split in two
+    halves; the upper half through cv2 = (RepCSP, 3x3 ConvBN), that through cv3 = (RepCSP, 3x3 ConvBN); the four
+    concatenated into cv4 1x1; Mish throughout. The upper half is a channel view of cv1's map (no copy), which
+    RepCSP's 1x1 convs read."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1):
+        super().__init__()
+        self.c = c3 // 2
+        self.cv1 = ConvBN(c1, c3, 1, 1, act="mish")
+        self.cv2 = nn.Sequential(RepCSP(c3 - self.c, c4, n), ConvBN(c4, c4, 3, 1, act="mish"))
+        self.cv3 = nn.Sequential(RepCSP(c4, c4, n), ConvBN(c4, c4, 3, 1, act="mish"))
+        self.cv4 = ConvBN(c3 + 2 * c4, c2, 1, 1, act="mish")
+
+    def forward(self, x):
+        y = self.cv1(x)
+        ys = [y[:, : self.c], y[:, self.c:]]
+        ys.append(self.cv2(ys[-1]))
+        ys.append(self.cv3(ys[-1]))
+        return self.cv4(torch.cat(ys, 1))
+
+
+class ADown(nn.Module):
+    """v9 downsample (JAX `nn/modules.py:1129-1146`; reference block.py ADown): a 2x2 stride-1 average pool (H ->
+    H - 1), split in channel halves; the first through a 3x3 stride-2 ConvBN (F.conv2d, not a conv3x3 site), the
+    second through a 3x3 stride-2 max-pool (padding -inf, as flax pads) and a 1x1 ConvBN; concatenated, Mish.
+    Both branches land on ceil((H - 1) / 2) rows, odd H - 1 included."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.c = c2 // 2
+        self.cv1 = ConvBN(c1 // 2, self.c, 3, 2, p=1, act="mish")
+        self.cv2 = ConvBN(c1 - c1 // 2, self.c, 1, 1, p=0, act="mish")
+
+    def forward(self, x):
+        x = F.avg_pool2d(x, 2, 1, 0)
+        h = x.shape[1] // 2
+        return torch.cat([self.cv1(x[:, :h]), self.cv2(F.max_pool2d(x[:, h:], 3, 2, 1))], 1)
+
+
+class SPPELAN(nn.Module):
+    """SPP-ELAN (JAX `nn/modules.py:1149-1165`; reference block.py SPPELAN): cv1 1x1 to c3, three chained k x k
+    stride-1 max-pools, the four concatenated into cv5 1x1; Mish."""
+
+    def __init__(self, c1: int, c2: int, c3: int, k: int = 5):
+        super().__init__()
+        self.k = k
+        self.cv1 = ConvBN(c1, c3, 1, 1, act="mish")
+        self.cv5 = ConvBN(4 * c3, c2, 1, 1, act="mish")
+
+    def forward(self, x):
+        y = [self.cv1(x)]
+        for _ in range(3):
+            y.append(F.max_pool2d(y[-1], self.k, 1, self.k // 2))
+        return self.cv5(torch.cat(y, 1))
+
+
+class Silence(nn.Module):
+    """The identity (JAX `nn/modules.py:1168-1173`): yolov9e's layer 0, through which two layers read the frame."""
+
+    def forward(self, x):
+        return x
+
+
+class CBLinear(nn.Module):
+    """A biased k x k conv with no BN and no activation, its output split into a tuple of maps of the widths
+    `c2s` (JAX `nn/modules.py:1176-1197`; reference block.py CBLinear). The maps are channel views of one
+    output."""
+
+    def __init__(self, c1: int, c2s: Sequence[int], k: int = 1, s: int = 1):
+        super().__init__()
+        self.c2s = tuple(c2s)
+        self.conv = nn.Conv2d(c1, sum(self.c2s), k, s, autopad(k), bias=True)
+
+    def forward(self, x):
+        return self.conv(x).split(self.c2s, 1)
+
+
+class CBFuse(nn.Module):
+    """The last input plus, for each earlier input i (a CBLinear tuple), its map `idx[i]` resized to the last
+    input's H x W, summed in the JAX order (JAX `nn/modules.py:1200-1215`; reference block.py CBFuse). The resize
+    is `jax.image.resize(..., "nearest")`, which is torch's "nearest-exact" at every ratio ("nearest" differs at
+    a non-integer one)."""
+
+    def __init__(self, idx: Sequence[int]):
+        super().__init__()
+        self.idx = tuple(idx)
+
+    def forward(self, xs: Sequence):
+        total = xs[-1]
+        for i, x in enumerate(xs[:-1]):
+            total = total + F.interpolate(x[self.idx[i]], size=total.shape[2:], mode="nearest-exact")
+        return total

@@ -216,6 +216,38 @@ def test_conv3x3_zoo_shapes_match_plain(B, H, W, C, Co, act, dtype):
         assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
 
 
+@pytest.mark.parametrize("identity", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_folded_repconv_is_one_launch(identity, dtype):
+    """A YOLOv9 RepConv (128 -> 128 at 40x40, b32; with and without its identity BN) folded for serving is one
+    conv3x3 launch with the SiLU epilogue. In f32 it equals its three unfolded branches (conv1 3x3 + conv2 1x1
+    (+ the identity BN), then SiLU, through F.conv2d) within abs 1e-4; in bf16 it equals the plain version of the
+    same conv on the same bf16 input and folded weights within 2e-2 relative, as every bf16 conv3x3 check."""
+    from lpc_yolo_tpu_torch.nn.fuse import fuse_conv_bn
+    from lpc_yolo_tpu_torch.nn.modules import RepConv
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    m = RepConv(128, 128, use_identity=identity).cuda().eval()
+    with torch.no_grad():
+        for t in m.state_dict().values():
+            if t.is_floating_point():
+                t.copy_(torch.rand(t.shape, device="cuda", generator=g) * 0.5 + 0.5 if t.dim() == 1
+                        else torch.randn(t.shape, device="cuda", generator=g) / (t[0].numel() ** 0.5))
+        x = torch.randn(32, 128, 40, 40, device="cuda", generator=g).contiguous(memory_format=torch.channels_last)
+        ref = m(x)
+        fuse_conv_bn(m, dtype)
+        before = conv3x3.launches
+        got = m(x.to(dtype)).float()
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    else:
+        w, b = m.folded
+        ref = conv3x3_plain(x.to(dtype).permute(0, 2, 3, 1).float(), w.float(), b, "silu").permute(0, 3, 1, 2)
+        assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
+
+
 # (B, H, W, C, Co) of the YOLOv8-pose keypoint towers at their serving batch: c4 = max(ch0 // 4, 51), so on n, s
 # and m both convs of a tower are odd-sized (51 -> 51 at every level, the element-wise staging path), on n the
 # first takes 64, 128 and 256 channels to 51; on x each level's channels go to 80 (320 -> 80 at 80x80).

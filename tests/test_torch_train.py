@@ -245,9 +245,9 @@ def test_trainer_hands_back_ema_and_bn_stats(world, tmp_path):
 
 
 def test_entry_points_refuse_what_is_not_ported(world):
-    # the YAMLs whose modules are not ported yet: v9 (RepNCSPELAN4, ADown, ...) and RT-DETR (HGStem, ...)
+    # the YAMLs whose modules are not ported yet: YOLO-World (C2fAttn, ...) and RT-DETR (HGStem, ...)
     models = Path(__file__).resolve().parents[1] / "lpc_yolo_tpu" / "cfg" / "models"
-    for cfg, module in (("v9/yolov9c.yaml", "RepNCSPELAN4"), ("rt-detr/rtdetr-l.yaml", "HGStem")):
+    for cfg, module in (("v8/yolov8-world.yaml", "C2fAttn"), ("rt-detr/rtdetr-l.yaml", "HGStem")):
         with pytest.raises(NotImplementedError, match=module):
             YOLO(models / cfg, device="cpu", seed=None)
     tm = port_model(world)
