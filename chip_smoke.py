@@ -10,6 +10,7 @@
     python3 chip_smoke.py --cls        # device, build, then phase 16 (the classifiers at 224) only
     python3 chip_smoke.py --zoo        # device, build, then phase 17 (the other CNN detection YAMLs) only
     python3 chip_smoke.py --v9         # device, build, then phase 18 (yolov9c, yolov9e) only
+    python3 chip_smoke.py --rtdetr     # device, build, then phase 19 (the five RT-DETR YAMLs) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -231,6 +232,22 @@ Phases, in order; any failure raises and the script exits non-zero:
             frames, counters held; the b16 train step of each; then
             YOLO("yolov9c.yaml", nc=3).train(data=..., save=True), 2 epochs
             on phase 8's dataset, counters held. Numbers under "v9".
+19. rtdetr  RT-DETR (RTDETR_MODELS: rtdetr-l, rtdetr-x, rtdetr-resnet50,
+            rtdetr-resnet101, yolov8n-rtdetr) at 640, each as phase 18 does:
+            parameters; conv3x3 parity at every distinct site shape and
+            every site of a bf16 forward (24, 30, 25, 42 and 20 sites: the
+            HGBlocks' 3x3 Mish convs, RepC3's RepConvs folded into one SiLU
+            site each, the ResNet 3x3s, the C2f bottlenecks; none through
+            F.conv2d; /255 folded into HGStem's stem1); the bf16 encoder
+            scores before the top-k selection against the f32 plain path,
+            and the share of the f32 top-300 anchors bf16 keeps; for
+            rtdetr-l and -x the f32 card predict against the CPU's;
+            YOLO.predict b32 with the counters held (no NMS launch); for
+            rtdetr-l and -x conv3x3 against F.conv2d + bias and the
+            decoder's busy time split into the sampler, the attention and
+            the rest; YOLO.val(data=...) of rtdetr-l at b32 on phase 7's 64
+            frames, counters held. No training (the DETR loss is not
+            ported). Numbers under "rtdetr".
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
@@ -239,13 +256,13 @@ and "launches_obb", each kernel's launches in phase 13's yolov8n-seg, phase
 14's yolov8n-pose and phase 15's yolov8n-obb train(data=...); nms's times from
 phase 12's val pool; "launches_cls" beside them from phase 16's yolov8n-cls
 predict and train(data=...); "launches_zoo" from phase 17's yolov6n train(data=...), "launches_v9" from
-phase 18's yolov9c train(data=...), and conv3x3's
+phase 18's yolov9c train(data=...), "launches_rtdetr" from phase 19's rtdetr-l val(data=...), and conv3x3's
 "max_abs_err_relu", the f32 parity of its ReLU epilogue at yolov6n's sites); the last line is
 {"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
 "pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo",
-phase 18's under "v9").
+phase 18's under "v9", phase 19's under "rtdetr").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -341,6 +358,13 @@ V9_MODELS = {  # phase 18: name -> (parameters, the JAX graph's: tests/test_torc
     "yolov9c.yaml": (25_590_896, 60), "yolov9e.yaml": (58_206_576, 132),
 }
 V9_VAL, V9_TRAIN, V9_EPOCHS = ("yolov9c.yaml",), "yolov9c.yaml", 2
+RTDETR_MODELS = {  # phase 19: name -> (parameters, the JAX graph's, and conv3x3 sites a forward: test_torch_rtdetr.py)
+    "rtdetr-l.yaml": (32_970_476, 24), "rtdetr-x.yaml": (67_467_852, 30), "rtdetr-resnet50.yaml": (42_925_132, 25),
+    "rtdetr-resnet101.yaml": (61_917_260, 42), "yolov8n-rtdetr.yaml": (9_643_868, 20),
+}
+RTDETR_TIMED = ("rtdetr-l.yaml", "rtdetr-x.yaml")  # conv3x3 vs F.conv2d, the decoder's split, f32 card vs the CPU
+RTDETR_VAL = "rtdetr-l.yaml"
+RTDETR_BOX_TOL, RTDETR_SCORE_TOL = 0.05, 1e-4  # f32 predict, card vs CPU: box px and score of each matched row
 P6_IMGSZ = 1280  # the P6 models' published size
 SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits at 640
 NMS_OPS = 15  # f32 operations per pool candidate and step: the IoU in the JAX order, the compare, the argmax
@@ -432,7 +456,8 @@ def profile_step(step, iters: int = 3):
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms if rows else None,
-            "device_launches": sum(r["calls_per_step"] for r in rows), "host_sync_wait_ms": sync_ms, "top": rows[:15]}
+            "device_launches": sum(r["calls_per_step"] for r in rows), "host_sync_wait_ms": sync_ms, "top": rows[:15],
+            "rows": rows}
 
 
 def bound(nbytes: float, flops: float, flops_per_ms: float):
@@ -3117,6 +3142,173 @@ def v9_only() -> None:
     log("done", "phase 18 passed; numbers in chiprun_out/chip_smoke_v9.json")
 
 
+def decoder_inputs(model, x):
+    """The maps that reach the RTDETRDecoder (the model's last layer) in one forward of x."""
+    dec, seen = model.model[-1], []
+    hook = dec.register_forward_pre_hook(lambda mod, inp: seen.append(inp[0]))
+    with torch.inference_mode():
+        model(x)
+    hook.remove()
+    return seen[0]
+
+
+def detr_vs_plain(yolo, pred, frames, cpu: bool):
+    """The bf16 serving copy's encoder scores (B, A, nc), before the top-k selection, against the f32 plain path's
+    (plain letterbox to u8, /255 in f32, the unfolded model: F.conv2d throughout), within BF16_MAP_TOL by their
+    error against their spread (pre-selection: bf16 changes which anchors the top-k keeps, as it changed which rows
+    the NMS kept), and the share of the f32 run's top-nq anchors that bf16 keeps. With `cpu`, the f32 kernel path's
+    predict on the card against the same f32 serving path on the CPU (conv3x3's plain version, grid_sample and SDPA
+    on the CPU) for 2 frames: rows in order (the selection agrees) and `assert_detections_close` with ties
+    tolerated (box RTDETR_BOX_TOL px, score RTDETR_SCORE_TOL)."""
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.nn.transformer import select_topk
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox_plain, tables_on
+    from lpc_yolo_tpu_torch.utils.compare import assert_detections_close
+
+    S, m = pred.imgsz, yolo.model
+    x = torch.empty(len(frames), S, S, 3, device="cuda")
+    for shape in {im.shape for im in frames}:
+        slots = [j for j, im in enumerate(frames) if im.shape == shape]
+        src = torch.from_numpy(np.stack([frames[j] for j in slots])).cuda()
+        x[slots] = letterbox_plain(src, tables_on(*shape[:2], S, src.device), S, torch.uint8).float() / 255
+    x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        s32 = m.model[-1].encode(decoder_inputs(m, x))[-1].float()
+        s16 = pred.model.model[-1].encode(decoder_inputs(pred.model, pred.preprocess(frames)))[-1].float()
+        err = ((s16 - s32).norm() / (s32 - s32.mean()).norm()).item()
+        k = min(m.model[-1].nq, s32.shape[1])
+        i32, i16 = select_topk(s32.amax(-1), k), select_topk(s16.amax(-1), k)
+        kept = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / k for a, b in zip(i32, i16)]))
+    del x, s32, s16
+    log(Path(yolo.model_yaml["yaml_file"]).stem, f"bf16 encoder scores vs the f32 plain path: centred relative error "
+                                                  f"{err:.4g} (tol {BF16_MAP_TOL}); bf16 keeps {kept:.4f} of the f32 "
+                                                  f"run's top-{k} anchors")
+    assert err <= BF16_MAP_TOL, f"bf16 encoder scores off the f32 plain path: {err}"
+    out = {"bf16_score_err": err, "bf16_topk_kept": kept}
+    if not cpu:
+        return out
+    card = Predictor(m, imgsz=S, batch=2, device="cuda", dtype=torch.float32).infer(frames[:2]).cpu().numpy()
+    host = Predictor(m, imgsz=S, batch=2, device="cpu", dtype=torch.float32).infer(frames[:2]).numpy()
+    same = int(sum(np.array_equal(a[:, 5], b[:, 5]) for a, b in zip(card, host)))
+    box = float(np.abs(card[..., :4] - host[..., :4]).max())
+    score = float(np.abs(card[..., 4] - host[..., 4]).max())
+    log(Path(yolo.model_yaml["yaml_file"]).stem, f"f32 predict, card vs CPU, 2 frames x {card.shape[1]} rows: labels "
+                                                  f"equal in order on {same}/2 frames; in order, box max {box:.4g} px, "
+                                                  f"score max {score:.4g} (tie-tolerant tols {RTDETR_BOX_TOL} px, "
+                                                  f"{RTDETR_SCORE_TOL})")
+    for a, b in zip(card, host):
+        assert_detections_close(a, b, atol_box=RTDETR_BOX_TOL, atol_score=RTDETR_SCORE_TOL)
+    return {**out, "f32_frames_in_order": same, "f32_box_max_px": box, "f32_score_max": score}
+
+
+def decoder_split(pred, frames):
+    """The decoder's device time in a b32 serving forward (profiled alone on the inputs the graph gives it), split
+    by kernel into the sampler (`grid_sample`), the attention (SDPA's kernels) and the rest (the linears, the
+    LayerNorms, the input projection, the selection and the elementwise ops)."""
+    dec = pred.model.model[-1]
+    xs = decoder_inputs(pred.model, pred.preprocess(frames))
+    with torch.inference_mode():
+        prof = profile_step(lambda: dec(xs), iters=3)
+    parts = {"sampler": 0.0, "attention": 0.0, "rest": 0.0}
+    for r in prof["rows"]:
+        name = r["kernel"].lower()
+        part = ("sampler" if "grid_sampler" in name else
+                "attention" if any(w in name for w in ("flash", "fmha", "sdpa", "attention")) else "rest")
+        parts[part] += r["ms_per_step"]
+    return {"busy_ms": prof["device_busy_ms"], "launches": prof["device_launches"],
+            **{f"{k}_ms": v for k, v in parts.items()}, "top": prof["top"][:8]}
+
+
+def phase_rtdetr(val_data: Path):
+    """Phase 19: RT-DETR (RTDETR_MODELS: rtdetr-l, rtdetr-x, rtdetr-resnet50, rtdetr-resnet101, yolov8n-rtdetr) at
+    640 with seed-0 weights, nc 80, each in turn: its parameter count; its conv3x3 sites (24 / 30 / 25 / 42 / 20:
+    HGBlocks' 3x3 Mish convs, each RepC3 RepConv folded into one site with the SiLU epilogue, the ResNet blocks'
+    3x3s, the C2f bottlenecks) against the plain version (every distinct shape in f32 and bf16, every site of one
+    bf16 forward on its own inputs), and no 3x3 s1 g1 conv of the folded graph through F.conv2d; the bf16 encoder
+    scores before the selection against the f32 plain path, and for RTDETR_TIMED the f32 card predict against the
+    CPU (`detr_vs_plain`); YOLO.predict b32 from 720p frames with the counters held (a letterbox, a conv3x3 a site,
+    no NMS) and the serving step's time, busy, idle share and launches (`scale_serving`); for RTDETR_TIMED conv3x3
+    against F.conv2d + bias over the sites and the decoder's busy split (`decoder_split`); YOLO.val(data=...) of
+    RTDETR_VAL at b32 bf16 on phase 7's 64 frames, counters held. Returns that val run's launches of every kernel."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.nn.fuse import conv3x3_sites
+    from lpc_yolo_tpu_torch.nn.modules import RepConv
+
+    t_phase = time.perf_counter()
+    host = frames_720p(SCALE_SERVE_BATCH, seed=191)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
+    out, val_launches = {}, None
+    for name, (n_params, n_sites) in RTDETR_MODELS.items():
+        t0 = time.perf_counter()
+        tag = Path(name).stem
+        r = out[tag] = {}
+        yolo = YOLO(name, device="cuda", seed=0)
+        assert yolo.task == "rtdetr" and sum(p.numel() for p in yolo.model.parameters()) == n_params, name
+        pred = Predictor(yolo.model, imgsz=640, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+        sites = conv_sites(pred)
+        reps = [m for m in conv3x3_sites(pred.model) if isinstance(m, RepConv)]
+        assert len(sites) == len(conv3x3_sites(pred.model)) == n_sites, (tag, len(sites))
+        assert all(m.folded is not None and m.act == "silu" for m in reps), tag
+        n_conv2d = conv2d_3x3_s1_calls(pred, host[:2])
+        assert n_conv2d == 0, f"{tag}: {n_conv2d} folded 3x3 s1 g1 convs through F.conv2d"
+        r.update(sites=len(sites), repconv_sites=len(reps))
+        r["parity"] = phase_parity_conv(sites, tag)
+        site_err = bf16_site_errors(pred, host[:2])
+        assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{tag} bf16 conv3x3 sites: {site_err}"
+        r["parity"]["forward_sites_bf16_max_rel"] = max(site_err)
+        r["vs_plain"] = detr_vs_plain(yolo, pred, host, cpu=name in RTDETR_TIMED)
+        r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
+        log(tag, f"{n_params} parameters, {len(sites)} conv3x3 sites a forward ({len(reps)} folded RepConvs; no 3x3 s1 "
+                 f"conv through F.conv2d; every site of a bf16 forward on its own inputs: max rel {max(site_err):.3g}); "
+                 f"YOLO.predict b{SCALE_SERVE_BATCH} 720p->640 bf16: launches {sv['launches']}, {sv['boxes']} boxes; "
+                 f"serving step {sv['step_ms']:.3f} ms ({sv['img_s']:.1f} img/s), busy {sv['busy_ms']:.3f} ms, idle "
+                 f"share {sv['idle_share']}, {sv['device_launches']:.0f} launches a step")
+        if name in RTDETR_TIMED:
+            tot, per_shape = time_conv3x3(sites, SCALE_SERVE_BATCH, phase=tag)
+            r["conv3x3_sum"], r["conv3x3_shapes"] = tot, per_shape
+            r["decoder"] = dc = decoder_split(pred, host)
+            log(tag, f"decoder alone, b{SCALE_SERVE_BATCH} bf16: busy {dc['busy_ms']:.3f} ms in {dc['launches']:.0f} "
+                     f"launches ({dc['busy_ms'] / sv['busy_ms']:.3f} of the serving step's busy): sampler "
+                     f"{dc['sampler_ms']:.3f}, attention {dc['attention_ms']:.3f}, rest {dc['rest_ms']:.3f} ms")
+        if name == RTDETR_VAL:
+            expect = val_launches_expected(val_frames, VAL_BATCH, len(sites))
+            zero_launches()
+            t1 = time.perf_counter()
+            res = yolo.val(data=str(val_data), imgsz=640, batch=VAL_BATCH, cache_images="disk")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            val_launches = launches_now()
+            assert val_launches == {**expect, "repack": 0}, f"{tag} val: launches {val_launches}, expected {expect}"
+            assert all(np.isfinite(v) for v in res.values()), res
+            r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": val_launches, "results": res,
+                        "speed": yolo.validator.speed}
+            log(tag, f"YOLO.val b{VAL_BATCH} bf16, {len(val_frames)} frames: {len(val_frames) / wall:.1f} img/s, "
+                     f"launches {val_launches}, mAP50 {res['metrics/mAP50(B)']:.4f}")
+        r["seconds"] = time.perf_counter() - t0
+        del pred, yolo
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    REPORT["rtdetr"] = out
+    log("rtdetr", f"phase 19: {len(RTDETR_MODELS)} models in {out['seconds']:.1f} s")
+    return val_launches
+
+
+def rtdetr_only() -> None:
+    """`--rtdetr`: phase 19 alone."""
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rtdetr_") as tmp:
+        phase_rtdetr(labelled_val_set(Path(tmp) / "val", YOLO(YAML, device="cuda", seed=0))[0])
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_rtdetr.json").write_text(json.dumps(REPORT, indent=1))
+    log("done", "phase 19 passed; numbers in chiprun_out/chip_smoke_rtdetr.json")
+
+
 def nms_worst_pool(B: int, seed: int = 0, k: int = 4096):
     """A pool in which every one of the 300 steps keeps a box: k candidates an image, sorted scores above
     conf 0.25 on a grid of 1/1024 (so runs of ~6 are tied and the first of each run must win), boxes 4 to 24
@@ -3280,9 +3472,11 @@ def conv3x3_only() -> None:
 
 def main(argv) -> int:
     converge = argv[:1] == ["--converge"] and len(argv) <= 2
-    if argv not in ([], ["--conv3x3"], ["--seg"], ["--pose"], ["--obb"], ["--cls"], ["--zoo"], ["--v9"]) and not converge:
+    only = {"--seg": seg_only, "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only,
+            "--v9": v9_only, "--rtdetr": rtdetr_only}
+    if argv not in ([], ["--conv3x3"], *([k] for k in only)) and not converge:
         print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg, --pose, --obb, --cls, --zoo, "
-              f"--v9 and --converge [model yaml]", file=sys.stderr)
+              f"--v9, --rtdetr and --converge [model yaml]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3297,9 +3491,8 @@ def main(argv) -> int:
     if argv == ["--conv3x3"]:
         conv3x3_only()
         return 0
-    if argv in (["--seg"], ["--pose"], ["--obb"], ["--cls"], ["--zoo"], ["--v9"]):
-        {"--seg": seg_only, "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only,
-         "--v9": v9_only}[argv[0]]()
+    if argv and argv[0] in only:
+        only[argv[0]]()
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
@@ -3362,6 +3555,8 @@ def main(argv) -> int:
         zoo_launches, relu_err = phase_zoo(Path(tmp) / "val" / "data.yaml", data)
         torch.cuda.empty_cache()
         v9_launches = phase_v9(Path(tmp) / "val" / "data.yaml", data)
+        torch.cuda.empty_cache()
+        rtdetr_launches = phase_rtdetr(Path(tmp) / "val" / "data.yaml")
     nms = time_nms()["val"]
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
@@ -3388,6 +3583,7 @@ def main(argv) -> int:
         k["launches_cls"] = cls_launches[k["name"]]
         k["launches_zoo"] = zoo_launches[k["name"]]  # yolov6n's train(data=...), phase 17
         k["launches_v9"] = v9_launches[k["name"]]  # yolov9c's train(data=...), phase 18
+        k["launches_rtdetr"] = rtdetr_launches[k["name"]]  # rtdetr-l's val(data=...), phase 19
     kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start

@@ -8,18 +8,21 @@ through the weight bridge; `YOLO("x.ckpt")` rebuilds it from a `.ckpt` that
 `.train(batches=...)` on an iterable of host batches), `.val(data=...)`
 measures it on a dataset, `.save(path)` writes it as a `.ckpt` the JAX
 facade loads and `.load(weights)` takes over every weight whose name and
-shape match. Six tasks are ported, named as the JAX facade names them:
+shape match. Seven tasks are ported, named as the JAX facade names them:
 "v10" for a v10Detect head (NMS-free), "v8" for a Detect head (NMS),
 "segment" for a Segment head (NMS and instance masks; `yolov8n-seg.yaml`
 resolves to `v8/yolov8-seg.yaml`), "pose" for a Pose head (NMS and
-keypoints; `yolov8n-pose.yaml` resolves to `v8/yolov8-pose.yaml`) and "obb"
+keypoints; `yolov8n-pose.yaml` resolves to `v8/yolov8-pose.yaml`), "obb"
 for an OBB head (rotated boxes, rotated fast-NMS; `yolov8n-obb.yaml`
-resolves to `v8/yolov8-obb.yaml`) and "classify" for a Classify head
+resolves to `v8/yolov8-obb.yaml`), "classify" for a Classify head
 (`Results.probs`; `yolov8n-cls.yaml` resolves to `v8/yolov8-cls.yaml`, and
 `yolov8-cls-resnet50.yaml` / `-resnet101.yaml` are the ResNet classifiers),
 whose `train(data=<class-folder root>)` runs `engine/classify.py::
-train_classifier` as the JAX facade routes it (:238-242). `.pt` files,
-export and the other tasks wait for later slices.
+train_classifier` as the JAX facade routes it (:238-242), and "rtdetr" for an
+RTDETRDecoder head (`rtdetr-l.yaml`, `-x`, `-resnet50`, `-resnet101` in
+`rt-detr/`, `yolov8n-rtdetr.yaml` resolves to `v8/yolov8-rtdetr.yaml`),
+served and validated with no NMS; its training (the DETR loss) waits for a
+later slice, and `train` raises. `.pt` files, export and the other tasks wait for later slices.
 """
 
 from __future__ import annotations
@@ -41,17 +44,18 @@ _CFG_ROOT = Path(__file__).resolve().parents[1] / "cfg" / "models"
 
 
 def _resolve_yaml(name: Union[str, Path]) -> Path:
-    """A model-config name or path -> the YAML file, searched in v10, v8, v9, v5, v3 and v6 (scale letter
-    stripped when needed: yolov8n.yaml -> v8/yolov8.yaml, yolov8n-seg.yaml -> v8/yolov8-seg.yaml,
-    yolov8x-p6.yaml -> v8/yolov8-p6.yaml, yolov5n.yaml -> v5/yolov5.yaml, yolov6n.yaml -> v6/yolov6.yaml;
-    yolov3-tiny.yaml has no scale, and neither have yolov9c.yaml and yolov9e.yaml, whose c and e are not
-    scale letters), as the JAX resolver does (:42-55). The JAX one searches v10, v8 and v9 only, so it
-    finds a v3, v5 or v6 YAML by its path alone (ROADMAP Queue 3)."""
+    """A model-config name or path -> the YAML file, searched in v10, v8, v9, v5, v3, v6 and rt-detr (scale
+    letter stripped when needed: yolov8n.yaml -> v8/yolov8.yaml, yolov8n-seg.yaml -> v8/yolov8-seg.yaml,
+    yolov8x-p6.yaml -> v8/yolov8-p6.yaml, yolov5n.yaml -> v5/yolov5.yaml, yolov6n.yaml -> v6/yolov6.yaml,
+    yolov8n-rtdetr.yaml -> v8/yolov8-rtdetr.yaml; yolov3-tiny.yaml has no scale, and neither have
+    yolov9c.yaml and yolov9e.yaml, whose c and e are not scale letters, nor rtdetr-l.yaml), as the JAX
+    resolver does (:42-55). The JAX one searches v10, v8 and v9 only, so it finds a v3, v5, v6 or rt-detr
+    YAML by its path alone (ROADMAP Queue 3)."""
     p = Path(name)
     if p.exists():
         return p
     unified = re.sub(r"(\d+)([nsmblx])(.+)?$", r"\1\3", p.stem) + p.suffix
-    for fam in ("v10", "v8", "v9", "v5", "v3", "v6"):
+    for fam in ("v10", "v8", "v9", "v5", "v3", "v6", "rt-detr"):
         for cand in (_CFG_ROOT / fam / p.name, _CFG_ROOT / fam / unified):
             if cand.exists():
                 return cand
@@ -96,8 +100,8 @@ class YOLO:
         self.model = build_model(d, device=self.device, nc=nc or meta.get("nc"))
         self.task = self.model.task  # from the head, as the JAX `_guess_task` (:123-131)
         if self.task is None:
-            raise NotImplementedError("the torch port serves v10Detect, Detect, Segment, Pose, OBB and Classify "
-                                      "models only so far")
+            raise NotImplementedError("the torch port serves v10Detect, Detect, Segment, Pose, OBB, Classify and "
+                                      "RTDETRDecoder models only so far")
         if variables is not None:
             self.load_flax(variables)
         elif seed is not None:
@@ -167,6 +171,10 @@ class YOLO:
         train_classifier`, which takes its own options."""
         from .trainer import Trainer
 
+        if self.task == "rtdetr":
+            raise NotImplementedError("training an RT-DETR model is not ported: the DETR loss (Hungarian matching, "
+                                      "contrastive denoising, the decoder's train branch; JAX losses/detr.py) comes "
+                                      "in a later slice; predict and val serve it")
         if self.task == "classify":
             from .classify import train_classifier
 

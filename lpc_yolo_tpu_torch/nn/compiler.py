@@ -5,8 +5,9 @@ LayerSpec :94, yaml_model_load :110, parse_model :119-284), implemented for
 the modules that the LPC-YOLO YAML, the six YOLOv10 scales (n/s/m/b/l/x) and
 the five YOLOv8 scales (n/s/m/l/x), detect, segment, pose, OBB and classify, the ResNet
 classifiers, the other CNN detection YAMLs (v8 P2 / P6 / ghost / seg-P6 / pose-P6,
-v5 and v5-P6, v3, v3-SPP, v3-tiny, v6) and YOLOv9 (v9c, v9e) reach; any other module raises
-NotImplementedError. A CBLinear layer's output is a tuple of maps, which the CBFuse layers
+v5 and v5-P6, v3, v3-SPP, v3-tiny, v6), YOLOv9 (v9c, v9e) and RT-DETR (rtdetr-l, -x, -resnet50, -resnet101,
+yolov8-rtdetr: HGStem, HGBlock, LightConv, RepC3, AIFI and the RTDETRDecoder head, `nn/transformer.py`)
+reach; any other module raises NotImplementedError. A CBLinear layer's output is a tuple of maps, which the CBFuse layers
 that list it read by index (:230-238).
 A layer repeated n > 1 times that takes no repeat count of its own (v3's Bottlenecks, v6's
 Convs) is an nn.Sequential of n copies, `model.<i>.<rep>`, the JAX graph's `model_<i>_<rep>`
@@ -32,24 +33,28 @@ import torch
 import torch.nn as nn
 import yaml
 
+from ..ops.boxes import xywh2xyxy
 from ..ops.nms import nms_rotated, non_max_suppression
 from ..ops.repack import repack_width_kernel
 from ..utils import resolve_device
 from . import modules as M
 from .heads import (OBB, Classify, Detect, Pose, Segment, V10Detect, decode_feats, decode_feats_obb,
                     decode_feats_topk_split, decode_kpts)
+from .transformer import AIFI, RTDETRDecoder
 
 # Modules whose YAML arg[0] is the (width-scaled) output-channel count, and the
 # subset that also takes the (depth-scaled) repeat count.
 _BASE = {"Conv", "DWConv", "GhostConv", "Bottleneck", "SPPF", "SPP", "C2f", "C2", "C3", "C3Ghost", "PSA", "LPC",
-         "SCDown", "C2fCIB", "RepNCSPELAN4", "ADown", "SPPELAN", "RepConv"}
-_REPEAT = {"C2f", "C2", "C3", "C3Ghost", "C2fCIB"}
+         "SCDown", "C2fCIB", "RepNCSPELAN4", "ADown", "SPPELAN", "RepConv", "RepC3", "LightConv"}
+_REPEAT = {"C2f", "C2", "C3", "C3Ghost", "C2fCIB", "RepC3"}
 # the YAML `activation:` values the port takes (the JAX package's act_map, :1083, less GELU, which no conv3x3
 # epilogue has); the JAX `apply_act` applies SiLU for Mish (ROADMAP Queue 3), the port Mish as the reference does
 _ACTIVATIONS = {"nn.ReLU()": "relu", "nn.SiLU()": "silu", "nn.Mish()": "mish"}
 # the ported heads, each one's task (JAX names)
 HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8", "Segment": "segment", "Pose": "pose", "OBB": "obb",
-              "Classify": "classify"}
+              "Classify": "classify", "RTDETRDecoder": "rtdetr"}
+# RTDETRDecoder's YAML args after nc, in the reference ctor's order (JAX :887-898)
+_DETR_ARGS = ("hd", "nq", "ndp", "nh", "ndl", "d_ffn")
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -126,10 +131,16 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
                 args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             out_args = [*args, tuple(chs[x] for x in f_list)]
             c2 = chs[f_list[-1]]
-        elif m == "CBAM":
+        elif m in ("CBAM", "AIFI"):  # [c1, *args], the width kept (JAX :168-172)
             c1 = chs[f_list[0]]
             out_args = [c1, *args]
             c2 = c1
+        elif m in ("HGStem", "HGBlock"):  # [c1, cm, c2, *rest], unscaled; HGBlock's n at 4 (JAX :173-179)
+            c1, cm, c2 = chs[f_list[0]], args[0], args[1]
+            out_args = [c1, cm, c2, *args[2:]]
+            if m == "HGBlock":
+                out_args.insert(4, n_res)
+                n_res = 1
         elif m == "space_to_depth":
             c2 = 4 * chs[f_list[0]]
             out_args = list(args)
@@ -221,6 +232,17 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         return M.RepConv(a[0], a[1], a[2] if len(a) > 2 else 3, a[3] if len(a) > 3 else 1)
     if m == "Silence":
         return M.Silence()
+    if m == "RepC3":
+        return M.RepC3(a[0], a[1], n=a[2], e=a[3] if len(a) > 3 else 1.0)
+    if m == "LightConv":
+        return M.LightConv(a[0], a[1], a[2] if len(a) > 2 else 1)
+    if m == "HGStem":
+        return M.HGStem(a[0], a[1], a[2])
+    if m == "HGBlock":
+        return M.HGBlock(a[0], a[1], a[2], k=a[3] if len(a) > 3 else 3, n=a[4] if len(a) > 4 else 6,
+                         lightconv=bool(a[5]) if len(a) > 5 else False, shortcut=bool(a[6]) if len(a) > 6 else False)
+    if m == "AIFI":
+        return AIFI(a[0], a[1] if len(a) > 1 else 2048, a[2] if len(a) > 2 else 8)
     if m == "CBLinear":
         return M.CBLinear(a[0], a[1], a[2] if len(a) > 2 else 1, a[3] if len(a) > 3 else 1)
     if m == "CBFuse":
@@ -242,6 +264,8 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         return Pose(nc=a[0], kpt_shape=a[1] if len(a) > 2 else (17, 3), ch=a[-1], strides=strides)
     if m == "OBB":  # ne defaults to 1, as in the JAX graph (:918)
         return OBB(nc=a[0], ne=a[1] if len(a) > 2 else 1, ch=a[-1], strides=strides)
+    if m == "RTDETRDecoder":
+        return RTDETRDecoder(nc=a[0], ch=a[-1], **dict(zip(_DETR_ARGS, a[1:-1])))
     raise NotImplementedError(m)
 
 
@@ -261,7 +285,9 @@ class DetectionModel(nn.Module):
     and the prototypes, for Pose with each row's keypoints; an OBB model's to
     (B, max_det, 7) rotated rows by `nms_rotated` (see `predict`). A Classify head (:967-973) returns
     its logits (B, nc) in train mode and {"probs" (softmax in f32), "logits"} in eval mode; a classify
-    graph has no strides. x is (B, 3, H, W)
+    graph has no strides. An RTDETRDecoder head (:887-898) returns {"pred"} in eval mode, (B, nq, 4 + nc)
+    normalised cxcywh boxes and sigmoid scores; its train branch is not ported, so train mode raises.
+    x is (B, 3, H, W)
     RGB in [0, 1], or another `input_layout` of the same image (see
     `to_nchw`).
     """
@@ -315,6 +341,11 @@ class DetectionModel(nn.Module):
                 inp = x if spec.f[0] == -1 else y[spec.f[0]]
             if spec.module == "v10Detect":
                 return module(inp, branches=branches)
+            if spec.module == "RTDETRDecoder":
+                if self.training:
+                    raise NotImplementedError("the RT-DETR decoder's train branch (contrastive denoising, the "
+                                              "per-layer outputs of the DETR loss) is not ported")
+                return {"pred": module(inp)}
             if spec.module == "Detect":
                 return module(inp)
             if spec.module == "Segment":
@@ -355,9 +386,15 @@ class DetectionModel(nn.Module):
         returns (detections, each row's decoded keypoints (B, max_det, nk) f32 in letterbox pixels,
         gathered by its anchor as the JAX predictor does, :175-180). An OBB model returns (B, max_det, 7)
         [cx, cy, w, h, angle, score, label] rows from `nms_rotated` (the JAX predictor :181-190 and validator
-        :110-127; invalid rows 0 with label -1). A Classify model returns its probabilities (B, nc) f32."""
+        :110-127; invalid rows 0 with label -1). A Classify model returns its probabilities (B, nc) f32. An
+        RT-DETR model returns (B, nq, 6) rows with no NMS, as the JAX predictor decodes them (:166-174): the boxes
+        cxcywh -> xyxy times the (square) input's size, the best score and its class; only x is read."""
         if self.task == "classify":
             return self.forward(x)["probs"]
+        if self.task == "rtdetr":
+            pred = self.forward(x)["pred"]
+            best, label = pred[..., 4:].max(-1)
+            return torch.cat([xywh2xyxy(pred[..., :4]) * x.shape[-1], best[..., None], label[..., None].float()], -1)
         if self.task == "obb":
             pred = self.forward(x)["pred"]
             rb = torch.cat([pred[..., :4], pred[..., -1:]], -1)
@@ -379,7 +416,10 @@ class DetectionModel(nn.Module):
 def _infer_strides(specs, save, nc, ch: int = 3, probe: int = 256) -> Tuple[float, ...]:
     """Output strides from a forward on the meta device (shapes only, no FLOPs), one per head level
     (2 for v3-tiny, 4 for the P2 and P6 graphs). The graph runs in train mode, as the JAX probe does
-    (:1031-1042): in eval mode a head would decode its levels with the default strides."""
+    (:1031-1042): in eval mode a head would decode its levels with the default strides. An RT-DETR graph is not
+    probed: its decoder has no strides (and no train branch here), and the JAX probe finds none (:1041-1044)."""
+    if specs and specs[-1].module == "RTDETRDecoder":
+        return (8.0, 16.0, 32.0)
     with torch.device("meta"):
         m = DetectionModel(specs, save, nc).train()
         feats = m(torch.zeros(1, ch, probe, probe), branches="one2many")

@@ -18,7 +18,7 @@ from typing import List
 import torch
 import torch.nn as nn
 
-from .modules import ConvBN, RepConv, ResNetLayer
+from .modules import ConvBN, HGStem, RepConv, ResNetLayer
 
 
 def folded_convs(model: nn.Module) -> List[nn.Module]:
@@ -61,8 +61,9 @@ def fold_preprocess(model: nn.Module, dtype: torch.dtype = torch.float32, scale:
 
     Unlike the JAX package, whose feed is BGR, the channels are not permuted: the
     letterbox kernel already writes RGB. A ResNet stem (`ResNetLayer` with is_first) takes the
-    scale in its 7x7 ConvBN, the first op it runs; the JAX predictor normalises the frame
-    explicitly there (`engine/predictor.py:150-159`), which is the same function. Where the frame
+    scale in its 7x7 ConvBN, the first op it runs, and an `HGStem` (rtdetr-l, -x) in its stem1;
+    the JAX predictor normalises the frame explicitly there (`engine/predictor.py:150-159`),
+    which is the same function. Where the frame
     reaches convs through a `Silence` (yolov9e), each of them takes the scale; the JAX predictor
     divides by 255 on the device there (:143-151), the same function. A frame reader that is not a
     ConvBN raises.
@@ -70,6 +71,8 @@ def fold_preprocess(model: nn.Module, dtype: torch.dtype = torch.float32, scale:
     for stem in frame_readers(model):
         if isinstance(stem, ResNetLayer) and stem.is_first:
             stem = stem.layer[0]
+        elif isinstance(stem, HGStem):
+            stem = stem.stem1
         if not isinstance(stem, ConvBN):
             raise ValueError(f"fold_preprocess needs a Conv stem, not {type(stem).__name__}")
         stem.fold(dtype, in_scale=scale)

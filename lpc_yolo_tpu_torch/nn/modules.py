@@ -1,5 +1,6 @@
 """The block set of LPC-YOLO, the YOLOv10 and YOLOv8 scales, the ResNet classifiers, the other CNN
-detection YAMLs (v8 P2/P6 and ghost, v5, v3, v6) and YOLOv9 (v9c, v9e) as torch nn.Modules (NCHW,
+detection YAMLs (v8 P2/P6 and ghost, v5, v3, v6), YOLOv9 (v9c, v9e) and RT-DETR's backbone and neck (HGStem,
+HGBlock, LightConv, RepC3; its transformer parts are in `nn/transformer.py`) as torch nn.Modules (NCHW,
 channels_last on the card).
 
 Counterpart of `lpc_yolo_tpu/nn/modules.py`, plain semantics only: none of
@@ -10,7 +11,7 @@ weight bridge (`utils/flax_bridge.py`) is a pure name map.
 
 Activations follow the fork: blocks defined in its block.py (C2f, C2, C3,
 C3Ghost, SPP, SPPF, PSA, LPC, Bottleneck, SCDown, CIB, C2fCIB, Proto,
-ResNetBlock, the v9 blocks) use Mish, but for RepVGGDW's own SiLU; the conv.py family
+ResNetBlock, the v9 blocks, HGStem, HGBlock, RepC3) use Mish, but for RepVGGDW's own SiLU and LightConv's ReLU; the conv.py family
 (YAML-level `Conv`, `DWConv`, `GhostConv`, `RepConv` and the head towers) uses the
 model's default activation, SiLU unless the YAML's `activation:` key says
 `nn.ReLU()` (yolov6) or `nn.Mish()`. A ConvBN built with act "silu" (or
@@ -776,3 +777,79 @@ class CBFuse(nn.Module):
         for i, x in enumerate(xs[:-1]):
             total = total + F.interpolate(x[self.idx[i]], size=total.shape[2:], mode="nearest-exact")
         return total
+
+
+# -- the RT-DETR set (JAX `nn/modules.py:1717-1807`) --------------------------------------------------------------------
+
+
+class RepC3(nn.Module):
+    """RT-DETR's neck CSP block (JAX `nn/modules.py:1717-1735`; reference block.py RepC3): cv1 1x1 (Mish) into n
+    RepConvs with no identity branch (conv.py's SiLU), plus cv2 1x1 (Mish) of the input, and cv3 1x1 (Mish) of
+    the sum when c_ = e * c2 differs from c2. Each RepConv folds into one conv3x3 site."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c2, 1, 1, act="mish")
+        self.m = nn.Sequential(*(RepConv(c2 if i == 0 else c_, c_, use_identity=False) for i in range(n)))
+        self.cv2 = ConvBN(c1, c2, 1, 1, act="mish")
+        self.cv3 = ConvBN(c_, c2, 1, 1, act="mish") if c_ != c2 else None
+
+    def forward(self, x):
+        y = self.m(self.cv1(x)) + self.cv2(x)
+        return y if self.cv3 is None else self.cv3(y)
+
+
+class LightConv(nn.Module):
+    """A 1x1 ConvBN with no activation, then a depthwise k x k ConvBN with `act` (JAX `nn/modules.py:1738-1749`;
+    reference conv.py LightConv)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, act="relu"):
+        super().__init__()
+        self.conv1 = ConvBN(c1, c2, 1, act=False)
+        self.conv2 = ConvBN(c2, c2, k, g=c2, act=act)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+class HGStem(nn.Module):
+    """PPHGNetV2's stem (JAX `nn/modules.py:1752-1778`; reference block.py HGStem), Mish throughout: stem1 3x3 s2,
+    a zero pad of one column and one row on the right and bottom; one branch stem2a 2x2 (same pad) stem2b 2x2,
+    the other a 2x2 stride-1 max-pool of the padded map; concatenated into stem3 3x3 s2 and stem4 1x1. stem1 reads
+    the frame, so it takes the /255 fold (`nn/fuse.py::fold_preprocess`)."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = ConvBN(c1, cm, 3, 2, act="mish")
+        self.stem2a = ConvBN(cm, cm // 2, 2, 1, p=0, act="mish")
+        self.stem2b = ConvBN(cm // 2, cm, 2, 1, p=0, act="mish")
+        self.stem3 = ConvBN(cm * 2, cm, 3, 2, act="mish")
+        self.stem4 = ConvBN(cm, c2, 1, 1, act="mish")
+
+    def forward(self, x):
+        x = F.pad(self.stem1(x), (0, 1, 0, 1))
+        x2 = self.stem2b(F.pad(self.stem2a(x), (0, 1, 0, 1)))
+        return self.stem4(self.stem3(torch.cat([F.max_pool2d(x, 2, 1), x2], 1)))
+
+
+class HGBlock(nn.Module):
+    """PPHGNetV2's block (JAX `nn/modules.py:1781-1807`; reference block.py HGBlock): n chained k x k ConvBNs (Mish;
+    at k = 3 each is a conv3x3 site) or LightConvs, the input and every one of their outputs concatenated into sc
+    1x1 to c2 / 2 and ec 1x1 to c2 (Mish), plus the input when `shortcut` and c1 == c2."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6, lightconv: bool = False,
+                 shortcut: bool = False):
+        super().__init__()
+        self.m = nn.ModuleList(LightConv(c1 if i == 0 else cm, cm, k) if lightconv
+                               else ConvBN(c1 if i == 0 else cm, cm, k, act="mish") for i in range(n))
+        self.sc = ConvBN(c1 + n * cm, c2 // 2, 1, 1, act="mish")
+        self.ec = ConvBN(c2 // 2, c2, 1, 1, act="mish")
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        ys = [x]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        y = self.ec(self.sc(torch.cat(ys, 1)))
+        return y + x if self.add else y

@@ -8,10 +8,17 @@ arrays, and nothing here imports jax.
   `model_28/one2one_cv2_0_0/conv/kernel` -> `model.28.one2one_cv2.0.0.conv.weight`.
 * Conv kernels go HWIO -> OIHW (`transpose(3, 2, 0, 1)`); a depthwise
   (kh, kw, 1, C) kernel becomes (C, 1, kh, kw). A Dense kernel (in, out)
-  becomes a Linear weight (out, in).
+  becomes a Linear weight (out, in). The 3-D kernels of flax's
+  MultiHeadDotProductAttention (`query` / `key` / `value` (C, nh, hd), `out`
+  (nh, hd, C)) and their (nh, hd) biases keep the JAX layout
+  (`nn/transformer.py::MultiHeadAttention` reads them so).
 * BN scale/bias/mean/var become weight/bias/running_mean/running_var, and
   each BN gets `num_batches_tracked = 0` so `load_state_dict(strict=True)`
-  holds.
+  holds; a LayerNorm's scale/bias become weight/bias. The leaves' names tell
+  them apart, whatever the module's name (the RT-DETR decoder's BNs are
+  `input_proj_<i>_1`).
+* A bare parameter (`denoising_class_embed` (nc, hd)) keeps its name and
+  layout.
 
 `train_state_from_flax` carries a JAX `TrainState`'s numpy trees (params,
 batch_stats, the SGD momentum trace or AdamW's two moments, ema_params, the
@@ -42,8 +49,10 @@ _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": 
 _TORCH_BN = {v: k for k, v in _BN_LEAVES.items()}
 # a kernel's axes by rank, JAX layout -> torch layout (conv HWIO -> OIHW, Dense (in, out) -> Linear (out, in))
 # and back
-_TO_TORCH = {4: (3, 2, 0, 1), 2: (1, 0)}
-_TO_FLAX = {4: (2, 3, 1, 0), 2: (1, 0)}
+_TO_TORCH = {4: (3, 2, 0, 1), 3: (0, 1, 2), 2: (1, 0)}
+_TO_FLAX = {4: (2, 3, 1, 0), 3: (0, 1, 2), 2: (1, 0)}
+# parameters that are not a module's kernel, bias or scale: carried under their own name, untransposed
+_BARE = {"denoising_class_embed"}
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -84,14 +93,14 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Ten
         for path, arr in _flatten(variables.get(col, {})):
             arr = np.asarray(arr, np.float32)
             mod, leaf = flax_name_to_torch(path[:-1]), path[-1]
-            if path[-2] == "bn":
+            if leaf in _BN_LEAVES:  # a BatchNorm's or a LayerNorm's leaf, or a kernel's bias
                 sd[f"{mod}.{_BN_LEAVES[leaf]}"] = torch.from_numpy(arr.copy())
                 if leaf == "mean":
                     sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
             elif leaf == "kernel" and arr.ndim in _TO_TORCH:
                 sd[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(arr.transpose(_TO_TORCH[arr.ndim])))
-            elif leaf == "bias":
-                sd[f"{mod}.bias"] = torch.from_numpy(arr.copy())
+            elif leaf in _BARE:  # (at the root of a module's own tree, mod is "")
+                sd[f"{mod}.{leaf}".lstrip(".")] = torch.from_numpy(arr.copy())
             else:
                 raise KeyError(f"no torch counterpart for {col}/{'/'.join(path)} {arr.shape}")
     return sd
@@ -101,17 +110,20 @@ def _flax_slot(name: str, ndim: int) -> Optional[Tuple[str, Tuple[str, ...], Opt
     """A state_dict entry's place in the JAX variables: (collection, path, the permutation that
     takes the tensor to the JAX layout, None when it has none); None for the entries JAX does not
     have (num_batches_tracked)."""
-    mod, leaf = name.rsplit(".", 1)
-    path = torch_name_to_flax(mod)
+    mod, _, leaf = name.rpartition(".")
+    path = torch_name_to_flax(mod) if mod else ()
     if leaf == "num_batches_tracked":
         return None
-    if path[-1] == "bn":
-        flax_leaf = _TORCH_BN[leaf]
-        return ("batch_stats" if flax_leaf in ("mean", "var") else "params"), path + (flax_leaf,), None
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", path + (_TORCH_BN[leaf],), None
+    if leaf == "weight" and ndim == 1:  # a BatchNorm's or a LayerNorm's scale
+        return "params", path + ("scale",), None
     if leaf == "weight" and ndim in _TO_FLAX:
         return "params", path + ("kernel",), _TO_FLAX[ndim]
     if leaf == "bias":
         return "params", path + ("bias",), None
+    if leaf in _BARE:
+        return "params", path + (leaf,), None
     raise KeyError(f"no JAX counterpart for {name}")
 
 
@@ -234,9 +246,12 @@ def random_variables(shapes: Dict[str, Any], seed: int = 0) -> Dict[str, Any]:
 
     Leaves are visited in sorted path order, so any tree with the same paths
     and shapes gets the same arrays. Kernels are U(±sqrt(3/fan_in)) (unit
-    gain); BN scales U(0.5, 1.5), BN biases and means U(±0.2), variances
-    U(0.5, 1.5) (positive); conv biases U(±0.5), random rather than the init
-    constants so scores spread and the top-k order is stable.
+    gain; an attention `query` / `key` / `value` kernel (C, nh, hd) has fan_in
+    C, its `out` kernel (nh, hd, C) nh * hd); BN and LayerNorm scales
+    U(0.5, 1.5), BN biases and means U(±0.2), variances U(0.5, 1.5)
+    (positive); other biases U(±0.5), random rather than the init constants
+    so scores spread and the top-k order is stable; a bare table
+    (`denoising_class_embed`) U(±1).
     """
     rng = np.random.default_rng(seed)
     out: Dict[str, Any] = {}
@@ -245,7 +260,8 @@ def random_variables(shapes: Dict[str, Any], seed: int = 0) -> Dict[str, Any]:
             shape = tuple(getattr(leaf, "shape", leaf))
             kind = path[-1]
             if kind == "kernel":
-                bound = np.sqrt(3.0 / max(int(np.prod(shape[:-1])), 1))
+                fan_in = shape[0] if len(shape) == 3 and path[-2] != "out" else int(np.prod(shape[:-1]))
+                bound = np.sqrt(3.0 / max(fan_in, 1))
                 arr = rng.uniform(-bound, bound, shape)
             elif kind in ("scale", "var"):
                 arr = rng.uniform(0.5, 1.5, shape)
@@ -253,6 +269,8 @@ def random_variables(shapes: Dict[str, Any], seed: int = 0) -> Dict[str, Any]:
                 arr = rng.uniform(-0.2, 0.2, shape)
             elif kind == "bias":
                 arr = rng.uniform(-0.5, 0.5, shape)
+            elif kind in _BARE:
+                arr = rng.uniform(-1.0, 1.0, shape)
             else:
                 raise KeyError(f"unknown variable {col}/{'/'.join(path)}")
             _set(out.setdefault(col, {}), path, arr.astype(np.float32))

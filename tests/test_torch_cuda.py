@@ -535,3 +535,77 @@ def test_training_render_on_the_card_matches_the_cpu(tmp_path):
         card = render(batch["plan"], batch["sources"], torch.device("cuda")).cpu()
         cpu = render(batch["plan"], batch["sources"], torch.device("cpu"))
         assert card.shape == (4, 640, 640, 3) and (card.int() - cpu.int()).abs().max().item() <= 1
+
+
+# (B, H, W, C, Co, act) of the RT-DETR sites at their serving batch: rtdetr-l's HGBlocks (48 @160², 96 @80²) and
+# rtdetr-x's (64 @160², 128 @80²), Mish; the RepC3 RepConvs, SiLU, of l (256) and x (384) at 80², 40² and 20²
+RTDETR_CONV_CASES = [
+    (32, 160, 160, 48, 48, "mish"), (32, 80, 80, 96, 96, "mish"), (32, 160, 160, 64, 64, "mish"),
+    (32, 80, 80, 128, 128, "mish"), (32, 80, 80, 256, 256, "silu"), (32, 40, 40, 256, 256, "silu"),
+    (32, 20, 20, 256, 256, "silu"), (32, 80, 80, 384, 384, "silu"), (32, 20, 20, 384, 384, "silu"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,Co,act", RTDETR_CONV_CASES)
+def test_conv3x3_rtdetr_shapes_match_plain(B, H, W, C, Co, act, dtype):
+    """The kernel against its plain version at the RT-DETR sites (f32 abs 1e-4, bf16 2e-2 relative)."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5).to(dtype)
+    b = torch.rand(Co, device="cuda", generator=g) - 0.5
+    got = conv3x3(x, w, b, act).float()
+    ref = conv3x3_plain(x.float(), w.float(), b, act)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    else:
+        assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
+
+
+def test_rtdetr_topk_ties_on_the_card_match_the_cpu():
+    """`select_topk` on CUDA keeps `jax.lax.top_k`'s order as on the CPU: b32 rows of 8400 scores in bf16-like
+    steps, the 316 border anchors of a 640 input tied at one value, the same indices in the same order."""
+    from lpc_yolo_tpu_torch.nn.transformer import make_anchors, select_topk
+
+    _, valid = make_anchors([(80, 80), (40, 40), (20, 20)], "cpu")
+    assert int((~valid).sum()) == 316
+    g = torch.Generator().manual_seed(3)
+    scores = (torch.randn(32, 8400, generator=g) * 64).round() / 64  # many exact ties
+    scores[:, ~valid[:, 0]] = 0.5
+    for k in (300, 8400):
+        assert torch.equal(select_topk(scores.cuda(), k).cpu(), select_topk(scores, k))
+
+
+@pytest.mark.parametrize("cfg", ["rt-detr/rtdetr-l.yaml", "rt-detr/rtdetr-resnet50.yaml", "v8/yolov8-rtdetr.yaml"])
+def test_rtdetr_serving_on_the_card_matches_the_cpu(cfg):
+    """A small-decoder RT-DETR (hd 64, nq 60, nh 4, 2 layers; every other layer as published) served on the card in
+    f32 from two 720p frames at 256 (letterbox, the folded graph, the decoder, no NMS) against the same serving
+    path on the CPU: one letterbox launch, one conv3x3 launch a site, the rows matched tie-tolerantly (box 0.05
+    px, score 1e-4); then bf16 on the card, finite (B, 60, 6) rows."""
+    import yaml
+
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.nn import build_model
+    from lpc_yolo_tpu_torch.nn.fuse import conv3x3_sites
+    from lpc_yolo_tpu_torch.utils.compare import assert_detections_close
+    from lpc_yolo_tpu_torch.utils.flax_bridge import flax_shapes, load_flax, random_variables
+
+    root = __import__("pathlib").Path(__file__).resolve().parents[1] / "lpc_yolo_tpu_torch" / "cfg" / "models"
+    d = yaml.safe_load((root / cfg).read_text())
+    d["head"][-1][3] = ["nc", 64, 60, 4, 4, 2, 256]
+    m = build_model(d, device="cpu")
+    load_flax(m, random_variables(flax_shapes(m), seed=0))
+    rng = np.random.default_rng(2)
+    frames = [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8) for _ in range(2)]
+    card = Predictor(m, imgsz=256, batch=2, device="cuda", dtype=torch.float32)
+    letterbox.launches = conv3x3.launches = 0
+    got = card.infer(frames).cpu().numpy()
+    torch.cuda.synchronize()
+    assert (letterbox.launches, conv3x3.launches) == (1, len(conv3x3_sites(card.model)))
+    ref = Predictor(m, imgsz=256, batch=2, device="cpu", dtype=torch.float32).infer(frames).numpy()
+    assert got.shape == ref.shape == (2, 60, 6)
+    for a, b in zip(got, ref):
+        assert_detections_close(a, b, atol_box=0.05, atol_score=1e-4)
+    half = Predictor(m, imgsz=256, batch=2, device="cuda", dtype=torch.bfloat16).infer(frames)
+    assert half.shape == (2, 60, 6) and bool(torch.isfinite(half).all())
