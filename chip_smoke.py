@@ -246,8 +246,16 @@ Phases, in order; any failure raises and the script exits non-zero:
             rtdetr-l and -x conv3x3 against F.conv2d + bias and the
             decoder's busy time split into the sampler, the attention and
             the rest; YOLO.val(data=...) of rtdetr-l at b32 on phase 7's 64
-            frames, counters held. No training (the DETR loss is not
-            ported). Numbers under "rtdetr".
+            frames, counters held. Then rtdetr-l's training: its b16 train
+            step at 640 (bf16 autocast, 128 ground-truth slots: 256
+            denoising queries) with one repack a step, every loss finite,
+            its time, busy, idle share, launches, peak memory, attention
+            kernels and the host's time in the matching; the f32 DETR loss
+            on the card against the CPU's (box heads calmed; the same
+            weights, draws and matches) within 1e-3; 20 AdamW steps on one
+            batch whose loss must fall; YOLO(rtdetr-l, nc=3).train(data=...,
+            epochs=1, save=True) on phase 8's dataset, counters held.
+            Numbers under "rtdetr".
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
@@ -256,7 +264,7 @@ and "launches_obb", each kernel's launches in phase 13's yolov8n-seg, phase
 14's yolov8n-pose and phase 15's yolov8n-obb train(data=...); nms's times from
 phase 12's val pool; "launches_cls" beside them from phase 16's yolov8n-cls
 predict and train(data=...); "launches_zoo" from phase 17's yolov6n train(data=...), "launches_v9" from
-phase 18's yolov9c train(data=...), "launches_rtdetr" from phase 19's rtdetr-l val(data=...), and conv3x3's
+phase 18's yolov9c train(data=...), "launches_rtdetr" from phase 19's rtdetr-l train(data=...), and conv3x3's
 "max_abs_err_relu", the f32 parity of its ReLU epilogue at yolov6n's sites); the last line is
 {"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
@@ -270,7 +278,8 @@ yolov10n.yaml, yolov8n.yaml, yolov8n-seg.yaml, whose set is labelled with
 polygons and whose box and mask mAPs are both reported, or yolov8n-pose.yaml,
 whose set carries 17 keypoints a box and whose box and OKS mAPs are both
 reported, or yolov8n-obb.yaml, whose set is of drawn rotated rectangles with
-DOTA quad labels and whose mAPs match by rotated probIoU) with nc=3 on the synthetic set of 256 + 32
+DOTA quad labels and whose mAPs match by rotated probIoU, or yolov8n-rtdetr.yaml, trained through the DETR
+loss) with nc=3 on the synthetic set of 256 + 32
 frames at 160, 120 epochs of b16 (close_mosaic 40, max_gt 8, cache="ram",
 val=False, save=True), then `val` at f32 and at bf16 on the trained weights
 reloaded through YOLO.save -> YOLO(path); it prints mAP50, mAP50-95, the
@@ -365,6 +374,10 @@ RTDETR_MODELS = {  # phase 19: name -> (parameters, the JAX graph's, and conv3x3
 RTDETR_TIMED = ("rtdetr-l.yaml", "rtdetr-x.yaml")  # conv3x3 vs F.conv2d, the decoder's split, f32 card vs the CPU
 RTDETR_VAL = "rtdetr-l.yaml"
 RTDETR_BOX_TOL, RTDETR_SCORE_TOL = 0.05, 1e-4  # f32 predict, card vs CPU: box px and score of each matched row
+RTDETR_TRAIN = "rtdetr-l.yaml"  # phase 19's training: the b16 step, the card's loss against the CPU's, train(data=...)
+RTDETR_MAX_GT = 128  # the trainer's max_gt: 128 ground-truth slots, so G = 100 // 128 -> 1 and 256 denoising queries
+RTDETR_LOSS_TOL = 1e-3  # f32 loss items (amp=False), card vs CPU on the same weights, draws and matches, relative
+RTDETR_FIT_STEPS = 20  # the learning check: AdamW steps on one fixed batch
 P6_IMGSZ = 1280  # the P6 models' published size
 SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits at 640
 NMS_OPS = 15  # f32 operations per pool candidate and step: the IoU in the JAX order, the compare, the argmax
@@ -1651,10 +1664,11 @@ def scale_train_step(yolo, batches):
     assert launches_now("repack") == {"repack": len(mets)}, (launches_now(), len(mets))
     assert all(m["skipped"] is False and np.isfinite(float(m["loss"])) for m in mets), mets[-1]
     prof = profile_step(one, iters=2)
+    attention = [r for r in prof["rows"] if any(w in r["kernel"].lower() for w in ("flash", "fmha", "attention"))]
     return {"batch": len(batches[0]["img"]), "steps": len(mets), "step_ms": step_ms, "peak_gb": peak_gb,
             "img_s": len(batches[0]["img"]) / step_ms * 1e3, "busy_ms": prof["device_busy_ms"],
             "idle_share": prof["idle_share"], "device_launches": prof["device_launches"],
-            "loss": float(mets[-1]["loss"]), "profile_top": prof["top"][:8]}
+            "loss": float(mets[-1]["loss"]), "profile_top": prof["top"][:8], "attention_kernels": attention}
 
 
 def phase_scales(family: str, val_data: Path):
@@ -3219,7 +3233,194 @@ def decoder_split(pred, frames):
             **{f"{k}_ms": v for k, v in parts.items()}, "top": prof["top"][:8]}
 
 
-def phase_rtdetr(val_data: Path):
+def detr_batches(n: int, B: int, seed: int):
+    """`train_batches` with the ground truths padded to RTDETR_MAX_GT slots, as the trainer's loader pads them."""
+    pad = lambda a: np.pad(a, [(0, 0), (0, RTDETR_MAX_GT - a.shape[1])] + [(0, 0)] * (a.ndim - 2))  # noqa: E731
+    return [{"img": b["img"], **{k: pad(b[k]) for k in ("cls", "bboxes", "mask")}} for b in train_batches(n, B, seed)]
+
+
+def matching_share(yolo, batches, step_ms: float, steps: int = 3):
+    """The host's time in the DETR loss's matching a train step, the median over `steps` steps with the device
+    drained before each solve: `solve_matches` (the one device-to-host copy of every layer's costs and the
+    ground-truth counts, scipy, the indices back) and scipy alone (`_lsa_host`), and the first's share of the
+    event-timed step."""
+    from lpc_yolo_tpu_torch.engine.train_step import OptConfig, init_train_state, make_train_step
+    from lpc_yolo_tpu_torch.losses import detr
+
+    cfg = OptConfig(warmup_steps=100, total_steps=1000)
+    st = init_train_state(yolo.model, cfg, device="cuda")
+    step = make_train_step(yolo.model, cfg, loss_kind="rtdetr")
+    solve_s, lsa_s, shapes = [], [], []
+    real_solve, real_lsa = detr.solve_matches, detr._lsa_host
+
+    def solve(cost, mask):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_solve(cost, mask)
+        solve_s.append(time.perf_counter() - t0)
+        shapes.append(list(cost.shape))
+        return out
+
+    def lsa(cost, n_valid):
+        t0 = time.perf_counter()
+        out = real_lsa(cost, n_valid)
+        lsa_s.append(time.perf_counter() - t0)
+        return out
+
+    detr.solve_matches, detr._lsa_host = solve, lsa
+    try:
+        for i in range(steps):
+            step(st, batches[i % len(batches)])
+        torch.cuda.synchronize()
+    finally:
+        detr.solve_matches, detr._lsa_host = real_solve, real_lsa
+    assert len(solve_s) == len(lsa_s) == steps, (len(solve_s), len(lsa_s))
+    solve_ms, lsa_ms = 1e3 * float(np.median(solve_s)), 1e3 * float(np.median(lsa_s))
+    return {"cost_shape": shapes[0], "cost_mb": float(np.prod(shapes[0])) * 4 / 1e6, "solve_ms": solve_ms,
+            "scipy_ms": lsa_ms, "transfer_ms": solve_ms - lsa_ms, "host_share": solve_ms / step_ms}
+
+
+def calm_box_heads(model) -> None:
+    """Scale the last layer of the decoder's box MLPs (`enc_bbox_head`, every `dec_bbox_head`) by 0.05 and zero its
+    bias, in place, as `tests/test_torch_rtdetr.py::calm_boxes` does: with the seeded deltas most boxes saturate at 0
+    or 1, where `inverse_sigmoid` magnifies rounding ~3x a layer (rtdetr-l at 640 on the CPU, f32 against f64 on the
+    same selection: the last layer's boxes 0.098 apart seeded, 3.9e-6 calmed)."""
+    head = model.model[-1]
+    with torch.no_grad():
+        for mlp in (head.enc_bbox_head, *head.dec_bbox_head):
+            mlp.layers[-1].weight.mul_(0.05)
+            mlp.layers[-1].bias.zero_()
+
+
+def detr_loss_card_vs_cpu(name: str, batch):
+    """The f32 loss items of one fixed batch (no autocast; TF32 off) on the card and on the CPU: the same seed-0
+    weights with the box heads calmed (`calm_box_heads`), the same denoising draws (drawn on the CPU), and the
+    card's matches injected into the CPU's loss. Near-tied encoder scores may put the selected queries in another
+    order on the CPU (as rtdetr-x's f32 predict shows in `detr_vs_plain`): each matched query is carried to its
+    anchor's place in the CPU's selection (the decoder is equivariant to the order of its queries), and the two
+    selections must hold the same anchors. Within RTDETR_LOSS_TOL relative."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.train_step import to_device
+    from lpc_yolo_tpu_torch.losses import detr
+    from lpc_yolo_tpu_torch.nn import transformer
+
+    B, M = batch["cls"].shape
+    draws = detr.dn_draws(B, max(1, detr.NUM_DN // M), M, 80, torch.Generator().manual_seed(193))
+    got, picked, matches = {}, {}, []
+    real_solve, real_select = detr.solve_matches, transformer.select_topk
+    for role, dev in (("card", "cuda"), ("cpu", "cpu")):
+        yolo = YOLO(name, device=dev, seed=0)
+        model = yolo.model.train()
+        calm_box_heads(model)
+        b = to_device(batch, torch.device(dev))
+        x = model.to_nchw(b["img"], "NHWC").flip(1).float() / 255
+        dn = {"cls": b["cls"], "bboxes": detr.normalized_cxcywh(b["bboxes"], x.shape[2:]), "mask": b["mask"],
+              "draws": {k: v.to(dev) for k, v in draws.items()}}
+        seen = []
+        transformer.select_topk = lambda scores, k: seen.append(real_select(scores, k)) or seen[-1]
+        try:
+            with torch.no_grad():
+                out = model(x, dn=dn)
+        finally:
+            transformer.select_topk = real_select
+        picked[role] = seen[0].cpu()  # the anchors of the selected queries, in their order
+        with torch.no_grad():
+            if role == "card":
+                detr.solve_matches = lambda cost, mask: matches.append(real_solve(cost, mask)) or matches[-1]
+                try:
+                    total, items = detr.rtdetr_loss(out, b["cls"], b["bboxes"], b["mask"], x.shape[2:])
+                finally:
+                    detr.solve_matches = real_solve
+            else:
+                card, cpu = picked["card"], picked["cpu"]
+                reordered = int((card != cpu).sum())
+                others = [len(set(a.tolist()) - set(c.tolist())) for a, c in zip(card, cpu)]
+                assert not any(others), f"the card and the CPU select other anchors: {others} an image"
+                place = torch.full((B, int(cpu.max()) + 1), -1, dtype=cpu.dtype)
+                place.scatter_(1, cpu, torch.arange(cpu.shape[1]).expand_as(cpu))  # anchor -> its CPU position
+                m = matches[0].cpu()  # (layers, B, M): positions in the card's selection, -1 for padding
+                L = m.shape[0]
+                anchor = card.expand(L, -1, -1).gather(2, m.clamp(min=0))
+                moved = torch.where(m >= 0, place.expand(L, -1, -1).gather(2, anchor), m)
+                total, items = detr.rtdetr_loss(out, b["cls"], b["bboxes"], b["mask"], x.shape[2:], matches=moved)
+        got[role] = np.array([float(total), *items.cpu().tolist()])
+        del yolo, model, out
+        torch.cuda.empty_cache()
+    rel = float(np.max(np.abs(got["card"] - got["cpu"]) / np.abs(got["cpu"])))
+    log(Path(name).stem, f"f32 DETR loss, card vs CPU on b{B} at 640 (box heads calmed; same weights, draws, matches; "
+                         f"{reordered} of {picked['cpu'].numel()} selected queries in another order): total, cls, l1, "
+                         f"giou {got['card'].round(5).tolist()} vs {got['cpu'].round(5).tolist()}, max rel {rel:.3g} "
+                         f"(tol {RTDETR_LOSS_TOL})")
+    assert rel <= RTDETR_LOSS_TOL, f"card's f32 DETR loss off the CPU's: {got}"
+    return {"card": got["card"].tolist(), "cpu": got["cpu"].tolist(), "max_rel": rel, "reordered": reordered}
+
+
+def detr_fit(name: str, batch, steps: int = RTDETR_FIT_STEPS):
+    """The learning check: `steps` AdamW steps (lr 1e-4, weight decay 1e-4, bf16 autocast) of a seed-0 model on one
+    fixed device batch; every loss finite, none skipped, and the last five steps' mean loss under the first five's."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.train_step import OptConfig, init_train_state, make_train_step
+
+    yolo = YOLO(name, device="cuda", seed=0)
+    cfg = OptConfig(optimizer="adamw", lr0=1e-4, momentum=0.9, weight_decay=1e-4, warmup_steps=1,
+                    total_steps=10 ** 6)
+    st = init_train_state(yolo.model, cfg, device="cuda")
+    step = make_train_step(yolo.model, cfg, loss_kind="rtdetr")
+    mets = [step(st, batch)[1] for _ in range(steps)]
+    losses = [float(m["loss"]) for m in mets]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(Path(name).stem, f"{steps} AdamW steps on one b{len(batch['img'])} batch: loss {losses[0]:.3f} -> "
+                         f"{losses[-1]:.3f}; mean of the first five {first:.3f}, of the last five {last:.3f}")
+    assert all(np.isfinite(losses)) and not any(m["skipped"] for m in mets), losses
+    assert last < first, f"the loss did not fall over {steps} steps on one batch: {losses}"
+    del yolo, st, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "first5": first, "last5": last, "items_last": mets[-1]["items"].tolist()}
+
+
+def phase_rtdetr_train(train_data: str, sites: int):
+    """Phase 19's training of RTDETR_TRAIN (rtdetr-l) at 640, as published: the b16 train step (bf16 autocast,
+    RTDETR_MAX_GT ground-truth slots: 256 denoising queries) from device-resident packed batches through
+    `scale_train_step` (event-timed ms, busy, idle share, launches, peak memory, one repack a step, every loss
+    finite) and the host's share of the matching (`matching_share`); the f32 loss on the card against the CPU's
+    (`detr_loss_card_vs_cpu`); the learning check (`detr_fit`); then YOLO(RTDETR_TRAIN, nc=3).train(data=...,
+    epochs=1, save=True) on phase 8's dataset with the counters held (`phase_scale_train_data`: a repack a step,
+    a letterbox per val batch and frame shape, `sites` conv3x3 per val batch, no NMS). Returns its launches."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.train_step import to_device
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+
+    t0 = time.perf_counter()
+    tag = Path(RTDETR_TRAIN).stem
+    r = {}
+    host = detr_batches(2, TRAIN_BATCH, seed=192)
+    batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda")) for b in host]
+    yolo = YOLO(RTDETR_TRAIN, device="cuda", seed=0)
+    r["train"] = tr = scale_train_step(yolo, batches)
+    r["matching"] = mt = matching_share(yolo, batches, tr["step_ms"])
+    attn = ", ".join(f"{a['kernel'][:60]} {a['ms_per_step']:.3f} ms x{a['calls_per_step']:.0f}"
+                     for a in tr["attention_kernels"])
+    log(tag, f"train step b{TRAIN_BATCH} 640 bf16 autocast, {RTDETR_MAX_GT} ground-truth slots: {tr['step_ms']:.3f} ms "
+             f"({tr['img_s']:.1f} img/s), device busy {tr['busy_ms']:.3f} ms, idle share {tr['idle_share']}, "
+             f"{tr['device_launches']:.0f} launches a step, peak {tr['peak_gb']:.3f} GB, loss {tr['loss']:.4f}; "
+             f"matching: costs {mt['cost_shape']} ({mt['cost_mb']:.1f} MB) in one copy, {mt['solve_ms']:.3f} ms a "
+             f"step (scipy {mt['scipy_ms']:.3f}, the copies {mt['transfer_ms']:.3f}), {mt['host_share']:.4f} of the "
+             f"step; attention kernels: {attn}")
+    del yolo, batches
+    torch.cuda.empty_cache()
+    r["loss_card_vs_cpu"] = detr_loss_card_vs_cpu(RTDETR_TRAIN, {k: v[:2] for k, v in host[0].items()})
+    fixed = to_device({**host[1], "img": pack_img(host[1]["img"])}, torch.device("cuda"))
+    r["fit"] = detr_fit(RTDETR_TRAIN, fixed)
+    del fixed
+    torch.cuda.empty_cache()
+    launches = phase_scale_train_data("rtdetr", train_data, sites, name=RTDETR_TRAIN, epochs=1)
+    r["seconds"] = time.perf_counter() - t0
+    REPORT.setdefault("rtdetr", {})["training"] = r
+    log(tag, f"training checks in {r['seconds']:.1f} s")
+    return launches
+
+
+def phase_rtdetr(val_data: Path, train_data: str):
     """Phase 19: RT-DETR (RTDETR_MODELS: rtdetr-l, rtdetr-x, rtdetr-resnet50, rtdetr-resnet101, yolov8n-rtdetr) at
     640 with seed-0 weights, nc 80, each in turn: its parameter count; its conv3x3 sites (24 / 30 / 25 / 42 / 20:
     HGBlocks' 3x3 Mish convs, each RepC3 RepConv folded into one site with the SiLU epilogue, the ResNet blocks'
@@ -3229,7 +3430,8 @@ def phase_rtdetr(val_data: Path):
     CPU (`detr_vs_plain`); YOLO.predict b32 from 720p frames with the counters held (a letterbox, a conv3x3 a site,
     no NMS) and the serving step's time, busy, idle share and launches (`scale_serving`); for RTDETR_TIMED conv3x3
     against F.conv2d + bias over the sites and the decoder's busy split (`decoder_split`); YOLO.val(data=...) of
-    RTDETR_VAL at b32 bf16 on phase 7's 64 frames, counters held. Returns that val run's launches of every kernel."""
+    RTDETR_VAL at b32 bf16 on phase 7's 64 frames, counters held. Then the training of RTDETR_TRAIN
+    (`phase_rtdetr_train`) on phase 8's dataset `train_data`; returns its train(data=...) run's launches."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.nn.fuse import conv3x3_sites
@@ -3239,7 +3441,7 @@ def phase_rtdetr(val_data: Path):
     host = frames_720p(SCALE_SERVE_BATCH, seed=191)
     dev = torch.from_numpy(np.stack(host)).cuda()
     val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
-    out, val_launches = {}, None
+    out = REPORT.setdefault("rtdetr", {})
     for name, (n_params, n_sites) in RTDETR_MODELS.items():
         t0 = time.perf_counter()
         tag = Path(name).stem
@@ -3289,10 +3491,10 @@ def phase_rtdetr(val_data: Path):
         r["seconds"] = time.perf_counter() - t0
         del pred, yolo
         torch.cuda.empty_cache()
+    launches = phase_rtdetr_train(train_data, out[Path(RTDETR_TRAIN).stem]["sites"])
     out["seconds"] = time.perf_counter() - t_phase
-    REPORT["rtdetr"] = out
-    log("rtdetr", f"phase 19: {len(RTDETR_MODELS)} models in {out['seconds']:.1f} s")
-    return val_launches
+    log("rtdetr", f"phase 19: {len(RTDETR_MODELS)} models and {RTDETR_TRAIN}'s training in {out['seconds']:.1f} s")
+    return launches
 
 
 def rtdetr_only() -> None:
@@ -3302,7 +3504,8 @@ def rtdetr_only() -> None:
     from lpc_yolo_tpu_torch import YOLO
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rtdetr_") as tmp:
-        phase_rtdetr(labelled_val_set(Path(tmp) / "val", YOLO(YAML, device="cuda", seed=0))[0])
+        val_data = labelled_val_set(Path(tmp) / "val", YOLO(YAML, device="cuda", seed=0))[0]
+        phase_rtdetr(val_data, write_train_dataset(Path(tmp) / "train"))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_rtdetr.json").write_text(json.dumps(REPORT, indent=1))
@@ -3556,7 +3759,7 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         v9_launches = phase_v9(Path(tmp) / "val" / "data.yaml", data)
         torch.cuda.empty_cache()
-        rtdetr_launches = phase_rtdetr(Path(tmp) / "val" / "data.yaml")
+        rtdetr_launches = phase_rtdetr(Path(tmp) / "val" / "data.yaml", data)
     nms = time_nms()["val"]
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
@@ -3583,7 +3786,7 @@ def main(argv) -> int:
         k["launches_cls"] = cls_launches[k["name"]]
         k["launches_zoo"] = zoo_launches[k["name"]]  # yolov6n's train(data=...), phase 17
         k["launches_v9"] = v9_launches[k["name"]]  # yolov9c's train(data=...), phase 18
-        k["launches_rtdetr"] = rtdetr_launches[k["name"]]  # rtdetr-l's val(data=...), phase 19
+        k["launches_rtdetr"] = rtdetr_launches[k["name"]]  # rtdetr-l's train(data=..., save=True), phase 19
     kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start

@@ -21,8 +21,8 @@ whose `train(data=<class-folder root>)` runs `engine/classify.py::
 train_classifier` as the JAX facade routes it (:238-242), and "rtdetr" for an
 RTDETRDecoder head (`rtdetr-l.yaml`, `-x`, `-resnet50`, `-resnet101` in
 `rt-detr/`, `yolov8n-rtdetr.yaml` resolves to `v8/yolov8-rtdetr.yaml`),
-served and validated with no NMS; its training (the DETR loss) waits for a
-later slice, and `train` raises. `.pt` files, export and the other tasks wait for later slices.
+served and validated with no NMS, and trained through the DETR loss
+(`losses/detr.py`). `.pt` files, export and the other tasks wait for later slices.
 """
 
 from __future__ import annotations
@@ -171,10 +171,6 @@ class YOLO:
         train_classifier`, which takes its own options."""
         from .trainer import Trainer
 
-        if self.task == "rtdetr":
-            raise NotImplementedError("training an RT-DETR model is not ported: the DETR loss (Hungarian matching, "
-                                      "contrastive denoising, the decoder's train branch; JAX losses/detr.py) comes "
-                                      "in a later slice; predict and val serve it")
         if self.task == "classify":
             from .classify import train_classifier
 

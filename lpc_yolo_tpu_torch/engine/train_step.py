@@ -5,25 +5,29 @@ Counterpart of `lpc_yolo_tpu/engine/train_step.py` (config and schedules
 engine/trainer.py:362-394, :695-756, torch_utils.py:431-465 ModelEMA), for
 the v10 dual-assignment loss of a v10Detect model, the v8 loss of a Detect
 model, the v8 segmentation loss of a Segment model, the v8 pose loss of
-a Pose model and the v8 oriented-box loss of an OBB model (`loss_kind`,
-:238-258; a segment batch carries its instance masks under "masks", a pose
-batch its keypoints under "keypoints", an OBB batch its rotated boxes under
-"rboxes").
+a Pose model, the v8 oriented-box loss of an OBB model and the DETR loss of
+an RT-DETR model (`loss_kind`, :178-258; a segment batch carries its instance
+masks under "masks", a pose batch its keypoints under "keypoints", an OBB
+batch its rotated boxes under "rboxes").
 
 In PyTorch's idiom the model's parameters and BatchNorm buffers are the live
 state and are updated in place; `TrainState` names them beside the momentum
 trace and the EMA copy. The optimizer is written out over `torch._foreach_*`
 because its order differs from `torch.optim.SGD` + `clip_grad_norm_`: clip by
 the global norm (`g * clip / norm` only when `norm >= clip`), then add
-`weight_decay * p` to the kernels only (conv and Linear weights), after the clip, then the Nesterov
+`weight_decay * p` to the kernels only, after the clip, then the Nesterov
 trace with the warmed-up momentum, then `-lr`. AdamW follows `optax.adamw`
 in the same chain (:86-92): after the clip, Adam's moments in f32 with b1 =
 momentum, b2 = 0.999, eps = 1e-8 and the bias correction counted from 1,
 then `weight_decay * p` added to the kernels' update, then `-lr` (so
-the decay is scaled by the learning rate). A parameter without a gradient
-(the layer nothing reads) counts as a zero gradient, so its kernels still
-decay. Both schedules are read at the optimizer's own count, which starts at
-0 (the first update moves no parameter) and does not advance on a skipped step.
+the decay is scaled by the learning rate). The kernels are the parameters
+whose JAX leaf is named `kernel` (`utils/flax_bridge.py::is_flax_kernel`,
+the JAX `_decay_mask`): conv and Linear weights and flax attention's 3-D
+kernels, not the attention's (nh, hd) biases nor RT-DETR's
+`denoising_class_embed`. A parameter without a gradient (the layer nothing
+reads) counts as a zero gradient, so its kernels still decay. Both
+schedules are read at the optimizer's own count, which starts at 0 (the
+first update moves no parameter) and does not advance on a skipped step.
 
 A non-finite loss or gradient skips the whole update: parameters, momentum,
 BN statistics and EMA keep their values and `step` still counts. The flag
@@ -35,14 +39,17 @@ the loss is always f32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..losses import v8_detection_loss, v8_obb_loss, v8_pose_loss, v8_segmentation_loss, v10_detect_loss
+from ..losses import rtdetr_loss, v8_detection_loss, v8_obb_loss, v8_pose_loss, v8_segmentation_loss, v10_detect_loss
+from ..losses.detr import dn_generator, normalized_cxcywh
 from ..utils import resolve_device
+from ..utils.flax_bridge import is_flax_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +137,12 @@ def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch
     return out
 
 
+@functools.lru_cache(maxsize=8)
+def decayed(names_and_ranks: Tuple[Tuple[str, int], ...]) -> Tuple[int, ...]:
+    """The positions of the weight-decayed parameters among (state_dict name, rank) pairs."""
+    return tuple(i for i, (name, ndim) in enumerate(names_and_ranks) if is_flax_kernel(name, ndim))
+
+
 @torch.no_grad()
 def apply_update(state: TrainState, grads: List[torch.Tensor], gnorm: torch.Tensor, cfg: OptConfig) -> None:
     """One optimizer + EMA update in place, from gradients in `state.params` order
@@ -139,7 +152,7 @@ def apply_update(state: TrainState, grads: List[torch.Tensor], gnorm: torch.Tens
     params = [state.params[k] for k in names]
     lr = lr_at(state.opt_step, cfg)
     torch._foreach_mul_(grads, cfg.grad_clip / torch.clamp(gnorm, min=cfg.grad_clip))  # clip by the global norm
-    kernels = [i for i, p in enumerate(params) if p.dim() > 1]  # the JAX mask's "kernel" leaves: conv and Linear
+    kernels = decayed(tuple((k, p.dim()) for k, p in zip(names, params)))  # the JAX mask's "kernel" leaves
     trace = [state.momentum[k] for k in names]
     if cfg.optimizer == "adamw":
         b1, b2, n = cfg.momentum, 0.999, state.opt_step + 1
@@ -176,29 +189,40 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 
 
 def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable:
-    """`loss_fn(batch) -> (total, items)` on a device batch: the input handling of
+    """`loss_fn(batch, step=0) -> (total, items)` on a device batch: the input handling of
     the JAX step (`train_step.py:142-176`), the forward, the loss of the model's
     head: a v10Detect's dual-assignment loss, 6 items; a Detect's
     `v8_detection_loss` with the top-10 assigner, 3 items (box, cls, dfl); a
     Segment's `v8_segmentation_loss`, 4 items (box, seg, cls, dfl); a Pose's
     `v8_pose_loss` with the keypoint shape of the batch's keypoints, 5 items
     (box, pose, kobj, cls, dfl); an OBB's `v8_obb_loss` on the batch's rotated
-    boxes, 3 items (box, cls, dfl).
+    boxes, 3 items (box, cls, dfl); an RT-DETR's `rtdetr_loss`, 3 items (cls,
+    l1, giou), with the denoising group of the batch's ground truths, its draws
+    from the generator of `step` (JAX :178-231).
 
     uint8 BGR frames become f32 RGB in [0, 1]; the width-packed x8 feed
     (last dimension 24) is unpacked by the repack kernel first. On the card
     the forward runs under bf16 autocast unless amp=False (an f32 forward, for
-    comparisons); the loss casts the maps to f32 either way.
+    comparisons); the loss casts the maps to f32 either way (RT-DETR's whole
+    output tree, as the JAX step does).
     """
 
-    def loss_fn(batch: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    def loss_fn(batch: Mapping[str, torch.Tensor], step: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         img = batch["img"]
         packed = img.dim() == 4 and img.shape[-1] == 24
         x = model.to_nchw(img, "WPACK" if packed else "NHWC")
         if x.dtype == torch.uint8:
             x = x.flip(1).float().div_(255.0)
+        dn = None
+        if model.task == "rtdetr":
+            dn = {"cls": batch["cls"], "bboxes": normalized_cxcywh(batch["bboxes"].to(x.dtype), x.shape[2:]),
+                  "mask": batch["mask"], "generator": dn_generator(step, x.device)}
         with torch.autocast("cuda", dtype=torch.bfloat16, enabled=x.device.type == "cuda" and amp is not False):
-            out = model(x)
+            out = model(x, dn=dn)
+        if model.task == "rtdetr":
+            out = {k: v.float() if torch.is_tensor(v) and v.dtype in (torch.bfloat16, torch.float16) else v
+                   for k, v in out.items()}
+            return rtdetr_loss(out, batch["cls"], batch["bboxes"], batch["mask"], x.shape[2:])
         if model.task == "segment":
             return v8_segmentation_loss(out, batch["cls"], batch["bboxes"], batch["mask"], batch["masks"],
                                         model.strides, model.nc)
@@ -220,20 +244,21 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
 def make_train_step(model: torch.nn.Module, cfg: OptConfig, loss_kind: str = "v10",
                     amp: Optional[bool] = None) -> Callable:
     """Build `step(state, batch) -> (state, metrics)` for a v10Detect model (loss_kind "v10"),
-    a Detect model ("v8"), a Segment model ("segment"), a Pose model ("pose") or an OBB model ("obb").
+    a Detect model ("v8"), a Segment model ("segment"), a Pose model ("pose"), an OBB model ("obb")
+    or an RT-DETR model ("rtdetr"; its denoising draws keyed by `state.step`).
 
     batch = {'img': (B, H, W, 3) uint8 BGR or f32 RGB in [0, 1], or the same
     image width-packed x8 (B, H, W/8, 24); 'cls': (B, M) int; 'bboxes':
     (B, M, 4) xyxy pixels; 'mask': (B, M) bool; for "segment" also 'masks': (B, M, H/4, W/4) uint8,
     for "pose" also 'keypoints': (B, M, K, ndim) f32 pixels, for "obb" also 'rboxes': (B, M, 5) [cx, cy, w,
     h, angle] f32 pixels}, numpy or tensors.
-    metrics = {'loss', 'items' (6,) for v10, (3,) for v8 and obb, (4,) for segment, (5,) for pose, 'lr',
-    'skipped'};
+    metrics = {'loss', 'items' (6,) for v10, (3,) for v8, obb and rtdetr, (4,) for segment, (5,) for pose,
+    'lr', 'skipped'};
     `state` must come from `init_train_state(model, ...)`. amp: see `make_loss_fn`.
     """
-    if loss_kind not in ("v10", "v8", "segment", "pose", "obb"):
-        raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10', 'v8', 'segment', 'pose' and "
-                                  f"'obb' are")
+    if loss_kind not in ("v10", "v8", "segment", "pose", "obb", "rtdetr"):
+        raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10', 'v8', 'segment', 'pose', "
+                                  f"'obb' and 'rtdetr' are")
     if model.task != loss_kind:
         raise ValueError(f"loss_kind {loss_kind!r} does not train this model's head (task {model.task!r})")
     if cfg.optimizer not in ("sgd", "adamw"):
@@ -252,7 +277,7 @@ def make_train_step(model: torch.nn.Module, cfg: OptConfig, loss_kind: str = "v1
 
         for p in params:
             p.grad = None
-        loss, items = loss_fn(batch)
+        loss, items = loss_fn(batch, state.step)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         gnorm = global_norm(grads)

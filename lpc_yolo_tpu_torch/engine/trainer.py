@@ -20,7 +20,11 @@ batches carry the keypoints, its results.csv the `train/pose` and
 the set's rotated boxes (`YOLODataset(obb=True)`) through
 `OBBTrainTransforms` (:220-222: letterbox and HSV, no mosaic): its batches
 carry `rboxes`, its results.csv the `train/box`, `train/cls` and
-`train/dfl` columns.
+`train/dfl` columns. An RT-DETR model trains through the detect
+`TrainTransforms` (:223-224) with the DETR loss (`losses/detr.py`): its
+results.csv has the `train/cls`, `train/l1` and `train/giou` columns, and its
+denoising draws are keyed by the step's count, so a resumed run draws what
+an uninterrupted one would.
 
 The loader's threads read the frames and make each sample's plan (its
 random draws, geometry and labels). The trainer renders each batch on the
@@ -97,7 +101,7 @@ from .train_step import OptConfig, TrainState, init_train_state, make_train_step
 # the loss items' names by task (JAX `engine/trainer.py:33-40`): results.csv's train/ columns
 LOSS_NAMES = {"v10": ("box_om", "cls_om", "dfl_om", "box_oo", "cls_oo", "dfl_oo"), "v8": ("box", "cls", "dfl"),
               "segment": ("box", "seg", "cls", "dfl"), "pose": ("box", "pose", "kobj", "cls", "dfl"),
-              "obb": ("box", "cls", "dfl")}
+              "obb": ("box", "cls", "dfl"), "rtdetr": ("cls", "l1", "giou")}
 
 
 def pack_img(img):

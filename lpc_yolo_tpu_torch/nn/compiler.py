@@ -286,7 +286,8 @@ class DetectionModel(nn.Module):
     (B, max_det, 7) rotated rows by `nms_rotated` (see `predict`). A Classify head (:967-973) returns
     its logits (B, nc) in train mode and {"probs" (softmax in f32), "logits"} in eval mode; a classify
     graph has no strides. An RTDETRDecoder head (:887-898) returns {"pred"} in eval mode, (B, nq, 4 + nc)
-    normalised cxcywh boxes and sigmoid scores; its train branch is not ported, so train mode raises.
+    normalised cxcywh boxes and sigmoid scores, and in train mode the DETR loss's dict of every decoder
+    layer's outputs, with the denoising queries of `dn` (`nn/transformer.py::RTDETRDecoder`) first.
     x is (B, 3, H, W)
     RGB in [0, 1], or another `input_layout` of the same image (see
     `to_nchw`).
@@ -325,7 +326,7 @@ class DetectionModel(nn.Module):
             raise ValueError(f"unknown input_layout {input_layout!r}")
         return x.permute(0, 3, 1, 2)
 
-    def forward(self, x: torch.Tensor, branches: str = "both", input_layout: str = "NCHW"):
+    def forward(self, x: torch.Tensor, branches: str = "both", input_layout: str = "NCHW", dn=None):
         x = self.to_nchw(x, input_layout)
         y: Dict[int, torch.Tensor] = {}
         for spec, module in zip(self.specs, self.model):
@@ -341,11 +342,8 @@ class DetectionModel(nn.Module):
                 inp = x if spec.f[0] == -1 else y[spec.f[0]]
             if spec.module == "v10Detect":
                 return module(inp, branches=branches)
-            if spec.module == "RTDETRDecoder":
-                if self.training:
-                    raise NotImplementedError("the RT-DETR decoder's train branch (contrastive denoising, the "
-                                              "per-layer outputs of the DETR loss) is not ported")
-                return {"pred": module(inp)}
+            if spec.module == "RTDETRDecoder":  # train mode: the DETR loss's dict (JAX :887-898)
+                return module(inp, dn=dn) if self.training else {"pred": module(inp)}
             if spec.module == "Detect":
                 return module(inp)
             if spec.module == "Segment":

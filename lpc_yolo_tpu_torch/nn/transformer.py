@@ -1,11 +1,14 @@
 """RT-DETR's transformer parts (counterpart of `lpc_yolo_tpu/nn/transformer.py`): AIFI's encoder layer with its
-2-D sin-cos position embedding, and the RTDETRDecoder head with multi-scale deformable attention, eval branch only.
+2-D sin-cos position embedding, and the RTDETRDecoder head with multi-scale deformable attention, its serving
+branch and its train branch (contrastive denoising, every layer's outputs for the DETR loss).
 
 The JAX package writes the sampler and the attention as XLA ops, not as Pallas
 kernels, so here they are PyTorch ops: `F.grid_sample` (bilinear, zero
 padding, align_corners=False: the JAX `bilinear_sample`, :48-81) and
 `F.scaled_dot_product_attention` (flax's MultiHeadDotProductAttention scales
-the query by 1/sqrt(hd), as SDPA does).
+the query by 1/sqrt(hd), as SDPA does; SDPA picks its backend, and on an
+H100 the calls with the denoising group's boolean mask run cuDNN's fused
+attention forward and backward).
 
 Names mirror the JAX modules for the weight bridge (`utils/flax_bridge.py`):
 a flax Dense is an nn.Linear, `layers_<i>` is `layers.<i>`; flax's attention
@@ -23,7 +26,7 @@ them), LayerNorm keeps f32 statistics, and the softmaxes run in f32.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -32,6 +35,11 @@ import torch.nn.functional as F
 from .modules import BN_EPS, BN_MOMENTUM, BatchNorm2d
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon
+
+
+def box_dtype(weight: torch.Tensor) -> torch.dtype:
+    """The dtype of the reference-box chain of a module with this weight: f32, or f64 in an f64 model."""
+    return torch.promote_types(weight.dtype, torch.float32)
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -76,8 +84,9 @@ class DenseGeneral(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """flax `MultiHeadDotProductAttention(num_heads=nh, qkv_features=c)` without a mask (JAX :180, :332): query,
-    key and value projections to nh heads of c // nh, softmax(q k^T / sqrt(hd)) v per head, the out projection."""
+    """flax `MultiHeadDotProductAttention(num_heads=nh, qkv_features=c)` (JAX :180, :332): query, key and value
+    projections to nh heads of c // nh, softmax(q k^T / sqrt(hd)) v per head, the out projection. `mask`
+    (Lq, Lk) bool, True = may attend (flax's and SDPA's sense)."""
 
     def __init__(self, c: int, nh: int):
         super().__init__()
@@ -85,10 +94,12 @@ class MultiHeadAttention(nn.Module):
         self.query, self.key, self.value = (DenseGeneral((c, nh, self.hd), (nh, self.hd), c) for _ in range(3))
         self.out = DenseGeneral((nh, self.hd, c), (c,), c)
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, L = q.shape[:2]
         heads = lambda proj, t: proj(t).view(B, t.shape[1], self.nh, self.hd).transpose(1, 2)  # noqa: E731
-        o = F.scaled_dot_product_attention(heads(self.query, q), heads(self.key, k), heads(self.value, v))
+        o = F.scaled_dot_product_attention(heads(self.query, q), heads(self.key, k), heads(self.value, v),
+                                           attn_mask=mask)
         return self.out(o.transpose(1, 2).reshape(B, L, self.nh * self.hd))
 
 
@@ -179,21 +190,23 @@ class MSDeformAttn(nn.Module):
 
     def forward(self, query: torch.Tensor, refer_bbox: torch.Tensor, value: torch.Tensor,
                 shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
-        """query (B, len_q, C); refer_bbox (B, len_q, 1, 4) cxcywh in [0, 1], f32; value (B, len_v, C)."""
+        """query (B, len_q, C); refer_bbox (B, len_q, 1, 4) cxcywh in [0, 1], `box_dtype`; value (B, len_v, C)."""
         B, len_q = query.shape[:2]
-        v = self.value_proj(value).view(B, -1, self.nh, self.hd).float()
+        ct = box_dtype(self.value_proj.weight)
+        v = self.value_proj(value).view(B, -1, self.nh, self.hd).to(ct)
         offsets = self.sampling_offsets(query).view(B, len_q, self.nh, self.nl, self.np, 2)
         aw = self.attention_weights(query).view(B, len_q, self.nh, self.nl * self.np)
-        aw = aw.softmax(-1, dtype=torch.float32).view(B, len_q, self.nh, self.nl, self.np)
-        add = offsets.float() / self.np * refer_bbox[:, :, None, :, None, 2:] * 0.5
+        aw = aw.softmax(-1, dtype=ct).view(B, len_q, self.nh, self.nl, self.np)
+        add = offsets.to(ct) / self.np * refer_bbox[:, :, None, :, None, 2:] * 0.5
         locations = refer_bbox[:, :, None, :, None, :2] + add
-        out = multi_scale_deformable_attn(v, shapes, locations, aw)  # f32
+        out = multi_scale_deformable_attn(v, shapes, locations, aw)  # f32 (f64 in an f64 model)
         return self.output_proj(out.to(self.output_proj.weight.dtype))
 
 
 class DeformableTransformerDecoderLayer(nn.Module):
-    """Self-attention, deformable cross-attention and FFN, each with a residual and a LayerNorm (JAX :165-192),
-    serving branch (no attention mask)."""
+    """Self-attention, deformable cross-attention and FFN, each with a residual and a LayerNorm (JAX :165-192).
+    `attn_mask` (Lq, Lq) bool arrives True = blocked, as in JAX, and reaches the attention inverted; the serving
+    branch passes none."""
 
     def __init__(self, d_model: int = 256, n_heads: int = 8, d_ffn: int = 1024, n_levels: int = 4,
                  n_points: int = 4):
@@ -206,9 +219,9 @@ class DeformableTransformerDecoderLayer(nn.Module):
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, embed, refer_bbox, feats, shapes, query_pos):
+    def forward(self, embed, refer_bbox, feats, shapes, query_pos, attn_mask: Optional[torch.Tensor] = None):
         q = embed + query_pos
-        embed = self.norm1(embed + self.self_attn(q, q, embed))
+        embed = self.norm1(embed + self.self_attn(q, q, embed, None if attn_mask is None else ~attn_mask))
         embed = self.norm2(embed + self.cross_attn(embed + query_pos, refer_bbox[:, :, None, :], feats, shapes))
         return self.norm3(embed + self.linear2(F.relu(self.linear1(embed))))
 
@@ -238,21 +251,31 @@ def make_anchors(shapes: Sequence[Tuple[int, int]], device, grid_size: float = 0
 
 
 class RTDETRDecoder(nn.Module):
-    """The RT-DETR head (JAX :195-313), eval branch: (B, nq, 4 + nc), normalised cxcywh boxes and sigmoid scores.
+    """The RT-DETR head (JAX :195-313).
 
     Each level's map through `input_proj.<i>` (1x1 conv, BN eps 1e-3 and torch momentum 0.03, flax's 0.97) into
     (B, h * w, hd) tokens; the valid anchors' tokens through `enc_output` (Linear, LayerNorm) and
     `enc_score_head`; the k = min(nq, A) best anchors by their best class score (`select_topk`) give the queries
     and, through `enc_bbox_head` plus the anchor, the first reference boxes; then ndl decoder layers, each
-    refining the boxes by `dec_bbox_head.<i>` in logit space. Only the last layer's score head runs; every
-    layer's is in the state_dict, as the training branch (not ported) reads them all, and so is
-    `denoising_class_embed` (nc, hd), the contrastive-denoising table.
+    refining the boxes by `dec_bbox_head.<i>` in logit space.
+
+    Serving (eval mode): (B, k, 4 + nc), the last layer's normalised cxcywh boxes and sigmoid scores; only the last
+    layer's score head runs.
+
+    Training (train mode, JAX :246-311): the queries are the selected features detached and the first reference
+    boxes `sigmoid(refer_raw.detach())`, while the encoder's boxes and scores keep their gradient. With a
+    denoising batch `dn` = {'cls' (B, M), 'bboxes' (B, M, 4) normalised cxcywh, 'mask' (B, M), and 'generator'
+    or 'draws' (`losses/detr.py::get_cdn_group`)}, the 2GM noised queries of `denoising_class_embed` (nc, hd) and
+    their boxes come first, under the group attention mask. Every layer runs its own score head and appends its
+    refined boxes; the next layer's reference is the refined box, detached. Returns {'dec_bboxes' (ndl, B,
+    num_dn + k, 4), 'dec_scores' (ndl, B, num_dn + k, nc), 'enc_bboxes' (B, k, 4), 'enc_scores' (B, k, nc),
+    'dn_split' num_dn, 'dn_group' G}.
     """
 
     def __init__(self, nc: int = 80, ch: Sequence[int] = (512, 1024, 2048), hd: int = 256, nq: int = 300,
                  ndp: int = 4, nh: int = 8, ndl: int = 6, d_ffn: int = 1024):
         super().__init__()
-        self.nq, self.nl = nq, len(ch)
+        self.nc, self.nq, self.nl = nc, nq, len(ch)
         self.input_proj = nn.ModuleList(
             nn.Sequential(nn.Conv2d(c, hd, 1, bias=False), BatchNorm2d(hd, eps=BN_EPS, momentum=BN_MOMENTUM))
             for c in ch)
@@ -279,12 +302,37 @@ class RTDETRDecoder(nn.Module):
         features = self.enc_output(valid * feats)
         return feats, shapes, anchors, features, self.enc_score_head(features)
 
-    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, xs: Sequence[torch.Tensor], dn: Optional[Dict] = None):
         feats, shapes, anchors, features, scores = self.encode(xs)
         idx = select_topk(scores.amax(-1), min(self.nq, scores.shape[1]))  # (B, k)
         embed = features.gather(1, idx[..., None].expand(-1, -1, features.shape[-1]))
-        refer_bbox = (self.enc_bbox_head(embed).float() + anchors[idx]).sigmoid()  # f32
-        for layer, bbox_head in zip(self.decoder_layers, self.dec_bbox_head):
-            embed = layer(embed, refer_bbox, feats, shapes, self.query_pos_head(refer_bbox))
-            refer_bbox = (bbox_head(embed).float() + inverse_sigmoid(refer_bbox)).sigmoid()
-        return torch.cat([refer_bbox, self.dec_score_head[-1](embed).float().sigmoid()], -1)
+        ct = box_dtype(self.enc_score_head.weight)
+        refer_raw = self.enc_bbox_head(embed).to(ct) + anchors[idx].to(ct)
+        if not self.training:
+            refer_bbox = refer_raw.sigmoid()
+            for layer, bbox_head in zip(self.decoder_layers, self.dec_bbox_head):
+                embed = layer(embed, refer_bbox, feats, shapes, self.query_pos_head(refer_bbox))
+                refer_bbox = (bbox_head(embed).to(ct) + inverse_sigmoid(refer_bbox)).sigmoid()
+            return torch.cat([refer_bbox, self.dec_score_head[-1](embed).to(ct).sigmoid()], -1)
+        enc_bboxes = refer_raw.sigmoid()
+        enc_scores = scores.gather(1, idx[..., None].expand(-1, -1, scores.shape[-1]))
+        embed, refer_bbox = embed.detach(), refer_raw.detach().sigmoid()
+        attn_mask, num_dn, dn_group = None, 0, 0
+        if dn is not None:
+            from ..losses.detr import get_cdn_group
+
+            dn_embed, dn_bbox_logit, attn_mask, dn_group = get_cdn_group(
+                dn["cls"], dn["bboxes"], dn["mask"], self.nc, self.denoising_class_embed, embed.shape[1],
+                generator=dn.get("generator"), draws=dn.get("draws"))
+            num_dn = dn_embed.shape[1]
+            embed = torch.cat([dn_embed.to(embed.dtype), embed], 1)
+            refer_bbox = torch.cat([dn_bbox_logit.sigmoid().to(refer_bbox.dtype), refer_bbox], 1)
+        dec_bboxes, dec_scores = [], []
+        for layer, bbox_head, score_head in zip(self.decoder_layers, self.dec_bbox_head, self.dec_score_head):
+            embed = layer(embed, refer_bbox, feats, shapes, self.query_pos_head(refer_bbox), attn_mask)
+            refined = (bbox_head(embed).to(ct) + inverse_sigmoid(refer_bbox)).sigmoid()
+            dec_scores.append(score_head(embed))
+            dec_bboxes.append(refined)
+            refer_bbox = refined.detach()
+        return {"dec_bboxes": torch.stack(dec_bboxes), "dec_scores": torch.stack(dec_scores),
+                "enc_bboxes": enc_bboxes, "enc_scores": enc_scores, "dn_split": num_dn, "dn_group": dn_group}

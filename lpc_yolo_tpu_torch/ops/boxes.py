@@ -19,13 +19,14 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx - hw, cy - hh, cx + hw, cy + hh], -1)
 
 
-def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, CIoU: bool = False,
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, GIoU: bool = False, CIoU: bool = False,
              eps: float = EPS) -> torch.Tensor:
-    """Elementwise IoU (or CIoU) of aligned boxes, broadcasting; last axis = 4.
+    """Elementwise IoU (or GIoU, or CIoU) of aligned boxes, broadcasting; last axis = 4.
 
     Returns the broadcast shape with a trailing singleton axis. In CIoU the
     trade-off weight `alpha` is a constant of the gradient (detached), and the
-    xyxy heights carry `+ eps` as in the reference (metrics.py:78).
+    xyxy heights carry `+ eps` as in the reference (metrics.py:78). GIoU is
+    IoU - (C - union) / C with C the enclosing box's area + eps (JAX :116-117).
     """
     if xywh:
         x1, y1, w1, h1 = box1.split(1, -1)
@@ -43,10 +44,13 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, CIoU: bo
     ).clamp(min=0)
     union = w1 * h1 + w2 * h2 - inter + eps
     iou = inter / union
-    if not CIoU:
+    if not (GIoU or CIoU):
         return iou
     cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)  # convex width
     ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)  # convex height
+    if not CIoU:
+        c_area = cw * ch + eps
+        return iou - (c_area - union) / c_area
     c2 = cw ** 2 + ch ** 2 + eps  # convex diagonal squared
     rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2 + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4
     v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2

@@ -127,6 +127,15 @@ def _flax_slot(name: str, ndim: int) -> Optional[Tuple[str, Tuple[str, ...], Opt
     raise KeyError(f"no JAX counterpart for {name}")
 
 
+def is_flax_kernel(name: str, ndim: int) -> bool:
+    """Whether a state_dict entry is a leaf named `kernel` in the JAX variables: the leaves the JAX optimizer
+    weight-decays (`lpc_yolo_tpu/engine/train_step.py::_decay_mask`). Conv and Linear weights and flax
+    attention's 3-D kernels are; biases (attention's (nh, hd) ones too), norm scales and
+    `denoising_class_embed` are not."""
+    slot = _flax_slot(name, ndim)
+    return slot is not None and slot[1][-1] == "kernel"
+
+
 def flax_shapes(model: nn.Module) -> Dict[str, Dict[str, Any]]:
     """The JAX variables' shape tree that corresponds to `model`'s state_dict."""
     tree: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}

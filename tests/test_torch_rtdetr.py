@@ -1,5 +1,5 @@
 """RT-DETR of the port (rtdetr-l, rtdetr-x, rtdetr-resnet50, rtdetr-resnet101, yolov8-rtdetr) against the JAX
-package, on the CPU in f32: serving and validation (the DETR loss is not ported).
+package, on the CPU in f32: serving and validation (training: `tests/test_torch_rtdetr_train.py`).
 
 Weights come from `random_variables` and reach both packages through the weight bridge; the JAX variables are
 never made by a JAX `init` (`jax.eval_shape` gives their shapes). Tolerances are absolute unless said otherwise.
@@ -40,6 +40,7 @@ from lpc_yolo_tpu.utils.metrics import box_iou_np
 
 from lpc_yolo_tpu_torch import YOLO
 from lpc_yolo_tpu_torch.engine.predictor import serving_model
+from lpc_yolo_tpu_torch.engine.train_step import OptConfig, make_train_step
 from lpc_yolo_tpu_torch.nn import build_model
 from lpc_yolo_tpu_torch.nn import compiler as TC
 from lpc_yolo_tpu_torch.nn import modules as TM
@@ -516,11 +517,15 @@ def test_val_matches_jax(small_v8, tmp_path, monkeypatch):
 
 
 def test_training_is_refused(small_v8):
-    """The DETR loss is not ported: `train` of an RT-DETR model raises NotImplementedError naming it, and the graph
-    refuses train mode (its decoder's train branch is not ported either)."""
+    """An RT-DETR model trains through the DETR loss only (`tests/test_torch_rtdetr_train.py` holds it): a train
+    step with another head's loss is refused, and the graph in train mode gives the DETR loss's dict (every
+    decoder layer's boxes and scores, the encoder's, no denoising group without ground truths), not serving
+    rows."""
     cfg, variables = small_v8
     yolo = YOLO(cfg, device="cpu", seed=None)
-    with pytest.raises(NotImplementedError, match="DETR loss"):
-        yolo.train(data="data.yaml", epochs=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="train branch"):
-        yolo.model.train()(torch.zeros(1, 3, S, S))
+    for kind in ("v8", "v10"):
+        with pytest.raises(ValueError, match="does not train this model's head"):
+            make_train_step(yolo.model, OptConfig(), loss_kind=kind)
+    out = yolo.model.train()(torch.zeros(1, 3, S, S))
+    assert sorted(out) == ["dec_bboxes", "dec_scores", "dn_group", "dn_split", "enc_bboxes", "enc_scores"]
+    assert out["dec_scores"].shape == (2, 1, 60, 80) and (out["dn_split"], out["dn_group"]) == (0, 0)

@@ -245,16 +245,16 @@ def test_trainer_hands_back_ema_and_bn_stats(world, tmp_path):
 
 
 def test_entry_points_refuse_what_is_not_ported(world):
-    # the YAML whose modules are not ported yet: YOLO-World (C2fAttn, ...); RT-DETR builds and serves, but its
-    # training (the DETR loss) is not ported
+    # the YAML whose modules are not ported yet: YOLO-World (C2fAttn, ...); RT-DETR builds, serves and trains,
+    # and its DETR loss trains no other head
     models = Path(__file__).resolve().parents[1] / "lpc_yolo_tpu" / "cfg" / "models"
     with pytest.raises(NotImplementedError, match="C2fAttn"):
         YOLO(models / "v8/yolov8-world.yaml", device="cpu", seed=None)
     detr = YOLO(models / "rt-detr/rtdetr-l.yaml", device="meta", seed=None)
     assert detr.task == "rtdetr"
-    with pytest.raises(NotImplementedError, match="DETR loss"):
-        detr.train(data="data.yaml", epochs=1, device="cpu")
     tm = port_model(world)
+    with pytest.raises(ValueError, match="does not train this model's head"):
+        tts.make_train_step(tm, tts.OptConfig(), loss_kind="rtdetr")
     with pytest.raises(NotImplementedError):
         tts.make_train_step(tm, tts.OptConfig(), loss_kind="classify")
     with pytest.raises(NotImplementedError):
