@@ -4,13 +4,16 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --conv3x3    # device, build, then conv3x3 parity and per-shape times only
     python3 chip_smoke.py --converge [yolov8n.yaml]    # device, build, then the learning proof only
-    python3 chip_smoke.py --seg        # device, build, then phase 13 (the seg scales) only
-    python3 chip_smoke.py --pose       # device, build, then phase 14 (the pose scales) only
-    python3 chip_smoke.py --obb        # device, build, then phase 15 (the OBB scales at 1024) only
+    python3 chip_smoke.py --v10        # device, build, then phase 10 (every YOLOv10 scale) only
+    python3 chip_smoke.py --v8         # device, build, then phase 11 (every YOLOv8 scale) only
+    python3 chip_smoke.py --seg        # device, build, then phase 13 (every seg scale) only
+    python3 chip_smoke.py --pose       # device, build, then phase 14 (every pose scale) only
+    python3 chip_smoke.py --obb        # device, build, then phase 15 (every OBB scale at 1024) only
     python3 chip_smoke.py --cls        # device, build, then phase 16 (the classifiers at 224) only
     python3 chip_smoke.py --zoo        # device, build, then phase 17 (the other CNN detection YAMLs) only
     python3 chip_smoke.py --v9         # device, build, then phase 18 (yolov9c, yolov9e) only
     python3 chip_smoke.py --rtdetr     # device, build, then phase 19 (the five RT-DETR YAMLs) only
+    python3 chip_smoke.py --world      # device, build, then phase 20 (YOLO-World) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -256,6 +259,27 @@ Phases, in order; any failure raises and the script exits non-zero:
             batch whose loss must fall; YOLO(rtdetr-l, nc=3).train(data=...,
             epochs=1, save=True) on phase 8's dataset, counters held.
             Numbers under "rtdetr".
+20. world   YOLO-World (WORLD_MODELS: yolov8s-world, yolov8x-world,
+            yolov8s-worldv2, yolov8x-worldv2) at 640 with the COCO-80
+            names' text table and the embedding convs' seeded biases
+            zeroed, each as phase 18 does: parameters; conv3x3
+            parity at every distinct site shape, the four proj_conv sites
+            (3x3, the none epilogue) on their own, and every site of a bf16
+            forward (36 and 76 sites; none through F.conv2d); the bf16
+            serving path against the f32 plain path (head maps, the class
+            logits among them, pre-NMS scores); YOLO.predict b32 with the
+            counters held (a letterbox, a conv3x3 a site, an NMS); conv3x3
+            against F.conv2d + bias;
+            set_classes of two names on yolov8s-world ((B, 300, 6) rows,
+            labels 0 and 1); YOLO.val(data=...) of yolov8s-worldv2 on phase
+            7's frames; its b16 train step and one f32 step on the card
+            against the CPU (rtol 1e-3); then YOLO(yolov8s-world,
+            nc=3).train(data=..., epochs=1, save=True) on phase 8's dataset,
+            counters held. Numbers under "world".
+
+In the whole run phases 10, 11, 13, 14 and 15 run their n and x scales
+(WHOLE_RUN_SCALES), so that the script stays inside its time limit; --v10,
+--v8, --seg, --pose and --obb run every scale of their family.
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
@@ -264,13 +288,14 @@ and "launches_obb", each kernel's launches in phase 13's yolov8n-seg, phase
 14's yolov8n-pose and phase 15's yolov8n-obb train(data=...); nms's times from
 phase 12's val pool; "launches_cls" beside them from phase 16's yolov8n-cls
 predict and train(data=...); "launches_zoo" from phase 17's yolov6n train(data=...), "launches_v9" from
-phase 18's yolov9c train(data=...), "launches_rtdetr" from phase 19's rtdetr-l train(data=...), and conv3x3's
+phase 18's yolov9c train(data=...), "launches_rtdetr" from phase 19's rtdetr-l train(data=...), "launches_world"
+from phase 20's yolov8s-world train(data=...), and conv3x3's
 "max_abs_err_relu", the f32 parity of its ReLU epilogue at yolov6n's sites); the last line is
 {"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
 "pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo",
-phase 18's under "v9", phase 19's under "rtdetr").
+phase 18's under "v9", phase 19's under "rtdetr", phase 20's under "world").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -378,6 +403,14 @@ RTDETR_TRAIN = "rtdetr-l.yaml"  # phase 19's training: the b16 step, the card's 
 RTDETR_MAX_GT = 128  # the trainer's max_gt: 128 ground-truth slots, so G = 100 // 128 -> 1 and 256 denoising queries
 RTDETR_LOSS_TOL = 1e-3  # f32 loss items (amp=False), card vs CPU on the same weights, draws and matches, relative
 RTDETR_FIT_STEPS = 20  # the learning check: AdamW steps on one fixed batch
+WORLD_MODELS = {  # phase 20: name -> (parameters, the JAX graph's: tests/test_torch_world.py; conv3x3 sites a forward)
+    "yolov8s-world.yaml": (13_383_480, 36), "yolov8x-world.yaml": (73_690_201, 76),
+    "yolov8s-worldv2.yaml": (12_759_864, 36), "yolov8x-worldv2.yaml": (72_886_361, 76),
+}
+WORLD_PROJ_SITES = 4  # one MaxSigmoidAttnBlock.proj_conv (3x3, no activation) a C2fAttn
+WORLD_VAL = WORLD_STEP = "yolov8s-worldv2.yaml"  # val on phase 7's frames; the b16 train step, f32 card vs CPU
+WORLD_TRAIN = "yolov8s-world.yaml"  # train(data=..., epochs=1, save=True) on phase 8's set (nc 3)
+WHOLE_RUN_SCALES = ("n", "x")  # phases 10, 11, 13, 14 and 15 in the whole run; their flags run every scale
 P6_IMGSZ = 1280  # the P6 models' published size
 SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits at 640
 NMS_OPS = 15  # f32 operations per pool candidate and step: the IoU in the JAX order, the compare, the argmax
@@ -1612,7 +1645,7 @@ def scale_serving(yolo, pred, sites, host, dev):
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
     launches = launches_now("letterbox", "conv3x3", "nms")
-    nms = int(yolo.task in ("v8", "segment", "pose"))
+    nms = int(yolo.task in ("v8", "segment", "pose", "world"))
     assert launches == {"letterbox": 1, "conv3x3": len(sites), "nms": nms}, launches
     assert len(results) == B
     if yolo.task == "classify":
@@ -1632,7 +1665,8 @@ def scale_serving(yolo, pred, sites, host, dev):
 
     def step():
         letterbox(dev, S, out=x)
-        out = pred.model.predict(x.permute(0, 3, 1, 2).to(torch.bfloat16), pred.max_det, pred.conf, pred.iou)
+        out = pred.model.predict(x.permute(0, 3, 1, 2).to(torch.bfloat16), pred.max_det, pred.conf, pred.iou,
+                                 text=pred.batch_text(B))
         return kept_masks(*out, pred.conf, S) if yolo.task == "segment" else out
 
     with torch.inference_mode():
@@ -1651,7 +1685,7 @@ def scale_train_step(yolo, batches):
 
     cfg = OptConfig(warmup_steps=100, total_steps=1000)
     st = init_train_state(yolo.model, cfg, device="cuda")
-    step = make_train_step(yolo.model, cfg, loss_kind=yolo.task)
+    step = make_train_step(yolo.model, cfg, loss_kind=yolo.task, text=yolo.txt_feats)
     mets, it = [], iter(range(10 ** 9))
 
     def one():
@@ -1671,14 +1705,14 @@ def scale_train_step(yolo, batches):
             "loss": float(mets[-1]["loss"]), "profile_top": prof["top"][:8], "attention_kernels": attention}
 
 
-def phase_scales(family: str, val_data: Path):
+def phase_scales(family: str, val_data: Path, scales=None):
     """The published scales of one family ("v10": n/s/m/b/l/x, "v8": n/s/m/l/x), each in turn with random
     weights (seed 0): its parameter count; its conv3x3 sites (two per C2f bottleneck, and the head's 3x3 s1
     convs: 6 on v10, 12 on v8); every distinct site against the plain version (f32, bf16) and every site of
     one bf16 serving forward on its own inputs; YOLO.predict at b32, 640, bf16 from 720p frames with the
     launch counters held, and the serving step's time and profile; the kernel over the scale's sites at b32
     bf16 beside F.conv2d + bias and the bound; YOLO.val(data=...) on phase 7's set at b32 bf16 with its
-    counters held; the train step at b16."""
+    counters held; the train step at b16. `scales`, when given, names the scales to run."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.engine.train_step import to_device
@@ -1689,6 +1723,8 @@ def phase_scales(family: str, val_data: Path):
     val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
     out = {}
     for scale, n_params in SCALE_PARAMS[family].items():
+        if scales and scale not in scales:
+            continue
         t_scale = time.perf_counter()
         phase = f"{family}{scale}"
         r = out[scale] = {}
@@ -1770,7 +1806,7 @@ def phase_scale_train_data(family: str, data: str, sites: int, name: str = None,
     tag = Path(name).stem.replace("yolo", "")
     steps = -(-TD_TRAIN // B) * epochs
     val_frames = [np.load(f) for f in sorted(Path(check_det_dataset(data)["val"]).glob("*.npy"))]
-    per_val = val_launches_expected(val_frames, min(B, 8), sites, nms=family == "v8")
+    per_val = val_launches_expected(val_frames, min(B, 8), sites, nms=family in ("v8", "world"))
     expect = {**{k: v * epochs for k, v in per_val.items()}, "repack": steps}
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_train_") as tmp:
         root = Path(tmp)
@@ -1797,6 +1833,9 @@ def phase_scale_train_data(family: str, data: str, sites: int, name: str = None,
         for model, path in ((from_last, weights / "last.ckpt"), (from_best, weights / "best.ckpt")):
             tree, _ = load_checkpoint(path)
             model.load_flax({"params": tree["ema_params"], "batch_stats": tree["batch_stats"]})
+            if yolo.task == "world":  # the dataset's names and their table, as training set them
+                assert yolo.names == check_det_dataset(data)["names"]
+                model.set_classes([yolo.names[i] for i in sorted(yolo.names)])
         same = {}
         for what, model in (("save", back), ("last_ckpt", from_last)):
             got = model.predict(frames, imgsz=S, batch=4, conf=0.0)
@@ -1859,13 +1898,14 @@ def seg_card_vs_cpu(scale: str, frames):
     return out
 
 
-def phase_seg(val_data: Path):
+def phase_seg(val_data: Path, scales=None):
     """Phase 13: the five seg scales, each in turn with seed-0 weights: its parameter count; its conv3x3 sites
     (the v8 sites and SEG_SITES) against the plain version (every distinct shape in f32 and bf16, every site
     of one bf16 forward on its own inputs); YOLO.predict b32 with the counters held, and the serving step;
     conv3x3 over the sites beside F.conv2d + bias, Proto's 160x160 site called out; YOLO.val on the
     polygon-labelled set at b32 bf16 with the counters held and its peak memory; the b16 train step (the seg
-    loss) and its peak memory; on n, the f32 predict on the card against the CPU."""
+    loss) and its peak memory; on n, the f32 predict on the card against the CPU.
+    `scales`, when given, names the scales to run."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.engine.train_step import to_device
@@ -1876,6 +1916,8 @@ def phase_seg(val_data: Path):
     val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
     out = {}
     for scale, n_params in SEG_PARAMS.items():
+        if scales and scale not in scales:
+            continue
         t_scale = time.perf_counter()
         phase = f"v8{scale}-seg"
         r = out[scale] = {}
@@ -2019,13 +2061,14 @@ def pose_card_vs_cpu(scale: str, frames):
     return out
 
 
-def phase_pose(val_data: Path):
+def phase_pose(val_data: Path, scales=None):
     """Phase 14: the five pose scales, each in turn with seed-0 weights: its parameter count; its conv3x3 sites
     (the v8 sites and POSE_SITES, the 51-channel ones named) against the plain version (every distinct shape in
     f32 and bf16, every site of one bf16 forward on its own inputs); YOLO.predict b32 with the counters held,
     and the serving step; conv3x3 over the sites beside F.conv2d + bias, the 51-channel sites called out;
     YOLO.val on the keypoint-labelled set at b32 bf16 with the counters held and its peak memory; the b16
-    train step (the pose loss) and its peak memory; on n, the f32 predict on the card against the CPU."""
+    train step (the pose loss) and its peak memory; on n, the f32 predict on the card against the CPU.
+    `scales`, when given, names the scales to run."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.engine.train_step import to_device
@@ -2036,6 +2079,8 @@ def phase_pose(val_data: Path):
     val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
     out = {}
     for scale, n_params in POSE_PARAMS.items():
+        if scales and scale not in scales:
+            continue
         t_scale = time.perf_counter()
         phase = f"v8{scale}-pose"
         r = out[scale] = {}
@@ -2431,14 +2476,15 @@ def obb_train_step(yolo):
     raise RuntimeError("the OBB train step fits neither b16 nor b8")
 
 
-def phase_obb(val_data: Path):
+def phase_obb(val_data: Path, scales=None):
     """Phase 15: the five OBB scales at nc 15 (DOTAv1), each in turn with seed-0 weights, at OBB_IMGSZ: its parameter
     count; its conv3x3 sites (the v8 sites and OBB_SITES, the angle towers') against the plain version (every
     distinct shape in f32 and bf16, every site of one bf16 forward on its own inputs); YOLO.predict b32 of 1024x1024
     frames with the counters held, and the serving step; `nms_rotated`'s time on the serving step's pool and on the
     validator's; conv3x3 over the sites beside F.conv2d + bias, the angle towers' sites called out; YOLO.val on the
     DOTA-labelled set at b32 bf16 with the counters held and its peak memory; the b16 (or b8) train step and its
-    peak memory; on n, the f32 predict and val on the card against the CPU (`spread_obb_model`'s val)."""
+    peak memory; on n, the f32 predict and val on the card against the CPU (`spread_obb_model`'s val).
+    `scales`, when given, names the scales to run."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
 
@@ -2452,6 +2498,8 @@ def phase_obb(val_data: Path):
     val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
     out = {}
     for scale, n_params in OBB_PARAMS.items():
+        if scales and scale not in scales:
+            continue
         t_scale = time.perf_counter()
         phase = f"v8{scale}-obb"
         r = out[scale] = {}
@@ -2879,19 +2927,24 @@ def zoo_vs_plain(yolo, pred, frames):
     in f32, the unfolded f32 model, whose convs run through F.conv2d), as phase 4 holds LPC-YOLO: each head map
     (box and class, every level) within BF16_MAP_TOL of the plain map by its error against its spread over the
     map, and the top 300 of the anchors' best class scores, sorted, within BF16_SCORE_TOL (pre-NMS: which rows
-    the NMS keeps turns on scores tied to bf16's rounding). Then on 4 of the frames the folded f32 kernel path's
-    predict against the plain path's: the top 20 sorted scores of each frame within 1e-4, and at least 80% of
-    the rows matched to a row of the same label with its score within 2e-4 and its box within 0.05 px, as
-    phases 13 and 14 hold the card to the CPU: over the letterbox pad the anchors score alike to ~1e-7 a stride
-    apart, and f32 rounding decides which of them the NMS keeps and, with it, what each suppresses. Returns the
-    errors and counts."""
+    the NMS keeps turns on scores tied to bf16's rounding). Then on 4 of the frames the folded f32 kernel path
+    against the plain path: the top 300 of the anchors' best class scores, sorted, within 1e-5 (pre-NMS); its
+    predict's top 20 sorted scores of each frame within 1e-4, and at least 80% of the rows matched to a row of the
+    same label with its score within 2e-4 and its box within 0.05 px, as phases 13 and 14 hold the card to the CPU:
+    over the letterbox pad the anchors score alike to ~1e-7 a stride apart, and f32 rounding decides which of them
+    the NMS keeps and, with it, what each suppresses. Returns the errors and counts. A World model's maps and rows
+    read its text table on both paths, and its scores are over the table's M classes; its class maps are the
+    contrastive logits (`calm_text_embeddings` first). Its top 20 kept scores are only reported: they sit ~5e-5
+    apart, so one row that f32 rounding keeps on one path and not on the other shifts the sorted lists by more than
+    1e-4 while the pre-NMS scores agree to ~1e-7; the pre-NMS check and the matched rows hold it."""
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.nn.heads import decode_feats
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox_plain, tables_on
 
     S, m = pred.imgsz, yolo.model
     feats = lambda out: out["feats"] if isinstance(out, dict) else out  # noqa: E731
-    best = lambda fs: decode_feats(fs, m.strides, m.nc, m.reg_max)[..., 4:].amax(-1)  # noqa: E731
+    best = lambda fs: decode_feats(fs, m.strides, fs[0][1].shape[1], m.reg_max)[..., 4:].amax(-1)  # noqa: E731
+    text = pred.batch_text(len(frames))  # a World model's table (None for the others)
     x = torch.empty(len(frames), S, S, 3, device="cuda")
     for shape in {im.shape for im in frames}:
         slots = [j for j, im in enumerate(frames) if im.shape == shape]
@@ -2899,19 +2952,26 @@ def zoo_vs_plain(yolo, pred, frames):
         x[slots] = letterbox_plain(src, tables_on(*shape[:2], S, src.device), S, torch.uint8).float() / 255
     x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     with torch.inference_mode():
-        maps_p = feats(m(x))
-        maps16 = feats(pred.model(pred.preprocess(frames)))
+        maps_p = feats(m(x, text=text))
+        maps16 = feats(pred.model(pred.preprocess(frames), text=text))
         map_err = max(((a.float() - b).norm() / (b - b.mean((2, 3), keepdim=True)).norm()).item()
                       for pa, pb in zip(maps16, maps_p) for a, b in zip(pa, pb))
         k = min(300, sum(cm.shape[2] * cm.shape[3] for _, cm in maps_p))
         gap = (best(maps16).topk(k).values - best(maps_p).topk(k).values).abs().max().item()
         del maps_p, maps16
-        det_p = m.predict(x[:4])
+        text4 = None if text is None else text[:4]
+        det_p = m.predict(x[:4], text=text4)
+        best_p = best(feats(m(x[:4], text=text4)))
     del x
     assert map_err <= BF16_MAP_TOL, f"bf16 head maps off the f32 plain path: centred relative error {map_err}"
     assert gap <= BF16_SCORE_TOL, f"bf16 top-{k} scores off the f32 plain path by {gap}"
     first = lambda out: (out[0] if isinstance(out, tuple) else out).float().cpu().numpy()  # noqa: E731
-    det_k = first(Predictor(m, imgsz=S, batch=4, device="cuda", dtype=torch.float32).infer(frames[:4]))
+    pred32 = Predictor(m, imgsz=S, batch=4, device="cuda", dtype=torch.float32, text=getattr(yolo, "txt_feats", None))
+    det_k = first(pred32.infer(frames[:4]))
+    with torch.inference_mode():
+        best_k = best(feats(pred32.model(pred32.preprocess(frames[:4]), text=pred32.batch_text(4))))
+    pre = (best_k.topk(k).values - best_p.topk(k).values).abs().max().item()
+    del pred32
     top, matched, rows = 0.0, 0, 0
     for a, b in zip(det_k, first(det_p)):
         a, b = a[a[:, 5] >= 0], b[b[:, 5] >= 0]
@@ -2921,9 +2981,11 @@ def zoo_vs_plain(yolo, pred, frames):
             cand = b[(b[:, 5] == row[5]) & (np.abs(b[:, 4] - row[4]) <= 2e-4)]
             matched += bool(len(cand)) and float(np.abs(cand[:, :4] - row[:4]).max(1).min()) <= 0.05
         rows += max(len(a), len(b))
-    assert top <= 1e-4 and matched >= 0.8 * rows > 0, f"f32 kernel path vs plain: top-20 gap {top}, {matched}/{rows}"
-    return {"bf16_map_err": map_err, "bf16_score_gap": gap, "f32_top20_score_gap": top, "f32_matched": matched,
-            "f32_rows": rows}
+    assert pre <= 1e-5, f"f32 kernel path vs plain: pre-NMS top-{k} scores off by {pre}"
+    assert (top <= 1e-4 or text is not None) and matched >= 0.8 * rows > 0, \
+        f"f32 kernel path vs plain: top-20 gap {top}, {matched}/{rows}"
+    return {"bf16_map_err": map_err, "bf16_score_gap": gap, "f32_pre_nms_gap": pre, "f32_top20_score_gap": top,
+            "f32_matched": matched, "f32_rows": rows}
 
 
 def phase_zoo(val_data: Path, train_data: str):
@@ -2971,7 +3033,8 @@ def phase_zoo(val_data: Path, train_data: str):
                  f"site of a bf16 forward on its own inputs: max rel {max(site_err):.3g}); bf16 predict vs the f32 "
                  f"plain path: head maps {r['vs_plain']['bf16_map_err']:.3g} (tol {BF16_MAP_TOL}), top-300 score gap "
                  f"{r['vs_plain']['bf16_score_gap']:.3g} (tol {BF16_SCORE_TOL}), f32 "
-                 f"kernel path vs plain path: top-20 gap {r['vs_plain']['f32_top20_score_gap']:.3g} (tol 1e-4), "
+                 f"kernel path vs plain path: pre-NMS top-300 gap {r['vs_plain']['f32_pre_nms_gap']:.3g} (tol 1e-5), "
+                 f"top-20 gap {r['vs_plain']['f32_top20_score_gap']:.3g} (tol 1e-4), "
                  f"{r['vs_plain']['f32_matched']}/{r['vs_plain']['f32_rows']} rows matched; YOLO.predict "
                  f"b{SCALE_SERVE_BATCH} 720p->{S} "
                  f"bf16: launches {sv['launches']}, {sv['boxes']} boxes; serving step {sv['step_ms']:.3f} ms "
@@ -3102,7 +3165,8 @@ def phase_v9(val_data: Path, train_data: str):
                  f"folded RepConvs; no 3x3 s1 conv through F.conv2d; every site of a bf16 forward on its own inputs: "
                  f"max rel {max(site_err):.3g}); bf16 predict vs the f32 plain path: head maps "
                  f"{r['vs_plain']['bf16_map_err']:.3g} (tol {BF16_MAP_TOL}), top-300 score gap "
-                 f"{r['vs_plain']['bf16_score_gap']:.3g} (tol {BF16_SCORE_TOL}), f32 kernel path vs plain path: top-20 "
+                 f"{r['vs_plain']['bf16_score_gap']:.3g} (tol {BF16_SCORE_TOL}), f32 kernel path vs plain path: pre-NMS "
+                 f"top-300 gap {r['vs_plain']['f32_pre_nms_gap']:.3g} (tol 1e-5), top-20 "
                  f"gap {r['vs_plain']['f32_top20_score_gap']:.3g} (tol 1e-4), {r['vs_plain']['f32_matched']}/"
                  f"{r['vs_plain']['f32_rows']} rows matched; YOLO.predict b{SCALE_SERVE_BATCH} 720p->640 bf16: "
                  f"launches {sv['launches']}, {sv['boxes']} boxes; serving step {sv['step_ms']:.3f} ms "
@@ -3512,6 +3576,198 @@ def rtdetr_only() -> None:
     log("done", "phase 19 passed; numbers in chiprun_out/chip_smoke_rtdetr.json")
 
 
+def calm_text_embeddings(model) -> None:
+    """Zero the bias of each level's last embedding conv (`cv3[i][-1]`, 1x1 to 512) of a World head, in place. The
+    seeded biases (U(+-0.5)) dominate its output, so v1's normalised embeddings barely vary over a map, its logits
+    carry little of the image, and the centred map error of `zoo_vs_plain` divides by a spread of ~1e-3."""
+    with torch.no_grad():
+        for tower in model.model[-1].cv3:
+            tower[-1].bias.zero_()
+
+
+def world_step_card_vs_cpu(yolo):
+    """One f32 train step of a World model (amp off, batch 2 at 640, the facade's text table) on the card and on the
+    CPU from the same weights: its loss and 3 items within rtol 1e-3. Returns the largest relative gap."""
+    import copy
+
+    from lpc_yolo_tpu_torch.engine.train_step import OptConfig, init_train_state, make_train_step
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+
+    small = train_batches(1, 2, seed=203)[0]
+    small["img"] = pack_img(small["img"])
+    cfg = OptConfig(warmup_steps=100, total_steps=TRAIN_STEPS)
+    items = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(yolo.model)
+        st = init_train_state(model, cfg, device=dev)
+        st, met = make_train_step(model, cfg, loss_kind="world", amp=False, text=yolo.txt_feats)(st, small)
+        assert met["skipped"] is False
+        items[dev] = np.concatenate([met["items"].cpu().numpy(), [float(met["loss"])]])
+        del model, st
+    rel = float(np.max(np.abs(items["cuda"] - items["cpu"]) / np.abs(items["cpu"])))
+    assert rel <= 1e-3, f"world f32 step on the card vs on the CPU: loss items differ by {rel} (rtol 1e-3): {items}"
+    return rel
+
+
+def world_set_classes(yolo, pred, host, n_sites: int):
+    """`set_classes` of two names on the facade: YOLO.predict of 4 frames with the counters held (a letterbox, a
+    conv3x3 a site, an NMS) gives only labels 0 and 1 and `Results.names` the two names; the serving copy fed the
+    two-row table gives (4, 300, 6) rows whose labels are in {-1, 0, 1}. The facade's COCO-80 table comes back
+    after."""
+    names = [yolo.names[i] for i in range(len(yolo.names))]
+    yolo.set_classes(["person", "bus"])
+    zero_launches()
+    results = yolo.predict(host[:4], imgsz=640, batch=4, conf=0.25)
+    launches = launches_now("letterbox", "conv3x3", "nms")
+    assert launches == {"letterbox": 1, "conv3x3": n_sites, "nms": 1}, launches
+    assert all(r.names == {0: "person", 1: "bus"} and set(r.boxes.data[:, 5].tolist()) <= {0.0, 1.0} for r in results)
+    full = pred.text
+    pred.text = torch.from_numpy(yolo.txt_feats).cuda()
+    with torch.inference_mode():
+        rows = pred.infer(host[:4])
+    pred.text = full
+    labels = set(rows[..., 5].unique().tolist())
+    assert rows.shape == (4, 300, 6) and labels <= {-1.0, 0.0, 1.0} and len(labels - {-1.0}) > 0, labels
+    yolo.set_classes(names)
+    return {"boxes": [len(r) for r in results], "labels": sorted(labels), "launches": launches}
+
+
+def phase_world(val_data: Path, train_data: str):
+    """Phase 20: YOLO-World (WORLD_MODELS: yolov8s-world, the facade's default, yolov8x-world, yolov8s-worldv2,
+    yolov8x-worldv2) at 640 with seed-0 weights (`calm_text_embeddings`), nc 80 and the COCO-80 names' text table
+    (1, 80, 512), each in turn: its parameter count; its conv3x3 sites (36 / 76: the v8 bottlenecks, each
+    C2fAttn's bottlenecks, the four `proj_conv` 3x3s with the `none` epilogue, the towers) against the plain
+    version (every distinct shape in f32 and bf16, the `proj_conv` shapes on their own, every site of one bf16
+    forward on its own inputs), and no 3x3 s1 g1 conv of the folded graph through F.conv2d; the bf16 serving path against the f32 plain path on the head
+    maps and the pre-NMS scores, and the f32 kernel path against the plain path (`zoo_vs_plain`, with the text);
+    YOLO.predict b32 from 720p frames with the counters held (a letterbox, a conv3x3 a site, an NMS) and the
+    serving step's time, busy, idle share and launches (`scale_serving`); conv3x3 against F.conv2d + bias over
+    the sites. On yolov8s-world `set_classes` of two names (`world_set_classes`). For WORLD_VAL YOLO.val(data=...)
+    on phase 7's 64 frames at b32 bf16, counters held; for WORLD_STEP the b16 train step (`scale_train_step`: a
+    repack a step) and one f32 step on the card against the CPU (`world_step_card_vs_cpu`). Then
+    YOLO(WORLD_TRAIN, nc=3).train(data=..., epochs=1, save=True) on phase 8's dataset, counters held (a repack a
+    step, a letterbox per val batch and frame shape, the sites' conv3x3 and an NMS per val batch); returns its
+    launches."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.engine.train_step import to_device
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+
+    t_phase = time.perf_counter()
+    host = frames_720p(SCALE_SERVE_BATCH, seed=201)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
+    out = REPORT.setdefault("world", {})
+    for name, (n_params, n_sites) in WORLD_MODELS.items():
+        t0 = time.perf_counter()
+        tag = Path(name).stem
+        r = out[tag] = {}
+        yolo = YOLO(name, device="cuda", seed=0)
+        assert yolo.task == "world" and sum(p.numel() for p in yolo.model.parameters()) == n_params, name
+        calm_text_embeddings(yolo.model)
+        assert yolo.txt_feats.shape == (1, 80, 512)
+        pred = Predictor(yolo.model, imgsz=640, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16,
+                         text=yolo.txt_feats)
+        sites = conv_sites(pred)
+        projs = [st for st in sites if st[4] is False]
+        assert len(sites) == n_sites and len(projs) == WORLD_PROJ_SITES, (tag, len(sites), len(projs))
+        n_conv2d = conv2d_3x3_s1_calls(pred, host[:2])
+        assert n_conv2d == 0, f"{tag}: {n_conv2d} folded 3x3 s1 g1 convs through F.conv2d"
+        r.update(sites=len(sites), proj_sites=len(projs))
+        r["parity"] = phase_parity_conv(sites, tag)
+        r["proj_parity"] = phase_parity_conv(projs, f"{tag}_proj_conv")
+        site_err = bf16_site_errors(pred, host[:2])
+        assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{tag} bf16 conv3x3 sites: {site_err}"
+        r["parity"]["forward_sites_bf16_max_rel"] = max(site_err)
+        r["vs_plain"] = vp = zoo_vs_plain(yolo, pred, host)
+        r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
+        log(tag, f"{n_params} parameters, {len(sites)} conv3x3 sites a forward ({len(projs)} proj_conv, no "
+                 f"activation; no 3x3 s1 conv through F.conv2d; every site of a bf16 forward on its own inputs: max "
+                 f"rel {max(site_err):.3g}); bf16 predict vs the f32 plain path: head maps {vp['bf16_map_err']:.3g} "
+                 f"(tol {BF16_MAP_TOL}; the contrastive logits among them), top-300 score gap "
+                 f"{vp['bf16_score_gap']:.3g} (tol {BF16_SCORE_TOL}), f32 "
+                 f"kernel path vs plain path: pre-NMS top-300 gap {vp['f32_pre_nms_gap']:.3g} (tol 1e-5), kept "
+                 f"top-20 gap {vp['f32_top20_score_gap']:.3g} (reported), "
+                 f"{vp['f32_matched']}/{vp['f32_rows']} rows matched; YOLO.predict b{SCALE_SERVE_BATCH} 720p->640 "
+                 f"bf16, 80 text rows: launches {sv['launches']}, {sv['boxes']} boxes; serving step "
+                 f"{sv['step_ms']:.3f} ms ({sv['img_s']:.1f} img/s), busy {sv['busy_ms']:.3f} ms, idle share "
+                 f"{sv['idle_share']}, {sv['device_launches']:.0f} launches a step")
+        tot, per_shape = time_conv3x3(sites, SCALE_SERVE_BATCH, phase=tag)
+        r["conv3x3_sum"], r["conv3x3_shapes"] = tot, per_shape
+        r["conv3x3_losers"] = [{"C": p["C"], "Co": p["Co"], "H": p["H"], "per_forward": p["per_forward"],
+                                "vs_library": p["vs_library"]} for p in per_shape if p["vs_library"] > 1]
+        if name == "yolov8s-world.yaml":
+            r["set_classes"] = sc = world_set_classes(yolo, pred, host, len(sites))
+            log(tag, f"set_classes(['person', 'bus']): YOLO.predict of 4 frames, launches {sc['launches']}, boxes "
+                     f"{sc['boxes']}, labels {{0, 1}}; the serving copy's (4, 300, 6) rows labelled {sc['labels']}")
+        if name == WORLD_VAL:
+            expect = val_launches_expected(val_frames, VAL_BATCH, len(sites), nms=True)
+            zero_launches()
+            t1 = time.perf_counter()
+            res = yolo.val(data=str(val_data), imgsz=640, batch=VAL_BATCH, cache_images="disk")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = launches_now("letterbox", "conv3x3", "nms")
+            assert launches == expect, f"{tag} val: launches {launches}, expected {expect}"
+            assert all(np.isfinite(v) for v in res.values()), res
+            r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": launches, "results": res,
+                        "speed": yolo.validator.speed}
+            log(tag, f"YOLO.val b{VAL_BATCH} bf16, {len(val_frames)} frames, 80 text rows: "
+                     f"{len(val_frames) / wall:.1f} img/s, launches {launches}, mAP50 {res['metrics/mAP50(B)']:.4f}")
+        del pred
+        torch.cuda.empty_cache()
+        if name == WORLD_STEP:
+            batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda"))
+                       for b in train_batches(2, TRAIN_BATCH, seed=202)]
+            r["train"] = tr = scale_train_step(yolo, batches)
+            del batches
+            torch.cuda.empty_cache()
+            r["train"]["f32_card_vs_cpu_rel"] = rel = world_step_card_vs_cpu(yolo)
+            log(tag, f"train step b{TRAIN_BATCH} 640 bf16 autocast, 80 text rows: {tr['step_ms']:.3f} ms "
+                     f"({tr['img_s']:.1f} img/s), device busy {tr['busy_ms']:.3f} ms, idle share {tr['idle_share']}, "
+                     f"{tr['device_launches']:.0f} launches a step, peak {tr['peak_gb']:.3f} GB, {tr['steps']} steps "
+                     f"with one repack each, loss {tr['loss']:.4f}; one f32 step (batch 2) on the card vs on the "
+                     f"CPU: loss items within {rel:.2e} (rtol 1e-3)")
+        r["seconds"] = time.perf_counter() - t0
+        del yolo
+        torch.cuda.empty_cache()
+    launches = phase_scale_train_data("world", train_data, WORLD_MODELS[WORLD_TRAIN][1], name=WORLD_TRAIN, epochs=1)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("world", f"phase 20: {len(WORLD_MODELS)} models and {WORLD_TRAIN}'s training in {out['seconds']:.1f} s")
+    return launches
+
+
+def scales_only(family: str) -> None:
+    """`--v10` / `--v8`: phase 10 or 11 alone, every scale, then its n scale's train(data=..., save=True)."""
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{family}_") as tmp:
+        val_data = labelled_val_set(Path(tmp) / "val", YOLO(YAML, device="cuda", seed=0))[0]
+        res = phase_scales(family, val_data)
+        phase_scale_train_data(family, write_train_dataset(Path(tmp) / "train"), res["n"]["sites"])
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"chip_smoke_{family}.json").write_text(json.dumps(REPORT, indent=1))
+    log("done", f"phase {10 if family == 'v10' else 11} passed; numbers in chiprun_out/chip_smoke_{family}.json")
+
+
+def world_only() -> None:
+    """`--world`: phase 20 alone."""
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as tmp:
+        val_data = labelled_val_set(Path(tmp) / "val", YOLO(YAML, device="cuda", seed=0))[0]
+        phase_world(val_data, write_train_dataset(Path(tmp) / "train"))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_world.json").write_text(json.dumps(REPORT, indent=1))
+    log("done", "phase 20 passed; numbers in chiprun_out/chip_smoke_world.json")
+
+
 def nms_worst_pool(B: int, seed: int = 0, k: int = 4096):
     """A pool in which every one of the 300 steps keeps a box: k candidates an image, sorted scores above
     conf 0.25 on a grid of 1/1024 (so runs of ~6 are tied and the first of each run must win), boxes 4 to 24
@@ -3675,11 +3931,12 @@ def conv3x3_only() -> None:
 
 def main(argv) -> int:
     converge = argv[:1] == ["--converge"] and len(argv) <= 2
-    only = {"--seg": seg_only, "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only,
-            "--v9": v9_only, "--rtdetr": rtdetr_only}
+    only = {"--v10": lambda: scales_only("v10"), "--v8": lambda: scales_only("v8"), "--seg": seg_only,
+            "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only, "--v9": v9_only,
+            "--rtdetr": rtdetr_only, "--world": world_only}
     if argv not in ([], ["--conv3x3"], *([k] for k in only)) and not converge:
-        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --seg, --pose, --obb, --cls, --zoo, "
-              f"--v9, --rtdetr and --converge [model yaml]", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --v10, --v8, --seg, --pose, --obb, "
+              f"--cls, --zoo, --v9, --rtdetr, --world and --converge [model yaml]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3733,22 +3990,22 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         launches = phase_checkpoint(data)  # the main path: YOLO(nc=3).train(data=..., save=True)
         torch.cuda.empty_cache()
-        v10 = phase_scales("v10", Path(tmp) / "val" / "data.yaml")
+        v10 = phase_scales("v10", Path(tmp) / "val" / "data.yaml", WHOLE_RUN_SCALES)
         phase_scale_train_data("v10", data, v10["n"]["sites"])
         torch.cuda.empty_cache()
-        v8 = phase_scales("v8", Path(tmp) / "val" / "data.yaml")
+        v8 = phase_scales("v8", Path(tmp) / "val" / "data.yaml", WHOLE_RUN_SCALES)
         v8_launches = phase_scale_train_data("v8", data, v8["n"]["sites"])  # the v8 path: NMS per val batch
         torch.cuda.empty_cache()
         seg_val, seg_train = write_seg_datasets(Path(tmp) / "seg")
-        seg = phase_seg(seg_val)
+        seg = phase_seg(seg_val, WHOLE_RUN_SCALES)
         seg_launches = phase_scale_train_data("v8", seg_train, seg["n"]["sites"], name="yolov8n-seg.yaml")
         torch.cuda.empty_cache()
         pose_val, pose_train = write_pose_datasets(Path(tmp) / "pose")
-        pose = phase_pose(pose_val)
+        pose = phase_pose(pose_val, WHOLE_RUN_SCALES)
         pose_launches = phase_scale_train_data("v8", pose_train, pose["n"]["sites"], name="yolov8n-pose.yaml")
         torch.cuda.empty_cache()
         obb_val, obb_train = write_obb_datasets(Path(tmp) / "obb")
-        obb = phase_obb(obb_val)
+        obb = phase_obb(obb_val, WHOLE_RUN_SCALES)
         obb_launches = phase_scale_train_data("obb", obb_train, obb["n"]["sites"], name="yolov8n-obb.yaml",
                                               S=OBB_IMGSZ)
         torch.cuda.empty_cache()
@@ -3760,6 +4017,8 @@ def main(argv) -> int:
         v9_launches = phase_v9(Path(tmp) / "val" / "data.yaml", data)
         torch.cuda.empty_cache()
         rtdetr_launches = phase_rtdetr(Path(tmp) / "val" / "data.yaml", data)
+        torch.cuda.empty_cache()
+        world_launches = phase_world(Path(tmp) / "val" / "data.yaml", data)
     nms = time_nms()["val"]
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
@@ -3787,6 +4046,7 @@ def main(argv) -> int:
         k["launches_zoo"] = zoo_launches[k["name"]]  # yolov6n's train(data=...), phase 17
         k["launches_v9"] = v9_launches[k["name"]]  # yolov9c's train(data=...), phase 18
         k["launches_rtdetr"] = rtdetr_launches[k["name"]]  # rtdetr-l's train(data=..., save=True), phase 19
+        k["launches_world"] = world_launches[k["name"]]  # yolov8s-world's train(data=..., save=True), phase 20
     kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start

@@ -6,8 +6,8 @@ passes device="cpu"; the hand-written kernels live under `csrc/` and are
 built with nvcc at first use (see `ops/_build.py`).
 """
 
-from .engine.model import YOLO
+from .engine.model import YOLO, YOLOWorld
 from .engine.results import Boxes, Results
 from .nn.compiler import DetectionModel, build_model
 
-__all__ = ["YOLO", "Results", "Boxes", "DetectionModel", "build_model"]
+__all__ = ["YOLO", "YOLOWorld", "Results", "Boxes", "DetectionModel", "build_model"]

@@ -22,7 +22,15 @@ train_classifier` as the JAX facade routes it (:238-242), and "rtdetr" for an
 RTDETRDecoder head (`rtdetr-l.yaml`, `-x`, `-resnet50`, `-resnet101` in
 `rt-detr/`, `yolov8n-rtdetr.yaml` resolves to `v8/yolov8-rtdetr.yaml`),
 served and validated with no NMS, and trained through the DETR loss
-(`losses/detr.py`). `.pt` files, export and the other tasks wait for later slices.
+(`losses/detr.py`), and "world" for a WorldDetect head (YOLO-World:
+`yolov8s-world.yaml` resolves to `v8/yolov8-world.yaml`, `-worldv2` to
+`v8/yolov8-worldv2.yaml`; `YOLOWorld()` builds yolov8s-world), whose class
+scores are the similarities of its region embeddings with a text table:
+`txt_feats` (1, M, 512), `encode_names` of the class names unless
+`set_classes(names, embeddings=...)` sets another. `predict`, `val` and
+`train` read that table (the JAX validator and train step read none: ROADMAP
+Queue 3); `train(data=...)` sets the names and the table to the dataset's.
+`.pt` files, export and the other tasks wait for later slices.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from ..utils import resolve_device
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.flax_bridge import flax_shapes, load_flax, random_variables, state_dict_to_flax
 from ..utils.names import COCO80
+from ..utils.text_embed import encode_names
 from .predictor import Predictor
 
 _CFG_ROOT = Path(__file__).resolve().parents[1] / "cfg" / "models"
@@ -100,8 +109,8 @@ class YOLO:
         self.model = build_model(d, device=self.device, nc=nc or meta.get("nc"))
         self.task = self.model.task  # from the head, as the JAX `_guess_task` (:123-131)
         if self.task is None:
-            raise NotImplementedError("the torch port serves v10Detect, Detect, Segment, Pose, OBB, Classify and "
-                                      "RTDETRDecoder models only so far")
+            raise NotImplementedError("the torch port serves v10Detect, Detect, Segment, Pose, OBB, Classify, "
+                                      "RTDETRDecoder and WorldDetect models only so far")
         if variables is not None:
             self.load_flax(variables)
         elif seed is not None:
@@ -109,7 +118,21 @@ class YOLO:
         names = meta.get("names") or dict(COCO80)
         # JSON turned the int keys into str
         names = {int(k): v for k, v in names.items()} if isinstance(names, dict) else dict(enumerate(names))
-        self.names = names if len(names) == self.model.nc else {i: str(i) for i in range(self.model.nc)}
+        keep = len(names) == self.model.nc or self.task == "world" and meta.get("names")  # a World set's M is free
+        self.names = names if keep else {i: str(i) for i in range(self.model.nc)}
+        self.txt_feats = None
+        if self.task == "world":  # the names' text table, in index order (JAX :84-88)
+            self.txt_feats = encode_names([self.names[i] for i in sorted(self.names)])[None]
+
+    def set_classes(self, names, embeddings=None) -> "YOLO":
+        """A World model's class set (JAX `engine/model.py:132-141`): the names, and the (1, M, 512) text table,
+        `encode_names` of them or the given (M, 512) `embeddings` (e.g. CLIP's), each row L2-normalised."""
+        if self.task != "world":
+            raise ValueError("set_classes is only supported on world models")
+        names = [str(n) for n in names]
+        self.names = dict(enumerate(names))
+        self.txt_feats = encode_names(names, embeddings=embeddings)[None]
+        return self
 
     def load_flax(self, variables: Dict[str, Any]) -> "YOLO":
         """Load JAX-package variables (nested dicts of numpy arrays)."""
@@ -139,7 +162,7 @@ class YOLO:
         """Detect in frames (HWC uint8 BGR ndarrays, lists of them, or image/video paths) -> [Results];
         `iou` is the NMS threshold of a v8 model."""
         predictor = Predictor(self.model, imgsz=imgsz, batch=batch, conf=conf, iou=iou, max_det=max_det,
-                              names=self.names, device=device or self.device)
+                              names=self.names, device=device or self.device, text=self.txt_feats)
         return predictor(source)
 
     def val(self, data=None, device: Union[str, torch.device, None] = None, **kw) -> Dict[str, float]:
@@ -180,3 +203,10 @@ class YOLO:
             return train_classifier(self, data=data, device=device or self.device, **kw)
         self.trainer = Trainer(self, batches, data=data, device=device or self.device, **kw)
         return self.trainer.train()
+
+
+class YOLOWorld(YOLO):
+    """The open-vocabulary facade (JAX `lpc_yolo_tpu/__init__.py:20-25`): a YOLO that defaults to yolov8s-world."""
+
+    def __init__(self, model: Union[str, Path] = "yolov8s-world.yaml", **kw):
+        super().__init__(model, **kw)

@@ -4,7 +4,9 @@ Counterpart of `lpc_yolo_tpu/engine/predictor.py::Predictor` (:87-363), v10,
 v8 and segment paths: a v10Detect model decodes its one-to-one branch by the
 NMS-free top-k, a Detect or Segment model through `decode_feats` and
 `non_max_suppression` at `conf` and `iou`, one candidate per anchor (:200),
-its greedy loop one launch of the NMS kernel per batch. A Segment model's
+its greedy loop one launch of the NMS kernel per batch. A World model reads
+the facade's text table (1, M, 512) broadcast to the batch (:154-159) and
+decodes M classes as a Detect model decodes nc. A Segment model's
 masks follow the JAX predictor (:190-199, :328-340): each row's mask
 coefficients gathered by its anchor, `process_mask(..., upsample=True)`, the
 letterbox pad cropped, cv2's f32 linear resize to the frame and `> 0.5`,
@@ -100,12 +102,17 @@ def load_source(source) -> List[Tuple[str, np.ndarray]]:
 def serving_model(model, device: torch.device, dtype: torch.dtype):
     """The serving copy of `model`: BN folded once in f32, then every tensor in `dtype`,
     so its 3x3 s1 convs take the conv3x3 kernel; it takes the raw 0..255 frame (/255
-    folded into the stem, as the JAX predictor and validator fold it). The caller's
-    model is left as it was."""
+    folded into the stem, as the JAX predictor and validator fold it). A module that sets
+    `keeps_f32` (a World model's contrastive heads, which compute in f32, their BatchNorm
+    unfolded) keeps f32 parameters. The caller's model is left as it was."""
     serving = copy.deepcopy(model).to(device).eval()
     fuse_conv_bn(serving, dtype)
     fold_preprocess(serving, dtype)
-    return serving.to(dtype)
+    serving.to(dtype)
+    for m in serving.modules():
+        if getattr(m, "keeps_f32", False):
+            m.float()
+    return serving
 
 
 def letterbox_batch(frames: List[np.ndarray], size: int, device: torch.device, out_dtype: torch.dtype,
@@ -132,8 +139,11 @@ class Predictor:
 
     def __init__(self, model, imgsz: int = 640, batch: int = 1, conf: float = 0.25, iou: float = 0.45,
                  max_det: int = 300, names: Optional[Dict[int, str]] = None,
-                 device: Union[str, torch.device, None] = None, dtype: Optional[torch.dtype] = None):
+                 device: Union[str, torch.device, None] = None, dtype: Optional[torch.dtype] = None,
+                 text: Optional[np.ndarray] = None):
         self.device = resolve_device(device)
+        # a World model's text table (1, M, 512), broadcast to each batch (JAX :154-159)
+        self.text = None if text is None else torch.as_tensor(np.asarray(text, np.float32), device=self.device)
         # bf16 on the card, f32 on the CPU unless the caller says otherwise
         self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
         self.imgsz, self.batch, self.conf, self.iou, self.max_det = imgsz, batch, conf, iou, max_det
@@ -155,7 +165,12 @@ class Predictor:
         with the rows' mask coefficients and the prototypes, for a pose model with the rows' keypoints;
         for an OBB model (n, max_det, 7) rotated rows; for a classify model (n, nc) probabilities
         (`DetectionModel.predict`)."""
-        return self.model.predict(self.preprocess(frames), self.max_det, self.conf, self.iou)
+        return self.model.predict(self.preprocess(frames), self.max_det, self.conf, self.iou,
+                                  text=self.batch_text(len(frames)))
+
+    def batch_text(self, n: int) -> Optional[torch.Tensor]:
+        """The text table broadcast to a batch of n frames, (n, M, 512) f32; None for a model without text."""
+        return None if self.text is None else self.text.expand(n, -1, -1)
 
     @torch.inference_mode()
     def frame_masks(self, det: torch.Tensor, mc: torch.Tensor, proto: torch.Tensor, keep: np.ndarray,
@@ -211,7 +226,7 @@ class Predictor:
             x = self.preprocess([im for _, im in chunk])
             t1 = time.perf_counter()
             with torch.inference_mode():
-                out = self.model.predict(x, self.max_det, self.conf, self.iou)
+                out = self.model.predict(x, self.max_det, self.conf, self.iou, text=self.batch_text(n))
                 det_dev, extra = (out[0], out[1:]) if isinstance(out, tuple) else (out, ())
                 det = det_dev.cpu().numpy()
                 kpts = extra[0].cpu().numpy() if self.kpt_shape is not None else None

@@ -4,7 +4,8 @@ Counterpart of `lpc_yolo_tpu/engine/train_step.py` (config and schedules
 :43-74, optimizer :86-105, state :108-123, the step :126-311; reference
 engine/trainer.py:362-394, :695-756, torch_utils.py:431-465 ModelEMA), for
 the v10 dual-assignment loss of a v10Detect model, the v8 loss of a Detect
-model, the v8 segmentation loss of a Segment model, the v8 pose loss of
+model and of a YOLO-World model (its class maps the similarities with a
+text table), the v8 segmentation loss of a Segment model, the v8 pose loss of
 a Pose model, the v8 oriented-box loss of an OBB model and the DETR loss of
 an RT-DETR model (`loss_kind`, :178-258; a segment batch carries its instance
 masks under "masks", a pose batch its keypoints under "keypoints", an OBB
@@ -188,11 +189,14 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
-def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable:
+def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None, text=None) -> Callable:
     """`loss_fn(batch, step=0) -> (total, items)` on a device batch: the input handling of
     the JAX step (`train_step.py:142-176`), the forward, the loss of the model's
     head: a v10Detect's dual-assignment loss, 6 items; a Detect's
-    `v8_detection_loss` with the top-10 assigner, 3 items (box, cls, dfl); a
+    `v8_detection_loss` with the top-10 assigner, 3 items (box, cls, dfl), and
+    a WorldDetect's too, over the M classes of `text` (1, M, 512), which the
+    forward reads broadcast to the batch (zeros of (B, nc, 512) when None,
+    what the JAX step gives a World graph, :198-204: ROADMAP Queue 3); a
     Segment's `v8_segmentation_loss`, 4 items (box, seg, cls, dfl); a Pose's
     `v8_pose_loss` with the keypoint shape of the batch's keypoints, 5 items
     (box, pose, kobj, cls, dfl); an OBB's `v8_obb_loss` on the batch's rotated
@@ -207,6 +211,8 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
     output tree, as the JAX step does).
     """
 
+    table = None if text is None else torch.as_tensor(np.asarray(text, np.float32))
+
     def loss_fn(batch: Mapping[str, torch.Tensor], step: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         img = batch["img"]
         packed = img.dim() == 4 and img.shape[-1] == 24
@@ -217,8 +223,9 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
         if model.task == "rtdetr":
             dn = {"cls": batch["cls"], "bboxes": normalized_cxcywh(batch["bboxes"].to(x.dtype), x.shape[2:]),
                   "mask": batch["mask"], "generator": dn_generator(step, x.device)}
+        txt = None if table is None else table.to(x.device).expand(x.shape[0], -1, -1)
         with torch.autocast("cuda", dtype=torch.bfloat16, enabled=x.device.type == "cuda" and amp is not False):
-            out = model(x, dn=dn)
+            out = model(x, dn=dn, text=txt)
         if model.task == "rtdetr":
             out = {k: v.float() if torch.is_tensor(v) and v.dtype in (torch.bfloat16, torch.float16) else v
                    for k, v in out.items()}
@@ -232,9 +239,9 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
                                 kpt_shape=tuple(kpts.shape[-2:]))
         if model.task == "obb":
             return v8_obb_loss(out, batch["cls"], batch["rboxes"], batch["mask"], model.strides, model.nc)
-        if model.task == "v8":
+        if model.task in ("v8", "world"):
             total, items = v8_detection_loss(out, batch["cls"], batch["bboxes"], batch["mask"], model.strides,
-                                             model.nc, tal_topk=10)
+                                             out[0][1].shape[1], tal_topk=10)
             return total, torch.stack(list(items))
         return v10_detect_loss(out, batch["cls"], batch["bboxes"], batch["mask"], model.strides, model.nc)
 
@@ -242,9 +249,10 @@ def make_loss_fn(model: torch.nn.Module, amp: Optional[bool] = None) -> Callable
 
 
 def make_train_step(model: torch.nn.Module, cfg: OptConfig, loss_kind: str = "v10",
-                    amp: Optional[bool] = None) -> Callable:
+                    amp: Optional[bool] = None, text=None) -> Callable:
     """Build `step(state, batch) -> (state, metrics)` for a v10Detect model (loss_kind "v10"),
-    a Detect model ("v8"), a Segment model ("segment"), a Pose model ("pose"), an OBB model ("obb")
+    a Detect model ("v8"), a WorldDetect model ("world": the v8 loss, the class logits from
+    `text`, see `make_loss_fn`), a Segment model ("segment"), a Pose model ("pose"), an OBB model ("obb")
     or an RT-DETR model ("rtdetr"; its denoising draws keyed by `state.step`).
 
     batch = {'img': (B, H, W, 3) uint8 BGR or f32 RGB in [0, 1], or the same
@@ -252,18 +260,18 @@ def make_train_step(model: torch.nn.Module, cfg: OptConfig, loss_kind: str = "v1
     (B, M, 4) xyxy pixels; 'mask': (B, M) bool; for "segment" also 'masks': (B, M, H/4, W/4) uint8,
     for "pose" also 'keypoints': (B, M, K, ndim) f32 pixels, for "obb" also 'rboxes': (B, M, 5) [cx, cy, w,
     h, angle] f32 pixels}, numpy or tensors.
-    metrics = {'loss', 'items' (6,) for v10, (3,) for v8, obb and rtdetr, (4,) for segment, (5,) for pose,
+    metrics = {'loss', 'items' (6,) for v10, (3,) for v8, world, obb and rtdetr, (4,) for segment, (5,) for pose,
     'lr', 'skipped'};
     `state` must come from `init_train_state(model, ...)`. amp: see `make_loss_fn`.
     """
-    if loss_kind not in ("v10", "v8", "segment", "pose", "obb", "rtdetr"):
-        raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10', 'v8', 'segment', 'pose', "
-                                  f"'obb' and 'rtdetr' are")
+    if loss_kind not in ("v10", "v8", "world", "segment", "pose", "obb", "rtdetr"):
+        raise NotImplementedError(f"loss_kind {loss_kind!r} is not ported; only 'v10', 'v8', 'world', 'segment', "
+                                  f"'pose', 'obb' and 'rtdetr' are")
     if model.task != loss_kind:
         raise ValueError(f"loss_kind {loss_kind!r} does not train this model's head (task {model.task!r})")
     if cfg.optimizer not in ("sgd", "adamw"):
         raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not ported; use 'sgd' or 'adamw'")
-    loss_fn = make_loss_fn(model, amp)
+    loss_fn = make_loss_fn(model, amp, text)
     saved_stats: List[torch.Tensor] = []  # where a skipped step finds the BN statistics it must restore
 
     def step(state: TrainState, batch: Mapping[str, Any]) -> Tuple[TrainState, Dict[str, Any]]:

@@ -24,7 +24,13 @@ carry `rboxes`, its results.csv the `train/box`, `train/cls` and
 `TrainTransforms` (:223-224) with the DETR loss (`losses/detr.py`): its
 results.csv has the `train/cls`, `train/l1` and `train/giou` columns, and its
 denoising draws are keyed by the step's count, so a resumed run draws what
-an uninterrupted one would.
+an uninterrupted one would. A YOLO-World model trains as a Detect model does
+(the JAX trainer routes it so, :191-203), its class logits from the text
+table of the dataset's names in index order: the facade's `set_classes`
+takes them before the first step, so the per-epoch validation and a
+`predict` after training read the same table. (The JAX train step passes no
+text, so its World graph learns from zero text: ROADMAP Queue 3.) From host
+batches it trains on the facade's table as it stands.
 
 The loader's threads read the frames and make each sample's plan (its
 random draws, geometry and labels). The trainer renders each batch on the
@@ -101,7 +107,7 @@ from .train_step import OptConfig, TrainState, init_train_state, make_train_step
 # the loss items' names by task (JAX `engine/trainer.py:33-40`): results.csv's train/ columns
 LOSS_NAMES = {"v10": ("box_om", "cls_om", "dfl_om", "box_oo", "cls_oo", "dfl_oo"), "v8": ("box", "cls", "dfl"),
               "segment": ("box", "seg", "cls", "dfl"), "pose": ("box", "pose", "kobj", "cls", "dfl"),
-              "obb": ("box", "cls", "dfl"), "rtdetr": ("cls", "l1", "giou")}
+              "obb": ("box", "cls", "dfl"), "rtdetr": ("cls", "l1", "giou"), "world": ("box", "cls", "dfl")}
 
 
 def pack_img(img):
@@ -272,6 +278,8 @@ class Trainer:
             if model.nc != info["nc"]:
                 raise ValueError(f"model nc={model.nc} != dataset nc={info['nc']}; "
                                  f"build the model with YOLO(cfg, nc={info['nc']})")
+            if self.yolo.task == "world":
+                self.yolo.set_classes([info["names"][i] for i in sorted(info["names"])])
             kpt_shape = info.get("kpt_shape")
             dataset = YOLODataset(info["train"], cache_images=self.cache, kpt_shape=kpt_shape,
                                   obb=self.yolo.task == "obb")
@@ -292,7 +300,7 @@ class Trainer:
         last, best = self.save_dir / "weights" / "last.ckpt", self.save_dir / "weights" / "best.ckpt"
         stopper = self.stopper = EarlyStopping(self.patience)
         state, best_fitness = self._start(model, last, best, stopper)
-        train_step = make_train_step(model, self.cfg, loss_kind=self.yolo.task)
+        train_step = make_train_step(model, self.cfg, loss_kind=self.yolo.task, text=self.yolo.txt_feats)
         names = LOSS_NAMES[self.yolo.task]
         if transforms is not None:
             loader.epoch = self.start_epoch  # the resumed epoch's shuffle and draws

@@ -52,6 +52,11 @@ label row while the labels keep the first max_gt; here only the kept rows
 are read, and the rotated boxes come from the quads in pixels
 (`data/dataset.py::rotated_boxes`).
 
+A World model reads the facade's text table `txt_feats` (1, M, 512), broadcast
+to each batch, and its M classes must be the dataset's nc. The JAX validator
+passes no text (:99), so its World graph scores every class alike, whatever
+`set_classes` set (ROADMAP Queue 3); with a zero table the two agree.
+
 `speed` holds the seconds spent in each part, summed over the run as in the
 JAX package: "preprocess" is the host's time to copy and enqueue the
 letterbox, "inference" runs until the detections are on the host (so it holds
@@ -114,6 +119,7 @@ class Validator:
         self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
         self.iouv = np.linspace(0.5, 0.95, 10)
         self.speed = {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
+        self.text = None  # a World model's text table on the device, set by __call__
 
     def preprocess(self, frames: List[np.ndarray]) -> torch.Tensor:
         """The frames letterboxed on the device, (n, S, S, 3) uint8 RGB."""
@@ -126,7 +132,8 @@ class Validator:
         with the rows' keypoints (n, max_det, nk) on the host; for an OBB model [hull, conf, cls] rows and
         the rotated boxes (n, max_det, 5) on the host."""
         x = x.permute(0, 3, 1, 2).to(self.dtype)
-        out = model.predict(x, self.max_det, self.conf, self.iou, multi_label=True)
+        text = None if self.text is None else self.text.expand(x.shape[0], -1, -1)
+        out = model.predict(x, self.max_det, self.conf, self.iou, multi_label=True, text=text)
         if model.task == "obb":
             det = torch.cat([rbox_hull(out[..., :5]), out[..., 5:7]], -1)
             return det.cpu().numpy(), out[..., :5].cpu().numpy()
@@ -182,6 +189,12 @@ class Validator:
         if pose and model.model[-1].kpt_shape[1] != 3:
             raise NotImplementedError(f"val of a kpt_shape {model.model[-1].kpt_shape} model is not ported: the JAX "
                                       f"kpt_iou_np reads a visibility column (lpc_yolo_tpu/utils/metrics.py:306)")
+        if model.task == "world":
+            text = np.asarray(self.yolo.txt_feats, np.float32)
+            if text.shape[1] != info["nc"]:
+                raise ValueError(f"the text table has {text.shape[1]} classes, the dataset {info['nc']}: call "
+                                 f"set_classes with the dataset's names first")
+            self.text = torch.from_numpy(text).to(self.device)
         dataset = YOLODataset(info["val"], cache_images=self.cache_images, kpt_shape=info.get("kpt_shape"),
                               obb=model.task == "obb")
         loader = DataLoader(dataset, ValTransforms(self.imgsz, self.max_gt), batch_size=self.batch,

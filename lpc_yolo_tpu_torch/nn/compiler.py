@@ -6,7 +6,8 @@ the modules that the LPC-YOLO YAML, the six YOLOv10 scales (n/s/m/b/l/x) and
 the five YOLOv8 scales (n/s/m/l/x), detect, segment, pose, OBB and classify, the ResNet
 classifiers, the other CNN detection YAMLs (v8 P2 / P6 / ghost / seg-P6 / pose-P6,
 v5 and v5-P6, v3, v3-SPP, v3-tiny, v6), YOLOv9 (v9c, v9e) and RT-DETR (rtdetr-l, -x, -resnet50, -resnet101,
-yolov8-rtdetr: HGStem, HGBlock, LightConv, RepC3, AIFI and the RTDETRDecoder head, `nn/transformer.py`)
+yolov8-rtdetr: HGStem, HGBlock, LightConv, RepC3, AIFI and the RTDETRDecoder head, `nn/transformer.py`) and
+YOLO-World (yolov8-world, -worldv2: C2fAttn, ImagePoolingAttn and the WorldDetect head)
 reach; any other module raises NotImplementedError. A CBLinear layer's output is a tuple of maps, which the CBFuse layers
 that list it read by index (:230-238).
 A layer repeated n > 1 times that takes no repeat count of its own (v3's Bottlenecks, v6's
@@ -18,7 +19,9 @@ without the TPU width-pack, upsample-commute, s2d-fold plans or int8. A layer wh
 (layer 27 of the LPC YAML) keeps its module and weights. In eval mode it is
 not computed, as XLA's dead-code pass drops it in the JAX graph; in train mode
 it runs, because there its BatchNorm statistics are an output of the JAX
-train step and move with every batch.
+train step and move with every batch. An ImagePoolingAttn layer is never dead: no layer reads its
+output, which is its input passed through, but it replaces the running text that later C2fAttn layers
+read (JAX :812-822).
 """
 
 from __future__ import annotations
@@ -38,21 +41,24 @@ from ..ops.nms import nms_rotated, non_max_suppression
 from ..ops.repack import repack_width_kernel
 from ..utils import resolve_device
 from . import modules as M
-from .heads import (OBB, Classify, Detect, Pose, Segment, V10Detect, decode_feats, decode_feats_obb,
+from .heads import (OBB, Classify, Detect, Pose, Segment, V10Detect, WorldDetect, decode_feats, decode_feats_obb,
                     decode_feats_topk_split, decode_kpts)
 from .transformer import AIFI, RTDETRDecoder
 
 # Modules whose YAML arg[0] is the (width-scaled) output-channel count, and the
 # subset that also takes the (depth-scaled) repeat count.
 _BASE = {"Conv", "DWConv", "GhostConv", "Bottleneck", "SPPF", "SPP", "C2f", "C2", "C3", "C3Ghost", "PSA", "LPC",
-         "SCDown", "C2fCIB", "RepNCSPELAN4", "ADown", "SPPELAN", "RepConv", "RepC3", "LightConv"}
-_REPEAT = {"C2f", "C2", "C3", "C3Ghost", "C2fCIB", "RepC3"}
+         "SCDown", "C2fCIB", "RepNCSPELAN4", "ADown", "SPPELAN", "RepConv", "RepC3", "LightConv", "C2fAttn"}
+_REPEAT = {"C2f", "C2", "C3", "C3Ghost", "C2fCIB", "RepC3", "C2fAttn"}
 # the YAML `activation:` values the port takes (the JAX package's act_map, :1083, less GELU, which no conv3x3
 # epilogue has); the JAX `apply_act` applies SiLU for Mish (ROADMAP Queue 3), the port Mish as the reference does
 _ACTIVATIONS = {"nn.ReLU()": "relu", "nn.SiLU()": "silu", "nn.Mish()": "mish"}
 # the ported heads, each one's task (JAX names)
 HEAD_TASKS = {"v10Detect": "v10", "Detect": "v8", "Segment": "segment", "Pose": "pose", "OBB": "obb",
-              "Classify": "classify", "RTDETRDecoder": "rtdetr"}
+              "Classify": "classify", "RTDETRDecoder": "rtdetr", "WorldDetect": "world"}
+# the layers that read the text embeddings (B, M, 512) of a YOLO-World graph
+TEXT_MODULES = {"C2fAttn", "ImagePoolingAttn", "WorldDetect"}
+TEXT_DIM = 512  # the width of the zero text a World graph takes when it is given none (JAX :738-743)
 # RTDETRDecoder's YAML args after nc, in the reference ctor's order (JAX :887-898)
 _DETR_ARGS = ("hd", "nq", "ndp", "nh", "ndl", "d_ffn")
 
@@ -113,6 +119,9 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
             c1, c2 = chs[f_list[0]], args[0]
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
+            if m == "C2fAttn":  # the embedding width and the head count scale too (JAX :156-160, tasks.py:902-906)
+                args[1] = make_divisible(min(args[1], max_channels // 2) * width, 8)
+                args[2] = int(max(round(min(args[2], max_channels // 2 // 32)) * width, 1) if args[2] > 1 else args[2])
             out_args = [c1, c2, *args[1:]]
             if m in _REPEAT:
                 out_args.insert(2, n_res)
@@ -129,6 +138,9 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
         elif m in HEAD_TASKS:
             if m == "Segment":  # npr scales with the width (JAX compiler.py:187-188)
                 args[2] = make_divisible(min(args[2], max_channels) * width, 8)
+            out_args = [*args, tuple(chs[x] for x in f_list)]
+            c2 = chs[f_list[-1]]
+        elif m == "ImagePoolingAttn":  # [ec (unscaled), the levels' widths]; its input passes through (JAX :239-242)
             out_args = [*args, tuple(chs[x] for x in f_list)]
             c2 = chs[f_list[-1]]
         elif m in ("CBAM", "AIFI"):  # [c1, *args], the width kept (JAX :168-172)
@@ -266,6 +278,13 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         return OBB(nc=a[0], ne=a[1] if len(a) > 2 else 1, ch=a[-1], strides=strides)
     if m == "RTDETRDecoder":
         return RTDETRDecoder(nc=a[0], ch=a[-1], **dict(zip(_DETR_ARGS, a[1:-1])))
+    if m == "C2fAttn":  # [c1, c2, n, ec, nh, gc] (JAX :617-621)
+        return M.C2fAttn(a[0], a[1], n=a[2], ec=a[3], nh=a[4] if len(a) > 4 else 1, gc=a[5] if len(a) > 5 else 512)
+    if m == "ImagePoolingAttn":
+        return M.ImagePoolingAttn(ec=a[0], ch=a[-1])
+    if m == "WorldDetect":  # [nc, embed, with_bn, ch] (JAX :836-846)
+        return WorldDetect(nc=a[0], embed=a[1] if len(a) > 2 else 512, with_bn=bool(a[2]) if len(a) > 3 else False,
+                           ch=a[-1], strides=strides)
     raise NotImplementedError(m)
 
 
@@ -287,7 +306,10 @@ class DetectionModel(nn.Module):
     its logits (B, nc) in train mode and {"probs" (softmax in f32), "logits"} in eval mode; a classify
     graph has no strides. An RTDETRDecoder head (:887-898) returns {"pred"} in eval mode, (B, nq, 4 + nc)
     normalised cxcywh boxes and sigmoid scores, and in train mode the DETR loss's dict of every decoder
-    layer's outputs, with the denoising queries of `dn` (`nn/transformer.py::RTDETRDecoder`) first.
+    layer's outputs, with the denoising queries of `dn` (`nn/transformer.py::RTDETRDecoder`) first. A World graph
+    reads `text` (B, M, 512), zeros of (B, nc, 512) when none is given (JAX :738-745): every C2fAttn the running
+    text, which an ImagePoolingAttn replaces by its output, and WorldDetect the original, whose (box, cls) pairs
+    have M class channels.
     x is (B, 3, H, W)
     RGB in [0, 1], or another `input_layout` of the same image (see
     `to_nchw`).
@@ -306,8 +328,9 @@ class DetectionModel(nn.Module):
         self.task = HEAD_TASKS.get(specs[-1].module) if specs else None  # None: a headless graph
         read = {j for s in specs for j in s.f if j != -1}
         read |= {s.i - 1 for s in specs if -1 in s.f}
-        # layers nothing reads (besides the head): not computed in eval mode
-        self.dead = frozenset(s.i for s in specs[:-1] if s.i not in read)
+        # layers nothing reads (besides the head): not computed in eval mode; an ImagePoolingAttn's effect is the text
+        self.dead = frozenset(s.i for s in specs[:-1] if s.i not in read and s.module != "ImagePoolingAttn")
+        self.world = any(s.module in TEXT_MODULES for s in specs)
 
     @staticmethod
     def to_nchw(x: torch.Tensor, input_layout: str = "NCHW") -> torch.Tensor:
@@ -326,9 +349,13 @@ class DetectionModel(nn.Module):
             raise ValueError(f"unknown input_layout {input_layout!r}")
         return x.permute(0, 3, 1, 2)
 
-    def forward(self, x: torch.Tensor, branches: str = "both", input_layout: str = "NCHW", dn=None):
+    def forward(self, x: torch.Tensor, branches: str = "both", input_layout: str = "NCHW", dn=None,
+                text: Optional[torch.Tensor] = None):
         x = self.to_nchw(x, input_layout)
         y: Dict[int, torch.Tensor] = {}
+        if self.world and text is None:  # the structural default, for the stride probe (JAX :738-743)
+            text = torch.zeros(x.shape[0], self.nc, TEXT_DIM, device=x.device)
+        txt = text  # the running text, which an ImagePoolingAttn replaces; WorldDetect reads the original
         for spec, module in zip(self.specs, self.model):
             dead = spec.i in self.dead
             if dead and not self.training:
@@ -336,7 +363,7 @@ class DetectionModel(nn.Module):
             if spec.module == "Classify":
                 logits = module(x if spec.f[0] == -1 else y[spec.f[0]])
                 return logits if self.training else {"probs": torch.softmax(logits.float(), -1), "logits": logits}
-            if spec.module in ("Concat", "CBFuse") or spec.module in HEAD_TASKS:
+            if spec.module in ("Concat", "CBFuse", "ImagePoolingAttn") or spec.module in HEAD_TASKS:
                 inp = [x if j == -1 else y[j] for j in spec.f]
             else:
                 inp = x if spec.f[0] == -1 else y[spec.f[0]]
@@ -346,6 +373,13 @@ class DetectionModel(nn.Module):
                 return module(inp, dn=dn) if self.training else {"pred": module(inp)}
             if spec.module == "Detect":
                 return module(inp)
+            if spec.module == "WorldDetect":
+                return module(inp, text)
+            if spec.module == "ImagePoolingAttn":  # x passes through (JAX :812-822)
+                txt = module(inp, txt)
+                if spec.i in self.save:
+                    y[spec.i] = x
+                continue
             if spec.module == "Segment":
                 feats, mc, proto = module(inp)
                 out = {"feats": feats, "mc": mc, "proto": proto}
@@ -369,13 +403,13 @@ class DetectionModel(nn.Module):
                 with torch.no_grad():
                     module(inp)
                 continue
-            x = module(inp)
+            x = module(inp, txt) if spec.module == "C2fAttn" else module(inp)
             if spec.i in self.save:
                 y[spec.i] = x
         return x  # headless graph
 
     def predict(self, x: torch.Tensor, max_det: int = 300, conf: float = 0.25, iou: float = 0.45,
-                multi_label: bool = False):
+                multi_label: bool = False, text: Optional[torch.Tensor] = None):
         """(B, max_det, 6) detections; `conf`, `iou` and `multi_label` are the NMS's and are
         not read by v10Detect's decode (the caller filters its rows by conf). A Segment model
         returns (detections, each row's mask coefficients (B, max_det, nm) gathered by its
@@ -386,7 +420,9 @@ class DetectionModel(nn.Module):
         [cx, cy, w, h, angle, score, label] rows from `nms_rotated` (the JAX predictor :181-190 and validator
         :110-127; invalid rows 0 with label -1). A Classify model returns its probabilities (B, nc) f32. An
         RT-DETR model returns (B, nq, 6) rows with no NMS, as the JAX predictor decodes them (:166-174): the boxes
-        cxcywh -> xyxy times the (square) input's size, the best score and its class; only x is read."""
+        cxcywh -> xyxy times the (square) input's size, the best score and its class; only x is read. A World model
+        reads `text` (B, M, 512) and decodes M classes through the NMS (the JAX predictor :154-159), as a Detect model
+        does its nc."""
         if self.task == "classify":
             return self.forward(x)["probs"]
         if self.task == "rtdetr":
@@ -404,8 +440,9 @@ class DetectionModel(nn.Module):
             extra = out["mc"] if self.task == "segment" else out["kpt"]
             rows = extra.gather(1, anchor.long()[..., None].expand(-1, -1, extra.shape[-1]))
             return (det, rows, out["proto"]) if self.task == "segment" else (det, rows)
-        if self.task == "v8":
-            pred = decode_feats(self.forward(x), self.strides, self.nc, self.reg_max)
+        if self.task in ("v8", "world"):
+            feats = self.forward(x, text=text)
+            pred = decode_feats(feats, self.strides, feats[0][1].shape[1], self.reg_max)
             return non_max_suppression(pred, conf, iou, max_det, multi_label=multi_label)
         pairs = self.forward(x, branches="one2one")["one2one"]
         return decode_feats_topk_split(pairs, self.strides, self.nc, self.reg_max, max_det)

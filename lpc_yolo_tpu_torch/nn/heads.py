@@ -1,8 +1,8 @@
-"""The v8 Detect, Segment, Pose, OBB, Classify and v10Detect heads, the NMS-free top-k decode, the v8 decode,
+"""The v8 Detect, WorldDetect, Segment, Pose, OBB, Classify and v10Detect heads, the NMS-free top-k decode, the v8 decode,
 the keypoint decode and the rotated decode (NCHW).
 
 Counterpart of `lpc_yolo_tpu/nn/heads.py` (`_v8_towers` :52-77, Detect
-:80-92, Segment :95-119, Pose :122-154, decode_kpts :157-176, OBB :178-204, dist2rbox :207-216, Classify :219-233;
+:80-92, WorldDetect :542-580, Segment :95-119, Pose :122-154, decode_kpts :157-176, OBB :178-204, dist2rbox :207-216, Classify :219-233;
 V10Detect :234, plain branch :309-335; decode_feats_topk_split :401-496, unpacked case;
 decode_feats_obb :499-518; decode_feats :521). The segmented TPU top-k
 (`heads._topk`) becomes `torch.topk`. Both heads return per-level
@@ -20,7 +20,7 @@ import torch.nn as nn
 
 from ..ops.anchors import dfl_expectation, dist2bbox, make_anchors
 from ..ops.boxes import xywh2xyxy
-from .modules import ConvBN, Proto
+from .modules import BNContrastiveHead, ContrastiveHead, ConvBN, Proto
 
 
 def _box_tower(ci: int, c2: int, reg_max: int) -> nn.Sequential:
@@ -58,6 +58,30 @@ class Detect(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         return [(self.cv2[i](x), self.cv3[i](x)) for i, x in enumerate(xs)]
+
+
+class WorldDetect(nn.Module):
+    """YOLO-World's open-vocabulary head (JAX `nn/heads.py:542-580`; reference head.py:224-264): per level the v8 box
+    tower (`cv2`), an embedding tower (`cv3`: 3x3 ConvBN, 3x3 ConvBN, 1x1 biased conv to `embed` channels) and a
+    contrastive head (`cv4`: `BNContrastiveHead` when `with_bn`, else `ContrastiveHead`) against the text (B, M,
+    embed). c3 = max(ch[0], min(nc, 100)) takes the YAML's nc; the class maps have the text's M channels. `forward`
+    returns the per-level (box_map, cls_map (B, M, H, W) f32) pairs that `Detect` returns."""
+
+    def __init__(self, nc: int = 80, embed: int = 512, with_bn: bool = False, ch: Sequence[int] = (),
+                 strides=(8.0, 16.0, 32.0), reg_max: int = 16):
+        super().__init__()
+        self.nc, self.reg_max, self.strides = nc, reg_max, tuple(strides)
+        c2 = max(16, ch[0] // 4, reg_max * 4)
+        c3 = max(ch[0], min(nc, 100))
+        self.cv2 = nn.ModuleList(_box_tower(c, c2, reg_max) for c in ch)
+        self.cv3 = nn.ModuleList(_v8_cls_tower(c, c3, embed) for c in ch)
+        self.cv4 = nn.ModuleList(BNContrastiveHead(embed) if with_bn else ContrastiveHead() for _ in ch)
+        with torch.no_grad():
+            for box in self.cv2:  # the box bias 1.0, as in Detect
+                box[-1].bias.fill_(1.0)
+
+    def forward(self, xs: Sequence[torch.Tensor], text: torch.Tensor) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        return [(self.cv2[i](x), self.cv4[i](self.cv3[i](x), text)) for i, x in enumerate(xs)]
 
 
 class Segment(Detect):

@@ -853,3 +853,127 @@ class HGBlock(nn.Module):
             ys.append(m(ys[-1]))
         y = self.ec(self.sc(torch.cat(ys, 1)))
         return y + x if self.add else y
+
+
+# -- the YOLO-World set (JAX `nn/modules.py:1218-1371`) -----------------------------------------------------------------
+
+
+class MaxSigmoidAttnBlock(nn.Module):
+    """Max-sigmoid text-guided attention (JAX `nn/modules.py:1219-1249`; reference block.py:404-437). The map's
+    embedding (`ec`, a 1x1 ConvBN with no activation, only when c1 != ec) is split into nh heads of hc = c2 // nh
+    channels; each head's dot with every text row (`gl`, a Linear from gc to ec) is maxed over the M rows, divided
+    by sqrt(hc), offset by the head's `bias` and put through a sigmoid: one weight a head and pixel, which scales
+    that head's channels of `proj_conv` (a 3x3 ConvBN with no activation: a conv3x3 site with the `none`
+    epilogue once folded). The attention runs in f32 when the map is bf16. The JAX block's optional learned
+    `scale` is never built by the compiler and is not ported."""
+
+    def __init__(self, c1: int, c2: int, nh: int = 1, ec: int = 128, gc: int = 512):
+        super().__init__()
+        self.nh, self.hc = nh, c2 // nh
+        self.ec = ConvBN(c1, ec, 1, act=False) if c1 != ec else None
+        self.gl = nn.Linear(gc, ec)
+        self.bias = nn.Parameter(torch.zeros(nh))
+        self.proj_conv = ConvBN(c1, c2, 3, 1, act=False)
+
+    def forward(self, x: torch.Tensor, guide: torch.Tensor) -> torch.Tensor:
+        B, _, H, W = x.shape
+        embed = x if self.ec is None else self.ec(x)
+        g = self.gl(guide.to(self.gl.weight.dtype))
+        dt = torch.promote_types(x.dtype, torch.float32)
+        with torch.autocast("cuda", enabled=False):  # the training forward runs under bf16 autocast
+            e = embed.to(dt).view(B, self.nh, self.hc, H, W)
+            aw = torch.einsum("bmchw,bnmc->bmhwn", e, g.to(dt).view(B, -1, self.nh, self.hc))
+            aw = (aw.amax(-1) / self.hc ** 0.5 + self.bias.to(dt)[:, None, None]).sigmoid()  # (B, nh, H, W)
+        y = self.proj_conv(x)
+        return (y.view(B, self.nh, self.hc, H, W) * aw[:, :, None].to(y.dtype)).view(B, -1, H, W)
+
+
+class C2fAttn(nn.Module):
+    """The fork's C2f with a text-guided attention branch (JAX `nn/modules.py:1252-1283`; reference block.py:439-465):
+    cv1 1x1 (Mish) to 2c, n 3x3 / 3x3 Bottlenecks (Mish) on the last half, then `attn` (MaxSigmoidAttnBlock) on the
+    last map, all concatenated into cv2 1x1 (Mish)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, ec: int = 128, nh: int = 1, gc: int = 512,
+                 shortcut: bool = False, g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * self.c, 1, 1, act="mish")
+        self.cv2 = ConvBN((3 + n) * self.c, c2, 1, act="mish")
+        self.m = nn.ModuleList(Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n))
+        self.attn = MaxSigmoidAttnBlock(self.c, self.c, nh=nh, ec=ec, gc=gc)
+
+    def forward(self, x: torch.Tensor, guide: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        ys = [y[:, : self.c], y[:, self.c:]]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        ys.append(self.attn(ys[-1], guide))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class ImagePoolingAttn(nn.Module):
+    """Image-aware text enhancement (JAX `nn/modules.py:1286-1336`; reference block.py:468-511): each level through
+    its 1x1 biased conv (`projections`) to ec channels and a k x k adaptive max-pool (torch's windows
+    [floor(j H / k), ceil((j + 1) H / k)), the ones the JAX code builds), the nf * k * k patches as keys and values
+    (LayerNorm, Linear), the text as queries (LayerNorm, Linear), nh-head softmax attention, `proj` back to ct, plus
+    the text: (B, M, ct). The LayerNorms take flax's epsilon 1e-6. The JAX block's optional learned `scale` is
+    never built by the compiler and is not ported."""
+
+    def __init__(self, ec: int = 256, ch: Sequence[int] = (), ct: int = 512, nh: int = 8, k: int = 3):
+        super().__init__()
+        self.nh, self.k = nh, k
+        self.projections = nn.ModuleList(nn.Conv2d(c, ec, 1) for c in ch)
+        self.query_ln, self.query_fc = nn.LayerNorm(ct, eps=1e-6), nn.Linear(ct, ec)
+        self.key_ln, self.key_fc = nn.LayerNorm(ec, eps=1e-6), nn.Linear(ec, ec)
+        self.value_ln, self.value_fc = nn.LayerNorm(ec, eps=1e-6), nn.Linear(ec, ec)
+        self.proj = nn.Linear(ec, ct)
+
+    def forward(self, xs: Sequence[torch.Tensor], text: torch.Tensor) -> torch.Tensor:
+        B, M = text.shape[:2]
+        p = torch.cat([F.adaptive_max_pool2d(proj(x), self.k).flatten(2) for proj, x in zip(self.projections, xs)],
+                      2).transpose(1, 2)  # (B, nf * k * k, ec)
+        text = text.to(self.query_fc.weight.dtype)
+        heads = lambda t: t.reshape(B, t.shape[1], self.nh, -1).transpose(1, 2)  # noqa: E731  (B, nh, L, hc)
+        q = heads(self.query_fc(self.query_ln(text)))
+        kk = heads(self.key_fc(self.key_ln(p)))
+        v = heads(self.value_fc(self.value_ln(p)))
+        out = F.scaled_dot_product_attention(q, kk, v).transpose(1, 2).reshape(B, M, -1)
+        return self.proj(out) + text
+
+
+class ContrastiveHead(nn.Module):
+    """Region-text similarity logits (JAX `nn/modules.py:1339-1353`; reference block.py:514-531): the embedding map
+    x (B, C, H, W) and the text w (B, M, C), each divided by max(its L2 norm, 1e-12) (`F.normalize`), their cosines
+    (B, M, H, W) times exp(`logit_scale`) (init log(1 / 0.07)) plus the scalar `bias`, in f32 when the inputs are
+    bf16 (the scale is ~14 at init). `keeps_f32`: a serving copy in another dtype keeps this module's parameters
+    and buffers in f32."""
+
+    keeps_f32 = True
+
+    def __init__(self):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(()))
+        self.logit_scale = nn.Parameter(torch.full((), math.log(1 / 0.07)))
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        return F.normalize(x, dim=1, eps=1e-12)
+
+    def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, torch.float32)
+        with torch.autocast("cuda", enabled=False):  # the training forward runs under bf16 autocast
+            x, w = self.embed(x.to(dt)), F.normalize(w.to(dt), dim=-1, eps=1e-12)
+            return torch.einsum("bchw,bmc->bmhw", x, w) * self.logit_scale.to(dt).exp() + self.bias.to(dt)
+
+
+class BNContrastiveHead(ContrastiveHead):
+    """The BatchNorm variant (JAX `nn/modules.py:1356-1371`; reference block.py:534-556): the embedding through a
+    BatchNorm (`norm`, eps 1e-3, the JAX running statistics) in place of its normalisation, only the text
+    normalised; `logit_scale` starts at -1.0. In f32 as ContrastiveHead."""
+
+    def __init__(self, embed_dims: int):
+        super().__init__()
+        self.norm = BatchNorm2d(embed_dims, eps=BN_EPS, momentum=BN_MOMENTUM)
+        nn.init.constant_(self.logit_scale, -1.0)
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(x)

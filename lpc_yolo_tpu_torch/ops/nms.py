@@ -1,8 +1,9 @@
 """Static-shape batched class-offset NMS (counterpart of `lpc_yolo_tpu/ops/postprocess.py:89-185`).
 
 `non_max_suppression` keeps the JAX function's signature and output: the
-candidates are cut to a pool of the `pre_topk` best scores (`torch.topk` over
-(B, A), or over the anchor-major (B, A*nc) for `multi_label`), offset by
+candidates are cut to a pool of the `pre_topk` best scores (`top_k`, in
+`lax.top_k`'s order, over (B, A), or over the anchor-major (B, A*nc) for
+`multi_label`), offset by
 label * max_wh unless `agnostic`, and then `max_det` greedy steps each take
 the best live candidate and suppress every pool box whose IoU with it is
 above `iou_thres`. The result is always (B, max_det, 6) = [x1, y1, x2, y2,
@@ -131,16 +132,23 @@ def top_candidates(scores_all: torch.Tensor, pre_topk: int, multi_label: bool):
     `multi_label` the top `pre_topk` of the anchor-major (B, A * nc) scores, one per (anchor, class);
     otherwise each anchor's best class, then the top `pre_topk` anchors (JAX :123-136, :224-237).
 
-    `torch.topk` stands for `lax.top_k`, which puts the lower index first among equal scores; `torch.topk`
-    promises no order among them, so candidates of equal score may swap places, and at the cut-off either
-    may enter."""
+    `top_k` stands for `lax.top_k`: among equal scores the lower index comes first, as `lax.top_k` orders them
+    (`torch.topk` promises no order), so the greedy loop meets tied candidates in the JAX order. A World graph
+    given zero text scores every class of a level alike."""
     B, A, nc = scores_all.shape
     if multi_label:
-        scores, flat_idx = scores_all.reshape(B, A * nc).topk(min(pre_topk, A * nc), 1)
+        scores, flat_idx = top_k(scores_all.reshape(B, A * nc), pre_topk)
         return scores, flat_idx % nc, flat_idx // nc
     scores_best, labels_best = scores_all.max(-1)
-    scores, anchor = scores_best.topk(min(pre_topk, A), 1)
+    scores, anchor = top_k(scores_best, pre_topk)
     return scores, labels_best.gather(1, anchor), anchor
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The min(k, n) largest of each row of x (B, n) and their indices, in `lax.top_k`'s order: a stable
+    descending sort of the row (`tools/time_nms_pool.py` times it beside `torch.topk` on the card)."""
+    values, idx = x.sort(dim=1, descending=True, stable=True)
+    return values[:, :k], idx[:, :k]
 
 
 def candidate_pool(preds: torch.Tensor, pre_topk: int = 4096, multi_label: bool = False):
@@ -177,10 +185,9 @@ def nms_rotated(rboxes: torch.Tensor, scores_all: torch.Tensor, conf_thres: floa
     (the column max of the upper triangle; one pass, no suppression chain). Returns (B, max_det, 7)
     [cx, cy, w, h, angle, score, label], rows ranked by score, invalid rows 0 with label -1.
 
-    Both rankings are `torch.topk`, so besides the pool's cut-off (`top_candidates`) candidates of equal
-    score may swap places in the triangle (which of two equal-scored overlapping boxes suppresses the
-    other) and in the output's order. Other inputs give the JAX rows. The (k, k) probIoU is computed
-    `PROBIOU_CHUNK` elements at a time over the images, which changes no value.
+    Both rankings are `top_k`'s, in `lax.top_k`'s order, so candidates of equal score keep the JAX order in the
+    triangle and in the output. The (k, k) probIoU is computed `PROBIOU_CHUNK` elements at a time over the
+    images, which changes no value.
     """
     rboxes, scores_all = rboxes.float(), scores_all.float()
     scores, labels, anchor = top_candidates(scores_all, pre_topk, multi_label)
@@ -199,7 +206,7 @@ def nms_rotated(rboxes: torch.Tensor, scores_all: torch.Tensor, conf_thres: floa
         keep[b0:b0 + step] = (tri.amax(1) < iou_thres) & vl
     sel = torch.where(keep, scores, -1.0)
     kd = min(max_det, k)
-    out_scores, kidx = sel.topk(kd, 1)
+    out_scores, kidx = top_k(sel, kd)
     ok = out_scores > 0
     rows = cand.gather(1, kidx[..., None].expand(B, kd, 5))
     det = torch.cat([torch.where(ok[..., None], rows, 0.0), torch.where(ok, out_scores, 0.0)[..., None],

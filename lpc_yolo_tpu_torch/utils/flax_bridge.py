@@ -17,8 +17,9 @@ arrays, and nothing here imports jax.
   holds; a LayerNorm's scale/bias become weight/bias. The leaves' names tell
   them apart, whatever the module's name (the RT-DETR decoder's BNs are
   `input_proj_<i>_1`).
-* A bare parameter (`denoising_class_embed` (nc, hd)) keeps its name and
-  layout.
+* A bare parameter (`denoising_class_embed` (nc, hd), a contrastive head's
+  rank-0 `logit_scale`) keeps its name and layout; a rank-0 `bias` (the
+  contrastive heads') is a bias like any other.
 
 `train_state_from_flax` carries a JAX `TrainState`'s numpy trees (params,
 batch_stats, the SGD momentum trace or AdamW's two moments, ema_params, the
@@ -52,7 +53,7 @@ _TORCH_BN = {v: k for k, v in _BN_LEAVES.items()}
 _TO_TORCH = {4: (3, 2, 0, 1), 3: (0, 1, 2), 2: (1, 0)}
 _TO_FLAX = {4: (2, 3, 1, 0), 3: (0, 1, 2), 2: (1, 0)}
 # parameters that are not a module's kernel, bias or scale: carried under their own name, untransposed
-_BARE = {"denoising_class_embed"}
+_BARE = {"denoising_class_embed", "logit_scale"}
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -93,14 +94,15 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Ten
         for path, arr in _flatten(variables.get(col, {})):
             arr = np.asarray(arr, np.float32)
             mod, leaf = flax_name_to_torch(path[:-1]), path[-1]
+            prefix = f"{mod}." if mod else ""  # "" at the root of a module's own tree
             if leaf in _BN_LEAVES:  # a BatchNorm's or a LayerNorm's leaf, or a kernel's bias
-                sd[f"{mod}.{_BN_LEAVES[leaf]}"] = torch.from_numpy(arr.copy())
+                sd[prefix + _BN_LEAVES[leaf]] = torch.from_numpy(arr.copy())
                 if leaf == "mean":
-                    sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
+                    sd[prefix + "num_batches_tracked"] = torch.tensor(0)
             elif leaf == "kernel" and arr.ndim in _TO_TORCH:
-                sd[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(arr.transpose(_TO_TORCH[arr.ndim])))
-            elif leaf in _BARE:  # (at the root of a module's own tree, mod is "")
-                sd[f"{mod}.{leaf}".lstrip(".")] = torch.from_numpy(arr.copy())
+                sd[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(arr.transpose(_TO_TORCH[arr.ndim])))
+            elif leaf in _BARE:
+                sd[prefix + leaf] = torch.from_numpy(arr.copy())
             else:
                 raise KeyError(f"no torch counterpart for {col}/{'/'.join(path)} {arr.shape}")
     return sd
@@ -160,7 +162,7 @@ def state_dict_to_flax(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str,
         if slot is not None:
             col, path, perm = slot
             t = t.detach().float().cpu()
-            _set(tree[col], path, np.ascontiguousarray((t.permute(perm) if perm else t).numpy()))
+            _set(tree[col], path, (t.permute(perm) if perm else t).contiguous().numpy())  # rank 0 stays rank 0
     return _sorted_tree(tree)
 
 
@@ -259,8 +261,9 @@ def random_variables(shapes: Dict[str, Any], seed: int = 0) -> Dict[str, Any]:
     C, its `out` kernel (nh, hd, C) nh * hd); BN and LayerNorm scales
     U(0.5, 1.5), BN biases and means U(±0.2), variances U(0.5, 1.5)
     (positive); other biases U(±0.5), random rather than the init constants
-    so scores spread and the top-k order is stable; a bare table
-    (`denoising_class_embed`) U(±1).
+    so scores spread and the top-k order is stable (a contrastive head's
+    rank-0 `bias` too); a bare parameter (`denoising_class_embed`,
+    `logit_scale`) U(±1).
     """
     rng = np.random.default_rng(seed)
     out: Dict[str, Any] = {}
@@ -274,7 +277,7 @@ def random_variables(shapes: Dict[str, Any], seed: int = 0) -> Dict[str, Any]:
                 arr = rng.uniform(-bound, bound, shape)
             elif kind in ("scale", "var"):
                 arr = rng.uniform(0.5, 1.5, shape)
-            elif kind == "mean" or (kind == "bias" and path[-2] == "bn"):
+            elif kind == "mean" or (kind == "bias" and path[-2:-1] == ("bn",)):
                 arr = rng.uniform(-0.2, 0.2, shape)
             elif kind == "bias":
                 arr = rng.uniform(-0.5, 0.5, shape)

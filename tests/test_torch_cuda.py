@@ -577,6 +577,20 @@ def test_rtdetr_topk_ties_on_the_card_match_the_cpu():
         assert torch.equal(select_topk(scores.cuda(), k).cpu(), select_topk(scores, k))
 
 
+@pytest.mark.parametrize("n", [8400, 672_000])
+def test_nms_pool_top_k_on_the_card_keeps_the_stable_order(n):
+    """The NMS pool's `top_k` on CUDA against a stable descending sort on the CPU: b4 rows of n scores in 1/64
+    steps (many exact ties, -0.0 beside +0.0), the first 4096 in `jax.lax.top_k`'s order, values and indices."""
+    from lpc_yolo_tpu_torch.ops.nms import top_k
+
+    g = torch.Generator().manual_seed(5)
+    scores = (torch.rand(4, n, generator=g) * 64).round() / 64
+    scores[:, ::7] = -0.0
+    values, idx = top_k(scores.cuda(), 4096)
+    ref_values, ref_idx = scores.sort(dim=1, descending=True, stable=True)
+    assert torch.equal(idx.cpu(), ref_idx[:, :4096]) and torch.equal(values.cpu(), ref_values[:, :4096])
+
+
 @pytest.mark.parametrize("cfg", ["rt-detr/rtdetr-l.yaml", "rt-detr/rtdetr-resnet50.yaml", "v8/yolov8-rtdetr.yaml"])
 def test_rtdetr_serving_on_the_card_matches_the_cpu(cfg):
     """A small-decoder RT-DETR (hd 64, nq 60, nh 4, 2 layers; every other layer as published) served on the card in
@@ -609,3 +623,68 @@ def test_rtdetr_serving_on_the_card_matches_the_cpu(cfg):
         assert_detections_close(a, b, atol_box=0.05, atol_score=1e-4)
     half = Predictor(m, imgsz=256, batch=2, device="cuda", dtype=torch.bfloat16).infer(frames)
     assert half.shape == (2, 60, 6) and bool(torch.isfinite(half).all())
+
+
+# (B, H, W, C, Co) of the YOLO-World `proj_conv` sites (MaxSigmoidAttnBlock: 3x3, no activation) at the serving
+# batch, one a C2fAttn: yolov8s-world's (64 @80², 128 @40², 256 @20²), m's (96, 192, 288) and x's (160, 320, 320)
+WORLD_PROJ_CASES = [
+    (32, 80, 80, 64, 64), (32, 40, 40, 128, 128), (32, 20, 20, 256, 256), (32, 80, 80, 96, 96),
+    (32, 40, 40, 192, 192), (32, 20, 20, 288, 288), (32, 80, 80, 160, 160), (32, 40, 40, 320, 320),
+    (32, 20, 20, 320, 320),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,Co", WORLD_PROJ_CASES)
+def test_conv3x3_world_proj_conv_shapes_match_plain(B, H, W, C, Co, dtype):
+    """The kernel with the `none` epilogue against its plain version at the World `proj_conv` sites (f32 abs 1e-4,
+    bf16 2e-2 relative)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, Co, device="cuda", generator=g) / (9 * C) ** 0.5).to(dtype)
+    b = torch.rand(Co, device="cuda", generator=g) - 0.5
+    got = conv3x3(x, w, b, False).float()
+    ref = conv3x3_plain(x.float(), w.float(), b, False)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+    else:
+        assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("cfg", ["v8/yolov8-world.yaml", "v8/yolov8-worldv2.yaml"])
+def test_world_serving_on_the_card_matches_the_cpu(cfg):
+    """A narrow World graph (scale [0.33, 0.125, 1024], every layer kept) with a text table of 5 rows served on the card
+    in f32 from two 720p frames at 256 (letterbox, the folded graph with its proj_conv sites, the contrastive heads,
+    the NMS over 5 classes) against the same serving path on the CPU: one letterbox, one conv3x3 a site and one NMS
+    launch, the rows matched tie-tolerantly (box 0.05 px, score 1e-4); then bf16 on the card, finite (B, 300, 6)
+    rows labelled below 5."""
+    import yaml
+
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.nn import build_model
+    from lpc_yolo_tpu_torch.nn.fuse import conv3x3_sites
+    from lpc_yolo_tpu_torch.ops.nms import nms_greedy
+    from lpc_yolo_tpu_torch.utils.compare import assert_detections_close
+    from lpc_yolo_tpu_torch.utils.flax_bridge import flax_shapes, load_flax, random_variables
+    from lpc_yolo_tpu_torch.utils.text_embed import encode_names
+
+    root = __import__("pathlib").Path(__file__).resolve().parents[1] / "lpc_yolo_tpu_torch" / "cfg" / "models"
+    d = {**yaml.safe_load((root / cfg).read_text()), "scales": {"n": [0.33, 0.125, 1024]}, "scale": "n"}
+    m = build_model(d, device="cpu")
+    load_flax(m, random_variables(flax_shapes(m), seed=0))
+    text = encode_names(["person", "bus", "car", "dog", "a red cone"])[None]
+    rng = np.random.default_rng(2)
+    frames = [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8) for _ in range(2)]
+    card = Predictor(m, imgsz=256, batch=2, device="cuda", dtype=torch.float32, text=text)
+    letterbox.launches = conv3x3.launches = nms_greedy.launches = 0
+    got = card.infer(frames).cpu().numpy()
+    torch.cuda.synchronize()
+    assert (letterbox.launches, conv3x3.launches, nms_greedy.launches) == (1, len(conv3x3_sites(card.model)), 1)
+    ref = Predictor(m, imgsz=256, batch=2, device="cpu", dtype=torch.float32, text=text).infer(frames).numpy()
+    for a, b in zip(got, ref):
+        n = int((b[:, 5] >= 0).sum())
+        assert n > 0 and int((a[:, 5] >= 0).sum()) == n
+        assert_detections_close(a[:n], b[:n], atol_box=0.05, atol_score=1e-4)
+    half = Predictor(m, imgsz=256, batch=2, device="cuda", dtype=torch.bfloat16, text=text).infer(frames)
+    assert half.shape == (2, 300, 6) and bool(torch.isfinite(half).all()) and half[..., 5].max().item() < 5

@@ -18,9 +18,9 @@ labelled with (with a near-uniform DFL they reach ~250 px).
   `tests/test_torch_v10.py`).
 * `non_max_suppression` (the greedy loop in `nms_plain`, as on any CPU
   tensor) against the JAX one on seeded pools of up to 8400 anchors,
-  compared tie-tolerantly (`utils/compare.py`): `torch.topk` may order tied
-  scores otherwise than `lax.top_k`, and the greedy steps take the first of
-  equal scores in pool order.
+  compared tie-tolerantly (`utils/compare.py`): the pool keeps `lax.top_k`'s
+  order of tied scores, and the greedy steps take the first of equal scores in
+  pool order, but f32 rounding may still order near-equal scores otherwise.
 * yolov8n at full width, imgsz 64 (cheap): detections, `predict`,
   `val(data=...)` and `.ckpt` files both ways against the JAX package.
 * One v8 train step on a narrow yolov8n (widths 8-64, nc 4, batch 2): loss and
