@@ -14,6 +14,7 @@
     python3 chip_smoke.py --v9         # device, build, then phase 18 (yolov9c, yolov9e) only
     python3 chip_smoke.py --rtdetr     # device, build, then phase 19 (the five RT-DETR YAMLs) only
     python3 chip_smoke.py --world      # device, build, then phase 20 (YOLO-World) only
+    python3 chip_smoke.py --track      # device, build, then phase 21 (tracking, the save family) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -276,6 +277,23 @@ Phases, in order; any failure raises and the script exits non-zero:
             against the CPU (rtol 1e-3); then YOLO(yolov8s-world,
             nc=3).train(data=..., epochs=1, save=True) on phase 8's dataset,
             counters held. Numbers under "world".
+21. track   tracking, 640, batch 1: a seeded clip of 60 720p frames (a panned
+            noise frame under six moving rectangles; `render_clip`), its
+            second half written as PNG files and read by `data/png.py`.
+            YOLO(LPC-YOLO, seed 0, bf16).track(clip, tracker="bytetrack.yaml",
+            stream=True) with the counters set to 0 just before and read at
+            each yield (a letterbox and 28 conv3x3 a frame, no NMS: the frames
+            come one at a time); then yolov8n with BoT-SORT (gmc none, ReID
+            `cnn` on the card; a letterbox, 32 conv3x3 and an NMS a frame).
+            Each frame's track rows equal the port's tracker run on the CPU over
+            the card's own detections (and the card's ReID features); the
+            card's embeddings within 1e-5 of the CPU encoder's on the same
+            crops. predict(png_dir, save_txt=True, save_conf=True,
+            stream=True): a label file written as each Results is yielded, its
+            rows the Results' rows. Times: ms a tracked frame by CUDA events
+            between yields, the host's wall, the tracker's host ms, and a
+            profile of 12 frames (busy, idle share, launches). Numbers under
+            "track".
 
 In the whole run phases 10, 11, 13, 14 and 15 run their n and x scales
 (WHOLE_RUN_SCALES), so that the script stays inside its time limit; --v10,
@@ -289,13 +307,13 @@ and "launches_obb", each kernel's launches in phase 13's yolov8n-seg, phase
 phase 12's val pool; "launches_cls" beside them from phase 16's yolov8n-cls
 predict and train(data=...); "launches_zoo" from phase 17's yolov6n train(data=...), "launches_v9" from
 phase 18's yolov9c train(data=...), "launches_rtdetr" from phase 19's rtdetr-l train(data=...), "launches_world"
-from phase 20's yolov8s-world train(data=...), and conv3x3's
+from phase 20's yolov8s-world train(data=...), "launches_track" from phase 21's two tracking runs, and conv3x3's
 "max_abs_err_relu", the f32 parity of its ReLU epilogue at yolov6n's sites); the last line is
 {"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
 "pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo",
-phase 18's under "v9", phase 19's under "rtdetr", phase 20's under "world").
+phase 18's under "v9", phase 19's under "rtdetr", phase 20's under "world", phase 21's under "track").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -410,6 +428,13 @@ WORLD_MODELS = {  # phase 20: name -> (parameters, the JAX graph's: tests/test_t
 WORLD_PROJ_SITES = 4  # one MaxSigmoidAttnBlock.proj_conv (3x3, no activation) a C2fAttn
 WORLD_VAL = WORLD_STEP = "yolov8s-worldv2.yaml"  # val on phase 7's frames; the b16 train step, f32 card vs CPU
 WORLD_TRAIN = "yolov8s-world.yaml"  # train(data=..., epochs=1, save=True) on phase 8's set (nc 3)
+TRACK_FRAMES = 60  # phase 21's clip of 720p frames, the second half read from PNG files
+TRACK_BOTSORT = {"tracker_type": "botsort", "track_high_thresh": 0.5, "track_low_thresh": 0.1, "new_track_thresh": 0.6,
+                 "track_buffer": 30, "match_thresh": 0.8, "fuse_score": True, "gmc_method": "none",
+                 "proximity_thresh": 0.5, "appearance_thresh": 0.25, "with_reid": True, "reid_encoder": "cnn"}
+V8N_SITES = 32  # yolov8n's conv3x3 sites a forward (phase 11)
+REID_TOL = 1e-5  # the CNN ReID encoder's f32 unit embeddings, card vs CPU, absolute
+REID_CHECK_BOXES = 64  # crops of each of the first two encoder calls held card vs CPU
 WHOLE_RUN_SCALES = ("n", "x")  # phases 10, 11, 13, 14 and 15 in the whole run; their flags run every scale
 P6_IMGSZ = 1280  # the P6 models' published size
 SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits at 640
@@ -3737,6 +3762,211 @@ def phase_world(val_data: Path, train_data: str):
     return launches
 
 
+def render_clip(n: int, seed: int):
+    """n 720p frames: a seeded noise frame (`frames_720p`) panned 2 px right and 1 px down a frame, under six
+    filled rectangles of the synthetic set's colours, 60 to 180 px a side, each moving 1 to 6 px a frame."""
+    from lpc_yolo_tpu_torch.data.synthetic import COLORS
+
+    rng = np.random.default_rng(seed)
+    base = frames_720p(1, seed)[0]
+    wh = rng.uniform(60, 180, (6, 2)).astype(int)
+    xy0, vel = rng.uniform(0, [1100, 540], (6, 2)), rng.uniform(-6, 6, (6, 2))
+    out = []
+    for t in range(n):
+        f = np.roll(base, (t, 2 * t), axis=(0, 1))
+        for j, ((w, h), p) in enumerate(zip(wh, xy0 + vel * t)):
+            x1, y1 = np.clip(p, 0, [1280 - w, 720 - h]).astype(int)
+            f[y1:y1 + h, x1:x1 + w] = COLORS[j % len(COLORS)]
+        out.append(f)
+    return out
+
+
+class ReplayEncoder:
+    """A ReID encoder that gives back, call by call, the features a recorded run's encoder gave."""
+
+    def __init__(self, calls):
+        self.calls = iter(calls)
+
+    def __call__(self, img, boxes):
+        _, seen_boxes, feats = next(self.calls)
+        assert np.array_equal(seen_boxes, boxes), "the replay's tracker asked for other boxes"
+        return feats
+
+
+def tracked_run(yolo, clip, tracker, per_frame: dict, phase: str):
+    """`yolo.track(clip, tracker=..., stream=True)` frame by frame, the kernels' counters set to 0 just before:
+    at each yield the counters (they must have grown by `per_frame`, so the frames come one at a time), a CUDA
+    event and the host clock; the tracker's inputs (each frame's detections and, with ReID, each encoder call's
+    boxes and features) and its host ms (the encoder's included). Then the port's tracker on the CPU over the
+    card's own detections (and features): its rows must equal the card run's on every frame."""
+    from lpc_yolo_tpu_torch.trackers.track import make_tracker
+
+    zero_launches()
+    gen = yolo.track(clip, tracker=tracker, stream=True)
+    tr = yolo.tracker
+    seen, calls, tracker_ms = [], [], []
+    update, encoder = tr.update, getattr(tr, "encoder", None)
+
+    def recorded_update(boxes, scores, classes, img=None):
+        seen.append((boxes.copy(), scores.copy(), classes.copy(), img))
+        t0 = time.perf_counter()
+        out = update(boxes, scores, classes, img)
+        tracker_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def recorded_encoder(img, boxes):
+        feats = encoder(img, boxes)
+        calls.append((img, boxes.copy(), feats))
+        return feats
+
+    tr.update = recorded_update
+    if encoder is not None:
+        tr.encoder = recorded_encoder
+    rows, events, wall = [], [], []
+    t_prev = time.perf_counter()
+    for i, r in enumerate(gen):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        now = time.perf_counter()
+        wall.append((now - t_prev) * 1e3)
+        t_prev = now
+        got = launches_now()
+        assert got == {k: per_frame.get(k, 0) * (i + 1) for k in got}, f"{phase}: frame {i}: launches {got}"
+        assert r.boxes.data.shape[1] == 7 and np.isfinite(r.boxes.data).all()
+        rows.append(r.boxes.data.copy())
+    torch.cuda.synchronize()
+    launches = launches_now()
+    assert len(rows) == len(clip) == len(seen), f"{phase}: {len(rows)} frames tracked of {len(clip)}"
+    ref = make_tracker(tracker, device="cpu")
+    if encoder is not None:
+        ref.encoder = ReplayEncoder(calls)
+    for i, (det, got) in enumerate(zip(seen, rows)):
+        out = ref.update(*det)
+        want = out[:, :7].astype(np.float32) if len(out) else np.zeros((0, 7), np.float32)
+        assert np.array_equal(want, got), f"{phase}: frame {i}: the card's track rows differ from the CPU tracker's"
+    ev_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    steady = slice(5, None)  # frame 0 waits for every frame's load; the first few warm the allocator
+    n_tracks = [len(r) for r in rows]
+    ids = {int(i) for r in rows for i in r[:, 4]}
+    dets = [len(d[0]) for d in seen]
+    return {"frames": len(rows), "launches": launches, "launches_per_frame": per_frame,
+            "ms_per_frame_events": float(np.mean(ev_ms[4:])), "ms_per_frame_events_median": float(np.median(ev_ms[4:])),
+            "wall_ms_per_frame": float(np.mean(wall[steady])), "first_frame_wall_ms": wall[0],
+            "tracker_host_ms_per_frame": float(np.mean(tracker_ms[steady])), "detections_per_frame": float(np.mean(dets)),
+            "tracks_per_frame": float(np.mean(n_tracks)), "ids": len(ids), "max_id": max(ids, default=0)}, calls
+
+
+def track_profile(yolo, clip, tracker, frames: int = 12):
+    """Device busy, idle share and launches per tracked frame: `profile_step` over `frames` steps of a new
+    tracking stream, after three frames of warm-up."""
+    it = iter(yolo.track(clip, tracker=tracker, stream=True))
+    for _ in range(3):
+        next(it)
+    prof = profile_step(lambda: next(it), iters=frames)
+    return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share", "device_launches")} | {"top": prof["top"][:6]}
+
+
+def phase_track(root: Path):
+    """Phase 21: tracking, 640, batch 1. A seeded clip of TRACK_FRAMES 720p frames (`render_clip`), the second
+    half written as PNG files (`data/synthetic.py::write_png`), so the clip is ndarrays then paths read by
+    `data/png.py` (no cv2 on this machine). (1) LPC-YOLO (seed 0, bf16).track(clip, tracker="bytetrack.yaml",
+    stream=True): a letterbox and 28 conv3x3 launches a frame and no NMS, read at each yield; the rows equal to
+    the port's ByteTrack run on the CPU over the card's detections. (2) yolov8n (seed 0) with BoT-SORT (gmc
+    none, ReID `cnn` on the card): a letterbox, V8N_SITES conv3x3 and an NMS a frame; the rows equal to the CPU
+    tracker's over the card's detections and features; the card's embeddings against the CPU encoder's on the
+    same crops within REID_TOL. (3) predict(png_dir, save_txt=True, save_conf=True, stream=True): one label file
+    written a frame as it is yielded, each file's rows those of its Results. Times: ms per tracked frame by CUDA
+    events between yields, the host's wall a frame, the tracker's host ms a frame, and a profile of 12 frames
+    (busy, idle share, launches). Returns the launches of (1) and (2) together."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.data.synthetic import write_png
+    from lpc_yolo_tpu_torch.trackers.reid import CNNEncoder
+
+    t_phase = time.perf_counter()
+    frames = render_clip(TRACK_FRAMES, seed=211)
+    png_dir = root / "clip"
+    png_dir.mkdir(parents=True)
+    half = TRACK_FRAMES // 2
+    for i, f in enumerate(frames[half:]):
+        write_png(png_dir / f"frame{i:03d}.png", f)
+    clip = frames[:half] + sorted(str(p) for p in png_dir.glob("*.png"))
+    out = REPORT.setdefault("track", {})
+
+    lpc = YOLO(YAML, device="cuda", seed=0)
+    out["lpc_bytetrack"], _ = tracked_run(lpc, clip, "bytetrack.yaml",
+                                          {"letterbox": 1, "conv3x3": CONV_SITES_PER_FORWARD}, "track")
+    launches = dict(out["lpc_bytetrack"]["launches"])
+    out["lpc_bytetrack"]["profile"] = track_profile(lpc, clip, "bytetrack.yaml")
+    r = out["lpc_bytetrack"]
+    log("track", f"LPC-YOLO ByteTrack, {r['frames']} 720p frames at 640 bf16 (half read from PNG): launches {r['launches']} "
+                 f"(a letterbox and 28 conv3x3 a frame, at each yield); rows == the CPU tracker's on the card's "
+                 f"detections; {r['detections_per_frame']:.1f} detections and {r['tracks_per_frame']:.1f} tracks a "
+                 f"frame, {r['ids']} ids; {r['ms_per_frame_events']:.3f} ms a frame by events (median "
+                 f"{r['ms_per_frame_events_median']:.3f}), wall {r['wall_ms_per_frame']:.3f}, tracker host "
+                 f"{r['tracker_host_ms_per_frame']:.3f}; profile busy {r['profile']['device_busy_ms']:.3f} ms, idle "
+                 f"{r['profile']['idle_share']:.3f}, {r['profile']['device_launches']:.0f} launches a frame")
+
+    v8n = YOLO("yolov8n.yaml", device="cuda", seed=0)
+    out["v8n_botsort"], calls = tracked_run(v8n, clip, TRACK_BOTSORT,
+                                            {"letterbox": 1, "conv3x3": V8N_SITES, "nms": 1}, "track")
+    for k, v in out["v8n_botsort"]["launches"].items():
+        launches[k] += v
+    cpu_enc = CNNEncoder(device="cpu")  # the seed-42 weights the tracker's card encoder has
+    reid_err = 0.0
+    for img, boxes, feats in calls[:2]:
+        k = min(len(boxes), REID_CHECK_BOXES)
+        reid_err = max(reid_err, float(np.abs(cpu_enc(img, boxes[:k]) - feats[:k]).max()))
+    assert reid_err <= REID_TOL, f"the card's ReID embeddings differ from the CPU's by {reid_err}"
+    out["v8n_botsort"]["reid_max_abs_err"] = reid_err
+    out["v8n_botsort"]["reid_calls"] = len(calls)
+    out["v8n_botsort"]["profile"] = track_profile(v8n, clip, TRACK_BOTSORT)
+    r = out["v8n_botsort"]
+    log("track", f"yolov8n BoT-SORT (gmc none, ReID cnn on the card): launches {r['launches']} (a letterbox, "
+                 f"{V8N_SITES} conv3x3 and an NMS a frame); rows == the CPU tracker's on the card's detections and "
+                 f"features; embeddings card vs CPU max abs {reid_err:.3g} (tol {REID_TOL}); "
+                 f"{r['detections_per_frame']:.1f} detections and {r['tracks_per_frame']:.1f} tracks a frame; "
+                 f"{r['ms_per_frame_events']:.3f} ms a frame by events, wall {r['wall_ms_per_frame']:.3f}, tracker host "
+                 f"(ReID included) {r['tracker_host_ms_per_frame']:.3f}; profile busy {r['profile']['device_busy_ms']:.3f}"
+                 f" ms, idle {r['profile']['idle_share']:.3f}, {r['profile']['device_launches']:.0f} launches a frame")
+
+    save_dir = root / "predict"
+    zero_launches()
+    t0 = time.perf_counter()
+    gen = lpc.predict(png_dir, save_txt=True, save_conf=True, stream=True, save_dir=save_dir)
+    n = 0
+    for n, res in enumerate(gen, 1):
+        files = sorted((save_dir / "labels").glob("*.txt"))
+        assert len(files) == n, f"predict(stream=True): {len(files)} label files after {n} frames"
+        lines = [ln.split() for ln in files[-1].read_text().splitlines()]
+        assert Path(res.path).stem == files[-1].stem and len(lines) == len(res)
+        if len(res):
+            got = np.array(lines, np.float64)
+            want = np.concatenate([res.boxes.cls[:, None], res.boxes.xywhn, res.boxes.conf[:, None]], 1)
+            assert np.abs(got - want).max() <= 1e-6, "a label file's rows differ from its Results' rows"
+    torch.cuda.synchronize()
+    out["predict_png"] = {"frames": n, "seconds": time.perf_counter() - t0, "launches": launches_now()}
+    assert n == TRACK_FRAMES - half and out["predict_png"]["launches"]["letterbox"] == n
+    log("track", f"predict(png_dir, save_txt, save_conf, stream=True): {n} PNG frames, a label file written as each "
+                 f"Results is yielded, its rows those of the Results (1e-6); {out['predict_png']['seconds']:.2f} s")
+    out["launches_track"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log("track", f"phase 21 passed in {out['seconds']:.1f} s; launches of the two tracking runs {launches}")
+    return launches
+
+
+def track_only() -> None:
+    """`--track`: phase 21 alone."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_track_") as tmp:
+        phase_track(Path(tmp))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_track.json").write_text(json.dumps(REPORT, indent=1))
+    log("done", "phase 21 passed; numbers in chiprun_out/chip_smoke_track.json")
+
+
 def scales_only(family: str) -> None:
     """`--v10` / `--v8`: phase 10 or 11 alone, every scale, then its n scale's train(data=..., save=True)."""
     import tempfile
@@ -3933,10 +4163,10 @@ def main(argv) -> int:
     converge = argv[:1] == ["--converge"] and len(argv) <= 2
     only = {"--v10": lambda: scales_only("v10"), "--v8": lambda: scales_only("v8"), "--seg": seg_only,
             "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only, "--v9": v9_only,
-            "--rtdetr": rtdetr_only, "--world": world_only}
+            "--rtdetr": rtdetr_only, "--world": world_only, "--track": track_only}
     if argv not in ([], ["--conv3x3"], *([k] for k in only)) and not converge:
         print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --v10, --v8, --seg, --pose, --obb, "
-              f"--cls, --zoo, --v9, --rtdetr, --world and --converge [model yaml]", file=sys.stderr)
+              f"--cls, --zoo, --v9, --rtdetr, --world, --track and --converge [model yaml]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4019,6 +4249,8 @@ def main(argv) -> int:
         rtdetr_launches = phase_rtdetr(Path(tmp) / "val" / "data.yaml", data)
         torch.cuda.empty_cache()
         world_launches = phase_world(Path(tmp) / "val" / "data.yaml", data)
+        torch.cuda.empty_cache()
+        track_launches = phase_track(Path(tmp) / "track")
     nms = time_nms()["val"]
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
@@ -4047,6 +4279,7 @@ def main(argv) -> int:
         k["launches_v9"] = v9_launches[k["name"]]  # yolov9c's train(data=...), phase 18
         k["launches_rtdetr"] = rtdetr_launches[k["name"]]  # rtdetr-l's train(data=..., save=True), phase 19
         k["launches_world"] = world_launches[k["name"]]  # yolov8s-world's train(data=..., save=True), phase 20
+        k["launches_track"] = track_launches[k["name"]]  # LPC-YOLO's ByteTrack and yolov8n's BoT-SORT runs, phase 21
     kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start

@@ -372,3 +372,98 @@ def min_area_rect(points: np.ndarray) -> np.ndarray:
             out[idx] = np.stack([centre[:, 0], centre[:, 1], np.where(along, length, 0), np.where(along, 0, length),
                                  np.where(length == 0, -90.0, np.where(along, deg, deg - 90))], -1)
     return out.reshape(pts.shape[:-2] + (5,))
+
+
+# -- cv2.findContours(RETR_EXTERNAL, CHAIN_APPROX_SIMPLE) and cv2.contourArea ----------------------------
+
+_CODE_DX = (1, 1, 0, -1, -1, -1, 0, 1)  # cv2's chain code s -> step: 0 right, 2 up, 4 left, 6 down
+_CODE_DY = (0, -1, -1, -1, 0, 1, 1, 1)
+_RIGHT_BOUND = -126  # cv2's mark of a border pixel whose right neighbour is background (nbd 2 | -128)
+
+
+def _follow_outer_border(img, i0: int, step: int, x: int, y: int) -> List[Tuple[int, int]]:
+    """cv2's `icvFetchContour` of an outer border from flat index i0 (frame pixel (x, y)) of the padded
+    signed-byte image `img` (a memoryview), marking its pixels 2 or `_RIGHT_BOUND` as cv2 marks them:
+    the points where the chain code turns (CHAIN_APPROX_SIMPLE), from the start pixel on."""
+    deltas = (1, -step + 1, -step, -step - 1, -1, step - 1, step, step + 1) * 2
+    s = s_end = 4
+    while True:  # the first neighbour clockwise from up-left
+        s = (s - 1) & 7
+        i1 = i0 + deltas[s]
+        if img[i1] != 0 or s == s_end:
+            break
+    if s == s_end:  # a lone pixel
+        img[i0] = _RIGHT_BOUND
+        return [(x, y)]
+    pts = []
+    i3, prev_s = i0, s ^ 4
+    while True:
+        s_end = s
+        while s < 15:  # the next neighbour counter-clockwise
+            s += 1
+            i4 = i3 + deltas[s]
+            if img[i4] != 0:
+                break
+        s &= 7
+        if 0 <= s - 1 < s_end:
+            img[i3] = _RIGHT_BOUND
+        elif img[i3] == 1:
+            img[i3] = 2
+        if s != prev_s:
+            pts.append((x, y))
+            prev_s = s
+        x += _CODE_DX[s]
+        y += _CODE_DY[s]
+        if i4 == i0 and i3 == i1:
+            return pts
+        i3 = i4
+        s = (s + 4) & 7
+
+
+def find_external_contours(mask: np.ndarray) -> List[np.ndarray]:
+    """cv2.findContours(mask, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)[0] of an (H, W) mask (nonzero is
+    foreground), without OpenCV: a list of (K, 1, 2) int32 (x, y) contours, point for point and in cv2's
+    order. Suzuki and Abe's border following as cv2 runs it: the mask padded by one zero pixel, a raster scan
+    that starts an outer border at a 0 -> 1 step whose last marked pixel on the row is not inside a traced
+    component, 8-connected borders traced counter-clockwise from the first pixel and marked, straight runs
+    kept by their ends; holes and whatever lies inside them are skipped, and each contour found is put in
+    front of those found before (cv2's list order)."""
+    m = np.asarray(mask)
+    h, w = m.shape
+    pad = np.zeros((h + 2, w + 2), np.int8)
+    pad[1:-1, 1:-1] = m != 0
+    buf = bytearray(pad.tobytes())
+    img = memoryview(buf).cast("b")
+    arr = np.frombuffer(buf, np.int8).reshape(h + 2, w + 2)
+    step, width = w + 2, w + 1
+    contours: List[np.ndarray] = []
+    for y in np.flatnonzero(pad.any(1)).tolist():
+        row = arr[y]
+        x, prev, lnbd = 1, 0, 0
+        while x < width:
+            nxt = np.flatnonzero(row[x:width] != prev)  # cv2's fast skip to the next change of value
+            if not len(nxt):
+                break
+            x += int(nxt[0])
+            p = int(row[x])
+            if prev == 0 and p == 1 and row[lnbd] <= 0:  # an outer border, not inside a traced component
+                pts = _follow_outer_border(img, y * step + x, step, x - 1, y - 1)
+                contours.append(np.asarray(pts, np.int32).reshape(-1, 1, 2))
+                prev = int(row[x])
+            else:
+                prev = p
+                if p & -2:  # a marked border pixel: the last one seen on this row
+                    lnbd = x
+            x += 1
+    return contours[::-1]
+
+
+def contour_area(contour: np.ndarray) -> float:
+    """cv2.contourArea of an integer or float contour (K, 1, 2) or (K, 2): the shoelace sum in f64 from the
+    last point around, halved, its absolute value."""
+    p = np.asarray(contour).reshape(-1, 2).astype(np.float32).astype(np.float64)
+    q = np.roll(p, 1, 0)
+    a = 0.0
+    for (px, py), (x, y) in zip(q.tolist(), p.tolist()):
+        a += px * y - py * x
+    return abs(a * 0.5)

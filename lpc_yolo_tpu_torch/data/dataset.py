@@ -36,6 +36,7 @@ import numpy as np
 import yaml
 
 from .cvops import min_area_rect
+from . import png
 
 IMG_SUFFIXES = {".bmp", ".dng", ".jpeg", ".jpg", ".mpo", ".png", ".tif", ".tiff", ".webp"}
 
@@ -90,16 +91,13 @@ def img2label_path(img_path: str) -> str:
 
 
 def imread(path: str) -> np.ndarray:
-    """Decode an image file to an HWC uint8 BGR array with OpenCV."""
+    """Decode an image file to an HWC uint8 BGR array (`data/png.py::read_image`: a PNG without OpenCV, any
+    other format with it)."""
     try:
-        import cv2
+        return png.read_image(path)
     except ImportError as e:
         raise ImportError(f"decoding {path} needs OpenCV, which is not installed: save each image's decoded BGR "
                           f"array as a .npy twin beside it and pass cache_images='disk'") from e
-    im = cv2.imread(path)
-    if im is None:
-        raise FileNotFoundError(path)
-    return im
 
 
 def read_image(path: str, cache_images: Optional[str] = None) -> np.ndarray:

@@ -4,7 +4,9 @@
 YAMLs (or a path), with weights made from a seed or loaded from JAX variables
 through the weight bridge; `YOLO("x.ckpt")` rebuilds it from a `.ckpt` that
 `YOLO.save` of either package wrote (the JAX `_load_native_ckpt`, :90-120).
-`.predict(frames)` serves it, `.train(data=...)` trains it on a dataset (or
+`.predict(frames)` serves it (`stream=True` frame by frame, the save family
+as in the JAX facade; `yolo(frames)` is the same), `.track(frames)` runs it
+through ByteTrack or BoT-SORT (`trackers/`), `.train(data=...)` trains it on a dataset (or
 `.train(batches=...)` on an iterable of host batches), `.val(data=...)`
 measures it on a dataset, `.save(path)` writes it as a `.ckpt` the JAX
 facade loads and `.load(weights)` takes over every weight whose name and
@@ -30,7 +32,7 @@ scores are the similarities of its region embeddings with a text table:
 `set_classes(names, embeddings=...)` sets another. `predict`, `val` and
 `train` read that table (the JAX validator and train step read none: ROADMAP
 Queue 3); `train(data=...)` sets the names and the table to the dataset's.
-`.pt` files, export and the other tasks wait for later slices.
+`.pt` files, `embed`, `fuse`, `info`, `profile`, export and the research zoo wait for later slices.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..utils.text_embed import encode_names
 from .predictor import Predictor
 
 _CFG_ROOT = Path(__file__).resolve().parents[1] / "cfg" / "models"
+SAVE_KEYS = {"save", "save_txt", "save_conf", "save_crop", "save_dir", "project", "name", "exist_ok"}
 
 
 def _resolve_yaml(name: Union[str, Path]) -> Path:
@@ -120,6 +123,7 @@ class YOLO:
         names = {int(k): v for k, v in names.items()} if isinstance(names, dict) else dict(enumerate(names))
         keep = len(names) == self.model.nc or self.task == "world" and meta.get("names")  # a World set's M is free
         self.names = names if keep else {i: str(i) for i in range(self.model.nc)}
+        self.tracker = None  # the tracker of the last `track` call, which `persist=True` goes on with
         self.txt_feats = None
         if self.task == "world":  # the names' text table, in index order (JAX :84-88)
             self.txt_feats = encode_names([self.names[i] for i in sorted(self.names)])[None]
@@ -158,12 +162,37 @@ class YOLO:
         return self
 
     def predict(self, source, conf: float = 0.25, iou: float = 0.45, imgsz: int = 640, batch: int = 1,
-                max_det: int = 300, device: Union[str, torch.device, None] = None):
-        """Detect in frames (HWC uint8 BGR ndarrays, lists of them, or image/video paths) -> [Results];
-        `iou` is the NMS threshold of a v8 model."""
+                max_det: int = 300, device: Union[str, torch.device, None] = None, stream: bool = False,
+                **save_kw):
+        """Detect in frames (HWC uint8 BGR ndarrays, PIL images, image or video paths, a directory, a glob,
+        or lists of them) -> [Results], or with `stream` a generator of them, frame by frame; `iou` is the
+        NMS threshold of a v8 model. `save_kw` are the JAX facade's save family (save, save_txt, save_conf,
+        save_crop, save_dir, project, name, exist_ok: `engine/predictor.py::Predictor`)."""
+        unknown = set(save_kw) - SAVE_KEYS
+        if unknown:
+            raise TypeError(f"predict got unexpected arguments {sorted(unknown)}")
         predictor = Predictor(self.model, imgsz=imgsz, batch=batch, conf=conf, iou=iou, max_det=max_det,
-                              names=self.names, device=device or self.device, text=self.txt_feats)
-        return predictor(source)
+                              names=self.names, device=device or self.device, text=self.txt_feats, **save_kw)
+        return predictor(source, stream=stream)
+
+    def __call__(self, source, **kw):
+        return self.predict(source, **kw)
+
+    def track(self, source, tracker: Union[str, Path, dict] = "bytetrack.yaml", conf: float = 0.1,
+              stream: bool = False, persist: bool = False, **kw):
+        """Track objects through frames (JAX `engine/model.py:216-230`): `predict(conf=conf, batch=1,
+        stream=True)` fed frame by frame to a tracker (`trackers/track.py`: a config name, path or dict,
+        ByteTrack or BoT-SORT), each Results' boxes [x1, y1, x2, y2, id, conf, cls] of the tracks confirmed
+        on that frame. With `persist` the tracker of the last `track` call goes on (its tracks, frame count
+        and ids), as the reference keeps the predictor's trackers; otherwise a new one starts, with ids from
+        1. The JAX facade starts a new one on every call (ROADMAP Queue 3)."""
+        from ..trackers.track import make_tracker, track_stream
+
+        if not (persist and self.tracker is not None):
+            self.tracker = make_tracker(tracker, device=kw.get("device") or self.device)
+        results = self.predict(source, conf=conf, batch=1, stream=True, **kw)
+        gen = track_stream(results, self.tracker)
+        return gen if stream else list(gen)
 
     def val(self, data=None, device: Union[str, torch.device, None] = None, **kw) -> Dict[str, float]:
         """Validate on the `val` split of a dataset YAML (path or dict) -> the metrics dict.

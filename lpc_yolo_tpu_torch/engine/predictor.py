@@ -35,11 +35,22 @@ frame follow the JAX predictor (:322-327), and so does `Results.speed`
 (:358-362): "preprocess" is the host's time to pin, copy and enqueue the
 letterbox, "inference" runs until the detections are on the host,
 "postprocess" is the conf filter and unscaling, each per frame.
+
+`Predictor(...)(source, stream=True)` is a generator that yields each frame's
+Results as its batch comes off the card (JAX :202-218); the save family
+(save, save_txt, save_conf, save_crop, save_dir, project, name, exist_ok)
+writes each Results before it is yielded, into `utils/infra.py::get_save_dir`
+with the JAX layout (:220-250). Sources are loaded as the JAX `load_source`
+loads them (:39-84): ndarrays, PIL images, paths, directories, globs, videos;
+PNG files are read without OpenCV (`data/png.py`), every other image or video
+file with cv2, and the save family draws and writes with cv2: without it these
+raise an ImportError that names the file or the feature.
 """
 
 from __future__ import annotations
 
 import copy
+import glob
 import os
 import time
 from pathlib import Path
@@ -52,7 +63,9 @@ from ..nn.fuse import fold_preprocess, fuse_conv_bn
 from ..ops.boxes import rbox_hull, scale_boxes
 from ..ops.letterbox import letterbox
 from ..ops.masks import process_kept_rows, unletterbox_masks
-from ..utils import resolve_device
+from ..data.png import read_image
+from ..utils import require_cv2, resolve_device
+from ..utils.infra import get_save_dir
 from .results import Results
 
 IMG_SUFFIXES = {".bmp", ".dng", ".jpeg", ".jpg", ".mpo", ".png", ".tif", ".tiff", ".webp", ".pfm"}
@@ -60,10 +73,13 @@ VID_SUFFIXES = {".asf", ".avi", ".gif", ".m4v", ".mkv", ".mov", ".mp4", ".mpeg",
 
 
 def load_source(source) -> List[Tuple[str, np.ndarray]]:
-    """Resolve a source into [(path, HWC uint8 BGR frame)].
+    """Resolve a source into [(path, HWC uint8 BGR frame)] (JAX :39-84).
 
-    ndarrays and lists of them need nothing else; image and video files are
-    read with cv2, imported only for them.
+    ndarrays, PIL images (told by their class name; PIL is not imported) and
+    lists of any source need nothing else; a glob, a directory (its image and
+    video files, sorted) or a file path is read file by file: PNGs without
+    OpenCV (`data/png.py::read_image`), other images and every frame of a
+    video with cv2, imported only for them.
     """
     if isinstance(source, (list, tuple)):
         out: List[Tuple[str, np.ndarray]] = []
@@ -74,15 +90,19 @@ def load_source(source) -> List[Tuple[str, np.ndarray]]:
         if source.dtype != np.uint8 or source.ndim != 3 or source.shape[2] != 3:
             raise ValueError(f"expected an (h, w, 3) uint8 BGR frame, got {source.shape} {source.dtype}")
         return [("image0.jpg", source)]
-    import cv2
-
+    if source.__class__.__name__ == "Image":  # a PIL image, duck-typed
+        return [("image0.jpg", np.ascontiguousarray(np.asarray(source.convert("RGB"))[..., ::-1]))]
     p = str(source)
-    files = sorted(str(f) for f in Path(p).iterdir()) if os.path.isdir(p) else [p]
+    if any(c in p for c in "*?[") and not os.path.exists(p):
+        files = sorted(glob.glob(p, recursive=True))
+    elif os.path.isdir(p):
+        files = sorted(str(f) for f in Path(p).iterdir() if f.suffix.lower() in IMG_SUFFIXES | VID_SUFFIXES)
+    else:
+        files = [p]
     out = []
     for f in files:
-        suffix = Path(f).suffix.lower()
-        if suffix in VID_SUFFIXES:
-            cap = cv2.VideoCapture(f)
+        if Path(f).suffix.lower() in VID_SUFFIXES:
+            cap = require_cv2(f"reading the video {f}").VideoCapture(f)
             i = 0
             while True:
                 ok, frame = cap.read()
@@ -91,11 +111,8 @@ def load_source(source) -> List[Tuple[str, np.ndarray]]:
                 out.append((f"{f}#frame{i}", frame))
                 i += 1
             cap.release()
-        elif suffix in IMG_SUFFIXES:
-            im = cv2.imread(f)
-            if im is None:
-                raise FileNotFoundError(f"cannot read image {f}")
-            out.append((f, im))
+        else:
+            out.append((f, read_image(f)))
     return out
 
 
@@ -140,7 +157,9 @@ class Predictor:
     def __init__(self, model, imgsz: int = 640, batch: int = 1, conf: float = 0.25, iou: float = 0.45,
                  max_det: int = 300, names: Optional[Dict[int, str]] = None,
                  device: Union[str, torch.device, None] = None, dtype: Optional[torch.dtype] = None,
-                 text: Optional[np.ndarray] = None):
+                 text: Optional[np.ndarray] = None, save: bool = False, save_txt: bool = False,
+                 save_conf: bool = False, save_crop: bool = False, save_dir: Optional[Union[str, Path]] = None,
+                 project: Optional[Union[str, Path]] = None, name: Optional[str] = None, exist_ok: bool = False):
         self.device = resolve_device(device)
         # a World model's text table (1, M, 512), broadcast to each batch (JAX :154-159)
         self.text = None if text is None else torch.as_tensor(np.asarray(text, np.float32), device=self.device)
@@ -153,6 +172,13 @@ class Predictor:
         if self.kpt_shape is not None and self.kpt_shape[1] != 3:
             raise NotImplementedError(f"predict of a kpt_shape {self.kpt_shape} model is not ported: the JAX predictor "
                                       f"reshapes keypoint rows by nk // 3 (lpc_yolo_tpu/engine/predictor.py:344)")
+        # what to write of each result (JAX :117-131): the annotated frame or video, labels/, crops/
+        self.save, self.save_txt, self.save_conf, self.save_crop = save, save_txt, save_conf, save_crop
+        self.save_dir: Optional[Path] = None
+        if save or save_txt or save_crop:
+            task = "detect" if self.model.task in ("v10", "v8", "world", "rtdetr") else self.model.task
+            self.save_dir = Path(save_dir) if save_dir else get_save_dir(task, "predict", project, name, exist_ok)
+        self._writers: Dict[str, object] = {}
 
     def preprocess(self, frames: List[np.ndarray]) -> torch.Tensor:
         """Letterbox frames to uint8 (the rounded frame cv2 gives the JAX predictor), as a
@@ -213,10 +239,56 @@ class Predictor:
         boxes = scale_boxes((self.imgsz, self.imgsz), torch.from_numpy(rows[:, :4]), im0.shape[:2]).numpy()
         return np.concatenate([boxes, rows[:, 4:6]], axis=-1)
 
-    def __call__(self, source) -> List[Results]:
-        return list(self.stream_inference(source))
+    def __call__(self, source, stream: bool = False):
+        """The Results of every frame: a list, or with `stream` a generator that yields them frame by frame."""
+        gen = self.stream_inference(source)
+        return gen if stream else list(gen)
 
     def stream_inference(self, source) -> Iterator[Results]:
+        """Results frame by frame, each written as the save flags ask before it is yielded (JAX :206-218)."""
+        if self.save_dir is None:
+            yield from self._stream(source)
+            return
+        try:
+            for r in self._stream(source):
+                self._persist(r)
+                yield r
+        finally:
+            for w in self._writers.values():
+                w.release()
+            self._writers.clear()
+
+    def _persist(self, r: Results) -> None:
+        """Write one result into save_dir as the JAX predictor does (:220-250): with `save` the annotated
+        frame under its file name (a video's frames into <stem>.avi, MJPG at the video's rate), with
+        `save_txt` labels/<stem>.txt (a video frame's labels/<stem>_<frame>.txt), with `save_crop`
+        crops/<class>/<stem>.jpg."""
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        path = str(r.path)
+        vid, _, frame = path.partition("#frame")
+        stem = Path(vid).stem or "image0"
+        if self.save:
+            cv2 = require_cv2("predict(save=True)")
+            im = r.plot()
+            if frame:
+                w = self._writers.get(vid)
+                if w is None:
+                    cap = cv2.VideoCapture(vid)
+                    fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+                    cap.release()
+                    w = cv2.VideoWriter(str(self.save_dir / f"{stem}.avi"), cv2.VideoWriter_fourcc(*"MJPG"),
+                                        max(fps, 1.0), (im.shape[1], im.shape[0]))
+                    self._writers[vid] = w
+                w.write(im)
+            else:
+                cv2.imwrite(str(self.save_dir / (Path(path).name or "image0.jpg")), im)
+        if self.save_txt:
+            txt = f"{stem}_{frame}.txt" if frame else f"{stem}.txt"
+            r.save_txt(str(self.save_dir / "labels" / txt), save_conf=self.save_conf)
+        if self.save_crop:
+            r.save_crop(str(self.save_dir / "crops"), file_name=f"{stem}.jpg")
+
+    def _stream(self, source) -> Iterator[Results]:
         """Results frame by frame, one batch of `batch` frames at a time."""
         frames = load_source(source)
         for i in range(0, len(frames), self.batch):

@@ -1,6 +1,6 @@
 """Box conversions and IoU (counterpart of `lpc_yolo_tpu/ops/boxes.py`
 xywh2xyxy :19, bbox_iou :72, probiou :145, xywhr2xyxyxyxy :164, scale_boxes
-:174, clip_boxes :195, rbox_hull :203; reference ops.py, metrics.py)."""
+:174, clip_boxes :195, rbox_hull :203, regularize_rboxes :267; reference ops.py, metrics.py)."""
 
 from __future__ import annotations
 
@@ -121,3 +121,13 @@ def rbox_hull(rbox: torch.Tensor) -> torch.Tensor:
     """The axis-aligned hull (..., 4) xyxy of rotated boxes (..., 5) (JAX :203-208)."""
     pts = xywhr2xyxyxyxy(rbox)
     return torch.cat([pts.amin(-2), pts.amax(-2)], -1)
+
+
+def regularize_rboxes(rboxes: torch.Tensor) -> torch.Tensor:
+    """Rotated boxes (..., 5) [x, y, w, h, angle] with the longer side as w and the angle in [0, pi)
+    (JAX `ops/boxes.py:267`): where h >= w the sides swap and the angle turns by pi / 2."""
+    x, y, w, h, t = rboxes.unbind(-1)
+    long_first = w > h
+    w_, h_ = torch.where(long_first, w, h), torch.where(long_first, h, w)
+    t_ = torch.remainder(torch.where(long_first, t, t + math.pi / 2), math.pi)
+    return torch.stack([x, y, w_, h_, t_], -1)

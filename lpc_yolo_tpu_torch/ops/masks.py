@@ -1,6 +1,6 @@
-"""Instance masks: decode, the letterbox undo, and a polygon fill (counterpart of
-`lpc_yolo_tpu/ops/masks.py`, crop_mask :20, process_mask :34, the pad crop and
-resize of scale_image :74-94).
+"""Instance masks: decode, the letterbox undo, polygons, and a polygon fill (counterpart of
+`lpc_yolo_tpu/ops/masks.py`, crop_mask :20, process_mask :34, masks2segments :54,
+scale_image :74, scale_masks :97).
 
 `process_mask` is sigmoid(coeffs @ protos), cropped to each box in proto
 pixels and, with `upsample`, resized bilinearly to the network input (JAX
@@ -15,6 +15,15 @@ predictor does (:328-340): the pad cropped at `round(pad)`, then cv2's f32
 fused lerp, in torch on any device), then `> 0.5`. The card's machine has no
 OpenCV.
 
+`masks2segments` traces each mask's outer borders with
+`data/cvops.py::find_external_contours` (cv2.findContours, RETR_EXTERNAL,
+CHAIN_APPROX_SIMPLE, without OpenCV). `scale_image` crops the letterbox pad of
+an (H, W[, C]) array and resizes it as cv2.resize (INTER_LINEAR) does: uint8
+through `data/cvops.py::resize`, f32 through `resize_linear`. `scale_masks`
+crops the pad of (..., H, W) masks and resizes them as `jax.image.resize(...,
+"bilinear")` does (antialiased when it shrinks): a triangle kernel's weights in
+f32 along each axis, normalised, contracted with the masks.
+
 `fill_poly` is `cv2.fillPoly(img, [pts], color)` for one int32 polygon
 (`LINE_8`, shift 0) bit for bit, in numpy on the host: cv2's Bresenham
 outline of every edge (clipped as cv2 clips), then its scanline fill over
@@ -25,7 +34,7 @@ paired, a span from the ceiling of the left one to the floor of the right.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -119,6 +128,95 @@ def unletterbox_masks(masks: torch.Tensor, imgsz: int, orig_shape: Tuple[int, in
     y1, y2 = int(round(ph)), int(round(imgsz - ph))
     x1, x2 = int(round(pw)), int(round(imgsz - pw))
     return resize_linear(masks[:, y1:y2, x1:x2], (h0, w0)) > 0.5
+
+
+def masks2segments(masks, strategy: str = "largest") -> List[np.ndarray]:
+    """(N, H, W) binary masks -> one (n, 2) f32 polygon each: the outer border with the most points
+    ("largest") or all outer borders end to end ("concat"); (0, 2) for an empty mask."""
+    from ..data.cvops import find_external_contours
+
+    out = []
+    for m in np.asarray(masks).astype(np.uint8):
+        cs = find_external_contours(m)
+        if cs:
+            seg = np.concatenate([c.reshape(-1, 2) for c in cs]) if strategy == "concat" else max(cs, key=len).reshape(-1, 2)
+        else:
+            seg = np.zeros((0, 2))
+        out.append(seg.astype(np.float32))
+    return out
+
+
+def _letterbox_crop(hw: Tuple[int, int], shape: Sequence[int], pad=None) -> Tuple[int, int, int, int]:
+    """(top, bottom, left, right) of the content of a letterboxed (h, w) array whose frame is `shape`;
+    `pad` (pad_w, pad_h) when given, else the centred pad of the gain min(h / h0, w / w0)."""
+    h, w = hw
+    if pad is None:
+        gain = min(h / shape[0], w / shape[1])
+        pad = ((w - shape[1] * gain) / 2, (h - shape[0] * gain) / 2)
+    return (int(round(pad[1] - 0.1)), h - int(round(pad[1] + 0.1)),
+            int(round(pad[0] - 0.1)), w - int(round(pad[0] + 0.1)))
+
+
+def scale_image(masks: np.ndarray, im0_shape: Sequence[int], ratio_pad=None) -> np.ndarray:
+    """Undo the letterbox on an (H, W) or (H, W, C) uint8 or f32 array: crop the pad (`ratio_pad`'s
+    (ratio, (pad_w, pad_h)) when given) and resize to im0_shape (h0, w0) as cv2.resize does (INTER_LINEAR;
+    a single channel comes out (h0, w0), as from cv2); the array itself when its size is already the
+    frame's. cv2's own f32 path for 2 or more than 4 channels rounds otherwise: those planes are resized
+    one at a time, as cv2 resizes a single plane."""
+    from ..data.cvops import resize
+
+    masks = np.asarray(masks)
+    if masks.shape[:2] == tuple(im0_shape[:2]):
+        return masks
+    top, bottom, left, right = _letterbox_crop(masks.shape[:2], im0_shape, None if ratio_pad is None else ratio_pad[1])
+    crop = masks[top:bottom, left:right]
+    h0, w0 = int(im0_shape[0]), int(im0_shape[1])
+    planes = crop.reshape(*crop.shape[:2], -1)
+    c = planes.shape[-1]
+    if crop.dtype == np.uint8:  # cv2's fixed-point path, the same for every channel: three at a time
+        k = -(-c // 3) * 3
+        src = np.zeros((*planes.shape[:2], k), np.uint8)
+        src[..., :c] = planes
+        src = torch.from_numpy(src).reshape(*planes.shape[:2], k // 3, 3).permute(2, 0, 1, 3)
+        out = resize(src.contiguous(), (w0, h0)).permute(1, 2, 0, 3).reshape(h0, w0, k)[..., :c].numpy()
+    elif crop.dtype == np.float32:
+        out = resize_linear(torch.from_numpy(np.ascontiguousarray(planes.transpose(2, 0, 1))), (h0, w0))
+        out = out.permute(1, 2, 0).numpy()
+    else:
+        raise TypeError(f"scale_image takes uint8 or float32 arrays, got {crop.dtype}")
+    return out.reshape(h0, w0) if c == 1 else out
+
+
+def _triangle_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """`jax.image.resize`'s (n_in, n_out) f32 weights of the triangle kernel along one axis: sample
+    points (i + 0.5) / scale - 0.5, the kernel widened by 1 / scale when it shrinks, each column
+    normalised by its sum, zero where the sample lies outside the input."""
+    f32 = np.float32
+    inv = f32(1.0 / (n_out / n_in))
+    ks = max(inv, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv - f32(0.0) * inv - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / ks
+    w = np.maximum(f32(0), f32(1) - np.abs(x)).astype(f32)
+    total = w.sum(0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps), w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.from_numpy(np.where(inside[None, :], w, 0).astype(f32))
+
+
+def scale_masks(masks: torch.Tensor, shape: Sequence[int], padding: bool = True) -> torch.Tensor:
+    """(..., H, W) letterboxed masks -> (..., h, w) at `shape`: the centred pad cropped (with `padding`),
+    then `jax.image.resize(..., "bilinear")`'s resize in f32."""
+    mh, mw = masks.shape[-2:]
+    if padding:
+        top, bottom, left, right = _letterbox_crop((mh, mw), shape)
+        masks = masks[..., top:bottom, left:right]
+    x = masks.float()
+    h, w = int(shape[0]), int(shape[1])
+    if x.shape[-2] != h:
+        x = torch.einsum("...hw,hH->...Hw", x, _triangle_weights(x.shape[-2], h).to(x.device))
+    if x.shape[-1] != w:
+        x = torch.einsum("...hw,wW->...hW", x, _triangle_weights(x.shape[-1], w).to(x.device))
+    return x
 
 
 # -- cv2.fillPoly ----------------------------------------------------------------------------

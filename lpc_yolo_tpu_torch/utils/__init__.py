@@ -19,3 +19,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def require_cv2(feature: str):
+    """OpenCV, for the features that draw or write media with it (plotting, `Results.save`, the save
+    family's images and videos, video files, GMC's motion estimates); an ImportError that names the
+    feature when it is not installed, as on the machine with the card. Nothing falls back without it."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"{feature} needs OpenCV (cv2), which is not installed") from e
+    return cv2

@@ -31,7 +31,8 @@ tree of a trainer's `.ckpt`. Every tree built here has its dict keys in
 sorted order at every level, the order of a JAX pytree's dicts, so flax's
 msgpack of a JAX state and of the port's state agree byte for byte.
 
-`random_variables` fills a shape tree from a numpy seed, so the JAX package
+`variables_from_flat` builds a tree from `/`-joined leaf names (the JAX ReID
+encoder's `.npz` files). `random_variables` fills a shape tree from a numpy seed, so the JAX package
 (through `jax.eval_shape`) and the port (through `flax_shapes`) get the same
 numbers without either running the other's init.
 """
@@ -294,3 +295,14 @@ def load_flax(model: nn.Module, variables: Dict[str, Any]) -> nn.Module:
     dev = next(model.parameters()).device
     model.load_state_dict({k: v.to(dev) for k, v in flax_to_state_dict(variables).items()}, strict=True)
     return model
+
+
+def variables_from_flat(flat: Mapping[str, Any], base: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """A nested variables tree from arrays keyed by the JAX `/`-joined paths ("params/conv0/kernel", as
+    the JAX ReID encoder's `.npz` names them), each laid over a copy of `base`, whose other leaves stay."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in _flatten(base or {}):
+        _set(tree, path, leaf)
+    for key, arr in flat.items():
+        _set(tree, tuple(key.split("/")), np.asarray(arr))
+    return tree
