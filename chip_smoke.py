@@ -15,6 +15,7 @@
     python3 chip_smoke.py --rtdetr     # device, build, then phase 19 (the five RT-DETR YAMLs) only
     python3 chip_smoke.py --world      # device, build, then phase 20 (YOLO-World) only
     python3 chip_smoke.py --track      # device, build, then phase 21 (tracking, the save family) only
+    python3 chip_smoke.py --cli        # device, build, then phase 22 (the CLI, autobatch, the new augmentations) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -294,10 +295,30 @@ Phases, in order; any failure raises and the script exits non-zero:
             between yields, the host's wall, the tracker's host ms, and a
             profile of 12 frames (busy, idle share, launches). Numbers under
             "track".
+22. cli     the `yolo` command line and the rest of the trainer, on phase 8's
+            dataset with LPC-YOLO at nc 3 (`cli_yaml`): the CLI's `train`
+            with batch=-1 (autobatch: one real step a candidate batch on the
+            card, its peak against 60% of the card's memory), epochs=1, 640,
+            perspective 0.0005 and copy_paste 0.5, counters held (a repack a
+            probe and a step, a letterbox and 28 conv3x3 a validation batch);
+            the CLI's `predict` (a letterbox and 28 conv3x3 a frame) and `val`
+            with their counters, and `python -m lpc_yolo_tpu_torch predict
+            ... save_txt=True` as a subprocess; the trainer's autobatch alone
+            for yolov8x-obb at 1024; a b16 batch of mosaic9 + copy_paste +
+            perspective plans rendered on the card and on the CPU (bit for
+            bit), its render's ms and launches beside a mosaic4 batch's; a
+            one-epoch train(hyp={"mosaic9": 0.5}, cache_augmented=4) with a
+            callback recording the five events (the JAX order) and the sinks'
+            files; embed on the card against the CPU (1e-4) and the f32
+            predictions before and after fuse(). Numbers under "cli".
 
-In the whole run phases 10, 11, 13, 14 and 15 run their n and x scales
-(WHOLE_RUN_SCALES), so that the script stays inside its time limit; --v10,
---v8, --seg, --pose and --obb run every scale of their family.
+In the whole run phases 10, 11, 13 and 14 run their n and x scales
+(WHOLE_RUN_SCALES), phase 15 its n scale (WHOLE_RUN_OBB), phase 16 yolov8n-cls,
+yolov8x-cls and the ResNet-50 (WHOLE_RUN_CLS), phase 17 leaves out
+yolov8x-p2 and yolov8x-p6 (WHOLE_RUN_ZOO) and phase 20 runs the s models
+(WHOLE_RUN_WORLD), so that the script stays well inside its time limit;
+--v10, --v8, --seg, --pose, --obb, --cls, --zoo and --world run every model
+of their family.
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
@@ -307,13 +328,15 @@ and "launches_obb", each kernel's launches in phase 13's yolov8n-seg, phase
 phase 12's val pool; "launches_cls" beside them from phase 16's yolov8n-cls
 predict and train(data=...); "launches_zoo" from phase 17's yolov6n train(data=...), "launches_v9" from
 phase 18's yolov9c train(data=...), "launches_rtdetr" from phase 19's rtdetr-l train(data=...), "launches_world"
-from phase 20's yolov8s-world train(data=...), "launches_track" from phase 21's two tracking runs, and conv3x3's
+from phase 20's yolov8s-world train(data=...), "launches_track" from phase 21's two tracking runs, "launches_cli"
+from phase 22's three CLI runs (train at batch=-1, predict, val), and conv3x3's
 "max_abs_err_relu", the f32 parity of its ReLU epilogue at yolov6n's sites); the last line is
 {"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
 "pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo",
-phase 18's under "v9", phase 19's under "rtdetr", phase 20's under "world", phase 21's under "track").
+phase 18's under "v9", phase 19's under "rtdetr", phase 20's under "world", phase 21's under "track", phase 22's
+under "cli").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -404,6 +427,9 @@ ZOO_MODELS = {  # phase 17: name -> (parameters, the JAX graph's: tests/test_tor
     "yolov8x-p2.yaml": (66_637_520, 640), "yolov8x-p6.yaml": (97_423_056, 1280),  # the full-width heavy models
 }
 ZOO_LIBRARY = ("yolov8x-p2.yaml", "yolov8x-p6.yaml", "yolov3.yaml", "yolov6n.yaml")  # conv3x3 vs F.conv2d per site
+WHOLE_RUN_ZOO = tuple(m for m in ZOO_MODELS if not m.startswith("yolov8x"))  # phase 17 in the whole run; --zoo: all
+WHOLE_RUN_OBB = ("n",)  # phase 15 in the whole run; --obb: every scale
+WHOLE_RUN_CLS = ("n", "x", "resnet50")  # phase 16 in the whole run; --cls: all seven
 ZOO_VAL = ("yolov8n-p2.yaml", "yolov8n-p6.yaml", "yolov3-tiny.yaml", "yolov6n.yaml")  # 4, 4 (at 1280), 2, 3 levels
 ZOO_TRAIN, ZOO_EPOCHS = ("yolov8n-p2.yaml", "yolov6n.yaml"), 2  # the four-level loss; ReLU's backward, ConvTranspose2d
 V9_MODELS = {  # phase 18: name -> (parameters, the JAX graph's: tests/test_torch_v9.py; conv3x3 sites a forward)
@@ -428,6 +454,7 @@ WORLD_MODELS = {  # phase 20: name -> (parameters, the JAX graph's: tests/test_t
 WORLD_PROJ_SITES = 4  # one MaxSigmoidAttnBlock.proj_conv (3x3, no activation) a C2fAttn
 WORLD_VAL = WORLD_STEP = "yolov8s-worldv2.yaml"  # val on phase 7's frames; the b16 train step, f32 card vs CPU
 WORLD_TRAIN = "yolov8s-world.yaml"  # train(data=..., epochs=1, save=True) on phase 8's set (nc 3)
+WHOLE_RUN_WORLD = ("yolov8s-world.yaml", "yolov8s-worldv2.yaml")  # phase 20 in the whole run; --world: all four
 TRACK_FRAMES = 60  # phase 21's clip of 720p frames, the second half read from PNG files
 TRACK_BOTSORT = {"tracker_type": "botsort", "track_high_thresh": 0.5, "track_low_thresh": 0.1, "new_track_thresh": 0.6,
                  "track_buffer": 30, "match_thresh": 0.8, "fuse_score": True, "gmc_method": "none",
@@ -534,6 +561,17 @@ def profile_step(step, iters: int = 3):
 def bound(nbytes: float, flops: float, flops_per_ms: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, flops / flops_per_ms
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+PHASE_T = [0.0]  # when the last phase of the whole run ended
+
+
+def stamp(name: str) -> None:
+    """The seconds since the last stamp, under REPORT["phase_s"][name]: each phase's share of the whole run."""
+    now = time.perf_counter()
+    REPORT.setdefault("phase_s", {})[name] = now - PHASE_T[0]
+    PHASE_T[0] = now
+    log("time", f"{name}: {REPORT['phase_s'][name]:.1f} s")
 
 
 def phase_device():
@@ -2774,13 +2812,14 @@ def cls_card_vs_cpu(key: str, frames):
     return out
 
 
-def phase_cls():
+def phase_cls(models=None):
     """Phase 16: the seven classifiers (yolov8n/s/m/l/x-cls, yolov8-cls-resnet50/101) at nc 1000 and CLS_IMGSZ, each
     in turn with seed-0 weights: its parameter count; its conv3x3 sites against the plain version (every distinct
     shape in f32 and bf16, every site of one bf16 forward on its own inputs); YOLO.predict b32 of 720p frames with
     the counters held (one letterbox, a conv3x3 per site); the serving step; conv3x3 over the sites beside F.conv2d
     + bias and the bound; the b32 train step with its peak memory; on n and resnet50 the f32 probs on the card
-    against the CPU and bf16 against f32. Before them the letterbox into 224, bit for bit and timed."""
+    against the CPU and bf16 against f32. Before them the letterbox into 224, bit for bit and timed. `models`
+    names a subset of CLS_PARAMS' keys (the whole run's: WHOLE_RUN_CLS)."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
 
@@ -2788,8 +2827,8 @@ def phase_cls():
     host = frames_720p(SCALE_SERVE_BATCH, seed=103)
     dev = torch.from_numpy(np.stack(host)).cuda()
     out = {"letterbox_parity": cls_parity_letterbox(), "letterbox": letterbox_cls_times(dev)}
-    for key, n_params in CLS_PARAMS.items():
-        t_model = time.perf_counter()
+    for key in models or CLS_PARAMS:
+        n_params, t_model = CLS_PARAMS[key], time.perf_counter()
         phase = cls_yaml(key)[:-5]
         r = out[key] = {}
         yolo = YOLO(cls_yaml(key), device="cuda", seed=0)
@@ -3013,7 +3052,7 @@ def zoo_vs_plain(yolo, pred, frames):
             "f32_matched": matched, "f32_rows": rows}
 
 
-def phase_zoo(val_data: Path, train_data: str):
+def phase_zoo(val_data: Path, train_data: str, models=None):
     """Phase 17: the other CNN detection YAMLs (ZOO_MODELS: v8 P2 / P6 / ghost / seg-P6 / pose-P6, v5 and v5-P6 at
     their n scale, v3, v3-SPP and v3-tiny at their own widths, yolov6n, and yolov8x-p2 and yolov8x-p6 at full
     width), each in turn with seed-0 weights, the P6 ones at P6_IMGSZ: its parameter count; its conv3x3 sites
@@ -3023,8 +3062,9 @@ def phase_zoo(val_data: Path, train_data: str):
     idle share and launches (`scale_serving`); for ZOO_LIBRARY conv3x3 against F.conv2d + bias over the sites;
     for ZOO_VAL YOLO.val(data=...) on phase 7's 64 frames at b32 bf16 with the counters held; the letterbox into
     P6_IMGSZ beside its bound; then YOLO(<ZOO_TRAIN>, nc=3).train(data=..., save=True) on phase 8's dataset for
-    ZOO_EPOCHS epochs, counters held. Returns the launches of yolov6n's train(data=...) and the f32 parity of
-    the ReLU epilogue at yolov6n's sites (max abs error)."""
+    ZOO_EPOCHS epochs, counters held. `models` names a subset of ZOO_MODELS (the whole run's: WHOLE_RUN_ZOO).
+    Returns the launches of yolov6n's train(data=...) and the f32 parity of the ReLU epilogue at yolov6n's
+    sites (max abs error)."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.nn.fuse import conv3x3_sites
@@ -3035,8 +3075,8 @@ def phase_zoo(val_data: Path, train_data: str):
     val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
     out = {"letterbox_p6": letterbox_times({"720p": dev}, P6_IMGSZ, "zoo")["720p"]}
     relu = None
-    for name, (n_params, S) in ZOO_MODELS.items():
-        t0 = time.perf_counter()
+    for name in models or ZOO_MODELS:
+        (n_params, S), t0 = ZOO_MODELS[name], time.perf_counter()
         tag = Path(name).stem
         r = out[tag] = {"imgsz": S}
         yolo = YOLO(name, device="cuda", seed=0)
@@ -3092,7 +3132,7 @@ def phase_zoo(val_data: Path, train_data: str):
                                           epochs=ZOO_EPOCHS)
     out["seconds"] = time.perf_counter() - t_phase
     REPORT["zoo"] = out
-    log("zoo", f"phase 17: {len(ZOO_MODELS)} models in {out['seconds']:.1f} s")
+    log("zoo", f"phase 17: {len(models or ZOO_MODELS)} models in {out['seconds']:.1f} s")
     return launches, relu["f32_max_abs"]
 
 
@@ -3657,7 +3697,7 @@ def world_set_classes(yolo, pred, host, n_sites: int):
     return {"boxes": [len(r) for r in results], "labels": sorted(labels), "launches": launches}
 
 
-def phase_world(val_data: Path, train_data: str):
+def phase_world(val_data: Path, train_data: str, models=None):
     """Phase 20: YOLO-World (WORLD_MODELS: yolov8s-world, the facade's default, yolov8x-world, yolov8s-worldv2,
     yolov8x-worldv2) at 640 with seed-0 weights (`calm_text_embeddings`), nc 80 and the COCO-80 names' text table
     (1, 80, 512), each in turn: its parameter count; its conv3x3 sites (36 / 76: the v8 bottlenecks, each
@@ -3672,7 +3712,7 @@ def phase_world(val_data: Path, train_data: str):
     repack a step) and one f32 step on the card against the CPU (`world_step_card_vs_cpu`). Then
     YOLO(WORLD_TRAIN, nc=3).train(data=..., epochs=1, save=True) on phase 8's dataset, counters held (a repack a
     step, a letterbox per val batch and frame shape, the sites' conv3x3 and an NMS per val batch); returns its
-    launches."""
+    launches. `models` names a subset of WORLD_MODELS (the whole run's: WHOLE_RUN_WORLD)."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.engine.train_step import to_device
@@ -3683,8 +3723,8 @@ def phase_world(val_data: Path, train_data: str):
     dev = torch.from_numpy(np.stack(host)).cuda()
     val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
     out = REPORT.setdefault("world", {})
-    for name, (n_params, n_sites) in WORLD_MODELS.items():
-        t0 = time.perf_counter()
+    for name in models or WORLD_MODELS:
+        (n_params, n_sites), t0 = WORLD_MODELS[name], time.perf_counter()
         tag = Path(name).stem
         r = out[tag] = {}
         yolo = YOLO(name, device="cuda", seed=0)
@@ -3758,7 +3798,8 @@ def phase_world(val_data: Path, train_data: str):
         torch.cuda.empty_cache()
     launches = phase_scale_train_data("world", train_data, WORLD_MODELS[WORLD_TRAIN][1], name=WORLD_TRAIN, epochs=1)
     out["seconds"] = time.perf_counter() - t_phase
-    log("world", f"phase 20: {len(WORLD_MODELS)} models and {WORLD_TRAIN}'s training in {out['seconds']:.1f} s")
+    log("world", f"phase 20: {len(models or WORLD_MODELS)} models and {WORLD_TRAIN}'s training in "
+                 f"{out['seconds']:.1f} s")
     return launches
 
 
@@ -3966,6 +4007,262 @@ def track_only() -> None:
     (out / "chip_smoke_track.json").write_text(json.dumps(REPORT, indent=1))
     log("done", "phase 21 passed; numbers in chiprun_out/chip_smoke_track.json")
 
+def cli_yaml(root: Path) -> str:
+    """LPC-YOLO's YAML with nc 3 (phase 8's dataset), written under root: the CLI builds `YOLO(model)` with the
+    YAML's own class count, as the JAX CLI does."""
+    import yaml
+
+    d = yaml.safe_load((ROOT / "lpc_yolo_tpu_torch" / "cfg" / "models" / "v10" / YAML).read_text())
+    d["nc"] = 3
+    path = root / "lpc-nc3.yaml"
+    path.write_text(yaml.safe_dump(d, sort_keys=False))
+    return str(path)
+
+
+def render_batch_stats(batch, dev, check: bool = True):
+    """One batch of plans rendered on the card, with `check` against the CPU (bit for bit), its render's
+    event-timed ms and its profile (device busy ms and launches)."""
+    from lpc_yolo_tpu_torch.data import render
+
+    diff, equal = None, None
+    if check:
+        card = render(batch["plan"], batch["sources"], dev).cpu()
+        cpu = render(batch["plan"], batch["sources"], torch.device("cpu"))
+        diff, equal = int((card.int() - cpu.int()).abs().max()), bool(torch.equal(card, cpu))
+    ms = cuda_ms(lambda: render(batch["plan"], batch["sources"], dev), iters=2, warmup=1, repeats=2)
+    prof = profile_step(lambda: render(batch["plan"], batch["sources"], dev), iters=2)
+    return {"max_lsb": diff, "equal": equal, "ms": ms, "busy_ms": prof["device_busy_ms"],
+            "launches": prof["device_launches"], "idle_share": prof["idle_share"]}
+
+
+def phase_cli(root: Path, data: str):
+    """Phase 22: the `yolo` command line and the rest of the trainer. (a) `entrypoint(["train", ...,
+    "batch=-1", "epochs=1", "imgsz=640", "perspective=0.0005", "copy_paste=0.5"])` on phase 8's dataset with
+    LPC-YOLO at nc 3: the batch autobatch chose, each probe's peak beside the 60% limit, one repack launch a
+    probe and a step, a letterbox and CONV_SITES_PER_FORWARD conv3x3 per validation batch; `predict` and `val`
+    through the CLI with their launches, and one `python -m lpc_yolo_tpu_torch predict ... save_txt=True`
+    subprocess. (b) The trainer's autobatch alone for yolov8x-obb at 1024. (c) A batch of mosaic9 +
+    copy_paste + perspective plans rendered on the card and on the CPU, bit for bit, its render's ms and
+    launches beside a mosaic4 batch's. (d) A one-epoch train(hyp={"mosaic9": 0.5}, cache_augmented=4) with a
+    callback that records the events: the JAX order and the sinks' files. (e) embed on the card against the
+    CPU, and fuse. Returns the launches of (a)'s three CLI runs together."""
+    import copy
+    import io
+    import contextlib
+    import json as json_
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.cfg import entrypoint
+    from lpc_yolo_tpu_torch.data import DataLoader, TrainTransforms, YOLODataset, check_det_dataset
+    from lpc_yolo_tpu_torch.engine import trainer as trainer_mod
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.utils.compare import assert_detections_close
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    out = REPORT.setdefault("cli", {})
+    info = check_det_dataset(data)
+    model = cli_yaml(root)
+    val_dir = str(Path(info["val"]))
+    val_frames = [np.load(f) for f in sorted(Path(info["val"]).glob("*.npy"))]
+
+    # (a) the CLI, in process, the counters read around each call
+    from lpc_yolo_tpu_torch.utils import autobatch as ab_mod
+
+    trainers, ab_s, probe_s = [], [], []
+    init, autobatch, reader = trainer_mod.Trainer.__init__, trainer_mod.Trainer._autobatch, ab_mod.step_memory_bytes
+
+    def timed_probe(fn, *a):  # each probe's seconds: its copy of the model and state, one step, the frees
+        t = time.perf_counter()
+        used = reader(fn, *a)
+        probe_s.append(time.perf_counter() - t)
+        return used
+
+    def keep(self, *a, **kw):  # the CLI builds its own facade: keep its trainer to read the probes
+        init(self, *a, **kw)
+        trainers.append(self)
+
+    def timed(self, *a, **kw):
+        t = time.perf_counter()
+        b = autobatch(self, *a, **kw)
+        ab_s.append(time.perf_counter() - t)
+        return b
+
+    trainer_mod.Trainer.__init__, trainer_mod.Trainer._autobatch, ab_mod.step_memory_bytes = keep, timed, timed_probe
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        res = entrypoint(["train", f"model={model}", f"data={data}", "batch=-1", "epochs=1", "imgsz=640",
+                          "perspective=0.0005", "copy_paste=0.5", "cache=disk", f"project={root}", "name=cli_train"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = launches_now()
+    finally:
+        trainer_mod.Trainer.__init__, trainer_mod.Trainer._autobatch, ab_mod.step_memory_bytes = init, autobatch, reader
+    tr = trainers[-1]
+    probes = tr.autobatch_probes
+    steps = len(tr.history)
+    fits = [b for b, used, limit in probes if 0 <= used <= limit]
+    assert tr.batch == (fits[-1] if fits else 1), (tr.batch, probes)
+    assert steps == -(-TD_TRAIN // tr.batch) and all(np.isfinite(h["loss"]) and not h["skipped"] for h in tr.history)
+    expect_val = val_launches_expected(val_frames, min(tr.batch, 8))
+    assert train_launches == {**expect_val, "repack": steps + len(probes)}, (train_launches, expect_val, steps, probes)
+    assert all(np.isfinite(list(res.values())))
+    for (b, used, limit), secs in zip(probes, probe_s):
+        log("cli", f"autobatch probe LPC-YOLO 640: batch {b} peak {used / 1e9:.3f} GB (limit {limit / 1e9:.3f} GB, "
+                   f"0.6 of {limit / 0.6 / 1e9:.3f}), {secs:.2f} s")
+    ep, h = tr.epoch_history[0], tr.history
+    split = {"autobatch_s": ab_s[0], "epoch_s": ep["seconds"], "steps_s": sum(x["seconds"] for x in h),
+             "loader_wait_s": sum(x["input_wait_s"] for x in h), "render_s": sum(x["render_s"] for x in h)}
+    log("cli", f"CLI train batch=-1: autobatch chose {tr.batch}; {steps} step(s) of 1 epoch at 640 with perspective "
+               f"0.0005 and copy_paste 0.5; launches {train_launches} (a repack a probe and a step: {len(probes)} + "
+               f"{steps}); {train_s:.2f} s: autobatch {split['autobatch_s']:.2f}, epoch {split['epoch_s']:.2f} (steps "
+               f"{split['steps_s']:.2f}: loader wait {split['loader_wait_s']:.2f}, render {split['render_s']:.2f}; the "
+               f"rest validation and the checkpoint)")
+    out["train"] = {"batch": tr.batch, "probes": probes, "probe_s": list(probe_s), "steps": steps,
+                    "launches": train_launches, "seconds": train_s, "results": res, **split}
+
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        results = entrypoint(["predict", f"model={model}", f"source={val_dir}", "imgsz=640", "save=False"])
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    predict_launches = launches_now()
+    n = len(results)
+    assert n == TD_VAL and len(buf.getvalue().splitlines()) == n
+    assert predict_launches == {"letterbox": n, "conv3x3": CONV_SITES_PER_FORWARD * n, "repack": 0, "nms": 0}, \
+        predict_launches
+    log("cli", f"CLI predict: {n} PNG frames at 640 (batch 1), launches {predict_launches}, {predict_s:.3f} s wall "
+               f"({predict_s / n * 1e3:.1f} ms a frame, YOLO built and the serving copy folded included)")
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics = entrypoint(["val", f"model={model}", f"data={data}", "imgsz=640", "batch=16"])
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    val_launches = launches_now()
+    assert val_launches == {**val_launches_expected(val_frames, 16), "repack": 0}, val_launches
+    assert all(np.isfinite(list(metrics.values())))
+    log("cli", f"CLI val: {len(val_frames)} frames at 640 b16, launches {val_launches}, {val_s:.3f} s")
+    out["predict"] = {"frames": n, "seconds": predict_s, "launches": predict_launches}
+    out["val"] = {"seconds": val_s, "launches": val_launches, "metrics": metrics}
+    cli_launches = {k: train_launches[k] + predict_launches[k] + val_launches[k] for k in train_launches}
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lpc_yolo_tpu_torch", "predict", f"model={model}",
+                           f"source={val_dir}", "imgsz=640", "save=False", "save_txt=True", f"project={root}",
+                           "name=cli_sub"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    labels = sorted((root / "cli_sub" / "labels").glob("*.txt"))
+    assert len(proc.stdout.strip().splitlines()) == TD_VAL and 0 < len(labels) <= TD_VAL, (proc.stdout[-500:], labels)
+    log("cli", f"python -m lpc_yolo_tpu_torch predict ... save_txt=True: rc 0, {len(labels)} label files, "
+               f"{sub_s:.2f} s (process start, import, kernels loaded, YOLO built, {TD_VAL} frames)")
+    out["subprocess"] = {"seconds": sub_s, "label_files": len(labels)}
+
+    # (b) autobatch alone, yolov8x-obb at 1024 (predicted: batch 8, the b16 step peaking above the limit)
+    obb = YOLO("yolov8x-obb.yaml", device="cuda", seed=0, nc=15)
+    otr = trainer_mod.Trainer(obb, batches=[{}], imgsz=OBB_IMGSZ, batch=-1, device="cuda", save_dir=root / "obb_ab")
+    t0 = time.perf_counter()
+    probe_s.clear()
+    ab_mod.step_memory_bytes = timed_probe
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            chosen = otr._autobatch(copy.deepcopy(obb.model), "obb")
+    finally:
+        ab_mod.step_memory_bytes = reader
+    obb_s = time.perf_counter() - t0
+    for (b, used, limit), secs in zip(otr.autobatch_probes, probe_s):
+        log("cli", f"autobatch probe yolov8x-obb 1024: batch {b} peak {used / 1e9:.3f} GB (limit {limit / 1e9:.3f} GB), "
+                   f"{secs:.2f} s")
+    log("cli", f"yolov8x-obb at 1024: autobatch chose {chosen} (predicted 8) in {obb_s:.1f} s")
+    out["obb_autobatch"] = {"batch": chosen, "probes": otr.autobatch_probes, "probe_s": list(probe_s),
+                            "seconds": obb_s}
+    del obb, otr
+    torch.cuda.empty_cache()
+
+    # (c) a batch of mosaic9 + copy_paste + perspective plans, card against CPU, beside a mosaic4 batch
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    ds = YOLODataset(info["train"], cache_images="disk")
+    stats = {}
+    for name, hyp in (("mosaic4", None), ("mosaic9_copy_paste_perspective",
+                                          {"mosaic9": 1.0, "copy_paste": 0.5, "perspective": 0.0005})):
+        batch, _ = loader_batches(DataLoader(ds, TrainTransforms(640, hyp).plan, TD_BATCH, workers=8, shuffle=True,
+                                             infinite=True), 1)
+        if hyp:
+            assert all(len(p.canvas.tiles) == 9 and p.perspective for p in batch[0]["plan"])
+            assert any(p.paste is not None for p in batch[0]["plan"])
+        stats[name] = st = render_batch_stats(batch[0], dev, check=bool(hyp))  # mosaic4's is held in phase 8
+        assert st["equal"] is not False, f"{name}: the card's render differs from the CPU's by {st['max_lsb']} LSB"
+        log("cli", f"render b{TD_BATCH} {name} at 640: {'card == CPU bit for bit; ' if hyp else ''}{st['ms']:.3f} ms "
+                   f"event-timed, busy {st['busy_ms']:.3f} ms over {st['launches']:.0f} launches (idle share "
+                   f"{st['idle_share']})")
+    out["render"] = stats
+    log("cli", f"renders checked and timed in {time.perf_counter() - t0:.2f} s")
+
+    # (d) one epoch from the AugmentedCache window with mosaic9, a callback recording the events
+    seen, t0 = [], time.perf_counter()
+    yolo = YOLO(YAML, device="cuda", seed=0, nc=3)
+    for event in ("on_train_start", "on_train_epoch_start", "on_model_save", "on_fit_epoch_end", "on_train_end"):
+        yolo.add_callback(event, lambda t, e=event: seen.append(e))
+    zero_launches()
+    save_dir = root / "cached"
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        yolo.train(data=data, imgsz=640, batch=TD_BATCH, epochs=1, hyp={"mosaic9": 0.5}, cache_augmented=4,
+                   cache="disk", workers=8, save_dir=save_dir, val=False)
+    cached = launches_now()
+    ctr = yolo.trainer
+    assert seen == ["on_train_start", "on_train_epoch_start", "on_model_save", "on_fit_epoch_end", "on_train_end"], seen
+    assert ctr.aug_cache.capacity == 4 and ctr.aug_cache.served == len(ctr.history) == TD_TRAIN // TD_BATCH
+    assert cached["repack"] == len(ctr.history), cached
+    rows = [json_.loads(line) for line in (save_dir / "events.jsonl").read_text().splitlines()]
+    assert len(rows) == 1 and (save_dir / "dvclive" / "metrics.json").exists()
+    assert len(list((save_dir / "mlruns" / "0").glob("*/metrics/*"))) > 5
+    log("cli", f"train(hyp mosaic9 0.5, cache_augmented=4): events {seen}; echo factor "
+               f"{ctr.aug_cache.echo_factor():.2f} ({ctr.aug_cache.refreshed} refreshed / {ctr.aug_cache.served} "
+               f"served); launches {cached}; sinks: events.jsonl, dvclive, mlruns; {time.perf_counter() - t0:.2f} s")
+    out["cache_augmented"] = {"events": seen, "echo_factor": ctr.aug_cache.echo_factor(), "launches": cached,
+                              "seconds": time.perf_counter() - t0}
+
+    # (e) embed on the card against the CPU, and fuse
+    t0 = time.perf_counter()
+    frames = frames_720p(4, seed=221)
+    lpc = YOLO(YAML, device="cuda", seed=0)
+    zero_launches()
+    emb = lpc.embed(frames, batch=2)  # at the JAX default imgsz, 224
+    emb_launches = launches_now()
+    ref = YOLO(YAML, device="cpu", seed=0).embed(frames, batch=2)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(emb, ref))
+    assert err <= 1e-4 and emb_launches["letterbox"] == 2 and emb_launches["conv3x3"] > 0, (err, emb_launches)
+    pred = Predictor(lpc.model, imgsz=640, batch=4, device="cuda", dtype=torch.float32)
+    before = pred(frames)
+    lpc.fuse()
+    after = Predictor(lpc.model, imgsz=640, batch=4, device="cuda", dtype=torch.float32)(frames)
+    for a, b in zip(before, after):
+        assert_detections_close(a.boxes.data, b.boxes.data, atol_box=1e-2, atol_score=1e-4)
+    log("cli", f"embed of 4 720p frames at 224 (batch 2): card vs CPU max abs {err:.2e} (tol 1e-4), launches "
+               f"{emb_launches}; fuse(): f32 predictions before and after agree (tie-tolerant); "
+               f"{time.perf_counter() - t0:.2f} s")
+    out["embed"] = {"max_abs_err": err, "launches": emb_launches}
+    out["cli_launches"] = cli_launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log("cli", f"phase 22 passed in {out['seconds']:.1f} s; the CLI runs' launches {cli_launches}")
+    return cli_launches
+
+
+def cli_only() -> None:
+    """`--cli`: phase 22 alone, on phase 8's dataset written for it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        phase_cli(Path(tmp), write_train_dataset(Path(tmp) / "train"))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_cli.json").write_text(json.dumps(REPORT, indent=1, default=str))
+    log("done", "phase 22 passed; numbers in chiprun_out/chip_smoke_cli.json")
+
 
 def scales_only(family: str) -> None:
     """`--v10` / `--v8`: phase 10 or 11 alone, every scale, then its n scale's train(data=..., save=True)."""
@@ -4163,10 +4460,10 @@ def main(argv) -> int:
     converge = argv[:1] == ["--converge"] and len(argv) <= 2
     only = {"--v10": lambda: scales_only("v10"), "--v8": lambda: scales_only("v8"), "--seg": seg_only,
             "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only, "--v9": v9_only,
-            "--rtdetr": rtdetr_only, "--world": world_only, "--track": track_only}
+            "--rtdetr": rtdetr_only, "--world": world_only, "--track": track_only, "--cli": cli_only}
     if argv not in ([], ["--conv3x3"], *([k] for k in only)) and not converge:
         print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --v10, --v8, --seg, --pose, --obb, "
-              f"--cls, --zoo, --v9, --rtdetr, --world, --track and --converge [model yaml]", file=sys.stderr)
+              f"--cls, --zoo, --v9, --rtdetr, --world, --track, --cli and --converge [model yaml]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4178,6 +4475,7 @@ def main(argv) -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
+    PHASE_T[0] = time.perf_counter()
     if argv == ["--conv3x3"]:
         conv3x3_only()
         return 0
@@ -4205,53 +4503,73 @@ def main(argv) -> int:
     conv_err = REPORT["conv3x3_parity"]["f32_max_abs"]
     REPORT["predict_launches"] = phase_slice(yolo, pred16)
     lb, conv = phase_times(yolo, sites)
+    stamp("parity, slice, times (3-5)")
     del yolo, pred16
     torch.cuda.empty_cache()
     rp = time_repack(torch.Generator(device="cuda").manual_seed(3))["contiguous"]
     phase_train()
     torch.cuda.empty_cache()
+    stamp("train (6)")
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
         phase_val(Path(tmp) / "val")
         torch.cuda.empty_cache()
+        stamp("val (7)")
         data = write_train_dataset(Path(tmp) / "train")
         phase_train_data(data)  # YOLO(nc=3).train(data=...), its counters held in the phase
         torch.cuda.empty_cache()
+        stamp("train_data (8)")
         launches = phase_checkpoint(data)  # the main path: YOLO(nc=3).train(data=..., save=True)
         torch.cuda.empty_cache()
+        stamp("ckpt (9)")
         v10 = phase_scales("v10", Path(tmp) / "val" / "data.yaml", WHOLE_RUN_SCALES)
         phase_scale_train_data("v10", data, v10["n"]["sites"])
         torch.cuda.empty_cache()
+        stamp("v10 (10)")
         v8 = phase_scales("v8", Path(tmp) / "val" / "data.yaml", WHOLE_RUN_SCALES)
         v8_launches = phase_scale_train_data("v8", data, v8["n"]["sites"])  # the v8 path: NMS per val batch
         torch.cuda.empty_cache()
+        stamp("v8 (11)")
         seg_val, seg_train = write_seg_datasets(Path(tmp) / "seg")
         seg = phase_seg(seg_val, WHOLE_RUN_SCALES)
         seg_launches = phase_scale_train_data("v8", seg_train, seg["n"]["sites"], name="yolov8n-seg.yaml")
         torch.cuda.empty_cache()
+        stamp("seg (13)")
         pose_val, pose_train = write_pose_datasets(Path(tmp) / "pose")
         pose = phase_pose(pose_val, WHOLE_RUN_SCALES)
         pose_launches = phase_scale_train_data("v8", pose_train, pose["n"]["sites"], name="yolov8n-pose.yaml")
         torch.cuda.empty_cache()
+        stamp("pose (14)")
         obb_val, obb_train = write_obb_datasets(Path(tmp) / "obb")
-        obb = phase_obb(obb_val, WHOLE_RUN_SCALES)
+        obb = phase_obb(obb_val, WHOLE_RUN_OBB)
         obb_launches = phase_scale_train_data("obb", obb_train, obb["n"]["sites"], name="yolov8n-obb.yaml",
                                               S=OBB_IMGSZ)
         torch.cuda.empty_cache()
-        phase_cls()
+        stamp("obb (15)")
+        phase_cls(WHOLE_RUN_CLS)
         cls_launches = phase_cls_train_data(Path(tmp) / "cls")
         torch.cuda.empty_cache()
-        zoo_launches, relu_err = phase_zoo(Path(tmp) / "val" / "data.yaml", data)
+        stamp("cls (16)")
+        zoo_launches, relu_err = phase_zoo(Path(tmp) / "val" / "data.yaml", data, WHOLE_RUN_ZOO)
         torch.cuda.empty_cache()
+        stamp("zoo (17)")
         v9_launches = phase_v9(Path(tmp) / "val" / "data.yaml", data)
         torch.cuda.empty_cache()
+        stamp("v9 (18)")
         rtdetr_launches = phase_rtdetr(Path(tmp) / "val" / "data.yaml", data)
         torch.cuda.empty_cache()
-        world_launches = phase_world(Path(tmp) / "val" / "data.yaml", data)
+        stamp("rtdetr (19)")
+        world_launches = phase_world(Path(tmp) / "val" / "data.yaml", data, WHOLE_RUN_WORLD)
         torch.cuda.empty_cache()
+        stamp("world (20)")
         track_launches = phase_track(Path(tmp) / "track")
+        torch.cuda.empty_cache()
+        stamp("track (21)")
+        cli_launches = phase_cli(Path(tmp) / "cli", data)
+        stamp("cli (22)")
     nms = time_nms()["val"]
+    stamp("nms (12)")
     kernels = [
         {"name": "letterbox", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/letterbox.cu",
          "replaces": "lpc_yolo_tpu/ops/pallas_preprocess.py:103", "launches": launches["letterbox"],
@@ -4280,12 +4598,13 @@ def main(argv) -> int:
         k["launches_rtdetr"] = rtdetr_launches[k["name"]]  # rtdetr-l's train(data=..., save=True), phase 19
         k["launches_world"] = world_launches[k["name"]]  # yolov8s-world's train(data=..., save=True), phase 20
         k["launches_track"] = track_launches[k["name"]]  # LPC-YOLO's ByteTrack and yolov8n's BoT-SORT runs, phase 21
+        k["launches_cli"] = cli_launches[k["name"]]  # the CLI's train (batch=-1), predict and val, phase 22
     kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
+    (out / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1, default=str))
     log("done", f"all phases passed in {REPORT['total_s']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

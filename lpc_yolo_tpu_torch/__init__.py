@@ -6,8 +6,10 @@ passes device="cpu"; the hand-written kernels live under `csrc/` and are
 built with nvcc at first use (see `ops/_build.py`).
 """
 
-from .engine.model import YOLO, YOLOWorld
-from .engine.results import Boxes, Results
-from .nn.compiler import DetectionModel, build_model
+__version__ = "0.1.0"
 
-__all__ = ["YOLO", "YOLOWorld", "Results", "Boxes", "DetectionModel", "build_model"]
+from .engine.model import YOLO, YOLOWorld  # noqa: E402
+from .engine.results import Boxes, Results  # noqa: E402
+from .nn.compiler import DetectionModel, build_model  # noqa: E402
+
+__all__ = ["YOLO", "YOLOWorld", "Results", "Boxes", "DetectionModel", "build_model", "__version__"]

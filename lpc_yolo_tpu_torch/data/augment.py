@@ -1,34 +1,42 @@
 """Training and validation transforms (counterpart of `lpc_yolo_tpu/data/augment.py`).
 
-Training (`TrainTransforms`, JAX :415): mosaic-4 (:108) with optional mixup
-(:355), the affine `random_perspective` (:180), the HSV jitter (:283) and the
-two flips, or the letterbox alone once `close_mosaic` is called (:442-448).
-Each sample is split in two steps:
+Training (`TrainTransforms`, JAX :415): mosaic-4 (:108) or mosaic-9 (:299,
+chosen at :433) with optional mixup of two such canvases (:355),
+copy_paste (:367, after mixup), the `random_perspective` warp (:180: affine,
+or with `perspective` != 0 cv2.warpPerspective), the HSV jitter (:283) and
+the two flips, or the letterbox alone once `close_mosaic` is called
+(:442-448). Each sample is split in two steps:
 
 - a host **plan** (`TrainTransforms.plan`): every `np.random.RandomState`
   draw of the JAX transforms, in their order (the mosaic9 and mixup draws
   are taken even when their hyp is 0; there is no albumentations draw, since
   the JAX bridge draws only when that package is installed, :410), the
-  geometry of each tile, the affine matrix, the HSV lookup tables and the
-  flips, and the labels, computed in f64 numpy exactly as the JAX package
-  does (box transform, clip, candidate filter);
+  geometry of each tile, the copy_paste rectangles, the warp matrix, the
+  HSV lookup tables and the flips, and the labels, computed in f64 numpy
+  exactly as the JAX package does (box transform, clip, candidate filter);
 - a **render** (`render`) of the pixels of a whole batch of plans through
   `cvops`, on any device: the tiles resized with cv2's fixed point straight
-  into their mosaic canvases (one gather for all tiles of the batch), mixup,
-  one warp of every canvas (the flips folded into its output coordinates),
-  then BGR->HSV, the per-sample lookup tables and HSV->BGR.
+  into their canvases (one gather for all tiles of the batch; where tiles
+  overlap, as mosaic9's may, the later one wins, as the JAX canvas is
+  painted), mixup, copy_paste as one gather (each pasted crop is a mirror
+  about the canvas centre, so every pixel reads the canvas at x or at
+  w - 1 - x, whichever the chain of pastes over it gives; later pastes read
+  what earlier ones wrote, as in the JAX loop), one warp of every canvas
+  (the flips folded into its output coordinates), then BGR->HSV, the
+  per-sample lookup tables and HSV->BGR.
 
 `TrainTransforms(dataset, idx, rng)` keeps the JAX signature: the plan, then
-the render on the CPU. The trainer renders on the card instead.
-Not ported: mosaic9, copy_paste and `perspective` != 0 raise
-NotImplementedError.
+the render on the CPU. The trainer renders on the card instead. A hyp key
+that is not in `DEFAULT_HYP` raises NotImplementedError: no transform reads
+it.
 
 Segment training (`SegTrainTransforms`, JAX :506-568) plans the same way,
-with the JAX transform's draws (no mosaic9 or mixup draw): polygon labels
+with the JAX transform's draws (no mosaic9, mixup or copy_paste): polygon labels
 resampled to `seg_points` points (`resample_segments` :51, a box row
 becomes its rectangle, `_segments_px` :82), carried through mosaic4 (:108)
-and the affine warp (:180-277: warped in f64, cast to f32, boxes rebuilt
-from the in-canvas points, the polygons clipped to them, area_thr 0.01)
+and the warp (:180-277: warped in f64, divided by w in f64 under
+`perspective`, cast to f32, boxes rebuilt from the in-canvas points, the
+polygons clipped to them, area_thr 0.01)
 and the flips, all on the host in the JAX dtypes; then each instance's
 mask is rasterized at imgsz / mask_ratio by `ops/masks.py::fill_poly`
 (cv2.fillPoly bit for bit) in the loader's threads, shipped as uint8
@@ -36,15 +44,16 @@ mask is rasterized at imgsz / mask_ratio by `ops/masks.py::fill_poly`
 
 Pose training (`PoseTrainTransforms`, JAX :571-637) plans the same way,
 with the same draws: keypoints (n, K, ndim) f32 in pixels through mosaic4
-(:156-164) or the letterbox (:602-608), the affine warp (:250-261: warped in
-f64, the points off the canvas marked invisible from the f64 values, cast
-back to f32; the boxes from their corners, area_thr 0.1), then the flips in
+(:156-164) or the letterbox (:602-608), the warp (:250-261: warped in f64,
+divided by w under `perspective`, the points off the canvas marked
+invisible from the f64 values, cast back to f32; the boxes from their
+corners, area_thr 0.1), then the flips in
 f32, fliplr also swapping left and right points by `flip_idx`, and padded
 to max_gt. The image is rendered as above.
 
 OBB training (`OBBTrainTransforms`, JAX :640-675) plans the letterbox
 (scaleup) and the HSV draw, the JAX transform's only draw: no mosaic, warp
-or flip. The rotated boxes (`YOLODataset.get_item_raw`, in units of the
+or flip (so `perspective` does not apply). The rotated boxes (`YOLODataset.get_item_raw`, in units of the
 frame's longer side s) go through the letterbox in f32 as the JAX
 expressions compute them (`x * s * gain + pad`, w and h times s and gain),
 padded to max_gt. The plan's warp is the identity on a canvas of the output's
@@ -70,6 +79,7 @@ import torch
 
 from ..ops.letterbox import letterbox_geometry
 from ..ops.masks import fill_poly
+from ..utils.metrics import box_iou_np
 from . import cvops
 
 DEFAULT_HYP = {
@@ -163,6 +173,14 @@ def keypoints_px(item: Dict, n: int, kpt_shape: Tuple[int, int], sx: Tuple[float
     return kpts
 
 
+def check_hyp(hyp: Optional[Dict]) -> None:
+    """Refuse a hyp key that no transform reads (the JAX transforms ignore it)."""
+    unknown = sorted(set(hyp or {}) - set(DEFAULT_HYP))
+    if unknown:
+        raise NotImplementedError(f"hyp {unknown} not read by the training transforms; their keys are "
+                                  f"{sorted(DEFAULT_HYP)}")
+
+
 def pad_labels(cls: np.ndarray, boxes: np.ndarray, max_gt: int) -> Dict[str, np.ndarray]:
     """Labels padded (or cut) to `max_gt` rows with a mask."""
     n = min(len(boxes), max_gt)
@@ -187,12 +205,10 @@ class Tile:
 
 @dataclasses.dataclass(frozen=True)
 class Canvas:
-    """A canvas filled with 114 and up to four tiles; tile k lies in the quadrant
-    2 * (y >= split[1]) + (x >= split[0])."""
+    """A canvas filled with 114 and painted with its tiles in order: where tiles overlap, the later wins."""
 
     hw: Tuple[int, int]
-    split: Tuple[int, int]
-    tiles: Tuple[Optional[Tile], ...]
+    tiles: Tuple[Tile, ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +223,8 @@ class Plan:
     lut: Optional[np.ndarray]  # (3, 256) uint8 H, S, V tables of the HSV jitter
     flipud: bool
     fliplr: bool
+    paste: Optional[np.ndarray] = None  # (P, 4) int64 x1 y1 x2 y2 of copy_paste's crops, in paste order
+    perspective: bool = False  # m is a perspective matrix (cv2.warpPerspective)
 
 
 def mosaic4(dataset, idx: int, rng: np.random.RandomState, imgsz: int, sources: Dict[int, np.ndarray],
@@ -250,7 +268,7 @@ def mosaic4(dataset, idx: int, rng: np.random.RandomState, imgsz: int, sources: 
                 all_kpts.append(keypoints_px(item, len(item["bboxes"]), kpt_shape, (w,), (h,), padw, padh))
     boxes = np.concatenate(all_boxes) if all_boxes else np.zeros((0, 4), np.float32)
     cls = np.concatenate(all_cls) if all_cls else np.zeros((0,), np.int32)
-    out = (Canvas((2 * s, 2 * s), (xc, yc), tuple(tiles)), cls, boxes.clip(0, 2 * s))
+    out = (Canvas((2 * s, 2 * s), tuple(tiles)), cls, boxes.clip(0, 2 * s))
     if seg_points is not None:
         out += (np.concatenate(all_segs) if all_segs else np.zeros((0, seg_points, 2), np.float32),)
     if kpt_shape is not None:
@@ -270,12 +288,86 @@ def letterbox_canvas(item: Dict, idx: int, imgsz: int, seg_points: Optional[int]
     hw = (top + nh + bottom, left + nw + right)
     tile = Tile(int(idx), (h0, w0), (nh, nw), (left, top, left + nw, top + nh), (left, top))
     boxes = xywhn_to_xyxy(item["bboxes"], w0 * gain, h0 * gain, dw, dh)
-    out = (Canvas(hw, (hw[1], hw[0]), (tile, None, None, None)), boxes)
+    out = (Canvas(hw, (tile,)), boxes)
     if seg_points is not None:
         out += (segments_px(item, boxes, w0 * gain, h0 * gain, dw, dh, seg_points),)
     if kpt_shape is not None:
         out += (keypoints_px(item, len(boxes), kpt_shape, (w0, gain), (h0, gain), dw, dh),)
     return out
+
+
+def mosaic9(dataset, idx: int, rng: np.random.RandomState, imgsz: int, sources: Dict[int, np.ndarray]):
+    """The plan of a 9-image mosaic (JAX :299-352): the tiles laid out on a 3x3 canvas of side 3 * imgsz,
+    then its window of side 2 * imgsz at a random (xc, yc): (Canvas of the window, cls, xyxy boxes in it,
+    clipped, those 2 px wide and high or less dropped). Tiles may overlap; the later is painted over the
+    earlier. Source images go into `sources`."""
+    s = imgsz
+    indices = [idx] + [rng.randint(0, len(dataset)) for _ in range(8)]
+    placed, all_cls, all_boxes = [], [], []
+    hp = wp = -1  # the previous tile's size
+    for i, index in enumerate(indices):
+        index = int(index)
+        item = dataset.get_item_raw(index)
+        sources[index] = item["img"]
+        h0, w0 = item["img"].shape[:2]
+        r = s / max(h0, w0)
+        h, w = (int(h0 * r), int(w0 * r)) if r != 1 else (h0, w0)
+        if i == 0:
+            c = s, s, s + w, s + h
+        elif i == 1:
+            c = s, s - h, s + w, s
+        elif i == 2:
+            c = s + wp, s - h, s + wp + w, s
+        elif i == 3:
+            c = s + w0p, s, s + w0p + w, s + h
+        elif i == 4:
+            c = s + w0p, s + hp, s + w0p + w, s + hp + h
+        elif i == 5:
+            c = s + w0p - w, s + hp, s + w0p, s + hp + h
+        elif i == 6:
+            c = s + w0p - wp - w, s + hp, s + w0p - wp, s + hp + h
+        elif i == 7:
+            c = s - w, s + hp - h, s, s + hp
+        else:
+            c = s - w, s + hp - hp0 - h, s, s + hp - hp0
+        if i == 0:
+            w0p, hp0 = w, h
+        padw, padh = c[:2]
+        x1, y1, x2, y2 = (max(v, 0) for v in c)
+        placed.append((index, (h0, w0), (h, w), (x1, y1, min(x2, 3 * s), min(y2, 3 * s)), (padw, padh)))
+        if len(item["bboxes"]):
+            all_boxes.append(xywhn_to_xyxy(item["bboxes"], w, h, padw, padh))
+            all_cls.append(item["cls"])
+        hp, wp = h, w
+    yc, xc = (int(rng.uniform(0, s)) for _ in range(2))  # the window's corner on the 3x3 canvas
+    tiles = []
+    for index, src_hw, hw, (x1, y1, x2, y2), (padw, padh) in placed:
+        rect = (min(max(x1 - xc, 0), 2 * s), min(max(y1 - yc, 0), 2 * s),
+                min(max(x2 - xc, 0), 2 * s), min(max(y2 - yc, 0), 2 * s))
+        tiles.append(Tile(index, src_hw, hw, rect, (padw - xc, padh - yc)))
+    boxes = np.concatenate(all_boxes) if all_boxes else np.zeros((0, 4), np.float32)
+    cls = np.concatenate(all_cls) if all_cls else np.zeros((0,), np.int32)
+    boxes = (boxes - np.array([xc, yc, xc, yc], np.float32)).clip(0, 2 * s)
+    keep = ((boxes[:, 2] - boxes[:, 0]) > 2) & ((boxes[:, 3] - boxes[:, 1]) > 2)
+    return Canvas((2 * s, 2 * s), tuple(tiles)), cls[keep], boxes[keep]
+
+
+def copy_paste(boxes: np.ndarray, cls: np.ndarray, rng: np.random.RandomState, p: float, w: int):
+    """The draws and labels of the JAX box-level copy_paste (:367-385) on a canvas of width w: each drawn box
+    whose mirror about the canvas centre overlaps no box by IoU 0.3 or more is mirrored there. Returns
+    (boxes, cls) with the pasted ones appended, and the (P, 4) int64 crops x1 y1 x2 y2 in paste order."""
+    n = len(boxes)
+    if n == 0 or p <= 0:
+        return boxes, cls, np.zeros((0, 4), np.int64)
+    new_boxes, new_cls, crops = [boxes], [cls], []
+    for j in rng.permutation(n)[: round(p * n)]:
+        x1, y1, x2, y2 = boxes[j].astype(int)
+        box_new = np.array([w - x2, y1, w - x1, y2], np.float32)  # the horizontal mirror
+        if (box_iou_np(box_new[None], boxes) < 0.30).all() and x2 > x1 and y2 > y1:
+            crops.append((x1, y1, x2, y2))
+            new_boxes.append(box_new[None])
+            new_cls.append(cls[j: j + 1])
+    return np.concatenate(new_boxes), np.concatenate(new_cls), np.array(crops, np.int64).reshape(-1, 4)
 
 
 def rotation_matrix(angle: float, scale: float) -> np.ndarray:
@@ -289,10 +381,11 @@ def rotation_matrix(angle: float, scale: float) -> np.ndarray:
 def random_affine(canvas_hw: Tuple[int, int], boxes: np.ndarray, cls: np.ndarray, rng: np.random.RandomState,
                   hyp: Dict, border: Tuple[int, int] = (0, 0), segments: Optional[np.ndarray] = None,
                   keypoints: Optional[np.ndarray] = None):
-    """The draws, matrix and label transform of `random_perspective` (JAX :180-280) with
-    perspective 0: (M (3, 3), (height, width) of the output, boxes, cls), and after them the (n, P, 2)
-    f32 polygons when given (then the boxes come from the warped polygons and area_thr is 0.01), and
-    the (n, K, ndim) f32 keypoints when given (warped in f64, those off the canvas made invisible)."""
+    """The draws, matrix and label transform of `random_perspective` (JAX :180-280): (M (3, 3), (height,
+    width) of the output, boxes, cls), and after them the (n, P, 2) f32 polygons when given (then the boxes
+    come from the warped polygons and area_thr is 0.01), and the (n, K, ndim) f32 keypoints when given
+    (warped in f64, those off the canvas made invisible). With `perspective` != 0 every warped point is
+    divided by its w in f64, as the JAX transform divides it."""
     height = canvas_hw[0] + border[0] * 2
     width = canvas_hw[1] + border[1] * 2
     C = np.eye(3)
@@ -312,6 +405,12 @@ def random_affine(canvas_hw: Tuple[int, int], boxes: np.ndarray, cls: np.ndarray
     T[0, 2] = rng.uniform(0.5 - hyp["translate"], 0.5 + hyp["translate"]) * width
     T[1, 2] = rng.uniform(0.5 - hyp["translate"], 0.5 + hyp["translate"]) * height
     M = T @ S @ R @ P @ C
+    persp = bool(hyp["perspective"])
+
+    def warp(xy):  # (k, 3) homogeneous points -> (k, 2) f64
+        xy = xy @ M.T
+        return xy[:, :2] / xy[:, 2:3] if persp else xy[:, :2]
+
     n = len(boxes)
     polys = segments is not None and len(segments)
     if n:
@@ -319,14 +418,14 @@ def random_affine(canvas_hw: Tuple[int, int], boxes: np.ndarray, cls: np.ndarray
             N, P, _ = segments.shape
             xy = np.ones((N * P, 3))
             xy[:, :2] = segments.reshape(N * P, 2)
-            segments = (xy @ M.T)[:, :2].reshape(N, P, 2).astype(np.float32)
+            segments = warp(xy).reshape(N, P, 2).astype(np.float32)
             new = segments2boxes_px(segments, width, height)
             segments[..., 0] = segments[..., 0].clip(new[:, 0:1], new[:, 2:3])
             segments[..., 1] = segments[..., 1].clip(new[:, 1:2], new[:, 3:4])
         else:
             xy = np.ones((n * 4, 3))
             xy[:, :2] = boxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)
-            xy = (xy @ M.T)[:, :2].reshape(n, 8)
+            xy = warp(xy).reshape(n, 8)
             x, y = xy[:, [0, 2, 4, 6]], xy[:, [1, 3, 5, 7]]
             new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
             new[:, [0, 2]] = new[:, [0, 2]].clip(0, width)
@@ -335,7 +434,7 @@ def random_affine(canvas_hw: Tuple[int, int], boxes: np.ndarray, cls: np.ndarray
             N, K, ndim = keypoints.shape
             xy = np.ones((N * K, 3))
             xy[:, :2] = keypoints[..., :2].reshape(N * K, 2)
-            xy = (xy @ M.T)[:, :2]
+            xy = warp(xy)
             out_of = (xy[:, 0] < 0) | (xy[:, 1] < 0) | (xy[:, 0] > width) | (xy[:, 1] > height)
             keypoints = keypoints.copy()
             keypoints[..., :2] = xy.reshape(N, K, 2)
@@ -378,10 +477,7 @@ class TrainTransforms:
         self.hyp = {**DEFAULT_HYP, **(hyp or {})}
         self.max_gt = max_gt
         self.mosaic_enabled = True
-        for key in ("mosaic9", "copy_paste", "perspective"):
-            if self.hyp[key]:
-                raise NotImplementedError(f"hyp {key}={self.hyp[key]} is not ported; the port runs mosaic4, mixup, "
-                                          f"the affine warp, the HSV jitter and the flips")
+        check_hyp(hyp)
 
     def close_mosaic(self):
         """Disable mosaic for the final epochs."""
@@ -391,13 +487,16 @@ class TrainTransforms:
         """The sample's plan, its source images {dataset index: BGR frame} and its padded labels."""
         hyp, s, sources = self.hyp, self.imgsz, {}
         mix, mix_r = None, 0.0
+        paste = None
         if self.mosaic_enabled and rng.rand() < hyp["mosaic"]:
-            rng.rand()  # the mosaic9 draw; mosaic9 > 0 is refused at construction
-            canvas, cls, boxes = mosaic4(dataset, idx, rng, s, sources)
+            mfn = mosaic9 if rng.rand() < hyp["mosaic9"] else mosaic4
+            canvas, cls, boxes = mfn(dataset, idx, rng, s, sources)
             if rng.rand() < hyp["mixup"]:
-                mix, cls2, boxes2 = mosaic4(dataset, rng.randint(0, len(dataset)), rng, s, sources)
+                mix, cls2, boxes2 = mfn(dataset, rng.randint(0, len(dataset)), rng, s, sources)
                 mix_r = rng.beta(32.0, 32.0)
                 cls, boxes = np.concatenate([cls, cls2]), np.concatenate([boxes, boxes2])
+            if hyp["copy_paste"] > 0:
+                boxes, cls, paste = copy_paste(boxes, cls, rng, hyp["copy_paste"], canvas.hw[1])
             border = (-s // 2, -s // 2)
         else:
             item = dataset.get_item_raw(idx)
@@ -412,7 +511,8 @@ class TrainTransforms:
         fliplr = bool(rng.rand() < hyp["fliplr"])
         if fliplr:
             boxes[:, [0, 2]] = out_hw[1] - boxes[:, [2, 0]]
-        plan = Plan(canvas, mix, float(mix_r), m, out_hw, table, flipud, fliplr)
+        plan = Plan(canvas, mix, float(mix_r), m, out_hw, table, flipud, fliplr,
+                    paste if paste is not None and len(paste) else None, bool(hyp["perspective"]))
         return {"plan": plan, "sources": sources, **pad_labels(cls, boxes, self.max_gt)}
 
     def __call__(self, dataset, idx: int, rng: np.random.RandomState) -> Dict:
@@ -430,6 +530,7 @@ class OBBTrainTransforms(TrainTransforms):
         self.imgsz, self.max_gt = imgsz, max_gt
         self.hyp = {**DEFAULT_HYP, **(hyp or {})}  # only the HSV gains are read, as in JAX
         self.mosaic_enabled = False
+        check_hyp(hyp)
 
     def plan(self, dataset, idx: int, rng: np.random.RandomState) -> Dict:
         """The sample's plan, source image, padded labels and (max_gt, 5) f32 rotated boxes."""
@@ -462,8 +563,7 @@ class SegTrainTransforms(TrainTransforms):
         self.imgsz, self.max_gt, self.mask_ratio, self.seg_points = imgsz, max_gt, mask_ratio, seg_points
         self.hyp = {**DEFAULT_HYP, **(hyp or {})}  # mosaic9, mixup and copy_paste are not read, as in JAX
         self.mosaic_enabled = True
-        if self.hyp["perspective"]:
-            raise NotImplementedError(f"hyp perspective={self.hyp['perspective']} is not ported")
+        check_hyp(hyp)
 
     def plan(self, dataset, idx: int, rng: np.random.RandomState) -> Dict:
         """The sample's plan, source images, padded labels and (max_gt, mh, mw) uint8 masks."""
@@ -492,7 +592,7 @@ class SegTrainTransforms(TrainTransforms):
         r = 1.0 / self.mask_ratio
         for j in range(n):
             fill_poly(masks[j], (segs[j] * r).astype(np.int32))
-        plan = Plan(canvas, None, 0.0, m, out_hw, table, flipud, fliplr)
+        plan = Plan(canvas, None, 0.0, m, out_hw, table, flipud, fliplr, perspective=bool(hyp["perspective"]))
         return {"plan": plan, "sources": sources, **pad_labels(cls, boxes, self.max_gt), "masks": masks}
 
 
@@ -509,8 +609,7 @@ class PoseTrainTransforms(TrainTransforms):
             flip_idx = COCO_FLIP_IDX if self.kpt_shape[0] == 17 else list(range(self.kpt_shape[0]))
         self.flip_idx = list(flip_idx)
         self.mosaic_enabled = True
-        if self.hyp["perspective"]:
-            raise NotImplementedError(f"hyp perspective={self.hyp['perspective']} is not ported")
+        check_hyp(hyp)
 
     def plan(self, dataset, idx: int, rng: np.random.RandomState) -> Dict:
         """The sample's plan, source images, padded labels and (max_gt, K, ndim) f32 keypoints."""
@@ -538,7 +637,7 @@ class PoseTrainTransforms(TrainTransforms):
         n = min(len(boxes), self.max_gt)
         if len(kpts):
             out_kpts[:n] = kpts[:n]
-        plan = Plan(canvas, None, 0.0, m, out_hw, table, flipud, fliplr)
+        plan = Plan(canvas, None, 0.0, m, out_hw, table, flipud, fliplr, perspective=bool(hyp["perspective"]))
         return {"plan": plan, "sources": sources, **pad_labels(cls, boxes, self.max_gt), "keypoints": out_kpts}
 
 
@@ -564,64 +663,141 @@ def source_pool(sources: Dict[int, np.ndarray], device: torch.device) -> Tuple[t
     return host.to(device, non_blocking=True).view(-1, 3), base
 
 
-def _canvas_tables(canvases: List[Canvas], base: Dict[int, int], hc: int, wc: int):
-    """Per canvas and quadrant, the tile's taps along each canvas column (inside, c0, c1, a0, a1)
-    and row (inside, pool offset of row 0 and row 1, b0, b1): int32 (C * 4 * Wc, 5), (C * 4 * Hc, 5)."""
-    cols = np.zeros((len(canvases), 4, wc, 5), np.int32)
-    rows = np.zeros((len(canvases), 4, hc, 5), np.int32)
+def _canvas_tables(canvases: List[Canvas], base: Dict[int, int], hc: int, wc: int, k: int):
+    """Per canvas and tile slot, the tile's taps along each canvas column (inside, c0, c1, a0, a1)
+    and row (inside, pool offset of row 0 and row 1, b0, b1): int32 (C * k * Wc, 5), (C * k * Hc, 5)."""
+    cols = np.zeros((len(canvases), k, wc, 5), np.int32)
+    rows = np.zeros((len(canvases), k, hc, 5), np.int32)
     for ci, cv in enumerate(canvases):
-        for k, t in enumerate(cv.tiles):
-            if t is None:
-                continue
+        for j, t in enumerate(cv.tiles):
             x1, y1, x2, y2 = t.rect
             if x2 <= x1 or y2 <= y1:
                 continue
             ry, rx = _resize_taps(t.src_hw, t.hw)
             u = np.arange(x1, x2) - t.off[0]
             v = np.arange(y1, y2) - t.off[1]
-            cols[ci, k, x1:x2] = np.stack([np.ones_like(u), rx[0][u], rx[1][u], rx[2][u], rx[3][u]], -1)
+            cols[ci, j, x1:x2] = np.stack([np.ones_like(u), rx[0][u], rx[1][u], rx[2][u], rx[3][u]], -1)
             w0, b = t.src_hw[1], base[t.src]
-            rows[ci, k, y1:y2] = np.stack([np.ones_like(v), b + ry[0][v] * w0, b + ry[1][v] * w0, ry[2][v], ry[3][v]],
+            rows[ci, j, y1:y2] = np.stack([np.ones_like(v), b + ry[0][v] * w0, b + ry[1][v] * w0, ry[2][v], ry[3][v]],
                                           -1)
     return cols.reshape(-1, 5), rows.reshape(-1, 5)
+
+
+def _grid(edges_x: List[np.ndarray], edges_y: List[np.ndarray]):
+    """Sorted cell edges of several grids padded to one width (with a value past every pixel):
+    (C, Ex) and (C, Ey) int64."""
+    ex, ey = max(len(e) for e in edges_x), max(len(e) for e in edges_y)
+    gx, gy = np.full((len(edges_x), ex), 1 << 40, np.int64), np.full((len(edges_y), ey), 1 << 40, np.int64)
+    for i, (a, b) in enumerate(zip(edges_x, edges_y)):
+        gx[i, :len(a)], gy[i, :len(b)] = a, b
+    return gx, gy
+
+
+def _owner_grid(canvases: List[Canvas]):
+    """The tile painted last over each cell of the grid that its canvas's tile edges cut: (C, Ex) x edges,
+    (C, Ey) y edges, (C, Ey, Ex) int64 tile slot (-1 where no tile lies)."""
+    ex, ey = [], []
+    for cv in canvases:
+        ex.append(np.unique([0] + [v for t in cv.tiles for v in (t.rect[0], t.rect[2])]))
+        ey.append(np.unique([0] + [v for t in cv.tiles for v in (t.rect[1], t.rect[3])]))
+    gx, gy = _grid(ex, ey)
+    owner = np.full((len(canvases), gy.shape[1], gx.shape[1]), -1, np.int64)
+    for ci, cv in enumerate(canvases):
+        for j, t in enumerate(cv.tiles):  # in painting order: a later tile covers an earlier one
+            x1, y1, x2, y2 = t.rect
+            owner[ci][np.ix_((gy[ci] >= y1) & (gy[ci] < y2), (gx[ci] >= x1) & (gx[ci] < x2))] = j
+    return gx, gy, owner
+
+
+def _paste_grid(plans: List[Plan]):
+    """copy_paste as a per-pixel choice: each paste writes its crop (x1, y1, x2, y2) mirrored to
+    [w - x2, w - x1), so pixel (x, y) of the pasted canvas reads the canvas before the pastes at x or at
+    w - 1 - x. Walking the pastes from the last back to the first decides which; the answer is constant
+    on the cells that the crops' edges and their mirrors cut. Returns (B, Ex) x edges, (B, Ey) y edges and
+    (B, Ey, Ex) bool, True where the pixel reads w - 1 - x."""
+    ex, ey = [], []
+    for p in plans:
+        w = p.canvas.hw[1]
+        x1, y1, x2, y2 = p.paste.T
+        ex.append(np.unique(np.concatenate([[0], x1, x2, w - x2, w - x1])))
+        ey.append(np.unique(np.concatenate([[0], y1, y2])))
+    gx, gy = _grid(ex, ey)
+    mirror = np.zeros((len(plans), gy.shape[1], gx.shape[1]), bool)
+    for i, p in enumerate(plans):
+        w = p.canvas.hw[1]
+        X, Y = gx[i][None, :], gy[i][:, None]
+        xcur = np.broadcast_to(X, mirror.shape[1:]).copy()
+        for x1, y1, x2, y2 in p.paste[::-1]:
+            hit = (xcur >= w - x2) & (xcur < w - x1) & (Y >= y1) & (Y < y2)
+            xcur = np.where(hit, w - 1 - xcur, xcur)
+        mirror[i] = xcur != X
+    return gx, gy, mirror
+
+
+def _cell_lookup(table: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor, hc: int, wc: int) -> torch.Tensor:
+    """table (N, Ey, Ex) read at every pixel of (hc, wc) through the grids' edges -> (N, hc, wc)."""
+    dev = table.device
+    n, ey, ex = table.shape
+    x = torch.arange(wc, device=dev).expand(n, wc).contiguous()
+    y = torch.arange(hc, device=dev).expand(n, hc).contiguous()
+    cx = torch.searchsorted(gx, x, right=True) - 1
+    cy = torch.searchsorted(gy, y, right=True) - 1
+    idx = (torch.arange(n, device=dev)[:, None, None] * ey + cy[:, :, None]) * ex + cx[:, None, :]
+    return table.reshape(-1)[idx]
 
 
 def render(plans: List[Plan], sources: Dict[int, np.ndarray], device: torch.device) -> torch.Tensor:
     """Render a batch of plans on `device`: (B, H, W, 3) uint8 BGR.
 
     Launches do not grow with the batch: one gather resizes every tile of every
-    canvas, one warp covers the batch, the HSV jitter runs once on it.
+    canvas, one gather makes every copy_paste, one warp covers the batch, the
+    HSV jitter runs once on it.
     """
     B = len(plans)
     out_hw = plans[0].out_hw
     if any(p.out_hw != out_hw for p in plans):
         raise ValueError("the plans of one batch must share their output size")
+    if len({p.perspective for p in plans}) > 1:
+        raise ValueError("the plans of one batch must all or none warp in perspective")
     pool3, base = source_pool(sources, device)
     mix_rows = [i for i, p in enumerate(plans) if p.mix is not None]
     canvases = [p.canvas for p in plans] + [plans[i].mix for i in mix_rows]
-    C = len(canvases)
+    C, K = len(canvases), max(len(c.tiles) for c in canvases)
     hc, wc = max(c.hw[0] for c in canvases), max(c.hw[1] for c in canvases)
-    cols, rows = (torch.from_numpy(t).to(device, non_blocking=True) for t in _canvas_tables(canvases, base, hc, wc))
-    split = torch.from_numpy(np.array([c.split for c in canvases], np.int64)).to(device)
+    to = lambda a: torch.from_numpy(a).to(device, non_blocking=True)  # noqa: E731
+    cols, rows = (to(t) for t in _canvas_tables(canvases, base, hc, wc, K))
+    gx, gy, owner = (to(t) for t in _owner_grid(canvases))
 
-    # every canvas pixel: its quadrant's tile, then cv2's fixed-point resize of that tile
+    # every canvas pixel: the tile painted last over it, then cv2's fixed-point resize of that tile
     x = torch.arange(wc, device=device)
     y = torch.arange(hc, device=device)
-    quad = 2 * (y[None, :, None] >= split[:, 1, None, None]) + (x[None, None, :] >= split[:, 0, None, None])
-    slot = torch.arange(C, device=device)[:, None, None] * 4 + quad
+    own = _cell_lookup(owner, gx, gy, hc, wc)
+    slot = torch.arange(C, device=device)[:, None, None] * K + own.clamp(min=0)
     cv = cols.index_select(0, (slot * wc + x).reshape(-1)).view(C, hc, wc, 5)
     rv = rows.index_select(0, (slot * hc + y[:, None]).reshape(-1)).view(C, hc, wc, 5)
     val = cvops.fixed_bilinear(pool3, rv[..., 1], rv[..., 2], rv[..., 3], rv[..., 4],
                                cv[..., 1], cv[..., 2], cv[..., 3], cv[..., 4])
-    inside = (cv[..., 0] * rv[..., 0]).bool()[..., None]
-    canvas = torch.where(inside, val, cvops.BORDER).to(torch.uint8)
-    del cv, rv, val, inside
+    canvas = torch.where((own >= 0)[..., None], val, cvops.BORDER).to(torch.uint8)
+    del cv, rv, val, own, slot
     if mix_rows:
         ia = torch.tensor(mix_rows, device=device)
         canvas[ia] = cvops.blend(canvas[ia], canvas[B:], [plans[i].mix_r for i in mix_rows])
 
+    paste_rows = [i for i, p in enumerate(plans) if p.paste is not None]
+    if paste_rows:  # copy_paste, after mixup (JAX :439-440): one gather of the pasted canvases
+        gx, gy, mirror = (to(t) for t in _paste_grid([plans[i] for i in paste_rows]))
+        flip = _cell_lookup(mirror, gx, gy, hc, wc)
+        ip = torch.tensor(paste_rows, device=device)
+        w = torch.tensor([plans[i].canvas.hw[1] for i in paste_rows], device=device)[:, None, None]
+        src_x = torch.where(flip, w - 1 - x, x)
+        idx = (ip[:, None, None] * hc + y[:, None]) * wc + src_x
+        canvas[ip] = canvas.view(-1, 3).index_select(0, idx.reshape(-1)).view(len(paste_rows), hc, wc, 3)
+
     # one warp of the batch, the flips folded into its output coordinates
-    minv = np.stack([cvops.invert_affine(p.m[:2]) for p in plans]).astype(np.float32)
+    if plans[0].perspective:
+        minv = np.stack([cvops.invert_perspective(p.m) for p in plans]).astype(np.float32)
+    else:
+        minv = np.stack([cvops.invert_affine(p.m[:2]) for p in plans]).astype(np.float32)
     ext = torch.tensor([p.canvas.hw for p in plans], device=device)
     flips = torch.tensor([[p.flipud, p.fliplr] for p in plans], device=device)
     img = cvops.warp_core(canvas.view(-1, 3), torch.arange(B, device=device) * (hc * wc),

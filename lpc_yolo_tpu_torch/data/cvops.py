@@ -1,7 +1,7 @@
 """OpenCV's uint8 image ops of the training pipeline, written on tensors.
 
 The JAX package augments on the host with cv2 (`lpc_yolo_tpu/data/augment.py`:
-`cv2.resize` :134, `warpAffine` :226, `cvtColor` BGR<->HSV and `LUT`
+`cv2.resize` :134, `warpPerspective` :224, `warpAffine` :226, `cvtColor` BGR<->HSV and `LUT`
 :289-295; `ops/letterbox.py:65-68`). The machine with the card has no
 OpenCV, and a near miss does not do: the hue conversion turns a 1-LSB
 difference after a resize into up to 18 LSB after the HSV jitter. So each op
@@ -18,6 +18,11 @@ vectorised paths, batched, on whatever device the tensors live on:
   p = fma(a, p01 - p00, p00) as fused multiply-adds in f32, rounded with
   rint. A fused multiply-add is emulated exactly in f64: the product of two
   f32 values is exact there.
+- `warp_perspective` (the same interpolation and border): the inverse by
+  cv2.invert's 3x3 cofactor formula in f64, then f32; X = fma(x, m0, y * m1
+  + m2), Y and W alike, and the source point (X / W, Y / W) divided in f32.
+  Both warps are bit-exact where the output width is a multiple of 16
+  (cv2's vector loop); cv2's scalar tail of other widths rounds otherwise.
 - `bgr2hsv`: cv2's integer path (shift 12, `sdiv`/`hdiv` tables).
 - `hsv2bgr`: cv2's f32 path with its fused multiply-adds, truncated to u8.
 - `lut` and `blend` (mixup). The host letterbox's constant border is the
@@ -126,6 +131,24 @@ def invert_affine(m: np.ndarray) -> np.ndarray:
     return np.array([[a11, a12, b1], [a21, a22, b2]])
 
 
+def invert_perspective(m: np.ndarray) -> np.ndarray:
+    """cv2.invert(m, DECOMP_LU) of a (3, 3) matrix, which cv2.warpPerspective takes: the cofactor formula in
+    f64 over the determinant by the first row, as cv2 computes a 3x3 inverse; zeros when it is singular."""
+    S = np.asarray(m, np.float64)
+    det = (S[0, 0] * (S[1, 1] * S[2, 2] - S[1, 2] * S[2, 1]) - S[0, 1] * (S[1, 0] * S[2, 2] - S[1, 2] * S[2, 0])
+           + S[0, 2] * (S[1, 0] * S[2, 1] - S[1, 1] * S[2, 0]))
+    if det == 0:
+        return np.zeros((3, 3))
+    d = 1.0 / det
+    return np.array([
+        [(S[1, 1] * S[2, 2] - S[1, 2] * S[2, 1]) * d, (S[0, 2] * S[2, 1] - S[0, 1] * S[2, 2]) * d,
+         (S[0, 1] * S[1, 2] - S[0, 2] * S[1, 1]) * d],
+        [(S[1, 2] * S[2, 0] - S[1, 0] * S[2, 2]) * d, (S[0, 0] * S[2, 2] - S[0, 2] * S[2, 0]) * d,
+         (S[0, 2] * S[1, 0] - S[0, 0] * S[1, 2]) * d],
+        [(S[1, 0] * S[2, 1] - S[1, 1] * S[2, 0]) * d, (S[0, 1] * S[2, 0] - S[0, 0] * S[2, 1]) * d,
+         (S[0, 0] * S[1, 1] - S[0, 1] * S[1, 0]) * d]])
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """f32 fused multiply-add: exact product and one rounding, through f64."""
     return (a.double() * b.double() + c.double()).float()
@@ -135,10 +158,11 @@ def warp_core(pool3: torch.Tensor, base: torch.Tensor, stride: torch.Tensor, ext
               ext_w: torch.Tensor, minv: torch.Tensor, out_hw: Tuple[int, int],
               flip_y: Optional[torch.Tensor] = None, flip_x: Optional[torch.Tensor] = None,
               border: int = BORDER) -> torch.Tensor:
-    """cv2.warpAffine INTER_LINEAR / BORDER_CONSTANT of N images in a flat (P, 3) uint8 pool.
+    """cv2.warpAffine INTER_LINEAR / BORDER_CONSTANT of N images in a flat (P, 3) uint8 pool, or
+    cv2.warpPerspective when `minv` is (N, 3, 3).
 
     Image n starts at pixel `base[n]`, has rows `stride[n]` pixels apart and
-    extent (ext_h[n], ext_w[n]); `minv` (N, 2, 3) f32 is the inverse matrix.
+    extent (ext_h[n], ext_w[n]); `minv` (N, 2, 3) or (N, 3, 3) f32 is the inverse matrix.
     flip_y/flip_x (N,) bool mirror the output (np.flipud/fliplr after the warp).
     Returns (N, H, W, 3) uint8.
     """
@@ -151,9 +175,12 @@ def warp_core(pool3: torch.Tensor, base: torch.Tensor, stride: torch.Tensor, ext
     if flip_y is not None:
         ys = torch.where(flip_y[:, None], h - 1 - ys, ys)
     xs, ys = xs.float()[:, None, :], ys.float()
-    m = [minv[:, i // 3, i % 3] for i in range(6)]
+    m = [minv[:, i // 3, i % 3] for i in range(3 * minv.shape[1])]
     sx = _fma(xs, m[0][:, None, None], (ys * m[1][:, None] + m[2][:, None])[:, :, None])  # (N, H, W)
     sy = _fma(xs, m[3][:, None, None], (ys * m[4][:, None] + m[5][:, None])[:, :, None])
+    if len(m) == 9:  # warpPerspective: the source point divided by w in f32
+        sw = _fma(xs, m[6][:, None, None], (ys * m[7][:, None] + m[8][:, None])[:, :, None])
+        sx, sy = sx / sw, sy / sw
     fx, fy = sx.floor(), sy.floor()
     a, b = (sx - fx)[..., None], (sy - fy)[..., None]
     big = float(2 ** 24)
@@ -182,6 +209,18 @@ def warp_affine(img: torch.Tensor, m, dsize: Tuple[int, int], border: int = BORD
     n, h0, w0, _ = img.shape
     m = np.broadcast_to(np.asarray(m, np.float64), (n, 2, 3))
     minv = torch.from_numpy(np.stack([invert_affine(mi) for mi in m]).astype(np.float32)).to(img.device)
+    const = lambda v: torch.full((n,), v, device=img.device)  # noqa: E731
+    base = torch.arange(n, device=img.device) * (h0 * w0)
+    return warp_core(img.reshape(-1, 3), base, const(w0), const(h0), const(w0), minv, (dsize[1], dsize[0]),
+                     border=border)
+
+
+def warp_perspective(img: torch.Tensor, m, dsize: Tuple[int, int], border: int = BORDER) -> torch.Tensor:
+    """cv2.warpPerspective(img, m, dsize, borderValue=(border,) * 3) of (N, h, w, 3) uint8 frames;
+    m: one (3, 3) matrix or one per frame (N, 3, 3); dsize is (width, height)."""
+    n, h0, w0, _ = img.shape
+    m = np.broadcast_to(np.asarray(m, np.float64), (n, 3, 3))
+    minv = torch.from_numpy(np.stack([invert_perspective(mi) for mi in m]).astype(np.float32)).to(img.device)
     const = lambda v: torch.full((n,), v, device=img.device)  # noqa: E731
     base = torch.arange(n, device=img.device) * (h0 * w0)
     return warp_core(img.reshape(-1, 3), base, const(w0), const(h0), const(w0), minv, (dsize[1], dsize[0]),

@@ -32,24 +32,33 @@ scores are the similarities of its region embeddings with a text table:
 `set_classes(names, embeddings=...)` sets another. `predict`, `val` and
 `train` read that table (the JAX validator and train step read none: ROADMAP
 Queue 3); `train(data=...)` sets the names and the table to the dataset's.
-`.pt` files, `embed`, `fuse`, `info`, `profile`, export and the research zoo wait for later slices.
+`embed(source)` gives one L2-normalised feature vector an image (the graph up
+to the layer before the head, global-average-pooled); `fuse()` folds every
+conv's BatchNorm into its weights, as the JAX `fuse_conv_bn` does;
+`reset_weights()` draws the weights again from the facade's seed; `n_params`,
+`device` ("cuda:0" or "cpu") and `task_map` are the JAX facade's;
+`add_callback`, `clear_callback` and `reset_callbacks` register hooks that the
+trainer runs (`utils/callbacks.py`).
+`.pt` files, `info`, `profile`, export and the research zoo wait for later slices.
 """
 
 from __future__ import annotations
 
 import re
 from pathlib import Path
-from typing import Any, Dict, Iterable, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Union
 
+import numpy as np
 import torch
 
-from ..nn.compiler import build_model, guess_model_scale, yaml_model_load
+from ..nn.compiler import DetectionModel, build_model, guess_model_scale, yaml_model_load
+from ..nn.modules import ConvBN
 from ..utils import resolve_device
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.flax_bridge import flax_shapes, load_flax, random_variables, state_dict_to_flax
 from ..utils.names import COCO80
 from ..utils.text_embed import encode_names
-from .predictor import Predictor
+from .predictor import Predictor, letterbox_batch, load_source, serving_model
 
 _CFG_ROOT = Path(__file__).resolve().parents[1] / "cfg" / "models"
 SAVE_KEYS = {"save", "save_txt", "save_conf", "save_crop", "save_dir", "project", "name", "exist_ok"}
@@ -93,12 +102,15 @@ class YOLO:
     numbers the JAX package gets from `random_variables` of its shape tree);
     None keeps PyTorch's default init. nc: the number of classes, when it is
     not the YAML's (the JAX facade's `nc=`); the names are then "0", "1", ...
-    A `.ckpt` brings its own weights, class count and names; `seed` is unused.
+    A `.ckpt` brings its own weights, class count and names; `seed` is then only what
+    `reset_weights` draws from.
     """
 
     def __init__(self, model: Union[str, Path] = "yolov10-SPD-Conv-Tiny-CBAM-LPC.yaml",
                  device: Union[str, torch.device, None] = None, seed: Optional[int] = 0, nc: Optional[int] = None):
-        self.device = resolve_device(device)
+        self._device = resolve_device(device)
+        self.seed = seed
+        self.callbacks: Dict[str, List[Callable]] = {}  # hooks the trainer runs first (add_callback)
         meta: Dict[str, Any] = {}
         if str(model).endswith(".ckpt"):
             d, variables, meta = _read_model_ckpt(model)
@@ -109,7 +121,7 @@ class YOLO:
         else:
             raise NotImplementedError("the torch port builds from model YAMLs and .ckpt files only; .pt comes later")
         self.model_yaml: Dict[str, Any] = d
-        self.model = build_model(d, device=self.device, nc=nc or meta.get("nc"))
+        self.model = build_model(d, device=self._device, nc=nc or meta.get("nc"))
         self.task = self.model.task  # from the head, as the JAX `_guess_task` (:123-131)
         if self.task is None:
             raise NotImplementedError("the torch port serves v10Detect, Detect, Segment, Pose, OBB, Classify, "
@@ -153,7 +165,7 @@ class YOLO:
     def load(self, weights: Union[str, Path, "YOLO"]) -> "YOLO":
         """Take over every weight of `weights` (a YOLO, a `.ckpt` or a YAML) whose name and shape
         match one of this model's, and keep the others (JAX `engine/model.py:339-351`)."""
-        other = weights if isinstance(weights, YOLO) else YOLO(weights, device=self.device)
+        other = weights if isinstance(weights, YOLO) else YOLO(weights, device=self._device)
         theirs = other.model.state_dict()
         with torch.no_grad():
             for k, v in self.model.state_dict().items():
@@ -172,7 +184,7 @@ class YOLO:
         if unknown:
             raise TypeError(f"predict got unexpected arguments {sorted(unknown)}")
         predictor = Predictor(self.model, imgsz=imgsz, batch=batch, conf=conf, iou=iou, max_det=max_det,
-                              names=self.names, device=device or self.device, text=self.txt_feats, **save_kw)
+                              names=self.names, device=device or self._device, text=self.txt_feats, **save_kw)
         return predictor(source, stream=stream)
 
     def __call__(self, source, **kw):
@@ -189,7 +201,7 @@ class YOLO:
         from ..trackers.track import make_tracker, track_stream
 
         if not (persist and self.tracker is not None):
-            self.tracker = make_tracker(tracker, device=kw.get("device") or self.device)
+            self.tracker = make_tracker(tracker, device=kw.get("device") or self._device)
         results = self.predict(source, conf=conf, batch=1, stream=True, **kw)
         gen = track_stream(results, self.tracker)
         return gen if stream else list(gen)
@@ -210,7 +222,7 @@ class YOLO:
                                       "top-1 and top-5 through engine/classify.py::evaluate_classifier")
         if data is None:
             raise ValueError("val needs data=<dataset yaml or dict>")
-        self.validator = Validator(self, device=device or self.device, **kw)
+        self.validator = Validator(self, device=device or self._device, **kw)
         return self.validator(data)
 
     def train(self, batches: Optional[Iterable[Mapping[str, Any]]] = None, data=None,
@@ -229,9 +241,91 @@ class YOLO:
             if batches is not None:
                 raise NotImplementedError("a classify model trains from data=<class-folder root> only, as in the "
                                           "JAX package")
-            return train_classifier(self, data=data, device=device or self.device, **kw)
-        self.trainer = Trainer(self, batches, data=data, device=device or self.device, **kw)
+            return train_classifier(self, data=data, device=device or self._device, **kw)
+        self.trainer = Trainer(self, batches, data=data, device=device or self._device, **kw)
         return self.trainer.train()
+
+    # the reference's callback hooks (JAX `engine/model.py:320-327`); the trainer merges them into its bus
+    def add_callback(self, event: str, func: Callable) -> None:
+        self.callbacks.setdefault(event, []).append(func)
+
+    def clear_callback(self, event: str) -> None:
+        self.callbacks[event] = []
+
+    def reset_callbacks(self) -> None:
+        self.callbacks = {}
+
+    @torch.no_grad()
+    def fuse(self) -> "YOLO":
+        """Fold every conv's BatchNorm into its weights, in place, as the JAX `fuse_conv_bn` (:271) folds the
+        variables: W * f with f = gamma / sqrt(var + eps), and the BatchNorm left as the identity plus the
+        folded bias (scale 1, bias beta - mean * f, mean 0, var 1 - eps), so the same graph serves it."""
+        for m in self.model.modules():
+            if not isinstance(m, ConvBN):  # the JAX walk's (conv, bn) pairs; a RepConv's branches are ConvBNs
+                continue
+            conv, bn = m.conv, m.bn
+            f = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+            conv.weight.mul_(f[:, None, None, None])
+            bn.bias.copy_(bn.bias - bn.running_mean * f)
+            bn.weight.fill_(1.0)
+            bn.running_mean.zero_()
+            bn.running_var.fill_(1.0 - bn.eps)
+        return self
+
+    def reset_weights(self) -> "YOLO":
+        """Draw the weights again (JAX :353): from the facade's seed through the bridge, or with `seed=None`
+        PyTorch's default init of every module."""
+        if self.seed is not None:
+            return self.load_flax(random_variables(flax_shapes(self.model), self.seed))
+        for m in self.model.modules():
+            if m is not self.model and hasattr(m, "reset_parameters"):
+                m.reset_parameters()
+        return self
+
+    @property
+    def n_params(self) -> int:
+        """The number of parameters (JAX :431, the leaves of `params`)."""
+        return sum(p.numel() for p in self.model.parameters())
+
+    @property
+    def device(self) -> str:
+        """The device the facade runs on (JAX :396): "cuda:<index>" or "cpu"."""
+        d = self._device
+        if d.type == "cuda":
+            return f"cuda:{d.index if d.index is not None else torch.cuda.current_device()}"
+        return d.type
+
+    @property
+    def task_map(self) -> Dict[str, Dict[str, Any]]:
+        """task -> engine components (JAX :402)."""
+        from .trainer import Trainer
+        from .validator import Validator
+
+        return {t: {"trainer": Trainer, "validator": Validator, "predictor": Predictor}
+                for t in ("detect", "v8", "v10", "segment", "pose", "obb", "classify", "rtdetr", "world")}
+
+    def embed(self, source, imgsz: int = 224, batch: int = 1,
+              device: Union[str, torch.device, None] = None) -> List[np.ndarray]:
+        """Feature embeddings of the source images (JAX :358-392): the graph up to the layer before the head,
+        global-average-pooled and L2-normalised, one 1-D f32 array an image. Each frame is letterboxed by the
+        letterbox kernel (scaleup, as the JAX host letterbox) and the trunk runs f32 on the BN-folded serving
+        copy, its 3x3 s1 convs through the conv3x3 kernel on the card."""
+        dev = resolve_device(device or self._device)
+        serving = serving_model(self.model, dev, torch.float32)
+        with torch.device("meta"):
+            trunk = DetectionModel(self.model.specs[:-1], self.model.save, self.model.nc, self.model.strides,
+                                   self.model.reg_max, self.model.default_act)
+        trunk.model = torch.nn.ModuleList(list(serving.model)[:-1])
+        trunk.eval()
+        frames = [im for _, im in load_source(source)]
+        out: List[np.ndarray] = []
+        with torch.inference_mode():
+            for i in range(0, len(frames), batch):
+                x = letterbox_batch(frames[i:i + batch], imgsz, dev, torch.uint8).permute(0, 3, 1, 2).float()
+                emb = trunk(x).float().mean(dim=(2, 3))
+                emb = emb / emb.norm(dim=-1, keepdim=True).clamp(min=1e-20)
+                out.extend(emb.cpu().numpy())
+        return out
 
 
 class YOLOWorld(YOLO):

@@ -78,8 +78,29 @@ the main thread only: the step in flight finishes, then the run ends) writes
 no mid-epoch state, so `last.ckpt` stays the end of the last whole epoch and
 a resume runs the stopped epoch again from its start.
 
-Not ported yet, and refused when asked for: `cache_augmented` and autobatch
-(`batch=-1`); callbacks are not run.
+`batch=-1` picks the batch first (JAX :144-172, :203-210,
+`utils/autobatch.py`): the largest power of two up to 128 whose training
+step fits 60% of the card's memory. Each candidate runs one real step (SGD,
+as the JAX probe compiles it) on zero inputs of the real shapes and the
+task's targets, on a copy of the model under a forked generator state, so
+the parameters, BN statistics, EMA and every seeded generator stay as they
+were and `train(batch=-1)` is the run of `train(batch=<the chosen batch>)`;
+`autobatch_probes` keeps each probe's (batch, peak bytes, limit bytes).
+
+`cache_augmented` (False, True or a capacity; JAX :289-299) serves the
+steps from an `AugmentedCache` window of the loader's host batches (plans,
+sources and labels), refreshed by a background thread and refilled at the
+close_mosaic boundary; each served batch is rendered on the device as a
+fresh one is. The window's capacity is the given one, or for True
+min(steps per epoch, 16); `aug_cache` keeps it after the run
+(`echo_factor()`).
+
+Callbacks (`utils/callbacks.py`): the facade's (`YOLO.add_callback`) first,
+then the JAX package's sinks under `save_dir` (MLflow file store, DVCLive,
+events.jsonl; TensorBoard and wandb when they import). The trainer fires
+`on_train_start`, `on_train_epoch_start`, `on_model_save`, `on_fit_epoch_end`
+(with `last_metrics`, the epoch's results.csv row) and `on_train_end` where
+the JAX trainer fires them (:272, :304, :371, :398, :411).
 """
 
 from __future__ import annotations
@@ -99,6 +120,7 @@ import torch
 from ..data import (DataLoader, OBBTrainTransforms, PoseTrainTransforms, SegTrainTransforms, TrainTransforms,
                     YOLODataset, check_det_dataset, render)
 from ..utils import msgpack, resolve_device
+from ..utils.callbacks import CallbackRegistry
 from ..utils.checkpoint import load_checkpoint, read_meta, write_checkpoint
 from ..utils.flax_bridge import train_state_dict, train_state_from_dict
 from ..utils.infra import get_save_dir
@@ -186,16 +208,13 @@ class Trainer:
                  name: Optional[str] = None, exist_ok: bool = False, patience: int = 50, seed: int = 0,
                  resume: bool = False, hyp: Optional[Dict] = None, cache: Any = False, cache_augmented: Any = False,
                  device: Union[str, torch.device, None] = None):
-        refused = {"cache_augmented": cache_augmented, "batch=-1 (autobatch)": batch == -1}
-        for what, asked in refused.items():
-            if asked:
-                raise NotImplementedError(f"{what} is not ported yet")
         if (batches is None) == (data is None):
             raise ValueError("pass either data=<dataset yaml> or batches=<iterable of host batches>")
         self.yolo, self.data, self.epochs = yolo, data, epochs
         self.batches = None if batches is None else (batches if hasattr(batches, "__len__") else list(batches))
         self.batch, self.imgsz, self.workers, self.max_gt = batch, imgsz, workers, max_gt
         self.close_mosaic, self.do_val, self.seed, self.hyp, self.cache = close_mosaic, val, seed, hyp, cache
+        self.cache_augmented = cache_augmented
         self.save, self.save_period, self.patience, self.resume = save, save_period, patience, resume
         self.save_dir = self._save_dir(save_dir, project, name, exist_ok)
         self.device = resolve_device(device or yolo.device)
@@ -208,6 +227,15 @@ class Trainer:
         self.state: TrainState = None
         self.start_epoch = 0
         self.preempted = False
+        self.epoch = 0
+        self.last_metrics: Dict[str, Any] = {}
+        self.autobatch_probes: List[Tuple[int, int, int]] = []
+        self.aug_cache = None
+        self.callbacks = CallbackRegistry()
+        for event, fns in getattr(yolo, "callbacks", {}).items():  # the facade's hooks first (JAX :130-138)
+            for fn in fns:
+                self.callbacks.add(event, fn)
+        self.callbacks.add_integration_callbacks(save_dir=self.save_dir)
 
     def _save_dir(self, save_dir, project, name, exist_ok) -> Path:
         """An explicit save_dir as it is; else the JAX run directory, and on resume the newest run of
@@ -237,6 +265,40 @@ class Trainer:
                          weight_decay=kw["weight_decay"],
                          warmup_steps=max(int(kw["warmup_epochs"] * steps_per_epoch), 100),
                          total_steps=total_steps, optimizer=name)
+
+    def _autobatch(self, model: torch.nn.Module, task: str, kpt_shape=None, max_batch: int = 128) -> int:
+        """Resolve batch=-1: the largest power-of-two batch whose train step fits 60% of the card's memory
+        (`utils/autobatch.py`). Each probe trains a copy of `model` one SGD step on zero inputs of the real
+        shapes (the packed uint8 frames, `max_gt` label rows and the task's targets, JAX :157-170), under a
+        forked generator state; the probes' (batch, peak, limit) go to `autobatch_probes`."""
+        from ..utils import autobatch as ab
+
+        probe_cfg = OptConfig(total_steps=1000, warmup_steps=100)
+        M, sz = self.max_gt, self.imgsz
+
+        def zeros(b: int) -> Dict[str, np.ndarray]:
+            batch = {"img": pack_img(np.zeros((b, sz, sz, 3), np.uint8)), "cls": np.zeros((b, M), np.int32),
+                     "bboxes": np.zeros((b, M, 4), np.float32), "mask": np.zeros((b, M), bool)}
+            if task == "segment":
+                batch["masks"] = np.zeros((b, M, sz // 4, sz // 4), np.uint8)
+            elif task == "pose":
+                batch["keypoints"] = np.zeros((b, M) + tuple(kpt_shape or (17, 3)), np.float32)
+            elif task == "obb":
+                batch["rboxes"] = np.zeros((b, M, 5), np.float32)
+            return batch
+
+        def make_fn(b: int):
+            def probe():
+                devices = [self.device] if self.device.type == "cuda" else []
+                with torch.random.fork_rng(devices=devices):
+                    copy_ = copy.deepcopy(model)
+                    state = init_train_state(copy_, probe_cfg, self.device)
+                    make_train_step(copy_, probe_cfg, loss_kind=task, text=self.yolo.txt_feats)(state, zeros(b))
+
+            return probe, ()
+
+        self.autobatch_probes = []
+        return ab.autobatch(make_fn, max_batch=max_batch, device=self.device, probes=self.autobatch_probes)
 
     def _request_stop(self, signum, frame) -> None:
         self.preempted = True
@@ -273,6 +335,7 @@ class Trainer:
         # train a copy: the facade's model stays as it is until the hand-back
         model = copy.deepcopy(self.yolo.model)
         transforms = info = None
+        kpt_shape = None
         if self.data is not None:
             info = check_det_dataset(self.data)
             if model.nc != info["nc"]:
@@ -281,6 +344,10 @@ class Trainer:
             if self.yolo.task == "world":
                 self.yolo.set_classes([info["names"][i] for i in sorted(info["names"])])
             kpt_shape = info.get("kpt_shape")
+        if self.batch == -1:
+            self.batch = self._autobatch(model, self.yolo.task, kpt_shape)
+            print(f"autobatch: using batch={self.batch}")
+        if self.data is not None:
             dataset = YOLODataset(info["train"], cache_images=self.cache, kpt_shape=kpt_shape,
                                   obb=self.yolo.task == "obb")
             if self.yolo.task == "obb":
@@ -304,7 +371,15 @@ class Trainer:
         names = LOSS_NAMES[self.yolo.task]
         if transforms is not None:
             loader.epoch = self.start_epoch  # the resumed epoch's shuffle and draws
-            data_iter = iter(loader)
+            if self.cache_augmented:
+                from ..data.shard_cache import AugmentedCache
+
+                capacity = (int(self.cache_augmented) if not isinstance(self.cache_augmented, bool)
+                            else min(steps_per_epoch, 16))
+                self.aug_cache = AugmentedCache(loader, capacity=capacity, seed=self.seed)
+                data_iter = iter(self.aug_cache)
+            else:
+                data_iter = iter(loader)
         close_at = self.epochs - self.close_mosaic  # mosaic off from this epoch, also when resuming past it
         csv_path = self.save_dir / "results.csv"
         self.preempted = False
@@ -312,10 +387,15 @@ class Trainer:
         if threading.current_thread() is threading.main_thread():
             handlers = {sig: signal.signal(sig, self._request_stop) for sig in (signal.SIGTERM, signal.SIGINT)}
         mean_items, results = np.zeros(len(names)), {}
+        self.callbacks.run("on_train_start", self)
         try:
             for epoch in range(self.start_epoch, self.epochs):
+                self.epoch = epoch
+                self.callbacks.run("on_train_epoch_start", self)
                 if transforms is not None and close_at >= 0 and epoch == max(close_at, self.start_epoch):
                     transforms.close_mosaic()
+                    if self.aug_cache is not None:
+                        self.aug_cache.invalidate()  # stale mosaic batches must not reach the last epochs
                 t_epoch, wait_s, render_s, n_skipped, lr = time.perf_counter(), 0.0, 0.0, 0, 0.0
                 mean_items[:] = 0
                 source = data_iter if transforms is not None else iter(self.batches)
@@ -356,6 +436,7 @@ class Trainer:
                 best_fitness = max(best_fitness, fitness)
                 if self.save or epoch == self.epochs - 1:
                     self._save(state, epoch, fitness, is_best, last, best)
+                    self.callbacks.run("on_model_save", self)
                 seconds = time.perf_counter() - t_epoch
                 # the JAX row, its lr the f32 that the JAX step returns
                 csv_row = {"epoch": epoch, **{f"train/{n}": round(float(v), 5) for n, v in zip(names, mean_items)},
@@ -370,14 +451,22 @@ class Trainer:
                 print(f"epoch {epoch + 1}/{self.epochs} "
                       + " ".join(f"{n}={v:.3f}" for n, v in zip(names, mean_items))
                       + (f" mAP50-95={results.get('metrics/mAP50-95(B)', 0):.4f}" if results else ""))
+                self.last_metrics = csv_row
+                self.callbacks.run("on_fit_epoch_end", self)
                 if stopper(epoch, fitness):
                     print(f"early stop at epoch {epoch + 1} (best epoch {stopper.best_epoch + 1})")
                     break
         finally:
             for sig, h in handlers.items():
                 signal.signal(sig, h)
-            if transforms is not None:
+            if self.aug_cache is not None:
+                self.aug_cache.stop()  # ends its refresh thread and the loader's threads
+            elif transforms is not None:
                 data_iter.close()  # stops the loader's threads
+        if self.aug_cache is not None:
+            print(f"aug cache: echo factor {self.aug_cache.echo_factor():.2f} "
+                  f"({self.aug_cache.refreshed} refreshed / {self.aug_cache.served} served)")
+        self.callbacks.run("on_train_end", self)
         hand_back(self.yolo, model, state)
         self.state = state
         return results if transforms is not None else dict(zip(names, mean_items.tolist()))

@@ -1,10 +1,12 @@
-"""Run directories (counterpart of `lpc_yolo_tpu/utils/infra.py:65-135`: `increment_path`, `get_save_dir`).
+"""Run directories and the user settings (counterpart of `lpc_yolo_tpu/utils/infra.py:65-135`:
+`SettingsManager`, `increment_path`, `get_save_dir`).
 
 The runs root is the `runs_dir` of the JAX package's settings file
 (`$LPC_YOLO_CONFIG_DIR/settings.yaml`, by default
 `~/.config/lpc_yolo_tpu/settings.yaml`) when that file exists and names one,
-else `./runs`, as the JAX package's default. The port reads the file and
-never writes it.
+else `./runs`, as the JAX package's default. Training, validation and
+prediction only read the file; `SettingsManager` (the CLI's `settings` mode)
+writes it, byte for byte as the JAX one does.
 """
 
 from __future__ import annotations
@@ -18,6 +20,47 @@ import yaml
 
 def settings_file() -> Path:
     return Path(os.environ.get("LPC_YOLO_CONFIG_DIR", Path.home() / ".config" / "lpc_yolo_tpu")) / "settings.yaml"
+
+
+class SettingsManager(dict):
+    """The persisted user settings (JAX `utils/infra.py:69-110`): datasets_dir, weights_dir, runs_dir and the
+    feature toggles, read from and saved to `settings_file()` (the file is written when it is missing)."""
+
+    def __init__(self, file: Optional[Union[str, Path]] = None):
+        self.file = Path(file) if file is not None else settings_file()
+        defaults = {
+            "settings_version": "0.1.0",
+            "datasets_dir": str(Path.cwd() / "datasets"),
+            "weights_dir": str(Path.cwd() / "weights"),
+            "runs_dir": str(Path.cwd() / "runs"),
+            "sync": False,
+            "tensorboard": True,
+            "api_key": "",
+        }
+        super().__init__(defaults)
+        try:
+            if self.file.exists():
+                stored = yaml.safe_load(self.file.read_text()) or {}
+                self.update({k: v for k, v in stored.items() if k in defaults})
+            else:
+                self.save()
+        except OSError:
+            pass
+
+    def save(self) -> None:
+        try:
+            self.file.parent.mkdir(parents=True, exist_ok=True)
+            self.file.write_text(yaml.safe_dump(dict(self), sort_keys=False))
+        except OSError:
+            pass
+
+    def update(self, *args, **kw):  # type: ignore[override]
+        super().update(*args, **kw)
+        self.save()
+
+    def reset(self) -> None:
+        self.file.unlink(missing_ok=True)
+        self.__init__(self.file)
 
 
 def runs_dir() -> Path:

@@ -261,15 +261,22 @@ def test_entry_points_refuse_what_is_not_ported(world):
         tts.make_train_step(tm, tts.OptConfig(), loss_kind="classify")
     with pytest.raises(NotImplementedError):
         tts.make_train_step(tm, tts.OptConfig(optimizer="lion"))
-    # the transforms the data path does not carry: mosaic9, copy_paste, warpPerspective
+    # mosaic9, copy_paste and warpPerspective are ported (tests/test_torch_aug_extra.py); a hyp key that no
+    # transform reads is refused, naming it
     for hyp in ({"mosaic9": 0.5}, {"copy_paste": 0.3}, {"perspective": 0.001}):
-        with pytest.raises(NotImplementedError):
-            TrainTransforms(S, hyp)
-    # the trainer's options not ported yet (save, save_period and resume are: tests/test_torch_ckpt.py)
+        assert TrainTransforms(S, hyp).hyp[next(iter(hyp))] == next(iter(hyp.values()))
+    with pytest.raises(NotImplementedError, match="auto_augment"):
+        TrainTransforms(S, {"auto_augment": "randaugment"})
+    # cache_augmented and autobatch are ported (tests/test_torch_callbacks.py, tests/test_torch_cli.py); the
+    # CLI's export mode is not
     yolo = YOLO(device="cpu", seed=None)
     for kw in ({"cache_augmented": True}, {"batch": -1}):
-        with pytest.raises(NotImplementedError):
-            Trainer(yolo, data="data.yaml", epochs=1, device="cpu", **kw)
+        tr = Trainer(yolo, data="data.yaml", epochs=1, device="cpu", **kw)
+        assert (tr.cache_augmented, tr.batch) == (kw.get("cache_augmented", False), kw.get("batch", 16))
+    from lpc_yolo_tpu_torch.cfg import entrypoint
+
+    with pytest.raises(NotImplementedError, match="export"):
+        entrypoint(["export", "model=yolov10n.yaml", "format=onnx", "device=cpu"])
     # a folded serving copy cannot be trained as it is: train mode drops the fold, fold() refuses train mode
     from lpc_yolo_tpu_torch.nn.modules import ConvBN
 
