@@ -16,6 +16,7 @@
     python3 chip_smoke.py --world      # device, build, then phase 20 (YOLO-World) only
     python3 chip_smoke.py --track      # device, build, then phase 21 (tracking, the save family) only
     python3 chip_smoke.py --cli        # device, build, then phase 22 (the CLI, autobatch, the new augmentations) only
+    python3 chip_smoke.py --attn       # device, build, then phase 23 (LPC-YOLO with each of 21 attention modules) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -311,14 +312,32 @@ Phases, in order; any failure raises and the script exits non-zero:
             callback recording the five events (the JAX order) and the sinks'
             files; embed on the card against the CPU (1e-4) and the f32
             predictions before and after fuse(). Numbers under "cli".
+23. attn    LPC-YOLO at 640 and its published width (s), with layer 21's
+            CBAM [7] replaced by each of the research zoo's 21 attention
+            modules (`nn/research.py`; a YAML written to a temp dir), seed-0
+            weights: conv3x3 sites a forward (28; 29 with SKAttention's conv_1,
+            ReLU, or ParNetAttention's conv3x3, no activation and a conv bias
+            folded in), the added site shape against the plain version, every
+            site of a bf16 forward on its own inputs; the bf16 serving path's
+            head maps and pre-selection scores against the f32 plain path and
+            the f32 kernel path against it; f32 on the card against the CPU on
+            the same weights; YOLO.predict b32 from 720p frames with the
+            counters held, the serving step's ms, busy, idle share, launches,
+            and layer 21 alone (ms, busy). Then the SK variant's val on phase
+            7's 64 frames, its b16 train step (ms, peak GB, a repack a step),
+            one epoch of train(data=..., save=True) on phase 8's set, counters
+            held, and YOLO(x.pt) of a reference-layout .pt on the card against
+            the fp16-rounded in-memory model. The whole run serves the SK,
+            ParNet and CrissCross variants (WHOLE_RUN_ATTN); --attn all 21.
+            Numbers under "attn".
 
 In the whole run phases 10, 11, 13 and 14 run their n and x scales
 (WHOLE_RUN_SCALES), phase 15 its n scale (WHOLE_RUN_OBB), phase 16 yolov8n-cls,
 yolov8x-cls and the ResNet-50 (WHOLE_RUN_CLS), phase 17 leaves out
 yolov8x-p2 and yolov8x-p6 (WHOLE_RUN_ZOO) and phase 20 runs the s models
-(WHOLE_RUN_WORLD), so that the script stays well inside its time limit;
---v10, --v8, --seg, --pose, --obb, --cls, --zoo and --world run every model
-of their family.
+(WHOLE_RUN_WORLD) and phase 23 three attention variants (WHOLE_RUN_ATTN), so
+that the script stays well inside its time limit; --v10, --v8, --seg, --pose,
+--obb, --cls, --zoo, --world and --attn run every model of their family.
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
@@ -329,14 +348,15 @@ phase 12's val pool; "launches_cls" beside them from phase 16's yolov8n-cls
 predict and train(data=...); "launches_zoo" from phase 17's yolov6n train(data=...), "launches_v9" from
 phase 18's yolov9c train(data=...), "launches_rtdetr" from phase 19's rtdetr-l train(data=...), "launches_world"
 from phase 20's yolov8s-world train(data=...), "launches_track" from phase 21's two tracking runs, "launches_cli"
-from phase 22's three CLI runs (train at batch=-1, predict, val), and conv3x3's
+from phase 22's three CLI runs (train at batch=-1, predict, val), "launches_attn" from phase 23's SK variant's
+train(data=..., save=True), and conv3x3's
 "max_abs_err_relu", the f32 parity of its ReLU epilogue at yolov6n's sites); the last line is
 {"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
 "pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo",
 phase 18's under "v9", phase 19's under "rtdetr", phase 20's under "world", phase 21's under "track", phase 22's
-under "cli").
+under "cli", phase 23's under "attn").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -3000,13 +3020,16 @@ def zoo_vs_plain(yolo, pred, frames):
     read its text table on both paths, and its scores are over the table's M classes; its class maps are the
     contrastive logits (`calm_text_embeddings` first). Its top 20 kept scores are only reported: they sit ~5e-5
     apart, so one row that f32 rounding keeps on one path and not on the other shifts the sorted lists by more than
-    1e-4 while the pre-NMS scores agree to ~1e-7; the pre-NMS check and the matched rows hold it."""
+    1e-4 while the pre-NMS scores agree to ~1e-7; the pre-NMS check and the matched rows hold it. A v10Detect
+    model's maps are its one-to-one branch's, and its rows the top-k decode's (phase 23)."""
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.nn.heads import decode_feats
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox_plain, tables_on
 
     S, m = pred.imgsz, yolo.model
-    feats = lambda out: out["feats"] if isinstance(out, dict) else out  # noqa: E731
+    def feats(out):  # a head's (box, cls) pairs: v8-style "feats", v10's one-to-one branch, or the list itself
+        return (out["feats"] if "feats" in out else out["one2one"]) if isinstance(out, dict) else out
+
     best = lambda fs: decode_feats(fs, m.strides, fs[0][1].shape[1], m.reg_max)[..., 4:].amax(-1)  # noqa: E731
     text = pred.batch_text(len(frames))  # a World model's table (None for the others)
     x = torch.empty(len(frames), S, S, 3, device="cuda")
@@ -4438,6 +4461,186 @@ def converge_only(model: str = YAML) -> int:
     return 0
 
 
+ATTN_SITES = {"SKAttention": 1, "ParNetAttention": 1}  # conv3x3 sites an attention module adds to LPC's 28
+WHOLE_RUN_ATTN = ("SKAttention", "ParNetAttention", "CrissCrossAttention")  # phase 23 in the whole run; --attn: all 21
+ATTN_VAL, ATTN_TRAIN = "SKAttention", "SKAttention"  # val on phase 7's frames; the b16 step and train(data=...), .pt
+ATTN_CPU_TOL = 1e-4  # f32 card vs CPU: the top-300 pre-selection scores, and the rows' scores (boxes 0.05 px)
+
+
+def attn_card_vs_cpu(yolo, frames):
+    """The unfolded f32 model on the card against the same weights on the CPU, on one u8 feed (the plain letterbox):
+    the top 300 of the anchors' best class scores before the top-k selection, sorted, within ATTN_CPU_TOL, and the
+    (B, 300, 6) rows tie-tolerantly (box 0.05 px, score ATTN_CPU_TOL). Returns the pre-selection gap."""
+    import copy
+
+    from lpc_yolo_tpu_torch.nn.heads import decode_feats
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox_plain, tables_on
+    from lpc_yolo_tpu_torch.utils.compare import assert_detections_close
+
+    src = torch.from_numpy(np.stack(frames)).cuda()
+    x = letterbox_plain(src, tables_on(*frames[0].shape[:2], 640, src.device), 640, torch.uint8).float() / 255
+    x = x.permute(0, 3, 1, 2).contiguous()
+    cpu = copy.deepcopy(yolo.model).cpu()
+
+    def run(m, xs):
+        pairs = m(xs, branches="one2one")["one2one"]
+        best = decode_feats([torch.cat(p, 1) for p in pairs], m.strides, m.nc, m.reg_max)[..., 4:].amax(-1)
+        return best.topk(300).values.cpu(), m.predict(xs).cpu().numpy()
+
+    with torch.inference_mode():
+        (s_card, d_card), (s_cpu, d_cpu) = run(yolo.model, x), run(cpu, x.cpu())
+    gap = (s_card - s_cpu).abs().max().item()
+    assert gap <= ATTN_CPU_TOL, f"f32 card vs CPU: pre-selection scores off by {gap}"
+    for a, b in zip(d_card, d_cpu):
+        assert_detections_close(a, b, atol_box=0.05, atol_score=ATTN_CPU_TOL)
+    return gap
+
+
+def attn_module_times(pred, host):
+    """Layer 21 alone at b32 bf16 on the input the serving path gives it: event-timed ms (eager calls, host
+    launches included) and the profiler's device busy ms and launches."""
+    from lpc_yolo_tpu_torch.nn.research import LPC_ATTENTION_LAYER
+
+    mod, inp = pred.model.model[LPC_ATTENTION_LAYER], []
+    hook = mod.register_forward_pre_hook(lambda m, a: inp.append(a[0]))
+    with torch.inference_mode():
+        pred.infer(host)
+    hook.remove()
+    x = inp[0]
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: mod(x), iters=10)
+        prof = profile_step(lambda: mod(x), iters=3)
+    return {"input": list(x.shape), "ms": ms, "busy_ms": prof["device_busy_ms"],
+            "device_launches": prof["device_launches"], "profile_top": prof["top"][:5]}
+
+
+def attn_pt_route(yolo_yaml: Path, root: Path):
+    """The SK variant through a reference-layout `.pt` (`YOLO.save_pt`: the fp16 module under `model`): YOLO(x.pt)
+    on the card predicts, bit for bit, what the in-memory model predicts with its weights rounded to fp16."""
+    from lpc_yolo_tpu_torch import YOLO
+
+    ref = YOLO(yolo_yaml, device="cuda", seed=0)
+    t0 = time.perf_counter()
+    pt = ref.save_pt(root / f"{yolo_yaml.stem}.pt")
+    loaded = YOLO(pt, device="cuda")
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        for v in ref.model.state_dict().values():
+            v.copy_(v.half().to(v.dtype))
+    frames = frames_720p(4, seed=231)
+    a, b = (y.predict(frames, imgsz=640, batch=4, conf=0.0) for y in (loaded, ref))
+    assert all(np.array_equal(r.boxes.data, q.boxes.data) for r, q in zip(a, b)), "YOLO(x.pt) predicts otherwise"
+    assert loaded.task == "v10" and all(len(r) > 0 for r in a)
+    return {"bytes": Path(pt).stat().st_size, "save_load_s": load_s, "boxes": [len(r) for r in a]}
+
+
+def phase_attn(val_data: Path, train_data: str, modules=None):
+    """Phase 23: LPC-YOLO at 640, its `s` width, with layer 21's CBAM replaced by each of the research zoo's 21
+    attention modules (`nn/research.py::write_lpc_attention_yaml`; the whole run's: WHOLE_RUN_ATTN), each with
+    seed-0 weights: its conv3x3 sites (LPC's 28, and 29 with SKAttention's `conv_1` or ParNetAttention's `conv3x3`)
+    against the plain version where they add a site shape, and every site of a bf16 forward on its own inputs; the
+    folded bf16 serving path against the f32 plain path (head maps, pre-selection scores) and the f32 kernel path
+    (`zoo_vs_plain`); the f32 card against the CPU (`attn_card_vs_cpu`); YOLO.predict b32 bf16 from 720p frames with
+    the counters held and the serving step's time, busy, idle share and launches (`scale_serving`); layer 21's own
+    ms (`attn_module_times`). Then, for ATTN_VAL, YOLO.val(data=...) on phase 7's 64 frames, counters held; for
+    ATTN_TRAIN its b16 train step (ms, busy, a repack a step, peak GB), its one-epoch train(data=..., save=True) on
+    phase 8's dataset, counters held, and its `.pt` route (`attn_pt_route`). Returns that train(data=...)'s
+    launches."""
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.engine.train_step import to_device
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+    from lpc_yolo_tpu_torch.nn.research import ATTENTION, LPC_ATTENTION_LAYER, write_lpc_attention_yaml
+
+    t_phase = time.perf_counter()
+    host = frames_720p(SCALE_SERVE_BATCH, seed=232)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
+    out, launches = {}, None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_attn_") as tmp:
+        root = Path(tmp)
+        for m in modules or sorted(ATTENTION):
+            t0 = time.perf_counter()
+            r = out[m] = {}
+            path = write_lpc_attention_yaml(m, root)
+            yolo = YOLO(path, device="cuda", seed=0)
+            assert type(yolo.model.model[LPC_ATTENTION_LAYER]).__name__ == m
+            r["parameters"] = sum(p.numel() for p in yolo.model.parameters())
+            pred = Predictor(yolo.model, imgsz=640, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+            sites = conv_sites(pred)
+            assert len(sites) == CONV_SITES_PER_FORWARD + ATTN_SITES.get(m, 0), (m, len(sites))
+            r["sites"] = len(sites)
+            if m in ATTN_SITES:  # the site it adds, 64 -> 64 at 80² (ReLU or none), with LPC's
+                r["parity"] = phase_parity_conv(sites, m)
+            site_err = bf16_site_errors(pred, host[:2])
+            assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{m} bf16 conv3x3 sites: {site_err}"
+            r["forward_sites_bf16_max_rel"] = max(site_err)
+            r["vs_plain"] = vp = zoo_vs_plain(yolo, pred, host)
+            r["card_vs_cpu_gap"] = attn_card_vs_cpu(yolo, host[:2])
+            r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
+            r["module"] = mt = attn_module_times(pred, host)
+            log(m, f"{r['parameters']} parameters, {len(sites)} conv3x3 sites a forward (bf16 forward's sites max rel "
+                   f"{max(site_err):.3g}); bf16 vs f32 plain: head maps {vp['bf16_map_err']:.3g} (tol {BF16_MAP_TOL}), "
+                   f"pre-selection top-300 gap {vp['bf16_score_gap']:.3g} (tol {BF16_SCORE_TOL}); f32 kernel path vs "
+                   f"plain pre-selection {vp['f32_pre_nms_gap']:.3g}, {vp['f32_matched']}/{vp['f32_rows']} rows; f32 "
+                   f"card vs CPU pre-selection {r['card_vs_cpu_gap']:.3g} (tol {ATTN_CPU_TOL}); YOLO.predict "
+                   f"b{SCALE_SERVE_BATCH} bf16: launches {sv['launches']}; serving step {sv['step_ms']:.3f} ms "
+                   f"({sv['img_s']:.1f} img/s), busy {sv['busy_ms']:.3f} ms, idle share {sv['idle_share']}, "
+                   f"{sv['device_launches']:.0f} launches; layer 21 {mt['input']}: {mt['ms']:.3f} ms by events, busy "
+                   f"{mt['busy_ms']:.3f} ms in {mt['device_launches']:.0f} launches")
+            if m == ATTN_VAL:
+                expect = val_launches_expected(val_frames, VAL_BATCH, len(sites))
+                zero_launches()
+                t1 = time.perf_counter()
+                res = yolo.val(data=str(val_data), imgsz=640, batch=VAL_BATCH, cache_images="disk")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                got = launches_now("letterbox", "conv3x3", "nms")
+                assert got == expect, f"{m} val: launches {got}, expected {expect}"
+                assert all(np.isfinite(v) for v in res.values()), res
+                r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": got, "results": res}
+                log(m, f"YOLO.val b{VAL_BATCH} bf16, {len(val_frames)} frames: {len(val_frames) / wall:.1f} img/s, "
+                       f"launches {got}")
+            del pred
+            torch.cuda.empty_cache()
+            if m == ATTN_TRAIN:
+                batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda"))
+                           for b in train_batches(2, TRAIN_BATCH, seed=233)]
+                r["train"] = tr = scale_train_step(yolo, batches)
+                log(m, f"train step b{TRAIN_BATCH} 640 bf16 autocast: {tr['step_ms']:.3f} ms ({tr['img_s']:.1f} "
+                       f"img/s), busy {tr['busy_ms']:.3f} ms, idle share {tr['idle_share']}, "
+                       f"{tr['device_launches']:.0f} launches, peak {tr['peak_gb']:.3f} GB, {tr['steps']} steps with "
+                       f"one repack each")
+                del batches
+                torch.cuda.empty_cache()
+                launches = phase_scale_train_data("v10", train_data, len(sites), name=str(path), epochs=1)
+                r["pt"] = pt = attn_pt_route(path, root)
+                log(m, f"YOLO(x.pt) on the card ({pt['bytes']} bytes, written and read in {pt['save_load_s']:.2f} s) "
+                       f"predicts what the fp16-rounded model predicts, bit for bit ({pt['boxes']} boxes)")
+            r["seconds"] = time.perf_counter() - t0
+            del yolo
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    REPORT["attn"] = out
+    log("attn", f"phase 23: {len(modules or ATTENTION)} attention variants in {out['seconds']:.1f} s")
+    assert launches is not None, f"{ATTN_TRAIN} did not run"
+    return launches
+
+
+def attn_only() -> None:
+    """`--attn`: phase 23 with all 21 attention modules."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_attn_data_") as tmp:
+        phase_attn(*write_zoo_datasets(Path(tmp)))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_attn.json").write_text(json.dumps(REPORT, indent=1, default=str))
+    log("done", "phase 23 passed; numbers in chiprun_out/chip_smoke_attn.json")
+
+
 def conv3x3_only() -> None:
     """`--conv3x3`: the conv3x3 kernel alone: its sites from one bf16 frame, its parity phase
     and its per-shape times at b32 with every instantiation swept; no other kernel, no serving
@@ -4460,10 +4663,12 @@ def main(argv) -> int:
     converge = argv[:1] == ["--converge"] and len(argv) <= 2
     only = {"--v10": lambda: scales_only("v10"), "--v8": lambda: scales_only("v8"), "--seg": seg_only,
             "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only, "--v9": v9_only,
-            "--rtdetr": rtdetr_only, "--world": world_only, "--track": track_only, "--cli": cli_only}
+            "--rtdetr": rtdetr_only, "--world": world_only, "--track": track_only, "--cli": cli_only,
+            "--attn": attn_only}
     if argv not in ([], ["--conv3x3"], *([k] for k in only)) and not converge:
         print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --v10, --v8, --seg, --pose, --obb, "
-              f"--cls, --zoo, --v9, --rtdetr, --world, --track, --cli and --converge [model yaml]", file=sys.stderr)
+              f"--cls, --zoo, --v9, --rtdetr, --world, --track, --cli, --attn and --converge [model yaml]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4567,7 +4772,11 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         stamp("track (21)")
         cli_launches = phase_cli(Path(tmp) / "cli", data)
+        torch.cuda.empty_cache()
         stamp("cli (22)")
+        attn_launches = phase_attn(Path(tmp) / "val" / "data.yaml", data, WHOLE_RUN_ATTN)
+        torch.cuda.empty_cache()
+        stamp("attn (23)")
     nms = time_nms()["val"]
     stamp("nms (12)")
     kernels = [
@@ -4599,6 +4808,7 @@ def main(argv) -> int:
         k["launches_world"] = world_launches[k["name"]]  # yolov8s-world's train(data=..., save=True), phase 20
         k["launches_track"] = track_launches[k["name"]]  # LPC-YOLO's ByteTrack and yolov8n's BoT-SORT runs, phase 21
         k["launches_cli"] = cli_launches[k["name"]]  # the CLI's train (batch=-1), predict and val, phase 22
+        k["launches_attn"] = attn_launches[k["name"]]  # the SK variant's train(data=..., save=True), phase 23
     kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start

@@ -13,7 +13,10 @@ cuda):
   only, so it drops mosaic, perspective, copy_paste and the other augmentation keys: ROADMAP
   Queue 3.) An override that nothing of the port's training reads raises NotImplementedError
   naming it.
-- `val`, `predict` and `track` pass what the JAX modes pass, and print what they print.
+- `val`, `predict` and `track` pass every override that the facade method takes (`MODE_KEYS`): the
+  JAX modes' keys, and `iou`, `batch`, `conf` (0 too) and `max_det`, which the JAX modes drop
+  (ROADMAP Queue 3); an override that the mode does not read raises NotImplementedError naming it.
+  They print what the JAX modes print.
 - The special modes: `help`, `version`, `cfg`, `copy-cfg`, `checks` (torch, CUDA, the card and
   nvcc in place of the JAX devices) and `settings` (`settings k=v ...`, `settings reset`: the same
   `settings.yaml` as the JAX CLI writes, `utils/infra.py::SettingsManager`).
@@ -68,6 +71,13 @@ TRAIN_KEYS = ("data", "epochs", "imgsz", "workers", "close_mosaic", "resume", "p
 TRAIN_EXTRA_KEYS = ("momentum", "weight_decay", "warmup_epochs", "seed", "cache", "val")
 # what the CLI consumes itself, in every mode
 CLI_KEYS = {"task", "mode", "model", "device"}
+# the save family that `predict` passes (the JAX mode's), and every key each other mode hands its facade method
+SAVE_FLAGS = ("save", "save_txt", "save_conf", "save_crop", "project", "name", "exist_ok")
+MODE_KEYS = {
+    "predict": {"source", "conf", "iou", "imgsz", "batch", "max_det", "save_dir", *SAVE_FLAGS},
+    "val": {"data", "imgsz", "batch", "conf", "iou", "max_det", "workers", "save_json", "save_dir"},
+    "track": {"source", "tracker", "conf", "iou", "imgsz", "max_det", "save_dir", *SAVE_FLAGS},
+}
 
 
 def cfg2dict(cfg: Union[str, Path, Dict, SimpleNamespace]) -> Dict:
@@ -240,6 +250,11 @@ def entrypoint(argv: Optional[List[str]] = None) -> Any:
     cfg = get_cfg(DEFAULT_CFG_DICT, {**overrides, "mode": mode, "task": task})
     device = "cuda" if cfg.device in (None, "") else f"cuda:{cfg.device}" if isinstance(cfg.device, int) else str(cfg.device)
 
+    if mode != "train":
+        unread = sorted(set(overrides) - MODE_KEYS[mode] - CLI_KEYS)
+        if unread:
+            _not_ported(f"`{mode}` with {unread} (read by no part of the mode)")
+
     from ..engine.model import YOLO
 
     model = YOLO(model_name, device=device)
@@ -256,43 +271,38 @@ def entrypoint(argv: Optional[List[str]] = None) -> Any:
         kw.update({k: getattr(cfg, k) for k in TRAIN_EXTRA_KEYS if k in overrides})
         return model.train(batch=int(cfg.batch), optimizer=str(cfg.optimizer).lower(), hyp=hyp or None,
                            device=device, **kw)
+    # the keys given, as the facade method takes them; save_dir is not a flag (get_cfg drops it) but they take it
+    given = {k: overrides[k] if k == "save_dir" else getattr(cfg, k) for k in overrides
+             if k in MODE_KEYS[mode] - {"data", "source", "tracker"} and overrides[k] is not None}
     if mode == "val":
-        results = model.val(data=cfg.data, imgsz=cfg.imgsz, batch=int(cfg.batch), save_json=cfg.save_json,
-                            device=device)
+        kw = {"imgsz": cfg.imgsz, "batch": int(cfg.batch), "save_json": cfg.save_json, **given}
+        kw["batch"] = int(kw["batch"])
+        results = model.val(data=cfg.data, device=device, **kw)
         for k, v in results.items():
             print(f"{k}: {v:.5f}")
         return results
     if mode == "predict":
         if not cfg.source:
             raise ValueError("predict needs source=<image, directory, glob or video>")
-        results = model.predict(
-            cfg.source,
-            conf=cfg.conf or 0.25,
-            imgsz=cfg.imgsz,
-            max_det=cfg.max_det,
-            # CLI runs save their results by default (reference Model.predict: save=is_cli)
-            save=cfg.save,
-            save_txt=cfg.save_txt,
-            save_conf=cfg.save_conf,
-            save_crop=cfg.save_crop,
-            project=cfg.project,
-            name=cfg.name,
-            exist_ok=cfg.exist_ok,
-            device=device,
-        )
+        # CLI runs save their results by default (reference Model.predict: save=is_cli)
+        kw = {"imgsz": cfg.imgsz, "max_det": cfg.max_det, **{k: getattr(cfg, k) for k in SAVE_FLAGS}, **given}
+        kw["conf"] = 0.25 if cfg.conf is None else cfg.conf
+        if "batch" in kw:
+            kw["batch"] = int(kw["batch"])
+        results = model.predict(cfg.source, device=device, **kw)
         for r in results:
             print(f"{r.path}: {len(r)} detections")
         return results
     if mode == "track":
         import numpy as np
 
-        results = model.track(cfg.source, tracker=cfg.tracker, conf=cfg.conf or 0.1, imgsz=cfg.imgsz,
-                              max_det=cfg.max_det, device=device)
+        kw = {"imgsz": cfg.imgsz, "max_det": cfg.max_det, **given}
+        kw["conf"] = 0.1 if cfg.conf is None else cfg.conf
+        results = model.track(cfg.source, tracker=cfg.tracker, device=device, **kw)
         for r in results:
             ids = r.boxes.id if r.boxes is not None and r.boxes.id is not None else []
             print(f"{r.path}: {len(r)} tracks {[int(i) for i in np.asarray(ids).tolist()] if len(ids) else []}")
         return results
-    raise NotImplementedError(f"mode '{mode}' not implemented yet")
 
 
 def _settings():

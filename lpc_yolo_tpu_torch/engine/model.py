@@ -39,7 +39,9 @@ conv's BatchNorm into its weights, as the JAX `fuse_conv_bn` does;
 `device` ("cuda:0" or "cpu") and `task_map` are the JAX facade's;
 `add_callback`, `clear_callback` and `reset_callbacks` register hooks that the
 trainer runs (`utils/callbacks.py`).
-`.pt` files, `info`, `profile`, export and the research zoo wait for later slices.
+`YOLO("x.pt")` reads a reference-layout checkpoint (`utils/pt_checkpoint.py`: `ema`, else `model`, its `.yaml`,
+`.names` and state_dict), and `save_pt(path)` writes one. The research zoo's 21 attention modules build from a
+YAML that names them (`nn/research.py`). `info`, `profile`, export and the rest of the zoo wait for later slices.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from ..utils import resolve_device
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.flax_bridge import flax_shapes, load_flax, random_variables, state_dict_to_flax
 from ..utils.names import COCO80
+from ..utils.pt_checkpoint import load_pt_state, read_pt, write_pt
 from ..utils.text_embed import encode_names
 from .predictor import Predictor, letterbox_batch, load_source, serving_model
 
@@ -102,7 +105,7 @@ class YOLO:
     numbers the JAX package gets from `random_variables` of its shape tree);
     None keeps PyTorch's default init. nc: the number of classes, when it is
     not the YAML's (the JAX facade's `nc=`); the names are then "0", "1", ...
-    A `.ckpt` brings its own weights, class count and names; `seed` is then only what
+    A `.ckpt` or a `.pt` brings its own weights, class count and names; `seed` is then only what
     `reset_weights` draws from.
     """
 
@@ -112,14 +115,18 @@ class YOLO:
         self.seed = seed
         self.callbacks: Dict[str, List[Callable]] = {}  # hooks the trainer runs first (add_callback)
         meta: Dict[str, Any] = {}
+        pt_state = None
         if str(model).endswith(".ckpt"):
             d, variables, meta = _read_model_ckpt(model)
+        elif str(model).endswith(".pt"):  # a reference-layout checkpoint (JAX :143-175)
+            d, pt_state, pt_names = read_pt(model)
+            variables, meta = None, {"names": pt_names}
         elif str(model).endswith((".yaml", ".yml")):
             d = yaml_model_load(_resolve_yaml(model))
             d["scale"] = guess_model_scale(model) or d["scale"]
             variables = None
         else:
-            raise NotImplementedError("the torch port builds from model YAMLs and .ckpt files only; .pt comes later")
+            raise NotImplementedError("the torch port builds from model YAMLs, .ckpt and .pt files only")
         self.model_yaml: Dict[str, Any] = d
         self.model = build_model(d, device=self._device, nc=nc or meta.get("nc"))
         self.task = self.model.task  # from the head, as the JAX `_guess_task` (:123-131)
@@ -128,6 +135,8 @@ class YOLO:
                                       "RTDETRDecoder and WorldDetect models only so far")
         if variables is not None:
             self.load_flax(variables)
+        elif pt_state is not None:
+            load_pt_state(self.model, pt_state)
         elif seed is not None:
             self.load_flax(random_variables(flax_shapes(self.model), seed))
         names = meta.get("names") or dict(COCO80)
@@ -161,6 +170,11 @@ class YOLO:
         meta = {"nc": self.model.nc, "task": self.task, "model_yaml": self.model_yaml, "names": self.names}
         save_checkpoint(Path(filename), state_dict_to_flax(self.model.state_dict()), meta)
         return str(filename)
+
+    def save_pt(self, filename: Union[str, Path], ema: bool = False) -> str:
+        """Write the model as a reference-layout `.pt` (`utils/pt_checkpoint.py::write_pt`): the fp16 module
+        under `model` with `ema` None, as `strip_optimizer` leaves a checkpoint, or under `ema`."""
+        return write_pt(filename, self.model, self.model_yaml, self.names, ema=ema)
 
     def load(self, weights: Union[str, Path, "YOLO"]) -> "YOLO":
         """Take over every weight of `weights` (a YOLO, a `.ckpt` or a YAML) whose name and shape
@@ -259,14 +273,19 @@ class YOLO:
     def fuse(self) -> "YOLO":
         """Fold every conv's BatchNorm into its weights, in place, as the JAX `fuse_conv_bn` (:271) folds the
         variables: W * f with f = gamma / sqrt(var + eps), and the BatchNorm left as the identity plus the
-        folded bias (scale 1, bias beta - mean * f, mean 0, var 1 - eps), so the same graph serves it."""
+        folded bias (scale 1, bias beta + (b - mean) * f, mean 0, var 1 - eps), so the same graph serves it.
+        A conv bias b (the zoo's CBA with bias, ParNetAttention's) goes into the folded bias and becomes 0;
+        the JAX walk drops it (ROADMAP Queue 3)."""
         for m in self.model.modules():
-            if not isinstance(m, ConvBN):  # the JAX walk's (conv, bn) pairs; a RepConv's branches are ConvBNs
-                continue
+            if not isinstance(m, ConvBN) or m.bn is None:  # the JAX walk's (conv, bn) pairs; a RepConv's branches
+                continue  # are ConvBNs
             conv, bn = m.conv, m.bn
             f = bn.weight / torch.sqrt(bn.running_var + bn.eps)
             conv.weight.mul_(f[:, None, None, None])
-            bn.bias.copy_(bn.bias - bn.running_mean * f)
+            mean = bn.running_mean if conv.bias is None else bn.running_mean - conv.bias
+            bn.bias.copy_(bn.bias - mean * f)
+            if conv.bias is not None:
+                conv.bias.zero_()
             bn.weight.fill_(1.0)
             bn.running_mean.zero_()
             bn.running_var.fill_(1.0 - bn.eps)

@@ -139,9 +139,9 @@ def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch
 
 
 @functools.lru_cache(maxsize=8)
-def decayed(names_and_ranks: Tuple[Tuple[str, int], ...]) -> Tuple[int, ...]:
-    """The positions of the weight-decayed parameters among (state_dict name, rank) pairs."""
-    return tuple(i for i, (name, ndim) in enumerate(names_and_ranks) if is_flax_kernel(name, ndim))
+def decayed(names_and_shapes: Tuple[Tuple[str, Tuple[int, ...]], ...]) -> Tuple[int, ...]:
+    """The positions of the weight-decayed parameters among (state_dict name, shape) pairs."""
+    return tuple(i for i, (name, shape) in enumerate(names_and_shapes) if is_flax_kernel(name, len(shape), shape))
 
 
 @torch.no_grad()
@@ -153,7 +153,7 @@ def apply_update(state: TrainState, grads: List[torch.Tensor], gnorm: torch.Tens
     params = [state.params[k] for k in names]
     lr = lr_at(state.opt_step, cfg)
     torch._foreach_mul_(grads, cfg.grad_clip / torch.clamp(gnorm, min=cfg.grad_clip))  # clip by the global norm
-    kernels = decayed(tuple((k, p.dim()) for k, p in zip(names, params)))  # the JAX mask's "kernel" leaves
+    kernels = decayed(tuple((k, tuple(p.shape)) for k, p in zip(names, params)))  # the JAX mask's "kernel" leaves
     trace = [state.momentum[k] for k in names]
     if cfg.optimizer == "adamw":
         b1, b2, n = cfg.momentum, 0.999, state.opt_step + 1

@@ -8,8 +8,9 @@ classifiers, the other CNN detection YAMLs (v8 P2 / P6 / ghost / seg-P6 / pose-P
 v5 and v5-P6, v3, v3-SPP, v3-tiny, v6), YOLOv9 (v9c, v9e) and RT-DETR (rtdetr-l, -x, -resnet50, -resnet101,
 yolov8-rtdetr: HGStem, HGBlock, LightConv, RepC3, AIFI and the RTDETRDecoder head, `nn/transformer.py`) and
 YOLO-World (yolov8-world, -worldv2: C2fAttn, ImagePoolingAttn and the WorldDetect head)
-reach; any other module raises NotImplementedError. A CBLinear layer's output is a tuple of maps, which the CBFuse layers
-that list it read by index (:230-238).
+reach, and the research zoo's 21 attention modules (`nn/research.py`; JAX :251-276 and `build_research_module`);
+any other module, the zoo's neck blocks and backbone families among them, raises NotImplementedError. A CBLinear
+layer's output is a tuple of maps, which the CBFuse layers that list it read by index (:230-238).
 A layer repeated n > 1 times that takes no repeat count of its own (v3's Bottlenecks, v6's
 Convs) is an nn.Sequential of n copies, `model.<i>.<rep>`, the JAX graph's `model_<i>_<rep>`
 (:988-995). The YAML's `activation:` key sets the conv.py family's default activation
@@ -41,6 +42,7 @@ from ..ops.nms import nms_rotated, non_max_suppression
 from ..ops.repack import repack_width_kernel
 from ..utils import resolve_device
 from . import modules as M
+from . import research as R
 from .heads import (OBB, Classify, Detect, Pose, Segment, V10Detect, WorldDetect, decode_feats, decode_feats_obb,
                     decode_feats_topk_split, decode_kpts)
 from .transformer import AIFI, RTDETRDecoder
@@ -165,11 +167,20 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
         elif m == "CBFuse":  # (JAX :236-238)
             c2 = chs[f_list[-1]]
             out_args = [tuple(args[0])]
-        elif m == "nn.ConvTranspose2d":  # width-scaled as a base module (JAX :221-226)
+        elif m == "nn.ConvTranspose2d" or m in R.WIDTH_SCALED:  # width-scaled as a base module (JAX :221-226, :251-257)
             c1, c2 = chs[f_list[0]], args[0]
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
             out_args = [c1, c2, *args[1:]]
+        elif m in R.C1_PREPEND:  # the research zoo's attention family (JAX :261-271)
+            c1 = c2 = chs[f_list[0]]
+            out_args = [c1, *args]
+        elif m in R.C1_ONLY:
+            c1 = c2 = chs[f_list[0]]
+            out_args = [c1]
+        elif m in R.PASSTHROUGH:
+            c2 = chs[f_list[0]]
+            out_args = list(args)
         else:
             raise NotImplementedError(f"module '{m}' is not ported to torch yet (layer {i})")
 
@@ -184,10 +195,12 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
 
 def _build_module(spec: LayerSpec, strides) -> nn.Module:
     m, a = spec.module, spec.args
-    if spec.n > 1:  # n copies in sequence, each after the first taking the c2 channels (JAX :988-995)
-        one = dataclasses.replace(spec, n=1)
-        return nn.Sequential(*(_build_module(one if r == 0 else dataclasses.replace(one, args=(spec.c2, *a[1:])),
-                                             strides) for r in range(spec.n)))
+    if spec.n > 1:  # n copies in sequence, each after the first taking the c2 channels (JAX :988-995); a
+        one = dataclasses.replace(spec, n=1)  # passthrough module's args name no channels
+        rest = one if m in R.PASSTHROUGH else dataclasses.replace(one, args=(spec.c2, *a[1:]))
+        return nn.Sequential(*(_build_module(one if r == 0 else rest, strides) for r in range(spec.n)))
+    if m in R.ATTENTION:
+        return R.build_research_module(m, a)
     if m == "Conv":
         k = a[2] if len(a) > 2 else 1
         s = a[3] if len(a) > 3 else 1

@@ -104,7 +104,7 @@ class ConvBN(nn.Module):
         `in_scale` also folds a scale of the input (x * in_scale) into W."""
         if self.training:
             raise RuntimeError("ConvBN.fold() is for eval mode: training needs the live BatchNorm")
-        w, b = bn_folded(self.conv.weight, self.bn)
+        w, b = bn_folded(self.conv.weight, self.bn, self.conv.bias)
         self.folded = store_folded(w * in_scale if in_scale != 1.0 else w, b, dtype, self.kernel_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -113,10 +113,12 @@ class ConvBN(nn.Module):
         return run_folded(x, self.folded, self.act, self.conv, self.kernel_path)
 
 
-def bn_folded(weight: torch.Tensor, bn: nn.BatchNorm2d):
-    """A bias-free conv's weight with the eval-mode BN after it folded in, in f32: (W*f, beta - mean*f)."""
+def bn_folded(weight: torch.Tensor, bn: nn.BatchNorm2d, bias: Optional[torch.Tensor] = None):
+    """A conv's weight, and its bias if it has one, with the eval-mode BN after it folded in, in f32:
+    (W*f, beta + (b - mean)*f)."""
     f = bn.weight.float() * torch.rsqrt(bn.running_var.float() + BN_EPS)
-    return weight.float() * f[:, None, None, None], bn.bias.float() - bn.running_mean.float() * f
+    mean = bn.running_mean.float() if bias is None else bn.running_mean.float() - bias.float()
+    return weight.float() * f[:, None, None, None], bn.bias.float() - mean * f
 
 
 def store_folded(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype, kernel_path: bool):

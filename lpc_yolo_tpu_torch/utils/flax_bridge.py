@@ -18,8 +18,17 @@ arrays, and nothing here imports jax.
   them apart, whatever the module's name (the RT-DETR decoder's BNs are
   `input_proj_<i>_1`).
 * A bare parameter (`denoising_class_embed` (nc, hd), a contrastive head's
-  rank-0 `logit_scale`) keeps its name and layout; a rank-0 `bias` (the
-  contrastive heads') is a bias like any other.
+  rank-0 `logit_scale`; the attention zoo's (`nn/research.py`): ECA's (k, 1, 1)
+  `conv`, ShuffleAttention's `cweight` / `cbias` / `sweight` / `sbias`,
+  CrissCrossAttention's `gamma`, MHSA's `rel_h` / `rel_w`, SpatialGroupEnhance's
+  (1, 1, 1, g) `weight`) keeps its name and layout; a `bias` of any rank (the
+  contrastive heads' rank-0 ones, SpatialGroupEnhance's) is a bias like any
+  other. SpatialGroupEnhance's `weight` is the one torch name that the rank
+  does not place: a 4-D `weight` of shape (1, 1, 1, g > 1) is it, since no conv
+  of a compiled graph has one input channel, one output channel and a 1 x g
+  kernel. NAMAttention's BatchNorm leaves at a module's root map as any
+  BatchNorm's. Every key is the mechanical name: SKAttention's `fc` beside
+  `fc_0`..`fc_3` is a Linear with children, so no key is renamed.
 
 `train_state_from_flax` carries a JAX `TrainState`'s numpy trees (params,
 batch_stats, the SGD momentum trace or AdamW's two moments, ema_params, the
@@ -54,7 +63,8 @@ _TORCH_BN = {v: k for k, v in _BN_LEAVES.items()}
 _TO_TORCH = {4: (3, 2, 0, 1), 3: (0, 1, 2), 2: (1, 0)}
 _TO_FLAX = {4: (2, 3, 1, 0), 3: (0, 1, 2), 2: (1, 0)}
 # parameters that are not a module's kernel, bias or scale: carried under their own name, untransposed
-_BARE = {"denoising_class_embed", "logit_scale"}
+_BARE = {"denoising_class_embed", "logit_scale", "conv", "cweight", "cbias", "sweight", "sbias", "gamma", "rel_h",
+         "rel_w", "weight"}
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -109,16 +119,19 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Ten
     return sd
 
 
-def _flax_slot(name: str, ndim: int) -> Optional[Tuple[str, Tuple[str, ...], Optional[Tuple[int, ...]]]]:
+def _flax_slot(name: str, ndim: int, shape: Optional[Tuple[int, ...]] = None
+               ) -> Optional[Tuple[str, Tuple[str, ...], Optional[Tuple[int, ...]]]]:
     """A state_dict entry's place in the JAX variables: (collection, path, the permutation that
     takes the tensor to the JAX layout, None when it has none); None for the entries JAX does not
-    have (num_batches_tracked)."""
+    have (num_batches_tracked). `shape` tells SpatialGroupEnhance's 4-D `weight` from a conv's."""
     mod, _, leaf = name.rpartition(".")
     path = torch_name_to_flax(mod) if mod else ()
     if leaf == "num_batches_tracked":
         return None
     if leaf in ("running_mean", "running_var"):
         return "batch_stats", path + (_TORCH_BN[leaf],), None
+    if leaf == "weight" and shape is not None and _is_sge_weight(shape):
+        return "params", path + ("weight",), None
     if leaf == "weight" and ndim == 1:  # a BatchNorm's or a LayerNorm's scale
         return "params", path + ("scale",), None
     if leaf == "weight" and ndim in _TO_FLAX:
@@ -130,12 +143,16 @@ def _flax_slot(name: str, ndim: int) -> Optional[Tuple[str, Tuple[str, ...], Opt
     raise KeyError(f"no JAX counterpart for {name}")
 
 
-def is_flax_kernel(name: str, ndim: int) -> bool:
+def _is_sge_weight(shape: Tuple[int, ...]) -> bool:
+    return len(shape) == 4 and tuple(shape[:3]) == (1, 1, 1) and shape[3] > 1
+
+
+def is_flax_kernel(name: str, ndim: int, shape: Optional[Tuple[int, ...]] = None) -> bool:
     """Whether a state_dict entry is a leaf named `kernel` in the JAX variables: the leaves the JAX optimizer
     weight-decays (`lpc_yolo_tpu/engine/train_step.py::_decay_mask`). Conv and Linear weights and flax
     attention's 3-D kernels are; biases (attention's (nh, hd) ones too), norm scales and
-    `denoising_class_embed` are not."""
-    slot = _flax_slot(name, ndim)
+    `denoising_class_embed` are not, nor the attention zoo's bare leaves (give `shape` for a 4-D `weight`)."""
+    slot = _flax_slot(name, ndim, shape)
     return slot is not None and slot[1][-1] == "kernel"
 
 
@@ -143,7 +160,7 @@ def flax_shapes(model: nn.Module) -> Dict[str, Dict[str, Any]]:
     """The JAX variables' shape tree that corresponds to `model`'s state_dict."""
     tree: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for name, t in model.state_dict().items():
-        slot = _flax_slot(name, t.dim())
+        slot = _flax_slot(name, t.dim(), tuple(t.shape))
         if slot is not None:
             col, path, perm = slot
             _set(tree[col], path, tuple(t.permute(perm).shape if perm else t.shape))
@@ -159,7 +176,7 @@ def state_dict_to_flax(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str,
     """State_dict-named tensors -> JAX variables as numpy trees (kernels OIHW -> HWIO), keys sorted."""
     tree: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for name, t in named.items():
-        slot = _flax_slot(name, t.dim())
+        slot = _flax_slot(name, t.dim(), tuple(t.shape))
         if slot is not None:
             col, path, perm = slot
             t = t.detach().float().cpu()
@@ -264,7 +281,9 @@ def random_variables(shapes: Dict[str, Any], seed: int = 0) -> Dict[str, Any]:
     (positive); other biases U(±0.5), random rather than the init constants
     so scores spread and the top-k order is stable (a contrastive head's
     rank-0 `bias` too); a bare parameter (`denoising_class_embed`,
-    `logit_scale`) U(±1).
+    `logit_scale`, the attention zoo's: ECA's `conv`, ShuffleAttention's gates,
+    `gamma`, `rel_h` / `rel_w`, SpatialGroupEnhance's `weight`) U(±1), so no
+    gate sits at its init's constant.
     """
     rng = np.random.default_rng(seed)
     out: Dict[str, Any] = {}

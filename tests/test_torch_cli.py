@@ -6,7 +6,9 @@ same errors. The special modes print what the JAX ones print and `settings` writ
 modes run the port's `YOLO` on a narrow LPC-YOLO (the YAML's layers at widths 8-32, nc 3) at imgsz 64: each
 equals the facade call it stands for, which the other test files hold to the JAX package. The CLI's
 `train` at `batch=-1` (autobatch, with the card's memory faked) gives the run of `train(batch=<chosen>)`
-bit for bit. The JAX `train` mode drops the augmentation keys (ROADMAP Queue 3); the port passes them on.
+bit for bit. The JAX `train` mode drops the augmentation keys, and its `predict`, `val` and `track` modes `iou`,
+`batch`, `conf` and `max_det` (ROADMAP Queue 3); the port passes them on and refuses a key that no part of a
+mode reads.
 """
 
 import contextlib
@@ -180,6 +182,53 @@ def test_train_mode_passes_the_hyp_keys_and_jax_drops_them(monkeypatch):
             assert train_kw["seed"] == 3 and train_kw["batch"] == 16 and train_kw["optimizer"] == "auto"
     with pytest.raises(NotImplementedError, match="erasing"):
         tcfg.entrypoint(["train", "model=x.yaml", "data=d.yaml", "erasing=0.2", "device=cpu"])
+
+
+class RecordingYOLO(FakeYOLO):
+    """Records what each mode hands the facade method it calls."""
+
+    def predict(self, source, **kw):
+        self.calls.append(("predict", source, kw))
+        return []
+
+    def val(self, **kw):
+        self.calls.append(("val", kw))
+        return {}
+
+    def track(self, source, **kw):
+        self.calls.append(("track", source, kw))
+        return []
+
+
+def test_predict_val_track_pass_every_key_and_refuse_an_unread_one(monkeypatch):
+    """`iou=`, `batch=`, `conf=0` and `max_det=` reach `YOLO.predict`, `.val` and `.track` (the JAX modes drop them,
+    and turn conf=0 into 0.25 or 0.1: ROADMAP Queue 3); a key that no part of the mode reads raises, naming it,
+    before any model is built."""
+    import lpc_yolo_tpu_torch.engine.model as port_model
+
+    monkeypatch.setattr(port_model, "YOLO", RecordingYOLO)
+    RecordingYOLO.calls = []
+    tcfg.entrypoint(["predict", "model=x.pt", "source=s", "iou=0.5", "batch=4", "conf=0", "max_det=7", "save=False",
+                     "device=cpu"])
+    (_, name, _), (_, source, kw) = RecordingYOLO.calls
+    assert (name, source) == ("x.pt", "s")
+    assert (kw["iou"], kw["batch"], kw["conf"], kw["max_det"], kw["save"]) == (0.5, 4, 0.0, 7, False)
+    RecordingYOLO.calls = []
+    tcfg.entrypoint(["val", "model=x.yaml", "data=d.yaml", "conf=0", "iou=0.6", "max_det=9", "batch=2", "workers=1",
+                     "device=cpu"])
+    (_, kw), = RecordingYOLO.calls[1:]
+    assert kw["data"] == "d.yaml" and kw["device"] == "cpu"
+    assert (kw["conf"], kw["iou"], kw["max_det"], kw["batch"], kw["workers"]) == (0.0, 0.6, 9, 2, 1)
+    RecordingYOLO.calls = []
+    tcfg.entrypoint(["track", "model=x.yaml", "source=s", "iou=0.4", "conf=0", "max_det=5", "device=cpu"])
+    (_, _, kw), = RecordingYOLO.calls[1:]
+    assert (kw["iou"], kw["conf"], kw["max_det"], kw["tracker"]) == (0.4, 0.0, 5, "bytetrack.yaml")
+    for argv, key in ((["predict", "source=s", "half=False"], "half"), (["val", "data=d.yaml", "vid_stride=2"],
+                      "vid_stride"), (["track", "source=s", "batch=2"], "batch")):
+        RecordingYOLO.calls = []
+        with pytest.raises(NotImplementedError, match=key):
+            tcfg.entrypoint([*argv, "model=x.yaml", "device=cpu"])
+        assert RecordingYOLO.calls == []
 
 
 @pytest.fixture(scope="module")
