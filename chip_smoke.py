@@ -17,6 +17,7 @@
     python3 chip_smoke.py --track      # device, build, then phase 21 (tracking, the save family) only
     python3 chip_smoke.py --cli        # device, build, then phase 22 (the CLI, autobatch, the new augmentations) only
     python3 chip_smoke.py --attn       # device, build, then phase 23 (LPC-YOLO with each of 21 attention modules) only
+    python3 chip_smoke.py --neck       # device, build, then phase 24 (LPC-YOLO with the zoo's neck blocks) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -330,14 +331,33 @@ Phases, in order; any failure raises and the script exits non-zero:
             the fp16-rounded in-memory model. The whole run serves the SK,
             ParNet and CrissCross variants (WHOLE_RUN_ATTN); --attn all 21.
             Numbers under "attn".
+24. neck    LPC-YOLO at 640 and its s width with the research zoo's neck
+            blocks where they fit (`nn/research.py::lpc_neck_cfg`, 12
+            variants: the slim neck, its cheap form, MSBlock, DySample, RFB,
+            PPA, SCSA, FGFP, FGFP_Head, the axial transformer, ASFF3, ASFF2),
+            seed-0 weights: the parameter count against the JAX package's;
+            conv3x3 sites a forward (22 to 32) against the plain version at
+            every distinct shape, f32 and bf16, and every site of a bf16
+            forward; bf16 serving against the f32 plain path; f32 card against
+            the CPU; YOLO.predict b32 from 720p frames, counters held, the
+            serving step's ms, busy, idle share and launches; the neck layers'
+            own ms; with --neck conv3x3 over each variant's sites beside
+            F.conv2d + bias. Then the slimneck variant's val on phase 7's 64
+            frames, b16 train step, one epoch of train(data=..., save=True),
+            counters held, and its .pt through YOLO(x.pt) on the card; with
+            --neck also the dysample variant's b16 step (grid_sample's
+            backward). The whole run serves slimneck, dysample and asff3
+            (WHOLE_RUN_NECK); --neck all 12. Numbers under "neck".
 
 In the whole run phases 10, 11, 13 and 14 run their n and x scales
 (WHOLE_RUN_SCALES), phase 15 its n scale (WHOLE_RUN_OBB), phase 16 yolov8n-cls,
 yolov8x-cls and the ResNet-50 (WHOLE_RUN_CLS), phase 17 leaves out
 yolov8x-p2 and yolov8x-p6 (WHOLE_RUN_ZOO) and phase 20 runs the s models
-(WHOLE_RUN_WORLD) and phase 23 three attention variants (WHOLE_RUN_ATTN), so
-that the script stays well inside its time limit; --v10, --v8, --seg, --pose,
---obb, --cls, --zoo, --world and --attn run every model of their family.
+(WHOLE_RUN_WORLD), phase 19 rtdetr-l and yolov8n-rtdetr (WHOLE_RUN_RTDETR),
+phase 23 three attention variants (WHOLE_RUN_ATTN) and phase 24 three neck
+variants (WHOLE_RUN_NECK), so that the script stays well inside its time
+limit; --v10, --v8, --seg, --pose, --obb, --cls, --zoo, --rtdetr, --world,
+--attn and --neck run every model of their family.
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
@@ -349,14 +369,15 @@ predict and train(data=...); "launches_zoo" from phase 17's yolov6n train(data=.
 phase 18's yolov9c train(data=...), "launches_rtdetr" from phase 19's rtdetr-l train(data=...), "launches_world"
 from phase 20's yolov8s-world train(data=...), "launches_track" from phase 21's two tracking runs, "launches_cli"
 from phase 22's three CLI runs (train at batch=-1, predict, val), "launches_attn" from phase 23's SK variant's
-train(data=..., save=True), and conv3x3's
+train(data=..., save=True), "launches_neck" from phase 24's slimneck variant's train(data=..., save=True), and
+conv3x3's
 "max_abs_err_relu", the f32 parity of its ReLU epilogue at yolov6n's sites); the last line is
 {"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
 "pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo",
 phase 18's under "v9", phase 19's under "rtdetr", phase 20's under "world", phase 21's under "track", phase 22's
-under "cli", phase 23's under "attn").
+under "cli", phase 23's under "attn", phase 24's under "neck").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -461,6 +482,7 @@ RTDETR_MODELS = {  # phase 19: name -> (parameters, the JAX graph's, and conv3x3
     "rtdetr-resnet101.yaml": (61_917_260, 42), "yolov8n-rtdetr.yaml": (9_643_868, 20),
 }
 RTDETR_TIMED = ("rtdetr-l.yaml", "rtdetr-x.yaml")  # conv3x3 vs F.conv2d, the decoder's split, f32 card vs the CPU
+WHOLE_RUN_RTDETR = ("rtdetr-l.yaml", "yolov8n-rtdetr.yaml")  # phase 19 in the whole run; --rtdetr: all five
 RTDETR_VAL = "rtdetr-l.yaml"
 RTDETR_BOX_TOL, RTDETR_SCORE_TOL = 0.05, 1e-4  # f32 predict, card vs CPU: box px and score of each matched row
 RTDETR_TRAIN = "rtdetr-l.yaml"  # phase 19's training: the b16 step, the card's loss against the CPU's, train(data=...)
@@ -3572,7 +3594,7 @@ def phase_rtdetr_train(train_data: str, sites: int):
     return launches
 
 
-def phase_rtdetr(val_data: Path, train_data: str):
+def phase_rtdetr(val_data: Path, train_data: str, models=None):
     """Phase 19: RT-DETR (RTDETR_MODELS: rtdetr-l, rtdetr-x, rtdetr-resnet50, rtdetr-resnet101, yolov8n-rtdetr) at
     640 with seed-0 weights, nc 80, each in turn: its parameter count; its conv3x3 sites (24 / 30 / 25 / 42 / 20:
     HGBlocks' 3x3 Mish convs, each RepC3 RepConv folded into one site with the SiLU epilogue, the ResNet blocks'
@@ -3583,7 +3605,8 @@ def phase_rtdetr(val_data: Path, train_data: str):
     no NMS) and the serving step's time, busy, idle share and launches (`scale_serving`); for RTDETR_TIMED conv3x3
     against F.conv2d + bias over the sites and the decoder's busy split (`decoder_split`); YOLO.val(data=...) of
     RTDETR_VAL at b32 bf16 on phase 7's 64 frames, counters held. Then the training of RTDETR_TRAIN
-    (`phase_rtdetr_train`) on phase 8's dataset `train_data`; returns its train(data=...) run's launches."""
+    (`phase_rtdetr_train`) on phase 8's dataset `train_data`; returns its train(data=...) run's launches. `models`,
+    when given, names the models to serve."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.nn.fuse import conv3x3_sites
@@ -3594,7 +3617,8 @@ def phase_rtdetr(val_data: Path, train_data: str):
     dev = torch.from_numpy(np.stack(host)).cuda()
     val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
     out = REPORT.setdefault("rtdetr", {})
-    for name, (n_params, n_sites) in RTDETR_MODELS.items():
+    for name in models or RTDETR_MODELS:
+        n_params, n_sites = RTDETR_MODELS[name]
         t0 = time.perf_counter()
         tag = Path(name).stem
         r = out[tag] = {}
@@ -3645,7 +3669,8 @@ def phase_rtdetr(val_data: Path, train_data: str):
         torch.cuda.empty_cache()
     launches = phase_rtdetr_train(train_data, out[Path(RTDETR_TRAIN).stem]["sites"])
     out["seconds"] = time.perf_counter() - t_phase
-    log("rtdetr", f"phase 19: {len(RTDETR_MODELS)} models and {RTDETR_TRAIN}'s training in {out['seconds']:.1f} s")
+    log("rtdetr", f"phase 19: {len(models or RTDETR_MODELS)} models and {RTDETR_TRAIN}'s training in "
+                  f"{out['seconds']:.1f} s")
     return launches
 
 
@@ -4467,7 +4492,7 @@ ATTN_VAL, ATTN_TRAIN = "SKAttention", "SKAttention"  # val on phase 7's frames; 
 ATTN_CPU_TOL = 1e-4  # f32 card vs CPU: the top-300 pre-selection scores, and the rows' scores (boxes 0.05 px)
 
 
-def attn_card_vs_cpu(yolo, frames):
+def v10_card_vs_cpu(yolo, frames):
     """The unfolded f32 model on the card against the same weights on the CPU, on one u8 feed (the plain letterbox):
     the top 300 of the anchors' best class scores before the top-k selection, sorted, within ATTN_CPU_TOL, and the
     (B, 300, 6) rows tie-tolerantly (box 0.05 px, score ATTN_CPU_TOL). Returns the pre-selection gap."""
@@ -4496,27 +4521,30 @@ def attn_card_vs_cpu(yolo, frames):
     return gap
 
 
-def attn_module_times(pred, host):
-    """Layer 21 alone at b32 bf16 on the input the serving path gives it: event-timed ms (eager calls, host
-    launches included) and the profiler's device busy ms and launches."""
-    from lpc_yolo_tpu_torch.nn.research import LPC_ATTENTION_LAYER
-
-    mod, inp = pred.model.model[LPC_ATTENTION_LAYER], []
-    hook = mod.register_forward_pre_hook(lambda m, a: inp.append(a[0]))
+def layer_times(pred, host, layers):
+    """Each of `layers` alone at b32 bf16 on the input the serving path gives it: event-timed ms (eager calls, host
+    launches included); then one profile of all of them in turn: their device busy ms and launches together."""
+    model, inp = pred.model.model, {}
+    hooks = [model[i].register_forward_pre_hook(lambda m, a, i=i: inp.__setitem__(i, a[0])) for i in layers]
     with torch.inference_mode():
         pred.infer(host)
-    hook.remove()
-    x = inp[0]
+    for h in hooks:
+        h.remove()
+    out = {}
     with torch.inference_mode():
-        ms = cuda_ms(lambda: mod(x), iters=10)
-        prof = profile_step(lambda: mod(x), iters=3)
-    return {"input": list(x.shape), "ms": ms, "busy_ms": prof["device_busy_ms"],
+        for i in layers:
+            x = inp[i]
+            out[i] = {"module": type(model[i]).__name__, "ms": cuda_ms(lambda: model[i](x), iters=10),
+                      "input": [list(t.shape) for t in x] if isinstance(x, list) else list(x.shape)}
+        prof = profile_step(lambda: [model[i](inp[i]) for i in layers], iters=3)
+    return {"layers": out, "ms": sum(r["ms"] for r in out.values()), "busy_ms": prof["device_busy_ms"],
             "device_launches": prof["device_launches"], "profile_top": prof["top"][:5]}
 
 
-def attn_pt_route(yolo_yaml: Path, root: Path):
-    """The SK variant through a reference-layout `.pt` (`YOLO.save_pt`: the fp16 module under `model`): YOLO(x.pt)
-    on the card predicts, bit for bit, what the in-memory model predicts with its weights rounded to fp16."""
+def pt_route(yolo_yaml: Path, root: Path):
+    """A v10 graph's YAML (seed 0) through a reference-layout `.pt` (`YOLO.save_pt`: the fp16 module under `model`):
+    YOLO(x.pt) on the card predicts, bit for bit, what the in-memory model predicts with its weights rounded to
+    fp16."""
     from lpc_yolo_tpu_torch import YOLO
 
     ref = YOLO(yolo_yaml, device="cuda", seed=0)
@@ -4540,11 +4568,11 @@ def phase_attn(val_data: Path, train_data: str, modules=None):
     seed-0 weights: its conv3x3 sites (LPC's 28, and 29 with SKAttention's `conv_1` or ParNetAttention's `conv3x3`)
     against the plain version where they add a site shape, and every site of a bf16 forward on its own inputs; the
     folded bf16 serving path against the f32 plain path (head maps, pre-selection scores) and the f32 kernel path
-    (`zoo_vs_plain`); the f32 card against the CPU (`attn_card_vs_cpu`); YOLO.predict b32 bf16 from 720p frames with
+    (`zoo_vs_plain`); the f32 card against the CPU (`v10_card_vs_cpu`); YOLO.predict b32 bf16 from 720p frames with
     the counters held and the serving step's time, busy, idle share and launches (`scale_serving`); layer 21's own
-    ms (`attn_module_times`). Then, for ATTN_VAL, YOLO.val(data=...) on phase 7's 64 frames, counters held; for
+    ms (`layer_times`). Then, for ATTN_VAL, YOLO.val(data=...) on phase 7's 64 frames, counters held; for
     ATTN_TRAIN its b16 train step (ms, busy, a repack a step, peak GB), its one-epoch train(data=..., save=True) on
-    phase 8's dataset, counters held, and its `.pt` route (`attn_pt_route`). Returns that train(data=...)'s
+    phase 8's dataset, counters held, and its `.pt` route (`pt_route`). Returns that train(data=...)'s
     launches."""
     import tempfile
 
@@ -4578,9 +4606,9 @@ def phase_attn(val_data: Path, train_data: str, modules=None):
             assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{m} bf16 conv3x3 sites: {site_err}"
             r["forward_sites_bf16_max_rel"] = max(site_err)
             r["vs_plain"] = vp = zoo_vs_plain(yolo, pred, host)
-            r["card_vs_cpu_gap"] = attn_card_vs_cpu(yolo, host[:2])
+            r["card_vs_cpu_gap"] = v10_card_vs_cpu(yolo, host[:2])
             r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
-            r["module"] = mt = attn_module_times(pred, host)
+            r["module"] = mt = layer_times(pred, host, [LPC_ATTENTION_LAYER])
             log(m, f"{r['parameters']} parameters, {len(sites)} conv3x3 sites a forward (bf16 forward's sites max rel "
                    f"{max(site_err):.3g}); bf16 vs f32 plain: head maps {vp['bf16_map_err']:.3g} (tol {BF16_MAP_TOL}), "
                    f"pre-selection top-300 gap {vp['bf16_score_gap']:.3g} (tol {BF16_SCORE_TOL}); f32 kernel path vs "
@@ -4588,8 +4616,8 @@ def phase_attn(val_data: Path, train_data: str, modules=None):
                    f"card vs CPU pre-selection {r['card_vs_cpu_gap']:.3g} (tol {ATTN_CPU_TOL}); YOLO.predict "
                    f"b{SCALE_SERVE_BATCH} bf16: launches {sv['launches']}; serving step {sv['step_ms']:.3f} ms "
                    f"({sv['img_s']:.1f} img/s), busy {sv['busy_ms']:.3f} ms, idle share {sv['idle_share']}, "
-                   f"{sv['device_launches']:.0f} launches; layer 21 {mt['input']}: {mt['ms']:.3f} ms by events, busy "
-                   f"{mt['busy_ms']:.3f} ms in {mt['device_launches']:.0f} launches")
+                   f"{sv['device_launches']:.0f} launches; layer 21 {mt['layers'][LPC_ATTENTION_LAYER]['input']}: "
+                   f"{mt['ms']:.3f} ms by events, busy {mt['busy_ms']:.3f} ms in {mt['device_launches']:.0f} launches")
             if m == ATTN_VAL:
                 expect = val_launches_expected(val_frames, VAL_BATCH, len(sites))
                 zero_launches()
@@ -4616,7 +4644,7 @@ def phase_attn(val_data: Path, train_data: str, modules=None):
                 del batches
                 torch.cuda.empty_cache()
                 launches = phase_scale_train_data("v10", train_data, len(sites), name=str(path), epochs=1)
-                r["pt"] = pt = attn_pt_route(path, root)
+                r["pt"] = pt = pt_route(path, root)
                 log(m, f"YOLO(x.pt) on the card ({pt['bytes']} bytes, written and read in {pt['save_load_s']:.2f} s) "
                        f"predicts what the fp16-rounded model predicts, bit for bit ({pt['boxes']} boxes)")
             r["seconds"] = time.perf_counter() - t0
@@ -4639,6 +4667,143 @@ def attn_only() -> None:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_attn.json").write_text(json.dumps(REPORT, indent=1, default=str))
     log("done", "phase 23 passed; numbers in chiprun_out/chip_smoke_attn.json")
+
+
+NECK_PARAMS = {  # the JAX package's parameter counts at the s width (jax.eval_shape; tests/test_torch_neck.py)
+    "slimneck": 3_540_658, "slimneck_cheap": 3_452_072, "msblock": 4_454_960, "dysample": 3_980_690, "rfb": 4_134_002,
+    "PPA": 4_101_462, "SCSA": 3_965_104, "FGFP": 3_981_664, "FGFP_Head": 3_984_754, "AxialImageTransformer": 4_587_952,
+    "asff3": 7_157_891, "asff2": 4_440_470}
+NECK_SITES = {  # conv3x3 sites a forward (the folded copy's, counted on the CPU): LPC's 28 less what a variant takes
+    "slimneck": 25, "slimneck_cheap": 25, "msblock": 22, "dysample": 28, "rfb": 32, "PPA": 31, "SCSA": 28,  # out,
+    "FGFP": 30, "FGFP_Head": 29, "AxialImageTransformer": 32, "asff3": 31, "asff2": 30}  # plus its blocks' own
+# the conv3x3 site shapes of layer 27, which no layer reads, so no forward runs them: held to the plain version all
+# the same, (C, H, W, Co, act, pix, off) at 640 (GSBottleneck's gs2.cv1 and GSBottleneckC's)
+NECK_DEAD_SITES = {"slimneck": [(128, 20, 20, 64, False, 128, 0)], "slimneck_cheap": [(64, 20, 20, 64, False, 64, 0)]}
+WHOLE_RUN_NECK = ("slimneck", "dysample", "asff3")  # phase 24 in the whole run; --neck: all 12
+NECK_VAL = NECK_TRAIN = "slimneck"  # val on phase 7's frames; the b16 step, train(data=...) and the .pt route
+NECK_STEP_ONLY = "dysample"  # --neck also times its b16 step: grid_sample's backward on a train path
+
+
+def neck_layers(yolo):
+    """The indices of the layers that hold a neck block of the research zoo and that serving computes (not layer
+    27, which no layer reads)."""
+    from lpc_yolo_tpu_torch.nn.research import NECK
+
+    return [s.i for s in yolo.model.specs if s.module in NECK and s.i not in yolo.model.dead]
+
+
+def phase_neck(val_data: Path, train_data: str, variants=None):
+    """Phase 24: LPC-YOLO at 640, its `s` width, with the research zoo's neck blocks where they fit
+    (`nn/research.py::write_lpc_neck_yaml`; the whole run's: WHOLE_RUN_NECK, --neck all 12), seed-0 weights: the
+    parameter count against the JAX package's (NECK_PARAMS); its conv3x3 sites a forward (NECK_SITES) against the
+    plain version at every distinct shape, f32 and bf16, with layer 27's (NECK_DEAD_SITES), and every site of a bf16
+    forward on its own inputs; the folded bf16 serving path against the f32 plain path (head maps, pre-selection
+    scores) and the f32 kernel path (`zoo_vs_plain`); the f32 card against the CPU (`v10_card_vs_cpu`); YOLO.predict b32 bf16 from 720p frames with
+    the counters held and the serving step's time, busy, idle share and launches (`scale_serving`); the neck layers'
+    own ms (`layer_times`); with --neck, conv3x3 over the variant's sites at b32 beside F.conv2d + bias and the
+    bound (`time_conv3x3`). Then for NECK_VAL, YOLO.val(data=...) on phase 7's 64 frames, counters held; for
+    NECK_TRAIN its b16 train step (ms, busy, a repack a step, peak GB), its one-epoch train(data=..., save=True) on
+    phase 8's dataset, counters held, and its `.pt` route (`pt_route`); with --neck NECK_STEP_ONLY's b16 step.
+    Returns that train(data=...)'s launches."""
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.engine.train_step import to_device
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+    from lpc_yolo_tpu_torch.nn.research import NECK_VARIANTS, write_lpc_neck_yaml
+
+    t_phase = time.perf_counter()
+    full = variants is None
+    host = frames_720p(SCALE_SERVE_BATCH, seed=241)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
+    out, launches = {}, None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_neck_") as tmp:
+        root = Path(tmp)
+        for v in variants or sorted(NECK_VARIANTS):
+            t0 = time.perf_counter()
+            r = out[v] = {}
+            path = write_lpc_neck_yaml(v, root)
+            yolo = YOLO(path, device="cuda", seed=0)
+            assert {type(m).__name__ for m in yolo.model.model} >= set(NECK_VARIANTS[v]), v
+            r["parameters"] = sum(p.numel() for p in yolo.model.parameters())
+            assert r["parameters"] == NECK_PARAMS[v], (v, r["parameters"])
+            pred = Predictor(yolo.model, imgsz=640, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+            sites = conv_sites(pred)
+            assert len(sites) == NECK_SITES[v], (v, len(sites))
+            r["sites"] = len(sites)
+            r["parity"] = phase_parity_conv(sites + NECK_DEAD_SITES.get(v, []), v)
+            site_err = bf16_site_errors(pred, host[:2])
+            assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{v} bf16 conv3x3 sites: {site_err}"
+            r["forward_sites_bf16_max_rel"] = max(site_err)
+            r["vs_plain"] = vp = zoo_vs_plain(yolo, pred, host)
+            r["card_vs_cpu_gap"] = v10_card_vs_cpu(yolo, host[:2])
+            r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
+            r["modules"] = mt = layer_times(pred, host, neck_layers(yolo))
+            log(v, f"{r['parameters']} parameters (the JAX package's), {len(sites)} conv3x3 sites a forward, f32 "
+                   f"parity {r['parity']['f32_max_abs']:.3g}, bf16 {r['parity']['bf16_max_rel']:.3g} (bf16 forward's "
+                   f"sites max rel {max(site_err):.3g}); bf16 vs f32 plain: head maps {vp['bf16_map_err']:.3g} (tol "
+                   f"{BF16_MAP_TOL}), pre-selection top-300 gap {vp['bf16_score_gap']:.3g} (tol {BF16_SCORE_TOL}); f32 "
+                   f"kernel path vs plain pre-selection {vp['f32_pre_nms_gap']:.3g}, {vp['f32_matched']}/"
+                   f"{vp['f32_rows']} rows; f32 card vs CPU pre-selection {r['card_vs_cpu_gap']:.3g} (tol "
+                   f"{ATTN_CPU_TOL}); YOLO.predict b{SCALE_SERVE_BATCH} bf16: launches {sv['launches']}; serving step "
+                   f"{sv['step_ms']:.3f} ms ({sv['img_s']:.1f} img/s), busy {sv['busy_ms']:.3f} ms, idle share "
+                   f"{sv['idle_share']}, {sv['device_launches']:.0f} launches; neck layers "
+                   + ", ".join(f"{i} {q['module']} {q['ms']:.3f}" for i, q in mt["layers"].items())
+                   + f" ms by events; together busy {mt['busy_ms']:.3f} ms in {mt['device_launches']:.0f} launches")
+            if full:
+                r["conv3x3_sum"], r["conv3x3_shapes"] = time_conv3x3(sites, SCALE_SERVE_BATCH, phase=v)
+            if v == NECK_VAL:
+                expect = val_launches_expected(val_frames, VAL_BATCH, len(sites))
+                zero_launches()
+                t1 = time.perf_counter()
+                res = yolo.val(data=str(val_data), imgsz=640, batch=VAL_BATCH, cache_images="disk")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                got = launches_now("letterbox", "conv3x3", "nms")
+                assert got == expect, f"{v} val: launches {got}, expected {expect}"
+                assert all(np.isfinite(q) for q in res.values()), res
+                r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": got, "results": res}
+                log(v, f"YOLO.val b{VAL_BATCH} bf16, {len(val_frames)} frames: {len(val_frames) / wall:.1f} img/s, "
+                       f"launches {got}")
+            del pred
+            torch.cuda.empty_cache()
+            if v == NECK_TRAIN or full and v == NECK_STEP_ONLY:
+                batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda"))
+                           for b in train_batches(2, TRAIN_BATCH, seed=243)]
+                r["train"] = tr = scale_train_step(yolo, batches)
+                log(v, f"train step b{TRAIN_BATCH} 640 bf16 autocast: {tr['step_ms']:.3f} ms ({tr['img_s']:.1f} "
+                       f"img/s), busy {tr['busy_ms']:.3f} ms, idle share {tr['idle_share']}, "
+                       f"{tr['device_launches']:.0f} launches, peak {tr['peak_gb']:.3f} GB, {tr['steps']} steps with "
+                       f"one repack each")
+                del batches
+                torch.cuda.empty_cache()
+            if v == NECK_TRAIN:
+                launches = phase_scale_train_data("v10", train_data, len(sites), name=str(path), epochs=1)
+                r["pt"] = pt = pt_route(path, root)
+                log(v, f"YOLO(x.pt) on the card ({pt['bytes']} bytes, written and read in {pt['save_load_s']:.2f} s) "
+                       f"predicts what the fp16-rounded model predicts, bit for bit ({pt['boxes']} boxes)")
+            r["seconds"] = time.perf_counter() - t0
+            del yolo
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    REPORT["neck"] = out
+    log("neck", f"phase 24: {len(variants or NECK_VARIANTS)} neck variants in {out['seconds']:.1f} s")
+    assert launches is not None, f"{NECK_TRAIN} did not run"
+    return launches
+
+
+def neck_only() -> None:
+    """`--neck`: phase 24 with all 12 neck variants."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_neck_data_") as tmp:
+        phase_neck(*write_zoo_datasets(Path(tmp)))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_neck.json").write_text(json.dumps(REPORT, indent=1, default=str))
+    log("done", "phase 24 passed; numbers in chiprun_out/chip_smoke_neck.json")
 
 
 def conv3x3_only() -> None:
@@ -4664,10 +4829,10 @@ def main(argv) -> int:
     only = {"--v10": lambda: scales_only("v10"), "--v8": lambda: scales_only("v8"), "--seg": seg_only,
             "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only, "--v9": v9_only,
             "--rtdetr": rtdetr_only, "--world": world_only, "--track": track_only, "--cli": cli_only,
-            "--attn": attn_only}
+            "--attn": attn_only, "--neck": neck_only}
     if argv not in ([], ["--conv3x3"], *([k] for k in only)) and not converge:
         print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --v10, --v8, --seg, --pose, --obb, "
-              f"--cls, --zoo, --v9, --rtdetr, --world, --track, --cli, --attn and --converge [model yaml]",
+              f"--cls, --zoo, --v9, --rtdetr, --world, --track, --cli, --attn, --neck and --converge [model yaml]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4762,7 +4927,7 @@ def main(argv) -> int:
         v9_launches = phase_v9(Path(tmp) / "val" / "data.yaml", data)
         torch.cuda.empty_cache()
         stamp("v9 (18)")
-        rtdetr_launches = phase_rtdetr(Path(tmp) / "val" / "data.yaml", data)
+        rtdetr_launches = phase_rtdetr(Path(tmp) / "val" / "data.yaml", data, WHOLE_RUN_RTDETR)
         torch.cuda.empty_cache()
         stamp("rtdetr (19)")
         world_launches = phase_world(Path(tmp) / "val" / "data.yaml", data, WHOLE_RUN_WORLD)
@@ -4777,6 +4942,9 @@ def main(argv) -> int:
         attn_launches = phase_attn(Path(tmp) / "val" / "data.yaml", data, WHOLE_RUN_ATTN)
         torch.cuda.empty_cache()
         stamp("attn (23)")
+        neck_launches = phase_neck(Path(tmp) / "val" / "data.yaml", data, WHOLE_RUN_NECK)
+        torch.cuda.empty_cache()
+        stamp("neck (24)")
     nms = time_nms()["val"]
     stamp("nms (12)")
     kernels = [
@@ -4809,6 +4977,7 @@ def main(argv) -> int:
         k["launches_track"] = track_launches[k["name"]]  # LPC-YOLO's ByteTrack and yolov8n's BoT-SORT runs, phase 21
         k["launches_cli"] = cli_launches[k["name"]]  # the CLI's train (batch=-1), predict and val, phase 22
         k["launches_attn"] = attn_launches[k["name"]]  # the SK variant's train(data=..., save=True), phase 23
+        k["launches_neck"] = neck_launches[k["name"]]  # the slimneck variant's train(data=..., save=True), phase 24
     kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start

@@ -8,8 +8,9 @@ classifiers, the other CNN detection YAMLs (v8 P2 / P6 / ghost / seg-P6 / pose-P
 v5 and v5-P6, v3, v3-SPP, v3-tiny, v6), YOLOv9 (v9c, v9e) and RT-DETR (rtdetr-l, -x, -resnet50, -resnet101,
 yolov8-rtdetr: HGStem, HGBlock, LightConv, RepC3, AIFI and the RTDETRDecoder head, `nn/transformer.py`) and
 YOLO-World (yolov8-world, -worldv2: C2fAttn, ImagePoolingAttn and the WorldDetect head)
-reach, and the research zoo's 21 attention modules (`nn/research.py`; JAX :251-276 and `build_research_module`);
-any other module, the zoo's neck blocks and backbone families among them, raises NotImplementedError. A CBLinear
+reach, and the research zoo's 21 attention modules and 15 neck blocks (`nn/research.py`; JAX :243-276 and
+`build_research_module`; ASFF2 / ASFF3 take the list of their levels' maps, JAX :975); any other module, the zoo's
+backbone families among them, raises NotImplementedError. A CBLinear
 layer's output is a tuple of maps, which the CBFuse layers that list it read by index (:230-238).
 A layer repeated n > 1 times that takes no repeat count of its own (v3's Bottlenecks, v6's
 Convs) is an nn.Sequential of n copies, `model.<i>.<rep>`, the JAX graph's `model_<i>_<rep>`
@@ -167,12 +168,20 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
         elif m == "CBFuse":  # (JAX :236-238)
             c2 = chs[f_list[-1]]
             out_args = [tuple(args[0])]
-        elif m == "nn.ConvTranspose2d" or m in R.WIDTH_SCALED:  # width-scaled as a base module (JAX :221-226, :251-257)
+        elif m in R.MULTI_INPUT:  # ASFF: [the levels' widths, c2 width-scaled, level]; level's width out (JAX :243-250)
+            c1l = [chs[x] for x in f_list]
+            level = args[1] if len(args) > 1 else 0
+            out_args = [tuple(c1l), make_divisible(min(args[0], max_channels) * width, 8), level]
+            c2 = c1l[level]
+        elif m == "nn.ConvTranspose2d" or m in R.WIDTH_SCALED:  # width-scaled as a base module (JAX :221-226, :251-260)
             c1, c2 = chs[f_list[0]], args[0]
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
             out_args = [c1, c2, *args[1:]]
-        elif m in R.C1_PREPEND:  # the research zoo's attention family (JAX :261-271)
+            if m in R.WIDTH_REPEAT:  # C2f_MSBlock, VoVGSCSP: n folded into the block
+                out_args.insert(2, n_res)
+                n_res = 1
+        elif m in R.C1_PREPEND:  # the research zoo's attention family and neck blocks (JAX :261-271)
             c1 = c2 = chs[f_list[0]]
             out_args = [c1, *args]
         elif m in R.C1_ONLY:
@@ -199,7 +208,7 @@ def _build_module(spec: LayerSpec, strides) -> nn.Module:
         one = dataclasses.replace(spec, n=1)  # passthrough module's args name no channels
         rest = one if m in R.PASSTHROUGH else dataclasses.replace(one, args=(spec.c2, *a[1:]))
         return nn.Sequential(*(_build_module(one if r == 0 else rest, strides) for r in range(spec.n)))
-    if m in R.ATTENTION:
+    if m in R.PORTED:
         return R.build_research_module(m, a)
     if m == "Conv":
         k = a[2] if len(a) > 2 else 1
@@ -376,7 +385,7 @@ class DetectionModel(nn.Module):
             if spec.module == "Classify":
                 logits = module(x if spec.f[0] == -1 else y[spec.f[0]])
                 return logits if self.training else {"probs": torch.softmax(logits.float(), -1), "logits": logits}
-            if spec.module in ("Concat", "CBFuse", "ImagePoolingAttn") or spec.module in HEAD_TASKS:
+            if spec.module in ("Concat", "CBFuse", "ImagePoolingAttn", *R.MULTI_INPUT) or spec.module in HEAD_TASKS:
                 inp = [x if j == -1 else y[j] for j in spec.f]
             else:
                 inp = x if spec.f[0] == -1 else y[spec.f[0]]

@@ -18,14 +18,15 @@ from typing import List
 import torch
 import torch.nn as nn
 
-from .modules import ConvBN, HGStem, RepConv, ResNetLayer
+from .modules import BiasConv, ConvBN, HGStem, RepConv, ResNetLayer
 
 
 def folded_convs(model: nn.Module) -> List[nn.Module]:
-    """The modules `fuse_conv_bn` folds, in module order: every RepConv, and every ConvBN that is not a branch
-    of one (a RepConv runs its own fold, never its branches')."""
+    """The modules `fuse_conv_bn` folds, in module order: every RepConv and BiasConv, and every ConvBN that is not
+    a branch of a RepConv (a RepConv runs its own fold, never its branches')."""
     branches = {id(c) for m in model.modules() if isinstance(m, RepConv) for c in (m.conv1, m.conv2)}
-    return [m for m in model.modules() if isinstance(m, RepConv) or isinstance(m, ConvBN) and id(m) not in branches]
+    return [m for m in model.modules()
+            if isinstance(m, (RepConv, BiasConv)) or isinstance(m, ConvBN) and id(m) not in branches]
 
 
 def conv3x3_sites(model: nn.Module) -> List[nn.Module]:

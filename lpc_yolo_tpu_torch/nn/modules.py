@@ -90,8 +90,7 @@ class ConvBN(nn.Module):
 
     @property
     def kernel_path(self) -> bool:
-        c = self.conv
-        return c.kernel_size == (3, 3) and c.stride == (1, 1) and c.groups == 1 and c.dilation == (1, 1)
+        return is_kernel_path(self.conv)
 
     def train(self, mode: bool = True):
         if mode:
@@ -111,6 +110,11 @@ class ConvBN(nn.Module):
         if self.folded is None:
             return apply_act(self.bn(self.conv(x)), self.act)
         return run_folded(x, self.folded, self.act, self.conv, self.kernel_path)
+
+
+def is_kernel_path(c: nn.Conv2d) -> bool:
+    """Whether a conv is a conv3x3 site once folded: 3x3, stride 1, groups 1, undilated."""
+    return c.kernel_size == (3, 3) and c.stride == (1, 1) and c.groups == 1 and c.dilation == (1, 1)
 
 
 def bn_folded(weight: torch.Tensor, bn: nn.BatchNorm2d, bias: Optional[torch.Tensor] = None):
@@ -141,6 +145,41 @@ def run_folded(x: torch.Tensor, folded, act, conv: nn.Conv2d, kernel_path: bool)
         return conv3x3(xh, w, b, act).permute(0, 3, 1, 2)
     y = F.conv2d(x, w, b, conv.stride, conv.padding, conv.dilation, conv.groups)
     return apply_act(y, act)
+
+
+class BiasConv(nn.Conv2d):
+    """A bare biased conv (a flax `nn.Conv` with its own `kernel` and `bias`, no BN, no activation) that folds as a
+    ConvBN does: its weight and bias sit at the module's root, so the bridge's keys stay the JAX names
+    (`conv_refine1/kernel` -> `conv_refine1.weight`), and once folded a 3x3 s1 g1 one is a conv3x3 site with the
+    `none` epilogue."""
+
+    act = False
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None, g: int = 1, d: int = 1):
+        super().__init__(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=True)
+        self.folded = None
+
+    @property
+    def kernel_path(self) -> bool:
+        return is_kernel_path(self)
+
+    def train(self, mode: bool = True):
+        if mode:
+            self.folded = None
+        return super().train(mode)
+
+    @torch.no_grad()
+    def fold(self, dtype: torch.dtype, in_scale: float = 1.0) -> None:
+        if self.training:
+            raise RuntimeError("BiasConv.fold() is for eval mode")
+        # a copy: an f32 bias's .float() is the Parameter itself, which a later .to(dtype) of the model rewrites
+        self.folded = store_folded(self.weight.float() * in_scale, self.bias.detach().float().clone(), dtype,
+                                   self.kernel_path)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.folded is None:
+            return super().forward(x)
+        return run_folded(x, self.folded, False, self, self.kernel_path)
 
 
 class Bottleneck(nn.Module):

@@ -1,8 +1,9 @@
-"""The research zoo's attention family as torch nn.Modules (counterpart of `lpc_yolo_tpu/nn/research.py:49-734`).
+"""The research zoo's attention family and neck blocks as torch nn.Modules (counterpart of
+`lpc_yolo_tpu/nn/research.py:49-777` and `:1420-2003`).
 
-The 21 attention modules that the JAX YAML compiler reaches through `build_research_module` (:2050-2068), with
-the helpers they use, in NCHW. Attribute and parameter names mirror the JAX ones, numeric parts split off
-(`conv_0` -> `conv.0`), so the weight bridge stays a name map; a bare JAX parameter (ECA's `conv`,
+The 21 attention modules and the 15 neck blocks that the JAX YAML compiler reaches through `build_research_module`
+(:2050-2068), with the helpers they use, in NCHW. Attribute and parameter names mirror the JAX ones, numeric parts
+split off (`conv_0` -> `conv.0`), so the weight bridge stays a name map; a bare JAX parameter (ECA's `conv`,
 ShuffleAttention's `cweight` ..., SpatialGroupEnhance's `weight` and `bias`, CrissCrossAttention's `gamma`, MHSA's
 `rel_h` / `rel_w`) is a Parameter of the same name and JAX layout. SKAttention's `fc` (channel -> d) is a Linear
 whose children "0".."3" are the branch Linears `fc_0`..`fc_3`: torch keeps `fc.weight` beside `fc.0.weight` that
@@ -11,12 +12,17 @@ way, with no renamed key. NAMAttention's BatchNorm leaves sit at its root, so it
 Every conv+BN unit is a `CBA`, a `ConvBN` (`nn/modules.py`), so `nn/fuse.py` folds it for serving, a conv bias
 included (`b' = beta + (b_conv - mean) * gamma / sigma`, which the JAX `fuse_conv_bn` drops), and a 3x3 s1 g1 one
 runs the conv3x3 kernel: SKAttention's `conv_1` (ReLU) and ParNetAttention's `conv3x3` (no activation, a conv
-bias). Everything else runs in plain PyTorch, as the JAX package left it to XLA.
+bias); among the neck blocks GSBottleneck's `gs2.cv1`, BasicRFB's undilated 3x3s, PPA's `c1`..`c3`, ASFF's `conv`,
+and the bare biased 3x3s of FGFP, FGFP_Head and the axial transformer (`BiasConv`, whose weight and bias keep the
+JAX names). Everything else runs in plain PyTorch, as the JAX package left it to XLA: DySample's sampler is
+`F.grid_sample`, the axial attention SDPA.
 
 Divergences copied from the JAX package by design: flax's `nn.gelu` is the tanh form; SpatialGroupEnhance's
 std is the biased one; CoTAttention's 9 * dim `attn2` channels are read k*k-major; the LayerNorms and the
-GroupNorm take flax's eps 1e-6. Not copied: the JAX ShuffleAttention splits the map into blocks of rows where
-SA-Net (Zhang & Yang, 2021) splits the channels into groups; the port runs the published channel-group forward.
+GroupNorm take flax's eps 1e-6 (the neck blocks' too). Not copied: the JAX ShuffleAttention splits the map into
+blocks of rows where SA-Net (Zhang & Yang, 2021) splits the channels into groups; the JAX GSConv interleaves its two
+halves where the published slim-neck forward takes the even channels, then the odd ones; the JAX DySample's initial
+offsets are transposed and its sampler's border keeps the unclamped weights. The port runs the published forwards.
 """
 
 from __future__ import annotations
@@ -30,24 +36,33 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv3x3 import apply_act
-from .modules import BN_EPS, BN_MOMENTUM, BatchNorm2d, ConvBN, autopad, store_folded
+from .modules import BN_EPS, BN_MOMENTUM, BatchNorm2d, BiasConv, ConvBN, autopad, store_folded
 
 LN_EPS = 1e-6  # flax LayerNorm's and GroupNorm's default epsilon
 LPC_YAML = Path(__file__).resolve().parents[1] / "cfg" / "models" / "v10" / "yolov10-SPD-Conv-Tiny-CBAM-LPC.yaml"
 LPC_ATTENTION_LAYER = 21  # LPC-YOLO's CBAM [7], on the 80² map at 64 channels at 640
 
-# -- the parse rules of the attention family (JAX research.py:2012-2040) --------------------------------------------
+# -- the parse rules of the attention family and the neck blocks (JAX research.py:2012-2047) --------------------------
 # args[0] a width-scaled output-channel count: out_args = [c1, c2, *rest]
-WIDTH_SCALED = {"CoordAtt", "GAMAttention"}
+WIDTH_SCALED = {"CoordAtt", "GAMAttention", "MSBlock", "C2f_MSBlock", "GSConv", "GSConvns", "VoVGSCSP", "VoVGSCSPC",
+                "PPA", "BasicRFB"}
+# the width-scaled ones that take the depth-scaled repeat count at arg index 2 (after [c1, c2])
+WIDTH_REPEAT = {"C2f_MSBlock", "VoVGSCSP"}
 # out_args = [c1, *yaml_args]; output channels unchanged
 C1_PREPEND = {"SE", "ECA", "ShuffleAttention", "SKAttention", "DoubleAttention", "CoTAttention",
-              "EffectiveSEModule", "GlobalContext", "GatherExcite", "MHSA"}
+              "EffectiveSEModule", "GlobalContext", "GatherExcite", "MHSA", "AxialImageTransformer", "DySample",
+              "SCSA", "FGFP", "FGFP_Head"}
 # out_args = [c1] only
 C1_ONLY = {"S2Attention", "NAMAttention", "CrissCrossAttention", "SequentialPolarizedSelfAttention",
            "ParallelPolarizedSelfAttention", "ParNetAttention"}
 # args pass through untouched; output channels unchanged
 PASSTHROUGH = {"SimAM", "SpatialGroupEnhance", "TripletAttention"}
-ATTENTION = WIDTH_SCALED | C1_PREPEND | C1_ONLY | PASSTHROUGH
+# a list of maps in: out_args = [the levels' widths, the width-scaled c2, level]; the output is level's width
+MULTI_INPUT = {"ASFF2", "ASFF3"}
+NECK = {"BasicRFB", "MSBlock", "C2f_MSBlock", "GSConv", "GSConvns", "VoVGSCSP", "VoVGSCSPC", "PPA",
+        "AxialImageTransformer", "DySample", "SCSA", "FGFP", "FGFP_Head"} | MULTI_INPUT
+ATTENTION = (WIDTH_SCALED | C1_PREPEND | C1_ONLY | PASSTHROUGH) - NECK
+PORTED = ATTENTION | NECK
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -102,7 +117,7 @@ class CBA(ConvBN):
         if self.training:
             raise RuntimeError("CBA.fold() is for eval mode")
         w = self.conv.weight.float() * in_scale
-        b = self.conv.bias.float() if self.conv.bias is not None else torch.zeros_like(w[:, 0, 0, 0])
+        b = self.conv.bias.detach().float().clone() if self.conv.bias is not None else torch.zeros_like(w[:, 0, 0, 0])
         self.folded = store_folded(w, b, dtype, self.kernel_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -631,35 +646,672 @@ class SequentialPolarizedSelfAttention(ParallelPolarizedSelfAttention):
         return self.spatial(self.channel(x))
 
 
+# -- the neck blocks' helpers (JAX :137-160) -----------------------------------------------------------------------
+
+
+def max_pool(x: torch.Tensor, k: int, s: int, p: int = 0) -> torch.Tensor:
+    """flax's max pool over a map padded with -inf (JAX :137)."""
+    return F.max_pool2d(F.pad(x, (p, p, p, p), value=float("-inf")) if p else x, k, s)
+
+
+def avg_pool(x: torch.Tensor, k: int, s: int, p: int = 0) -> torch.Tensor:
+    """flax's average pool over a map padded with zeros, which count in the mean (JAX :143)."""
+    return F.avg_pool2d(F.pad(x, (p, p, p, p)) if p else x, k, s)
+
+
+def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """`jax.image.resize(..., "nearest")` (JAX :149): the source pixel under each output pixel's centre."""
+    return F.interpolate(x, size=(h, w), mode="nearest-exact")
+
+
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """`jax.image.resize(..., "bilinear")` when upsampling (JAX :153): half-pixel, edges clamped."""
+    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+
+
+# -- the slim-neck family (GSConv, VoV-GSCSP; JAX :1420-1534) ----------------------------------------------------
+
+
+def gsconv_shuffle(y: torch.Tensor) -> torch.Tensor:
+    """The published slim-neck `GSConv.forward`'s shuffle of [x1, cv2(x1)]: the even channels, then the odd ones.
+    The JAX module (:1439-1441) interleaves the two halves instead; the two agree at 4 channels."""
+    return torch.cat([y[:, 0::2], y[:, 1::2]], 1)
+
+
+class GSConv(nn.Module):
+    """GSConv (JAX :1420): a k x k stride-s ConvBN to c2 / 2, a 5x5 depthwise ConvBN of it, both Mish (none with
+    act False), concatenated and shuffled by `gsconv_shuffle`."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act: bool = True):
+        super().__init__()
+        c_, a = c2 // 2, "mish" if act else False
+        self.cv1 = ConvBN(c1, c_, k, s, g=g, act=a)
+        self.cv2 = ConvBN(c_, c_, 5, 1, g=c_, act=a)
+
+    def forward(self, x):
+        x1 = self.cv1(x)
+        return gsconv_shuffle(torch.cat([x1, self.cv2(x1)], 1))
+
+
+class GSConvns(nn.Module):
+    """GSConv with the learned shuffle (JAX :1444): a 1x1 and a 5x5 depthwise ConvBN (Mish), then `shuf`, a
+    bias-free 1x1 over both halves, and a ReLU. `k` and `s` are taken and ignored, as in the JAX module and the
+    published one."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = ConvBN(c1, c_, 1, 1, act="mish")
+        self.cv2 = ConvBN(c_, c_, 5, 1, g=c_, act="mish")
+        self.shuf = nn.Conv2d(c2, c2, 1, bias=False)
+
+    def forward(self, x):
+        x1 = self.cv1(x)
+        return F.relu(self.shuf(torch.cat([x1, self.cv2(x1)], 1)))
+
+
+class GSBottleneck(nn.Module):
+    """GS bottleneck (JAX :1462): GSConv 1x1, GSConv 3x3 without activation (its `gs2.cv1` a conv3x3 site with the
+    `none` epilogue), plus a 1x1 ConvBN shortcut."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.gs1 = GSConv(c1, c_, 1, 1)
+        self.gs2 = GSConv(c_, c2, 3, 1, act=False)
+        self.shortcut = ConvBN(c1, c2, 1, 1, act=False)
+
+    def forward(self, x):
+        return self.gs2(self.gs1(x)) + self.shortcut(x)
+
+
+class GSBottleneckC(nn.Module):
+    """The cheap GS bottleneck (JAX :1481): its shortcut a gcd(c1, c2)-grouped k x k stride-s ConvBN."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = int(c2 * 0.5)
+        self.gs1 = GSConv(c1, c_, 1, 1)
+        self.gs2 = GSConv(c_, c2, 3, 1, act=False)
+        self.shortcut = ConvBN(c1, c2, k, s, g=math.gcd(c1, c2), act=False)
+
+    def forward(self, x):
+        return self.gs2(self.gs1(x)) + self.shortcut(x)
+
+
+class VoVGSCSP(nn.Module):
+    """VoV-GSCSP (JAX :1498): cv1 1x1 to c2 / 2 through n GSBottlenecks (`gsb.<i>`), beside cv2 1x1 of the input,
+    concatenated [cv2, gsb] into cv3 1x1, all Mish; the compiler passes the depth-scaled n."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1, 1, act="mish")
+        self.gsb = nn.ModuleList(GSBottleneck(c_, c_, e=1.0) for _ in range(n))
+        self.cv2 = ConvBN(c1, c_, 1, 1, act="mish")
+        self.cv3 = ConvBN(2 * c_, c2, 1, act="mish")
+
+    def bottlenecks(self, x):
+        for m in self.gsb:
+            x = m(x)
+        return x
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.cv2(x), self.bottlenecks(self.cv1(x))], 1))
+
+
+class VoVGSCSPC(VoVGSCSP):
+    """The cheap VoV-GSCSP (JAX :1527): one GSBottleneckC (`gsb`) with a depthwise 1x1 shortcut; a YAML repeat
+    stacks the whole block instead."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, 0, e)
+        c_ = int(c2 * e)
+        self.gsb = GSBottleneckC(c_, c_, 1, 1)
+
+    def bottlenecks(self, x):
+        return self.gsb(x)
+
+
+# -- the receptive-field block (JAX :734) -------------------------------------------------------------------------
+
+
+class BasicRFB(nn.Module):
+    """RFB (JAX :734): three branches of 1x1 -> 3x3 (ReLU) [-> 3x3 (ReLU)] -> a 3x3 dilated by vision + 1, 2, 4
+    (no activation), concatenated into `conv_linear`, scaled by `scale`, plus the 1x1 `shortcut`, then a ReLU.
+    The undilated stride-1 3x3s (`b0.1`, `b1.1`, `b2.1`, `b2.2` at stride 1) are conv3x3 sites; the dilated ones
+    run through F.conv2d."""
+
+    def __init__(self, c1: int, c2: int, stride: int = 1, scale: float = 0.1, map_reduce: int = 8, vision: int = 1,
+                 groups: int = 1):
+        super().__init__()
+        i, g, v, s = c1 // map_reduce, groups, vision, stride
+        self.scale = scale
+        self.b0 = nn.Sequential(CBA(c1, i, 1, g=g, act="none"), CBA(i, 2 * i, 3, s=s, g=g),
+                                CBA(2 * i, 2 * i, 3, p=v + 1, d=v + 1, g=g, act="none"))
+        self.b1 = nn.Sequential(CBA(c1, i, 1, g=g, act="none"), CBA(i, 2 * i, 3, s=s, g=g),
+                                CBA(2 * i, 2 * i, 3, p=v + 2, d=v + 2, g=g, act="none"))
+        self.b2 = nn.Sequential(CBA(c1, i, 1, g=g, act="none"), CBA(i, (i // 2) * 3, 3, g=g),
+                                CBA((i // 2) * 3, 2 * i, 3, s=s, g=g),
+                                CBA(2 * i, 2 * i, 3, p=v + 4, d=v + 4, g=g, act="none"))
+        self.conv_linear = CBA(6 * i, c2, 1, act="none")
+        self.shortcut = CBA(c1, c2, 1, s=s, act="none")
+
+    def forward(self, x):
+        out = self.conv_linear(torch.cat([self.b0(x), self.b1(x), self.b2(x)], 1))
+        return F.relu(out * self.scale + self.shortcut(x))
+
+
+# -- YOLO-MS's multi-scale block (JAX :1537-1594) -----------------------------------------------------------------
+
+
+class MSBlock(nn.Module):
+    """MSBlock (JAX :1537): `in_conv` 1x1 to c1 * in_expand_ratio / in_down_ratio, split in one part a kernel
+    size; past the first, each part adds the previous part's output, and a part of kernel k > 1 runs `layers_num`
+    times 1x1 -> k x k depthwise -> 1x1 (`mid.<i>.<j>_in` / `_mid` / `_out`, all SiLU); the parts concatenated into
+    `out_conv`. The depthwise convs are not conv3x3 sites."""
+
+    def __init__(self, c1: int, c2: int, kernel_sizes: Sequence[int] = (1, 3, 3), in_expand_ratio: float = 3.0,
+                 mid_expand_ratio: float = 2.0, layers_num: int = 3, in_down_ratio: float = 1.0):
+        super().__init__()
+        in_ch = int(c1 * in_expand_ratio // in_down_ratio)
+        self.mid_ch = mid = in_ch // len(kernel_sizes)
+        groups = int(mid * mid_expand_ratio)
+        self.kernel_sizes = tuple(kernel_sizes)
+        self.in_conv = ConvBN(c1, in_ch, 1, act="silu")
+        self.mid = nn.ModuleDict()
+        for i, k in enumerate(self.kernel_sizes):
+            if k == 1:
+                continue
+            self.mid[str(i)] = nn.ModuleDict()
+            for j in range(int(layers_num)):
+                self.mid[str(i)][f"{j}_in"] = ConvBN(mid, groups, 1, act="silu")
+                self.mid[str(i)][f"{j}_mid"] = ConvBN(groups, groups, k, g=groups, act="silu")
+                self.mid[str(i)][f"{j}_out"] = ConvBN(groups, mid, 1, act="silu")
+        self.layers_num = int(layers_num)
+        self.out_conv = ConvBN(mid * len(self.kernel_sizes), c2, 1, act="silu")
+
+    def forward(self, x):
+        out, mid, parts = self.in_conv(x), self.mid_ch, []
+        for i, k in enumerate(self.kernel_sizes):
+            ch = out[:, i * mid:(i + 1) * mid]
+            if i >= 1:
+                ch = ch + parts[i - 1]
+            if k != 1:
+                m = self.mid[str(i)]
+                for j in range(self.layers_num):
+                    ch = m[f"{j}_out"](m[f"{j}_mid"](m[f"{j}_in"](ch)))
+            parts.append(ch)
+        return self.out_conv(torch.cat(parts, 1))
+
+
+class C2f_MSBlock(nn.Module):
+    """C2f with MSBlocks (JAX :1578): cv1 1x1 to 2c (SiLU), n MSBlocks on the last half, all concatenated into cv2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        c = int(c2 * e)
+        self.c = c
+        self.cv1 = ConvBN(c1, 2 * c, 1, 1, act="silu")
+        self.m = nn.ModuleList(MSBlock(c, c) for _ in range(n))
+        self.cv2 = ConvBN((2 + n) * c, c2, 1, act="silu")
+
+    def forward(self, x):
+        y = self.cv1(x)
+        ys = [y[:, :self.c], y[:, self.c:]]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+# -- adaptive spatial feature fusion (JAX :1597-1670) -------------------------------------------------------------
+
+
+class _UpsampleT(nn.Module):
+    """ASFF's s x upsample (JAX :1597): an s x s stride-s transposed conv with a bias. Its flax kernel (kh, kw, in,
+    out), applied by `lax.conv_transpose` unflipped, is the torch weight (in, out, kh, kw) flipped in both spatial
+    axes; the bridge flips it (`utils/flax_bridge.py`)."""
+
+    def __init__(self, c1: int, c2: int, scale: int = 2):
+        super().__init__()
+        self.cv1 = nn.ConvTranspose2d(c1, c2, scale, scale, bias=True)
+
+    def forward(self, x):
+        return self.cv1(x)
+
+
+class _ASFF(nn.Module):
+    """Adaptive spatial feature fusion over the levels in `c1` (JAX ASFF2 :1611, ASFF3 :1640), at the resolution and
+    width of `level`: finer levels come down by s x s stride-s ConvBNs (`down<j>`), coarser ones up by `_UpsampleT`
+    (`up<j>`), each to 8 channels (`w<j>`, SiLU) for a biased 1x1 (`weights_levels`) whose softmax over the levels
+    mixes them; `conv` (3x3 SiLU, a conv3x3 site) finishes. The forward takes the list of the levels' maps."""
+
+    def __init__(self, c1: Sequence[int], c2: int, level: int = 0):
+        super().__init__()
+        self.level = level
+        inter = c1[level]
+        n = len(c1)
+        for j in range(n):
+            if j < level:  # a finer level: 2x2 s2 one level below, 4x4 s4 two below
+                self.add_module(f"down{j}", ConvBN(c1[j], inter, 2 ** (level - j), 2 ** (level - j), p=0, act="silu"))
+            elif j > level:
+                self.add_module(f"up{j}", _UpsampleT(c1[j], inter, 2 ** (j - level)))
+        for j in range(n):
+            self.add_module(f"w{j}", ConvBN(inter, 8, 1, act="silu"))
+        self.weights_levels = nn.Conv2d(8 * n, n, 1)
+        self.conv = ConvBN(inter, inter, 3, 1, act="silu")
+
+    def forward(self, xs):
+        r = [x if j == self.level else getattr(self, f"down{j}" if j < self.level else f"up{j}")(x)
+             for j, x in enumerate(xs)]
+        w = torch.softmax(self.weights_levels(torch.cat([getattr(self, f"w{j}")(t) for j, t in enumerate(r)], 1)), 1)
+        return self.conv(sum(t * w[:, j:j + 1] for j, t in enumerate(r)))
+
+
+class ASFF2(_ASFF):
+    """ASFF over two levels (JAX :1611); `c1` the (finer, coarser) widths."""
+
+    def __init__(self, c1: Sequence[int], c2: int, level: int = 0):
+        if len(c1) != 2:
+            raise ValueError(f"ASFF2 fuses two levels, got widths {tuple(c1)}")
+        super().__init__(c1, c2, level)
+
+
+class ASFF3(_ASFF):
+    """ASFF over three levels (JAX :1640)."""
+
+    def __init__(self, c1: Sequence[int], c2: int, level: int = 0):
+        if len(c1) != 3:
+            raise ValueError(f"ASFF3 fuses three levels, got widths {tuple(c1)}")
+        super().__init__(c1, c2, level)
+
+
+# -- DySample (JAX :1701) -----------------------------------------------------------------------------------------
+
+
+def dysample_init_pos(scale: int, groups: int) -> torch.Tensor:
+    """The published DySample's initial offsets, (2 * groups * scale², ) in the offset conv's channel order
+    (coordinate, group, subpixel row, subpixel column): x follows the subpixel's column, y its row, so that at zero
+    offset the sampler is the half-pixel bilinear upsample. The JAX module (:1718-1722) swaps the two."""
+    h = (torch.arange(scale, dtype=torch.float32) - (scale - 1) / 2) / scale
+    x_off, y_off = h[None, :].expand(scale, scale), h[:, None].expand(scale, scale)
+    return torch.stack([x_off, y_off]).reshape(2, 1, scale * scale).expand(2, groups, scale * scale).reshape(-1)
+
+
+def dysample_grid(offset: torch.Tensor, scale: int) -> torch.Tensor:
+    """The published sampler's grid from the offsets (B, 2 * G, H, W), G = groups * scale²: the pixel centres
+    plus the offsets, normalised to [-1, 1], pixel-shuffled into (B * groups, sH, sW, 2) (x, y)."""
+    b, _, h, w = offset.shape
+    off = offset.view(b, 2, -1, h, w)
+    base = torch.stack(torch.meshgrid(torch.arange(w, device=offset.device, dtype=offset.dtype) + 0.5,
+                                      torch.arange(h, device=offset.device, dtype=offset.dtype) + 0.5,
+                                      indexing="xy"))  # (2, H, W): x, y
+    norm = torch.tensor([w, h], device=offset.device, dtype=offset.dtype).view(1, 2, 1, 1, 1)
+    coords = 2 * (base[None, :, None] + off) / norm - 1
+    coords = F.pixel_shuffle(coords.reshape(b, -1, h, w), scale)
+    return coords.view(b, 2, -1, scale * h, scale * w).permute(0, 2, 3, 4, 1).flatten(0, 1)
+
+
+class DySample(nn.Module):
+    """DySample, the published "lp" style (Liu et al., 2023; JAX :1701): a biased 1x1 `offset` conv to
+    2 * groups * scale² channels (its output in the published (2, groups * scale²) order: the bridge permutes the
+    JAX (groups, scale², 2) order into it), times 0.25 plus `dysample_init_pos`, samples each channel group with
+    `F.grid_sample` (bilinear, border, align_corners=False) on `dysample_grid`. The offsets and the sampling run in
+    f32 (bf16 coordinates would be off by a third of a pixel at 80 columns). Another `style` raises, where the JAX
+    module runs "lp" whatever it is given."""
+
+    def __init__(self, c1: int, scale: int = 2, style: str = "lp", groups: int = 4):
+        super().__init__()
+        if style != "lp":
+            raise NotImplementedError(f"DySample style {style!r} is not ported (the JAX module runs 'lp' for any)")
+        self.scale, self.groups = scale, groups
+        self.offset = nn.Conv2d(c1, 2 * groups * scale * scale, 1)
+        self.register_buffer("init_pos", dysample_init_pos(scale, groups), persistent=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        offset = self.offset(x).float() * 0.25 + self.init_pos.float().view(1, -1, 1, 1)
+        grid = dysample_grid(offset, self.scale)
+        out = F.grid_sample(x.float().reshape(b * self.groups, -1, h, w), grid, mode="bilinear",
+                            padding_mode="border", align_corners=False)
+        return out.view(b, c, self.scale * h, self.scale * w).to(x.dtype)
+
+
+# -- HCF-Net's PPA, SCSA, FGFP (JAX :1744-1945) -------------------------------------------------------------------
+
+
+class _SpatialAttnModule(nn.Module):
+    """PPA's spatial gate (JAX :1744): [mean, max] over the channels -> a biased 7x7 `conv2d` -> sigmoid."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv2d = nn.Conv2d(2, 1, 7, padding=3)
+
+    def forward(self, x):
+        z = torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True)], 1)
+        return torch.sigmoid(self.conv2d(z)) * x
+
+
+class LocalGlobalAttention(nn.Module):
+    """HCF-Net's local-global attention over p x p patches (JAX :1757): each patch's channel-mean pixels through
+    `mlp1` (Linear), a LayerNorm (eps 1e-6), `mlp2`, gated by their softmax and by their cosine with `prompt`
+    (clipped to [0, 1]), times `top_down_transform`, resized bilinearly back to the map and a biased 1x1 `conv`."""
+
+    def __init__(self, output_dim: int, patch_size: int):
+        super().__init__()
+        p, d = patch_size, output_dim
+        self.p = p
+        self.mlp1 = nn.Linear(p * p, d // 2)
+        self.norm = nn.LayerNorm(d // 2, eps=LN_EPS)
+        self.mlp2 = nn.Linear(d // 2, d)
+        self.prompt = nn.Parameter(torch.randn(d))
+        self.top_down_transform = nn.Parameter(torch.eye(d))
+        self.conv = nn.Conv2d(d, d, 1)
+
+    def forward(self, x):
+        b, _, h, w = x.shape
+        p = self.p
+        hp, wp = h // p, w // p
+        pix = x.mean(1)[:, :hp * p, :wp * p].reshape(b, hp, p, wp, p).permute(0, 1, 3, 2, 4).reshape(b, hp * wp, p * p)
+        feats = self.mlp2(self.norm(self.mlp1(pix)))
+        local = feats * torch.softmax(feats, -1)
+        prompt = self.prompt.to(x.dtype)
+        cos = (local / (local.norm(dim=-1, keepdim=True) + 1e-6)) @ (prompt / (prompt.norm() + 1e-6))
+        local = (local * cos.clamp(0, 1)[..., None]) @ self.top_down_transform.to(x.dtype)
+        local = local.transpose(1, 2).reshape(b, -1, hp, wp)
+        return self.conv(resize_bilinear(local, h, w))
+
+
+class PPA(nn.Module):
+    """HCF-Net's parallelized patch-aware attention (JAX :1785): a biased 1x1 CBA `skip` (BN, no activation), its
+    local-global attentions over 2x2 and 4x4 patches, three chained 3x3 CBAs with a conv bias and ReLU (`c1`,
+    `c2`, `c3`: conv3x3 sites, the conv bias folded), all summed, then ECA (`cn`), the spatial gate (`sa`), a
+    BatchNorm (`bn1`) and a ReLU."""
+
+    def __init__(self, c1: int, filters: int):
+        super().__init__()
+        f = filters
+        self.skip = CBA(c1, f, 1, p=0, act="none", bias=True)
+        self.lga2 = LocalGlobalAttention(f, 2)
+        self.lga4 = LocalGlobalAttention(f, 4)
+        self.c1 = CBA(c1, f, 3, act="relu", bias=True)
+        self.c2 = CBA(f, f, 3, act="relu", bias=True)
+        self.c3 = CBA(f, f, 3, act="relu", bias=True)
+        self.cn = ECA(f)
+        self.sa = _SpatialAttnModule()
+        self.bn1 = BatchNorm2d(f, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        skip = self.skip(x)
+        x1 = self.c1(x)
+        x2 = self.c2(x1)
+        x3 = self.c3(x2)
+        y = x1 + x2 + x3 + skip + self.lga2(skip) + self.lga4(skip)
+        return F.relu(self.bn1(self.sa(self.cn(y))))
+
+
+_SCSA_DWC = ("local_dwc", "global_dwc_s", "global_dwc_m", "global_dwc_l")
+
+
+class SCSA(nn.Module):
+    """Spatial-channel synergistic attention (JAX :1815). The map pooled over W and over H; its four channel
+    quarters through depthwise 1-D convs of kernel 3, 5, 7, 9 (bare (k, 1, C / 4) parameters and `<name>_bias`,
+    shared by both paths), a 4-group GroupNorm (eps 1e-6) and a sigmoid gate the rows and the columns; then the
+    map's 7 x 7 average pool (its mean when smaller), a 1-group GroupNorm, bias- and BN-free depthwise 1x1 q, k, v
+    (CBAs), attention over the head_dim channels of each head, averaged over the positions, gate the channels."""
+
+    def __init__(self, dim: int, head_num: int = 8, window_size: int = 7,
+                 group_kernel_sizes: Sequence[int] = (3, 5, 7, 9)):
+        super().__init__()
+        gc = dim // 4
+        self.head_num, self.window_size, self.gc = head_num, window_size, gc
+        for name, k in zip(_SCSA_DWC, group_kernel_sizes):
+            bound = math.sqrt(6.0 / k)  # the JAX kaiming_uniform over the kernel's k taps
+            self.register_parameter(name, nn.Parameter(torch.empty(k, 1, gc).uniform_(-bound, bound)))
+            self.register_parameter(name + "_bias", nn.Parameter(torch.zeros(gc)))
+        self.norm_h = nn.GroupNorm(4, dim, eps=LN_EPS)
+        self.norm_w = nn.GroupNorm(4, dim, eps=LN_EPS)
+        self.norm = nn.GroupNorm(1, dim, eps=LN_EPS)
+        self.q = CBA(dim, dim, 1, g=dim, act="none", bn=False)
+        self.k = CBA(dim, dim, 1, g=dim, act="none", bn=False)
+        self.v = CBA(dim, dim, 1, g=dim, act="none", bn=False)
+
+    def multi_dwc(self, v: torch.Tensor) -> torch.Tensor:
+        """The four depthwise 1-D convs over (B, C, L), a channel quarter each."""
+        gc, parts = self.gc, []
+        for i, name in enumerate(_SCSA_DWC):
+            wgt = getattr(self, name)
+            k = wgt.shape[0]
+            parts.append(F.conv1d(v[:, i * gc:(i + 1) * gc], wgt.permute(2, 1, 0).to(v.dtype),
+                                  getattr(self, name + "_bias").to(v.dtype), padding=k // 2, groups=gc))
+        return torch.cat(parts, 1)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        h_attn = torch.sigmoid(self.norm_h(self.multi_dwc(x.mean(3))))  # (B, C, H)
+        w_attn = torch.sigmoid(self.norm_w(self.multi_dwc(x.mean(2))))  # (B, C, W)
+        x = x * h_attn[:, :, :, None] * w_attn[:, :, None, :]
+        ws = self.window_size
+        y = self.norm(avg_pool(x, ws, ws) if min(h, w) >= ws else _gap(x))
+        hd = c // self.head_num
+        q, k, v = (t.reshape(b, self.head_num, hd, -1) for t in (self.q(y), self.k(y), self.v(y)))
+        attn = torch.softmax((q @ k.transpose(-2, -1)) * hd ** -0.5, -1)
+        return torch.sigmoid((attn @ v).mean(-1).reshape(b, c, 1, 1)) * x
+
+
+class _ChannelGate(nn.Module):
+    """FGFP's channel gate (JAX :1880): bias-free 1x1 f1 -> ReLU -> f2 over the mean and the max, summed, sigmoid;
+    returns the gate."""
+
+    def __init__(self, c1: int, ratio: int = 16):
+        super().__init__()
+        self.f1 = nn.Conv2d(c1, max(1, c1 // ratio), 1, bias=False)
+        self.f2 = nn.Conv2d(max(1, c1 // ratio), c1, 1, bias=False)
+
+    def forward(self, x):
+        return torch.sigmoid(self.f2(F.relu(self.f1(_gap(x)))) + self.f2(F.relu(self.f1(_gmp(x)))))
+
+
+class FGFP(nn.Module):
+    """Fine-grained feature pyramid (JAX :1897): a biased 1x1 `conv_compress` to c2 (c1 / 2), a nearest x2
+    upsample, biased 3x3s `conv_refine1` (to c2 / 2) and `conv_refine2` (back to c2; conv3x3 sites, `BiasConv`)
+    around the channel gate, a 2x2 max pool, concatenated after the input into a biased 1x1 `conv_final` to c1."""
+
+    def __init__(self, c1: int, c2: Optional[int] = None, ratio: int = 16):
+        super().__init__()
+        c2 = c2 or c1 // 2
+        self.conv_compress = nn.Conv2d(c1, c2, 1)
+        self.conv_refine1 = BiasConv(c2, c2 // 2, 3)
+        self.channel_attention = _ChannelGate(c2 // 2, ratio)
+        self.conv_refine2 = BiasConv(c2 // 2, c2, 3)
+        self.conv_final = nn.Conv2d(c1 + c2, c1, 1)
+
+    def forward(self, x):
+        h, w = x.shape[2:]
+        up = self.conv_refine1(resize_nearest(self.conv_compress(x), 2 * h, 2 * w))
+        up = max_pool(self.conv_refine2(self.channel_attention(up) * up), 2, 2)
+        return self.conv_final(torch.cat([x, up], 1))
+
+
+class FGFP_Head(nn.Module):
+    """FGFP's head enhancer (JAX :1929): a biased 1x1 `conv1` to c1 / 2, gated by a bias-free 7x7 `sa_conv` over
+    its [mean, max], a biased 3x3 `conv2` back to c1 (a conv3x3 site), plus the input."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(c1, c1 // 2, 1)
+        self.sa_conv = nn.Conv2d(2, 1, 7, padding=3, bias=False)
+        self.conv2 = BiasConv(c1 // 2, c1, 3)
+
+    def forward(self, x):
+        y = self.conv1(x)
+        gate = self.sa_conv(torch.cat([y.mean(1, keepdim=True), y.amax(1, keepdim=True)], 1))
+        return self.conv2(torch.sigmoid(gate) * y) + x
+
+
+# -- the axial image transformer (JAX :1948-2003) -----------------------------------------------------------------
+
+
+class _AxialSelfAttention(nn.Module):
+    """Attention along one axis over (B*, L, C) (JAX :1948): bias-free `to_q` and `to_kv` Linears, heads of
+    dim / heads channels at scale 1/sqrt(dim / heads) through SDPA, a biased `to_out`."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.dim, self.heads = dim, heads
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_kv = nn.Linear(dim, 2 * dim, bias=False)
+        self.to_out = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        b, t, d = x.shape
+        e = self.dim // self.heads
+        k, v = self.to_kv(x).split(self.dim, -1)
+        q, k, v = (z.reshape(b, t, self.heads, e).transpose(1, 2) for z in (self.to_q(x), k, v))
+        return self.to_out(F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, t, d))
+
+
+class AxialImageTransformer(nn.Module):
+    """The axial image transformer (JAX :1974): per depth i a LayerNorm (eps 1e-6) and attention along the columns
+    (`d<i>_norm_h`, `d<i>_attn_h`), the same along the rows (`_w`), each added, then two conv FFNs `d<i>_ff<j>`: a
+    LayerNorm, a biased 3x3 to 4 * dim, leaky ReLU (0.01), a biased 3x3 back, added. The 3x3s are conv3x3 sites
+    with the `none` epilogue (`BiasConv`); the leaky ReLU runs after the kernel. The JAX module's rematerialisation
+    (standing for the reference's reversible sequence) changes no value and is not ported."""
+
+    def __init__(self, dim: int, depth: int = 1, heads: int = 8):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            for a in ("h", "w"):
+                self.add_module(f"d{i}_norm_{a}", nn.LayerNorm(dim, eps=LN_EPS))
+                self.add_module(f"d{i}_attn_{a}", _AxialSelfAttention(dim, heads))
+            for j in range(2):
+                self.add_module(f"d{i}_ff{j}_norm", nn.LayerNorm(dim, eps=LN_EPS))
+                self.add_module(f"d{i}_ff{j}_c1", BiasConv(dim, 4 * dim, 3))
+                self.add_module(f"d{i}_ff{j}_c2", BiasConv(4 * dim, dim, 3))
+
+    def forward(self, x):
+        x = x.permute(0, 2, 3, 1)  # (B, H, W, C), as the JAX module runs
+        b, h, w, c = x.shape
+        for i in range(self.depth):
+            y = getattr(self, f"d{i}_norm_h")(x).transpose(1, 2).reshape(b * w, h, c)
+            x = x + getattr(self, f"d{i}_attn_h")(y).reshape(b, w, h, c).transpose(1, 2)
+            y = getattr(self, f"d{i}_norm_w")(x).reshape(b * h, w, c)
+            x = x + getattr(self, f"d{i}_attn_w")(y).reshape(b, h, w, c)
+            for j in range(2):
+                y = getattr(self, f"d{i}_ff{j}_norm")(x).permute(0, 3, 1, 2)
+                y = F.leaky_relu(getattr(self, f"d{i}_ff{j}_c1")(y), 0.01)
+                x = x + getattr(self, f"d{i}_ff{j}_c2")(y).permute(0, 2, 3, 1)
+        return x.permute(0, 3, 1, 2)
+
+
 def build_research_module(m: str, a: tuple) -> nn.Module:
-    """One attention module from its compiled (name, args), as the JAX `build_research_module` (:2050-2068)."""
-    if m not in ATTENTION:
+    """One attention module or neck block from its compiled (name, args), as the JAX `build_research_module`
+    (:2050-2068): SKAttention's kernels and ASFF's widths as tuples."""
+    if m not in PORTED:
         raise NotImplementedError(f"research module '{m}' is not ported to torch yet")
     if m == "SKAttention" and len(a) > 1:
         a = (a[0], tuple(a[1]), *a[2:])
+    if m in MULTI_INPUT:
+        a = (tuple(a[0]), *a[1:])
     return globals()[m](*a)
+
+
+def _lpc_cfg() -> Dict[str, Any]:
+    import yaml
+
+    return yaml.safe_load(LPC_YAML.read_text())
+
+
+def _set_layer(d: Dict[str, Any], i: int, module: str, args: list, old: str) -> None:
+    """Replace layer i (a `old` layer) by `module`, keeping its `from` and its repeats."""
+    layers = d["backbone"] + d["head"]
+    f, n, m, _ = layers[i]
+    assert m == old, (i, m, old)
+    part, j = (d["backbone"], i) if i < len(d["backbone"]) else (d["head"], i - len(d["backbone"]))
+    part[j] = [f, n, module, args]
 
 
 def lpc_attention_cfg(module: str) -> Dict[str, Any]:
     """The LPC-YOLO YAML (at its `s` scale) with layer 21's `CBAM [7]` replaced by an attention module: args
     `[128]` (64 at the 0.5 width) for the width-scaled CoordAtt and GAMAttention, `[]` for the others; no index
     moves."""
-    import yaml
-
     if module not in ATTENTION:
         raise ValueError(f"{module!r} is not one of the zoo's attention modules")
-    d = yaml.safe_load(LPC_YAML.read_text())
-    layer = d["head"][LPC_ATTENTION_LAYER - len(d["backbone"])]
-    assert layer[2] == "CBAM", layer
-    d["head"][LPC_ATTENTION_LAYER - len(d["backbone"])] = [-1, 1, module, [128] if module in WIDTH_SCALED else []]
+    d = _lpc_cfg()
+    _set_layer(d, LPC_ATTENTION_LAYER, module, [128] if module in WIDTH_SCALED else [], "CBAM")
     return d
 
 
 def write_lpc_attention_yaml(module: str, directory: Union[str, Path]) -> Path:
     """`lpc_attention_cfg(module)` written as `yolov10s-LPC-<module>.yaml` under `directory` (the scale letter in
     the name, as the facade reads it)."""
+    return _write_yaml(lpc_attention_cfg(module), Path(directory) / f"yolov10s-LPC-{module}.yaml")
+
+
+def _write_yaml(d: Dict[str, Any], path: Path) -> Path:
     import yaml
 
-    path = Path(directory) / f"yolov10s-LPC-{module}.yaml"
-    path.write_text(yaml.safe_dump(lpc_attention_cfg(module), sort_keys=False))
+    path.write_text(yaml.safe_dump(d, sort_keys=False))
     return path
+
+
+# LPC-YOLO's neck layers (at 640, s width): the C2fs 17 (40² x 128), 20 (80² x 64), 24 (40² x 128) and 27
+# (20² x 256, which no layer reads), the LPC downsamples 22 and 25, the upsamples 15 and 18, the SPPF 13;
+# v10Detect (28) reads 20, 23 and 26 (64, 192 and 384 channels)
+_NECK_C2F = {17: 256, 20: 128, 24: 256, 27: 512}
+_NECK_LPC = {22: 128, 25: 256}
+# the slice's variants: each one's neck blocks (the module names it puts on the path)
+NECK_VARIANTS = {
+    "slimneck": ("GSConv", "VoVGSCSP"), "slimneck_cheap": ("GSConvns", "VoVGSCSPC"),
+    "msblock": ("MSBlock", "C2f_MSBlock"), "dysample": ("DySample",), "rfb": ("BasicRFB",), "PPA": ("PPA",),
+    "SCSA": ("SCSA",), "FGFP": ("FGFP",), "FGFP_Head": ("FGFP_Head",),
+    "AxialImageTransformer": ("AxialImageTransformer",), "asff3": ("ASFF3",), "asff2": ("ASFF2",),
+}
+
+
+def lpc_neck_cfg(variant: str) -> Dict[str, Any]:
+    """The LPC-YOLO YAML (at its `s` scale) with a neck block of the research zoo where it fits, no layer index
+    before the change moving: "slimneck" (the C2fs 17/20/24/27 -> `VoVGSCSP [c]`, the LPCs 22/25 -> `GSConv [c, 3,
+    2]`), "slimneck_cheap" (as slimneck with `VoVGSCSPC`, and layer 21 -> `GSConvns [128]`), "msblock" (the C2fs ->
+    `C2f_MSBlock [c]`, layer 21 -> `MSBlock [128, [1, 3, 3]]`), "dysample" (the upsamples 15/18 -> `DySample [2,
+    lp]`), "rfb" (the SPPF 13 -> `BasicRFB [512]`), "PPA" / "SCSA" / "FGFP" / "FGFP_Head" / "AxialImageTransformer"
+    (layer 21's CBAM -> the block, `[128]` for PPA, `[]` for the others), "asff3" (`ASFF3 [64, level]` over [20, 23,
+    26] at levels 0, 1, 2 as layers 28-30, v10Detect at 31 on them) and "asff2" (`ASFF2 [64, level]` over [20, 23]
+    at levels 0, 1 as layers 28-29, v10Detect at 30 on [28, 29, 26])."""
+    if variant not in NECK_VARIANTS:
+        raise ValueError(f"{variant!r} is not one of the neck variants {sorted(NECK_VARIANTS)}")
+    d = _lpc_cfg()
+    if variant.startswith("slimneck"):
+        for i, c in _NECK_C2F.items():
+            _set_layer(d, i, "VoVGSCSPC" if variant == "slimneck_cheap" else "VoVGSCSP", [c], "C2f")
+        for i, c in _NECK_LPC.items():
+            _set_layer(d, i, "GSConv", [c, 3, 2], "LPC")
+        if variant == "slimneck_cheap":
+            _set_layer(d, LPC_ATTENTION_LAYER, "GSConvns", [128], "CBAM")
+    elif variant == "msblock":
+        for i, c in _NECK_C2F.items():
+            _set_layer(d, i, "C2f_MSBlock", [c], "C2f")
+        _set_layer(d, LPC_ATTENTION_LAYER, "MSBlock", [128, [1, 3, 3]], "CBAM")
+    elif variant == "dysample":
+        for i in (15, 18):
+            _set_layer(d, i, "DySample", [2, "lp"], "nn.Upsample")
+    elif variant == "rfb":
+        _set_layer(d, 13, "BasicRFB", [512], "SPPF")
+    elif variant.startswith("asff"):
+        head = d["head"].pop()
+        assert head[2] == "v10Detect" and head[0] == [20, 23, 26], head
+        levels = (20, 23, 26) if variant == "asff3" else (20, 23)
+        first = len(d["backbone"]) + len(d["head"])
+        for level in range(len(levels)):
+            d["head"].append([list(levels), 1, variant.upper(), [64, level]])
+        feeds = list(range(first, first + len(levels))) + ([] if variant == "asff3" else [26])
+        d["head"].append([feeds, 1, "v10Detect", head[3]])
+    else:
+        _set_layer(d, LPC_ATTENTION_LAYER, variant, [128] if variant in WIDTH_SCALED else [], "CBAM")
+    return d
+
+
+def write_lpc_neck_yaml(variant: str, directory: Union[str, Path]) -> Path:
+    """`lpc_neck_cfg(variant)` written as `yolov10s-LPC-<variant>.yaml` under `directory`."""
+    return _write_yaml(lpc_neck_cfg(variant), Path(directory) / f"yolov10s-LPC-{variant}.yaml")

@@ -28,7 +28,18 @@ arrays, and nothing here imports jax.
   of a compiled graph has one input channel, one output channel and a 1 x g
   kernel. NAMAttention's BatchNorm leaves at a module's root map as any
   BatchNorm's. Every key is the mechanical name: SKAttention's `fc` beside
-  `fc_0`..`fc_3` is a Linear with children, so no key is renamed.
+  `fc_0`..`fc_3` is a Linear with children, so no key is renamed. The neck
+  blocks' bare leaves (LocalGlobalAttention's `prompt` and
+  `top_down_transform`, SCSA's (k, 1, C / 4) `local_dwc`, `global_dwc_s` /
+  `_m` / `_l` and their `<name>_bias`) are carried the same way; MSBlock's
+  `mid_<i>_<j>_in` is `mid.<i>.<j>_in` (a key component that starts with
+  digits and an underscore joins the one before it on the way back).
+* Two leaves change their values, by the JAX module's name: ASFF's
+  `up<j>/cv1` kernel, a flax ConvTranspose (kh, kw, in, out) that
+  `lax.conv_transpose` applies unflipped, is the torch ConvTranspose2d weight
+  (in, out, kh, kw) flipped in both spatial axes; DySample's `offset` conv
+  orders its 2 * G output channels (G, 2) in JAX, (2, G) in the published
+  module (G = groups * scale²), so its kernel and bias are permuted.
 
 `train_state_from_flax` carries a JAX `TrainState`'s numpy trees (params,
 batch_stats, the SGD momentum trace or AdamW's two moments, ema_params, the
@@ -64,7 +75,23 @@ _TO_TORCH = {4: (3, 2, 0, 1), 3: (0, 1, 2), 2: (1, 0)}
 _TO_FLAX = {4: (2, 3, 1, 0), 3: (0, 1, 2), 2: (1, 0)}
 # parameters that are not a module's kernel, bias or scale: carried under their own name, untransposed
 _BARE = {"denoising_class_embed", "logit_scale", "conv", "cweight", "cbias", "sweight", "sbias", "gamma", "rel_h",
-         "rel_w", "weight"}
+         "rel_w", "weight", "prompt", "top_down_transform", "local_dwc", "global_dwc_s", "global_dwc_m", "global_dwc_l",
+         "local_dwc_bias", "global_dwc_s_bias", "global_dwc_m_bias", "global_dwc_l_bias"}
+_UPSAMPLE_T = re.compile(r"up\d+$")
+
+
+def _is_upsample_t(module: Tuple[str, ...]) -> bool:
+    """ASFF's `_UpsampleT` conv: the JAX module path ends in ('up<j>', 'cv1')."""
+    return len(module) >= 2 and module[-1] == "cv1" and bool(_UPSAMPLE_T.match(module[-2]))
+
+
+def _offset_order(a, to_torch: bool):
+    """DySample's offset channels along axis 0: JAX's (G, 2) order <-> the published (2, G)."""
+    g = a.shape[0] // 2
+    rest = tuple(a.shape[1:])
+    if to_torch:
+        return a.reshape(g, 2, *rest).swapaxes(0, 1).reshape(2 * g, *rest)
+    return a.reshape(2, g, *rest).swapaxes(0, 1).reshape(2 * g, *rest)
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -88,10 +115,10 @@ def flax_name_to_torch(path: Tuple[str, ...]) -> str:
 
 
 def torch_name_to_flax(name: str) -> Tuple[str, ...]:
-    """'model.28.one2one_cv2.0.0.conv' -> ('model_28', 'one2one_cv2_0_0', 'conv')."""
+    """'model.28.one2one_cv2.0.0.conv' -> ('model_28', 'one2one_cv2_0_0', 'conv'); 'mid.1.0_in' -> ('mid_1_0_in',)."""
     merged = []
     for c in name.split("."):
-        if c.isdigit() and merged:
+        if merged and (c.isdigit() or re.match(r"\d+_", c)):
             merged[-1] = f"{merged[-1]}_{c}"
         else:
             merged.append(c)
@@ -107,11 +134,19 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Ten
             mod, leaf = flax_name_to_torch(path[:-1]), path[-1]
             prefix = f"{mod}." if mod else ""  # "" at the root of a module's own tree
             if leaf in _BN_LEAVES:  # a BatchNorm's or a LayerNorm's leaf, or a kernel's bias
+                if leaf == "bias" and path[-2:-1] == ("offset",):
+                    arr = _offset_order(arr, to_torch=True)
                 sd[prefix + _BN_LEAVES[leaf]] = torch.from_numpy(arr.copy())
                 if leaf == "mean":
                     sd[prefix + "num_batches_tracked"] = torch.tensor(0)
             elif leaf == "kernel" and arr.ndim in _TO_TORCH:
-                sd[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(arr.transpose(_TO_TORCH[arr.ndim])))
+                if arr.ndim == 4 and _is_upsample_t(path[:-1]):
+                    w = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+                else:
+                    w = arr.transpose(_TO_TORCH[arr.ndim])
+                if path[-2:-1] == ("offset",):
+                    w = _offset_order(w, to_torch=True)
+                sd[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(w))
             elif leaf in _BARE:
                 sd[prefix + leaf] = torch.from_numpy(arr.copy())
             else:
@@ -119,27 +154,30 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Ten
     return sd
 
 
-def _flax_slot(name: str, ndim: int, shape: Optional[Tuple[int, ...]] = None
-               ) -> Optional[Tuple[str, Tuple[str, ...], Optional[Tuple[int, ...]]]]:
+def _flax_slot(name: str, ndim: int, shape: Optional[Tuple[int, ...]] = None):
     """A state_dict entry's place in the JAX variables: (collection, path, the permutation that
-    takes the tensor to the JAX layout, None when it has none); None for the entries JAX does not
-    have (num_batches_tracked). `shape` tells SpatialGroupEnhance's 4-D `weight` from a conv's."""
+    takes the tensor to the JAX layout or None, a function applied to the torch tensor before it or
+    None); None for the entries JAX does not have (num_batches_tracked). `shape` tells
+    SpatialGroupEnhance's 4-D `weight` from a conv's."""
     mod, _, leaf = name.rpartition(".")
     path = torch_name_to_flax(mod) if mod else ()
+    pre = (lambda t: _offset_order(t, to_torch=False)) if path[-1:] == ("offset",) else None
     if leaf == "num_batches_tracked":
         return None
     if leaf in ("running_mean", "running_var"):
-        return "batch_stats", path + (_TORCH_BN[leaf],), None
+        return "batch_stats", path + (_TORCH_BN[leaf],), None, None
     if leaf == "weight" and shape is not None and _is_sge_weight(shape):
-        return "params", path + ("weight",), None
+        return "params", path + ("weight",), None, None
     if leaf == "weight" and ndim == 1:  # a BatchNorm's or a LayerNorm's scale
-        return "params", path + ("scale",), None
+        return "params", path + ("scale",), None, None
+    if leaf == "weight" and ndim == 4 and _is_upsample_t(path):
+        return "params", path + ("kernel",), (2, 3, 0, 1), lambda t: t.flip(2, 3)
     if leaf == "weight" and ndim in _TO_FLAX:
-        return "params", path + ("kernel",), _TO_FLAX[ndim]
+        return "params", path + ("kernel",), _TO_FLAX[ndim], pre
     if leaf == "bias":
-        return "params", path + ("bias",), None
+        return "params", path + ("bias",), None, pre
     if leaf in _BARE:
-        return "params", path + (leaf,), None
+        return "params", path + (leaf,), None, None
     raise KeyError(f"no JAX counterpart for {name}")
 
 
@@ -162,7 +200,7 @@ def flax_shapes(model: nn.Module) -> Dict[str, Dict[str, Any]]:
     for name, t in model.state_dict().items():
         slot = _flax_slot(name, t.dim(), tuple(t.shape))
         if slot is not None:
-            col, path, perm = slot
+            col, path, perm, _ = slot
             _set(tree[col], path, tuple(t.permute(perm).shape if perm else t.shape))
     return tree
 
@@ -178,8 +216,9 @@ def state_dict_to_flax(named: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str,
     for name, t in named.items():
         slot = _flax_slot(name, t.dim(), tuple(t.shape))
         if slot is not None:
-            col, path, perm = slot
+            col, path, perm, pre = slot
             t = t.detach().float().cpu()
+            t = pre(t) if pre else t
             _set(tree[col], path, (t.permute(perm) if perm else t).contiguous().numpy())  # rank 0 stays rank 0
     return _sorted_tree(tree)
 
