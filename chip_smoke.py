@@ -18,6 +18,7 @@
     python3 chip_smoke.py --cli        # device, build, then phase 22 (the CLI, autobatch, the new augmentations) only
     python3 chip_smoke.py --attn       # device, build, then phase 23 (LPC-YOLO with each of 21 attention modules) only
     python3 chip_smoke.py --neck       # device, build, then phase 24 (LPC-YOLO with the zoo's neck blocks) only
+    python3 chip_smoke.py --backbone   # device, build, then phase 25 (LPC-YOLO on the zoo's backbone families) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -348,16 +349,35 @@ Phases, in order; any failure raises and the script exits non-zero:
             --neck also the dysample variant's b16 step (grid_sample's
             backward). The whole run serves slimneck, dysample and asff3
             (WHOLE_RUN_NECK); --neck all 12. Numbers under "neck".
+25. backbone LPC-YOLO at 640 and its s width with its backbone replaced by
+            one of the research zoo's backbone families
+            (`nn/research.py::lpc_backbone_cfg`, 12 variants: Swin, ConvNeXt,
+            VanillaNet, StarNet, FasterNet, MobileNetV3, LeYOLO,
+            ShuffleNetV2, EfficientNet-Lite, GhostNet, MobileNeXt, PP-LCNet),
+            seed-0 weights: the parameter count against the JAX package's;
+            conv3x3 sites a forward (12 to 25) against the plain version at
+            every distinct shape, f32 and bf16, every site of a bf16 forward,
+            and (with --backbone, or where the family adds sites) their sum
+            at b32 beside F.conv2d + bias; bf16 serving against
+            the f32 plain path; f32 card against the CPU; YOLO.predict b32
+            from 720p frames, counters held, the serving step's ms, busy, idle
+            share and launches; the family's layers alone (ms by events,
+            busy). Then the swin variant's val on phase 7's 64 frames, b16
+            train step, one epoch of train(data=..., save=True), counters
+            held, and its .pt through YOLO(x.pt) on the card. The whole run
+            serves swin, fasternet and mobilenetv3 (WHOLE_RUN_BACKBONE);
+            --backbone all 12. Numbers under "backbone".
 
 In the whole run phases 10, 11, 13 and 14 run their n and x scales
 (WHOLE_RUN_SCALES), phase 15 its n scale (WHOLE_RUN_OBB), phase 16 yolov8n-cls,
 yolov8x-cls and the ResNet-50 (WHOLE_RUN_CLS), phase 17 leaves out
 yolov8x-p2 and yolov8x-p6 (WHOLE_RUN_ZOO) and phase 20 runs the s models
 (WHOLE_RUN_WORLD), phase 19 rtdetr-l and yolov8n-rtdetr (WHOLE_RUN_RTDETR),
-phase 23 three attention variants (WHOLE_RUN_ATTN) and phase 24 three neck
-variants (WHOLE_RUN_NECK), so that the script stays well inside its time
-limit; --v10, --v8, --seg, --pose, --obb, --cls, --zoo, --rtdetr, --world,
---attn and --neck run every model of their family.
+phase 23 three attention variants (WHOLE_RUN_ATTN), phase 24 three neck
+variants (WHOLE_RUN_NECK) and phase 25 three backbone variants
+(WHOLE_RUN_BACKBONE), so that the script stays well inside its time limit;
+--v10, --v8, --seg, --pose, --obb, --cls, --zoo, --rtdetr, --world, --attn,
+--neck and --backbone run every model of their family.
 
 The line before last is a JSON object with one entry per kernel (four; the
 launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
@@ -369,15 +389,15 @@ predict and train(data=...); "launches_zoo" from phase 17's yolov6n train(data=.
 phase 18's yolov9c train(data=...), "launches_rtdetr" from phase 19's rtdetr-l train(data=...), "launches_world"
 from phase 20's yolov8s-world train(data=...), "launches_track" from phase 21's two tracking runs, "launches_cli"
 from phase 22's three CLI runs (train at batch=-1, predict, val), "launches_attn" from phase 23's SK variant's
-train(data=..., save=True), "launches_neck" from phase 24's slimneck variant's train(data=..., save=True), and
-conv3x3's
+train(data=..., save=True), "launches_neck" from phase 24's slimneck variant's train(data=..., save=True),
+"launches_backbone" from phase 25's swin variant's train(data=..., save=True), and conv3x3's
 "max_abs_err_relu", the f32 parity of its ReLU epilogue at yolov6n's sites); the last line is
 {"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
 "pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo",
 phase 18's under "v9", phase 19's under "rtdetr", phase 20's under "world", phase 21's under "track", phase 22's
-under "cli", phase 23's under "attn", phase 24's under "neck").
+under "cli", phase 23's under "attn", phase 24's under "neck", phase 25's under "backbone").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -815,11 +835,14 @@ def bf16_site_errors(pred, frames):
     """Each conv3x3 site of one bf16 serving forward against the plain version
     (f32 on the site's own bf16 inputs and weights): max relative error per site."""
     from lpc_yolo_tpu_torch.nn.fuse import conv3x3_sites
+    from lpc_yolo_tpu_torch.nn.research import _act
     from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3_plain
 
     def check(mod, inp, out):
         w, b = mod.folded
         ref = conv3x3_plain(inp[0].permute(0, 2, 3, 1).float(), w.float(), b, mod.act)
+        if getattr(mod, "post_act", None):  # a zoo CBA's activation after the kernel (hard-swish, ReLU6, ...)
+            ref = _act(ref, mod.post_act)
         errs.append(((out.permute(0, 2, 3, 1).float() - ref).abs() / ref.abs().clamp(min=1.0)).max().item())
 
     errs = []
@@ -4806,6 +4829,131 @@ def neck_only() -> None:
     log("done", "phase 24 passed; numbers in chiprun_out/chip_smoke_neck.json")
 
 
+BACKBONE_PARAMS = {  # the JAX package's parameter counts at the s width (jax.eval_shape; tests/test_torch_backbone.py)
+    "swin": 5_656_448, "convnext": 3_754_402, "vanillanet": 2_976_450, "starnet": 3_975_170, "fasternet": 3_998_082,
+    "mobilenetv3": 3_220_229, "leyolo": 2_503_050, "shufflenetv2": 2_704_258, "efficientnet_lite": 3_478_882,
+    "ghostnet": 3_150_754, "mobilenext": 2_690_594, "pplcnet": 2_978_498}
+# conv3x3 sites a forward (the folded copy's, counted on the CPU): the LPC neck and head's 12, plus FasterNet's 13
+# partial convs and LeYOLO's 3x3 stride-1 mn_conv (hard-swish after the kernel)
+BACKBONE_SITES = {"fasternet": 25, "leyolo": 13}
+WHOLE_RUN_BACKBONE = ("swin", "fasternet", "mobilenetv3")  # phase 25 in the whole run; --backbone: all 12
+BACKBONE_TRAIN = "swin"  # val on phase 7's frames, the b16 step, train(data=...) and the .pt route
+
+
+def phase_backbone(val_data: Path, train_data: str, variants=None):
+    """Phase 25: LPC-YOLO at 640, its `s` width, with its backbone replaced by one of the research zoo's families
+    (`nn/research.py::write_lpc_backbone_yaml`; the whole run's: WHOLE_RUN_BACKBONE, --backbone all 12), seed-0
+    weights: the parameter count against the JAX package's (BACKBONE_PARAMS); its conv3x3 sites a forward
+    (BACKBONE_SITES, else 12) against the plain version at every distinct shape, f32 and bf16, and every site of a
+    bf16 forward on its own inputs, and (with --backbone, or where the family adds sites) their sum at b32 beside
+    F.conv2d + bias and the bound (`time_conv3x3`); the folded bf16 serving path against the f32 plain path (head maps, pre-selection scores) and the f32 kernel path
+    (`zoo_vs_plain`); the f32 card against the CPU (`v10_card_vs_cpu`); YOLO.predict b32 bf16 from 720p frames with
+    the counters held and the serving step's time, busy, idle share and launches (`scale_serving`); the family's
+    layers alone (`layer_times`). Then for BACKBONE_TRAIN, YOLO.val(data=...) on phase 7's 64 frames, counters held,
+    its b16 train step (ms, busy, a repack a step, peak GB), its one-epoch train(data=..., save=True) on phase 8's
+    dataset, counters held, and its `.pt` route (`pt_route`). Returns that train(data=...)'s launches."""
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.engine.train_step import to_device
+    from lpc_yolo_tpu_torch.engine.trainer import pack_img
+    from lpc_yolo_tpu_torch.nn.research import BACKBONE_VARIANTS, write_lpc_backbone_yaml
+
+    t_phase = time.perf_counter()
+    full = variants is None
+    host = frames_720p(SCALE_SERVE_BATCH, seed=251)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    val_frames = [np.load(f) for f in sorted((val_data.parent / "images" / "val").glob("*.npy"))]
+    out, launches = {}, None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_backbone_") as tmp:
+        root = Path(tmp)
+        for v in variants or sorted(BACKBONE_VARIANTS):
+            t0 = time.perf_counter()
+            r = out[v] = {}
+            path = write_lpc_backbone_yaml(v, root)
+            yolo = YOLO(path, device="cuda", seed=0)
+            stages = list(range(len(BACKBONE_VARIANTS[v]["rows"])))
+            names = {row[2] for row in BACKBONE_VARIANTS[v]["rows"]} - {"Conv"}
+            assert {type(yolo.model.model[i]).__name__ for i in stages} >= names, v
+            r["parameters"] = sum(p.numel() for p in yolo.model.parameters())
+            assert r["parameters"] == BACKBONE_PARAMS[v], (v, r["parameters"])
+            pred = Predictor(yolo.model, imgsz=640, batch=SCALE_SERVE_BATCH, device="cuda", dtype=torch.bfloat16)
+            sites = conv_sites(pred)
+            assert len(sites) == BACKBONE_SITES.get(v, 12), (v, len(sites))
+            r["sites"] = len(sites)
+            r["parity"] = phase_parity_conv(sites, v)
+            site_err = bf16_site_errors(pred, host[:2])
+            assert len(site_err) == len(sites) and max(site_err) <= 2e-2, f"{v} bf16 conv3x3 sites: {site_err}"
+            r["forward_sites_bf16_max_rel"] = max(site_err)
+            r["vs_plain"] = vp = zoo_vs_plain(yolo, pred, host)
+            r["card_vs_cpu_gap"] = v10_card_vs_cpu(yolo, host[:2])
+            r["serving"] = sv = scale_serving(yolo, pred, sites, host, dev)
+            r["backbone"] = mt = layer_times(pred, host, stages)
+            if full or v in BACKBONE_SITES:  # the whole run times the variants with sites of their own
+                r["conv3x3_sum"], r["conv3x3_shapes"] = time_conv3x3(sites, SCALE_SERVE_BATCH, phase=v)
+            log(v, f"{r['parameters']} parameters (the JAX package's), {len(sites)} conv3x3 sites a forward, f32 "
+                   f"parity {r['parity']['f32_max_abs']:.3g}, bf16 {r['parity']['bf16_max_rel']:.3g} (bf16 forward's "
+                   f"sites max rel {max(site_err):.3g}); bf16 vs f32 plain: head maps "
+                   f"{vp['bf16_map_err']:.3g} (tol {BF16_MAP_TOL}), pre-selection top-300 gap {vp['bf16_score_gap']:.3g} "
+                   f"(tol {BF16_SCORE_TOL}); f32 kernel path vs plain pre-selection {vp['f32_pre_nms_gap']:.3g}, "
+                   f"{vp['f32_matched']}/{vp['f32_rows']} rows; f32 card vs CPU pre-selection "
+                   f"{r['card_vs_cpu_gap']:.3g} (tol {ATTN_CPU_TOL}); YOLO.predict b{SCALE_SERVE_BATCH} bf16: launches "
+                   f"{sv['launches']}; serving step {sv['step_ms']:.3f} ms ({sv['img_s']:.1f} img/s), busy "
+                   f"{sv['busy_ms']:.3f} ms, idle share {sv['idle_share']}, {sv['device_launches']:.0f} launches; the "
+                   f"family's {len(stages)} layers {mt['ms']:.3f} ms by events, busy {mt['busy_ms']:.3f} ms in "
+                   f"{mt['device_launches']:.0f} launches")
+            if v == BACKBONE_TRAIN:
+                expect = val_launches_expected(val_frames, VAL_BATCH, len(sites))
+                zero_launches()
+                t1 = time.perf_counter()
+                res = yolo.val(data=str(val_data), imgsz=640, batch=VAL_BATCH, cache_images="disk")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                got = launches_now("letterbox", "conv3x3", "nms")
+                assert got == expect, f"{v} val: launches {got}, expected {expect}"
+                assert all(np.isfinite(q) for q in res.values()), res
+                r["val"] = {"img_s": len(val_frames) / wall, "wall_s": wall, "launches": got, "results": res}
+                log(v, f"YOLO.val b{VAL_BATCH} bf16, {len(val_frames)} frames: {len(val_frames) / wall:.1f} img/s, "
+                       f"launches {got}")
+            del pred
+            torch.cuda.empty_cache()
+            if v == BACKBONE_TRAIN:
+                batches = [to_device({**b, "img": pack_img(b["img"])}, torch.device("cuda"))
+                           for b in train_batches(2, TRAIN_BATCH, seed=253)]
+                r["train"] = tr = scale_train_step(yolo, batches)
+                log(v, f"train step b{TRAIN_BATCH} 640 bf16 autocast: {tr['step_ms']:.3f} ms ({tr['img_s']:.1f} "
+                       f"img/s), busy {tr['busy_ms']:.3f} ms, idle share {tr['idle_share']}, "
+                       f"{tr['device_launches']:.0f} launches, peak {tr['peak_gb']:.3f} GB, {tr['steps']} steps with "
+                       f"one repack each")
+                del batches
+                torch.cuda.empty_cache()
+                launches = phase_scale_train_data("v10", train_data, len(sites), name=str(path), epochs=1)
+                r["pt"] = pt = pt_route(path, root)
+                log(v, f"YOLO(x.pt) on the card ({pt['bytes']} bytes, written and read in {pt['save_load_s']:.2f} s) "
+                       f"predicts what the fp16-rounded model predicts, bit for bit ({pt['boxes']} boxes)")
+            r["seconds"] = time.perf_counter() - t0
+            del yolo
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    REPORT["backbone"] = out
+    log("backbone", f"phase 25: {len(variants or BACKBONE_VARIANTS)} backbone variants in {out['seconds']:.1f} s")
+    assert launches is not None, f"{BACKBONE_TRAIN} did not run"
+    return launches
+
+
+def backbone_only() -> None:
+    """`--backbone`: phase 25 with all 12 backbone variants."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_backbone_data_") as tmp:
+        phase_backbone(*write_zoo_datasets(Path(tmp)))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_backbone.json").write_text(json.dumps(REPORT, indent=1, default=str))
+    log("done", "phase 25 passed; numbers in chiprun_out/chip_smoke_backbone.json")
+
+
 def conv3x3_only() -> None:
     """`--conv3x3`: the conv3x3 kernel alone: its sites from one bf16 frame, its parity phase
     and its per-shape times at b32 with every instantiation swept; no other kernel, no serving
@@ -4829,10 +4977,11 @@ def main(argv) -> int:
     only = {"--v10": lambda: scales_only("v10"), "--v8": lambda: scales_only("v8"), "--seg": seg_only,
             "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only, "--v9": v9_only,
             "--rtdetr": rtdetr_only, "--world": world_only, "--track": track_only, "--cli": cli_only,
-            "--attn": attn_only, "--neck": neck_only}
+            "--attn": attn_only, "--neck": neck_only, "--backbone": backbone_only}
     if argv not in ([], ["--conv3x3"], *([k] for k in only)) and not converge:
         print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --v10, --v8, --seg, --pose, --obb, "
-              f"--cls, --zoo, --v9, --rtdetr, --world, --track, --cli, --attn, --neck and --converge [model yaml]",
+              f"--cls, --zoo, --v9, --rtdetr, --world, --track, --cli, --attn, --neck, --backbone and --converge "
+              f"[model yaml]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4945,6 +5094,9 @@ def main(argv) -> int:
         neck_launches = phase_neck(Path(tmp) / "val" / "data.yaml", data, WHOLE_RUN_NECK)
         torch.cuda.empty_cache()
         stamp("neck (24)")
+        backbone_launches = phase_backbone(Path(tmp) / "val" / "data.yaml", data, WHOLE_RUN_BACKBONE)
+        torch.cuda.empty_cache()
+        stamp("backbone (25)")
     nms = time_nms()["val"]
     stamp("nms (12)")
     kernels = [
@@ -4978,6 +5130,7 @@ def main(argv) -> int:
         k["launches_cli"] = cli_launches[k["name"]]  # the CLI's train (batch=-1), predict and val, phase 22
         k["launches_attn"] = attn_launches[k["name"]]  # the SK variant's train(data=..., save=True), phase 23
         k["launches_neck"] = neck_launches[k["name"]]  # the slimneck variant's train(data=..., save=True), phase 24
+        k["launches_backbone"] = backbone_launches[k["name"]]  # the swin variant's train(data=..., save=True), phase 25
     kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start

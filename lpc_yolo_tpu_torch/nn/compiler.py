@@ -8,10 +8,10 @@ classifiers, the other CNN detection YAMLs (v8 P2 / P6 / ghost / seg-P6 / pose-P
 v5 and v5-P6, v3, v3-SPP, v3-tiny, v6), YOLOv9 (v9c, v9e) and RT-DETR (rtdetr-l, -x, -resnet50, -resnet101,
 yolov8-rtdetr: HGStem, HGBlock, LightConv, RepC3, AIFI and the RTDETRDecoder head, `nn/transformer.py`) and
 YOLO-World (yolov8-world, -worldv2: C2fAttn, ImagePoolingAttn and the WorldDetect head)
-reach, and the research zoo's 21 attention modules and 15 neck blocks (`nn/research.py`; JAX :243-276 and
-`build_research_module`; ASFF2 / ASFF3 take the list of their levels' maps, JAX :975); any other module, the zoo's
-backbone families among them, raises NotImplementedError. A CBLinear
-layer's output is a tuple of maps, which the CBFuse layers that list it read by index (:230-238).
+reach, and the research zoo's 21 attention modules, 15 neck blocks and 23 backbone-family modules (`nn/research.py`;
+JAX :243-276 and `build_research_module`; ASFF2 / ASFF3 take the list of their levels' maps, JAX :975; LeYOLO's
+expansion width scales and StarBlock folds its repeats, :256-267); any other module raises NotImplementedError. A
+CBLinear layer's output is a tuple of maps, which the CBFuse layers that list it read by index (:230-238).
 A layer repeated n > 1 times that takes no repeat count of its own (v3's Bottlenecks, v6's
 Convs) is an nn.Sequential of n copies, `model.<i>.<rep>`, the JAX graph's `model_<i>_<rep>`
 (:988-995). The YAML's `activation:` key sets the conv.py family's default activation
@@ -178,12 +178,17 @@ def parse_model(d: Dict, ch: int = 3) -> Tuple[Tuple[LayerSpec, ...], Tuple[int,
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
             out_args = [c1, c2, *args[1:]]
-            if m in R.WIDTH_REPEAT:  # C2f_MSBlock, VoVGSCSP: n folded into the block
+            if m in R.WIDTH_SCALED_E and len(out_args) > 3 and isinstance(out_args[3], int):  # LeYOLO's e (:256-257)
+                out_args[3] = make_divisible(min(out_args[3], max_channels) * width, 8)
+            if m in R.WIDTH_REPEAT:  # C2f_MSBlock, VoVGSCSP, ConvNeXt_Block: n folded into the block
                 out_args.insert(2, n_res)
                 n_res = 1
-        elif m in R.C1_PREPEND:  # the research zoo's attention family and neck blocks (JAX :261-271)
+        elif m in R.C1_PREPEND:  # the research zoo's attention family, neck blocks, StarBlock, BasicStage (:261-271)
             c1 = c2 = chs[f_list[0]]
             out_args = [c1, *args]
+            if m == "StarBlock":  # [c1, mlp_ratio, the repeats]: n folded into the block (:265-267)
+                out_args = [c1, args[0] if args else 3, n_res]
+                n_res = 1
         elif m in R.C1_ONLY:
             c1 = c2 = chs[f_list[0]]
             out_args = [c1]

@@ -66,15 +66,19 @@ def fold_preprocess(model: nn.Module, dtype: torch.dtype = torch.float32, scale:
     the JAX predictor normalises the frame explicitly there (`engine/predictor.py:150-159`),
     which is the same function. Where the frame
     reaches convs through a `Silence` (yolov9e), each of them takes the scale; the JAX predictor
-    divides by 255 on the device there (:143-151), the same function. A frame reader that is not a
-    ConvBN raises.
+    divides by 255 on the device there (:143-151), the same function. A research-zoo stem (Swin's and FasterNet's
+    patch embeddings, ConvNeXt's stem, CBRM, `stem`, Conv_BN_HSwish, mn_conv) takes it in the conv it names
+    `frame_conv`; a LayerNorm or BatchNorm after that conv sees the same values. A frame reader that is not a ConvBN
+    or a BiasConv raises.
     """
     for stem in frame_readers(model):
         if isinstance(stem, ResNetLayer) and stem.is_first:
             stem = stem.layer[0]
         elif isinstance(stem, HGStem):
             stem = stem.stem1
-        if not isinstance(stem, ConvBN):
+        elif hasattr(stem, "frame_conv"):  # a research-zoo stem: its one conv that reads the frame
+            stem = stem.frame_conv
+        if not isinstance(stem, (ConvBN, BiasConv)):
             raise ValueError(f"fold_preprocess needs a Conv stem, not {type(stem).__name__}")
         stem.fold(dtype, in_scale=scale)
     return model

@@ -148,16 +148,20 @@ def run_folded(x: torch.Tensor, folded, act, conv: nn.Conv2d, kernel_path: bool)
 
 
 class BiasConv(nn.Conv2d):
-    """A bare biased conv (a flax `nn.Conv` with its own `kernel` and `bias`, no BN, no activation) that folds as a
-    ConvBN does: its weight and bias sit at the module's root, so the bridge's keys stay the JAX names
+    """A bare conv (a flax `nn.Conv` with its own `kernel` and, unless bias=False, `bias`; no activation) that folds
+    as a ConvBN does: its weight and bias sit at the module's root, so the bridge's keys stay the JAX names
     (`conv_refine1/kernel` -> `conv_refine1.weight`), and once folded a 3x3 s1 g1 one is a conv3x3 site with the
-    `none` epilogue."""
+    `none` epilogue (a zero bias where it has none). Where the JAX module follows it with a BatchNorm of its own
+    (FasterNet's `proj` / `reduction` and `norm`), `post_bn` names that BatchNorm: the fold takes it in, and the
+    owner skips it once folded (`folds_bn`)."""
 
     act = False
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None, g: int = 1, d: int = 1):
-        super().__init__(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=True)
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None, g: int = 1, d: int = 1,
+                 bias: bool = True):
+        super().__init__(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=bias)
         self.folded = None
+        self.post_bn = ()  # (the BatchNorm after it,) where the owner has one: a tuple, so it is not a child
 
     @property
     def kernel_path(self) -> bool:
@@ -172,14 +176,29 @@ class BiasConv(nn.Conv2d):
     def fold(self, dtype: torch.dtype, in_scale: float = 1.0) -> None:
         if self.training:
             raise RuntimeError("BiasConv.fold() is for eval mode")
-        # a copy: an f32 bias's .float() is the Parameter itself, which a later .to(dtype) of the model rewrites
-        self.folded = store_folded(self.weight.float() * in_scale, self.bias.detach().float().clone(), dtype,
-                                   self.kernel_path)
+        w, b = folded_weight_bias(self.weight, self.bias, self.post_bn)
+        self.folded = store_folded(w * in_scale, b, dtype, self.kernel_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.folded is None:
             return super().forward(x)
         return run_folded(x, self.folded, False, self, self.kernel_path)
+
+
+def folded_weight_bias(weight: torch.Tensor, bias: Optional[torch.Tensor], post_bn=()):
+    """A conv's (W, b) in f32 for `store_folded`, a zero bias where it has none, the BatchNorm in `post_bn` (a tuple
+    of one or none) folded in. The bias is a copy: an f32 bias's .float() is the Parameter itself, which a later
+    .to(dtype) of the model rewrites."""
+    if post_bn:
+        return bn_folded(weight, post_bn[0], bias)
+    b = bias.detach().float().clone() if bias is not None else torch.zeros(weight.shape[0], device=weight.device)
+    return weight.float(), b
+
+
+def folds_bn(conv: nn.Module) -> bool:
+    """Whether `conv` (a BiasConv or a BN-free CBA with a `post_bn`) is folded with the BatchNorm after it, which
+    its owner then skips."""
+    return conv.folded is not None and bool(conv.post_bn)
 
 
 class Bottleneck(nn.Module):

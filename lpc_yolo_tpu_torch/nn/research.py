@@ -1,57 +1,74 @@
-"""The research zoo's attention family and neck blocks as torch nn.Modules (counterpart of
-`lpc_yolo_tpu/nn/research.py:49-777` and `:1420-2003`).
+"""The research zoo's attention family, neck blocks and backbone families as torch nn.Modules (counterpart of
+`lpc_yolo_tpu/nn/research.py`: the whole of it, :49-2003).
 
-The 21 attention modules and the 15 neck blocks that the JAX YAML compiler reaches through `build_research_module`
-(:2050-2068), with the helpers they use, in NCHW. Attribute and parameter names mirror the JAX ones, numeric parts
-split off (`conv_0` -> `conv.0`), so the weight bridge stays a name map; a bare JAX parameter (ECA's `conv`,
-ShuffleAttention's `cweight` ..., SpatialGroupEnhance's `weight` and `bias`, CrissCrossAttention's `gamma`, MHSA's
-`rel_h` / `rel_w`) is a Parameter of the same name and JAX layout. SKAttention's `fc` (channel -> d) is a Linear
-whose children "0".."3" are the branch Linears `fc_0`..`fc_3`: torch keeps `fc.weight` beside `fc.0.weight` that
-way, with no renamed key. NAMAttention's BatchNorm leaves sit at its root, so it is a `BatchNorm2d` itself.
+The 21 attention modules, the 15 neck blocks and the 23 backbone-family modules that the JAX YAML compiler reaches
+through `build_research_module` (:2050-2068), with the helpers they use, in NCHW. Attribute and parameter names
+mirror the JAX ones, numeric parts split off (`conv_0` -> `conv.0`), so the weight bridge stays a name map; a bare
+JAX parameter (ECA's `conv`, ShuffleAttention's `cweight` ..., SpatialGroupEnhance's `weight` and `bias`,
+CrissCrossAttention's `gamma`, MHSA's `rel_h` / `rel_w`, Swin's `relative_position_bias_table`, ConvNeXt's
+`m_<i>_gamma`) is a Parameter of the same name and JAX layout. SKAttention's `fc` (channel -> d) is a Linear whose
+children "0".."3" are the branch Linears `fc_0`..`fc_3`: torch keeps `fc.weight` beside `fc.0.weight` that way, with
+no renamed key. NAMAttention's BatchNorm leaves sit at its root, so it is a `BatchNorm2d` itself.
 
 Every conv+BN unit is a `CBA`, a `ConvBN` (`nn/modules.py`), so `nn/fuse.py` folds it for serving, a conv bias
 included (`b' = beta + (b_conv - mean) * gamma / sigma`, which the JAX `fuse_conv_bn` drops), and a 3x3 s1 g1 one
 runs the conv3x3 kernel: SKAttention's `conv_1` (ReLU) and ParNetAttention's `conv3x3` (no activation, a conv
 bias); among the neck blocks GSBottleneck's `gs2.cv1`, BasicRFB's undilated 3x3s, PPA's `c1`..`c3`, ASFF's `conv`,
 and the bare biased 3x3s of FGFP, FGFP_Head and the axial transformer (`BiasConv`, whose weight and bias keep the
-JAX names). Everything else runs in plain PyTorch, as the JAX package left it to XLA: DySample's sampler is
-`F.grid_sample`, the axial attention SDPA.
+JAX names); among the backbone families FasterNet's bias-free partial convs (a zero bias) and a 3x3 stride-1
+mn_conv or Conv_BN_HSwish, whose hard-swish (like any activation that is no kernel epilogue: ReLU6, GELU, ELU)
+runs after the kernel. A conv that a separate BatchNorm follows (InvertedBottleneck's biased `proj` and `bn`,
+FasterNet's `proj` / `reduction` and `norm`) folds with it. Everything else runs in plain PyTorch, as the JAX package
+left it to XLA: DySample's sampler is `F.grid_sample`, the axial and window attentions SDPA.
 
 Divergences copied from the JAX package by design: flax's `nn.gelu` is the tanh form; SpatialGroupEnhance's
 std is the biased one; CoTAttention's 9 * dim `attn2` channels are read k*k-major; the LayerNorms and the
-GroupNorm take flax's eps 1e-6 (the neck blocks' too). Not copied: the JAX ShuffleAttention splits the map into
-blocks of rows where SA-Net (Zhang & Yang, 2021) splits the channels into groups; the JAX GSConv interleaves its two
-halves where the published slim-neck forward takes the even channels, then the odd ones; the JAX DySample's initial
-offsets are transposed and its sampler's border keeps the unclamped weights. The port runs the published forwards.
+GroupNorm take flax's eps 1e-6 (the neck blocks' and Swin's, ConvNeXt's and the patch embeddings' too); SeBlock
+gates by a plain sigmoid; G_bneck reads no `k`, InvertedBottleneck no `sa`, and VanillaBlock's series activation has
+no conv bias. Not copied: the JAX ShuffleAttention splits the map into blocks of rows where SA-Net (Zhang & Yang,
+2021) splits the channels into groups; the JAX GSConv interleaves its two halves where the published slim-neck
+forward takes the even channels, then the odd ones; the JAX DySample's initial offsets are transposed and its
+sampler's border keeps the unclamped weights; the JAX StarBlock adds one residual around its n blocks where StarNet
+adds one to each; the JAX SGBlock's "relu6" ConvBNs run no activation. The port runs the published forwards.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv3x3 import apply_act
-from .modules import BN_EPS, BN_MOMENTUM, BatchNorm2d, BiasConv, ConvBN, autopad, store_folded
+from .modules import (BN_EPS, BN_MOMENTUM, BatchNorm2d, BiasConv, ConvBN, GhostConv, autopad, folded_weight_bias,
+                      folds_bn, store_folded)
 
 LN_EPS = 1e-6  # flax LayerNorm's and GroupNorm's default epsilon
 LPC_YAML = Path(__file__).resolve().parents[1] / "cfg" / "models" / "v10" / "yolov10-SPD-Conv-Tiny-CBAM-LPC.yaml"
 LPC_ATTENTION_LAYER = 21  # LPC-YOLO's CBAM [7], on the 80² map at 64 channels at 640
 
-# -- the parse rules of the attention family and the neck blocks (JAX research.py:2012-2047) --------------------------
+# -- the parse rules of the research zoo (JAX research.py:2012-2047) ---------------------------------------------------
+# the backbone families' YAML names
+BACKBONE = {"G_bneck", "SGBlock", "DepthSepConv", "CBRM", "Shuffle_Block", "stem", "MBConvBlock", "Conv_BN_HSwish",
+            "MobileNetV3_InvertedResidual", "mn_conv", "InvertedBottleneck", "MobileNetV3_BLOCK", "PatchEmbed",
+            "PatchMerging", "SwinStage", "VanillaBlock", "ConvNeXt_Stem", "ConvNeXt_Downsample", "ConvNeXt_Block",
+            "StarBlock", "BasicStage", "PatchEmbed_FasterNet", "PatchMerging_FasterNet"}
 # args[0] a width-scaled output-channel count: out_args = [c1, c2, *rest]
 WIDTH_SCALED = {"CoordAtt", "GAMAttention", "MSBlock", "C2f_MSBlock", "GSConv", "GSConvns", "VoVGSCSP", "VoVGSCSPC",
-                "PPA", "BasicRFB"}
+                "PPA", "BasicRFB"} | (BACKBONE - {"StarBlock", "BasicStage"})
 # the width-scaled ones that take the depth-scaled repeat count at arg index 2 (after [c1, c2])
-WIDTH_REPEAT = {"C2f_MSBlock", "VoVGSCSP"}
-# out_args = [c1, *yaml_args]; output channels unchanged
+WIDTH_REPEAT = {"C2f_MSBlock", "VoVGSCSP", "ConvNeXt_Block"}
+# the width-scaled ones whose args[3], an expansion width, scales too (JAX compiler.py:256-257)
+WIDTH_SCALED_E = {"InvertedBottleneck", "MobileNetV3_BLOCK"}
+# out_args = [c1, *yaml_args]; output channels unchanged (StarBlock: [c1, mlp_ratio, the repeats], JAX :265-267)
 C1_PREPEND = {"SE", "ECA", "ShuffleAttention", "SKAttention", "DoubleAttention", "CoTAttention",
               "EffectiveSEModule", "GlobalContext", "GatherExcite", "MHSA", "AxialImageTransformer", "DySample",
-              "SCSA", "FGFP", "FGFP_Head"}
+              "SCSA", "FGFP", "FGFP_Head", "StarBlock", "BasicStage"}
 # out_args = [c1] only
 C1_ONLY = {"S2Attention", "NAMAttention", "CrissCrossAttention", "SequentialPolarizedSelfAttention",
            "ParallelPolarizedSelfAttention", "ParNetAttention"}
@@ -61,8 +78,8 @@ PASSTHROUGH = {"SimAM", "SpatialGroupEnhance", "TripletAttention"}
 MULTI_INPUT = {"ASFF2", "ASFF3"}
 NECK = {"BasicRFB", "MSBlock", "C2f_MSBlock", "GSConv", "GSConvns", "VoVGSCSP", "VoVGSCSPC", "PPA",
         "AxialImageTransformer", "DySample", "SCSA", "FGFP", "FGFP_Head"} | MULTI_INPUT
-ATTENTION = (WIDTH_SCALED | C1_PREPEND | C1_ONLY | PASSTHROUGH) - NECK
-PORTED = ATTENTION | NECK
+ATTENTION = (WIDTH_SCALED | C1_PREPEND | C1_ONLY | PASSTHROUGH) - NECK - BACKBONE
+PORTED = ATTENTION | NECK | BACKBONE
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -90,25 +107,31 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {kind!r}")
 
 
-# the CBA activations that are a conv3x3 epilogue, by the kernel's names
+# the CBA activations that are a conv3x3 epilogue, by the kernel's names; the zoo's others follow the conv in PyTorch
 _EPILOGUE = {"none": False, "identity": False, "relu": "relu", "silu": "silu", "mish": "mish"}
+_POST_ACT = {"relu6", "hswish", "hardswish", "hsigmoid", "hard_sigmoid", "gelu", "elu", "sigmoid"}
 
 
 class CBA(ConvBN):
     """Conv2d + optional BatchNorm + activation, the zoo's generic conv unit (JAX :75-118): a `ConvBN` with an
     optional conv bias and BN and the zoo's activation names ("silu" is SiLU here, never the YAML's default).
-    Folded, its conv bias goes into the bias; without BN the fold is the conv itself."""
+    Folded, its conv bias goes into the bias; without BN the fold is the conv itself, or the conv and the separate
+    BatchNorm its owner names in `post_bn` (InvertedBottleneck's `proj` and `bn`). An activation that is no conv3x3
+    epilogue (ReLU6, hard-swish, GELU, ELU, ...) runs after the conv in PyTorch (`post_act`): a 3x3 s1 g1 one is then
+    a conv3x3 site with the `none` epilogue."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None, g: int = 1, d: int = 1,
                  act: str = "relu", bn: bool = True, bias: bool = False):
         super().__init__(c1, c2, k, s, p=p, g=g, d=d, act=False)
-        if act not in _EPILOGUE:
-            raise NotImplementedError(f"CBA with activation {act!r} is not ported (the port takes {sorted(_EPILOGUE)})")
+        if act not in _EPILOGUE and act not in _POST_ACT:
+            raise ValueError(f"unknown activation {act!r}")
         if bias:
             self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=True)
         if not bn:
             self.bn = None
-        self.act = _EPILOGUE[act]
+        self.act = _EPILOGUE.get(act, False)
+        self.post_act = None if act in _EPILOGUE else act
+        self.post_bn = ()  # (the BatchNorm after it,) where a BN-free CBA's owner has one: a tuple, so not a child
 
     @torch.no_grad()
     def fold(self, dtype: torch.dtype, in_scale: float = 1.0) -> None:
@@ -116,14 +139,15 @@ class CBA(ConvBN):
             return super().fold(dtype, in_scale)
         if self.training:
             raise RuntimeError("CBA.fold() is for eval mode")
-        w = self.conv.weight.float() * in_scale
-        b = self.conv.bias.detach().float().clone() if self.conv.bias is not None else torch.zeros_like(w[:, 0, 0, 0])
-        self.folded = store_folded(w, b, dtype, self.kernel_path)
+        w, b = folded_weight_bias(self.conv.weight, self.conv.bias, self.post_bn)
+        self.folded = store_folded(w * in_scale, b, dtype, self.kernel_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.folded is None and self.bn is None:
-            return apply_act(self.conv(x), self.act)
-        return super().forward(x)
+            y = apply_act(self.conv(x), self.act)
+        else:
+            y = super().forward(x)
+        return y if self.post_act is None else _act(y, self.post_act)
 
 
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -1205,8 +1229,648 @@ class AxialImageTransformer(nn.Module):
         return x.permute(0, 3, 1, 2)
 
 
+# -- the backbone families' squeeze-excite (JAX :163) ----------------------------------------------------------------
+
+
+class SeBlock(nn.Module):
+    """GhostNet's / PP-LCNet's squeeze-excite as the fork has it (JAX :163): the pooled map through a biased 1x1 `fc1`
+    to c1 / reduction, a ReLU, a biased 1x1 `fc2` back and a plain sigmoid gate (the published blocks gate by a
+    hard sigmoid; copied by design)."""
+
+    def __init__(self, c1: int, reduction: int = 4):
+        super().__init__()
+        self.fc1 = nn.Conv2d(c1, max(1, c1 // reduction), 1)
+        self.fc2 = nn.Conv2d(max(1, c1 // reduction), c1, 1)
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.fc2(F.relu(self.fc1(_gap(x)))))
+
+
+def _ln(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """A LayerNorm over the channels of an NCHW map (flax's LayerNorm over NHWC's last axis)."""
+    return ln(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # flax's nn.gelu
+
+
+class _FrameConv:
+    """The families' stems read the frame through one conv, which takes the /255 fold (`nn/fuse.py::fold_preprocess`):
+    `frame_conv` names it."""
+
+    frame_attr = "conv"
+
+    @property
+    def frame_conv(self) -> nn.Module:
+        return getattr(self, self.frame_attr)
+
+
+# -- GhostNet, MobileNeXt, PP-LCNet (JAX :777-867) -------------------------------------------------------------------
+
+
+class G_bneck(nn.Module):
+    """The fork's Ghost bottleneck (JAX :777): a GhostConv to `midc` (the model's default activation), a 3x3 stride-2
+    depthwise ConvBN when s = 2, the SeBlock, a linear ghost pair `ghost2_cv1` (1x1 to c2 / 2) and `ghost2_cv2` (5x5
+    depthwise), plus the input, or at c1 != c2 or s = 2 its 3x3 depthwise `short_dw` and 1x1 `short_pw`. `k` is
+    taken and not read, as in the fork's block."""
+
+    def __init__(self, c1: int, c2: int, midc: int, k: int = 5, s: int = 1, use_se: bool = False):
+        super().__init__()
+        c_, h = midc, c2 // 2
+        self.identity = c1 == c2 and s == 1
+        self.ghost1 = GhostConv(c1, c_, 1, 1)
+        self.dw = ConvBN(c_, c_, 3, 2, g=c_, act=False) if s == 2 else None
+        self.se = SeBlock(c_) if use_se else None
+        self.ghost2_cv1 = ConvBN(c_, h, 1, 1, act=False)
+        self.ghost2_cv2 = ConvBN(h, h, 5, 1, g=h, act=False)
+        if not self.identity:
+            self.short_dw = ConvBN(c1, c1, 3, s, g=c1, act=False)
+            self.short_pw = ConvBN(c1, c2, 1, 1, act=False)
+
+    def forward(self, x):
+        y = self.ghost1(x)
+        if self.dw is not None:
+            y = self.dw(y)
+        if self.se is not None:
+            y = self.se(y)
+        g1 = self.ghost2_cv1(y)
+        y = torch.cat([g1, self.ghost2_cv2(g1)], 1)
+        return y + (x if self.identity else self.short_pw(self.short_dw(x)))
+
+
+SANDGLASS_ACT = "relu6"  # MobileNeXt's; the JAX SGBlock's "relu6" ConvBNs run no activation (ROADMAP Queue 3)
+
+
+class SGBlock(nn.Module):
+    """MobileNeXt's sandglass block in the fork's four layouts (JAX :807), keyed on the expansion, c1 vs c2 and the
+    stride: a 3x3 depthwise `dw1` (ReLU6), a linear 1x1 `pw1` to the hidden width, a 1x1 `pw2` (ReLU6) and a linear 3x3
+    depthwise `dw2`, or the parts of it a layout keeps; the last layout adds the input unless keep_3x3. Its ReLU6s are
+    `SANDGLASS_ACT`, read when the block is built."""
+
+    def __init__(self, c1: int, c2: int, stride: int = 1, expand_ratio: int = 6, keep_3x3: bool = False):
+        super().__init__()
+        inp, oup, a = c1, c2, SANDGLASS_ACT
+        hidden = inp // expand_ratio
+        if hidden < oup / 6.0:
+            hidden = math.ceil(oup / 6.0)
+            hidden = max(16, int(hidden + 8) // 16 * 16)
+        self.identity = False
+        if expand_ratio == 2:
+            layers = (("dw1", inp, 3, 1, inp, a), ("pw1", hidden, 1, 1, 1, "none"), ("pw2", oup, 1, 1, 1, a),
+                      ("dw2", oup, 3, stride, oup, "none"))
+        elif inp != oup and stride == 1 and not keep_3x3:
+            layers = (("pw1", hidden, 1, 1, 1, "none"), ("pw2", oup, 1, 1, 1, a))
+        elif inp != oup and stride == 2 and not keep_3x3:
+            layers = (("pw1", hidden, 1, 1, 1, "none"), ("pw2", oup, 1, 1, 1, a), ("dw2", oup, 3, stride, oup, "none"))
+        else:
+            self.identity = not keep_3x3
+            layers = (("dw1", inp, 3, 1, inp, a), ("pw1", hidden, 1, 1, 1, "none"), ("pw2", oup, 1, 1, 1, a),
+                      ("dw2", oup, 3, 1, oup, "none"))
+        c = inp
+        self.order = tuple(name for name, *_ in layers)
+        for name, co, k, s, g, act in layers:
+            self.add_module(name, CBA(c, co, k, s, g=g, act=act))
+            c = co
+
+    def forward(self, x):
+        y = x
+        for name in self.order:
+            y = getattr(self, name)(y)
+        return x + y if self.identity else y
+
+
+class DepthSepConv(nn.Module):
+    """PP-LCNet's depthwise-separable conv (JAX :849): a k x k stride-s depthwise ConvBN, hard-swish, the SeBlock
+    (reduction 16), a 1x1 ConvBN, hard-swish."""
+
+    def __init__(self, c1: int, c2: int, dw_size: int = 3, stride: int = 1, use_se: bool = False):
+        super().__init__()
+        self.dw = CBA(c1, c1, dw_size, stride, g=c1, act="hswish")
+        self.se = SeBlock(c1, reduction=16) if use_se else None
+        self.pw = CBA(c1, c2, 1, act="hswish")
+
+    def forward(self, x):
+        y = self.dw(x)
+        return self.pw(y if self.se is None else self.se(y))
+
+
+# -- ShuffleNetV2, EfficientNet-Lite, MobileNetV3, LeYOLO (JAX :869-1054) ---------------------------------------------
+
+
+class CBRM(_FrameConv, nn.Module):
+    """ShuffleNetV2's stem (JAX :869): a 3x3 stride-2 CBA (ReLU), then a 3x3 stride-2 max pool padded by 1."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.conv = CBA(c1, c2, 3, 2, act="relu")
+
+    def forward(self, x):
+        return max_pool(self.conv(x), 3, 2, 1)
+
+
+class Shuffle_Block(nn.Module):
+    """ShuffleNetV2's unit (JAX :882): at stride 1 the second half of the channels through `b2_pw1` (1x1, ReLU),
+    `b2_dw` (3x3 depthwise) and `b2_pw2` (1x1, ReLU) beside the first half; at stride 2 the whole map through that
+    branch and through `b1_dw` (3x3 stride-2 depthwise) and `b1_pw` (1x1, ReLU); then a 2-group channel shuffle."""
+
+    def __init__(self, c1: int, c2: int, stride: int = 1):
+        super().__init__()
+        bf = c2 // 2
+        self.stride = stride
+        if stride != 1:
+            self.b1_dw = CBA(c1, c1, 3, stride, g=c1, act="none")
+            self.b1_pw = CBA(c1, bf, 1, act="relu")
+        self.b2_pw1 = CBA(c1 if stride != 1 else bf, bf, 1, act="relu")
+        self.b2_dw = CBA(bf, bf, 3, stride, g=bf, act="none")
+        self.b2_pw2 = CBA(bf, bf, 1, act="relu")
+
+    def branch2(self, x):
+        return self.b2_pw2(self.b2_dw(self.b2_pw1(x)))
+
+    def forward(self, x):
+        if self.stride == 1:
+            half = x.shape[1] // 2
+            out = torch.cat([x[:, :half], self.branch2(x[:, half:])], 1)
+        else:
+            out = torch.cat([self.b1_pw(self.b1_dw(x)), self.branch2(x)], 1)
+        return channel_shuffle(out, 2)
+
+
+class stem(_FrameConv, nn.Module):
+    """EfficientNet-Lite's stem (JAX :910): a 3x3 stride-2 CBA, ReLU6."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.conv = CBA(c1, c2, 3, 2, act="relu6")
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class MBConvBlock(nn.Module):
+    """EfficientNet-Lite's MBConv (JAX :922): a 1x1 `expand` to c1 * expand_ratio (ReLU6, where the ratio is not 1), a
+    k x k stride-s depthwise `dw` (ReLU6), the SeBlock, a linear 1x1 `project`; at stride 1 and c1 == c2 plus the
+    input. In training a drop-connect rate zeroes whole samples of the branch (the kept ones divided by the keep
+    rate): each sample's draw comes from `generator`, a CPU torch.Generator seeded 0."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, expand_ratio: int = 1, drop_connect_rate: float = 0.0,
+                 has_se: bool = False):
+        super().__init__()
+        oup = c1 * expand_ratio
+        self.residual = s == 1 and c1 == c2
+        self.drop_connect_rate = drop_connect_rate
+        self.generator = torch.Generator().manual_seed(0)
+        self.expand = CBA(c1, oup, 1, act="relu6") if expand_ratio != 1 else None
+        self.dw = CBA(oup, oup, k, s, g=oup, act="relu6")
+        self.se = SeBlock(oup, 4) if has_se else None
+        self.project = CBA(oup, c2, 1, act="none")
+
+    def drop_connect(self, y: torch.Tensor) -> torch.Tensor:
+        keep = 1.0 - self.drop_connect_rate
+        draw = torch.rand((y.shape[0], 1, 1, 1), generator=self.generator)
+        draw = (draw.pin_memory() if y.is_cuda else draw).to(y.device, non_blocking=True)
+        return y / keep * torch.floor(keep + draw).to(y.dtype)
+
+    def forward(self, x):
+        y = x if self.expand is None else self.expand(x)
+        y = self.dw(y)
+        if self.se is not None:
+            y = self.se(y)
+        y = self.project(y)
+        if not self.residual:
+            return y
+        if self.training and self.drop_connect_rate:
+            y = self.drop_connect(y)
+        return y + x
+
+
+class Conv_BN_HSwish(_FrameConv, nn.Module):
+    """MobileNetV3's stem conv (JAX :957): a 3x3 stride-s CBA, hard-swish."""
+
+    def __init__(self, c1: int, c2: int, stride: int = 1):
+        super().__init__()
+        self.conv = CBA(c1, c2, 3, stride, act="hswish")
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class MobileNetV3_InvertedResidual(nn.Module):
+    """MobileNetV3's inverted residual (JAX :970): at c1 == hidden_dim a k x k depthwise `dw` (ReLU or hard-swish),
+    the SeBlock, a linear 1x1 `pw`; else a 1x1 `pw1` to hidden_dim (the activation), a linear depthwise `dw`, the
+    SeBlock, the activation, a linear 1x1 `pw2`. At stride 1 and c1 == c2 plus the input."""
+
+    def __init__(self, c1: int, c2: int, hidden_dim: int = 16, kernel_size: int = 3, stride: int = 1,
+                 use_se: bool = False, use_hs: bool = False):
+        super().__init__()
+        hd, k = hidden_dim, kernel_size
+        self.act = "hswish" if use_hs else "relu"
+        self.expand = c1 != hd
+        self.residual = stride == 1 and c1 == c2
+        if self.expand:
+            self.pw1 = CBA(c1, hd, 1, act=self.act)
+        self.dw = CBA(hd, hd, k, stride, g=hd, act="none" if self.expand else self.act)
+        self.se = SeBlock(hd) if use_se else None
+        if self.expand:
+            self.pw2 = CBA(hd, c2, 1, act="none")
+        else:
+            self.pw = CBA(hd, c2, 1, act="none")
+
+    def forward(self, x):
+        y = self.dw(self.pw1(x) if self.expand else x)
+        if self.se is not None:
+            y = self.se(y)
+        y = self.pw2(_act(y, self.act)) if self.expand else self.pw(y)
+        return x + y if self.residual else y
+
+
+_LEYOLO_ACT = {"RE": "relu6", "GE": "gelu", "SI": "silu", "EL": "elu"}  # any other name: hard-swish
+
+
+class mn_conv(_FrameConv, nn.Module):
+    """LeYOLO's conv-BN-activation (JAX :1004): a k x k stride-s CBA `c`, unpadded when k == s; act "RE" ReLU6, "GE"
+    GELU, "SI" SiLU, "EL" ELU, any other hard-swish."""
+
+    frame_attr = "c"
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, act: str = "RE"):
+        super().__init__()
+        self.c = CBA(c1, c2, k, s, p=0 if k == s else autopad(k), act=_LEYOLO_ACT.get(act, "hswish"))
+
+    def forward(self, x):
+        return self.c(x)
+
+
+class InvertedBottleneck(nn.Module):
+    """LeYOLO's inverted bottleneck (JAX :1021): with `pw` an mn_conv 1x1 to e (c1 where e is None), a k x k
+    stride-s depthwise CBA `dw` (the activation), a biased 1x1 `proj` with no BatchNorm of its own, then `bn`; at
+    stride 1 and c1 == c2 plus the input. Folded, `proj` takes `bn` in. `sa` is taken and not read, as in the JAX
+    module (LeYOLO's squeeze-excite is not built)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, e: Optional[int] = None, sa="None", act: str = "RE",
+                 stride: int = 1, pw: bool = True):
+        super().__init__()
+        c_mid = e if e is not None else c1
+        self.residual = c1 == c2 and stride == 1
+        self.pw = mn_conv(c1, c_mid, act=act) if pw else None
+        self.dw = CBA(c_mid, c_mid, k, stride, g=c_mid, act=_LEYOLO_ACT.get(act, "hswish"))
+        self.proj = CBA(c_mid, c2, 1, act="none", bias=True, bn=False)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.proj.post_bn = (self.bn,)
+
+    def forward(self, x):
+        y = self.proj(self.dw(x if self.pw is None else self.pw(x)))
+        if not folds_bn(self.proj):
+            y = self.bn(y)
+        return x + y if self.residual else y
+
+
+class MobileNetV3_BLOCK(InvertedBottleneck):
+    """LeYOLO's MobileNetV3 block, InvertedBottleneck's alias (JAX :1053)."""
+
+
+# -- Swin (JAX :1062-1237) --------------------------------------------------------------------------------------------
+
+
+def _window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B * nW, ws, ws, C) (JAX :1062)."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // ws, ws, w // ws, ws, c).transpose(2, 3).reshape(-1, ws, ws, c)
+
+
+def _window_reverse(windows: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
+    """(B * nW, ws, ws, C) -> (B, H, W, C) (JAX :1069)."""
+    b = windows.shape[0] // (h * w // ws // ws)
+    return windows.reshape(b, h // ws, w // ws, ws, ws, -1).transpose(2, 3).reshape(b, h, w, -1)
+
+
+def _relative_position_index(ws: int) -> np.ndarray:
+    """The (ws², ws²) index into the (2ws - 1)² bias table (JAX :1075)."""
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
+    rel[:, :, 0] += ws - 1
+    rel[:, :, 1] += ws - 1
+    rel[:, :, 0] *= 2 * ws - 1
+    return rel.sum(-1)
+
+
+def _swin_attn_mask(hp: int, wp: int, ws: int, shift: int) -> np.ndarray:
+    """The shifted windows' mask (nW, ws², ws²) on the padded (hp, wp) map, 0 within a region, -100 across (JAX
+    :1087, the reference's create_mask)."""
+    img = np.zeros((1, hp, wp, 1), np.float32)
+    cnt = 0
+    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+        for wsl in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+            img[:, hs, wsl, :] = cnt
+            cnt += 1
+    mw = img.reshape(1, hp // ws, ws, wp // ws, ws, 1).transpose(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws)
+    mask = mw[:, None, :] - mw[:, :, None]
+    return np.where(mask != 0, -100.0, 0.0).astype(np.float32)
+
+
+# the index and the masks, made once a shape and device; made outside inference mode, so that a model that served
+# under torch.inference_mode() can train on them
+@functools.lru_cache(maxsize=64)
+def _swin_index(ws: int, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.from_numpy(_relative_position_index(ws).reshape(-1)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _swin_mask(hp: int, wp: int, ws: int, shift: int, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.from_numpy(_swin_attn_mask(hp, wp, ws, shift)).to(device)
+
+
+class WindowAttention(nn.Module):
+    """Window multi-head self-attention with a relative position bias (JAX :1100): a `qkv` Linear, heads of dim / nh
+    channels at scale 1/sqrt(dim / nh), the bias gathered from the f32 `relative_position_bias_table` ((2ws - 1)², nh)
+    and the shifted windows' mask added to the logits (SDPA's `attn_mask`, the windows folded into the heads), a
+    `proj` Linear. x is (B * nW, ws², C); the mask (nW, ws², ws²) or None."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.ws, self.nh = window_size, num_heads
+        self.relative_position_bias_table = nn.Parameter(
+            nn.init.trunc_normal_(torch.empty((2 * window_size - 1) ** 2, num_heads), std=0.02, a=-0.04, b=0.04))
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b_, n, c = x.shape
+        nh, hd = self.nh, c // self.nh
+        q, k, v = self.qkv(x).reshape(b_, n, 3, nh, hd).permute(2, 0, 3, 1, 4).unbind(0)  # (B_, nh, N, hd) each
+        table = self.relative_position_bias_table
+        bias = table[_swin_index(self.ws, x.device)].view(n, n, nh).permute(2, 0, 1).float()  # (nh, N, N)
+        if mask is None:
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(q.dtype), scale=hd ** -0.5)
+        else:
+            nw = mask.shape[0]
+            m = (bias[None] + mask[:, None]).to(q.dtype).reshape(1, nw * nh, n, n)
+            fold = lambda t: t.reshape(b_ // nw, nw * nh, n, hd)  # noqa: E731
+            out = F.scaled_dot_product_attention(fold(q), fold(k), fold(v), attn_mask=m, scale=hd ** -0.5)
+        return self.proj(out.reshape(b_, nh, n, hd).transpose(1, 2).reshape(b_, n, c))
+
+
+class SwinTransformerBlock(nn.Module):
+    """A Swin block on (B, H, W, C) (JAX :1136): `norm1`, the map padded at the bottom and right to a multiple of the
+    window, rolled back by the shift where there is one (the mask built on the padded size), window attention, the
+    roll and the pad undone, plus the input; `norm2`, `fc1` to mlp_ratio * C, GELU (tanh), `fc2`, plus. The
+    LayerNorms take flax's eps 1e-6."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.ws, self.shift = window_size, shift_size
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = WindowAttention(dim, window_size, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.fc1 = nn.Linear(dim, int(dim * mlp_ratio))
+        self.fc2 = nn.Linear(int(dim * mlp_ratio), dim)
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        ws, shift = self.ws, self.shift
+        shortcut = x
+        x = self.norm1(x)
+        pad_b, pad_r = (ws - h % ws) % ws, (ws - w % ws) % ws
+        if pad_b or pad_r:
+            x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+        hp, wp = h + pad_b, w + pad_r
+        mask = None
+        if shift > 0:
+            x = torch.roll(x, (-shift, -shift), (1, 2))
+            mask = _swin_mask(hp, wp, ws, shift, x.device)
+        x = self.attn(_window_partition(x, ws).reshape(-1, ws * ws, c), mask)
+        x = _window_reverse(x.reshape(-1, ws, ws, c), ws, hp, wp)
+        if shift > 0:
+            x = torch.roll(x, (shift, shift), (1, 2))
+        if pad_b or pad_r:
+            x = x[:, :h, :w]
+        x = shortcut + x
+        return x + self.fc2(_gelu(self.fc1(self.norm2(x))))
+
+
+class SwinStage(nn.Module):
+    """`depth` Swin blocks (`blocks.<i>`), the odd ones shifted by half a window (JAX :1178); dim == c2."""
+
+    def __init__(self, dim: int, c2: int, depth: int, num_heads: int, window_size: int):
+        super().__init__()
+        if dim != c2:
+            raise ValueError(f"SwinStage keeps its width: dim {dim} != c2 {c2}")
+        self.blocks = nn.ModuleList(SwinTransformerBlock(dim, num_heads, window_size,
+                                                         0 if i % 2 == 0 else window_size // 2) for i in range(depth))
+
+    def forward(self, x):
+        x = x.permute(0, 2, 3, 1)
+        for blk in self.blocks:
+            x = blk(x)
+        return x.permute(0, 3, 1, 2)
+
+
+class PatchEmbed(_FrameConv, nn.Module):
+    """Swin's patch embedding (JAX :1200): the map padded at the bottom and right to a multiple of the patch, a
+    biased p x p stride-p conv `proj` (a `BiasConv`), a LayerNorm `norm` over the channels."""
+
+    frame_attr = "proj"
+
+    def __init__(self, c1: int, c2: int, patch_size: int = 4):
+        super().__init__()
+        self.p = patch_size
+        self.proj = BiasConv(c1, c2, patch_size, patch_size, p=0)
+        self.norm = nn.LayerNorm(c2, eps=LN_EPS)
+
+    def forward(self, x):
+        p, (h, w) = self.p, x.shape[2:]
+        if h % p or w % p:
+            x = F.pad(x, (0, (p - w % p) % p, 0, (p - h % p) % p))
+        return _ln(self.proj(x), self.norm)
+
+
+class PatchMerging(nn.Module):
+    """Swin's 2x2 patch merging (JAX :1218): an odd map padded by one, the four pixels of each 2x2 concatenated
+    [x0 (even row, even column), x1 (odd, even), x2 (even, odd), x3 (odd, odd)], a LayerNorm `norm`, a bias-free
+    Linear `reduction` to 2 * dim; c2 == 2 * dim."""
+
+    def __init__(self, dim: int, c2: int):
+        super().__init__()
+        if c2 != 2 * dim:
+            raise ValueError(f"PatchMerging doubles the width: c2 {c2} != 2 * {dim}")
+        self.norm = nn.LayerNorm(4 * dim, eps=LN_EPS)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x):
+        h, w = x.shape[2:]
+        if h % 2 or w % 2:
+            x = F.pad(x, (0, w % 2, 0, h % 2))
+        x = torch.cat([x[:, :, 0::2, 0::2], x[:, :, 1::2, 0::2], x[:, :, 0::2, 1::2], x[:, :, 1::2, 1::2]], 1)
+        return self.reduction(self.norm(x.permute(0, 2, 3, 1))).permute(0, 3, 1, 2)
+
+
+# -- VanillaNet, ConvNeXt, StarNet, FasterNet (JAX :1245-1412) -------------------------------------------------------
+
+
+class VanillaBlock(nn.Module):
+    """VanillaNet's block (JAX :1245): a biased 1x1 CBA `conv1` (BN, no activation) at dim, `conv2` to dim_out alike, a
+    stride x stride max pool, a ReLU, then the series activation `act`: a (2 act_num + 1)² depthwise CBA (BN, no
+    activation). The deep-training leaky ReLU at act_learn 1 is the identity and is left out, as in the JAX module;
+    the published series activation's conv bias (before its BN) is not built, as there."""
+
+    def __init__(self, dim: int, dim_out: int, act_num: int = 3, stride: int = 2):
+        super().__init__()
+        self.stride = stride
+        self.conv1 = CBA(dim, dim, 1, act="none", bias=True)
+        self.conv2 = CBA(dim, dim_out, 1, act="none", bias=True)
+        self.act = CBA(dim_out, dim_out, 2 * act_num + 1, p=act_num, g=dim_out, act="none")
+
+    def forward(self, x):
+        x = self.conv2(self.conv1(x))
+        if self.stride != 1:
+            x = max_pool(x, self.stride, self.stride)
+        return self.act(F.relu(x))
+
+
+class ConvNeXt_Stem(_FrameConv, nn.Module):
+    """ConvNeXt's stem (JAX :1270): a biased k x k stride-s unpadded conv (`BiasConv`), a LayerNorm `ln` (eps 1e-6)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 4, s: int = 4):
+        super().__init__()
+        self.conv = BiasConv(c1, c2, k, s, p=0)
+        self.ln = nn.LayerNorm(c2, eps=LN_EPS)
+
+    def forward(self, x):
+        return _ln(self.conv(x), self.ln)
+
+
+class ConvNeXt_Downsample(nn.Module):
+    """ConvNeXt's downsample (JAX :1286): a LayerNorm `ln`, then a biased k x k stride-s unpadded conv."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2):
+        super().__init__()
+        self.ln = nn.LayerNorm(c1, eps=LN_EPS)
+        self.conv = BiasConv(c1, c2, k, s, p=0)
+
+    def forward(self, x):
+        return self.conv(_ln(x, self.ln))
+
+
+class ConvNeXt_Block(nn.Module):
+    """n ConvNeXt blocks (JAX :1302), each `m.<i>_dwconv` (a biased 7x7 depthwise CBA, no BN), `m.<i>_norm`
+    (LayerNorm, eps 1e-6), `m.<i>_pwconv1` (Linear to 4 * dim), GELU (tanh), `m.<i>_pwconv2`, times the layer scale
+    `m_<i>_gamma`, plus its input; dim = c2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, layer_scale_init_value: float = 1e-6):
+        super().__init__()
+        dim = c2
+        self.n = n
+        self.m = nn.ModuleDict()
+        for i in range(n):
+            self.m[f"{i}_dwconv"] = CBA(c1 if i == 0 else dim, dim, 7, g=dim, act="none", bias=True, bn=False)
+            self.m[f"{i}_norm"] = nn.LayerNorm(dim, eps=LN_EPS)
+            self.m[f"{i}_pwconv1"] = nn.Linear(dim, 4 * dim)
+            self.m[f"{i}_pwconv2"] = nn.Linear(4 * dim, dim)
+            if layer_scale_init_value > 0:
+                self.register_parameter(f"m_{i}_gamma", nn.Parameter(torch.full((dim,), layer_scale_init_value)))
+
+    def forward(self, x):
+        for i in range(self.n):
+            m = self.m
+            y = m[f"{i}_dwconv"](x).permute(0, 2, 3, 1)
+            y = m[f"{i}_pwconv2"](_gelu(m[f"{i}_pwconv1"](m[f"{i}_norm"](y))))
+            gamma = getattr(self, f"m_{i}_gamma", None)
+            x = x + (y if gamma is None else y * gamma).permute(0, 3, 1, 2)
+        return x
+
+
+class StarBlock(nn.Module):
+    """StarNet's blocks (JAX :1330; Ma et al., 2024): n of them in sequence, each a 7x7 depthwise CBA `dwconv.<i>`
+    (conv bias and BN), the star op ReLU6(`f1.<i>`(x)) * `f2.<i>`(x) (biased 1x1s to mlp_ratio * dim, no BN), a 1x1
+    `g.<i>` (bias and BN), a 7x7 depthwise `dwconv2.<i>` (bias, no BN), plus the block's input: a residual around
+    each block, as the published StarNet stacks them. The JAX module adds one residual around all n
+    (ROADMAP Queue 3)."""
+
+    def __init__(self, dim: int, mlp_ratio: int = 3, n: int = 1):
+        super().__init__()
+        d, r = dim, mlp_ratio
+        self.n = n
+        self.dwconv = nn.ModuleList(CBA(d, d, 7, g=d, act="none", bias=True) for _ in range(n))
+        self.f1 = nn.ModuleList(CBA(d, d * r, 1, act="none", bias=True, bn=False) for _ in range(n))
+        self.f2 = nn.ModuleList(CBA(d, d * r, 1, act="none", bias=True, bn=False) for _ in range(n))
+        self.g = nn.ModuleList(CBA(d * r, d, 1, act="none", bias=True) for _ in range(n))
+        self.dwconv2 = nn.ModuleList(CBA(d, d, 7, g=d, act="none", bias=True, bn=False) for _ in range(n))
+
+    def star(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Block i without its residual."""
+        x = self.dwconv[i](x)
+        x = _act(self.f1[i](x), "relu6") * self.f2[i](x)
+        return self.dwconv2[i](self.g[i](x))
+
+    def forward(self, x):
+        for i in range(self.n):
+            x = x + self.star(i, x)
+        return x
+
+
+class BasicStage(nn.Module):
+    """FasterNet's stage (JAX :1353): `depth` blocks, each a partial 3x3 conv `b<i>_pconv` over the first dim // n_div
+    channels (bias-free, a conv3x3 site with the `none` epilogue and a zero bias once folded), the rest passed,
+    then `b<i>_mlp1` (1x1 CBA to mlp_ratio * dim, ReLU) and `b<i>_mlp2` (bias-free 1x1 back), plus the block's
+    input."""
+
+    def __init__(self, dim: int, depth: int = 1, n_div: int = 4, mlp_ratio: int = 2):
+        super().__init__()
+        self.depth, self.dc = depth, dim // n_div
+        for i in range(depth):
+            self.add_module(f"b{i}_pconv", BiasConv(self.dc, self.dc, 3, bias=False))
+            self.add_module(f"b{i}_mlp1", CBA(dim, dim * mlp_ratio, 1, act="relu"))
+            self.add_module(f"b{i}_mlp2", BiasConv(dim * mlp_ratio, dim, 1, bias=False))
+
+    def forward(self, x):
+        dc = self.dc
+        for i in range(self.depth):
+            y = torch.cat([getattr(self, f"b{i}_pconv")(x[:, :dc]), x[:, dc:]], 1)
+            x = x + getattr(self, f"b{i}_mlp2")(getattr(self, f"b{i}_mlp1")(y))
+        return x
+
+
+class _ConvNorm(_FrameConv, nn.Module):
+    """A bias-free unpadded k x k stride-s conv and its BatchNorm `norm`, the conv under the JAX module's name
+    (`frame_attr`); folded, the conv takes the BatchNorm in."""
+
+    frame_attr = "proj"
+
+    def __init__(self, c1: int, c2: int, k: int, s: int):
+        super().__init__()
+        conv = BiasConv(c1, c2, k, s, p=0, bias=False)
+        self.add_module(self.frame_attr, conv)
+        self.norm = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        conv.post_bn = (self.norm,)
+
+    def forward(self, x):
+        conv = self.frame_conv
+        y = conv(x)
+        return y if folds_bn(conv) else self.norm(y)
+
+
+class PatchEmbed_FasterNet(_ConvNorm):
+    """FasterNet's patch embedding (JAX :1379): a bias-free patch_size conv of stride patch_stride `proj`, BN `norm`."""
+
+    def __init__(self, c1: int, c2: int, patch_size: int = 4, patch_stride: int = 4):
+        super().__init__(c1, c2, patch_size, patch_stride)
+
+
+class PatchMerging_FasterNet(_ConvNorm):
+    """FasterNet's patch merging (JAX :1397): a bias-free k x k conv of stride patch_stride2 `reduction`, BN `norm`."""
+
+    frame_attr = "reduction"
+
+    def __init__(self, c1: int, c2: int, k: int = 2, patch_stride2: int = 2):
+        super().__init__(c1, c2, k, patch_stride2)
+
+
 def build_research_module(m: str, a: tuple) -> nn.Module:
-    """One attention module or neck block from its compiled (name, args), as the JAX `build_research_module`
+    """One module of the research zoo from its compiled (name, args), as the JAX `build_research_module`
     (:2050-2068): SKAttention's kernels and ASFF's widths as tuples."""
     if m not in PORTED:
         raise NotImplementedError(f"research module '{m}' is not ported to torch yet")
@@ -1315,3 +1979,150 @@ def lpc_neck_cfg(variant: str) -> Dict[str, Any]:
 def write_lpc_neck_yaml(variant: str, directory: Union[str, Path]) -> Path:
     """`lpc_neck_cfg(variant)` written as `yolov10s-LPC-<variant>.yaml` under `directory`."""
     return _write_yaml(lpc_neck_cfg(variant), Path(directory) / f"yolov10s-LPC-{variant}.yaml")
+
+
+# -- LPC-YOLO with a backbone family of the research zoo ---------------------------------------------------------------
+
+# LPC-YOLO's backbone is layers 0-14; its neck reads layer 7 (stride 8), 10 (stride 16) and 14 (stride 32, the PSA)
+_LPC_READS = {7: "p3", 10: "p4", 14: "p5"}
+_LPC_TAIL = [[-1, 1, "SPPF", [512, 5]], [-1, 1, "PSA", [512]]]
+# each variant's stages (YAML rows before the LPC tail, SPPF and PSA) and the indices of its stride-8 and stride-16
+# outputs among them. Channel args are at the YAML's 1.0 width: LPC-YOLO's s scale halves them, 512 and up to 256.
+BACKBONE_VARIANTS: Dict[str, Dict[str, Any]] = {
+    # Swin-T (patch 4, window 7, depths 2-2-6-2, head dim 32) at a third of its width: 32, 64, 128, 256
+    "swin": {"p3": 3, "p4": 5, "rows": [
+        [-1, 1, "PatchEmbed", [64, 4]], [-1, 1, "SwinStage", [64, 2, 1, 7]],
+        [-1, 1, "PatchMerging", [128]], [-1, 1, "SwinStage", [128, 2, 2, 7]],
+        [-1, 1, "PatchMerging", [256]], [-1, 1, "SwinStage", [256, 6, 4, 7]],
+        [-1, 1, "PatchMerging", [512]], [-1, 1, "SwinStage", [512, 2, 8, 7]]]},
+    # ConvNeXt-T (stem 4x4, depths 3-3-9-3 cut by the s depth to 1-1-3-1, downsamples 2x2): 32, 64, 128, 256
+    "convnext": {"p3": 3, "p4": 5, "rows": [
+        [-1, 1, "ConvNeXt_Stem", [64, 4, 4]], [-1, 3, "ConvNeXt_Block", [64]],
+        [-1, 1, "ConvNeXt_Downsample", [128, 2, 2]], [-1, 3, "ConvNeXt_Block", [128]],
+        [-1, 1, "ConvNeXt_Downsample", [256, 2, 2]], [-1, 9, "ConvNeXt_Block", [256]],
+        [-1, 1, "ConvNeXt_Downsample", [512, 2, 2]], [-1, 3, "ConvNeXt_Block", [512]]]},
+    # VanillaNet-6 (a 4x4 stride-4 stem, stages of stride 2, 2, 2, 1, series activation 3): 64, 128, 256, 256, 256
+    "vanillanet": {"p3": 1, "p4": 2, "rows": [
+        [-1, 1, "Conv", [128, 4, 4, 0]], [-1, 1, "VanillaBlock", [256, 3, 2]], [-1, 1, "VanillaBlock", [512, 3, 2]],
+        [-1, 1, "VanillaBlock", [512, 3, 2]], [-1, 1, "VanillaBlock", [512, 3, 1]]]},
+    # StarNet-S2 (stem 32, strided 3x3 downsamplers, depths 1-2-6-2 cut to 1-1-2-1, mlp ratio 3): 32, 64, 128, 256
+    "starnet": {"p3": 4, "p4": 6, "rows": [
+        [-1, 1, "Conv", [64, 3, 2]], [-1, 1, "Conv", [64, 3, 2]], [-1, 1, "StarBlock", [3]],
+        [-1, 1, "Conv", [128, 3, 2]], [-1, 2, "StarBlock", [3]], [-1, 1, "Conv", [256, 3, 2]],
+        [-1, 6, "StarBlock", [3]], [-1, 1, "Conv", [512, 3, 2]], [-1, 2, "StarBlock", [3]]]},
+    # FasterNet-T1 (patch 4, depths 1-2-8-2, n_div 4, mlp ratio 2, 2x2 mergings) at half width: 32, 64, 128, 256
+    "fasternet": {"p3": 3, "p4": 5, "rows": [
+        [-1, 1, "PatchEmbed_FasterNet", [64, 4, 4]], [-1, 1, "BasicStage", [1]],
+        [-1, 1, "PatchMerging_FasterNet", [128, 2, 2]], [-1, 1, "BasicStage", [2]],
+        [-1, 1, "PatchMerging_FasterNet", [256, 2, 2]], [-1, 1, "BasicStage", [8]],
+        [-1, 1, "PatchMerging_FasterNet", [512, 2, 2]], [-1, 1, "BasicStage", [2]]]},
+    # MobileNetV3-Large's 15 bnecks (k, expansion, SE, hard-swish, stride as published), widths and expansions at
+    # half: 8, 16, 24, 40 / 56 / 80, 80
+    "mobilenetv3": {"p3": 6, "p4": 12, "rows": [
+        [-1, 1, "Conv_BN_HSwish", [16, 2]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [16, 8, 3, 1, 0, 0]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [24, 32, 3, 2, 0, 0]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [24, 36, 3, 1, 0, 0]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [40, 36, 5, 2, 1, 0]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [40, 60, 5, 1, 1, 0]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [40, 60, 5, 1, 1, 0]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [80, 120, 3, 2, 0, 1]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [80, 100, 3, 1, 0, 1]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [80, 92, 3, 1, 0, 1]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [80, 92, 3, 1, 0, 1]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [112, 240, 3, 1, 1, 1]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [112, 336, 3, 1, 1, 1]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [160, 336, 5, 2, 1, 1]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [160, 480, 5, 1, 1, 1]],
+        [-1, 1, "MobileNetV3_InvertedResidual", [160, 480, 5, 1, 1, 1]]]},
+    # LeYOLO-small's backbone (an mn_conv stem, its second conv 3x3 stride 1 here; MobileNetV3_BLOCK /
+    # InvertedBottleneck, ReLU6 to stride 8, hard-swish after; `sa` off, as the JAX block never builds it; repeats
+    # 3 and 4 cut by the s depth to 1): 8, 8, 16, 32, 48
+    "leyolo": {"p3": 4, "p4": 6, "rows": [
+        [-1, 1, "mn_conv", [16, 3, 2]], [-1, 1, "mn_conv", [16, 3, 1]],
+        [-1, 1, "MobileNetV3_BLOCK", [16, 3, 16, "None", "RE", 2, False]],
+        [-1, 1, "MobileNetV3_BLOCK", [32, 3, 96, "None", "RE", 2]],
+        [-1, 1, "InvertedBottleneck", [32, 3, 96, "None", "RE", 1]],
+        [-1, 1, "MobileNetV3_BLOCK", [64, 5, 96, "None", "HS", 2]],
+        [-1, 3, "InvertedBottleneck", [64, 5, 192, "None", "HS", 1]],
+        [-1, 1, "MobileNetV3_BLOCK", [96, 5, 576, "None", "HS", 2]],
+        [-1, 4, "InvertedBottleneck", [96, 5, 576, "None", "HS", 1]]]},
+    # ShuffleNetV2 1.0x's layout (CBRM stem, units 4-8-4 cut to 1+1, 1+2, 1+1): 16, 64, 128, 256
+    "shufflenetv2": {"p3": 2, "p4": 4, "rows": [
+        [-1, 1, "CBRM", [32]], [-1, 1, "Shuffle_Block", [128, 2]], [-1, 3, "Shuffle_Block", [128, 1]],
+        [-1, 1, "Shuffle_Block", [256, 2]], [-1, 7, "Shuffle_Block", [256, 1]],
+        [-1, 1, "Shuffle_Block", [512, 2]], [-1, 3, "Shuffle_Block", [512, 1]]]},
+    # EfficientNet-Lite0's 16 MBConvs (k, stride, expansion 1 or 6, no SE), at half width: 16, 8, 16, 24, 40, 56,
+    # 96, 160; drop-connect 0, since the JAX package builds no graph with a rate above 0 (ROADMAP Queue 3)
+    "efficientnet_lite": {"p3": 5, "p4": 11, "rows": [
+        [-1, 1, "stem", [32]], [-1, 1, "MBConvBlock", [16, 3, 1, 1]],
+        [-1, 1, "MBConvBlock", [24, 3, 2, 6]], [-1, 1, "MBConvBlock", [24, 3, 1, 6]],
+        [-1, 1, "MBConvBlock", [40, 5, 2, 6]], [-1, 1, "MBConvBlock", [40, 5, 1, 6]],
+        [-1, 1, "MBConvBlock", [80, 3, 2, 6]], [-1, 1, "MBConvBlock", [80, 3, 1, 6]],
+        [-1, 1, "MBConvBlock", [80, 3, 1, 6]], [-1, 1, "MBConvBlock", [112, 5, 1, 6]],
+        [-1, 1, "MBConvBlock", [112, 5, 1, 6]], [-1, 1, "MBConvBlock", [112, 5, 1, 6]],
+        [-1, 1, "MBConvBlock", [192, 5, 2, 6]], [-1, 1, "MBConvBlock", [192, 5, 1, 6]],
+        [-1, 1, "MBConvBlock", [192, 5, 1, 6]], [-1, 1, "MBConvBlock", [192, 5, 1, 6]],
+        [-1, 1, "MBConvBlock", [320, 3, 1, 6]]]},
+    # GhostNet 1.0x's 16 bottlenecks (mid widths as published, halved; SE where published): 8, 16, 24, 40 / 56, 80
+    "ghostnet": {"p3": 5, "p4": 11, "rows": [
+        [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "G_bneck", [16, 8, 3, 1]],
+        [-1, 1, "G_bneck", [24, 24, 3, 2]], [-1, 1, "G_bneck", [24, 36, 3, 1]],
+        [-1, 1, "G_bneck", [40, 36, 5, 2, True]], [-1, 1, "G_bneck", [40, 60, 5, 1, True]],
+        [-1, 1, "G_bneck", [80, 120, 3, 2]], [-1, 1, "G_bneck", [80, 100, 3, 1]],
+        [-1, 1, "G_bneck", [80, 92, 3, 1]], [-1, 1, "G_bneck", [80, 92, 3, 1]],
+        [-1, 1, "G_bneck", [112, 240, 3, 1, True]], [-1, 1, "G_bneck", [112, 336, 3, 1, True]],
+        [-1, 1, "G_bneck", [160, 336, 5, 2, True]], [-1, 1, "G_bneck", [160, 480, 5, 1]],
+        [-1, 1, "G_bneck", [160, 480, 5, 1, True]], [-1, 1, "G_bneck", [160, 480, 5, 1]],
+        [-1, 1, "G_bneck", [160, 480, 5, 1, True]]]},
+    # MobileNeXt-1.0's sandglass stages (expansion 2 then 6; 96, 144, 192, 288, 384, 576, the last capped), halved:
+    # 32, 48, 72, 96, 144, 192, 256
+    "mobilenext": {"p3": 4, "p4": 7, "rows": [
+        [-1, 1, "Conv", [64, 3, 2]], [-1, 1, "SGBlock", [96, 2, 2]], [-1, 1, "SGBlock", [144, 1, 6]],
+        [-1, 1, "SGBlock", [192, 2, 6]], [-1, 3, "SGBlock", [192, 1, 6]], [-1, 1, "SGBlock", [288, 2, 6]],
+        [-1, 3, "SGBlock", [288, 1, 6]], [-1, 1, "SGBlock", [384, 1, 6]], [-1, 1, "SGBlock", [576, 2, 6]],
+        [-1, 2, "SGBlock", [576, 1, 6]]]},
+    # PP-LCNet 1.0x's depthwise-separable stages (3x3 then 5x5, SE in the last two), halved: 16, 32, 64, 128, 256
+    "pplcnet": {"p3": 5, "p4": 7, "rows": [
+        [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "DepthSepConv", [64, 3, 1]], [-1, 1, "DepthSepConv", [128, 3, 2]],
+        [-1, 1, "DepthSepConv", [128, 3, 1]], [-1, 1, "DepthSepConv", [256, 3, 2]],
+        [-1, 1, "DepthSepConv", [256, 3, 1]], [-1, 1, "DepthSepConv", [512, 3, 2]],
+        [-1, 5, "DepthSepConv", [512, 5, 1]], [-1, 1, "DepthSepConv", [1024, 5, 2, True]],
+        [-1, 1, "DepthSepConv", [1024, 5, 1, True]]]},
+}
+
+
+def lpc_backbone_cfg(family: str) -> Dict[str, Any]:
+    """The LPC-YOLO YAML (at its `s` scale) with its backbone (layers 0-14) replaced by one of the research zoo's
+    families (`BACKBONE_VARIANTS`): the family's stages as published, then LPC-YOLO's SPPF and PSA. The neck and the
+    v10Detect head stay: their reads of layers 7, 10 and 14 point at the family's stride-8 and stride-16 outputs and
+    the PSA, every later index shifted by the change in the backbone's length. The widths at 640 (s scale), stride
+    4 / 8 / 16 / 32: swin, convnext, starnet, fasternet 32 / 64 / 128 / 256; vanillanet 64 / 128 / 256 / 256;
+    mobilenetv3 16 / 24 / 80 / 80 (the stride-16 read is 112's half, 56 -> 80 at its last stride-16 bneck); leyolo
+    8 / 16 / 32 / 48; shufflenetv2 16 / 64 / 128 / 256; efficientnet_lite 16 / 24 / 56 / 160; ghostnet 8 / 24 / 56 /
+    80; mobilenext 48 / 96 / 192 / 256; pplcnet 64 / 128 / 256 / 256. The SPPF and PSA after them are 256 wide."""
+    if family not in BACKBONE_VARIANTS:
+        raise ValueError(f"{family!r} is not one of the backbone variants {sorted(BACKBONE_VARIANTS)}")
+    v = BACKBONE_VARIANTS[family]
+    return lpc_cfg_with_backbone(v["rows"], v["p3"], v["p4"])
+
+
+def lpc_cfg_with_backbone(rows, p3: int, p4: int) -> Dict[str, Any]:
+    """The LPC-YOLO YAML with `rows`, then its SPPF and PSA, as the backbone: the neck reads rows[p3] (stride 8),
+    rows[p4] (stride 16) and the PSA (stride 32) where it read layers 7, 10 and 14, every later index shifted."""
+    d = _lpc_cfg()
+    rows = [list(r) for r in rows] + [list(r) for r in _LPC_TAIL]
+    new = {7: p3, 10: p4, 14: len(rows) - 1}
+    shift = len(rows) - len(d["backbone"])
+
+    def remap(j: int) -> int:
+        return j if j < 0 else new[j] if j in new else j + shift
+
+    d["backbone"] = rows
+    d["head"] = [[remap(f) if isinstance(f, int) else [remap(j) for j in f], n, m, a] for f, n, m, a in d["head"]]
+    return d
+
+
+def write_lpc_backbone_yaml(family: str, directory: Union[str, Path]) -> Path:
+    """`lpc_backbone_cfg(family)` written as `yolov10s-LPC-bb-<family>.yaml` under `directory`."""
+    return _write_yaml(lpc_backbone_cfg(family), Path(directory) / f"yolov10s-LPC-bb-{family}.yaml")

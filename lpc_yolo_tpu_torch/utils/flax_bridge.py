@@ -31,9 +31,16 @@ arrays, and nothing here imports jax.
   `fc_0`..`fc_3` is a Linear with children, so no key is renamed. The neck
   blocks' bare leaves (LocalGlobalAttention's `prompt` and
   `top_down_transform`, SCSA's (k, 1, C / 4) `local_dwc`, `global_dwc_s` /
-  `_m` / `_l` and their `<name>_bias`) are carried the same way; MSBlock's
+  `_m` / `_l` and their `<name>_bias`) are carried the same way, and so are
+  the backbone families': Swin's f32 `relative_position_bias_table`
+  ((2ws - 1)², nh) and ConvNeXt's layer scales `m_<i>_gamma`; MSBlock's
   `mid_<i>_<j>_in` is `mid.<i>.<j>_in` (a key component that starts with
-  digits and an underscore joins the one before it on the way back).
+  digits and an underscore joins the one before it on the way back), as
+  ConvNeXt's `m_<i>_dwconv` is `m.<i>_dwconv`. Swin's and ConvNeXt's Dense
+  layers are Linears (transposed), the FasterNet BatchNorms named `norm` are
+  BatchNorms by their leaves, and a conv that a separate BatchNorm follows
+  (InvertedBottleneck's biased `proj`, FasterNet's `proj` / `reduction`)
+  keeps its own keys: only `nn/fuse.py` joins the two.
 * Two leaves change their values, by the JAX module's name: ASFF's
   `up<j>/cv1` kernel, a flax ConvTranspose (kh, kw, in, out) that
   `lax.conv_transpose` applies unflipped, is the torch ConvTranspose2d weight
@@ -76,8 +83,14 @@ _TO_FLAX = {4: (2, 3, 1, 0), 3: (0, 1, 2), 2: (1, 0)}
 # parameters that are not a module's kernel, bias or scale: carried under their own name, untransposed
 _BARE = {"denoising_class_embed", "logit_scale", "conv", "cweight", "cbias", "sweight", "sbias", "gamma", "rel_h",
          "rel_w", "weight", "prompt", "top_down_transform", "local_dwc", "global_dwc_s", "global_dwc_m", "global_dwc_l",
-         "local_dwc_bias", "global_dwc_s_bias", "global_dwc_m_bias", "global_dwc_l_bias"}
+         "local_dwc_bias", "global_dwc_s_bias", "global_dwc_m_bias", "global_dwc_l_bias",
+         "relative_position_bias_table"}
 _UPSAMPLE_T = re.compile(r"up\d+$")
+_LAYER_SCALE = re.compile(r"m_\d+_gamma$")  # ConvNeXt_Block's layer scales, bare leaves of the block
+
+
+def _is_bare(leaf: str) -> bool:
+    return leaf in _BARE or bool(_LAYER_SCALE.match(leaf))
 
 
 def _is_upsample_t(module: Tuple[str, ...]) -> bool:
@@ -147,7 +160,7 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Ten
                 if path[-2:-1] == ("offset",):
                     w = _offset_order(w, to_torch=True)
                 sd[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(w))
-            elif leaf in _BARE:
+            elif _is_bare(leaf):
                 sd[prefix + leaf] = torch.from_numpy(arr.copy())
             else:
                 raise KeyError(f"no torch counterpart for {col}/{'/'.join(path)} {arr.shape}")
@@ -176,7 +189,7 @@ def _flax_slot(name: str, ndim: int, shape: Optional[Tuple[int, ...]] = None):
         return "params", path + ("kernel",), _TO_FLAX[ndim], pre
     if leaf == "bias":
         return "params", path + ("bias",), None, pre
-    if leaf in _BARE:
+    if _is_bare(leaf):
         return "params", path + (leaf,), None, None
     raise KeyError(f"no JAX counterpart for {name}")
 
@@ -340,7 +353,7 @@ def random_variables(shapes: Dict[str, Any], seed: int = 0) -> Dict[str, Any]:
                 arr = rng.uniform(-0.2, 0.2, shape)
             elif kind == "bias":
                 arr = rng.uniform(-0.5, 0.5, shape)
-            elif kind in _BARE:
+            elif _is_bare(kind):
                 arr = rng.uniform(-1.0, 1.0, shape)
             else:
                 raise KeyError(f"unknown variable {col}/{'/'.join(path)}")

@@ -96,7 +96,8 @@ def test_predict_matches_the_jax_graph(v):
     `gs2.cv1`, RFB's undilated 3x3s, ASFF's `conv`, FGFP's biased refines."""
     jm, variables, tm = jax_pair(narrow(TR.lpc_neck_cfg(v)))
     x = np.random.default_rng(8).random((B, S, S, 3), dtype=np.float32)
-    ref = np.asarray(jm.apply(variables, jnp.asarray(x), training=False, predict_only=True)["det"])
+    ref = np.asarray(jax.jit(lambda v, t: jm.apply(v, t, training=False, predict_only=True)["det"])(
+        variables, jnp.asarray(x)))  # jitted: op by op, the JAX graph takes ~20 s more
     xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
     serving = serving_model(tm, torch.device("cpu"), torch.float32)
     with torch.no_grad():

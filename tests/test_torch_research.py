@@ -303,13 +303,40 @@ def test_narrow_graph_shape_tree_matches_jax(m, narrow_cbam_tree):
         assert flat(port[col]) == flat(tree[col]), col
 
 
+# each backbone-family name's YAML args at a 16-channel input (width 1), and its repeats
+BACKBONE_ARGS = {
+    "G_bneck": [16, 16, 3, 1], "SGBlock": [16, 1, 6], "DepthSepConv": [32, 3, 1, True], "CBRM": [16],
+    "Shuffle_Block": [16, 1], "stem": [16], "MBConvBlock": [16, 3, 1, 6, 0.0, True], "Conv_BN_HSwish": [16, 1],
+    "MobileNetV3_InvertedResidual": [16, 32, 3, 1, 1, 1], "mn_conv": [16, 3, 1], "InvertedBottleneck": [16, 3, 32],
+    "MobileNetV3_BLOCK": [16, 3, 32], "PatchEmbed": [32, 4], "PatchMerging": [32], "SwinStage": [16, 2, 2, 7],
+    "VanillaBlock": [32, 3, 2], "ConvNeXt_Stem": [32, 4, 4], "ConvNeXt_Downsample": [32, 2, 2], "ConvNeXt_Block": [16],
+    "StarBlock": [3], "BasicStage": [2], "PatchEmbed_FasterNet": [32, 4, 4], "PatchMerging_FasterNet": [32, 2, 2]}
+
+
 @pytest.mark.parametrize("m", sorted(JR.ALL_RESEARCH - TR.ATTENTION - TR.NECK))
 def test_other_zoo_names_are_refused(m):
-    """The zoo's backbone families are not ported (its neck blocks are: `tests/test_torch_neck.py`): the compiler
-    names the module it refuses."""
-    d = {"nc": 4, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, m, [16]]], "head": [[1, 1, "Detect", ["nc"]]]}
-    with pytest.raises(NotImplementedError, match=m):
-        parse_model(d)
+    """The zoo's other names, its 23 backbone-family modules, were refused until they were ported: each now builds
+    through the port's compiler (`tests/test_torch_backbone.py` holds their forwards), its LayerSpecs JAX
+    `parse_model`'s (ConvNeXt_Block's and StarBlock's two repeats folded into the module) and the layer's flax-shape
+    tree the JAX module's `eval_shape` tree. No research-zoo name is refused; a name no package defines is
+    (`tests/test_torch_train.py::test_entry_points_refuse_what_is_not_ported`)."""
+    assert m in TR.BACKBONE and m in TR.PORTED
+    n = 2 if m in ("ConvNeXt_Block", "StarBlock") else 1
+    d = {"nc": 4, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, n, m, BACKBONE_ARGS[m]]], "head": []}
+    specs, _ = parse_model(dict(d))
+    jspecs, _ = JC.parse_model(dict(d))
+    assert [(s.f, s.n, s.module, s.args, s.c2) for s in specs] == [(s.f, s.n, s.module, s.args, s.c2) for s in jspecs]
+    assert specs[1].n == 1
+    tm = build_model(d, device="meta")
+    assert type(tm.model[1]).__name__ == m
+    jmod = JR.build_research_module(m, jspecs[1].args, jnp.float32, "model_1")
+    sub = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 16)), training=True))
+    flat = lambda t: {jax.tree_util.keystr(p): tuple(getattr(s, "shape", s)) for p, s in  # noqa: E731
+                      jax.tree_util.tree_leaves_with_path(t, is_leaf=lambda q: isinstance(q, tuple))}
+    port = flax_shapes(tm)
+    for col in ("params", "batch_stats"):
+        assert flat(port[col].get("model_1", {})) == flat(dict(sub.get(col, {}))), col
+    assert TR.PORTED == JR.ALL_RESEARCH
 
 
 @pytest.mark.parametrize("m", NAMES)

@@ -79,7 +79,8 @@ and every variant's module in `tests/test_torch_research.py`."""
     d = narrow_cfg(m)
     jm, variables, tm = jax_pair(d)
     x = np.random.default_rng(8).random((B, S, S, 3), dtype=np.float32)
-    ref = np.asarray(jm.apply(variables, jnp.asarray(x), training=False, predict_only=True)["det"])
+    ref = np.asarray(jax.jit(lambda v, t: jm.apply(v, t, training=False, predict_only=True)["det"])(
+        variables, jnp.asarray(x)))  # jitted: op by op, the JAX graph takes ~20 s more
     xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
     serving = serving_model(tm, torch.device("cpu"), torch.float32)
     with torch.no_grad():

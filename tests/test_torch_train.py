@@ -245,13 +245,13 @@ def test_trainer_hands_back_ema_and_bn_stats(world, tmp_path):
 
 
 def test_entry_points_refuse_what_is_not_ported(world):
-    # a research-zoo backbone family (lpc_yolo_tpu/nn/research.py), which no shipped YAML uses, is not ported yet
-    # (the attention modules and neck blocks are: tests/test_torch_research.py, tests/test_torch_neck.py); RT-DETR
-    # builds, serves and trains, and its DETR loss trains no other head
+    # a module that no package defines is refused by name (every research-zoo module is ported:
+    # tests/test_torch_research.py, tests/test_torch_neck.py, tests/test_torch_backbone.py); RT-DETR builds, serves
+    # and trains, and its DETR loss trains no other head
     models = Path(__file__).resolve().parents[1] / "lpc_yolo_tpu" / "cfg" / "models"
-    zoo = {"nc": 4, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "SwinStage", [16]]],
+    zoo = {"nc": 4, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "HypotheticalBlock", [16]]],
            "head": [[1, 1, "Detect", ["nc"]]]}
-    with pytest.raises(NotImplementedError, match="SwinStage"):
+    with pytest.raises(NotImplementedError, match="HypotheticalBlock"):
         build_model(zoo, device="cpu")
     detr = YOLO(models / "rt-detr/rtdetr-l.yaml", device="meta", seed=None)
     assert detr.task == "rtdetr"
