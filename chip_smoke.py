@@ -19,11 +19,12 @@
     python3 chip_smoke.py --attn       # device, build, then phase 23 (LPC-YOLO with each of 21 attention modules) only
     python3 chip_smoke.py --neck       # device, build, then phase 24 (LPC-YOLO with the zoo's neck blocks) only
     python3 chip_smoke.py --backbone   # device, build, then phase 25 (LPC-YOLO on the zoo's backbone families) only
+    python3 chip_smoke.py --int8       # device, build, then phase 26 (int8 PTQ: LPC-YOLO, v10 n-x, v8 n-x) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   the card's name and power limit; TF32 off for the parity phases.
-2. build    the four hand-written kernels (csrc/*.cu) with nvcc, in parallel.
+2. build    the six hand-written kernels (csrc/*.cu) with nvcc, in parallel.
 3. parity   each kernel against its plain PyTorch version on the card at the
             main path's shapes: letterbox (720x1280, 1080x810 -> 640, batch 4,
             u8/f32/bf16), conv3x3 (every distinct LPC-YOLO 3x3 s1 conv site at
@@ -367,6 +368,22 @@ Phases, in order; any failure raises and the script exits non-zero:
             held, and its .pt through YOLO(x.pt) on the card. The whole run
             serves swin, fasternet and mobilenetv3 (WHOLE_RUN_BACKBONE);
             --backbone all 12. Numbers under "backbone".
+26. int8    post-training int8 quantization (`YOLO.quantize_int8`): LPC-YOLO
+            at 640 and its s width, seed 0, calibrated on two b32 batches of
+            720p frames; its sites counted on the CPU (45: 26 1x1, 18 3x3 s1,
+            one 3x3 s2; 56 quantize launches); YOLO.predict b32 bf16 with the
+            counters reset just before and read just after (a conv_s8 a site,
+            a quantize_s8 a part, conv3x3 28 -> 10); each distinct site shape
+            on its own inputs against the plain versions (quantize_s8 bit for
+            bit, conv_s8 within one bf16 ulp of the exact plain version); the
+            int8 head maps within INT8_MAP_TOL of the bf16 serving copy's by
+            the centred error and the pre-selection top-300 scores within
+            INT8_SCORE_TOL; the serving step int8 beside bf16 (ms, busy, idle
+            share, launches); both kernels at every site beside their bounds,
+            plain versions, torch._int_mm (the 1x1 sites) and copy_; YOLO.val
+            of phase 7's 64 frames int8 beside bf16, counters held. --int8
+            also serves the v10 scales n to x and the v8 detect scales n to x
+            (numbers under "int8").
 
 In the whole run phases 10, 11, 13 and 14 run their n and x scales
 (WHOLE_RUN_SCALES), phase 15 its n scale (WHOLE_RUN_OBB), phase 16 yolov8n-cls,
@@ -379,8 +396,9 @@ variants (WHOLE_RUN_NECK) and phase 25 three backbone variants
 --v10, --v8, --seg, --pose, --obb, --cls, --zoo, --rtdetr, --world, --attn,
 --neck and --backbone run every model of their family.
 
-The line before last is a JSON object with one entry per kernel (four; the
-launches of letterbox, conv3x3 and repack from phase 9, of nms from phase 11's
+The line before last is a JSON object with one entry per kernel (six; the
+launches of letterbox, conv3x3 and repack from phase 9, of conv_s8 and
+quantize_s8 from phase 26's int8 predict, with their times at its sites, of nms from phase 11's
 yolov8n train(data=...), and beside them, as "launches_seg", "launches_pose"
 and "launches_obb", each kernel's launches in phase 13's yolov8n-seg, phase
 14's yolov8n-pose and phase 15's yolov8n-obb train(data=...); nms's times from
@@ -397,7 +415,8 @@ number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "v10", phase 11's under "v8", phase 13's under "seg", phase 14's under
 "pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo",
 phase 18's under "v9", phase 19's under "rtdetr", phase 20's under "world", phase 21's under "track", phase 22's
-under "cli", phase 23's under "attn", phase 24's under "neck", phase 25's under "backbone").
+under "cli", phase 23's under "attn", phase 24's under "neck", phase 25's under "backbone", phase 26's under
+"int8").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -409,9 +428,11 @@ DOTA quad labels and whose mAPs match by rotated probIoU, or yolov8n-rtdetr.yaml
 loss) with nc=3 on the synthetic set of 256 + 32
 frames at 160, 120 epochs of b16 (close_mosaic 40, max_gt 8, cache="ram",
 val=False, save=True), then `val` at f32 and at bf16 on the trained weights
-reloaded through YOLO.save -> YOLO(path); it prints mAP50, mAP50-95, the
-bf16 - f32 gap and the seconds, writes chiprun_out/chip_smoke_converge.json
-and exits non-zero when mAP50 <= 0.5 (the JAX slow test's bar).
+reloaded through YOLO.save -> YOLO(path), and (but for RT-DETR and World) of
+the int8 copy `quantize_int8` calibrates on the training frames; it prints
+mAP50, mAP50-95, the bf16 - f32 gap, int8's mAP50 and the seconds, writes
+chiprun_out/chip_smoke_converge.json and exits non-zero when the f32 or the
+int8 mAP50 <= 0.5 (the JAX slow test's bar).
 `--converge yolov8n-cls.yaml` is the classify learning proof instead: nc=4
 on a colour-folder set of 64 train and 16 val frames a class (375x500,
 256x256, 500x375), 10 epochs of b16 at 224; it exits non-zero unless the
@@ -1300,11 +1321,14 @@ def val_launches_expected(frames, batch: int, sites: int = CONV_SITES_PER_FORWAR
 def counted():
     """The kernels' wrappers, each with its launch counter, by kernel name."""
     from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3
+    from lpc_yolo_tpu_torch.ops.conv_s8 import conv_s8
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox
     from lpc_yolo_tpu_torch.ops.nms import nms_greedy
+    from lpc_yolo_tpu_torch.ops.quantize_s8 import quantize_s8
     from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel
 
-    return {"letterbox": letterbox, "conv3x3": conv3x3, "repack": repack_width_kernel, "nms": nms_greedy}
+    return {"letterbox": letterbox, "conv3x3": conv3x3, "repack": repack_width_kernel, "nms": nms_greedy,
+            "conv_s8": conv_s8, "quantize_s8": quantize_s8}
 
 
 def zero_launches() -> None:
@@ -1313,9 +1337,10 @@ def zero_launches() -> None:
 
 
 def launches_now(*names):
-    """The launch counters of the named kernels (all four if none is named)."""
+    """The launch counters of the named kernels (the four of the bf16 paths if none is named; the int8 kernels
+    by name)."""
     fns = counted()
-    return {n: fns[n].launches for n in names or fns}
+    return {n: fns[n].launches for n in names or ("letterbox", "conv3x3", "repack", "nms")}
 
 
 def phase_parity_letterbox_val():
@@ -4488,13 +4513,19 @@ def converge_only(model: str = YAML) -> int:
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             res[name] = trained.val(data=data, imgsz=S, batch=16, dtype=dt, cache_images="ram")
             log("converge", f"val {name}: {res[name]}")
+        if trained.task not in ("rtdetr", "world"):  # int8 calibrated on the training frames, then served in val
+            train_frames = [np.load(f) for f in sorted((Path(data).parent / "images" / "train").glob("*.npy"))]
+            trained.quantize_int8(train_frames, imgsz=S, batch=16)
+            res["int8"] = trained.val(data=data, imgsz=S, batch=16, cache_images="ram")
+            log("converge", f"val int8 ({len(trained.model.int8_scales)} sites calibrated on {len(train_frames)} "
+                            f"training frames): {res['int8']}")
         wall = time.perf_counter() - t_start
     m50, m5095 = res["f32"]["metrics/mAP50(B)"], res["f32"]["metrics/mAP50-95(B)"]
     keys = [k for k in res["f32"] if k.startswith(("metrics/mAP50(", "metrics/mAP50-95("))]  # (B); (M) or (P)
     gap = {k: res["bf16"][k] - res["f32"][k] for k in keys}
     out = {"model": model, "mAP50": m50, "mAP50_95": m5095, "bf16_minus_f32": gap, "epochs": CONV_EPOCHS, "steps": len(tr.history),
            "skipped": n_skipped, "optimizer": tr.cfg.optimizer, "train_s": train_s, "wall_s": wall,
-           "img_s": 256 * CONV_EPOCHS / train_s, "f32": res["f32"], "bf16": res["bf16"],
+           "img_s": 256 * CONV_EPOCHS / train_s, "f32": res["f32"], "bf16": res["bf16"], "int8": res.get("int8"),
            "ckpt_bytes": tr.ckpt_seconds[-1]["bytes"], "epochs_rows": tr.epoch_history}
     REPORT["converge"] = out
     dest = ROOT / "chiprun_out"
@@ -4503,8 +4534,11 @@ def converge_only(model: str = YAML) -> int:
     log("converge", f"{model}: " + ", ".join(f"{k[8:]} {res['f32'][k]:.4f}" for k in keys) + " (f32); bf16 - f32: "
                     + ", ".join(f"{k[8:]} {v:+.4f}" for k, v in gap.items()) + f"; {len(tr.history)} steps "
                     f"({n_skipped} skipped, {tr.cfg.optimizer}) in {train_s:.1f} s, {wall:.1f} s in all")
-    if not m50 > CONV_MAP50_BAR:
-        log("converge", f"FAILED: mAP50 {m50:.4f} <= {CONV_MAP50_BAR}")
+    m50_int8 = res["int8"]["metrics/mAP50(B)"] if "int8" in res else None
+    if m50_int8 is not None:
+        log("converge", f"int8 mAP50 {m50_int8:.4f} beside f32 {m50:.4f} (gate {CONV_MAP50_BAR} on both)")
+    if not m50 > CONV_MAP50_BAR or m50_int8 is not None and not m50_int8 > CONV_MAP50_BAR:
+        log("converge", f"FAILED: mAP50 f32 {m50:.4f}, int8 {m50_int8} <= {CONV_MAP50_BAR}")
         return 1
     return 0
 
@@ -4954,6 +4988,328 @@ def backbone_only() -> None:
     log("done", "phase 25 passed; numbers in chiprun_out/chip_smoke_backbone.json")
 
 
+INT8_OPS_PER_MS = 1979e12 / 1e3  # dense int8 tensor-core peak
+INT8_CENSUS = {YAML: {"1x1": 26, "3x3s1": 18, "3x3s2": 1, "quantize": 56}}  # LPC-YOLO's sites, counted on the CPU
+# ||int8 - bf16|| / ||bf16 - its spatial mean|| per head map (BF16_MAP_TOL's measure): twice BF16_MAP_TOL, since a
+# per-tensor int8 step is 1/127 of a site's calibrated range against bf16's 2^-8 of each value, and the error grows
+# with the sites a path crosses (0.204 on v10n to 0.272 on v10m in the first card run; the kernels 0 ulp off plain)
+INT8_MAP_TOL = 0.5
+INT8_SCORE_TOL = 0.05  # the top 300 pre-selection scores, sorted, int8 vs bf16 (tests/test_quant.py's sorted-score tol)
+INT8_MODELS = [YAML] + [f"yolov10{s}.yaml" for s in "nsmblx"] + [f"yolov8{s}.yaml" for s in "nsmlx"]  # --int8
+
+
+def int8_census(yolo):
+    """The int8 sites of the model's int8 serving copy, counted on a CPU copy: their (k, stride) census and the
+    quantize launches a forward makes (a part each)."""
+    from lpc_yolo_tpu_torch.engine.predictor import serving_model
+    from lpc_yolo_tpu_torch.nn.fuse import int8_sites
+
+    sites = int8_sites(serving_model(yolo.model, torch.device("cpu"), torch.float32))
+    kinds = [(s.module.conv.kernel_size[0], s.module.conv.stride[0]) for s in sites]
+    return {"1x1": sum(k == 1 for k, _ in kinds), "3x3s1": kinds.count((3, 1)), "3x3s2": kinds.count((3, 2)),
+            "sites": len(sites), "quantize": sum(s.parts for s in sites)}
+
+
+def captured_int8_calls(pred, host):
+    """Every int8 site call of one serving forward of `host`: (its Q8Conv, its input parts (NCHW), act)."""
+    from lpc_yolo_tpu_torch.nn import quant
+
+    calls, run = [], quant.Q8Conv.run
+
+    def spy(site, parts, act):
+        calls.append((site, [p.clone() for p in parts], act))
+        return run(site, parts, act)
+
+    quant.Q8Conv.run = spy
+    try:
+        with torch.inference_mode():
+            pred.infer(host)
+    finally:
+        quant.Q8Conv.run = run
+    return calls
+
+
+def s8_buffer(parts, inv: float, plain: bool = False):
+    """The s8 NHWC buffer a site's parts quantize into, through the kernel (or its plain version)."""
+    from lpc_yolo_tpu_torch.ops.quantize_s8 import quantize_s8, quantize_s8_plain
+
+    B, _, H, W = parts[0].shape
+    x8 = torch.empty((B, H, W, sum(p.shape[1] for p in parts)), dtype=torch.int8, device=parts[0].device)
+    off = 0
+    for p in parts:
+        (quantize_s8_plain if plain else quantize_s8)(p.permute(0, 2, 3, 1), inv, out=x8[..., off:off + p.shape[1]])
+        off += p.shape[1]
+    return x8
+
+
+def int8_kernel_parity(calls, n: int = 2):
+    """Each distinct int8 site shape on its own inputs (the first n frames): quantize_s8 bit for bit against its
+    plain version, conv_s8 against its plain version (exact s32 sums, the same f32 epilogue) in bf16 within one
+    ulp of the plain f32 result rounded to bf16. Returns (max ulps, max abs error, shapes checked)."""
+    from lpc_yolo_tpu_torch.ops.conv_s8 import conv_s8, conv_s8_plain
+
+    seen, ulps, err = set(), 0.0, 0.0
+    for site, parts, act in calls:
+        key = (tuple(tuple(p.shape[1:]) for p in parts), tuple(site.w8.shape), site.stride, act)
+        if key in seen:
+            continue
+        seen.add(key)
+        parts = [p[:n] for p in parts]
+        x8 = s8_buffer(parts, site.inv)
+        assert torch.equal(x8, s8_buffer(parts, site.inv, plain=True)), f"quantize_s8 off its plain version at {key}"
+        got = conv_s8(x8, site.w8, site.sw, site.sx, site.b, act, site.stride, torch.bfloat16).float()
+        ref = conv_s8_plain(x8, site.w8, site.sw, site.sx, site.b, act, site.stride, torch.float32).bfloat16().float()
+        ulp = ((got - ref).abs() / (ref.abs() * 2 ** -7).clamp(min=1e-30)).max().item()
+        assert ulp <= 1.0, f"conv_s8 off its plain version by {ulp} bf16 ulps at {key}"
+        ulps, err = max(ulps, ulp), max(err, (got - ref).abs().max().item())
+    return ulps, err, len(seen)
+
+
+def time_int8_kernels(calls):
+    """conv_s8 at each site of one b32 forward and quantize_s8 at each part (device times from CUDA graphs),
+    beside their bounds (conv: int8 operations or bytes; quantize: bytes), their plain versions and the library
+    calls: torch._int_mm over a 1x1 site's GEMM (s32 out, no epilogue), `copy_` of a part into its s8 slice
+    (a cast, the same bytes). Distinct shapes are timed once and counted as often as the forward runs them."""
+    from lpc_yolo_tpu_torch.ops.conv_s8 import conv_s8, conv_s8_plain
+    from lpc_yolo_tpu_torch.ops.quantize_s8 import quantize_s8, quantize_s8_plain
+
+    conv = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "ms_1x1": 0.0,
+            "library_ms_1x1": 0.0}
+    quant = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    shapes, done = [], {}
+    for site, parts, act in calls:
+        key = (tuple(tuple(p.shape) for p in parts), tuple(site.w8.shape), site.stride, act)
+        if key not in done:
+            x8 = s8_buffer(parts, site.inv)
+            Co, k, _, C = site.w8.shape
+            B, H, W = x8.shape[:3]
+            Ho, Wo = (H + 2 * (k // 2) - k) // site.stride + 1, (W + 2 * (k // 2) - k) // site.stride + 1
+            r = {"B": B, "H": H, "W": W, "C": C, "Co": Co, "k": k, "stride": site.stride, "parts": len(parts),
+                 "ms": graph_ms(lambda: conv_s8(x8, site.w8, site.sw, site.sx, site.b, act, site.stride)),
+                 "plain_ms": cuda_ms(lambda: conv_s8_plain(x8, site.w8, site.sw, site.sx, site.b, act, site.stride,
+                                                           torch.bfloat16), iters=2, warmup=1, repeats=1)}
+            nbytes = x8.numel() + site.w8.numel() + B * Ho * Wo * Co * 2 + Co * 8
+            ops = 2 * B * Ho * Wo * k * k * C * Co
+            r["bound_ms"], r["bound_by"] = bound(nbytes, ops, INT8_OPS_PER_MS)
+            r["bytes_ms"], r["ops_ms"] = nbytes / HBM_BYTES_PER_MS, ops / INT8_OPS_PER_MS
+            r["library_ms"] = None
+            if k == 1 and site.stride == 1:  # the yardstick only: a refused shape leaves it unmeasured
+                a, w = x8.reshape(-1, C), site.w8.reshape(Co, C).t()
+                try:
+                    r["library_ms"] = graph_ms(lambda: torch._int_mm(a, w))
+                except RuntimeError as e:
+                    log("int8", f"torch._int_mm refused {tuple(a.shape)} x {tuple(w.shape)}: {str(e)[:120]}")
+            r["tops"] = ops / r["ms"] / 1e9
+            q = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+            off = 0
+            for p in parts:
+                src, dst = p.permute(0, 2, 3, 1), x8[..., off:off + p.shape[1]]
+                off += p.shape[1]
+                q["ms"] += graph_ms(lambda: quantize_s8(src, site.inv, out=dst))
+                q["plain_ms"] += cuda_ms(lambda: quantize_s8_plain(src, site.inv, out=dst), iters=5, repeats=1)
+                q["library_ms"] += graph_ms(lambda: dst.copy_(src))
+                q["bound_ms"] += src.numel() * (src.element_size() + 1) / HBM_BYTES_PER_MS
+            r["quantize"] = q
+            done[key] = r
+            r["per_forward"] = 0
+            shapes.append(r)
+            del x8
+        r = done[key]
+        r["per_forward"] += 1
+        for f in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+            conv[f] += r[f]
+        if r["k"] == 1 and r["library_ms"] is not None:
+            conv["ms_1x1"] += r["ms"]
+            conv["library_ms_1x1"] += r["library_ms"]
+        for f in quant:
+            quant[f] += r["quantize"][f]
+    conv["bound_by"] = "bytes" if conv["bytes_ms"] >= conv["ops_ms"] else "operations"
+    return conv, quant, shapes
+
+
+def head_maps(model, x):
+    """The serving head's per-level (box, cls) maps of a batch, and the top 300 anchors' best class scores before
+    the selection, sorted."""
+    from lpc_yolo_tpu_torch.nn.heads import decode_feats
+
+    out = model(x, branches="one2one")["one2one"] if model.task == "v10" else model(x)
+    pairs = [tuple(p) for p in out]
+    best = decode_feats([torch.cat(p, 1) for p in pairs], model.strides, model.nc, model.reg_max)[..., 4:].amax(-1)
+    return pairs, best.topk(300).values
+
+
+def int8_model(name: str, val_data: Path = None, kernel_times: bool = False):
+    """One graph served int8 (LPC-YOLO at its published width, or a v10 / v8 scale), seed 0, b32 bf16 from 720p
+    frames: calibrated on two b32 batches; the census counted on the CPU; YOLO.predict with the counters reset
+    just before and read just after (a conv_s8 a site, a quantize_s8 a part, the conv3x3 sites int8 left); every
+    distinct site shape against the plain versions; the int8 head maps and pre-selection scores against the bf16
+    serving copy's; the serving step int8 beside bf16 (CUDA events; profiler busy, idle share, launches); with
+    `val_data` YOLO.val of its 64 frames int8 beside bf16, counters held; with `kernel_times` each kernel at
+    every site."""
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+
+    B, S = 32, 640
+    t_model = time.perf_counter()
+    yolo = YOLO(name, device="cuda", seed=0)
+    calib = frames_720p(2 * B, seed=11)
+    t0 = time.perf_counter()
+    yolo.quantize_int8(calib, imgsz=S, batch=B)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    census = int8_census(yolo)
+    if name in INT8_CENSUS:
+        assert {k: census[k] for k in INT8_CENSUS[name]} == INT8_CENSUS[name], census
+    assert len(yolo.model.int8_scales) == census["sites"]
+    scales = yolo.model.int8_scales
+    del yolo.model.int8_scales
+    pred16 = Predictor(yolo.model, imgsz=S, batch=B, device="cuda", dtype=torch.bfloat16)
+    yolo.model.int8_scales = scales
+    pred8 = Predictor(yolo.model, imgsz=S, batch=B, device="cuda", dtype=torch.bfloat16)
+    host = frames_720p(B, seed=5)
+    nms = int(yolo.task == "v8")
+
+    zero_launches()
+    with torch.inference_mode():
+        pred16.infer(host)
+    torch.cuda.synchronize()
+    bf16_conv3x3 = launches_now("conv3x3")["conv3x3"]
+    zero_launches()
+    results = yolo.predict(host, imgsz=S, batch=B, conf=0.25)
+    torch.cuda.synchronize()
+    launches = launches_now("letterbox", "conv3x3", "nms", "conv_s8", "quantize_s8")
+    expect = {"letterbox": 1, "conv3x3": bf16_conv3x3 - census["3x3s1"], "nms": nms, "conv_s8": census["sites"],
+              "quantize_s8": census["quantize"]}
+    assert launches == expect, f"{name} int8 predict: launches {launches}, expected {expect}"
+    assert len(results) == B and all(np.isfinite(r.boxes.data).all() for r in results)
+
+    calls = captured_int8_calls(pred8, host)
+    assert len(calls) == census["sites"], (len(calls), census)
+    ulps, abs_err, n_shapes = int8_kernel_parity(calls)
+
+    x = pred8.preprocess(host)
+    with torch.inference_mode():
+        maps8, top8 = head_maps(pred8.model, x)
+        maps16, top16 = head_maps(pred16.model, x)
+    map_err = max(((a.float() - b.float()).norm() / (b.float() - b.float().mean((2, 3), keepdim=True)).norm()).item()
+                  for pa, pb in zip(maps8, maps16) for a, b in zip(pa, pb))
+    score_gap = (top8.sort(-1).values - top16.sort(-1).values).abs().max().item()
+    assert map_err <= INT8_MAP_TOL, f"{name}: int8 head maps off the bf16 serving copy's by {map_err}"
+    assert score_gap <= INT8_SCORE_TOL, f"{name}: int8 pre-selection scores off bf16's by {score_gap}"
+
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    xb = torch.empty(B, S, S, 3, dtype=torch.bfloat16, device="cuda")
+    steps = {}
+    for tag, pred in (("int8", pred8), ("bf16", pred16)):
+        def step(pred=pred):
+            letterbox(dev, S, out=xb)
+            return pred.model.predict(xb.permute(0, 3, 1, 2), pred.max_det, pred.conf, pred.iou)
+
+        with torch.inference_mode():
+            ms = cuda_ms(step, iters=5, warmup=2)
+            prof = profile_step(step, iters=2)
+        steps[tag] = {"step_ms": ms, "img_s": B / ms * 1e3, "busy_ms": prof["device_busy_ms"],
+                      "idle_share": prof["idle_share"], "device_launches": prof["device_launches"],
+                      "profile_top": prof["top"][:10]}
+    out = {"census": census, "calibrate_s": calib_s, "launches": launches, "parity_max_ulp": ulps,
+           "parity_max_abs": abs_err, "parity_shapes": n_shapes, "map_err": map_err, "score_gap": score_gap,
+           "steps": steps}
+    s8, s16 = steps["int8"], steps["bf16"]
+    log("int8", f"{Path(name).stem}: {census['sites']} sites ({census['1x1']} 1x1, {census['3x3s1']} 3x3 s1, "
+                f"{census['3x3s2']} 3x3 s2), {census['quantize']} quantize launches a forward, calibrated on "
+                f"{len(calib)} frames in {calib_s:.2f} s; predict launches {launches}; {n_shapes} site shapes vs plain: "
+                f"quantize bit-exact, conv_s8 bf16 max {ulps:.3g} ulp ({abs_err:.3g} abs); int8 vs bf16 head maps "
+                f"{map_err:.3g} (tol {INT8_MAP_TOL}), top-300 scores {score_gap:.3g} (tol {INT8_SCORE_TOL}); step b{B} "
+                f"int8 {s8['step_ms']:.3f} ms (busy {s8['busy_ms']:.3f}, idle {s8['idle_share']:.3f}, "
+                f"{s8['device_launches']:.0f} launches) vs bf16 {s16['step_ms']:.3f} ms (busy {s16['busy_ms']:.3f}, "
+                f"idle {s16['idle_share']:.3f}, {s16['device_launches']:.0f} launches)")
+    for r in s8["profile_top"][:6]:
+        log("int8", f"    int8 step {r['ms_per_step']:8.4f} ms x{r['calls_per_step']:g}  {r['kernel']}")
+    if kernel_times:
+        conv, quant, shapes = time_int8_kernels(calls)
+        out.update(conv_s8_times=conv, quantize_s8_times=quant, kernel_shapes=shapes)
+        log("int8", f"conv_s8, all {census['sites']} sites of one b{B} forward: {conv['ms']:.3f} ms, bound "
+                    f"{conv['bound_ms']:.3f} ms ({conv['bound_by']}), plain {conv['plain_ms']:.3f}; its 1x1 sites "
+                    f"{conv['ms_1x1']:.3f} ms vs torch._int_mm {conv['library_ms_1x1']:.3f}; quantize_s8, all "
+                    f"{census['quantize']} parts: {quant['ms']:.3f} ms, bound {quant['bound_ms']:.3f}, plain "
+                    f"{quant['plain_ms']:.3f}, copy_ {quant['library_ms']:.3f} (device times, CUDA graphs)")
+        for r in sorted(shapes, key=lambda r: -r["ms"] * r["per_forward"])[:8]:
+            log("int8", f"    {r['C']}->{r['Co']} k{r['k']} s{r['stride']} @{r['H']}x{r['W']} x{r['per_forward']}: "
+                        f"{r['ms']:.4f} ms ({r['tops']:.1f} TOP/s, {r['bound_ms'] / r['ms']:.3f} of bound), "
+                        f"_int_mm {r['library_ms']}")
+    if val_data is not None:
+        vals = {}
+        for tag in ("int8", "bf16"):
+            if tag == "bf16":
+                del yolo.model.int8_scales
+            zero_launches()
+            t0 = time.perf_counter()
+            res = yolo.val(data=str(val_data), imgsz=S, batch=B, cache_images="disk")
+            torch.cuda.synchronize()
+            vals[tag] = {"results": res, "wall_s": time.perf_counter() - t0,
+                         "launches": launches_now("letterbox", "conv3x3", "conv_s8", "quantize_s8")}
+        yolo.model.int8_scales = scales
+        n_frames, n_batches = VAL_FRAMES, -(-VAL_FRAMES // VAL_BATCH)
+        got = vals["int8"]["launches"]
+        assert got["conv_s8"] == n_batches * census["sites"] and got["quantize_s8"] == n_batches * census["quantize"] \
+            and got["conv3x3"] == n_batches * (bf16_conv3x3 - census["3x3s1"]), got
+        assert all(np.isfinite(v) for v in vals["int8"]["results"].values()), vals["int8"]
+        out["val"] = vals
+        log("int8", f"YOLO.val int8, {n_frames} frames b{VAL_BATCH}: mAP50 {vals['int8']['results']['metrics/mAP50(B)']:.4f} "
+                    f"vs bf16 {vals['bf16']['results']['metrics/mAP50(B)']:.4f}, {vals['int8']['wall_s']:.2f} s vs "
+                    f"{vals['bf16']['wall_s']:.2f} s; int8 launches {got}")
+    out["seconds"] = time.perf_counter() - t_model
+    return out
+
+
+def phase_int8(val_data: Path, models=(YAML,)):
+    """Phase 26: int8 post-training quantization served on the card (`int8_model`); LPC-YOLO with its val and
+    the kernels' times, then each of `models` past it. Returns LPC-YOLO's int8 predict launches."""
+    from lpc_yolo_tpu_torch.ops.conv_s8 import conv_s8
+
+    REPORT["int8"] = {}
+    for name in models:
+        REPORT["int8"][name] = int8_model(name, val_data if name == YAML else None, kernel_times=name == YAML)
+        torch.cuda.empty_cache()
+    lpc = REPORT["int8"][YAML]
+    return lpc["launches"], lpc
+
+
+def int8_kernel_rows(lpc):
+    """The two int8 kernels' entries of the kernels line, from phase 26's LPC-YOLO run."""
+    conv, quant = lpc["conv_s8_times"], lpc["quantize_s8_times"]
+    return [
+        {"name": "conv_s8", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/conv_s8.cu",
+         "replaces": "lpc_yolo_tpu/nn/quant.py:135", "replaces_what": "no TPU kernel: XLA's int8 conv",
+         "launches": lpc["launches"]["conv_s8"], "max_abs_err": lpc["parity_max_abs"], "ms": conv["ms"],
+         "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
+         "library_ms": conv["library_ms_1x1"], "library_ms_is": "torch._int_mm over the 1x1 sites only",
+         "ms_1x1": conv["ms_1x1"]},
+        {"name": "quantize_s8", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/quantize_s8.cu",
+         "replaces": "lpc_yolo_tpu/nn/quant.py:131", "replaces_what": "no TPU kernel: XLA's quantize pass",
+         "launches": lpc["launches"]["quantize_s8"], "max_abs_err": 0.0, "ms": quant["ms"],
+         "plain_ms": quant["plain_ms"], "bound_ms": quant["bound_ms"], "bound_by": "bytes",
+         "library_ms": quant["library_ms"]},
+    ]
+
+
+def int8_only() -> None:
+    """`--int8`: phase 26 on LPC-YOLO (with its val on phase 7's set), then the v10 scales n to x and the v8
+    detect scales n to x."""
+    import tempfile
+
+    from lpc_yolo_tpu_torch import YOLO
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as tmp:
+        val_data = labelled_val_set(Path(tmp) / "val", YOLO(YAML, device="cuda", seed=0))[0]
+        phase_int8(val_data, INT8_MODELS)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_int8.json").write_text(json.dumps(REPORT, indent=1, default=str))
+    log("done", "phase 26 passed; numbers in chiprun_out/chip_smoke_int8.json")
+
+
 def conv3x3_only() -> None:
     """`--conv3x3`: the conv3x3 kernel alone: its sites from one bf16 frame, its parity phase
     and its per-shape times at b32 with every instantiation swept; no other kernel, no serving
@@ -4977,10 +5333,10 @@ def main(argv) -> int:
     only = {"--v10": lambda: scales_only("v10"), "--v8": lambda: scales_only("v8"), "--seg": seg_only,
             "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only, "--v9": v9_only,
             "--rtdetr": rtdetr_only, "--world": world_only, "--track": track_only, "--cli": cli_only,
-            "--attn": attn_only, "--neck": neck_only, "--backbone": backbone_only}
+            "--attn": attn_only, "--neck": neck_only, "--backbone": backbone_only, "--int8": int8_only}
     if argv not in ([], ["--conv3x3"], *([k] for k in only)) and not converge:
         print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --v10, --v8, --seg, --pose, --obb, "
-              f"--cls, --zoo, --v9, --rtdetr, --world, --track, --cli, --attn, --neck, --backbone and --converge "
+              f"--cls, --zoo, --v9, --rtdetr, --world, --track, --cli, --attn, --neck, --backbone, --int8 and --converge "
               f"[model yaml]",
               file=sys.stderr)
         return 2
@@ -5097,6 +5453,9 @@ def main(argv) -> int:
         backbone_launches = phase_backbone(Path(tmp) / "val" / "data.yaml", data, WHOLE_RUN_BACKBONE)
         torch.cuda.empty_cache()
         stamp("backbone (25)")
+        _, int8_lpc = phase_int8(Path(tmp) / "val" / "data.yaml")  # the int8 path: LPC-YOLO's predict, counters held
+        torch.cuda.empty_cache()
+        stamp("int8 (26)")
     nms = time_nms()["val"]
     stamp("nms (12)")
     kernels = [
@@ -5132,6 +5491,7 @@ def main(argv) -> int:
         k["launches_neck"] = neck_launches[k["name"]]  # the slimneck variant's train(data=..., save=True), phase 24
         k["launches_backbone"] = backbone_launches[k["name"]]  # the swin variant's train(data=..., save=True), phase 25
     kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
+    kernels += int8_kernel_rows(int8_lpc)  # phase 26: launches of LPC-YOLO's int8 predict, times at its sites
     REPORT["kernels"] = kernels
     REPORT["total_s"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"

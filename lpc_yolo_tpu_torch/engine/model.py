@@ -35,7 +35,9 @@ Queue 3); `train(data=...)` sets the names and the table to the dataset's.
 `embed(source)` gives one L2-normalised feature vector an image (the graph up
 to the layer before the head, global-average-pooled); `fuse()` folds every
 conv's BatchNorm into its weights, as the JAX `fuse_conv_bn` does;
-`reset_weights()` draws the weights again from the facade's seed; `n_params`,
+`reset_weights()` draws the weights again from the facade's seed; `quantize_int8(calib)` calibrates int8
+post-training quantization on the frames of `calib`, after which `predict`, `val` and `track` serve the
+eligible convs through the s8 kernels (`nn/quant.py`; RT-DETR, World and classify graphs are refused); `n_params`,
 `device` ("cuda:0" or "cpu") and `task_map` are the JAX facade's;
 `add_callback`, `clear_callback` and `reset_callbacks` register hooks that the
 trainer runs (`utils/callbacks.py`).
@@ -291,6 +293,33 @@ class YOLO:
             bn.running_var.fill_(1.0 - bn.eps)
         return self
 
+    def quantize_int8(self, calib, imgsz: int = 640, batch: int = 8) -> "YOLO":
+        """Post-training int8 quantization of the serving copy (JAX `engine/model.py:278-315`).
+
+        Letterboxes the frames of `calib` (any `predict` source) into batches of `batch`, pads the unused
+        slots with 114, and records the absmax of every int8 site's input over them on an unquantized bf16
+        serving copy on the facade's device (f32 on the CPU). The scales stay on the model
+        (`model.int8_scales`, by site name), so every later `predict`, `val` and `track` serves the eligible
+        convs through the s8 kernels (`nn/quant.py`). Training ignores them; they stay on the model after
+        `train()`, as the JAX facade keeps its quant fields. Returns self.
+        """
+        from ..nn.quant import calibrate
+
+        frames = [im for _, im in load_source(calib)]
+        if not frames:
+            raise ValueError("int8 calibration needs at least one image")
+        dev = resolve_device(self._device)
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+        serving = serving_model(self.model, dev, dtype, int8=False)
+        batches = []
+        for i in range(0, len(frames), batch):
+            chunk = frames[i:i + batch]
+            x = torch.full((batch, imgsz, imgsz, 3), 114, dtype=torch.uint8, device=dev)
+            x[:len(chunk)] = letterbox_batch(chunk, imgsz, dev, torch.uint8)
+            batches.append(x.permute(0, 3, 1, 2).to(dtype))
+        self.model.int8_scales = calibrate(serving, batches)
+        return self
+
     def reset_weights(self) -> "YOLO":
         """Draw the weights again (JAX :353): from the facade's seed through the bridge, or with `seed=None`
         PyTorch's default init of every module."""
@@ -330,7 +359,7 @@ class YOLO:
         letterbox kernel (scaleup, as the JAX host letterbox) and the trunk runs f32 on the BN-folded serving
         copy, its 3x3 s1 convs through the conv3x3 kernel on the card."""
         dev = resolve_device(device or self._device)
-        serving = serving_model(self.model, dev, torch.float32)
+        serving = serving_model(self.model, dev, torch.float32, int8=False)  # the JAX trunk runs unquantized
         with torch.device("meta"):
             trunk = DetectionModel(self.model.specs[:-1], self.model.save, self.model.nc, self.model.strides,
                                    self.model.reg_max, self.model.default_act)

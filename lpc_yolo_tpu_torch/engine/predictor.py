@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from ..nn.fuse import fold_preprocess, fuse_conv_bn
+from ..nn.quant import quantize_serving
 from ..ops.boxes import rbox_hull, scale_boxes
 from ..ops.letterbox import letterbox
 from ..ops.masks import process_kept_rows, unletterbox_masks
@@ -116,12 +117,14 @@ def load_source(source) -> List[Tuple[str, np.ndarray]]:
     return out
 
 
-def serving_model(model, device: torch.device, dtype: torch.dtype):
+def serving_model(model, device: torch.device, dtype: torch.dtype, int8: bool = True):
     """The serving copy of `model`: BN folded once in f32, then every tensor in `dtype`,
     so its 3x3 s1 convs take the conv3x3 kernel; it takes the raw 0..255 frame (/255
     folded into the stem, as the JAX predictor and validator fold it). A module that sets
     `keeps_f32` (a World model's contrastive heads, which compute in f32, their BatchNorm
-    unfolded) keeps f32 parameters. The caller's model is left as it was."""
+    unfolded) keeps f32 parameters. Where the model carries calibrated `int8_scales`
+    (`YOLO.quantize_int8`) and `int8` is set, its int8 sites serve through the s8 kernels
+    (`nn/quant.py::quantize_serving`). The caller's model is left as it was."""
     serving = copy.deepcopy(model).to(device).eval()
     fuse_conv_bn(serving, dtype)
     fold_preprocess(serving, dtype)
@@ -129,6 +132,9 @@ def serving_model(model, device: torch.device, dtype: torch.dtype):
     for m in serving.modules():
         if getattr(m, "keeps_f32", False):
             m.float()
+    scales = getattr(model, "int8_scales", None)
+    if int8 and scales is not None:
+        quantize_serving(serving, scales)
     return serving
 
 

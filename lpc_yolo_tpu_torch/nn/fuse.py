@@ -13,12 +13,15 @@ keeps running conv -> BN -> act.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple
 
 import torch
 import torch.nn as nn
 
-from .modules import BiasConv, ConvBN, HGStem, RepConv, ResNetLayer
+from ..ops.conv_s8 import check_geometry
+from .modules import C2f, SPPF, BiasConv, ConvBN, HGStem, RepConv, ResNetLayer
+
+MIN_CHANNELS = 64  # the JAX int8 rule: narrower convs stay in the serving dtype
 
 
 def folded_convs(model: nn.Module) -> List[nn.Module]:
@@ -30,8 +33,53 @@ def folded_convs(model: nn.Module) -> List[nn.Module]:
 
 
 def conv3x3_sites(model: nn.Module) -> List[nn.Module]:
-    """The modules that run a conv3x3 site once folded (3x3 stride 1 groups 1), in module order."""
-    return [m for m in folded_convs(model) if m.kernel_path]
+    """The modules that run a conv3x3 site once folded (3x3 stride 1 groups 1), in module order; in an int8
+    serving copy not those that run through the s8 kernels."""
+    return [m for m in folded_convs(model) if m.kernel_path and getattr(m, "q8", None) is None]
+
+
+def site_eligible(conv: nn.Conv2d) -> bool:
+    """The JAX `_site_eligible` (`lpc_yolo_tpu/nn/quant.py:90-97`) on a conv's logical shape: groups 1,
+    undilated, min(Cin, Cout) >= 64."""
+    return conv.groups == 1 and conv.dilation == (1, 1) and min(conv.in_channels, conv.out_channels) >= MIN_CHANNELS
+
+
+class Int8Site(NamedTuple):
+    """A site of a serving copy: its qualified name, its ConvBN and the parts its input comes in (a quantize
+    launch each)."""
+    name: str
+    module: nn.Module
+    parts: int
+
+
+def int8_sites(model: nn.Module) -> List[Int8Site]:
+    """The int8 sites of a serving graph, in module order: every ConvBN that passes `site_eligible`, but for
+    those of a head other than v10Detect, of v10Detect's one-to-many towers and of a dead layer (no forward
+    runs them). A site the kernel does not take (a kernel other than 1x1 or 3x3, a stride other than 1 or 2,
+    padding other than k // 2) raises."""
+    from .heads import V10Detect
+
+    head = model.model[-1]
+    unserved = [model.model[i] for i in model.dead]
+    unserved += [head.cv2, head.cv3] if isinstance(head, V10Detect) else [head]
+    skip = {id(m) for part in unserved for m in part.modules()}
+    parts = {}
+    for m in model.modules():
+        if isinstance(m, C2f):  # C2fCIB too: cv1's output (both halves) and each bottleneck's
+            parts[id(m.cv2)] = 1 + len(m.m)
+        elif isinstance(m, SPPF):
+            parts[id(m.cv2)] = 4
+    sites = []
+    for name, m in model.named_modules():
+        if not isinstance(m, ConvBN) or id(m) in skip or not site_eligible(m.conv):
+            continue
+        k, s = m.conv.kernel_size, m.conv.stride
+        if k[0] != k[1] or s[0] != s[1] or m.conv.padding != (k[0] // 2, k[1] // 2):
+            raise NotImplementedError(f"int8 site {name}: conv_s8 takes square same-padded kernels, not "
+                                      f"{k} stride {s} padding {m.conv.padding}")
+        check_geometry(k[0], s[0])
+        sites.append(Int8Site(name, m, parts.get(id(m), 1)))
+    return sites
 
 
 def fuse_conv_bn(model: nn.Module, dtype: torch.dtype = torch.float32) -> nn.Module:

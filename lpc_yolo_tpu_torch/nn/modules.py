@@ -5,7 +5,8 @@ channels_last on the card).
 
 Counterpart of `lpc_yolo_tpu/nn/modules.py`, plain semantics only: none of
 the TPU layout rewrites (width packing, PackedBN, the C2f deploy algebra,
-the s2d fold, int8) are ported. Attribute names mirror the JAX module names
+the s2d fold) are ported; int8 serving quantizes the plain graph
+(`nn/quant.py`). Attribute names mirror the JAX module names
 with numeric parts split off (`m_0` -> `m.0`, `ffn_1` -> `ffn.1`), so the
 weight bridge (`utils/flax_bridge.py`) is a pure name map.
 
@@ -27,7 +28,10 @@ plain PyTorch. After `fold()` (see `nn/fuse.py`) it runs on BN-folded
 (`ops/conv3x3.py`) with the activation fused, every other conv through
 F.conv2d, as the JAX package left those to XLA. A `RepConv` folds its three
 branches into one such conv. Train mode always runs unfolded, with autograd
-through F.conv2d: no TPU kernel had a backward.
+through F.conv2d: no TPU kernel had a backward. In an int8 serving copy
+(`nn/quant.py::quantize_serving`) a site's ConvBN runs through the s8 kernels
+instead, and the C2f / C2fCIB and SPPF tails quantize their parts into one s8
+buffer in place of the concat.
 """
 
 from __future__ import annotations
@@ -87,6 +91,7 @@ class ConvBN(nn.Module):
         self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = DEFAULT_ACT.get() if act in (True, "silu") else act
         self.folded = None  # (W, b) after fold(); W is HWIO on the kernel path; eval mode only
+        self.q8 = None  # its int8 form (`nn/quant.py::Q8Conv`) in a quantized serving copy
 
     @property
     def kernel_path(self) -> bool:
@@ -94,7 +99,7 @@ class ConvBN(nn.Module):
 
     def train(self, mode: bool = True):
         if mode:
-            self.folded = None  # a folded copy would go stale under training
+            self.folded = self.q8 = None  # a folded copy would go stale under training
         return super().train(mode)
 
     @torch.no_grad()
@@ -109,6 +114,8 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.folded is None:
             return apply_act(self.bn(self.conv(x)), self.act)
+        if self.q8 is not None:
+            return self.q8.run([x], self.act)
         return run_folded(x, self.folded, self.act, self.conv, self.kernel_path)
 
 
@@ -232,6 +239,8 @@ class C2f(nn.Module):
         ys = [y[:, : self.c], y[:, self.c:]]
         for m in self.m:
             ys.append(m(ys[-1]))
+        if self.cv2.q8 is not None:  # int8: the parts quantized into one s8 buffer, y in one launch for both halves
+            return self.cv2.q8.run([y, *ys[2:]], self.cv2.act)
         return self.cv2(torch.cat(ys, 1))
 
 
@@ -386,6 +395,8 @@ class SPPF(nn.Module):
         pool = lambda t: F.max_pool2d(t, self.k, 1, self.k // 2)  # noqa: E731
         y1 = pool(x)
         y2 = pool(y1)
+        if self.cv2.q8 is not None:  # int8: the four parts quantized with one scale into one s8 buffer
+            return self.cv2.q8.run([x, y1, y2, pool(y2)], self.cv2.act)
         return self.cv2(torch.cat([x, y1, y2, pool(y2)], 1))
 
 

@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from lpc_yolo_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_config, conv3x3_plain
+from lpc_yolo_tpu_torch.ops.conv_s8 import conv_s8, conv_s8_plain
 from lpc_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_plain, letterbox_tables
+from lpc_yolo_tpu_torch.ops.quantize_s8 import quantize_s8, quantize_s8_plain
 from lpc_yolo_tpu_torch.ops.repack import repack_width_kernel, repack_width_plain
 
 pytestmark = pytest.mark.gpu
@@ -688,3 +690,54 @@ def test_world_serving_on_the_card_matches_the_cpu(cfg):
         assert_detections_close(a[:n], b[:n], atol_box=0.05, atol_score=1e-4)
     half = Predictor(m, imgsz=256, batch=2, device="cuda", dtype=torch.bfloat16, text=text).infer(frames)
     assert half.shape == (2, 300, 6) and bool(torch.isfinite(half).all()) and half[..., 5].max().item() < 5
+
+
+# (B, H, W, C, Co, k, stride, act, view): LPC-YOLO's int8 site shapes at batch 2 (a 3x3 s1 C2f bottleneck at
+# 80^2, the 3x3 s2 LPC conv, the SPPF tail, a v10Detect 1x1 to 80 channels), ragged maps and Co, C no multiple
+# of 16 (byte staging), a channel slice of a wider buffer and a 1x1 stride 2.
+S8_CASES = [
+    (2, 80, 80, 64, 64, 3, 1, "mish", False), (2, 40, 40, 128, 64, 3, 2, "mish", False),
+    (2, 20, 20, 512, 256, 1, 1, "mish", False), (2, 20, 20, 384, 80, 1, 1, "silu", False),
+    (2, 21, 23, 96, 70, 3, 1, "relu", True), (2, 21, 23, 90, 67, 3, 2, False, False), (1, 7, 9, 72, 33, 1, 2, "mish", True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,Co,k,s,act,view", S8_CASES)
+def test_conv_s8_matches_plain(B, H, W, C, Co, k, s, act, view, dtype):
+    """The s8 conv against its plain version (exact s32 sums, the same f32 epilogue): f32 out equal to 1e-6 of the
+    largest value (expf / log1pf / tanhf against torch's), bf16 out within one ulp."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    buf = torch.randint(-127, 128, (B, H, W, C + (16 if view else 0)), dtype=torch.int8, device="cuda", generator=g)
+    x8 = buf[..., 16:] if view else buf
+    w8 = torch.randint(-127, 128, (Co, k, k, C), dtype=torch.int8, device="cuda", generator=g)
+    sw = torch.rand(Co, device="cuda", generator=g) * 1e-3 + 1e-5
+    b = torch.randn(Co, device="cuda", generator=g)
+    before = conv_s8.launches
+    got = conv_s8(x8, w8, sw, 0.0123, b, act, s, dtype).float()
+    ref = conv_s8_plain(x8, w8, sw, 0.0123, b, act, s, torch.float32)
+    torch.cuda.synchronize()
+    assert conv_s8.launches == before + 1
+    if dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+    else:
+        ref16 = ref.to(torch.bfloat16).float()
+        assert ((got - ref16).abs() <= ref16.abs() * 2 ** -7).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_s8_matches_plain(dtype):
+    """Bit-exact into a channel slice (the rest of the buffer untouched), from a channel-strided view, and on
+    exact ties (half to even)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(4, 33, 37, 80, device="cuda", generator=g) * 3).to(dtype)
+    inv = 127 / 3.7
+    out = torch.zeros(4, 33, 37, 200, dtype=torch.int8, device="cuda")
+    before = quantize_s8.launches
+    quantize_s8(x, inv, out=out[..., 37:117])
+    ref = quantize_s8_plain(x, inv)
+    assert torch.equal(out[..., 37:117], ref) and not out[..., :37].any() and not out[..., 117:].any()
+    assert torch.equal(quantize_s8(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), inv), ref)
+    ties = (torch.arange(-300, 300, device="cuda").float() + 0.5).reshape(1, 1, 600, 1).to(dtype)
+    assert torch.equal(quantize_s8(ties, 1.0), quantize_s8_plain(ties, 1.0))
+    assert quantize_s8.launches == before + 3

@@ -47,7 +47,7 @@ from lpc_yolo_tpu.ops.boxes import probiou as jax_probiou
 from lpc_yolo_tpu.ops.boxes import rbox_hull as jax_rbox_hull
 from lpc_yolo_tpu.ops.boxes import xywhr2xyxyxyxy as jax_corners
 from lpc_yolo_tpu.ops.letterbox import letterbox_image
-from lpc_yolo_tpu.ops.postprocess import nms_rotated as jax_nms_rotated
+from lpc_yolo_tpu.ops.postprocess import nms_rotated as _jax_nms_rotated
 from lpc_yolo_tpu.utils.torch_port import port_state_dict
 
 from lpc_yolo_tpu_torch import YOLO
@@ -76,6 +76,10 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+# the JAX function jitted once a shape and option set (op by op it compiles every op of every new shape)
+jax_nms_rotated = jax.jit(_jax_nms_rotated, static_argnums=(2, 3, 4, 5, 6, 7))
 
 
 def jax_shapes(jm, size=S):
@@ -213,11 +217,12 @@ def test_obb_graph_matches_jax(graph):
     for training in (False, True):  # eval first: the port's train-mode forward updates the BN statistics
         tol = 1e-4 if training else 1e-5
         if training:
-            ref, _ = jm.apply(variables, jnp.asarray(x), training=True, mutable=["batch_stats"])
+            ref, _ = jax.jit(lambda v, t: jm.apply(v, t, training=True, mutable=["batch_stats"]))(
+                variables, jnp.asarray(x))
             got = tm.train()(_nchw(x))
             assert set(got) == {"feats", "angle"}
         else:
-            ref = jm.apply(variables, jnp.asarray(x), training=False)
+            ref = jax.jit(lambda v, t: jm.apply(v, t, training=False))(variables, jnp.asarray(x))
             with torch.no_grad():
                 got = tm.eval()(_nchw(x))
             A = sum(b.shape[2] * b.shape[3] for b, _ in got["feats"])
@@ -404,7 +409,7 @@ def test_obb_loss_matches_jax(seed):
     port's f32 gradients (head maps and angles) within 1e-4 of each one's largest of the port's f64 run."""
     maps, angle, lab, gt, mask = loss_case(seed)
     out = {"feats": tuple(jnp.asarray(m) for m in maps), "angle": jnp.asarray(angle)}
-    ref_total, ref_items = jax_obb_loss(out, *map(jnp.asarray, (lab, gt, mask)), STRIDES, NC)
+    ref_total, ref_items = jax.jit(lambda o, *t: jax_obb_loss(o, *t, STRIDES, NC))(out, *map(jnp.asarray, (lab, gt, mask)))
     total, items, g32 = port_obb_loss(maps, angle, lab, gt, mask)
     _, _, g64 = port_obb_loss(maps, angle, lab, gt, mask, torch.float64)
     assert items.shape == (3,) and not items.requires_grad and float(items[0]) > 0

@@ -270,8 +270,8 @@ def test_pose_loss_matches_jax(case):
     tied = case == "tied"
     maps, kraw, lab, gt, mask, kpts = loss_case(6, 256 if tied else 64, kpt_shape, tied)
     out = {"feats": tuple(jnp.asarray(m) for m in maps), "kpt_raw": jnp.asarray(kraw)}
-    ref_total, ref_items = jax_pose_loss(out, *map(jnp.asarray, (lab, gt, mask, kpts)), STRIDES, NC,
-                                         kpt_shape=kpt_shape)
+    ref_total, ref_items = jax.jit(lambda o, *t: jax_pose_loss(o, *t, STRIDES, NC, kpt_shape=kpt_shape))(
+        out, *map(jnp.asarray, (lab, gt, mask, kpts)))
     total, items, g32 = port_pose_loss(maps, kraw, lab, gt, mask, kpts, kpt_shape)
     _, _, g64 = port_pose_loss(maps, kraw, lab, gt, mask, kpts, kpt_shape, torch.float64)
     assert items.shape == (5,) and not items.requires_grad

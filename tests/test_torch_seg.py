@@ -281,7 +281,8 @@ def test_seg_loss_matches_jax(tied):
     `lax.top_k` does."""
     maps, mc, proto, lab, gt, mask, gm = loss_case(6, 256 if tied else 64, tied)
     out = {"feats": tuple(jnp.asarray(m) for m in maps), "mc": jnp.asarray(mc), "proto": jnp.asarray(proto)}
-    ref_total, ref_items = jax_seg_loss(out, *map(jnp.asarray, (lab, gt, mask, gm)), STRIDES, NC)
+    ref_total, ref_items = jax.jit(lambda o, *t: jax_seg_loss(o, *t, STRIDES, NC))(
+        out, *map(jnp.asarray, (lab, gt, mask, gm)))
     total, items, g32 = port_seg_loss(maps, mc, proto, lab, gt, mask, gm)
     _, _, g64 = port_seg_loss(maps, mc, proto, lab, gt, mask, gm, torch.float64)
     assert items.shape == (4,) and not items.requires_grad

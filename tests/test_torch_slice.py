@@ -99,7 +99,7 @@ def test_layer_specs_and_kernel_sites(pair):
 def test_one2one_maps_match_jax(pair):
     jm, _, variables, tm = pair
     x = _x()
-    ref = jm.apply(variables, jnp.asarray(x), training=False)["one2one"]
+    ref = jax.jit(lambda v, t: jm.apply(v, t, training=False)["one2one"])(variables, jnp.asarray(x))
     with torch.no_grad():
         got = tm(_nchw(x), branches="one2one")["one2one"]
     for r, (box, cls) in zip(ref, got):
@@ -110,7 +110,8 @@ def test_one2one_maps_match_jax(pair):
 def test_detections_match_jax(pair):
     jm, _, variables, tm = pair
     x = _x(3)
-    ref = np.asarray(jm.apply(variables, jnp.asarray(x), training=False, predict_only=True)["det"])
+    ref = np.asarray(jax.jit(lambda v, t: jm.apply(v, t, training=False, predict_only=True)["det"])(
+        variables, jnp.asarray(x)))
     with torch.no_grad():
         got = tm.predict(_nchw(x)).numpy()
     assert got.shape == ref.shape == (2, 300, 6) and np.isfinite(got).all()
@@ -128,7 +129,7 @@ def test_decode_feats_matches_jax(pair):
 
     jm, _, variables, tm = pair
     x = _x(4)
-    ref = np.asarray(jm.apply(variables, jnp.asarray(x), training=False)["pred"])
+    ref = np.asarray(jax.jit(lambda v, t: jm.apply(v, t, training=False)["pred"])(variables, jnp.asarray(x)))
     with torch.no_grad():
         pairs = tm(_nchw(x), branches="one2one")["one2one"]
         got = decode_feats([torch.cat(p, 1) for p in pairs], tm.strides, tm.nc).numpy()

@@ -75,10 +75,11 @@ def test_loss_over_levels_matches_jax(kind, levels):
     jfeats = tuple(jnp.asarray(m) for m in maps)
     jgts = [jnp.asarray(g) for g in gts]
     if kind == "v8":
-        ref_total, ref_items = jax_v8_loss(jfeats, *jgts, strides, nc)
+        ref_total, ref_items = jax.jit(lambda f, *g: jax_v8_loss(f, *g, strides, nc))(jfeats, *jgts)
     else:
         jout = {"feats": jfeats, **{k: jnp.asarray(v) for k, v in extra.items()}}
-        ref_total, ref_items = (jax_seg_loss if kind == "seg" else jax_pose_loss)(jout, *jgts, strides, nc)
+        loss = jax_seg_loss if kind == "seg" else jax_pose_loss
+        ref_total, ref_items = jax.jit(lambda o, *g: loss(o, *g, strides, nc))(jout, *jgts)
 
     def port(dtype):
         leaves = [torch.from_numpy(m.transpose(0, 3, 1, 2).copy()).to(dtype).requires_grad_() for m in maps]
