@@ -20,6 +20,7 @@
     python3 chip_smoke.py --neck       # device, build, then phase 24 (LPC-YOLO with the zoo's neck blocks) only
     python3 chip_smoke.py --backbone   # device, build, then phase 25 (LPC-YOLO on the zoo's backbone families) only
     python3 chip_smoke.py --int8       # device, build, then phase 26 (int8 PTQ: LPC-YOLO, v10 n-x, v8 n-x) only
+    python3 chip_smoke.py --export     # device, build, then phase 27 (export, AutoBackend, the format benchmark) only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -384,9 +385,30 @@ Phases, in order; any failure raises and the script exits non-zero:
             of phase 7's 64 frames int8 beside bf16, counters held. --int8
             also serves the v10 scales n to x and the v8 detect scales n to x
             (numbers under "int8").
+27. export  LPC-YOLO at its published s width, seed 0, at 640: `YOLO.export`
+            of a decoded and a raw_head TorchScript and of the decoded ONNX on
+            the CPU copy (seconds, bytes, the ONNX node count); the TorchScript
+            loaded with map_location="cuda"; b32 720p frames through the
+            letterbox kernel (f32 /255), with the launch counters reset just
+            before and read just after the native path (one letterbox, 28
+            conv3x3 a forward of the f32 serving copy on the same frames x 255):
+            the artifact's raw `pred` against that copy's pre-decode map (boxes
+            within EXPORT_BOX_TOL px, scores within EXPORT_SCORE_TOL), the
+            decoded artifact's `det` against `v10_detections` of its own raw
+            map, tie-tolerantly; the b32 step by CUDA events and its profile
+            (busy, idle share, launches): the native bf16 step, the native f32
+            step and the TorchScript f32 step (letterbox + forward + in-graph
+            decode); where OpenCV is installed, the decoded ONNX through
+            cv2.dnn against the TorchScript's det on frame 0; `YOLO.benchmark()`'s
+            rows (ckpt and torchscript ok and timed; onnx ok through cv2.dnn, or
+            skipped without OpenCV; the TensorFlow family and stablehlo skipped;
+            no row an error); and the CLI's `export` mode once through
+            `entrypoint` (numbers under "export"). The whole run runs the
+            TorchScript leg only (WHOLE_RUN_EXPORT_FULL): --export runs all.
 
-In the whole run phases 10, 11, 13 and 14 run their n and x scales
-(WHOLE_RUN_SCALES), phase 15 its n scale (WHOLE_RUN_OBB), phase 16 yolov8n-cls,
+In the whole run phases 10, 11, 13 and 14 run their n scale
+(WHOLE_RUN_SCALES; their x scales took 96 s of a 1024 s whole run on an H100
+80GB HBM3 at 700 W), phase 15 its n scale (WHOLE_RUN_OBB), phase 16 yolov8n-cls,
 yolov8x-cls and the ResNet-50 (WHOLE_RUN_CLS), phase 17 leaves out
 yolov8x-p2 and yolov8x-p6 (WHOLE_RUN_ZOO) and phase 20 runs the s models
 (WHOLE_RUN_WORLD), phase 19 rtdetr-l and yolov8n-rtdetr (WHOLE_RUN_RTDETR),
@@ -408,7 +430,8 @@ phase 18's yolov9c train(data=...), "launches_rtdetr" from phase 19's rtdetr-l t
 from phase 20's yolov8s-world train(data=...), "launches_track" from phase 21's two tracking runs, "launches_cli"
 from phase 22's three CLI runs (train at batch=-1, predict, val), "launches_attn" from phase 23's SK variant's
 train(data=..., save=True), "launches_neck" from phase 24's slimneck variant's train(data=..., save=True),
-"launches_backbone" from phase 25's swin variant's train(data=..., save=True), and conv3x3's
+"launches_backbone" from phase 25's swin variant's train(data=..., save=True), "launches_export" from phase
+27's native path beside the TorchScript artifact (a letterbox, the f32 serving copy's forward), and conv3x3's
 "max_abs_err_relu", the f32 parity of its ReLU epilogue at yolov6n's sites); the last line is
 {"ok": true, "device": {...}}. Every
 number is also written to chiprun_out/chip_smoke.json (phase 10's under
@@ -416,7 +439,7 @@ number is also written to chiprun_out/chip_smoke.json (phase 10's under
 "pose", phase 15's under "obb", phase 16's under "cls", phase 17's under "zoo",
 phase 18's under "v9", phase 19's under "rtdetr", phase 20's under "world", phase 21's under "track", phase 22's
 under "cli", phase 23's under "attn", phase 24's under "neck", phase 25's under "backbone", phase 26's under
-"int8").
+"int8", phase 27's under "export").
 
 `--converge` runs tools/train_convergence.py's learning proof on the card
 instead of the phases: LPC-YOLO (or the model YAML named after it, e.g.
@@ -545,7 +568,7 @@ TRACK_BOTSORT = {"tracker_type": "botsort", "track_high_thresh": 0.5, "track_low
 V8N_SITES = 32  # yolov8n's conv3x3 sites a forward (phase 11)
 REID_TOL = 1e-5  # the CNN ReID encoder's f32 unit embeddings, card vs CPU, absolute
 REID_CHECK_BOXES = 64  # crops of each of the first two encoder calls held card vs CPU
-WHOLE_RUN_SCALES = ("n", "x")  # phases 10, 11, 13, 14 and 15 in the whole run; their flags run every scale
+WHOLE_RUN_SCALES = ("n",)  # phases 10, 11, 13 and 14 in the whole run; their flags run every scale
 P6_IMGSZ = 1280  # the P6 models' published size
 SCALE_SERVE_BATCH = 32  # the train step runs at TRAIN_BATCH, which every scale fits at 640
 NMS_OPS = 15  # f32 operations per pool candidate and step: the IoU in the JAX order, the compare, the argmax
@@ -4995,6 +5018,9 @@ INT8_CENSUS = {YAML: {"1x1": 26, "3x3s1": 18, "3x3s2": 1, "quantize": 56}}  # LP
 # with the sites a path crosses (0.204 on v10n to 0.272 on v10m in the first card run; the kernels 0 ulp off plain)
 INT8_MAP_TOL = 0.5
 INT8_SCORE_TOL = 0.05  # the top 300 pre-selection scores, sorted, int8 vs bf16 (tests/test_quant.py's sorted-score tol)
+EXPORT_BOX_TOL, EXPORT_SCORE_TOL = 0.05, 1e-4  # px and sigmoid, the TorchScript artifact vs the f32 kernel path (phase 4's)
+WHOLE_RUN_EXPORT_FULL = False  # phase 27 in the whole run: the TorchScript leg; --export adds the ONNX leg, the
+# benchmark rows and the CLI's export (~25 s more)
 INT8_MODELS = [YAML] + [f"yolov10{s}.yaml" for s in "nsmblx"] + [f"yolov8{s}.yaml" for s in "nsmlx"]  # --int8
 
 
@@ -5310,6 +5336,161 @@ def int8_only() -> None:
     log("done", "phase 26 passed; numbers in chiprun_out/chip_smoke_int8.json")
 
 
+def step_profile(step, B: int):
+    """A b`B` step by CUDA events and its profile: ms, img/s, busy ms, idle share, device launches."""
+    with torch.inference_mode():
+        ms = cuda_ms(step, iters=5, warmup=2)
+        prof = profile_step(step, iters=2)
+    return {"step_ms": ms, "img_s": B / ms * 1e3, "busy_ms": prof["device_busy_ms"], "idle_share": prof["idle_share"],
+            "device_launches": prof["device_launches"], "profile_top": prof["top"][:8]}
+
+
+def phase_export(root: Path, full: bool = True):
+    """Phase 27: export on the card's machine. Returns the native path's launches (letterbox, conv3x3). Without
+    `full` (the whole run: WHOLE_RUN_EXPORT_FULL) only the TorchScript leg runs: no ONNX export or cv2.dnn check,
+    no benchmark rows, no CLI export."""
+    import importlib.util
+    import os
+
+    from lpc_yolo_tpu_torch import YOLO
+    from lpc_yolo_tpu_torch.cfg import entrypoint
+    from lpc_yolo_tpu_torch.engine.predictor import Predictor, serving_model
+    from lpc_yolo_tpu_torch.nn.heads import decode_feats
+    from lpc_yolo_tpu_torch.ops.letterbox import letterbox
+    from lpc_yolo_tpu_torch.ops.postprocess import v10_detections
+    from lpc_yolo_tpu_torch.utils.compare import assert_detections_close
+
+    B, S = 32, 640
+    t_phase = time.perf_counter()
+    out: dict = {"artifacts": {}}
+    yolo = YOLO(YAML, device="cuda", seed=0)
+    paths = {}
+    for tag, fmt, raw in (("torchscript", "torchscript", False), ("torchscript_raw", "torchscript", True),
+                          ("onnx", "onnx", False))[:3 if full else 2]:
+        t0 = time.perf_counter()
+        paths[tag] = yolo.export(format=fmt, imgsz=S, out_dir=root / tag, raw_head=raw)
+        out["artifacts"][tag] = {"seconds": time.perf_counter() - t0, "bytes": Path(paths[tag]).stat().st_size}
+    if full:
+        out["artifacts"]["onnx"]["nodes"] = json.loads(Path(paths["onnx"] + ".json").read_text())["nodes"]
+    for tag, a in out["artifacts"].items():
+        log("export", f"{tag}: {a['seconds']:.2f} s on the CPU, {a['bytes'] / 1e6:.3f} MB"
+                      + (f", {a['nodes']} nodes" if "nodes" in a else ""))
+
+    extra = {"config.txt": ""}
+    ts = torch.jit.load(paths["torchscript"], map_location="cuda", _extra_files=extra).eval()
+    ts_raw = torch.jit.load(paths["torchscript_raw"], map_location="cuda").eval()
+    meta = json.loads(extra["config.txt"])
+    assert meta["outputs"] == ["det"] and meta["input"] == [1, 3, S, S], meta
+    host = frames_720p(B, seed=5)
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    # one letterboxed uint8 batch feeds both: the serving copy (/255 folded into its stem) reads it cast to f32,
+    # 0..255, as Predictor.preprocess gives it; the artifact reads the same values / 255
+    xu8 = torch.empty(B, S, S, 3, dtype=torch.uint8, device="cuda")
+    serving = serving_model(yolo.model, torch.device("cuda"), torch.float32)
+    zero_launches()
+    with torch.inference_mode():
+        letterbox(dev, S, out=xu8)
+        x255 = xu8.permute(0, 3, 1, 2).float()
+        native = decode_feats(serving(x255, branches="one2one")["one2one"], serving.strides, serving.nc,
+                              serving.reg_max)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    expect = {"letterbox": 1, "conv3x3": CONV_SITES_PER_FORWARD, "repack": 0, "nms": 0}
+    assert launches == expect, f"export phase native path: launches {launches}, expected {expect}"
+    with torch.inference_mode():
+        xin = x255 / 255.0
+        raw = ts_raw(xin)
+        det = ts(xin)
+    assert raw.shape == native.shape == (B, 8400, 4 + yolo.model.nc) and det.shape == (B, 300, 6)
+    assert bool(torch.isfinite(raw).all()) and bool(torch.isfinite(det).all())
+    box_err = (raw[..., :4] - native[..., :4]).abs().max().item()
+    score_err = (raw[..., 4:] - native[..., 4:]).abs().max().item()
+    assert box_err <= EXPORT_BOX_TOL and score_err <= EXPORT_SCORE_TOL, \
+        f"TorchScript pred off the f32 kernel path: boxes {box_err} px, scores {score_err}"
+    ref = v10_detections(raw, 300, yolo.model.nc).cpu().numpy()
+    det_np = det.cpu().numpy()
+    for i in range(B):
+        assert_detections_close(det_np[i], ref[i], atol_box=1e-3, atol_score=1e-6)
+    out.update(launches=launches, pred_box_err=box_err, pred_score_err=score_err)
+    has_cv2 = importlib.util.find_spec("cv2") is not None  # the ONNX runtime, cv2.dnn
+    if full and has_cv2:  # the ONNX artifact (batch 1) through OpenCV's runtime
+        from lpc_yolo_tpu_torch.nn.autobackend import AutoBackend
+
+        onnx_det = AutoBackend(paths["onnx"], imgsz=S, device="cpu").forward(
+            xin[:1].permute(0, 2, 3, 1).cpu().numpy())
+        assert_detections_close(onnx_det[0], det_np[0], atol_box=0.05, atol_score=1e-4)
+        log("export", "the decoded ONNX through cv2.dnn on the CPU == the TorchScript's det on the card (frame 0)")
+    log("export", f"TorchScript on cuda vs the f32 serving copy (conv3x3 kernel) on b{B} letterboxed 720p frames: "
+                  f"pred boxes {box_err:.3g} px (tol {EXPORT_BOX_TOL}), scores {score_err:.3g} (tol "
+                  f"{EXPORT_SCORE_TOL}); decoded det == v10_detections of its raw map (tie-tolerant); native path "
+                  f"launches {launches}")
+
+    pred16 = Predictor(yolo.model, imgsz=S, batch=B, device="cuda", dtype=torch.bfloat16)
+
+    def native_step(model, dtype):  # as Predictor.infer: letterbox to uint8, cast, forward + decode
+        letterbox(dev, S, out=xu8)
+        return model.predict(xu8.permute(0, 3, 1, 2).to(dtype))
+
+    def ts_step():  # the artifact's input: the same frame / 255 in f32
+        letterbox(dev, S, out=xu8)
+        return ts(xu8.permute(0, 3, 1, 2).float() / 255.0)
+
+    steps = {"native_bf16": step_profile(lambda: native_step(pred16.model, torch.bfloat16), B),
+             "native_f32": step_profile(lambda: native_step(serving, torch.float32), B),
+             "torchscript_f32": step_profile(ts_step, B)}
+    out["steps"] = steps
+    for tag, r in steps.items():
+        log("export", f"{tag} step b{B}: {r['step_ms']:.3f} ms by events ({r['img_s']:.1f} img/s), busy "
+                      f"{r['busy_ms']:.3f} ms, idle {r['idle_share']:.3f}, {r['device_launches']:.0f} launches")
+    del pred16, serving, ts, ts_raw, xu8, x255, xin, dev
+    torch.cuda.empty_cache()
+    if not full:
+        out["seconds"] = time.perf_counter() - t_phase
+        REPORT["export"] = out
+        return launches
+
+    rows = yolo.benchmark(imgsz=S, out_dir=str(root / "benchmark"), verbose=False)
+    for r in rows:
+        log("export", f"benchmark: {r}")
+    status = {r["format"]: r["status"] for r in rows}
+    assert status["ckpt"] == status["torchscript"] == "ok", status
+    assert status["onnx"] == "ok (cv2.dnn on the CPU)" if has_cv2 else status["onnx"].startswith("skipped: ") \
+        and "OpenCV" in status["onnx"], status
+    assert all(status[f].startswith("skipped: export format") for f in
+               ("stablehlo", "saved_model", "tflite", "tflite-int8", "pb")), status
+    assert all(r["ms/img"] is not None for r in rows if r["format"] in ("ckpt", "torchscript")), rows
+    out["benchmark"] = rows
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        t0 = time.perf_counter()
+        cli_path = entrypoint(["export", f"model={YAML}", "format=torchscript", f"imgsz={S}"])
+        out["cli_export_s"] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    cli_meta = {"config.txt": ""}
+    torch.jit.load(str(root / cli_path), map_location="cpu", _extra_files=cli_meta)
+    assert json.loads(cli_meta["config.txt"]) == meta, cli_meta
+    out["seconds"] = time.perf_counter() - t_phase
+    log("export", f"CLI `export format=torchscript`: {cli_path} in {out['cli_export_s']:.2f} s; phase 27 took "
+                  f"{out['seconds']:.1f} s")
+    REPORT["export"] = out
+    return launches
+
+
+def export_only() -> None:
+    """`--export`: phase 27 alone."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        phase_export(Path(tmp))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_export.json").write_text(json.dumps(REPORT, indent=1, default=str))
+    log("done", "phase 27 passed; numbers in chiprun_out/chip_smoke_export.json")
+
+
 def conv3x3_only() -> None:
     """`--conv3x3`: the conv3x3 kernel alone: its sites from one bf16 frame, its parity phase
     and its per-shape times at b32 with every instantiation swept; no other kernel, no serving
@@ -5333,10 +5514,12 @@ def main(argv) -> int:
     only = {"--v10": lambda: scales_only("v10"), "--v8": lambda: scales_only("v8"), "--seg": seg_only,
             "--pose": pose_only, "--obb": obb_only, "--cls": cls_only, "--zoo": zoo_only, "--v9": v9_only,
             "--rtdetr": rtdetr_only, "--world": world_only, "--track": track_only, "--cli": cli_only,
-            "--attn": attn_only, "--neck": neck_only, "--backbone": backbone_only, "--int8": int8_only}
+            "--attn": attn_only, "--neck": neck_only, "--backbone": backbone_only, "--int8": int8_only,
+            "--export": export_only}
     if argv not in ([], ["--conv3x3"], *([k] for k in only)) and not converge:
         print(f"chip_smoke: unknown arguments {argv}; the options are --conv3x3, --v10, --v8, --seg, --pose, --obb, "
-              f"--cls, --zoo, --v9, --rtdetr, --world, --track, --cli, --attn, --neck, --backbone, --int8 and --converge "
+              f"--cls, --zoo, --v9, --rtdetr, --world, --track, --cli, --attn, --neck, --backbone, --int8, --export and "
+              f"--converge "
               f"[model yaml]",
               file=sys.stderr)
         return 2
@@ -5456,6 +5639,10 @@ def main(argv) -> int:
         _, int8_lpc = phase_int8(Path(tmp) / "val" / "data.yaml")  # the int8 path: LPC-YOLO's predict, counters held
         torch.cuda.empty_cache()
         stamp("int8 (26)")
+        export_launches = phase_export(Path(tmp) / "export", WHOLE_RUN_EXPORT_FULL)  # the native path beside the
+        # TorchScript artifact
+        torch.cuda.empty_cache()
+        stamp("export (27)")
     nms = time_nms()["val"]
     stamp("nms (12)")
     kernels = [
@@ -5490,6 +5677,7 @@ def main(argv) -> int:
         k["launches_attn"] = attn_launches[k["name"]]  # the SK variant's train(data=..., save=True), phase 23
         k["launches_neck"] = neck_launches[k["name"]]  # the slimneck variant's train(data=..., save=True), phase 24
         k["launches_backbone"] = backbone_launches[k["name"]]  # the swin variant's train(data=..., save=True), phase 25
+        k["launches_export"] = export_launches[k["name"]]  # phase 27's native path beside the TorchScript artifact
     kernels[1]["max_abs_err_relu"] = relu_err  # the ReLU epilogue's f32 parity at yolov6n's sites
     kernels += int8_kernel_rows(int8_lpc)  # phase 26: launches of LPC-YOLO's int8 predict, times at its sites
     REPORT["kernels"] = kernels

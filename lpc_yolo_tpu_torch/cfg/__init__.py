@@ -17,12 +17,14 @@ cuda):
   JAX modes' keys, and `iou`, `batch`, `conf` (0 too) and `max_det`, which the JAX modes drop
   (ROADMAP Queue 3); an override that the mode does not read raises NotImplementedError naming it.
   They print what the JAX modes print.
+- `export` exports the model (`format`, `imgsz`, `batch`) and returns the artifact's path; `benchmark` gives the
+  format benchmark's rows (`data`, `imgsz`) and prints each, as the JAX modes do. `default.yaml`'s `format:
+  tflite` is the TensorFlow family, which is not ported, so `export` without a `format=` raises naming it.
 - The special modes: `help`, `version`, `cfg`, `copy-cfg`, `checks` (torch, CUDA, the card and
   nvcc in place of the JAX devices) and `settings` (`settings k=v ...`, `settings reset`: the same
   `settings.yaml` as the JAX CLI writes, `utils/infra.py::SettingsManager`).
 
-`export`, `benchmark`, `hub`, `login`, `logout` and `explorer` are not ported and raise
-NotImplementedError naming what is missing.
+`hub`, `login`, `logout` and `explorer` are not ported and raise NotImplementedError naming what is missing.
 """
 
 from __future__ import annotations
@@ -77,6 +79,8 @@ MODE_KEYS = {
     "predict": {"source", "conf", "iou", "imgsz", "batch", "max_det", "save_dir", *SAVE_FLAGS},
     "val": {"data", "imgsz", "batch", "conf", "iou", "max_det", "workers", "save_json", "save_dir"},
     "track": {"source", "tracker", "conf", "iou", "imgsz", "max_det", "save_dir", *SAVE_FLAGS},
+    "export": {"format", "imgsz", "batch"},
+    "benchmark": {"data", "imgsz"},
 }
 
 
@@ -196,6 +200,8 @@ def entrypoint(argv: Optional[List[str]] = None) -> Any:
         python -m lpc_yolo_tpu_torch train model=yolov10n.yaml data=data.yaml epochs=10 batch=-1
         python -m lpc_yolo_tpu_torch predict model=yolov10n.yaml source=images/ device=cpu
         python -m lpc_yolo_tpu_torch val model=yolov10n.yaml data=data.yaml
+        python -m lpc_yolo_tpu_torch export model=yolov10n.yaml format=onnx imgsz=640
+        python -m lpc_yolo_tpu_torch benchmark model=yolov10n.yaml imgsz=640
         python -m lpc_yolo_tpu_torch version | help | cfg | checks | settings
     """
     from .. import __version__
@@ -236,8 +242,6 @@ def entrypoint(argv: Optional[List[str]] = None) -> Any:
             check_dict_alignment({**DEFAULT_CFG_DICT, **{t: None for t in TASKS | MODES}}, {a: ""})
     mode = mode or overrides.pop("mode", None) or "predict"
     task = task or overrides.pop("task", None) or "detect"
-    if mode in ("export", "benchmark"):
-        _not_ported(f"the `{mode}` mode (export and its format benchmark)")
 
     default_models = {
         "detect": "yolov10n.yaml",
@@ -293,6 +297,13 @@ def entrypoint(argv: Optional[List[str]] = None) -> Any:
         for r in results:
             print(f"{r.path}: {len(r)} detections")
         return results
+    if mode == "export":
+        return model.export(format=cfg.format, imgsz=cfg.imgsz, batch=int(cfg.batch) if "batch" in given else 1)
+    if mode == "benchmark":
+        rows = model.benchmark(data=cfg.data, imgsz=cfg.imgsz, verbose=False)
+        for row in rows:
+            print(row)
+        return rows
     if mode == "track":
         import numpy as np
 

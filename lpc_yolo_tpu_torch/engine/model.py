@@ -42,8 +42,10 @@ eligible convs through the s8 kernels (`nn/quant.py`; RT-DETR, World and classif
 `add_callback`, `clear_callback` and `reset_callbacks` register hooks that the
 trainer runs (`utils/callbacks.py`).
 `YOLO("x.pt")` reads a reference-layout checkpoint (`utils/pt_checkpoint.py`: `ema`, else `model`, its `.yaml`,
-`.names` and state_dict), and `save_pt(path)` writes one. The research zoo's 21 attention modules build from a
-YAML that names them (`nn/research.py`). `info`, `profile`, export and the rest of the zoo wait for later slices.
+`.names` and state_dict), and `save_pt(path)` writes one. The research zoo's modules build from a YAML that names
+them (`nn/research.py`). `export(format=...)` writes an ONNX, TorchScript or `.ckpt` artifact
+(`engine/exporter.py`) and `benchmark()` gives the format benchmark's rows (`utils/benchmarks.py`); `info`,
+`profile` and `tune` wait for later slices.
 """
 
 from __future__ import annotations
@@ -114,6 +116,7 @@ class YOLO:
     def __init__(self, model: Union[str, Path] = "yolov10-SPD-Conv-Tiny-CBAM-LPC.yaml",
                  device: Union[str, torch.device, None] = None, seed: Optional[int] = 0, nc: Optional[int] = None):
         self._device = resolve_device(device)
+        self.ckpt_path = str(model)  # the source, whose stem names an export's artifacts
         self.seed = seed
         self.callbacks: Dict[str, List[Callable]] = {}  # hooks the trainer runs first (add_callback)
         meta: Dict[str, Any] = {}
@@ -260,6 +263,19 @@ class YOLO:
             return train_classifier(self, data=data, device=device or self._device, **kw)
         self.trainer = Trainer(self, batches, data=data, device=device or self._device, **kw)
         return self.trainer.train()
+
+    def export(self, format: str = "tflite", imgsz: int = 640, batch: int = 1, **kw) -> str:
+        """Export to a deployable artifact; returns its path (JAX :248-252; `engine/exporter.py::export_model`:
+        onnx, torchscript and ckpt; the TensorFlow family and stablehlo raise, so the default format does)."""
+        from .exporter import export_model
+
+        return export_model(self, fmt=format, imgsz=imgsz, batch=batch, **kw)
+
+    def benchmark(self, data=None, imgsz: int = 640, **kw) -> List[Dict[str, Any]]:
+        """The format benchmark's rows (JAX :254-258; `utils/benchmarks.py::benchmark`)."""
+        from ..utils.benchmarks import benchmark
+
+        return benchmark(self, data=data, imgsz=imgsz, **kw)
 
     # the reference's callback hooks (JAX `engine/model.py:320-327`); the trainer merges them into its bus
     def add_callback(self, event: str, func: Callable) -> None:

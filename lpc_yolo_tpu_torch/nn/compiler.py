@@ -339,7 +339,8 @@ class DetectionModel(nn.Module):
     have M class channels.
     x is (B, 3, H, W)
     RGB in [0, 1], or another `input_layout` of the same image (see
-    `to_nchw`).
+    `to_nchw`). `grid` (`ops/anchors.py::Grid`) gives the Segment, Pose and OBB decodes their anchors for
+    this input's shape, which they make otherwise (an export graph holds them as buffers).
     """
 
     def __init__(self, specs: Tuple[LayerSpec, ...], save: Tuple[int, ...], nc: int,
@@ -377,7 +378,7 @@ class DetectionModel(nn.Module):
         return x.permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor, branches: str = "both", input_layout: str = "NCHW", dn=None,
-                text: Optional[torch.Tensor] = None):
+                text: Optional[torch.Tensor] = None, grid=None):
         x = self.to_nchw(x, input_layout)
         y: Dict[int, torch.Tensor] = {}
         if self.world and text is None:  # the structural default, for the stride probe (JAX :738-743)
@@ -411,20 +412,20 @@ class DetectionModel(nn.Module):
                 feats, mc, proto = module(inp)
                 out = {"feats": feats, "mc": mc, "proto": proto}
                 if not self.training:
-                    out["pred"] = decode_feats(feats, self.strides, self.nc, self.reg_max)
+                    out["pred"] = decode_feats(feats, self.strides, self.nc, self.reg_max, grid)
                 return out
             if spec.module == "Pose":
                 feats, kpt = module(inp)
                 if self.training:
                     return {"feats": feats, "kpt_raw": kpt}
                 shapes = [(cm.shape[2], cm.shape[3]) for _, cm in feats]
-                return {"feats": feats, "pred": decode_feats(feats, self.strides, self.nc, self.reg_max),
-                        "kpt": decode_kpts(kpt, shapes, self.strides, module.kpt_shape)}
+                return {"feats": feats, "pred": decode_feats(feats, self.strides, self.nc, self.reg_max, grid),
+                        "kpt": decode_kpts(kpt, shapes, self.strides, module.kpt_shape, grid)}
             if spec.module == "OBB":
                 feats, angle = module(inp)
                 out = {"feats": feats, "angle": angle}
                 if not self.training:
-                    out["pred"] = decode_feats_obb(feats, angle, self.strides, self.nc, self.reg_max)
+                    out["pred"] = decode_feats_obb(feats, angle, self.strides, self.nc, self.reg_max, grid)
                 return out
             if dead:  # train mode: only its BatchNorm statistics are wanted
                 with torch.no_grad():

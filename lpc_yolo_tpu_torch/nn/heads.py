@@ -13,12 +13,12 @@ channel axis; the losses and the decodes take the pairs.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
-from ..ops.anchors import dfl_expectation, dist2bbox, make_anchors
+from ..ops.anchors import Grid, dfl_expectation, dist2bbox, make_anchors, make_grid
 from ..ops.boxes import xywh2xyxy
 from .modules import BNContrastiveHead, ContrastiveHead, ConvBN, Proto
 
@@ -124,10 +124,12 @@ class Pose(Detect):
 
 
 def decode_kpts(kpt: torch.Tensor, feat_shapes, strides: Sequence[float],
-                kpt_shape: Tuple[int, int] = (17, 3)) -> torch.Tensor:
+                kpt_shape: Tuple[int, int] = (17, 3), grid: Optional[Grid] = None) -> torch.Tensor:
     """Raw keypoints (B, A, nk) -> (B, A, nk) f32 (head.py:185-200): xy = (raw * 2 + anchor - 0.5) * stride
-    in input pixels, and with ndim 3 the visibility through a sigmoid."""
-    anchor_points, stride_tensor = make_anchors(feat_shapes, strides, 0.5, device=kpt.device)
+    in input pixels, and with ndim 3 the visibility through a sigmoid. `grid`: the anchors, made here when it is
+    not given (as in every decode below)."""
+    anchor_points, stride_tensor = grid[:2] if grid is not None else make_anchors(feat_shapes, strides, 0.5,
+                                                                                  device=kpt.device)
     B, A, nk = kpt.shape
     y = kpt.reshape(B, A, *kpt_shape).float()
     xy = (y[..., :2] * 2.0 + (anchor_points[None, :, None] - 0.5)) * stride_tensor[None, :, None]
@@ -166,14 +168,14 @@ def dist2rbox(pred_dist: torch.Tensor, angle: torch.Tensor, anchor_points: torch
 
 
 def decode_feats_obb(feats: Sequence[Tuple[torch.Tensor, torch.Tensor]], angle: torch.Tensor,
-                     strides: Sequence[float], nc: int, reg_max: int = 16) -> torch.Tensor:
+                     strides: Sequence[float], nc: int, reg_max: int = 16, grid: Optional[Grid] = None) -> torch.Tensor:
     """Per-level (box, cls) maps and the angle (B, A, 1) in radians -> (B, A, 4 + nc + 1) f32 = [cx, cy, w, h
     (the rotated box in input pixels), sigmoid class scores, angle] (`OBB.decode_bboxes`)."""
     box = torch.cat([bm.flatten(2) for bm, _ in feats], 2).transpose(1, 2).float()
     cls = torch.cat([cm.flatten(2) for _, cm in feats], 2).transpose(1, 2).float()
-    shapes = [(cm.shape[2], cm.shape[3]) for _, cm in feats]
-    anchor_points, stride_tensor = make_anchors(shapes, strides, 0.5, device=box.device)
-    rbox = dist2rbox(dfl_expectation(box, reg_max), angle, anchor_points) * stride_tensor
+    if grid is None:
+        grid = make_grid([(cm.shape[2], cm.shape[3]) for _, cm in feats], strides, reg_max, box.device)
+    rbox = dist2rbox(dfl_expectation(box, reg_max, grid.bins), angle, grid.points) * grid.strides
     return torch.cat([rbox, cls.sigmoid(), angle], -1)
 
 
@@ -277,13 +279,14 @@ def decode_feats_topk_split(
     return det
 
 
-def decode_feats(feats: Sequence, strides: Sequence[float], nc: int, reg_max: int = 16) -> torch.Tensor:
+def decode_feats(feats: Sequence, strides: Sequence[float], nc: int, reg_max: int = 16,
+                 grid: Optional[Grid] = None) -> torch.Tensor:
     """Raw per-level (B, 4*reg_max + nc, H, W) maps, or per-level (box_map, cls_map) pairs,
     -> (B, A, 4 + nc) = [xywh px, sigmoid cls] in f32."""
     feats = [torch.cat(f, 1) if isinstance(f, (tuple, list)) else f for f in feats]
-    B = feats[0].shape[0]
-    feat_shapes = [(f.shape[2], f.shape[3]) for f in feats]
     flat = torch.cat([f.flatten(2) for f in feats], 2).transpose(1, 2).float()  # (B, A, no)
-    anchor_points, stride_tensor = make_anchors(feat_shapes, strides, 0.5, device=flat.device)
-    dbox = dist2bbox(dfl_expectation(flat[..., : 4 * reg_max], reg_max), anchor_points, xywh=True) * stride_tensor
+    if grid is None:
+        grid = make_grid([(f.shape[2], f.shape[3]) for f in feats], strides, reg_max, flat.device)
+    dbox = dist2bbox(dfl_expectation(flat[..., : 4 * reg_max], reg_max, grid.bins), grid.points, xywh=True)
+    dbox = dbox * grid.strides
     return torch.cat([dbox, flat[..., 4 * reg_max:].sigmoid()], -1)

@@ -137,11 +137,17 @@ def test_settings_files_match_jax(tmp_path, monkeypatch):
             mod.entrypoint(["settings", "runs_di=x"])
 
 
-def test_modes_not_ported_raise():
-    for argv in (["export", "model=x.yaml"], ["benchmark", "model=x.yaml"], ["detect", "export", "format=onnx"],
-                 ["login", "key"], ["logout"], ["hub", "login"], ["explorer", "data=x.yaml"]):
+def test_modes_not_ported_raise(tmp_path, monkeypatch):
+    """`login`, `logout`, `hub` and `explorer` raise; `export` runs (`test_export_and_benchmark_modes_equal_the_facade`)
+    but refuses the TensorFlow family, default.yaml's `format: tflite` among it, and a key it does not read."""
+    monkeypatch.chdir(tmp_path)
+    for argv in (["export", f"model={PORT_YAML}", "device=cpu"], ["detect", "export", "format=tflite", "device=cpu",
+                 f"model={PORT_YAML}"], ["login", "key"], ["logout"], ["hub", "login"], ["explorer", "data=x.yaml"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             tcfg.entrypoint(argv)
+    with pytest.raises(NotImplementedError, match="opset"):
+        tcfg.entrypoint(["export", "model=x.yaml", "format=onnx", "opset=12", "device=cpu"])
+    assert not (tmp_path / "runs").exists()
 
 
 class FakeYOLO:
@@ -308,6 +314,33 @@ def test_train_mode_with_autobatch_equals_train_at_the_chosen_batch(cli_env, mon
     rows = [[{k: v for k, v in row.items() if k not in timing} for row in csv.DictReader((r / "results.csv").open())]
             for r in (run_a, run_b)]
     assert rows[0] == rows[1] and len(rows[0]) == 1
+
+
+def test_export_and_benchmark_modes_equal_the_facade(cli_env):
+    """`export` returns the artifact's path; `benchmark` prints one row a format (the JAX keys), ckpt, onnx and
+    torchscript "ok" (onnx noting that cv2.dnn ran it on the CPU) with their sizes (ms/img is a card number: not measured here), the formats the port does
+    not write "skipped" with their reason, and with `data` the ckpt row's mAP50-95 from `YOLO.val`. Its ONNX
+    artifact (`YOLO.export`'s, at the same size) is the export mode's, byte for byte."""
+    e = cli_env
+    tiny = e["tmp"] / "tiny.yaml"  # five convs and a v10Detect head: a graph that exports in a second
+    tiny.write_text(yaml.safe_dump({"nc": 3, "backbone": [[-1, 1, "Conv", [c, 3, 2]] for c in (8, 16, 16, 16, 16)],
+                                    "head": [[[2, 3, 4], 1, "v10Detect", ["nc"]]]}))
+    path = tcfg.entrypoint(["export", f"model={tiny}", "format=onnx", f"imgsz={S}", "device=cpu"])
+    assert Path(path) == Path("runs/export/tiny.onnx") and Path(path + ".json").exists()
+    rows, out = printed(tcfg.entrypoint, ["benchmark", f"model={tiny}", f"data={e['data']}", f"imgsz={S}",
+                                          "device=cpu"])
+    assert out.splitlines() == [str(r) for r in rows]
+    assert [r["format"] for r in rows] == ["ckpt", "stablehlo", "saved_model", "tflite", "tflite-int8", "onnx",
+                                           "torchscript", "pb"]
+    for r in rows:
+        assert list(r) == ["format", "status", "size_mb", "ms/img", "mAP50-95"] and r["ms/img"] is None
+        written = r["format"] in ("ckpt", "onnx", "torchscript")
+        ok = "ok (cv2.dnn on the CPU)" if r["format"] == "onnx" else "ok"
+        assert r["status"] == ok if written else r["status"].startswith("skipped: export format"), r
+        assert (r["size_mb"] is not None) == written
+    mAP = YOLO(str(tiny), device="cpu").val(data=e["data"], imgsz=S)["metrics/mAP50-95(B)"]
+    assert rows[0]["mAP50-95"] == round(mAP, 4)
+    assert Path(path).read_bytes() == Path("runs/benchmark/tiny.onnx").read_bytes()
 
 
 def test_python_m_runs_the_cli():

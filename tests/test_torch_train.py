@@ -244,7 +244,7 @@ def test_trainer_hands_back_ema_and_bn_stats(world, tmp_path):
     assert len(results) == 2 and all(np.isfinite(r.boxes.data).all() for r in results)
 
 
-def test_entry_points_refuse_what_is_not_ported(world):
+def test_entry_points_refuse_what_is_not_ported(world, tmp_path, monkeypatch):
     # a module that no package defines is refused by name (every research-zoo module is ported:
     # tests/test_torch_research.py, tests/test_torch_neck.py, tests/test_torch_backbone.py); RT-DETR builds, serves
     # and trains, and its DETR loss trains no other head
@@ -269,15 +269,17 @@ def test_entry_points_refuse_what_is_not_ported(world):
     with pytest.raises(NotImplementedError, match="auto_augment"):
         TrainTransforms(S, {"auto_augment": "randaugment"})
     # cache_augmented and autobatch are ported (tests/test_torch_callbacks.py, tests/test_torch_cli.py); the
-    # CLI's export mode is not
+    # CLI's export mode is (tests/test_torch_export.py), but not to the TensorFlow family
     yolo = YOLO(device="cpu", seed=None)
     for kw in ({"cache_augmented": True}, {"batch": -1}):
         tr = Trainer(yolo, data="data.yaml", epochs=1, device="cpu", **kw)
         assert (tr.cache_augmented, tr.batch) == (kw.get("cache_augmented", False), kw.get("batch", 16))
     from lpc_yolo_tpu_torch.cfg import entrypoint
 
-    with pytest.raises(NotImplementedError, match="export"):
-        entrypoint(["export", "model=yolov10n.yaml", "format=onnx", "device=cpu"])
+    with pytest.raises(NotImplementedError, match="export format 'tflite' is not ported: the TensorFlow family"):
+        entrypoint(["export", "model=yolov10n.yaml", "format=tflite", "device=cpu"])
+    monkeypatch.chdir(tmp_path)
+    assert entrypoint(["export", "model=yolov10n.yaml", "format=ckpt", "device=cpu"]) == "runs/export/yolov10n.ckpt"
     # a folded serving copy cannot be trained as it is: train mode drops the fold, fold() refuses train mode
     from lpc_yolo_tpu_torch.nn.modules import ConvBN
 
