@@ -19,7 +19,8 @@
     python3 chip_smoke.py --attn       # device, build, then phase 23 (LPC-YOLO with each of 21 attention modules) only
     python3 chip_smoke.py --neck       # device, build, then phase 24 (LPC-YOLO with the zoo's neck blocks) only
     python3 chip_smoke.py --backbone   # device, build, then phase 25 (LPC-YOLO on the zoo's backbone families) only
-    python3 chip_smoke.py --int8       # device, build, then phase 26 (int8 PTQ: LPC-YOLO, v10 n-x, v8 n-x) only
+    python3 chip_smoke.py --int8       # device, build, then phase 26 (int8 PTQ: LPC-YOLO, v10, v8, RT-DETR, World,
+                                       # the classifiers, v9c/e) only
     python3 chip_smoke.py --export     # device, build, then phase 27 (export, AutoBackend, the format benchmark) only
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -382,9 +383,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             INT8_SCORE_TOL; the serving step int8 beside bf16 (ms, busy, idle
             share, launches); both kernels at every site beside their bounds,
             plain versions, torch._int_mm (the 1x1 sites) and copy_; YOLO.val
-            of phase 7's 64 frames int8 beside bf16, counters held. --int8
-            also serves the v10 scales n to x and the v8 detect scales n to x
-            (numbers under "int8").
+            of phase 7's 64 frames int8 beside bf16, counters held. Then
+            rtdetr-l (HGBlock's 7-part concats, 12 folded RepConvs, one site
+            each) and yolov8-cls-resnet50 at 224 (the 1x1 stride-2 shortcuts)
+            the same way but for val and the kernel times: an RT-DETR graph is
+            held by its decoder inputs and encoder scores before the top-k, a
+            classifier by its map into the head, its logits (centred over
+            the classes, INT8_MAP_TOL) and its probabilities (INT8_PROB_TOL)
+            (WHOLE_RUN_INT8). --int8 also serves the v10 scales n to x, the
+            v8 detect scales, the five RT-DETR graphs, the four World graphs
+            (calibrated on their class text), the seven classifiers, yolov9c
+            and yolov9e (numbers under "int8").
 27. export  LPC-YOLO at its published s width, seed 0, at 640: `YOLO.export`
             of a decoded and a raw_head TorchScript and of the decoded ONNX on
             the CPU copy (seconds, bytes, the ONNX node count); the TorchScript
@@ -408,19 +417,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 In the whole run phases 10, 11, 13 and 14 run their n scale
 (WHOLE_RUN_SCALES; their x scales took 96 s of a 1024 s whole run on an H100
-80GB HBM3 at 700 W), phase 15 its n scale (WHOLE_RUN_OBB), phase 16 yolov8n-cls,
-yolov8x-cls and the ResNet-50 (WHOLE_RUN_CLS), phase 17 leaves out
+80GB HBM3 at 700 W), phase 15 its n scale (WHOLE_RUN_OBB), phase 16 yolov8n-cls
+and the ResNet-50 (WHOLE_RUN_CLS), phase 17 leaves out
 yolov8x-p2 and yolov8x-p6 (WHOLE_RUN_ZOO) and phase 20 runs the s models
 (WHOLE_RUN_WORLD), phase 19 rtdetr-l and yolov8n-rtdetr (WHOLE_RUN_RTDETR),
 phase 23 three attention variants (WHOLE_RUN_ATTN), phase 24 three neck
 variants (WHOLE_RUN_NECK) and phase 25 three backbone variants
-(WHOLE_RUN_BACKBONE), so that the script stays well inside its time limit;
+(WHOLE_RUN_BACKBONE) and phase 26 LPC-YOLO, rtdetr-l and yolov8-cls-resnet50
+(WHOLE_RUN_INT8), so that the script stays well inside its time limit;
 --v10, --v8, --seg, --pose, --obb, --cls, --zoo, --rtdetr, --world, --attn,
---neck and --backbone run every model of their family.
+--neck, --backbone and --int8 run every model of their family.
 
 The line before last is a JSON object with one entry per kernel (six; the
 launches of letterbox, conv3x3 and repack from phase 9, of conv_s8 and
-quantize_s8 from phase 26's int8 predict, with their times at its sites, of nms from phase 11's
+quantize_s8 from phase 26's LPC-YOLO int8 predict, with their times at its sites, and
+"launches_int8" beside them from the other graphs' int8 predicts there, of nms from phase 11's
 yolov8n train(data=...), and beside them, as "launches_seg", "launches_pose"
 and "launches_obb", each kernel's launches in phase 13's yolov8n-seg, phase
 14's yolov8n-pose and phase 15's yolov8n-obb train(data=...); nms's times from
@@ -534,7 +545,7 @@ ZOO_MODELS = {  # phase 17: name -> (parameters, the JAX graph's: tests/test_tor
 ZOO_LIBRARY = ("yolov8x-p2.yaml", "yolov8x-p6.yaml", "yolov3.yaml", "yolov6n.yaml")  # conv3x3 vs F.conv2d per site
 WHOLE_RUN_ZOO = tuple(m for m in ZOO_MODELS if not m.startswith("yolov8x"))  # phase 17 in the whole run; --zoo: all
 WHOLE_RUN_OBB = ("n",)  # phase 15 in the whole run; --obb: every scale
-WHOLE_RUN_CLS = ("n", "x", "resnet50")  # phase 16 in the whole run; --cls: all seven
+WHOLE_RUN_CLS = ("n", "resnet50")  # phase 16 in the whole run; --cls: all seven
 ZOO_VAL = ("yolov8n-p2.yaml", "yolov8n-p6.yaml", "yolov3-tiny.yaml", "yolov6n.yaml")  # 4, 4 (at 1280), 2, 3 levels
 ZOO_TRAIN, ZOO_EPOCHS = ("yolov8n-p2.yaml", "yolov6n.yaml"), 2  # the four-level loss; ReLU's backward, ConvTranspose2d
 V9_MODELS = {  # phase 18: name -> (parameters, the JAX graph's: tests/test_torch_v9.py; conv3x3 sites a forward)
@@ -5012,16 +5023,47 @@ def backbone_only() -> None:
 
 
 INT8_OPS_PER_MS = 1979e12 / 1e3  # dense int8 tensor-core peak
-INT8_CENSUS = {YAML: {"1x1": 26, "3x3s1": 18, "3x3s2": 1, "quantize": 56}}  # LPC-YOLO's sites, counted on the CPU
+INT8_CENSUS = {  # the sites of each int8 copy (1x1 counts the stride-2 ones too; repconv: the folded RepConvs among
+    # the 3x3 s1), counted on the CPU at the published widths (any imgsz gives the same)
+    YAML: {"1x1": 26, "3x3s1": 18, "3x3s2": 1, "quantize": 56},
+    "rtdetr-l.yaml": {"1x1": 49, "1x1s2": 0, "3x3s1": 18, "3x3s2": 2, "quantize": 105, "repconv": 12},
+    "rtdetr-x.yaml": {"1x1": 75, "1x1s2": 0, "3x3s1": 30, "3x3s2": 2, "quantize": 167, "repconv": 12},
+    "rtdetr-resnet50.yaml": {"1x1": 49, "1x1s2": 3, "3x3s1": 25, "3x3s2": 5, "quantize": 79, "repconv": 12},
+    "rtdetr-resnet101.yaml": {"1x1": 83, "1x1s2": 3, "3x3s1": 42, "3x3s2": 5, "quantize": 130, "repconv": 12},
+    "yolov8n-rtdetr.yaml": {"1x1": 16, "1x1s2": 0, "3x3s1": 12, "3x3s2": 4, "quantize": 44, "repconv": 0},
+    "yolov8s-world.yaml": {"1x1": 18, "1x1s2": 0, "3x3s1": 22, "3x3s2": 5, "quantize": 62, "repconv": 0},
+    "yolov8s-worldv2.yaml": {"1x1": 18, "1x1s2": 0, "3x3s1": 22, "3x3s2": 5, "quantize": 62, "repconv": 0},
+    "yolov8x-world.yaml": {"1x1": 18, "1x1s2": 0, "3x3s1": 64, "3x3s2": 6, "quantize": 125, "repconv": 0},
+    "yolov8x-worldv2.yaml": {"1x1": 18, "1x1s2": 0, "3x3s1": 64, "3x3s2": 6, "quantize": 125, "repconv": 0},
+    "yolov8n-cls.yaml": {"1x1": 7, "1x1s2": 0, "3x3s1": 6, "3x3s2": 2, "quantize": 20, "repconv": 0},
+    "yolov8s-cls.yaml": {"1x1": 9, "1x1s2": 0, "3x3s1": 10, "3x3s2": 3, "quantize": 28, "repconv": 0},
+    "yolov8m-cls.yaml": {"1x1": 9, "1x1s2": 0, "3x3s1": 20, "3x3s2": 3, "quantize": 44, "repconv": 0},
+    "yolov8l-cls.yaml": {"1x1": 9, "1x1s2": 0, "3x3s1": 36, "3x3s2": 4, "quantize": 67, "repconv": 0},
+    "yolov8x-cls.yaml": {"1x1": 9, "1x1s2": 0, "3x3s1": 36, "3x3s2": 4, "quantize": 67, "repconv": 0},
+    "yolov8-cls-resnet50.yaml": {"1x1": 37, "1x1s2": 3, "3x3s1": 13, "3x3s2": 3, "quantize": 53, "repconv": 0},
+    "yolov8-cls-resnet101.yaml": {"1x1": 71, "1x1s2": 3, "3x3s1": 30, "3x3s2": 3, "quantize": 104, "repconv": 0},
+    "yolov9c.yaml": {"1x1": 67, "1x1s2": 0, "3x3s1": 44, "3x3s2": 6, "quantize": 117, "repconv": 14},
+    "yolov9e.yaml": {"1x1": 98, "1x1s2": 0, "3x3s1": 104, "3x3s2": 10, "quantize": 212, "repconv": 40},
+}
 # ||int8 - bf16|| / ||bf16 - its spatial mean|| per head map (BF16_MAP_TOL's measure): twice BF16_MAP_TOL, since a
 # per-tensor int8 step is 1/127 of a site's calibrated range against bf16's 2^-8 of each value, and the error grows
 # with the sites a path crosses (0.204 on v10n to 0.272 on v10m in the first card run; the kernels 0 ulp off plain)
 INT8_MAP_TOL = 0.5
 INT8_SCORE_TOL = 0.05  # the top 300 pre-selection scores, sorted, int8 vs bf16 (tests/test_quant.py's sorted-score tol)
+# A classifier's probabilities, class by class, int8 vs bf16, absolute; its logits are held by INT8_MAP_TOL's centred
+# error over the classes. Seeded yolov8-cls-resnet101 gives peaked probabilities (~0.47 at the top), where the JAX
+# package's own int8 graph is 0.0506 off its f32 graph on the CPU (the port's 0.0554) while their logits are 0.0105
+# off: a probability there moves ~p(1 - p) times a logit's error, so INT8_SCORE_TOL does not hold a classifier
+INT8_PROB_TOL = 0.1
 EXPORT_BOX_TOL, EXPORT_SCORE_TOL = 0.05, 1e-4  # px and sigmoid, the TorchScript artifact vs the f32 kernel path (phase 4's)
 WHOLE_RUN_EXPORT_FULL = False  # phase 27 in the whole run: the TorchScript leg; --export adds the ONNX leg, the
 # benchmark rows and the CLI's export (~25 s more)
-INT8_MODELS = [YAML] + [f"yolov10{s}.yaml" for s in "nsmblx"] + [f"yolov8{s}.yaml" for s in "nsmlx"]  # --int8
+INT8_MODELS = ([YAML] + [f"yolov10{s}.yaml" for s in "nsmblx"] + [f"yolov8{s}.yaml" for s in "nsmlx"]  # --int8
+               + list(RTDETR_MODELS) + list(WORLD_MODELS) + [cls_yaml(k) for k in CLS_PARAMS]
+               + ["yolov9c.yaml", "yolov9e.yaml"])
+WHOLE_RUN_INT8 = (YAML, "rtdetr-l.yaml", "yolov8-cls-resnet50.yaml")  # phase 26 in the whole run
+INT8_TIMED = (YAML, "rtdetr-l.yaml", "yolov8-cls-resnet50.yaml")  # --int8: both kernels timed at every site (the
+# whole run: LPC-YOLO's); HGBlock's 7-part concats and the 1x1 stride-2 shortcuts among them
 
 
 def int8_census(yolo):
@@ -5030,10 +5072,13 @@ def int8_census(yolo):
     from lpc_yolo_tpu_torch.engine.predictor import serving_model
     from lpc_yolo_tpu_torch.nn.fuse import int8_sites
 
+    from lpc_yolo_tpu_torch.nn.modules import RepConv
+
     sites = int8_sites(serving_model(yolo.model, torch.device("cpu"), torch.float32))
-    kinds = [(s.module.conv.kernel_size[0], s.module.conv.stride[0]) for s in sites]
-    return {"1x1": sum(k == 1 for k, _ in kinds), "3x3s1": kinds.count((3, 1)), "3x3s2": kinds.count((3, 2)),
-            "sites": len(sites), "quantize": sum(s.parts for s in sites)}
+    kinds = [(s.conv.kernel_size[0], s.conv.stride[0]) for s in sites]
+    return {"1x1": sum(k == 1 for k, _ in kinds), "1x1s2": kinds.count((1, 2)), "3x3s1": kinds.count((3, 1)),
+            "3x3s2": kinds.count((3, 2)), "sites": len(sites), "quantize": sum(s.parts for s in sites),
+            "repconv": sum(isinstance(s.module, RepConv) for s in sites), "max_parts": max(s.parts for s in sites)}
 
 
 def captured_int8_calls(pred, host):
@@ -5071,7 +5116,8 @@ def s8_buffer(parts, inv: float, plain: bool = False):
 def int8_kernel_parity(calls, n: int = 2):
     """Each distinct int8 site shape on its own inputs (the first n frames): quantize_s8 bit for bit against its
     plain version, conv_s8 against its plain version (exact s32 sums, the same f32 epilogue) in bf16 within one
-    ulp of the plain f32 result rounded to bf16. Returns (max ulps, max abs error, shapes checked)."""
+    ulp of the plain f32 result rounded to bf16. Returns (max ulps, max abs error, the (parts, w8 shape, stride, act)
+    keys checked)."""
     from lpc_yolo_tpu_torch.ops.conv_s8 import conv_s8, conv_s8_plain
 
     seen, ulps, err = set(), 0.0, 0.0
@@ -5088,7 +5134,7 @@ def int8_kernel_parity(calls, n: int = 2):
         ulp = ((got - ref).abs() / (ref.abs() * 2 ** -7).clamp(min=1e-30)).max().item()
         assert ulp <= 1.0, f"conv_s8 off its plain version by {ulp} bf16 ulps at {key}"
         ulps, err = max(ulps, ulp), max(err, (got - ref).abs().max().item())
-    return ulps, err, len(seen)
+    return ulps, err, seen
 
 
 def time_int8_kernels(calls):
@@ -5153,32 +5199,48 @@ def time_int8_kernels(calls):
     return conv, quant, shapes
 
 
-def head_maps(model, x):
-    """The serving head's per-level (box, cls) maps of a batch, and the top 300 anchors' best class scores before
-    the selection, sorted."""
+def head_maps(model, x, text=None):
+    """What the serving head reads of a batch, and the scores it selects from: a detection head's per-level (box,
+    cls) maps and the top 300 anchors' best class scores (a World head's over the M classes of `text`), sorted;
+    RT-DETR's decoder inputs and its encoder's logits over every anchor as a map (B, nc, A, 1), and the top 300
+    anchors' best encoder scores (sigmoid) before its top-k, sorted; a classifier's map into the Classify head and
+    its probabilities (B, nc), class by class."""
     from lpc_yolo_tpu_torch.nn.heads import decode_feats
 
-    out = model(x, branches="one2one")["one2one"] if model.task == "v10" else model(x)
+    if model.task == "rtdetr":
+        xs = decoder_inputs(model, x)
+        logits = model.model[-1].encode(xs)[-1].float()
+        best = logits.amax(-1).sigmoid()
+        return [(*xs, logits.transpose(1, 2)[..., None])], best.topk(min(300, best.shape[1])).values
+    if model.task == "classify":
+        seen = []
+        hook = model.model[-1].register_forward_pre_hook(lambda mod, inp: seen.append(inp[0]))
+        probs = model(x)["probs"].float()
+        hook.remove()
+        return [(seen[0],)], probs
+    out = model(x, branches="one2one")["one2one"] if model.task == "v10" else model(x, text=text)
     pairs = [tuple(p) for p in out]
-    best = decode_feats([torch.cat(p, 1) for p in pairs], model.strides, model.nc, model.reg_max)[..., 4:].amax(-1)
-    return pairs, best.topk(300).values
+    nc = model.nc if text is None else text.shape[1]
+    best = decode_feats([torch.cat(p, 1) for p in pairs], model.strides, nc, model.reg_max)[..., 4:].amax(-1)
+    return pairs, best.topk(min(300, best.shape[1])).values
 
 
 def int8_model(name: str, val_data: Path = None, kernel_times: bool = False):
-    """One graph served int8 (LPC-YOLO at its published width, or a v10 / v8 scale), seed 0, b32 bf16 from 720p
-    frames: calibrated on two b32 batches; the census counted on the CPU; YOLO.predict with the counters reset
-    just before and read just after (a conv_s8 a site, a quantize_s8 a part, the conv3x3 sites int8 left); every
-    distinct site shape against the plain versions; the int8 head maps and pre-selection scores against the bf16
-    serving copy's; the serving step int8 beside bf16 (CUDA events; profiler busy, idle share, launches); with
-    `val_data` YOLO.val of its 64 frames int8 beside bf16, counters held; with `kernel_times` each kernel at
-    every site."""
+    """One graph served int8 (LPC-YOLO at its published width, a v10 / v8 scale, an RT-DETR, World or YOLOv9 graph
+    at 640, a classifier at CLS_IMGSZ), seed 0, b32 bf16 from 720p frames: calibrated on two b32 batches (a World
+    graph on its class text); the census counted on the CPU (held to INT8_CENSUS); YOLO.predict with the counters
+    reset just before and read just after (a conv_s8 a site, a quantize_s8 a part, the conv3x3 sites int8 left, an
+    NMS where the task has one); every distinct site shape against the plain versions; the int8 head maps and
+    pre-selection scores (a classifier's probabilities) against the bf16 serving copy's; the serving step int8
+    beside bf16 (CUDA events; profiler busy, idle share, launches); with `val_data` YOLO.val of its 64 frames int8
+    beside bf16, counters held; with `kernel_times` each kernel at every site."""
     from lpc_yolo_tpu_torch import YOLO
     from lpc_yolo_tpu_torch.engine.predictor import Predictor
     from lpc_yolo_tpu_torch.ops.letterbox import letterbox
 
-    B, S = 32, 640
     t_model = time.perf_counter()
     yolo = YOLO(name, device="cuda", seed=0)
+    B, S = 32, CLS_IMGSZ if yolo.task == "classify" else 640
     calib = frames_720p(2 * B, seed=11)
     t0 = time.perf_counter()
     yolo.quantize_int8(calib, imgsz=S, batch=B)
@@ -5190,11 +5252,11 @@ def int8_model(name: str, val_data: Path = None, kernel_times: bool = False):
     assert len(yolo.model.int8_scales) == census["sites"]
     scales = yolo.model.int8_scales
     del yolo.model.int8_scales
-    pred16 = Predictor(yolo.model, imgsz=S, batch=B, device="cuda", dtype=torch.bfloat16)
+    pred16 = Predictor(yolo.model, imgsz=S, batch=B, device="cuda", dtype=torch.bfloat16, text=yolo.txt_feats)
     yolo.model.int8_scales = scales
-    pred8 = Predictor(yolo.model, imgsz=S, batch=B, device="cuda", dtype=torch.bfloat16)
+    pred8 = Predictor(yolo.model, imgsz=S, batch=B, device="cuda", dtype=torch.bfloat16, text=yolo.txt_feats)
     host = frames_720p(B, seed=5)
-    nms = int(yolo.task == "v8")
+    nms = int(yolo.task in ("v8", "world"))
 
     zero_launches()
     with torch.inference_mode():
@@ -5208,21 +5270,37 @@ def int8_model(name: str, val_data: Path = None, kernel_times: bool = False):
     expect = {"letterbox": 1, "conv3x3": bf16_conv3x3 - census["3x3s1"], "nms": nms, "conv_s8": census["sites"],
               "quantize_s8": census["quantize"]}
     assert launches == expect, f"{name} int8 predict: launches {launches}, expected {expect}"
-    assert len(results) == B and all(np.isfinite(r.boxes.data).all() for r in results)
+    assert len(results) == B and all(np.isfinite(r.probs.data if yolo.task == "classify" else r.boxes.data).all()
+                                     for r in results)
 
     calls = captured_int8_calls(pred8, host)
     assert len(calls) == census["sites"], (len(calls), census)
-    ulps, abs_err, n_shapes = int8_kernel_parity(calls)
+    ulps, abs_err, keys = int8_kernel_parity(calls)
+    checked = {"shapes": len(keys), "1x1s2": sum(w[1] == 1 and st == 2 for _, w, st, _ in keys),
+               "max_parts": max(len(parts) for parts, _, _, _ in keys)}
+    assert checked["max_parts"] == census["max_parts"] and (checked["1x1s2"] > 0) == (census["1x1s2"] > 0), checked
 
     x = pred8.preprocess(host)
+    text = pred8.batch_text(B)
     with torch.inference_mode():
-        maps8, top8 = head_maps(pred8.model, x)
-        maps16, top16 = head_maps(pred16.model, x)
+        maps8, top8 = head_maps(pred8.model, x, text)
+        maps16, top16 = head_maps(pred16.model, x, text)
     map_err = max(((a.float() - b.float()).norm() / (b.float() - b.float().mean((2, 3), keepdim=True)).norm()).item()
                   for pa, pb in zip(maps8, maps16) for a, b in zip(pa, pb))
-    score_gap = (top8.sort(-1).values - top16.sort(-1).values).abs().max().item()
+    extra = {}
+    score_tol = INT8_SCORE_TOL
+    if yolo.task == "classify":  # probabilities class by class; the logits (log-probabilities centred over the
+        # classes) by the maps' centred error
+        score_gap, score_tol = (top8 - top16).abs().max().item(), INT8_PROB_TOL
+        d, ref = top8.log() - top16.log(), top16.log()
+        logit_err = ((d - d.mean(-1, keepdim=True)).norm() / (ref - ref.mean(-1, keepdim=True)).norm()).item()
+        extra = {"logit_err": logit_err, "prob_gap_of_largest": score_gap / top16.max().item(),
+                 "largest_prob": top16.max().item()}
+        assert logit_err <= INT8_MAP_TOL, f"{name}: int8 logits off the bf16 serving copy's by {logit_err}"
+    else:
+        score_gap = (top8.sort(-1).values - top16.sort(-1).values).abs().max().item()
     assert map_err <= INT8_MAP_TOL, f"{name}: int8 head maps off the bf16 serving copy's by {map_err}"
-    assert score_gap <= INT8_SCORE_TOL, f"{name}: int8 pre-selection scores off bf16's by {score_gap}"
+    assert score_gap <= score_tol, f"{name}: int8 pre-selection scores off bf16's by {score_gap}"
 
     dev = torch.from_numpy(np.stack(host)).cuda()
     xb = torch.empty(B, S, S, 3, dtype=torch.bfloat16, device="cuda")
@@ -5230,7 +5308,7 @@ def int8_model(name: str, val_data: Path = None, kernel_times: bool = False):
     for tag, pred in (("int8", pred8), ("bf16", pred16)):
         def step(pred=pred):
             letterbox(dev, S, out=xb)
-            return pred.model.predict(xb.permute(0, 3, 1, 2), pred.max_det, pred.conf, pred.iou)
+            return pred.model.predict(xb.permute(0, 3, 1, 2), pred.max_det, pred.conf, pred.iou, text=text)
 
         with torch.inference_mode():
             ms = cuda_ms(step, iters=5, warmup=2)
@@ -5239,17 +5317,21 @@ def int8_model(name: str, val_data: Path = None, kernel_times: bool = False):
                       "idle_share": prof["idle_share"], "device_launches": prof["device_launches"],
                       "profile_top": prof["top"][:10]}
     out = {"census": census, "calibrate_s": calib_s, "launches": launches, "parity_max_ulp": ulps,
-           "parity_max_abs": abs_err, "parity_shapes": n_shapes, "map_err": map_err, "score_gap": score_gap,
+           "parity_max_abs": abs_err, "parity_shapes": checked["shapes"], "parity_1x1s2_shapes": checked["1x1s2"],
+           "parity_max_parts": checked["max_parts"], "map_err": map_err, "score_gap": score_gap, **extra,
            "steps": steps}
     s8, s16 = steps["int8"], steps["bf16"]
-    log("int8", f"{Path(name).stem}: {census['sites']} sites ({census['1x1']} 1x1, {census['3x3s1']} 3x3 s1, "
-                f"{census['3x3s2']} 3x3 s2), {census['quantize']} quantize launches a forward, calibrated on "
-                f"{len(calib)} frames in {calib_s:.2f} s; predict launches {launches}; {n_shapes} site shapes vs plain: "
-                f"quantize bit-exact, conv_s8 bf16 max {ulps:.3g} ulp ({abs_err:.3g} abs); int8 vs bf16 head maps "
-                f"{map_err:.3g} (tol {INT8_MAP_TOL}), top-300 scores {score_gap:.3g} (tol {INT8_SCORE_TOL}); step b{B} "
-                f"int8 {s8['step_ms']:.3f} ms (busy {s8['busy_ms']:.3f}, idle {s8['idle_share']:.3f}, "
-                f"{s8['device_launches']:.0f} launches) vs bf16 {s16['step_ms']:.3f} ms (busy {s16['busy_ms']:.3f}, "
-                f"idle {s16['idle_share']:.3f}, {s16['device_launches']:.0f} launches)")
+    extras = "".join(f", {k} {v:.3g}" for k, v in extra.items())
+    log("int8", f"{Path(name).stem} at {S}: {census['sites']} sites ({census['1x1']} 1x1 of which {census['1x1s2']} "
+                f"s2, {census['3x3s1']} 3x3 s1 of which {census['repconv']} folded RepConvs, {census['3x3s2']} 3x3 "
+                f"s2), {census['quantize']} quantize launches a forward (up to {census['max_parts']} parts a site), "
+                f"calibrated on {len(calib)} frames in {calib_s:.2f} s; predict launches {launches}; "
+                f"{checked['shapes']} site shapes vs plain ({checked['1x1s2']} of them 1x1 s2): quantize bit-exact, "
+                f"conv_s8 bf16 max {ulps:.3g} ulp ({abs_err:.3g} abs); int8 vs bf16 head maps {map_err:.3g} (tol "
+                f"{INT8_MAP_TOL}), {'probabilities' if yolo.task == 'classify' else 'top-300 scores'} {score_gap:.3g} "
+                f"(tol {score_tol}){extras}; step b{B} int8 {s8['step_ms']:.3f} ms (busy {s8['busy_ms']:.3f}, idle "
+                f"{s8['idle_share']:.3f}, {s8['device_launches']:.0f} launches) vs bf16 {s16['step_ms']:.3f} ms (busy "
+                f"{s16['busy_ms']:.3f}, idle {s16['idle_share']:.3f}, {s16['device_launches']:.0f} launches)")
     for r in s8["profile_top"][:6]:
         log("int8", f"    int8 step {r['ms_per_step']:8.4f} ms x{r['calls_per_step']:g}  {r['kernel']}")
     if kernel_times:
@@ -5260,10 +5342,11 @@ def int8_model(name: str, val_data: Path = None, kernel_times: bool = False):
                     f"{conv['ms_1x1']:.3f} ms vs torch._int_mm {conv['library_ms_1x1']:.3f}; quantize_s8, all "
                     f"{census['quantize']} parts: {quant['ms']:.3f} ms, bound {quant['bound_ms']:.3f}, plain "
                     f"{quant['plain_ms']:.3f}, copy_ {quant['library_ms']:.3f} (device times, CUDA graphs)")
-        for r in sorted(shapes, key=lambda r: -r["ms"] * r["per_forward"])[:8]:
-            log("int8", f"    {r['C']}->{r['Co']} k{r['k']} s{r['stride']} @{r['H']}x{r['W']} x{r['per_forward']}: "
-                        f"{r['ms']:.4f} ms ({r['tops']:.1f} TOP/s, {r['bound_ms'] / r['ms']:.3f} of bound), "
-                        f"_int_mm {r['library_ms']}")
+        top = sorted(shapes, key=lambda r: -r["ms"] * r["per_forward"])[:8]
+        for r in top + [r for r in shapes if r not in top and ((r["k"], r["stride"]) == (1, 2) or r["parts"] > 4)]:
+            log("int8", f"    {r['C']}->{r['Co']} k{r['k']} s{r['stride']} @{r['H']}x{r['W']} x{r['per_forward']}, "
+                        f"{r['parts']} parts: {r['ms']:.4f} ms ({r['tops']:.1f} TOP/s, {r['bound_ms'] / r['ms']:.3f} "
+                        f"of bound), quantize {r['quantize']['ms']:.4f} ms, _int_mm {r['library_ms']}")
     if val_data is not None:
         vals = {}
         for tag in ("int8", "bf16"):
@@ -5289,23 +5372,24 @@ def int8_model(name: str, val_data: Path = None, kernel_times: bool = False):
     return out
 
 
-def phase_int8(val_data: Path, models=(YAML,)):
-    """Phase 26: int8 post-training quantization served on the card (`int8_model`); LPC-YOLO with its val and
-    the kernels' times, then each of `models` past it. Returns LPC-YOLO's int8 predict launches."""
-    from lpc_yolo_tpu_torch.ops.conv_s8 import conv_s8
-
+def phase_int8(val_data: Path, models=WHOLE_RUN_INT8, timed=(YAML,)):
+    """Phase 26: int8 post-training quantization served on the card (`int8_model`); LPC-YOLO with its val, then
+    each of `models` past it, the kernels timed on those `timed` names. Returns LPC-YOLO's int8 predict launches
+    and its run."""
     REPORT["int8"] = {}
     for name in models:
-        REPORT["int8"][name] = int8_model(name, val_data if name == YAML else None, kernel_times=name == YAML)
+        REPORT["int8"][name] = int8_model(name, val_data if name == YAML else None, kernel_times=name in timed)
         torch.cuda.empty_cache()
     lpc = REPORT["int8"][YAML]
     return lpc["launches"], lpc
 
 
 def int8_kernel_rows(lpc):
-    """The two int8 kernels' entries of the kernels line, from phase 26's LPC-YOLO run."""
+    """The two int8 kernels' entries of the kernels line, from phase 26's LPC-YOLO run, and beside them each other
+    graph's int8 predict launches in phase 26 ("launches_int8": model -> count)."""
     conv, quant = lpc["conv_s8_times"], lpc["quantize_s8_times"]
-    return [
+    others = {name: r["launches"] for name, r in REPORT["int8"].items() if name != YAML}
+    rows = [
         {"name": "conv_s8", "route": "cuda", "source": "lpc_yolo_tpu_torch/csrc/conv_s8.cu",
          "replaces": "lpc_yolo_tpu/nn/quant.py:135", "replaces_what": "no TPU kernel: XLA's int8 conv",
          "launches": lpc["launches"]["conv_s8"], "max_abs_err": lpc["parity_max_abs"], "ms": conv["ms"],
@@ -5318,18 +5402,21 @@ def int8_kernel_rows(lpc):
          "plain_ms": quant["plain_ms"], "bound_ms": quant["bound_ms"], "bound_by": "bytes",
          "library_ms": quant["library_ms"]},
     ]
+    for row in rows:
+        row["launches_int8"] = {name: launches[row["name"]] for name, launches in others.items()}
+    return rows
 
 
 def int8_only() -> None:
-    """`--int8`: phase 26 on LPC-YOLO (with its val on phase 7's set), then the v10 scales n to x and the v8
-    detect scales n to x."""
+    """`--int8`: phase 26 on LPC-YOLO (with its val on phase 7's set), then the v10 scales n to x, the v8 detect
+    scales n to x, the five RT-DETR graphs, the four World graphs, the seven classifiers, yolov9c and yolov9e."""
     import tempfile
 
     from lpc_yolo_tpu_torch import YOLO
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as tmp:
         val_data = labelled_val_set(Path(tmp) / "val", YOLO(YAML, device="cuda", seed=0))[0]
-        phase_int8(val_data, INT8_MODELS)
+        phase_int8(val_data, INT8_MODELS, INT8_TIMED)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_int8.json").write_text(json.dumps(REPORT, indent=1, default=str))

@@ -37,7 +37,8 @@ to the layer before the head, global-average-pooled); `fuse()` folds every
 conv's BatchNorm into its weights, as the JAX `fuse_conv_bn` does;
 `reset_weights()` draws the weights again from the facade's seed; `quantize_int8(calib)` calibrates int8
 post-training quantization on the frames of `calib`, after which `predict`, `val` and `track` serve the
-eligible convs through the s8 kernels (`nn/quant.py`; RT-DETR, World and classify graphs are refused); `n_params`,
+eligible convs through the s8 kernels (`nn/quant.py`; every task: a classifier's `predict` and
+`engine/classify.py::evaluate_classifier`, a World model on the text table it was calibrated with); `n_params`,
 `device` ("cuda:0" or "cpu") and `task_map` are the JAX facade's;
 `add_callback`, `clear_callback` and `reset_callbacks` register hooks that the
 trainer runs (`utils/callbacks.py`).
@@ -312,12 +313,14 @@ class YOLO:
     def quantize_int8(self, calib, imgsz: int = 640, batch: int = 8) -> "YOLO":
         """Post-training int8 quantization of the serving copy (JAX `engine/model.py:278-315`).
 
-        Letterboxes the frames of `calib` (any `predict` source) into batches of `batch`, pads the unused
-        slots with 114, and records the absmax of every int8 site's input over them on an unquantized bf16
-        serving copy on the facade's device (f32 on the CPU). The scales stay on the model
+        Letterboxes the frames of `calib` (any `predict` source) at `imgsz`, the size the model then serves
+        at (224 for a classifier), into batches of `batch`, pads the unused slots with 114, and records the
+        absmax of every int8 site's input over them on an unquantized bf16 serving copy on the facade's device
+        (f32 on the CPU). A World model runs on its text table `txt_feats`, the one its `predict` and `val`
+        serve with (the JAX facade calibrates on zero text: ROADMAP Queue 3). The scales stay on the model
         (`model.int8_scales`, by site name), so every later `predict`, `val` and `track` serves the eligible
         convs through the s8 kernels (`nn/quant.py`). Training ignores them; they stay on the model after
-        `train()`, as the JAX facade keeps its quant fields. Returns self.
+        `train()` and after `set_classes`, as the JAX facade keeps its quant fields. Returns self.
         """
         from ..nn.quant import calibrate
 
@@ -333,7 +336,8 @@ class YOLO:
             x = torch.full((batch, imgsz, imgsz, 3), 114, dtype=torch.uint8, device=dev)
             x[:len(chunk)] = letterbox_batch(chunk, imgsz, dev, torch.uint8)
             batches.append(x.permute(0, 3, 1, 2).to(dtype))
-        self.model.int8_scales = calibrate(serving, batches)
+        text = None if self.txt_feats is None else torch.as_tensor(np.asarray(self.txt_feats, np.float32), device=dev)
+        self.model.int8_scales = calibrate(serving, batches, text=text)
         return self
 
     def reset_weights(self) -> "YOLO":

@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.conv_s8 import check_geometry
-from .modules import C2f, SPPF, BiasConv, ConvBN, HGStem, RepConv, ResNetLayer
+from .modules import C2f, SPPF, BiasConv, C2fAttn, ConvBN, HGBlock, HGStem, RepConv, ResNetLayer
 
 MIN_CHANNELS = 64  # the JAX int8 rule: narrower convs stay in the serving dtype
 
@@ -45,40 +45,54 @@ def site_eligible(conv: nn.Conv2d) -> bool:
 
 
 class Int8Site(NamedTuple):
-    """A site of a serving copy: its qualified name, its ConvBN and the parts its input comes in (a quantize
-    launch each)."""
+    """A site of a serving copy: its qualified name, its module (a ConvBN, or a folded RepConv), the conv that
+    gives its geometry and the parts its input comes in (a quantize launch each)."""
     name: str
     module: nn.Module
+    conv: nn.Conv2d
     parts: int
 
 
 def int8_sites(model: nn.Module) -> List[Int8Site]:
-    """The int8 sites of a serving graph, in module order: every ConvBN that passes `site_eligible`, but for
-    those of a head other than v10Detect, of v10Detect's one-to-many towers and of a dead layer (no forward
-    runs them). A site the kernel does not take (a kernel other than 1x1 or 3x3, a stride other than 1 or 2,
-    padding other than k // 2) raises."""
-    from .heads import V10Detect
+    """The int8 sites of a serving graph, in module order: every ConvBN and RepConv that passes `site_eligible`,
+    but for those of a head in the JAX `_HEADS` set (a Classify head's conv is a site, as in JAX), of v10Detect's
+    one-to-many towers and of a dead layer (no forward runs them). A RepConv is one site, its folded 3x3; its
+    branches are never sites (the JAX package serves them unfolded, two sites on one input: ROADMAP Queue 3).
+    A site the kernel does not take (a kernel other than 1x1 or 3x3, a stride other than 1 or 2, padding other
+    than k // 2) raises."""
+    from .heads import Classify, V10Detect
 
     head = model.model[-1]
     unserved = [model.model[i] for i in model.dead]
-    unserved += [head.cv2, head.cv3] if isinstance(head, V10Detect) else [head]
+    if isinstance(head, V10Detect):
+        unserved += [head.cv2, head.cv3]
+    elif not isinstance(head, Classify):
+        unserved.append(head)
     skip = {id(m) for part in unserved for m in part.modules()}
+    skip |= {id(c) for m in model.modules() if isinstance(m, RepConv) for c in (m.conv1, m.conv2)}
     parts = {}
     for m in model.modules():
         if isinstance(m, C2f):  # C2fCIB too: cv1's output (both halves) and each bottleneck's
             parts[id(m.cv2)] = 1 + len(m.m)
+        elif isinstance(m, C2fAttn):  # as C2f, and the attention's output
+            parts[id(m.cv2)] = 2 + len(m.m)
+        elif isinstance(m, HGBlock):  # the input and each conv's output
+            parts[id(m.sc)] = 1 + len(m.m)
         elif isinstance(m, SPPF):
             parts[id(m.cv2)] = 4
     sites = []
     for name, m in model.named_modules():
-        if not isinstance(m, ConvBN) or id(m) in skip or not site_eligible(m.conv):
+        if not isinstance(m, (ConvBN, RepConv)) or id(m) in skip:
             continue
-        k, s = m.conv.kernel_size, m.conv.stride
-        if k[0] != k[1] or s[0] != s[1] or m.conv.padding != (k[0] // 2, k[1] // 2):
+        conv = m.conv1.conv if isinstance(m, RepConv) else m.conv
+        if not site_eligible(conv):
+            continue
+        k, s = conv.kernel_size, conv.stride
+        if k[0] != k[1] or s[0] != s[1] or conv.padding != (k[0] // 2, k[1] // 2):
             raise NotImplementedError(f"int8 site {name}: conv_s8 takes square same-padded kernels, not "
-                                      f"{k} stride {s} padding {m.conv.padding}")
+                                      f"{k} stride {s} padding {conv.padding}")
         check_geometry(k[0], s[0])
-        sites.append(Int8Site(name, m, parts.get(id(m), 1)))
+        sites.append(Int8Site(name, m, conv, parts.get(id(m), 1)))
     return sites
 
 

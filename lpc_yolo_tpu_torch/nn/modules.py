@@ -694,6 +694,7 @@ class RepConv(nn.Module):
         self.bn = BatchNorm2d(c1, eps=BN_EPS, momentum=BN_MOMENTUM) if use_identity and c1 == c2 and s == 1 else None
         self.act = DEFAULT_ACT.get() if act in (True, "silu") else act
         self.folded = None  # (W, b) after fold(), as ConvBN keeps them; eval mode only
+        self.q8 = None  # the int8 form of the folded conv (`nn/quant.py::Q8Conv`) in a quantized serving copy
 
     @property
     def kernel_path(self) -> bool:
@@ -701,7 +702,7 @@ class RepConv(nn.Module):
 
     def train(self, mode: bool = True):
         if mode:
-            self.folded = None
+            self.folded = self.q8 = None
         return super().train(mode)
 
     @torch.no_grad()
@@ -722,6 +723,8 @@ class RepConv(nn.Module):
         self.folded = store_folded(w, b, dtype, self.kernel_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.q8 is not None:
+            return self.q8.run([x], self.act)
         if self.folded is not None:
             return run_folded(x, self.folded, self.act, self.conv1.conv, self.kernel_path)
         y = self.conv1(x) + self.conv2(x)
@@ -922,7 +925,10 @@ class HGBlock(nn.Module):
         ys = [x]
         for m in self.m:
             ys.append(m(ys[-1]))
-        y = self.ec(self.sc(torch.cat(ys, 1)))
+        if self.sc.q8 is not None:  # int8: the parts quantized into one s8 buffer, as C2f's tail
+            y = self.ec(self.sc.q8.run(ys, self.sc.act))
+        else:
+            y = self.ec(self.sc(torch.cat(ys, 1)))
         return y + x if self.add else y
 
 
@@ -979,6 +985,8 @@ class C2fAttn(nn.Module):
         for m in self.m:
             ys.append(m(ys[-1]))
         ys.append(self.attn(ys[-1], guide))
+        if self.cv2.q8 is not None:  # int8: as C2f's tail, the attention's output one part more
+            return self.cv2.q8.run([y, *ys[2:]], self.cv2.act)
         return self.cv2(torch.cat(ys, 1))
 
 

@@ -10,20 +10,26 @@ The scheme is the JAX package's:
   * s32 accumulation, then `acc * (sx * sw[c]) + b` and the activation (in f32 on the card, then the
     serving dtype; the JAX package rounds to the serving dtype before the bias).
 
-A site is a folded `ConvBN` that passes the JAX rule (`_site_eligible`, `lpc_yolo_tpu/nn/quant.py:90-97`:
-groups 1, undilated, min(Cin, Cout) >= 64) on its logical channel counts. The port serves the plain graph,
-none of the TPU deploy rewrites (width packing, the upsample-commute split, C2f's kernel algebra, the s2d
-fold), so where the JAX int8 graph quantizes a rewritten conv the two quantize other tensors (ROADMAP
-Queue 3). A C2f / C2fCIB tail (cv2 over the concat of its parts) and the SPPF tail (cv2 over x and its three
-pools) are one site each, with one scale over all parts, as `q8_concat_conv` / `q8_pool_concat_conv`: each
-part is quantized into its channel slice of one s8 buffer, so the concat is never built in bf16. The SPPF
-pools run in the serving dtype and their outputs are quantized with x's scale: quantization is monotone and
-every pooling window holds a real element, so that gives the s8 values of pooling in s8.
+A site is a folded `ConvBN` or `RepConv` that passes the JAX rule (`_site_eligible`,
+`lpc_yolo_tpu/nn/quant.py:90-97`: groups 1, undilated, min(Cin, Cout) >= 64) on its logical channel counts
+(`nn/fuse.py::int8_sites`). The port serves the plain graph, none of the TPU deploy rewrites (width packing,
+the upsample-commute split, C2f's kernel algebra, the s2d fold), so where the JAX int8 graph quantizes a
+rewritten conv the two quantize other tensors (ROADMAP Queue 3). A RepConv serves folded, so it is one site
+(the sum of its branches' kernels, one per-channel weight scale) where the JAX package quantizes its 3x3 and
+1x1 branches as two sites on the same input (the same activation scale). A concat read by a 1x1 conv is one
+site with one scale over all its parts, as `q8_concat_conv` / `q8_pool_concat_conv`: a C2f / C2fCIB tail (cv2
+over cv1's output and each bottleneck's), a C2fAttn tail (the same and the attention's output), an HGBlock's
+`sc` (the input and each conv's output) and the SPPF tail (cv2 over x and its three pools). Each part is
+quantized into its channel slice of one s8 buffer, so the concat is never built in bf16. The SPPF pools run in
+the serving dtype and their outputs are quantized with x's scale: quantization is monotone and every pooling
+window holds a real element, so that gives the s8 values of pooling in s8.
 
-Heads: a v10Detect head quantizes the ConvBNs of its one-to-one towers (the one-to-many towers do not
-serve); its final box and class projections are plain `nn.Conv2d` and stay in the serving dtype. Every
-other head stays unquantized (the JAX `suspend()`, `lpc_yolo_tpu/nn/compiler.py:825-835`). RT-DETR, World
-and classify graphs are refused.
+Heads: the JAX `suspend()` (`lpc_yolo_tpu/nn/compiler.py:825-835`) keeps the Detect, Segment, Pose, OBB,
+RTDETRDecoder and WorldDetect heads unquantized; a v10Detect head quantizes the ConvBNs of its one-to-one
+towers (the one-to-many towers do not serve), and its final box and class projections are plain `nn.Conv2d`
+in the serving dtype. Classify is no such head: its 1x1 conv to 1280 is a site, as in JAX. A World graph is
+calibrated on the text it serves with (`calibrate(..., text=)`); the JAX package calibrates on zero text
+(ROADMAP Queue 3).
 
 Sites are keyed by their qualified module name in the serving copy (a deep copy, so the names are the
 model's own), whatever order a forward visits them in. The kernels: `ops/quantize_s8.py` (one launch a
@@ -41,9 +47,7 @@ import torch.nn.functional as F
 
 from ..ops.conv_s8 import conv_s8
 from ..ops.quantize_s8 import quantize_s8
-from .fuse import int8_sites
-
-REFUSED_HEADS = ("RTDETRDecoder", "WorldDetect", "Classify")
+from .fuse import Int8Site, int8_sites
 
 
 def act_scale(absmax: float) -> Tuple[float, float]:
@@ -83,31 +87,26 @@ class Q8Conv(NamedTuple):
         return conv_s8(x8, self.w8, self.sw, self.sx, self.b, act, self.stride, x0.dtype).permute(0, 3, 1, 2)
 
 
-def quantize_conv(m: nn.Module, absmax: float) -> Q8Conv:
-    """The int8 form of a folded ConvBN from its stored folded (W, b) and its input's calibrated absmax."""
-    w, b = m.folded
-    if m.kernel_path:  # HWIO for the conv3x3 kernel
+def quantize_conv(site: Int8Site, absmax: float) -> Q8Conv:
+    """The int8 form of a folded site (a ConvBN or a RepConv) from its stored folded (W, b) and its input's
+    calibrated absmax."""
+    w, b = site.module.folded
+    if site.module.kernel_path:  # HWIO for the conv3x3 kernel
         w = w.permute(3, 2, 0, 1)
     w8, sw = quantize_weight(w)
     sx, inv = act_scale(absmax)
-    return Q8Conv(w8, sw, sx, inv, b.float().contiguous(), m.conv.stride[0])
-
-
-def check_int8_head(model: nn.Module) -> None:
-    """Raise NotImplementedError for the graphs whose int8 serving is not ported."""
-    head = type(model.model[-1]).__name__
-    if head in REFUSED_HEADS:
-        raise NotImplementedError(f"int8 quantization of a graph with a {head} head is not ported (ROADMAP Queue 1): "
-                                  f"LPC-YOLO, the v10 and the v8 graphs are")
+    return Q8Conv(w8, sw, sx, inv, b.float().contiguous(), site.conv.stride[0])
 
 
 @torch.inference_mode()
-def calibrate(serving: nn.Module, batches: Iterable[torch.Tensor]) -> Dict[str, float]:
+def calibrate(serving: nn.Module, batches: Iterable[torch.Tensor],
+              text: Optional[torch.Tensor] = None) -> Dict[str, float]:
     """Record the absmax of every site's input over `batches` (each as the serving copy takes it: the raw
     0..255 letterboxed frames, NCHW, in its dtype), one `serving.predict` a batch, reduced with max across
     batches (JAX `calibrate_serving`, `lpc_yolo_tpu/nn/quant.py:252-293`). `serving` is an unquantized
-    folded serving copy (`engine/predictor.py::serving_model(..., int8=False)`)."""
-    check_int8_head(serving)
+    folded serving copy (`engine/predictor.py::serving_model(..., int8=False)`). A World graph reads `text`,
+    the (1, M, 512) table it serves with, broadcast to each batch (None: zeros of (B, nc, 512), the JAX
+    record pass's text)."""
     sites = int8_sites(serving)
     if not sites:
         raise ValueError("no quantizable conv sites found in the serving graph")
@@ -122,7 +121,7 @@ def calibrate(serving: nn.Module, batches: Iterable[torch.Tensor]) -> Dict[str, 
     handles = [s.module.register_forward_pre_hook(recorder(s.name)) for s in sites]
     try:
         for x in batches:
-            serving.predict(x)
+            serving.predict(x, text=None if text is None else text.expand(len(x), -1, -1))
     finally:
         for h in handles:
             h.remove()
@@ -135,7 +134,6 @@ def calibrate(serving: nn.Module, batches: Iterable[torch.Tensor]) -> Dict[str, 
 def quantize_serving(serving: nn.Module, scales: Dict[str, float]) -> nn.Module:
     """Turn each site of a folded serving copy into its int8 form (in place), from the calibrated absmax of
     its input; a site with no scale, or a scale of no site, raises."""
-    check_int8_head(serving)
     sites = int8_sites(serving)
     names = {s.name for s in sites}
     missing = [n for n in names if n not in scales]
@@ -146,7 +144,7 @@ def quantize_serving(serving: nn.Module, scales: Dict[str, float]) -> nn.Module:
     for s in sites:
         if s.module.folded is None:
             raise ValueError(f"int8 site {s.name} is not folded: quantize a serving copy (fuse_conv_bn)")
-        s.module.q8 = quantize_conv(s.module, scales[s.name])
+        s.module.q8 = quantize_conv(s, scales[s.name])
     return serving
 
 

@@ -20,6 +20,15 @@ from lpc_yolo_tpu_torch.nn.fuse import fuse_conv_bn
 from lpc_yolo_tpu_torch.utils.flax_bridge import flax_to_state_dict, random_variables
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Beside a test run's other workers more torch threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pair(jmod, tmod, x_nhwc, seed=0):
     """Run the JAX module and its port on the same seeded weights; return both NHWC outputs."""
     shapes = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), jnp.zeros(x_nhwc.shape), training=False))

@@ -31,6 +31,15 @@ SHAPES = ((120, 200), (90, 70), (64, 128), (40, 48))
 IMGSZ = 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Beside a test run's other workers more torch threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))[None]
 

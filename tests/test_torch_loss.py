@@ -27,6 +27,15 @@ RTOL, ATOL = 1e-5, 1e-6
 NC, STRIDES, SHAPES = 5, (8.0, 16.0, 32.0), ((8, 8), (4, 4), (2, 2))  # a 64x64 image
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Beside a test run's other workers more torch threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(got, ref, rtol=RTOL, atol=ATOL):
     np.testing.assert_allclose(got.detach().numpy() if isinstance(got, torch.Tensor) else got, np.asarray(ref),
                                rtol=rtol, atol=atol)

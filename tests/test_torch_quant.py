@@ -14,7 +14,8 @@ graph sets it.
 * Whole graphs served int8, yolov10n at 128 and a narrow LPC-YOLO (width 0.25), against the JAX int8 graph
   (each package calibrated on the same frames) and against the port's f32 serving, at `tests/test_quant.py`'s
   tolerances (mean score 0.02, sorted scores 0.05, box mean 5%).
-* The facade: `quantize_int8` then `predict` and `val`; the refusals.
+* The facade: `quantize_int8` then `predict`, `val` and `track`; a missing scale and a graph with no site raise.
+  RT-DETR, World, the classifiers and YOLOv9: `tests/test_torch_quant_families.py`.
 
 Weights come from `random_variables` over the port's shape tree and reach both packages.
 """
@@ -259,7 +260,7 @@ def test_calibration_matches_jax(graph):
     tensor (every JAX site but `JAX_ONLY_V10N`, in forward order); the narrow LPC-YOLO: the census and the
     tails' kinds on both sides."""
     sites = int8_sites(graph.serving)
-    census = Counter((s.module.conv.kernel_size[0], s.module.conv.stride[0]) for s in sites)
+    census = Counter((s.conv.kernel_size[0], s.conv.stride[0]) for s in sites)
     assert list(graph.scales) == [s.name for s in sites]
     assert all(np.isfinite(v) and v > 0 for v in graph.scales.values())
     assert Counter(graph.jax_kinds)["q8_pool_concat_conv"] == 1  # SPPF's tail, one site in both packages
@@ -293,7 +294,7 @@ def test_int8_serving_matches_jax(graph):
         assert abs(float(b_ref.mean()) - float(b_got.mean())) / (abs(float(b_ref.mean())) + 1e-9) < 0.05
 
 
-# -- the facade and the refusals -------------------------------------------------------------------------------
+# -- the facade ---------------------------------------------------------------------------------------------------
 
 
 @pytest.fixture(scope="module")
@@ -370,19 +371,6 @@ def test_no_image_and_no_site_raise(narrow_yaml, tmp_path):
     tiny.write_text(yaml.safe_dump(d))
     with pytest.raises(ValueError, match="no quantizable conv sites"):
         YOLO(tiny, device="cpu", seed=0).quantize_int8(np.zeros((64, 64, 3), np.uint8), imgsz=64, batch=1)
-
-
-@pytest.mark.parametrize("head", ["Classify", "RTDETRDecoder", "WorldDetect"])
-def test_unsupported_head_raises(head):
-    """The graphs whose int8 serving is not ported are refused by name: a real classifier through the facade,
-    the RT-DETR and World heads by the check that calibration and quantization run first."""
-    if head == "Classify":
-        with pytest.raises(NotImplementedError, match="Classify"):
-            YOLO("yolov8n-cls.yaml", device="cpu", seed=0).quantize_int8(np.zeros((64, 64, 3), np.uint8), imgsz=64)
-        return
-    stub = SimpleNamespace(model=[type(head, (nn.Module,), {})()])
-    with pytest.raises(NotImplementedError, match=head):
-        TQ.check_int8_head(stub)
 
 
 def test_quantize_s8_rounds_half_to_even_and_clips():

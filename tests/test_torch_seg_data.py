@@ -49,6 +49,15 @@ SHAPES = ((120, 200), (90, 70), (64, 128), (40, 48))
 IMGSZ = 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Beside a test run's other workers more torch threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def assert_fill_matches_cv2(pts, h: int, w: int) -> None:
     pts = np.asarray(pts, np.int32).reshape(-1, 2)
     ref = np.zeros((h, w), np.uint8)

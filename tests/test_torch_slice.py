@@ -31,6 +31,15 @@ JAX_YAML = ROOT / "lpc_yolo_tpu" / "cfg" / "models" / YAML
 PORT_YAML = ROOT / "lpc_yolo_tpu_torch" / "cfg" / "models" / YAML
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Beside a test run's other workers more torch threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pair():
     jm = jax_build(JAX_YAML)

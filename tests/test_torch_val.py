@@ -56,6 +56,15 @@ SHAPES = [(48, 40), (96, 128), (80, 60), (64, 64), (120, 90), (50, 70)]
 UNLABELLED = 5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Beside a test run's other workers more torch threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_yolo():
     jm = jax_build(JAX_YAML)
